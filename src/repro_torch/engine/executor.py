@@ -1,0 +1,263 @@
+"""Plan execution behind a compiled-plan cache.
+
+The executor is a *driver* over the program compiler
+(``repro_torch.engine.program``): a chosen ``Plan`` becomes an
+``EpochProgram`` (batch=1), ``build_program`` lowers it to an epoch
+callable, and the callable is memoized keyed by (task, task_args, table
+signature, plan). A cache hit builds nothing: ``trace_count`` on each
+plan counts the builds, which the cache tests pin across repeat
+queries.
+
+The engine runs on one device. ``Engine()`` means the CUDA card and
+raises when there is none; ``Engine(device="cpu")`` runs on the CPU. A
+query whose table lies on another device is an error, not a silent copy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch import timing
+from repro_torch.core import convergence, ordering as ordering_lib
+from repro_torch.core.tracecount import fresh_counter
+from repro_torch.engine import catalog, planner as planner_lib, probes
+from repro_torch.engine import program as program_lib
+from repro_torch.engine.query import AnalyticsQuery
+from repro_torch.kernels.igd_fused import kernel as igd_kernel
+
+_ORDERINGS = {
+    "clustered": ordering_lib.Clustered,
+    "shuffle_once": ordering_lib.ShuffleOnce,
+    "shuffle_always": ordering_lib.ShuffleAlways,
+}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the current CUDA card, and raises without one: an
+    entry point never runs quietly on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: repro_torch runs on the card by default; "
+                "pass device='cpu' to run on the CPU"
+            )
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _fresh_stats() -> Dict[str, int]:
+    return {
+        "plan_cache_hits": 0,
+        "plan_cache_misses": 0,
+        "plans_computed": 0,  # planner actually ran (vs memo hit)
+        "probe_runs": 0,  # micro-probe calibrations actually measured
+    }
+
+
+class Engine:
+    """The unified analytics engine: query -> plan -> cached execute.
+
+    ``permutations`` is the source of the shuffle orderings'
+    permutations (``core.ordering.PermutationSource``); the default
+    draws ``torch.randperm`` from a generator seeded with the query's
+    seed on the engine's device."""
+
+    def __init__(self, device=None, permutations: Optional[ordering_lib.PermutationSource] = None):
+        self.device = resolve_device(device)
+        self.permutations = permutations or ordering_lib.TorchPermutations()
+        self._compiled: Dict[Tuple, program_lib.CompiledProgram] = {}
+        # key -> (pinned table columns, report); see explain()
+        self._reports: Dict[Tuple, Tuple] = {}
+        self._calibrations: Dict[Tuple, probes.Calibration] = {}
+        self.stats = _fresh_stats()
+
+    # -- planning ---------------------------------------------------------
+
+    def _check_data(self, query: AnalyticsQuery) -> None:
+        for name, col in query.data.items():
+            if not isinstance(col, torch.Tensor):
+                raise TypeError(f"column {name!r} is not a torch.Tensor")
+            if col.device != self.device:
+                raise ValueError(
+                    f"column {name!r} lies on {col.device}, the engine runs "
+                    f"on {self.device}; move the table (repro_torch.convert."
+                    "table_from_numpy takes a device)"
+                )
+
+    def _aggregate_for(self, query: AnalyticsQuery):
+        from repro_torch.core import uda as uda_lib
+
+        spec = catalog.get(query.task)
+        task = spec.make_task(**query.task_args)
+        agg = uda_lib.IGDAggregate(
+            task,
+            spec.step_size(query.n_examples),
+            prox=spec.prox(task),
+        )
+        return task, agg
+
+    def explain(self, query: AnalyticsQuery) -> planner_lib.PlanReport:
+        """Plan the query; memoized on the live table + query knobs.
+
+        The table component of the key uses column identity, NOT just
+        shapes: a different table of the same shape may have different
+        statistics and must be re-planned. The serving hot path — the
+        same table queried repeatedly — hits."""
+        self._check_data(query)
+        columns = tuple(query.data.values())
+        plan_key = self._query_plan_key(query)
+        key = (plan_key, tuple(id(c) for c in columns))
+        hit = self._reports.get(key)
+        if hit is not None:
+            return hit[1]
+        _, agg = self._aggregate_for(query)
+        cal = probes.calibrate(
+            agg, query.data, device=self.device, cache=self._calibrations,
+            key=query.cache_key_fields(), stats=self.stats,
+        )
+        report = planner_lib.plan(query, cal)
+        self.stats["plans_computed"] += 1
+        # pin the columns so a live memo entry's ids cannot be recycled
+        # for a different table; bound the memo so pins don't accumulate
+        while len(self._reports) >= 128:
+            self._reports.pop(next(iter(self._reports)))
+        self._reports[key] = (columns, report)
+        return report
+
+    @staticmethod
+    def _query_plan_key(query: AnalyticsQuery) -> Tuple:
+        return query.cache_key_fields() + (
+            query.epochs,
+            query.memory_budget_bytes,
+            tuple(sorted(query.hints.items())),
+        )
+
+    # -- compiled-plan cache ----------------------------------------------
+
+    def _compile(self, query: AnalyticsQuery, plan: planner_lib.Plan) -> program_lib.CompiledProgram:
+        key = query.cache_key_fields() + (plan,)
+        hit = self._compiled.get(key)
+        if hit is not None:
+            self.stats["plan_cache_hits"] += 1
+            return hit
+        self.stats["plan_cache_misses"] += 1
+        task, agg = self._aggregate_for(query)
+        compiled = program_lib.build_program(
+            task, agg, program_lib.EpochProgram(plan=plan), counter=fresh_counter(),
+        )
+        self._compiled[key] = compiled
+        return compiled
+
+    def cache_info(self) -> Dict[str, int]:
+        return dict(self.stats, compiled_plans=len(self._compiled))
+
+    # -- execution --------------------------------------------------------
+
+    def run(
+        self,
+        query: AnalyticsQuery,
+        *,
+        plan: Optional[planner_lib.Plan] = None,
+    ) -> "EngineResult":
+        """Plan (unless ``plan`` forces one), compile-or-hit, execute."""
+        self._check_data(query)
+        report = None
+        if plan is None:
+            report = self.explain(query)
+            plan = report.chosen
+        compiled = self._compile(query, plan)
+        return _execute(compiled, query, report, self)
+
+
+@dataclasses.dataclass
+class EngineResult:
+    model: Any
+    losses: List[float]
+    epochs: int
+    converged: bool
+    plan: planner_lib.Plan
+    report: Optional[planner_lib.PlanReport]
+    shuffle_seconds: float
+    gradient_seconds: float
+    trace_count: int  # builds of this query's epoch callable, cumulative
+    # fused-IGD kernel launches made by this run's epochs (0 for
+    # torch_fold and for CPU runs, which take the plain versions)
+    kernel_launches: int = 0
+
+    def describe(self) -> str:
+        loss = f"loss={self.losses[-1]:.6g}" if self.losses else "loss=n/a"
+        head = f"{self.epochs} epochs, {loss}, converged={self.converged}"
+        body = self.report.describe() if self.report else self.plan.describe()
+        return f"{head}\n{body}"
+
+
+def _execute(
+    compiled: program_lib.CompiledProgram,
+    query: AnalyticsQuery,
+    report: Optional[planner_lib.PlanReport],
+    engine: Engine,
+) -> EngineResult:
+    plan = compiled.plan
+    agg = compiled.agg
+    data = query.data
+    device = engine.device
+    n = query.n_examples
+    draw = engine.permutations.stream(query.seed, n, device)
+    ordering = _ORDERINGS[plan.ordering]()
+    if query.target_loss is not None:
+        stop = lambda losses, epoch: bool(  # noqa: E731
+            losses and losses[-1] <= query.target_loss
+        )
+    elif query.tolerance:
+        stop = convergence.RelativeLossDrop(query.tolerance)
+    else:
+        stop = None
+
+    def eval_loss(state) -> float:
+        return float(compiled.task.full_loss(agg.terminate(state), data))
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(query.seed)
+    state = agg.initialize(gen)
+    launches0 = sum(igd_kernel.launches.values())
+    losses: List[float] = []
+    shuffle_s = 0.0
+    grad_s = 0.0
+    converged = False
+    epoch = 0
+    for epoch in range(1, query.epochs + 1):
+        watch = timing.Stopwatch()
+        examples = ordering.order(data, n, epoch, draw)
+        timing.sync(device)
+        shuffle_s += watch.lap()
+        state = compiled.epoch_fn(state, examples)
+        timing.sync(device)
+        grad_s += watch.lap()
+        # A stop rule needs the per-epoch objective; without one, a single
+        # evaluation after the last epoch suffices.
+        if stop is not None:
+            losses.append(eval_loss(state))
+            if stop(losses, epoch):
+                converged = True
+                break
+    if stop is None and epoch:
+        losses.append(eval_loss(state))
+
+    return EngineResult(
+        model=agg.terminate(state),
+        losses=losses,
+        epochs=epoch,
+        converged=converged,
+        plan=plan,
+        report=report,
+        shuffle_seconds=shuffle_s,
+        gradient_seconds=grad_s,
+        trace_count=compiled.trace_count,
+        kernel_launches=sum(igd_kernel.launches.values()) - launches0,
+    )

@@ -1,0 +1,126 @@
+"""Micro-probe calibration for the cost-based planner.
+
+The planner's constants are MEASURED, not guessed: on first contact with
+a (task, table-signature) pair the engine times, on a probe slab of the
+table, (a) a random shuffle-gather, (b) one eager serial fold
+(``torch_fold``), (c) one pairwise merge, and (e) for kernel-eligible
+aggregates the fused-IGD kernel lanes of the implementation axis. Each
+is the median of a few timed calls; on a card the time comes from CUDA
+events. Results are cached on the engine, once per signature.
+
+The segmented-fold and sharded-block probes, (d) and (f) of the
+reference, come with the slices that run those schemes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch import timing
+
+
+def time_call(fn, *args, device, warmup: int = 1, iters: int = 3) -> float:
+    """Median time (seconds) of ``fn(*args)`` on ``device``: CUDA events
+    on a card, the host clock after a sync on the CPU."""
+    for _ in range(warmup):
+        fn(*args)
+    timing.sync(device)
+    times = sorted(timing.seconds(lambda: fn(*args), device) for _ in range(iters))
+    return times[len(times) // 2]
+
+
+# Slab size: one slab for every per-row constant, so the rankings
+# compare rates amortized over the same row count.
+PROBE_ROWS = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class Calibration:
+    """Per-(task, signature) measured constants (seconds)."""
+
+    shuffle_per_row: float
+    # the eager serial fold (torch_fold). PyTorch runs eagerly: there is
+    # no scan unroll to probe per candidate, so this is one rate.
+    fold_per_row: float
+    merge_seconds: float
+    probe_rows: int
+    # measured fused-IGD kernel lanes (implementation -> seconds/row:
+    # "cuda_fused", "cuda_minibatch"), probed on the SAME slab as the
+    # eager fold; empty when the aggregate is not kernel-eligible
+    impl_per_row: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+def calibrate(agg, data, *, device, cache: Dict[Tuple, Calibration],
+              key: Tuple, stats: Dict[str, int]) -> Calibration:
+    """Measure the planner's constants on a probe slab of ``data``,
+    memoized in ``cache`` under ``key``; ``stats['probe_runs']`` counts
+    real measurements."""
+    if key in cache:
+        return cache[key]
+    stats["probe_runs"] += 1
+    from repro_torch.core import uda as uda_lib
+
+    n = next(iter(data.values())).shape[0]
+    rows = min(n, PROBE_ROWS)
+    slab = {k: v[:rows] for k, v in data.items()}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+
+    # (a) shuffle: permutation + gather, the per-epoch ShuffleAlways cost
+    perm = torch.randperm(rows, generator=gen, device=device)
+    t_shuffle = time_call(
+        lambda d, p: {k: torch.index_select(v, 0, p) for k, v in d.items()},
+        slab, perm, device=device,
+    )
+
+    # (b) the eager serial fold (the transition's real cost)
+    state0 = agg.initialize(gen)
+    fold_per_row = time_call(
+        lambda s, ex: uda_lib.fold(agg, s, ex), state0, slab, device=device
+    ) / rows
+
+    # (c) one pairwise merge
+    t_merge = time_call(agg.merge, state0, state0, device=device)
+
+    # (e) the fused-IGD kernel lanes (the implementation axis), on the
+    # SAME slab as the eager fold
+    impl_per_row = _probe_implementations(agg, slab, state0, rows, device)
+
+    cal = Calibration(
+        shuffle_per_row=t_shuffle / rows,
+        fold_per_row=fold_per_row,
+        merge_seconds=t_merge,
+        probe_rows=rows,
+        impl_per_row=impl_per_row,
+    )
+    cache[key] = cal
+    return cal
+
+
+def _probe_implementations(agg, slab, state0, rows: int, device) -> Dict[str, float]:
+    """Time the fused-IGD kernel lanes (seconds/row) for the
+    implementation axis. Empty when the aggregate is not kernel-eligible
+    or the slab is not dense (x, y) rows — the planner then never
+    enumerates a cuda_* candidate."""
+    from repro_torch.engine import program as program_lib
+    from repro_torch.kernels.igd_fused import ops as igd_ops
+
+    loss, _why = program_lib.kernel_eligibility(agg.task, agg)
+    if loss is None or set(slab) != {"x", "y"} or slab["x"].dim() != 2:
+        return {}
+    # the sequential schedule's exact per-row alphas, like the kernel lane
+    steps = state0.step + torch.arange(rows, dtype=torch.int32, device=device)
+    alphas = agg.step_size(steps)
+    out = {}
+    for name, op in (
+        ("cuda_fused", igd_ops.igd_fold),
+        ("cuda_minibatch", igd_ops.igd_fold_minibatch),
+    ):
+        out[name] = time_call(
+            lambda x, y, a, w, op=op: op(x, y, a, w, loss=loss),
+            slab["x"], slab["y"], alphas, state0.model, device=device,
+        ) / rows
+    return out

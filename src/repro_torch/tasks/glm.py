@@ -1,0 +1,77 @@
+"""Generalized linear tasks, dense half: LR, SVM, least squares.
+
+Paper Fig. 4 — the transitions differ by a couple of lines:
+
+    LR :  w += alpha * y * sigmoid(-y w.x) * x
+    SVM:  w += alpha * y * x               if 1 - y w.x > 0
+
+The sparse variants come with the sparse-task slice of the port."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.tasks.base import Task
+
+
+def _zeros(dim: int, generator: torch.Generator) -> torch.Tensor:
+    return torch.zeros((dim,), dtype=torch.float32, device=generator.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class LogisticRegression(Task):
+    dim: int
+    mu: float = 0.0  # L1 strength; applied via prox (igd.make_l1_prox)
+
+    def init_model(self, generator):
+        return _zeros(self.dim, generator)
+
+    def example_loss(self, w, ex):
+        margin = ex["y"] * torch.dot(w, ex["x"])
+        # log(1 + exp(-m)) computed stably
+        return torch.logaddexp(torch.zeros_like(margin), -margin)
+
+    def example_grad(self, w, ex):
+        # hand-written transition (paper Fig. 4, LR_Transition)
+        margin = ex["y"] * torch.dot(w, ex["x"])
+        sig = torch.sigmoid(-margin)
+        return (-ex["y"] * sig) * ex["x"]
+
+    def regularizer(self, w):
+        return self.mu * torch.sum(torch.abs(w))
+
+
+@dataclasses.dataclass(frozen=True)
+class SVM(Task):
+    dim: int
+    mu: float = 0.0
+
+    def init_model(self, generator):
+        return _zeros(self.dim, generator)
+
+    def example_loss(self, w, ex):
+        return torch.clamp(1.0 - ex["y"] * torch.dot(w, ex["x"]), min=0.0)
+
+    def example_grad(self, w, ex):
+        # paper Fig. 4, SVM_Transition
+        active = 1.0 - ex["y"] * torch.dot(w, ex["x"]) > 0
+        return torch.where(active, -ex["y"], torch.zeros_like(ex["y"])) * ex["x"]
+
+    def regularizer(self, w):
+        return self.mu * torch.sum(torch.abs(w))
+
+
+@dataclasses.dataclass(frozen=True)
+class LeastSquares(Task):
+    """0.5 (w.x - y)^2 — the CA-TX example's objective (paper Ex. 2.1).
+    Its gradient is ``torch.func.grad`` of the loss (the Task default)."""
+
+    dim: int
+
+    def init_model(self, generator):
+        return _zeros(self.dim, generator)
+
+    def example_loss(self, w, ex):
+        return 0.5 * (torch.dot(w, ex["x"]) - ex["y"]) ** 2

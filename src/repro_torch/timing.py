@@ -1,0 +1,52 @@
+"""The port's one timing helper.
+
+Device time comes from CUDA events recorded on the current stream; host
+wall time (``EngineResult.shuffle_seconds``/``gradient_seconds``, probe
+timings on the CPU) comes from :class:`Stopwatch`, the only host clock
+in the package. Both wait for the device before they read, because
+PyTorch returns before the card finishes.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+
+
+def sync(device: torch.device) -> None:
+    """Wait for every queued kernel on ``device`` (no-op on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Stopwatch:
+    """Host wall clock in seconds: ``lap()`` returns the time since the
+    previous lap (or since construction)."""
+
+    def __init__(self):
+        self._t = time.perf_counter_ns()
+
+    def lap(self) -> float:
+        now = time.perf_counter_ns()
+        dt, self._t = (now - self._t) * 1e-9, now
+        return dt
+
+
+def seconds(fn: Callable[[], object], device: torch.device) -> float:
+    """Elapsed seconds of one call of ``fn``: CUDA events around it on a
+    card (device time, which includes the gaps where the card waits for
+    the host to launch), the host clock after a sync on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) * 1e-3
+    watch = Stopwatch()
+    fn()
+    return watch.lap()
