@@ -18,7 +18,25 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    cuda_minibatch by hint; then a small-input agreement check against the
    eager fold on the CPU;
 4. time each kernel at the main path's shape with CUDA events, beside its
-   plain version and its bound.
+   plain version and its bound;
+5. build the flash-attention and flash-decode CUDA kernels from
+   src/repro_torch/kernels/{attention,decode}/csrc (all three sources are
+   compiled at once, one nvcc each, when the script starts);
+6. hold both against their plain PyTorch versions on the card in float32
+   (TF32 off; 2e-5 attention, 5e-5 decode) and bfloat16 (2e-2), the
+   reference's tolerances: its test shapes, ragged S, decode lengths 1,
+   700 and S_max (m and l too), and the serving path's full shape;
+7. serve llama3.2-3b at full width and full depth (28 layers, random
+   weights from --seed, float32 params, bfloat16 compute): 8 requests of
+   2,048 prompt tokens, one prefill step, one prefill into the KV cache
+   and 128 greedy decode steps (S_max 2,176), counting the kernels'
+   launches;
+8. hold the card's kernel path to the CPU's plain path on a 2-layer,
+   full-width, float32 llama3.2-3b: a 256-token prefill into the cache
+   and 8 teacher-forced decode steps, B=2 (rtol = atol = 1e-3);
+9. time both attention kernels at the serving path's shapes (device time
+   from a replayed CUDA graph, and per eager call), beside their plain
+   versions, their bounds and scaled_dot_product_attention.
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's name and power limit; the last line is the run's verdict. Any
@@ -33,6 +51,7 @@ import json
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -43,7 +62,21 @@ RAGGED = ((3_001, 77), (777, 1_500), (257, 4_096))
 KERNEL_RTOL, KERNEL_ATOL = 2e-4, 2e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 LOSSES = ("lr", "svm", "lsq")
+
+# the serving path: 8 requests of 2,048 prompt tokens, then 128 decode steps
+SERVE_B, PROMPT, DECODE_STEPS = 8, 2048, 128
+S_MAX = PROMPT + DECODE_STEPS
+PROFILED_STEPS = 4  # decode steps under the profiler, after the counted run
+# (B, S, H, Kv, hd): the reference's test shapes, then ragged S
+ATTN_SHAPES = ((2, 256, 4, 2, 64), (1, 128, 4, 4, 128), (2, 384, 6, 2, 32),
+               (1, 300, 4, 2, 64), (2, 1000, 8, 2, 128))
+# (B, H, Kv, hd, S, length): the reference's test shapes
+DECODE_SHAPES = ((2, 4, 2, 64, 1024, 700), (1, 8, 8, 128, 512, 512), (4, 4, 1, 32, 2048, 1))
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+DECODE_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+CPU_AGREE_TOL = 1e-3  # sums over 3,072 and 8,192 terms in other orders
 
 
 def log(phase: str, msg: str) -> None:
@@ -66,10 +99,20 @@ def inputs(gen, n, d, device):
     return x, y, alpha, w0
 
 
-def max_err(got, want, what: str) -> float:
+def ptxas_report(name: str, text: str) -> str:
+    regs = [int(line.split("Used ")[1].split()[0]) for line in text.splitlines() if "Used " in line]
+    spills = [line for line in text.splitlines()
+              if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line]
+    if spills:
+        raise AssertionError(f"register spills in {name}: {spills}")
+    return f"{len(regs)} kernels, max {max(regs)} registers/thread, no spills"
+
+
+def max_err(got, want, what: str, rtol: float = KERNEL_RTOL, atol: float = KERNEL_ATOL) -> float:
     torch.cuda.synchronize()
+    got, want = got.float(), want.float()
     err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
         raise AssertionError(f"{what}: kernel disagrees with its plain version (max |err| {err:.3g})")
     return err
 
@@ -100,6 +143,8 @@ def main() -> int:
     from repro_torch.data import synthetic
     from repro_torch.engine import catalog
     from repro_torch.kernels.igd_fused import kernel as K, ref as R
+    from repro_torch.kernels.attention import kernel as AK
+    from repro_torch.kernels.decode import kernel as DK
 
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -108,16 +153,15 @@ def main() -> int:
     log("setup", f"{torch.cuda.get_device_name(0)} | {card} | torch {torch.__version__} "
         f"CUDA {torch.version.cuda} | TF32 off (matmul, cuDNN)")
 
-    # -- 1. build --------------------------------------------------------
+    # -- 1. build (every source at once: one nvcc each) ---------------------
     watch = timing.Stopwatch()
-    ptxas = K.build(ptxas_verbose=True)
-    regs = [int(line.split("Used ")[1].split()[0]) for line in ptxas.splitlines() if "Used " in line]
-    spills = [line for line in ptxas.splitlines() if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line]
-    if spills:
-        raise AssertionError(f"register spills in the kernels: {spills}")
+    pool = ThreadPoolExecutor(max_workers=3)
+    builds = {lib.name: pool.submit(lib.build, ptxas_verbose=True)
+              for lib in (K.LIBRARY, AK.LIBRARY, DK.LIBRARY)}
+    ptxas = builds["igd_fused"].result()
     K._load()
     log("build", f"igd_fused.cu -> {K.library_path().name} in {watch.lap():.2f} s "
-        f"({len(regs)} kernels, max {max(regs)} registers/thread, no spills)")
+        f"({ptxas_report('igd_fused.cu', ptxas)})")
 
     # -- 2. kernels against their plain versions ---------------------------
     gen = torch.Generator(device=dev)
@@ -263,11 +307,274 @@ def main() -> int:
         f"ops x 4 cycles) {chain_ms:.3f} ms vs the bytes' {io_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
     log("timing", "library_ms: none — no single PyTorch call computes a serial IGD fold or the "
         "tile-serial minibatch fold")
+
+    # -- 5. build the serving path's kernels --------------------------------
+    for lib in (AK.LIBRARY, DK.LIBRARY):
+        report = ptxas_report(lib.source.name, builds[lib.name].result())
+        lib.load()
+        log("build", f"{lib.source.name} -> {lib.path().name} ({report}); "
+            f"{watch.lap():.2f} s since phase 1 ended")
+    pool.shutdown()
+    kernels += serving(args.seed, dev)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device ms per call over ``iters`` calls captured in one CUDA
+    graph and replayed: the host's cost of launching each call (Python,
+    ctypes, allocation) is left out, which a loop of calls cannot do when
+    the host is slower than the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_busy(fn):
+    """(host wall s, device busy s, top device events) of one call of
+    ``fn`` under torch.profiler. Busy is the union of the device events'
+    intervals (no double counting); None if the trace has no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import timing
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        watch = timing.Stopwatch()
+        fn()
+        torch.cuda.synchronize()
+        wall = watch.lap()
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name[:40]] = by_name.get(e.name[:40], 0.0) + (e.time_range.end - e.time_range.start)
+    busy, last = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        busy += max(0.0, end - max(start, last))
+        last = max(last, end)
+    top = sorted(((round(t * 1e-3, 3), k) for k, t in by_name.items()), reverse=True)[:5]
+    return wall, (busy * 1e-6 if busy > 0 else None), top
+
+
+def serving(seed: int, dev) -> list:
+    """Phases 6-9: the LM serving path. Returns the two kernels' entries."""
+    import torch.nn.functional as F
+
+    from repro_torch import timing
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import kernel as AK, ref as AR
+    from repro_torch.kernels.decode import kernel as DK, ref as DR
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = get_arch("llama3.2-3b")
+    h, kv, hd, layers = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    path_attn = (SERVE_B, PROMPT, h, kv, hd)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+
+    def normal(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # -- 6. kernels against their plain versions -----------------------------
+    errs = {"flash_attention": {}, "flash_decode": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        e = 0.0
+        for b, s, nh, nkv, d in ATTN_SHAPES + (path_attn,):
+            q, k, v = normal((b, s, nh, d), dtype), normal((b, s, nkv, d), dtype), normal((b, s, nkv, d), dtype)
+            tol = ATTN_TOL[dtype]
+            e = max(e, max_err(AK.flash_attention(q, k, v), AR.mha_ref(q, k, v),
+                               f"flash_attention {dtype} {(b, s, nh, nkv, d)}", tol, tol))
+            del q, k, v
+        errs["flash_attention"][dtype] = e
+        e = 0.0
+        cases = DECODE_SHAPES + tuple((SERVE_B, h, kv, hd, S_MAX, n) for n in (1, 700, S_MAX))
+        for b, nh, nkv, d, s, length in cases:
+            q, kc, vc = normal((b, nh, d), dtype), normal((b, s, nkv, d), dtype), normal((b, s, nkv, d), dtype)
+            got, want = DK.flash_decode(q, kc, vc, length), DR.decode_attention_ref(q, kc, vc, length)
+            what, tol = f"flash_decode {dtype} {(b, nh, nkv, d, s, length)}", DECODE_TOL[dtype]
+            e = max(e, *(max_err(g, w, f"{what} {part}", tol, tol)
+                         for g, w, part in zip(got, want, ("out", "m", "l"))))
+        errs["flash_decode"][dtype] = e
+    for name, by in errs.items():
+        log("parity", f"{name} max |err| f32 {by[torch.float32]:.3g}, bf16 {by[torch.bfloat16]:.3g} "
+            f"(tol {(ATTN_TOL if name == 'flash_attention' else DECODE_TOL)[torch.float32]:g} / 2e-2)")
+
+    # -- 7. llama3.2-3b serving at full width and depth -----------------------
+    watch = timing.Stopwatch()
+    params = lm.init_lm(cfg, gen, dev)
+    torch.cuda.synchronize()
+    log("serve", f"llama3.2-3b init on the card: {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
+        f"float32 params in {watch.lap():.2f} s")
+    prompt = torch.randint(0, cfg.vocab, (SERVE_B, PROMPT), generator=gen, device=dev)
+    prefill_step, decode_step = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+    # warm-up at a short prompt: the bf16 copies, cuBLAS handles, first launches
+    prefill_step(params, {"tokens": prompt[:, :128]})
+    tok, cache = decode_step(params, {"tokens": prompt[:, :128], "cache": lm.init_cache(cfg, SERVE_B, 136, dev)})
+    decode_step(params, {"tokens": tok[:, None], "cache": cache})
+    del cache
+    torch.cuda.synchronize()
+    log("serve", f"warm-up (bf16 copies of the weights, short prompt) {watch.lap():.2f} s")
+
+    AK.reset_launches()
+    DK.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    logits = prefill_step(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = watch.lap()
+    if AK.launches["flash_attention"] != layers or DK.launches["flash_decode"]:
+        raise AssertionError(f"prefill launched {AK.launches} {DK.launches}, not {layers} flash_attention")
+    if logits.shape != (SERVE_B, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits are not finite [8, vocab]")
+    cache = lm.init_cache(cfg, SERVE_B, S_MAX + PROFILED_STEPS, dev)
+    tok, cache = decode_step(params, {"tokens": prompt, "cache": cache})
+    torch.cuda.synchronize()
+    cache_prefill_s = watch.lap()
+    if not torch.equal(tok.long(), logits.argmax(-1)):
+        raise AssertionError(f"first token {tok.tolist()} is not the prefill's argmax {logits.argmax(-1).tolist()}")
+    if AK.launches["flash_attention"] != 2 * layers or cache["index"] != PROMPT:
+        raise AssertionError(f"prefill into the cache: {AK.launches}, index {cache['index']}")
+    out = [tok]
+    for i in range(DECODE_STEPS):
+        tok, cache = decode_step(params, {"tokens": tok[:, None], "cache": cache})
+        out.append(tok)
+        if DK.launches["flash_decode"] != layers * (i + 1):
+            raise AssertionError(f"decode step {i}: {DK.launches}, not {layers} per step")
+    torch.cuda.synchronize()
+    decode_s = watch.lap()
+    launches = {**AK.launches, **DK.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks = torch.stack(out, 1)
+    if cache["index"] != S_MAX or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"decode ended at index {cache['index']} or made ids out of range")
+    log("serve", f"{SERVE_B} x ({PROMPT} + {DECODE_STEPS}) tokens, {layers} layers: prefill "
+        f"{prefill_s * 1e3:.1f} ms ({SERVE_B * PROMPT / prefill_s:.0f} tokens/s), prefill into the cache "
+        f"{cache_prefill_s * 1e3:.1f} ms, decode {decode_s * 1e3 / DECODE_STEPS:.2f} ms/step "
+        f"({SERVE_B * DECODE_STEPS / decode_s:.1f} tokens/s), peak {peak_gb:.2f} GB allocated")
+    log("serve", f"main-path launches {launches} (flash_attention {layers} per prefill, "
+        f"flash_decode {layers} per step); first tokens {toks[:, :6].tolist()}")
+    # where the time goes, after the counted run: one prefill and a few
+    # decode steps past S_max under the profiler
+    for what, fn in (
+        ("prefill step", lambda: prefill_step(params, {"tokens": prompt})),
+        (f"{PROFILED_STEPS} decode steps", lambda: [decode_step(params, {"tokens": tok[:, None], "cache": cache})
+                                                   for _ in range(PROFILED_STEPS)]),
+    ):
+        wall, busy, top = device_busy(fn)
+        share = "not measured (no device time in the trace)" if busy is None else \
+            f"device busy {busy * 1e3:.2f} ms = {busy / wall:.3f} of the wall, idle {1 - busy / wall:.3f}"
+        log("profile", f"{what}: wall {wall * 1e3:.2f} ms (profiler on), {share}; top device ms {top}")
+    del params, cache, prefill_step, decode_step
+    torch.cuda.empty_cache()
+
+    # -- 8. full width, 2 layers, float32: the card's kernels vs the CPU's plain path
+    small = cfg.scaled(n_layers=2, dtype="float32")
+    p_gpu = lm.init_lm(small, gen, dev)
+    p_cpu = _tree_to(p_gpu, "cpu")
+    ids = torch.randint(0, small.vocab, (2, 256 + 8), generator=gen, device=dev)
+    worst = 0.0
+    for device, p in ((dev, p_gpu), ("cpu", p_cpu)):
+        cache = lm.init_cache(small, 2, 264, device)
+        logits, cache = lm.decode_step(p, ids[:, :256].to(device), cache, small)
+        steps = [logits.cpu()]
+        for t in range(8):
+            logits, cache = lm.decode_step(p, ids[:, 256 + t:257 + t].to(device), cache, small)
+            steps.append(logits.cpu())
+        if device == dev:
+            card = steps
+    for i, (got, want) in enumerate(zip(card, steps)):
+        worst = max(worst, float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=CPU_AGREE_TOL, atol=CPU_AGREE_TOL):
+            raise AssertionError(f"step {i}: card and CPU logits disagree (max |err| {worst:.3g})")
+    log("reference", f"2-layer full-width f32 llama3.2-3b, B=2, 256-token prefill + 8 decode steps: "
+        f"card kernels vs CPU plain path, max |logit err| {worst:.3g} (tol {CPU_AGREE_TOL:g})")
+    del p_gpu, p_cpu, cache
+    torch.cuda.empty_cache()
+
+    # -- 9. timings at the serving path's shapes (bf16) ----------------------
+    bf = torch.bfloat16
+    q, k, v = normal((SERVE_B, PROMPT, h, hd), bf), normal((SERVE_B, PROMPT, kv, hd), bf), normal((SERVE_B, PROMPT, kv, hd), bf)
+    qd, kc, vc = normal((SERVE_B, h, hd), bf), normal((SERVE_B, S_MAX, kv, hd), bf), normal((SERVE_B, S_MAX, kv, hd), bf)
+    length = S_MAX
+    sdpa = F.scaled_dot_product_attention
+    ms = {"flash_attention": graph_ms(lambda: AK.flash_attention(q, k, v), 5),
+          "flash_decode": graph_ms(lambda: DK.flash_decode(qd, kc, vc, length), 50)}
+    eager_ms = {"flash_attention": event_ms(lambda: AK.flash_attention(q, k, v), 5),
+                "flash_decode": event_ms(lambda: DK.flash_decode(qd, kc, vc, length), 50)}
+    plain_ms = {"flash_attention": timing.seconds(lambda: AR.mha_ref(q, k, v), dev) * 1e3,
+                "flash_decode": timing.seconds(lambda: DR.decode_attention_ref(qd, kc, vc, length), dev) * 1e3}
+    library_ms = {
+        "flash_attention": graph_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                                 is_causal=True, enable_gqa=True), 5),
+        "flash_decode": graph_ms(lambda: sdpa(qd[:, :, None], kc[:, :length].transpose(1, 2),
+                                              vc[:, :length].transpose(1, 2), enable_gqa=True), 50),
+    }
+    work = {
+        # q, k, v read once and o written once, bf16; causal half of QK^T and PV
+        "flash_attention": (2 * SERVE_B * PROMPT * (h + kv) * hd * 2,
+                            4 * SERVE_B * h * hd * PROMPT * (PROMPT + 1) // 2, BF16_FLOPS),
+        # the cache's k and v up to length, q and out (bf16), m and l (f32)
+        "flash_decode": (2 * SERVE_B * length * kv * hd * 2 + 2 * SERVE_B * h * hd * 2 + 2 * SERVE_B * h * 4,
+                         4 * SERVE_B * h * hd * length, BF16_FLOPS),
+    }
+    entries = []
+    for name, source, replaces in (
+        ("flash_attention", "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
+         "src/repro/kernels/attention/kernel.py:63"),
+        ("flash_decode", "src/repro_torch/kernels/decode/csrc/flash_decode.cu",
+         "src/repro/kernels/decode/kernel.py:62"),
+    ):
+        nbytes, flops, peak = work[name]
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        bound = max(bytes_ms, ops_ms)
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": max(errs[name].values()),
+            "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": library_ms[name],
+        })
+        log("timing", f"{name}: {ms[name]:.4f} ms/launch on the device (CUDA graph), "
+            f"{eager_ms[name]:.4f} ms per call in a loop of eager calls (host launch included); bound {bound:.4f} ms "
+            f"({'bytes' if bytes_ms >= ops_ms else 'operations'}: {nbytes} bytes at 3.35 TB/s {bytes_ms:.4f} ms, "
+            f"{flops} FLOP at {peak / 1e12:g} TFLOP/s {ops_ms:.4f} ms); plain {plain_ms[name]:.3f} ms; "
+            f"scaled_dot_product_attention {library_ms[name]:.4f} ms (CUDA graph)")
+    log("timing", f"shapes: flash_attention q [{SERVE_B}, {PROMPT}, {h}, {hd}], k/v [{SERVE_B}, {PROMPT}, {kv}, {hd}] "
+        f"bf16; flash_decode q [{SERVE_B}, {h}, {hd}], cache [{SERVE_B}, {S_MAX}, {kv}, {hd}] bf16, length {length}; "
+        "the library decode call computes out only, not m and l")
+    return entries
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
-"""Carry state and tables across from the JAX package as numpy arrays.
+"""Carry state, tables, LM params and caches across from the JAX package
+as numpy arrays.
 
 The reference's ``IGDState`` holds a model, an int32 step and a float32
-weight; its tables are dicts of column arrays. Both cross over as numpy
-(``np.asarray`` of a JAX array), so this module needs neither package.
+weight; its tables are dicts of column arrays; its LM params and decode
+caches are pytrees whose layers are stacked on a leading axis. All cross
+over as numpy (``np.asarray`` of a JAX array), so this module needs
+neither package.
 """
 
 from __future__ import annotations
@@ -28,3 +31,35 @@ def table_from_numpy(arrays, device) -> dict:
     """A table (dict of column tensors) on ``device`` from a dict of
     numpy-convertible columns, dtypes kept."""
     return {k: torch.tensor(np.asarray(v), device=device) for k, v in arrays.items()}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+        return torch.tensor(a.view(np.uint16).astype(np.int16), device=device).view(torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def lm_params_from_numpy(params, cfg, device) -> dict:
+    """The port's LM params (``repro_torch.models.lm``) from the reference's
+    pytree as numpy arrays (``jax.tree.map(np.asarray, params)``): the
+    stacked ``blocks`` become a list of ``cfg.n_layers`` per-layer dicts."""
+
+    def layer(tree, i):
+        return {k: layer(v, i) if isinstance(v, dict) else _tensor(v[i], device) for k, v in tree.items()}
+
+    out = {k: _tensor(v, device) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = [layer(params["blocks"], i) for i in range(cfg.n_layers)]
+    return out
+
+
+def cache_from_numpy(cache, device) -> dict:
+    """The port's decode cache from the reference's (dense family):
+    {"kv": {"k", "v": [L, B, S, Kv, hd]}, "index": int32 scalar} ->
+    {"kv": [per-layer {"k", "v"}], "index": int}."""
+    kv = cache["kv"]
+    return {
+        "kv": [{"k": _tensor(kv["k"][i], device), "v": _tensor(kv["v"][i], device)}
+               for i in range(np.asarray(kv["k"]).shape[0])],
+        "index": int(np.asarray(cache["index"])),
+    }

@@ -1,0 +1,102 @@
+"""CUDA wrapper for the causal GQA flash-attention kernel
+(``csrc/flash_attention.cu``), built and loaded at first use by
+``kernels._build`` (``build/repro_torch/libflash_attention-<hash>.so``).
+
+The wrapper checks device, dtype, shape, strides and head width, allocates
+the output with ``torch.empty``, launches on PyTorch's current stream,
+raises on a non-zero CUDA status, and adds one to ``launches``. q, k and v
+are read in place by strides: any layout whose last dimension is
+contiguous and whose other strides keep every row on a 16-byte boundary.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels._build import CudaLibrary
+
+MAX_HD = 128
+BLOCK_Q = 64
+DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+
+# bumped where the kernel is launched and nowhere else
+launches: Dict[str, int] = {"flash_attention": 0}
+
+
+def reset_launches() -> None:
+    launches["flash_attention"] = 0
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.flash_attention_launch.argtypes = (
+        [ptr] * 4 + [i32] * 6 + [ctypes.c_float] + [i64] * 9 + [ptr]
+    )
+    lib.flash_attention_launch.restype = i32
+    lib.flash_attention_error_string.argtypes = [i32]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    lib.flash_attention_max_hd.restype = i32
+    lib.flash_attention_block_q.restype = i32
+    limits = (lib.flash_attention_max_hd(), lib.flash_attention_block_q())
+    if limits != (MAX_HD, BLOCK_Q):
+        raise RuntimeError(f"flash_attention library limits {limits} disagree with kernel.py")
+
+
+LIBRARY = CudaLibrary("flash_attention", SOURCE, _declare)
+
+
+def check_head_dim(hd: int) -> None:
+    if not (8 <= hd <= MAX_HD and hd % 8 == 0):
+        raise ValueError(f"head dim {hd} is not taken by the kernel (a multiple of 8, 8..{MAX_HD})")
+
+
+def check_rows(name: str, t: torch.Tensor) -> None:
+    """t's last dimension is contiguous and every row it indexes starts on
+    a 16-byte boundary (what the kernels' vector loads need)."""
+    per16 = 16 // t.element_size()
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} must have a contiguous last dimension, got strides {t.stride()}")
+    if t.data_ptr() % 16 or any(s % per16 for s in t.stride()[:-1]):
+        raise ValueError(f"{name} strides {t.stride()} do not keep its rows on 16-byte boundaries")
+
+
+def flash_attention(q, k, v):
+    """Causal GQA attention on the card. q: [B, S, H, hd]; k/v:
+    [B, S, Kv, hd] (H a multiple of Kv; q head h reads kv head h // (H/Kv));
+    float32 or bfloat16, all one dtype. Returns [B, S, H, hd] in q's dtype;
+    the scale is 1/sqrt(hd)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} must lie on q's CUDA device {q.device}, got {t.device}")
+        if t.dtype not in DTYPE_IDS or t.dtype != q.dtype:
+            raise TypeError(f"{name} must be float32 or bfloat16 like q, got {t.dtype} (q {q.dtype})")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-d [B, S, heads, hd], got {tuple(t.shape)}")
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if tuple(k.shape) != (b, s, kv, hd) or tuple(v.shape) != tuple(k.shape) or kv < 1 or h % kv:
+        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    check_head_dim(hd)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_rows(name, t)
+    lib = LIBRARY.load()
+    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPE_IDS[q.dtype],
+            b, s, h, kv, hd, 1.0 / hd ** 0.5,
+            q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc} "
+                           f"({lib.flash_attention_error_string(rc).decode()})")
+    launches["flash_attention"] += 1
+    return out

@@ -1,0 +1,25 @@
+"""Dispatch for causal GQA attention (``repro.kernels.attention.ops.mha``).
+
+On CUDA tensors ``mha`` launches the hand-written kernel (``kernel``) or
+raises; nothing on the card falls back to the plain version. On CPU
+tensors it runs the plain PyTorch version (``ref``), which is how the
+tests reach this path on a machine without a card. Unlike the JAX
+wrapper it neither transposes nor pads: the kernel reads [B, S, H, hd]
+in place and masks its own ragged S."""
+
+from __future__ import annotations
+
+from repro_torch.kernels import device_of
+from repro_torch.kernels.attention import kernel as K
+from repro_torch.kernels.attention import ref as R
+
+
+def mha(q, k, v):
+    """q: [B, S, H, hd]; k/v: [B, S, Kv, hd]; causal GQA attention with
+    scale 1/sqrt(hd). Returns [B, S, H, hd] in q's dtype."""
+    dev = device_of(q, k, v)
+    if dev.type == "cuda":
+        return K.flash_attention(q, k, v)
+    if dev.type == "cpu":
+        return R.mha_ref(q, k, v)
+    raise ValueError(f"mha has no version for device {dev}")

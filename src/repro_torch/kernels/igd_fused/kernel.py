@@ -1,10 +1,8 @@
 """CUDA wrappers for the fused IGD kernels (``csrc/igd_fused.cu``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-under ``build/repro_torch/`` at the repository root, at first use, and
-loaded with ``ctypes`` (a plain C interface: no PyTorch headers, so the
-build takes seconds). The library's name carries a hash of the source
-and flags, so an edited source is rebuilt rather than reused.
+The source is built and loaded at first use by ``kernels._build``
+(``nvcc`` for ``sm_90a`` into ``build/repro_torch/libigd_fused-<hash>.so``,
+``ctypes``).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output with ``torch.empty``, launches on PyTorch's current stream, raises
@@ -14,15 +12,12 @@ on a non-zero CUDA status, and adds one to its entry in ``launches``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
+
+from repro_torch.kernels._build import BUILD_DIR, NVCC_FLAGS, CudaLibrary  # noqa: F401
 
 TILE = 256  # examples per minibatch step (the reference's VMEM block)
 FOLD_MAX_DIM = 4096  # one warp up to 1024, then 8 or 16 warps
@@ -31,17 +26,10 @@ MINIBATCH_MAX_DIM = 12288 - TILE  # w and the tile's scales in 48 KB
 LOSS_IDS = {"lr": 0, "svm": 1, "lsq": 2}
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "igd_fused.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
 
 # Launch counts, one per wrapper: bumped where the kernel is launched and
 # nowhere else, so a run can show that its path went through the kernel.
 launches: Dict[str, int] = {"igd_fold": 0, "igd_fold_minibatch": 0}
-
-_lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
@@ -49,66 +37,27 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the igd_fused CUDA kernels cannot be built")
+def _declare(lib: ctypes.CDLL) -> None:
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for name in ("igd_fold_launch", "igd_fold_minibatch_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+        fn.restype = i32
+    lib.igd_fused_error_string.argtypes = [i32]
+    lib.igd_fused_error_string.restype = ctypes.c_char_p
+    for name in ("igd_fused_fold_max_dim", "igd_fused_minibatch_max_dim",
+                 "igd_fused_tile"):
+        getattr(lib, name).restype = i32
+    limits = (lib.igd_fused_fold_max_dim(), lib.igd_fused_minibatch_max_dim(),
+              lib.igd_fused_tile())
+    if limits != (FOLD_MAX_DIM, MINIBATCH_MAX_DIM, TILE):
+        raise RuntimeError(f"igd_fused library limits {limits} disagree with kernel.py")
 
 
-def library_path() -> Path:
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libigd_fused-{tag.hexdigest()[:12]}.so"
-
-
-def build(ptxas_verbose: bool = False) -> str:
-    """Compile the kernels unless this source's library already exists;
-    returns the compiler's output ("" when nothing was built)."""
-    out = library_path()
-    if out.exists() and not ptxas_verbose:
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
-           "-o", tmp, str(SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return proc.stdout + proc.stderr
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(library_path()))
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for name in ("igd_fold_launch", "igd_fold_minibatch_launch"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
-            fn.restype = i32
-        lib.igd_fused_error_string.argtypes = [i32]
-        lib.igd_fused_error_string.restype = ctypes.c_char_p
-        for name in ("igd_fused_fold_max_dim", "igd_fused_minibatch_max_dim",
-                     "igd_fused_tile"):
-            getattr(lib, name).restype = i32
-        limits = (lib.igd_fused_fold_max_dim(), lib.igd_fused_minibatch_max_dim(),
-                  lib.igd_fused_tile())
-        if limits != (FOLD_MAX_DIM, MINIBATCH_MAX_DIM, TILE):
-            raise RuntimeError(f"igd_fused library limits {limits} disagree with kernel.py")
-        _lib = lib
-    return _lib
+LIBRARY = CudaLibrary("igd_fused", SOURCE, _declare)
+library_path = LIBRARY.path
+build = LIBRARY.build
+_load = LIBRARY.load
 
 
 def _check(x, y, alpha, w0, loss: str, max_dim: int) -> None:

@@ -10,22 +10,14 @@ their last D chunk, so nothing is padded."""
 
 from __future__ import annotations
 
-import torch
-
+from repro_torch.kernels import device_of
 from repro_torch.kernels.igd_fused import kernel as K
 from repro_torch.kernels.igd_fused import ref as R
 
 
-def _device(*tensors) -> torch.device:
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"inputs lie on different devices: {sorted(map(str, devs))}")
-    return devs.pop()
-
-
 def igd_fold(x, y, alpha, w0, *, loss: str = "lr"):
     """Bismarck transition fold over (x, y) with per-step sizes alpha."""
-    dev = _device(x, y, alpha, w0)
+    dev = device_of(x, y, alpha, w0)
     if dev.type == "cuda":
         return K.igd_fold(x, y, alpha, w0, loss=loss)
     if dev.type == "cpu":
@@ -36,7 +28,7 @@ def igd_fold(x, y, alpha, w0, *, loss: str = "lr"):
 def igd_fold_minibatch(x, y, alpha, w0, *, loss: str = "lr"):
     """One mean-gradient step per TILE rows. Ragged tails keep the
     reference's semantics: the last tile's mean is over the full TILE."""
-    dev = _device(x, y, alpha, w0)
+    dev = device_of(x, y, alpha, w0)
     if dev.type == "cuda":
         return K.igd_fold_minibatch(x, y, alpha, w0, loss=loss)
     if dev.type == "cpu":

@@ -1,4 +1,5 @@
-"""The fused-IGD CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels (fused IGD, flash attention, flash decode)
+against their plain versions, on the card.
 
 Every test here needs a CUDA card and skips without one; a skip is not a
 pass. On a machine with a card (the kernels build for sm_90a) run
@@ -71,3 +72,108 @@ def test_cuda_engine_plans_the_kernel_lane():
                                                     epochs=2, tolerance=0.0))
     assert res.plan.implementation == "cuda_fused" and res.kernel_launches == 2
     assert bool(torch.isfinite(res.model).all())
+
+
+# the reference's attention/decode tolerances (tests/test_kernels.py)
+ATTN_TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+DECODE_TOLS = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+# the reference's shapes, ragged S, and llama3.2-3b's heads at B=1
+ATTN_SHAPES = [(2, 256, 4, 2, 64), (1, 128, 4, 4, 128), (2, 384, 6, 2, 32),
+               (1, 300, 4, 2, 64), (1, 1000, 8, 2, 128), (1, 2048, 24, 8, 128), (1, 77, 3, 1, 40)]
+# (B, H, Kv, hd, S, length): the reference's, llama3.2-3b's at the serving
+# shape, and 16 q heads per kv head (four head groups)
+DECODE_SHAPES = [(2, 4, 2, 64, 1024, 700), (1, 8, 8, 128, 512, 512), (4, 4, 1, 32, 2048, 1),
+                 (8, 24, 8, 128, 2176, 1), (8, 24, 8, 128, 2176, 700), (8, 24, 8, 128, 2176, 2176),
+                 (1, 32, 2, 64, 300, 299)]
+
+
+def _normal(shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+
+@needs_card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,hd", ATTN_SHAPES)
+def test_cuda_flash_attention_matches_plain_version(b, s, h, kv, hd, dtype):
+    from repro_torch.kernels.attention import kernel as AK, ops as A, ref as AR
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = (_normal(shape, dtype, i) for i, shape in enumerate(((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))))
+    before = AK.launches["flash_attention"]
+    got = A.mha(q, k, v)
+    torch.cuda.synchronize()
+    assert AK.launches["flash_attention"] == before + 1 and got.dtype == dtype
+    tol = ATTN_TOLS[dtype]
+    torch.testing.assert_close(got.float(), AR.mha_ref(q, k, v).float(), rtol=tol, atol=tol)
+
+
+@needs_card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,hd,s,length", DECODE_SHAPES)
+def test_cuda_flash_decode_matches_plain_version(b, h, kv, hd, s, length, dtype):
+    from repro_torch.kernels.decode import kernel as DK, ref as DR
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, kc, vc = (_normal(shape, dtype, i) for i, shape in enumerate(((b, h, hd), (b, s, kv, hd), (b, s, kv, hd))))
+    before = DK.launches["flash_decode"]
+    out, m, l = DK.flash_decode(q, kc, vc, length)
+    torch.cuda.synchronize()
+    assert DK.launches["flash_decode"] == before + 1
+    want = DR.decode_attention_ref(q, kc, vc, length)
+    tol = DECODE_TOLS[dtype]
+    torch.testing.assert_close(out.float(), want[0].float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(m, want[1], rtol=tol, atol=tol)
+    torch.testing.assert_close(l, want[2], rtol=tol, atol=tol)
+
+
+@needs_card
+def test_cuda_kernels_read_the_cache_in_place_and_mask_its_tail():
+    """Strided views of a [B, S_max, Kv, hd] cache give what contiguous
+    copies give; decode ignores the cache past length; length 0 is the
+    Pallas kernel's empty result."""
+    from repro_torch.kernels.attention import ops as A
+    from repro_torch.kernels.decode import kernel as DK
+
+    b, s_max, h, kv, hd, s = 2, 512, 6, 2, 64, 200
+    q = _normal((b, s, h, hd), torch.bfloat16, 0)
+    cache = _normal((b, s_max, kv, hd), torch.bfloat16, 1)
+    torch.testing.assert_close(A.mha(q, cache[:, :s], cache[:, :s]),
+                               A.mha(q, cache[:, :s].contiguous(), cache[:, :s].contiguous()), rtol=0, atol=0)
+    qd = _normal((b, h, hd), torch.float32, 2)
+    kc, vc = _normal((b, s_max, kv, hd), torch.float32, 3), _normal((b, s_max, kv, hd), torch.float32, 4)
+    out1 = DK.flash_decode(qd, kc, vc, 300)[0]
+    kc[:, 300:], vc[:, 300:] = 99.0, -99.0
+    torch.testing.assert_close(DK.flash_decode(qd, kc, vc, 300)[0], out1, rtol=1e-6, atol=1e-7)
+    out, m, l = DK.flash_decode(qd, kc, vc, 0)
+    assert not out.any() and bool((m == -1e30).all()) and not l.any()
+
+
+@needs_card
+def test_cuda_attention_wrappers_refuse_what_the_kernels_do_not_take():
+    from repro_torch.kernels.attention import kernel as AK
+    from repro_torch.kernels.decode import kernel as DK
+
+    q, k = _normal((1, 64, 4, 64), torch.bfloat16, 0), _normal((1, 64, 2, 64), torch.bfloat16, 1)
+    with pytest.raises(TypeError):
+        AK.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError):
+        AK.flash_attention(q, k.float(), k)
+    with pytest.raises(ValueError, match="head dim"):
+        AK.flash_attention(q[..., :12].contiguous(), k[..., :12].contiguous(), k[..., :12].contiguous())
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        AK.flash_attention(_normal((1, 64, 64, 4), torch.bfloat16, 7).transpose(2, 3), k, k)
+    wide = _normal((1, 64, 4, 72), torch.bfloat16, 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        AK.flash_attention(wide[..., 1:65], k, k)
+    with pytest.raises(ValueError, match="shapes"):
+        AK.flash_attention(q, k[:, :32], k[:, :32])
+    qd = _normal((1, 4, 64), torch.bfloat16, 3)
+    with pytest.raises(ValueError, match="head dim"):
+        DK.flash_decode(_normal((1, 4, 136), torch.bfloat16, 4), *(2 * [_normal((1, 64, 2, 136), torch.bfloat16, 5)]), 8)
+    with pytest.raises(ValueError, match="length"):
+        DK.flash_decode(qd, k, k, 65)
+    with pytest.raises(ValueError, match="contiguous"):
+        DK.flash_decode(_normal((1, 64, 4), torch.bfloat16, 6).transpose(1, 2), k, k, 8)
+    with pytest.raises(TypeError):
+        DK.flash_decode(qd.float(), k, k, 8)
