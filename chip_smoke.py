@@ -24,8 +24,10 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    compiled at once, one nvcc each, when the script starts);
 6. hold both against their plain PyTorch versions on the card in float32
    (TF32 off; 2e-5 attention, 5e-5 decode) and bfloat16 (2e-2), the
-   reference's tolerances: its test shapes, ragged S, decode lengths 1,
-   700 and S_max (m and l too), and the serving path's full shape;
+   reference's tolerances: its test shapes, ragged S, hd 72, decode lengths
+   0, 1, 63, 64, 65, 700 and S_max with 1, 3, 4 and 8 q heads per kv head
+   (m and l too), the serving path's full shape, and in bf16 q, k, v as
+   slices of one fused buffer and k, v as cache[:, :S] views;
 7. serve llama3.2-3b at full width and full depth (28 layers, random
    weights from --seed, float32 params, bfloat16 compute): 8 requests of
    2,048 prompt tokens, one prefill step, one prefill into the KV cache
@@ -36,7 +38,9 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    and 8 teacher-forced decode steps, B=2 (rtol = atol = 1e-3);
 9. time both attention kernels at the serving path's shapes (device time
    from a replayed CUDA graph, and per eager call), beside their plain
-   versions, their bounds and scaled_dot_product_attention.
+   versions, their bounds and scaled_dot_product_attention, timed in turns
+   in the same run (kernel, library, kernel), with the achieved TFLOP/s or
+   GB/s and the share of the bound.
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's name and power limit; the last line is the run's verdict. Any
@@ -69,11 +73,15 @@ LOSSES = ("lr", "svm", "lsq")
 SERVE_B, PROMPT, DECODE_STEPS = 8, 2048, 128
 S_MAX = PROMPT + DECODE_STEPS
 PROFILED_STEPS = 4  # decode steps under the profiler, after the counted run
-# (B, S, H, Kv, hd): the reference's test shapes, then ragged S
+# (B, S, H, Kv, hd): the reference's test shapes, then ragged S around the
+# 128-row tile, hd between the bf16 kernel's widths, 3 q heads per kv head
 ATTN_SHAPES = ((2, 256, 4, 2, 64), (1, 128, 4, 4, 128), (2, 384, 6, 2, 32),
-               (1, 300, 4, 2, 64), (2, 1000, 8, 2, 128))
-# (B, H, Kv, hd, S, length): the reference's test shapes
-DECODE_SHAPES = ((2, 4, 2, 64, 1024, 700), (1, 8, 8, 128, 512, 512), (4, 4, 1, 32, 2048, 1))
+               (1, 300, 4, 2, 64), (2, 1000, 8, 2, 128), (2, 65, 6, 2, 72), (1, 1, 4, 4, 64))
+# (B, H, Kv, hd, S, length): the reference's test shapes, then lengths at
+# the 64-position tile's edges with 1, 3, 4 and 8 q heads per kv head
+DECODE_SHAPES = ((2, 4, 2, 64, 1024, 700), (1, 8, 8, 128, 512, 512), (4, 4, 1, 32, 2048, 1),
+                 (2, 2, 2, 128, 2176, 0), (2, 6, 2, 128, 2176, 63), (2, 8, 2, 128, 2176, 64),
+                 (2, 16, 2, 128, 2176, 65))
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 DECODE_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
 CPU_AGREE_TOL = 1e-3  # sums over 3,072 and 8,192 terms in other orders
@@ -413,6 +421,20 @@ def serving(seed: int, dev) -> list:
             e = max(e, *(max_err(g, w, f"{what} {part}", tol, tol)
                          for g, w, part in zip(got, want, ("out", "m", "l"))))
         errs["flash_decode"][dtype] = e
+    # in place: q, k, v as slices of one fused buffer, k and v as prefixes
+    # of the serving path's cache (bf16, the serving path's heads)
+    e, tol = 0.0, ATTN_TOL[torch.bfloat16]
+    fused = normal((2, 1000, h + 2 * kv, hd), torch.bfloat16)
+    q, k, v = fused[:, :, :h], fused[:, :, h:h + kv], fused[:, :, h + kv:]
+    e = max(e, max_err(AK.flash_attention(q, k, v), AR.mha_ref(q.contiguous(), k.contiguous(), v.contiguous()),
+                       "flash_attention bf16 fused-buffer slices", tol, tol))
+    kc, vc = normal((SERVE_B, S_MAX, kv, hd), torch.bfloat16), normal((SERVE_B, S_MAX, kv, hd), torch.bfloat16)
+    q = normal((SERVE_B, PROMPT, h, hd), torch.bfloat16)
+    e = max(e, max_err(AK.flash_attention(q, kc[:, :PROMPT], vc[:, :PROMPT]),
+                       AR.mha_ref(q, kc[:, :PROMPT].contiguous(), vc[:, :PROMPT].contiguous()),
+                       "flash_attention bf16 cache[:, :S] views", tol, tol))
+    errs["flash_attention"][torch.bfloat16] = max(errs["flash_attention"][torch.bfloat16], e)
+    del fused, q, k, v, kc, vc
     for name, by in errs.items():
         log("parity", f"{name} max |err| f32 {by[torch.float32]:.3g}, bf16 {by[torch.bfloat16]:.3g} "
             f"(tol {(ATTN_TOL if name == 'flash_attention' else DECODE_TOL)[torch.float32]:g} / 2e-2)")
@@ -514,18 +536,23 @@ def serving(seed: int, dev) -> list:
     qd, kc, vc = normal((SERVE_B, h, hd), bf), normal((SERVE_B, S_MAX, kv, hd), bf), normal((SERVE_B, S_MAX, kv, hd), bf)
     length = S_MAX
     sdpa = F.scaled_dot_product_attention
-    ms = {"flash_attention": graph_ms(lambda: AK.flash_attention(q, k, v), 5),
-          "flash_decode": graph_ms(lambda: DK.flash_decode(qd, kc, vc, length), 50)}
-    eager_ms = {"flash_attention": event_ms(lambda: AK.flash_attention(q, k, v), 5),
-                "flash_decode": event_ms(lambda: DK.flash_decode(qd, kc, vc, length), 50)}
+    calls = {  # (kernel, library call, launches per timing)
+        "flash_attention": (lambda: AK.flash_attention(q, k, v),
+                            lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                         is_causal=True, enable_gqa=True), 10),
+        "flash_decode": (lambda: DK.flash_decode(qd, kc, vc, length),
+                         lambda: sdpa(qd[:, :, None], kc[:, :length].transpose(1, 2),
+                                      vc[:, :length].transpose(1, 2), enable_gqa=True), 100),
+    }
+    turns, library_ms = {}, {}
+    for name, (kernel, library, iters) in calls.items():  # kernel, library, kernel
+        first = graph_ms(kernel, iters)
+        library_ms[name] = graph_ms(library, iters)
+        turns[name] = (first, graph_ms(kernel, iters))
+    ms = {name: sum(t) / 2 for name, t in turns.items()}
+    eager_ms = {name: event_ms(kernel, iters) for name, (kernel, _, iters) in calls.items()}
     plain_ms = {"flash_attention": timing.seconds(lambda: AR.mha_ref(q, k, v), dev) * 1e3,
                 "flash_decode": timing.seconds(lambda: DR.decode_attention_ref(qd, kc, vc, length), dev) * 1e3}
-    library_ms = {
-        "flash_attention": graph_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                                 is_causal=True, enable_gqa=True), 5),
-        "flash_decode": graph_ms(lambda: sdpa(qd[:, :, None], kc[:, :length].transpose(1, 2),
-                                              vc[:, :length].transpose(1, 2), enable_gqa=True), 50),
-    }
     work = {
         # q, k, v read once and o written once, bf16; causal half of QK^T and PV
         "flash_attention": (2 * SERVE_B * PROMPT * (h + kv) * hd * 2,
@@ -550,11 +577,16 @@ def serving(seed: int, dev) -> list:
             "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": library_ms[name],
         })
-        log("timing", f"{name}: {ms[name]:.4f} ms/launch on the device (CUDA graph), "
-            f"{eager_ms[name]:.4f} ms per call in a loop of eager calls (host launch included); bound {bound:.4f} ms "
+        rate = (f"{flops / ms[name] / 1e9:.1f} TFLOP/s" if ops_ms > bytes_ms
+                else f"{nbytes / ms[name] / 1e9:.3f} TB/s")
+        log("timing", f"{name}: {ms[name]:.4f} ms/launch on the device (CUDA graph; turns kernel "
+            f"{turns[name][0]:.4f}, library {library_ms[name]:.4f}, kernel {turns[name][1]:.4f}), {rate}, "
+            f"{bound / ms[name]:.3f} of the bound; {eager_ms[name]:.4f} ms per call in a loop of eager calls "
+            f"(host launch included); bound {bound:.4f} ms "
             f"({'bytes' if bytes_ms >= ops_ms else 'operations'}: {nbytes} bytes at 3.35 TB/s {bytes_ms:.4f} ms, "
             f"{flops} FLOP at {peak / 1e12:g} TFLOP/s {ops_ms:.4f} ms); plain {plain_ms[name]:.3f} ms; "
-            f"scaled_dot_product_attention {library_ms[name]:.4f} ms (CUDA graph)")
+            f"scaled_dot_product_attention {library_ms[name]:.4f} ms (CUDA graph), "
+            f"kernel/library {ms[name] / library_ms[name]:.2f}")
     log("timing", f"shapes: flash_attention q [{SERVE_B}, {PROMPT}, {h}, {hd}], k/v [{SERVE_B}, {PROMPT}, {kv}, {hd}] "
         f"bf16; flash_decode q [{SERVE_B}, {h}, {hd}], cache [{SERVE_B}, {S_MAX}, {kv}, {hd}] bf16, length {length}; "
         "the library decode call computes out only, not m and l")

@@ -1,0 +1,177 @@
+#!/usr/bin/env python3
+"""Time variants of the port's two serving kernels beside the committed ones, on one CUDA card.
+
+    python3 scripts/torch_kernel_variants.py
+
+Run from the repository root on a machine with a Hopper card. Each variant
+is the committed CUDA source with one textual change, built into the
+git-ignored build/variants/ and swapped into the wrapper for its timing.
+Times are device ms per launch from a replayed CUDA graph at the serving
+shape (flash_attention: B=8, S=2,048, 24/8 heads, hd 128; flash_decode:
+B=8, length 2,176 of the same heads), taken in turns with the committed
+kernel and scaled_dot_product_attention in the same run; the profiler
+splits flash_decode into its partial kernel and its combine. Every
+variant but the loads-only one is first held to the plain version (2e-2,
+bf16). The card's name and power limit are printed first.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.kernels._build import CudaLibrary  # noqa: E402
+from repro_torch.kernels.attention import kernel as AK, ref as AR  # noqa: E402
+from repro_torch.kernels.decode import kernel as DK, ref as DR  # noqa: E402
+
+B, S, H, KV, HD, LENGTH = 8, 2048, 24, 8, 128, 2176
+
+# (old, new) edits of csrc/flash_decode.cu
+DECODE_VARIANTS = {
+    # no scores, no softmax, no P V: the loads, barriers and epilogue alone
+    "loads_only": [
+        ("    // scores: a quarter of hd for every head of the group\n    {", "    if (tid < 0) {"),
+        ("    if (warp < NG) {\n      float s[kTile / 32], mx = m;",
+         "    if (warp < NG && tid < 0) {\n      float s[kTile / 32], mx = m;"),
+        ("    for (int i = 0; i < kTile / kPosGroups; ++i) {",
+         "    for (int i = 0; i < kTile / kPosGroups * (tid >= 0 ? 0 : 1); ++i) {"),
+    ],
+    # two tiles ahead, as a 3-stage ring usually runs, with the loop's end barrier back
+    "two_tiles_ahead": [
+        ("constexpr int kAhead = kStages - 2;", "constexpr int kAhead = kStages - 1;"),
+        ("        for (int e = 0; e < 8; ++e) acc[h][e] = fmaf(pr, vf[e], acc[h][e]);\n      }\n    }\n  }\n",
+         "        for (int e = 0; e < 8; ++e) acc[h][e] = fmaf(pr, vf[e], acc[h][e]);\n      }\n    }\n"
+         "    __syncthreads();\n  }\n"),
+    ],
+    # splits fastest in launch order, as PR 12 launched them
+    "split_fastest": [
+        ("const int split = blockIdx.y;", "const int split = blockIdx.x;"),
+        ("const int b = blockIdx.x / Kv;", "const int b = blockIdx.y / Kv;"),
+        ("const int kvh = blockIdx.x - b * Kv;", "const int kvh = blockIdx.y - b * Kv;"),
+        ("const int n_part = gridDim.y;", "const int n_part = gridDim.x;"),
+        ("const dim3 grid(B * Kv, splits, H / Kv / NG);", "const dim3 grid(splits, B * Kv, H / Kv / NG);"),
+    ],
+    # the combine as an ordinary launch after the partial kernel
+    "plain_launch_combine": [("  config.numAttrs = 1;", "  config.numAttrs = 0;")],
+}
+# (old, new) edits of csrc/flash_attention.cu
+ATTENTION_VARIANTS = {
+    "two_stage_ring": [("constexpr int kStages = 3;      // k/v ring", "constexpr int kStages = 2;      // k/v ring")],
+}
+
+
+def variant(name: str, source: Path, edits, declare) -> CudaLibrary:
+    text = source.read_text()
+    for old, new in edits:
+        if old not in text:
+            raise SystemExit(f"variant {name}: the source no longer contains {old!r}")
+        text = text.replace(old, new)
+    path = ROOT / "build" / "variants" / f"{name}.cu"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(text)
+    return CudaLibrary(name, path, declare)
+
+
+def graph_ms(fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def decode_split_us(fn) -> str:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    parts = {e.key: e.device_time for e in prof.key_averages() if e.device_time > 0}
+    partial = sum(t for k, t in parts.items() if "partial" in k)
+    combine = sum(t for k, t in parts.items() if "combine" in k)
+    return f"partial {partial:.2f} us, combine {combine:.2f} us"
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_kernel_variants: no CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(card, f"| torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
+    decode = {"committed": DK.LIBRARY}
+    decode.update({n: variant(f"decode_{n}", DK.SOURCE, e, DK._declare) for n, e in DECODE_VARIANTS.items()})
+    attention = {"committed": AK.LIBRARY}
+    attention.update({n: variant(f"attention_{n}", AK.SOURCE, e, AK._declare)
+                      for n, e in ATTENTION_VARIANTS.items()})
+    from concurrent.futures import ThreadPoolExecutor
+
+    libs = list(decode.values()) + list(attention.values())
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.build(), libs))
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    qd, kc, vc = normal(B, H, HD), normal(B, LENGTH, KV, HD), normal(B, LENGTH, KV, HD)
+    sdpa_decode = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), enable_gqa=True)
+    copy_dst = torch.empty_like(kc)
+    copy_ms = graph_ms(lambda: copy_dst.copy_(kc), 100)
+    print(f"device copy of one cache ({kc.numel() * 2} bytes read and written): {copy_ms * 1e3:.2f} us, "
+          f"{2 * kc.numel() * 2 / copy_ms / 1e9:.3f} TB/s", flush=True)
+    want = DR.decode_attention_ref(qd, kc, vc, LENGTH)
+    committed_splits = DK.splits_for
+    runs = [(name, lib, None) for name, lib in decode.items()]
+    runs += [(f"committed, {s} splits", decode["committed"], s) for s in (12, 17, 34)]
+    for name, lib, splits in runs:
+        DK.LIBRARY = lib
+        DK.splits_for = committed_splits if splits is None else (lambda *a, s=splits: s)
+        got = DK.flash_decode(qd, kc, vc, LENGTH)
+        if name != "loads_only":
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.float(), w.float(), rtol=2e-2, atol=2e-2)
+        kernel = lambda: DK.flash_decode(qd, kc, vc, LENGTH)  # noqa: E731
+        first, library, second = graph_ms(kernel, 100), graph_ms(sdpa_decode, 100), graph_ms(kernel, 100)
+        print(f"flash_decode {name}: {(first + second) / 2 * 1e3:.2f} us/launch (turns {first * 1e3:.2f}, "
+              f"SDPA {library * 1e3:.2f}, {second * 1e3:.2f}); {decode_split_us(kernel)}", flush=True)
+    DK.LIBRARY, DK.splits_for = decode["committed"], committed_splits
+
+    q, k, v = normal(B, S, H, HD), normal(B, S, KV, HD), normal(B, S, KV, HD)
+    want = AR.mha_ref(q, k, v).float()
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True)
+    for name, lib in attention.items():
+        AK.LIBRARY = lib
+        torch.testing.assert_close(AK.flash_attention(q, k, v).float(), want, rtol=2e-2, atol=2e-2)
+        kernel = lambda: AK.flash_attention(q, k, v)  # noqa: E731
+        first, library, second = graph_ms(kernel, 10), graph_ms(sdpa, 10), graph_ms(kernel, 10)
+        print(f"flash_attention {name}: {(first + second) / 2:.4f} ms/launch (turns {first:.4f}, "
+              f"SDPA {library:.4f}, {second:.4f})", flush=True)
+    AK.LIBRARY = attention["committed"]
+    return 0
+
+
+if __name__ == "__main__":
+    os.chdir(ROOT)
+    sys.exit(main())

@@ -2,36 +2,59 @@
 // interface (loaded with ctypes by kernels/attention/kernel.py).
 //
 // Replaces the Pallas TPU kernel
-//   src/repro/kernels/attention/kernel.py: flash_attention (_attn_kernel).
+//   src/repro/kernels/attention/kernel.py:63 flash_attention (_attn_kernel).
 //   out[b, i, h] = softmax_j<=i(q[b, i, h] . k[b, j, h // g] * scale) v[b, j, h // g]
 //   with the online softmax (m, l, acc) in float32, the reference's -1e30
 //   sentinel for masked logits and max(l, 1e-30) as the denominator.
 //
 // What bounds it on this card: operations. At the serving path's shape
 // (B=8, S=2048, H=24, Kv=8, hd=128, bf16) the causal half of QK^T and PV is
-// 4*B*H*hd*S(S+1)/2 = 2.06e11 FLOP, 0.21 ms at the tensor cores' 989
-// TFLOP/s, against 0.08 ms for the 268 MB of q, k, v and o. This first
-// kernel runs on the CUDA cores (67 TFLOP/s of float32 FMA at best), so it
-// sits well above that bound; wgmma, TMA and warp specialisation are later
-// work.
+// 4*B*H*hd*S(S+1)/2 = 2.06e11 FLOP, 0.209 ms at the tensor cores' 989
+// TFLOP/s, against 0.08 ms for the 268 MB of q, k, v and o.
 //
-// Design: one block of 256 threads per (64-row q tile, b*h). The q tile is
-// staged in shared memory once; 64-row k/v tiles stream in through cp.async
-// double buffering (the next tile loads while this one is used). k/v tiles
-// past the q tile's last row are never loaded (the causal skip), and tiles
-// are taken longest first (the last q tile of a head is block 0). Each
-// thread owns 4 q rows: it computes a 4x4 block of the 64x64 score tile and
-// 4 x hd/16 outputs; a row's 16 threads are one half-warp, so the row max
-// and row sum are shuffles. q, k and v are read in place by strides from
-// [B, S, H, hd] / [B, S, Kv, hd] (no transposed or padded copies); a ragged
-// S is handled by zero-filled loads and unwritten rows, and hd is any
-// multiple of 8 up to 128. Shared memory rows are padded by 16 bytes so
-// that the 16-byte reads of eight neighbouring rows hit distinct banks.
+// Two instances, picked by dtype; neither is a fallback for the other.
 //
-// The kernel allocates nothing and launches on the caller's stream; the C
+// bfloat16, the serving path: a tensor-core kernel in the manner of
+// FlashAttention-3, since only wgmma reaches the card's bf16 rate.
+// - A block owns a 128-row q tile of one (b, h): warpgroup 0 is the
+//   producer (one thread issues every TMA load; setmaxnreg gives its
+//   registers away), warpgroups 1 and 2 are consumers, each owning 64 q
+//   rows, so one k/v tile feeds both.
+// - Tiles arrive by TMA: one 4-D tensor map (hd, heads, positions, batch)
+//   per operand, encoded from the tensor's own strides, so q, k and v are
+//   read in place (cache[:, :s] views included). A box is 64 columns (128
+//   bytes, the 128-byte swizzle's span) by 128 rows; hd 128 takes two boxes
+//   a tile. Out-of-bounds boxes are zero-filled, which covers a ragged S and
+//   any hd below the instantiated width (64 or 128).
+// - k and v tiles stream through a ring of kStages stages, each with its
+//   own full barriers (k and v apart, so QK^T starts before v lands) and one
+//   empty barrier that both consumers arrive on when done.
+// - S = Q K^T: wgmma m64n128k16, both operands K-major from shared memory
+//   as they lie. O += P V: P is the A operand from registers, rounded to
+//   bf16 from the S accumulator, whose register layout is the A fragment's;
+//   V is the B operand from shared memory, MN-major (the descriptor's
+//   transpose bit). m, l and O stay in f32 registers; exp2 with the scale
+//   folded into log2 units.
+// - Causal work: k/v tiles past the q tile are never loaded, and only the
+//   diagonal tile (the last) is masked in registers. Tiles are taken
+//   longest first across all heads (grid.y counts q tiles from the end).
+// - The output is written from registers, bf16 pairs, true hd columns and
+//   rows below S only.
+//
+// float32, the reference's parity checks: the CUDA-core kernel (TF32 tensor
+// cores would break the reference's 2e-5). One block of 256 threads per
+// (64-row q tile, b*h); the q tile is staged in shared memory once and
+// 64-row k/v tiles stream in through cp.async double buffering; each thread
+// owns 4 q rows, a 4x4 block of the score tile and 4 x hd/16 outputs; a
+// row's 16 threads are a half-warp, so the row max and sum are shuffles.
+// Shared-memory rows are padded by 16 bytes so that the 16-byte reads of
+// eight neighbouring rows hit distinct banks.
+//
+// The kernels allocate nothing and launch on the caller's stream; the C
 // entry returns cudaGetLastError() (or cudaErrorInvalidValue for arguments
-// the kernel does not take).
+// the kernels do not take, or a tensor map the driver refuses).
 
+#include <cuda.h>  // CUtensorMap and the driver's enums; the entry point comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,29 +67,12 @@ constexpr int kThreads = 256;      // 16 row groups x 16 threads
 constexpr int kMaxHd = 128;
 constexpr int kCols = kMaxHd / 16;  // output columns per thread
 constexpr int kPLd = kBK + 4;      // row stride of the probability tile
+constexpr int kPad = 4;           // shared-memory row padding (16 bytes)
 constexpr float kNegInf = -1e30f;
 
-template <typename T>
-struct Pad;  // shared-memory row padding, 16 bytes
-template <>
-struct Pad<float> { static constexpr int kElems = 4; };
-template <>
-struct Pad<__nv_bfloat16> { static constexpr int kElems = 8; };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// four consecutive elements of a shared-memory row, as floats
+// four consecutive elements of a shared-memory row
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // 16 bytes global -> shared; src_bytes = 0 writes zeros (rows past S)
@@ -80,34 +86,32 @@ __device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wai
 
 // rows [row0, row0 + 64) of one head, row stride `stride` elements, into a
 // shared tile of row stride `ld`; rows at or past `rows` are zero-filled
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride, int row0,
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long stride, int row0,
                                           int rows, int hd, int ld) {
-  constexpr int kPerChunk = 16 / static_cast<int>(sizeof(T));
+  constexpr int kPerChunk = 4;
   const int per_row = hd / kPerChunk;
   for (int c = threadIdx.x; c < kBK * per_row; c += kThreads) {
     const int r = c / per_row;
     const int col = (c - r * per_row) * kPerChunk;
     const bool valid = row0 + r < rows;
-    const T* g = src + (valid ? static_cast<long long>(row0 + r) * stride : 0) + col;
+    const float* g = src + (valid ? static_cast<long long>(row0 + r) * stride : 0) + col;
     cp_async16(dst + r * ld + col, g, valid);
   }
 }
 
 // f32 tiles take 186 KB of shared memory at hd 128, so one block per SM:
-// it may use every register a thread can have. bf16 tiles fit two blocks.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int S, int H, int Kv,
-                           int hd, float scale, long long qsb, long long qss, long long qsh,
-                           long long ksb, long long kss, long long ksh, long long vsb,
-                           long long vss, long long vsh) {
+// it may use every register a thread can have.
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, float* __restrict__ o, int S,
+                               int H, int Kv, int hd, float scale, long long qsb,
+                               long long qss, long long qsh, long long ksb, long long kss,
+                               long long ksh, long long vsb, long long vss, long long vsh) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = hd + Pad<T>::kElems;
-  T* sq = reinterpret_cast<T*>(smem);
-  T* sk = sq + kBQ * ld;      // two stages
-  T* sv = sk + 2 * kBK * ld;  // two stages
+  const int ld = hd + kPad;
+  float* sq = reinterpret_cast<float*>(smem);
+  float* sk = sq + kBQ * ld;      // two stages
+  float* sv = sk + 2 * kBK * ld;  // two stages
   float* sp = reinterpret_cast<float*>(sv + 2 * kBK * ld);
 
   const int n_q = (S + kBQ - 1) / kBQ;
@@ -116,9 +120,9 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
   const int h = blockIdx.y - b * H;
   const int kvh = h / (H / Kv);
   const int q0 = qi * kBQ;
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + kvh * ksh;
-  const T* vb = v + b * vsb + kvh * vsh;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + kvh * ksh;
+  const float* vb = v + b * vsb + kvh * vsh;
 
   const int ty = threadIdx.x / 16;  // rows ty*4 .. ty*4+3
   const int tx = threadIdx.x % 16;  // score columns tx + 16j, output columns tx + 16c
@@ -147,8 +151,8 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
-    const T* ks = sk + st * kBK * ld;
-    const T* vs = sv + st * kBK * ld;
+    const float* ks = sk + st * kBK * ld;
+    const float* vs = sv + st * kBK * ld;
 
     float s[4][4];
 #pragma unroll
@@ -211,7 +215,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
       for (int c = 0; c < kCols; ++c) {
         const int col = tx + 16 * c;
         if (col < hd) {
-          const float vv = to_f32(vs[kk * ld + col]);
+          const float vv = vs[kk * ld + col];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
         }
@@ -225,43 +229,418 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
     const int row = q0 + ty * 4 + i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((static_cast<long long>(b) * S + row) * H + h) * hd;
+    float* orow = o + ((static_cast<long long>(b) * S + row) * H + h) * hd;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = tx + 16 * c;
-      if (col < hd) store(orow + col, acc[i][c] / denom);
+      if (col < hd) orow[col] = acc[i][c] / denom;
     }
   }
 }
 
-size_t smem_bytes(int hd, size_t elem, int pad) {
-  return (kBQ + 4 * kBK) * static_cast<size_t>(hd + pad) * elem + kBQ * kPLd * sizeof(float);
+size_t f32_smem_bytes(int hd) {
+  return (kBQ + 4 * kBK) * static_cast<size_t>(hd + kPad) * sizeof(float) + kBQ * kPLd * sizeof(float);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int Kv,
-           int hd, float scale, const long long* qs, const long long* ks, const long long* vs,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes(hd, sizeof(T), Pad<T>::kElems);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T>,
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int Kv,
+               int hd, float scale, const long long* qs, const long long* ks, const long long* vs,
+               cudaStream_t stream) {
+  const size_t smem = f32_smem_bytes(hd);
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
+  if (static_cast<long long>(B) * H > 65535) return cudaErrorInvalidValue;
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, Kv, hd, scale, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0],
+  flash_attention_f32_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), S, H, Kv, hd, scale, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0],
       vs[1], vs[2]);
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core kernel
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kBQ = 128;        // q rows per block: two consumer warpgroups x 64
+constexpr int kBK = 128;        // k/v rows per tile (== kBQ: the diagonal tile is the last)
+constexpr int kStages = 3;      // k/v ring
+constexpr int kThreads = 384;   // producer warpgroup + two consumer warpgroups
+constexpr int kBoxCols = 64;    // 128 bytes of bf16, the 128-byte swizzle's span
+constexpr int kRowBytes = 128;  // one swizzled box row
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 65,536
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct Tiles {
+  static constexpr int kQ = kBQ * HD * 2;   // bytes of the q tile: HD/64 boxes of 128 x 64
+  static constexpr int kKV = kBK * HD * 2;  // bytes of one k (or v) tile
+  static constexpr int kBars = 1 + 3 * kStages;  // q full; k full, v full, k/v empty per stage
+  // the swizzled tiles need 1024-byte alignment, which the base is rounded up to
+  static constexpr int kSmem = 1024 + kQ + 2 * kStages * kKV + 8 * kBars;
+};
+static_assert(Tiles<128>::kSmem <= 232448, "the widest instance must fit a block's shared memory");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// one box of a 4-D tensor map (hd, heads, positions, batch) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int head, int pos, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head), "r"(pos), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across an
+// asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define ACC16(i) ACC4(i), ACC4(i + 4), ACC4(i + 8), ACC4(i + 12)
+#define ACC32 ACC16(0), ACC16(16)
+#define ACC64 ACC16(0), ACC16(16), ACC16(32), ACC16(48)
+
+// d[64] (+)= A[64 x 16] B[16 x 128]: A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC64
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[N/2] += A[64 x 16] B[16 x N]: A from registers (the m16k16 fragment of
+// each warp's 16 rows), B MN-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// grid (B*H, q tiles); block y counts q tiles from the last, so the
+// longest tiles of every head go first
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                                const __grid_constant__ CUtensorMap kmap,
+                                const __grid_constant__ CUtensorMap vmap,
+                                __nv_bfloat16* __restrict__ o, int S, int H, int Kv, int hd,
+                                float scale_log2) {
+  using T = Tiles<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + T::kQ;                // kStages k tiles
+  const uint32_t sv = sk + kStages * T::kKV;     // kStages v tiles
+  const uint32_t bars = sv + kStages * T::kKV;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int st) { return bars + 8u * (1 + st); };
+  auto v_full = [&](int st) { return bars + 8u * (1 + kStages + st); };
+  auto kv_empty = [&](int st) { return bars + 8u * (1 + 2 * kStages + st); };
+
+  const int n_q = (S + kBQ - 1) / kBQ;
+  const int qi = n_q - 1 - static_cast<int>(blockIdx.y);
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int kvh = h / (H / Kv);
+  const int q0 = qi * kBQ;
+  const int n_k = (min(q0 + kBQ, S) - 1) / kBK + 1;  // causal: no tile past the q tile
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(kv_empty(st), 2 * 128);  // every consumer thread arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer ------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, T::kQ);
+#pragma unroll
+      for (int c = 0; c < HD / kBoxCols; ++c)
+        tma_load(sq + c * kBQ * kRowBytes, &qmap, q_full, c * kBoxCols, h, q0, b);
+      for (int t = 0; t < n_k; ++t) {
+        const int st = t % kStages;
+        mbar_wait(kv_empty(st), ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(k_full(st), T::kKV);
+#pragma unroll
+        for (int c = 0; c < HD / kBoxCols; ++c)
+          tma_load(sk + st * T::kKV + c * kBK * kRowBytes, &kmap, k_full(st), c * kBoxCols, kvh,
+                   t * kBK, b);
+        mbar_expect_tx(v_full(st), T::kKV);
+#pragma unroll
+        for (int c = 0; c < HD / kBoxCols; ++c)
+          tma_load(sv + st * T::kKV + c * kBK * kRowBytes, &vmap, v_full(st), c * kBoxCols, kvh,
+                   t * kBK, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows each ---------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32, lane = tid % 32;
+    const int slice = (wg - 1) * 64;                  // the warpgroup's rows in the q tile
+    const int r0 = q0 + slice + warp * 16 + lane / 4;  // this thread's rows: r0, r0 + 8
+    const uint32_t q_slice = sq + slice * kRowBytes;
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+    mbar_wait(q_full, 0);
+    for (int t = 0; t < n_k; ++t) {
+      const int st = t % kStages;
+      const int phase = (t / kStages) & 1;
+
+      // S = Q K^T over hd, 16 columns a step
+      float s[kBK / 2];
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) s[i] = 0.0f;
+      mbar_wait(k_full(st), phase);
+      fence_regs(s);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t box = kk / 4, within = (kk % 4) * 32;  // 64-column box, 16-column step
+        wgmma_ss_n128(s, sw128_desc(q_slice + box * kBQ * kRowBytes + within, 16, 1024),
+                      sw128_desc(sk + st * T::kKV + box * kBK * kRowBytes + within, 16, 1024),
+                      kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(s);
+
+      // online softmax over the tile, in log2 units; the diagonal tile is
+      // the only one with masked entries
+      const bool diag = t == n_k - 1;
+      const int k0 = t * kBK + 2 * (lane % 4);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        const int row = r0 + 8 * ((i / 2) % 2);
+        const int col = k0 + 8 * (i / 4) + (i % 2);
+        const float x = (diag && col > row) ? kNegInf : s[i] * scale_log2;
+        s[i] = x;
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
+      }
+      float corr[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = exp2f(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        const float p = exp2f(s[i] - m[(i / 2) % 2]);
+        s[i] = p;
+        sum[(i / 2) % 2] += p;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = l[r] * corr[r] + sum[r];
+      }
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+      // P in bf16, as the A fragments of kBK/16 k-steps
+      uint32_t pa[kBK / 4];
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        pa[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
+        pa[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+      }
+
+      // O += P V over the tile's rows, 16 a step
+      mbar_wait(v_full(st), phase);
+      fence_regs(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_rs<HD>(acc, pa + 4 * kk,
+                     sw128_desc(sv + st * T::kKV + kk * 16 * kRowBytes, kBK * kRowBytes, 1024));
+      wg_commit();
+      wg_wait_all();
+      fence_regs(acc);
+      mbar_arrive(kv_empty(st));
+    }
+
+    // epilogue: rows below S, the true hd columns
+    const float inv[2] = {1.0f / fmaxf(l[0], 1e-30f), 1.0f / fmaxf(l[1], 1e-30f)};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= S) continue;
+      __nv_bfloat16* orow = o + ((static_cast<long long>(b) * S + row) * H + h) * hd;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const int col = 8 * j + 2 * (lane % 4);
+        if (col < hd)
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              pack_bf16(acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
+      }
+    }
+  }
+}
+
+#undef ACC4
+#undef ACC16
+#undef ACC32
+#undef ACC64
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime so
+// that the library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// layout: dims[4] (hd, heads, positions, batch), byte strides[3] of dims
+// 1..3, box[4], as kernel.py's tma_layout computes them
+bool encode(CUtensorMap* map, const void* ptr, const long long* layout) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(layout[0]), static_cast<cuuint64_t>(layout[1]),
+                              static_cast<cuuint64_t>(layout[2]), static_cast<cuuint64_t>(layout[3])};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(layout[4]),
+                                 static_cast<cuuint64_t>(layout[5]),
+                                 static_cast<cuuint64_t>(layout[6])};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(layout[7]), static_cast<cuuint32_t>(layout[8]),
+                             static_cast<cuuint32_t>(layout[9]), static_cast<cuuint32_t>(layout[10])};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (box[0] != kBoxCols || box[1] != 1 || box[2] != kBQ || box[3] != 1) return false;
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int Kv,
+           int hd, float scale, const long long* layouts, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i)
+    if (!encode(&maps[i], ptrs[i], layouts + 11 * i)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_bf16_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Tiles<HD>::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  flash_attention_bf16_kernel<HD><<<grid, kThreads, Tiles<HD>::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), S, H, Kv, hd, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
 }  // namespace
 
 extern "C" {
 
 int flash_attention_max_hd() { return kMaxHd; }
 
-int flash_attention_block_q() { return kBQ; }
+int flash_attention_block_q() { return tc::kBQ; }
 
 const char* flash_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -269,21 +648,28 @@ const char* flash_attention_error_string(int code) {
 
 // q, o: [B, S, H, hd] (o contiguous); k, v: [B, S, Kv, hd]. Strides are in
 // elements, (batch, position, head); the last dimension is contiguous.
-// dtype: 0 float32, 1 bfloat16.
+// dtype 0 float32 (the CUDA-core kernel; `tma` unused), 1 bfloat16 (the
+// tensor-core kernel at width hd_inst, 64 or 128; `tma` holds q's, k's and
+// v's tensor-map layouts, 11 values each: dims, byte strides, box).
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int dtype,
                            int B, int S, int H, int Kv, int hd, float scale, long long qsb,
                            long long qss, long long qsh, long long ksb, long long kss,
                            long long ksh, long long vsb, long long vss, long long vsh,
-                           void* stream) {
+                           int hd_inst, const long long* tma, void* stream) {
   if (B < 1 || S < 0 || Kv < 1 || H < Kv || H % Kv != 0 || hd < 8 || hd > kMaxHd ||
-      hd % 8 != 0 || static_cast<long long>(B) * H > 65535)
+      hd % 8 != 0)
     return cudaErrorInvalidValue;
   if (S == 0) return cudaSuccess;
-  const long long qs[3] = {qsb, qss, qsh}, ks[3] = {ksb, kss, ksh}, vs[3] = {vsb, vss, vsh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, o, B, S, H, Kv, hd, scale, qs, ks, vs, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, B, S, H, Kv, hd, scale, qs, ks, vs, st);
+  if (dtype == 0) {
+    const long long qs[3] = {qsb, qss, qsh}, ks[3] = {ksb, kss, ksh}, vs[3] = {vsb, vss, vsh};
+    return launch_f32(q, k, v, o, B, S, H, Kv, hd, scale, qs, ks, vs, st);
+  }
+  if (dtype != 1 || tma == nullptr || hd > hd_inst || static_cast<long long>(B) * H > 0x7fffffffLL ||
+      (S + tc::kBQ - 1) / tc::kBQ > 65535)
+    return cudaErrorInvalidValue;
+  if (hd_inst == 64) return tc::launch<64>(q, k, v, o, B, S, H, Kv, hd, scale, tma, st);
+  if (hd_inst == 128) return tc::launch<128>(q, k, v, o, B, S, H, Kv, hd, scale, tma, st);
   return cudaErrorInvalidValue;
 }
 

@@ -1,12 +1,16 @@
-"""CUDA wrapper for the causal GQA flash-attention kernel
+"""CUDA wrapper for the causal GQA flash-attention kernels
 (``csrc/flash_attention.cu``), built and loaded at first use by
 ``kernels._build`` (``build/repro_torch/libflash_attention-<hash>.so``).
 
-The wrapper checks device, dtype, shape, strides and head width, allocates
-the output with ``torch.empty``, launches on PyTorch's current stream,
-raises on a non-zero CUDA status, and adds one to ``launches``. q, k and v
-are read in place by strides: any layout whose last dimension is
-contiguous and whose other strides keep every row on a 16-byte boundary.
+The dtype picks the instance: bfloat16 runs the tensor-core kernel (wgmma,
+TMA), float32 the CUDA-core kernel that the reference's f32 tolerance
+needs. The wrapper checks device, dtype, shape, strides and head width,
+computes the bf16 kernel's tensor-map layouts (``tma_layout``) and width
+(``instantiated_hd``), allocates the output with ``torch.empty``, launches
+on PyTorch's current stream, raises on a non-zero CUDA status, and adds
+one to ``launches``. q, k and v are read in place by strides: any layout
+whose last dimension is contiguous and whose other strides keep every row
+on a 16-byte boundary.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch
 from repro_torch.kernels._build import CudaLibrary
 
 MAX_HD = 128
-BLOCK_Q = 64
+BLOCK_Q = 128  # the bf16 kernel's q tile; it is also the tensor maps' box rows
+BOX_COLS = 64  # 128 bytes of bf16: the 128-byte swizzle's span
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -36,7 +41,7 @@ def reset_launches() -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.flash_attention_launch.argtypes = (
-        [ptr] * 4 + [i32] * 6 + [ctypes.c_float] + [i64] * 9 + [ptr]
+        [ptr] * 4 + [i32] * 6 + [ctypes.c_float] + [i64] * 9 + [i32, ptr, ptr]
     )
     lib.flash_attention_launch.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
@@ -66,6 +71,43 @@ def check_rows(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} strides {t.stride()} do not keep its rows on 16-byte boundaries")
 
 
+def instantiated_hd(hd: int) -> int:
+    """The bf16 kernel's compiled width for head dim ``hd``: 64 or 128. The
+    tensor maps zero-fill the columns past hd."""
+    check_head_dim(hd)
+    return 64 if hd <= 64 else 128
+
+
+def tma_layout(t: torch.Tensor):
+    """The 4-D tensor map the bf16 kernel reads ``t`` [B, S, heads, hd]
+    through: dims (hd, heads, S, B), innermost first; the byte strides of
+    dims 1..3; the box (64 columns, 1 head, BLOCK_Q positions, 1 batch).
+    A dimension of size 1 is never stepped along, so its stride is set to
+    the packed one (the map wants every stride a multiple of 16). Raises on
+    a layout the map cannot describe."""
+    b, s, heads, hd = t.shape
+    size = t.element_size()
+    if t.stride(-1) != 1:
+        raise ValueError(f"tensor map needs a contiguous last dimension, got strides {t.stride()}")
+    dims = (hd, heads, s, b)
+    strides, packed = [], hd * size
+    for extent, stride in ((heads, t.stride(2)), (s, t.stride(1)), (b, t.stride(0))):
+        nbytes = packed if extent == 1 else stride * size
+        if nbytes % 16 or nbytes <= 0:
+            raise ValueError(f"strides {t.stride()} do not keep rows on 16-byte boundaries")
+        strides.append(nbytes)
+        packed = nbytes * extent
+    return dims, tuple(strides), (BOX_COLS, 1, BLOCK_Q, 1)
+
+
+def _tma_args(*tensors):
+    flat = []
+    for t in tensors:
+        dims, strides, box = tma_layout(t)
+        flat += [*dims, *strides, *box]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
 def flash_attention(q, k, v):
     """Causal GQA attention on the card. q: [B, S, H, hd]; k/v:
     [B, S, Kv, hd] (H a multiple of Kv; q head h reads kv head h // (H/Kv));
@@ -85,6 +127,9 @@ def flash_attention(q, k, v):
     check_head_dim(hd)
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_rows(name, t)
+    bf16 = q.dtype == torch.bfloat16
+    tma = _tma_args(q, k, v) if bf16 else None
+    hd_inst = instantiated_hd(hd) if bf16 else 0
     lib = LIBRARY.load()
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
@@ -93,7 +138,7 @@ def flash_attention(q, k, v):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPE_IDS[q.dtype],
             b, s, h, kv, hd, 1.0 / hd ** 0.5,
             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2), stream,
+            v.stride(0), v.stride(1), v.stride(2), hd_inst, tma, stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc} "

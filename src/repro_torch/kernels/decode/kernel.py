@@ -7,7 +7,8 @@ the outputs and the partials' scratch with ``torch.empty``, launches on
 PyTorch's current stream (the partial kernel, then the combine), raises
 on a non-zero CUDA status, and adds one to ``launches``. The caches are
 read in place by strides, so the model's [B, S_max, Kv, hd] cache needs
-no transposed copy.
+no transposed copy. How the work is cut (``head_group``, ``splits_for``,
+``split_chunk``) is plain Python, pinned by the CPU tests.
 """
 
 from __future__ import annotations
@@ -20,14 +21,14 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels._build import CudaLibrary
-from repro_torch.kernels.attention.kernel import DTYPE_IDS, check_head_dim
+from repro_torch.kernels.attention.kernel import DTYPE_IDS, check_head_dim, check_rows
 
 MAX_HD = 128
-WARPS_PER_SPLIT = 4
-# a split (4 warps) takes at least this many positions; below it the
-# partials' combine costs more than the parallelism buys
-MIN_SPLIT_POSITIONS = 128
-BLOCKS_PER_SM = 4
+TILE = 64  # cache positions per shared-memory stage; a split is whole tiles
+MAX_GROUP = 8  # q heads one block serves
+MAX_SPLITS = 1024  # the combine's weights fit in its shared memory
+BLOCKS_PER_SM = 2  # the bf16 partial kernel's residency (shared memory)
+MIN_WAVES = 2  # full waves of partial blocks wanted on the card
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode.cu"
 
@@ -42,27 +43,45 @@ def reset_launches() -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.flash_decode_launch.argtypes = (
-        [ptr] * 9 + [i32] * 8 + [ctypes.c_float] + [i64] * 6 + [ptr]
+        [ptr] * 9 + [i32] * 10 + [ctypes.c_float] + [i64] * 6 + [ptr]
     )
     lib.flash_decode_launch.restype = i32
     lib.flash_decode_error_string.argtypes = [i32]
     lib.flash_decode_error_string.restype = ctypes.c_char_p
     lib.flash_decode_max_hd.restype = i32
-    lib.flash_decode_warps_per_split.restype = i32
-    limits = (lib.flash_decode_max_hd(), lib.flash_decode_warps_per_split())
-    if limits != (MAX_HD, WARPS_PER_SPLIT):
+    lib.flash_decode_tile.restype = i32
+    lib.flash_decode_max_group.restype = i32
+    lib.flash_decode_max_splits.restype = i32
+    limits = (lib.flash_decode_max_hd(), lib.flash_decode_tile(), lib.flash_decode_max_group(),
+              lib.flash_decode_max_splits())
+    if limits != (MAX_HD, TILE, MAX_GROUP, MAX_SPLITS):
         raise RuntimeError(f"flash_decode library limits {limits} disagree with kernel.py")
 
 
 LIBRARY = CudaLibrary("flash_decode", SOURCE, _declare)
 
 
+def head_group(g: int) -> int:
+    """q heads per block for g q heads per kv head: the largest divisor of
+    g up to MAX_GROUP, so that every block's head slots are all live."""
+    return max(n for n in range(1, min(g, MAX_GROUP) + 1) if g % n == 0)
+
+
 def splits_for(b: int, kv: int, h: int, length: int, n_sm: int) -> int:
-    """Length splits per (b, kv head): enough blocks for BLOCKS_PER_SM on
-    every SM, but no split shorter than MIN_SPLIT_POSITIONS."""
-    groups = -(-(h // kv) // 4)
-    want = math.ceil(BLOCKS_PER_SM * n_sm / (b * kv * groups))
-    return max(1, min(want, math.ceil(length / MIN_SPLIT_POSITIONS)))
+    """Length splits per (b, kv head, head group): the fewest that give
+    MIN_WAVES full waves of BLOCKS_PER_SM blocks on every SM (more splits
+    only add blocks' start-up and partials), but no more splits than the
+    length has tiles, nor than MAX_SPLITS."""
+    g = h // kv
+    groups = b * kv * (g // head_group(g))
+    want = math.ceil(MIN_WAVES * BLOCKS_PER_SM * n_sm / groups)
+    return max(1, min(want, math.ceil(length / TILE), MAX_SPLITS))
+
+
+def split_chunk(length: int, splits: int) -> int:
+    """Positions per split, whole tiles: split i covers
+    [i * chunk, min((i + 1) * chunk, length)); the last splits may be empty."""
+    return max(1, math.ceil(math.ceil(length / splits) / TILE)) * TILE
 
 
 def flash_decode(q, k_cache, v_cache, length: int):
@@ -87,29 +106,28 @@ def flash_decode(q, k_cache, v_cache, length: int):
                          f"{tuple(v_cache.shape)}")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name} must have a contiguous last dimension, got strides {t.stride()}")
     check_head_dim(hd)
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        check_rows(name, t)
     length = int(length)
     if not 0 <= length <= s:
         raise ValueError(f"length {length} outside the cache's 0..{s}")
     lib = LIBRARY.load()
     dev = q.device
     splits = splits_for(b, kv, h, length, torch.cuda.get_device_properties(dev).multi_processor_count)
-    n_part = splits * WARPS_PER_SPLIT
     out = torch.empty_like(q)
     m = torch.empty((b, h), dtype=torch.float32, device=dev)
     l = torch.empty((b, h), dtype=torch.float32, device=dev)
-    part_o = torch.empty((b * h, n_part, hd), dtype=torch.float32, device=dev)
-    part_m = torch.empty((b * h, n_part), dtype=torch.float32, device=dev)
-    part_l = torch.empty((b * h, n_part), dtype=torch.float32, device=dev)
+    part_o = torch.empty((b * h, splits, hd), dtype=torch.float32, device=dev)
+    part_m = torch.empty((b * h, splits), dtype=torch.float32, device=dev)
+    part_l = torch.empty((b * h, splits), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.flash_decode_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), m.data_ptr(),
             l.data_ptr(), part_o.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            DTYPE_IDS[q.dtype], b, s, h, kv, hd, length, splits, 1.0 / hd ** 0.5,
+            DTYPE_IDS[q.dtype], b, s, h, kv, hd, length, splits, split_chunk(length, splits),
+            head_group(h // kv), 1.0 / hd ** 0.5,
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2), stream,
         )

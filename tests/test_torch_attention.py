@@ -85,3 +85,86 @@ def test_attention_ref_takes_the_reference_layout():
     got = R.attention_ref(*(torch.from_numpy(a) for a in (q, k, v)))
     want = jax_ref.attention_ref(*(jnp.asarray(a) for a in (q, k, v)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+# -- the bf16 tensor-core kernel's Python side --------------------------------
+
+from repro_torch.kernels.attention import kernel as K  # noqa: E402
+
+
+def _views():
+    """(name, [B, S, heads, hd] view, dims, byte strides) for the layouts
+    the serving path and the card tests hand the kernel."""
+    b, s, h, hd, s_max = 2, 300, 6, 72, 512
+    contiguous = torch.zeros((b, s, h, hd), dtype=torch.bfloat16)
+    head_major = torch.zeros((b, h, s, hd), dtype=torch.bfloat16).transpose(1, 2)
+    cache = torch.zeros((b, s_max, 2, hd), dtype=torch.bfloat16)[:, :s]
+    fused = torch.zeros((b, s, h + 4, hd), dtype=torch.bfloat16)[:, :, h:h + 2]
+    return [
+        ("contiguous", contiguous, (hd, h, s, b), (hd * 2, h * hd * 2, s * h * hd * 2)),
+        ("head_major", head_major, (hd, h, s, b), (s * hd * 2, hd * 2, h * s * hd * 2)),
+        ("cache_prefix", cache, (hd, 2, s, b), (hd * 2, 2 * hd * 2, s_max * 2 * hd * 2)),
+        ("fused_slice", fused, (hd, 2, s, b), (hd * 2, (h + 4) * hd * 2, s * (h + 4) * hd * 2)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4), ids=[v[0] for v in _views()])
+def test_tma_layout_reads_views_in_place(case):
+    _, t, dims, strides = _views()[case]
+    got_dims, got_strides, box = K.tma_layout(t)
+    assert got_dims == dims and got_strides == strides
+    assert box == (64, 1, K.BLOCK_Q, 1)
+
+
+def test_tma_layout_packs_size_one_dims_and_refuses_misaligned_strides():
+    one_head = torch.zeros((1, 40, 8, 64), dtype=torch.bfloat16)[:, :, 3:4]
+    assert K.tma_layout(one_head)[1] == (128, 8 * 128, 40 * 8 * 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.tma_layout(torch.zeros((1, 40, 4, 68), dtype=torch.bfloat16)[..., :64])
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        K.tma_layout(torch.zeros((1, 40, 64, 4), dtype=torch.bfloat16).transpose(2, 3))
+
+
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_instantiated_hd_is_the_next_of_64_and_128(hd):
+    assert K.instantiated_hd(hd) == (64 if hd <= 64 else 128)
+    with pytest.raises(ValueError, match="head dim"):
+        K.instantiated_hd(hd + 4)
+
+
+def _attention_p_in_bf16(q, k, v, tile=128):
+    """What the tensor-core kernel computes: f32 scores over 128-key tiles,
+    an online softmax in f32, P rounded to bf16 before P V (f32 sums); l
+    sums the unrounded P."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    m = torch.full((b, h, s, 1), R.NEG_INF)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, hd))
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, s, tile):
+        cols = torch.arange(k0, min(k0 + tile, s))[None, :]
+        logits = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2) / hd ** 0.5
+        logits = torch.where(cols <= rows, logits, R.NEG_INF)
+        m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+        p = torch.exp(logits - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd", SHAPES)
+def test_bf16_p_rounding_stays_within_the_reference_tolerance(b, s, h, kv, hd):
+    """Rounding P to bf16 before P V, as the tensor-core kernel does, stays
+    within the reference's bf16 tolerance (2e-2) of its plain version and of
+    its Pallas kernel in interpret mode: the card tests hold the kernel to
+    that tolerance."""
+    jx, tx = _as(_inputs(b, s, h, kv, hd), "bfloat16")
+    got = _f32(_attention_p_in_bf16(*tx))
+    np.testing.assert_allclose(got, _f32(R.mha_ref(*tx)), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(got, _f32(ref_ops.mha(*jx, use_kernel=True, interpret=True)), rtol=2e-2, atol=2e-2)

@@ -177,3 +177,77 @@ def test_cuda_attention_wrappers_refuse_what_the_kernels_do_not_take():
         DK.flash_decode(_normal((1, 64, 4), torch.bfloat16, 6).transpose(1, 2), k, k, 8)
     with pytest.raises(TypeError):
         DK.flash_decode(qd.float(), k, k, 8)
+
+
+# the bf16 tensor-core attention kernel over its cases: hd (64- and
+# 128-wide instances, zero-filled columns), ragged S around the 128-row
+# tile, and q heads per kv head
+TC_HDS = [32, 64, 72, 128]
+TC_LENGTHS = [1, 63, 64, 65, 300, 1000, 2048]
+TC_GROUPS = [1, 3, 4]
+
+
+@needs_card
+@pytest.mark.parametrize("g", TC_GROUPS)
+@pytest.mark.parametrize("s", TC_LENGTHS)
+@pytest.mark.parametrize("hd", TC_HDS)
+def test_cuda_bf16_attention_matches_plain_version(hd, s, g):
+    from repro_torch.kernels.attention import kernel as AK, ref as AR
+
+    b, kv = (2, 2) if s <= 300 else (1, 2)
+    q = _normal((b, s, kv * g, hd), torch.bfloat16, 0)
+    k, v = _normal((b, s, kv, hd), torch.bfloat16, 1), _normal((b, s, kv, hd), torch.bfloat16, 2)
+    got = AK.flash_attention(q, k, v)
+    torch.testing.assert_close(got.float(), AR.mha_ref(q, k, v).float(), rtol=2e-2, atol=2e-2)
+
+
+@needs_card
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_bf16_attention_reads_strided_views(hd):
+    """q, k and v as slices of one fused [B, S, H + 2 Kv, hd] buffer, as a
+    head-major [B, H, S, hd] tensor seen as [B, S, H, hd], and as
+    ``cache[:, :s]`` views of a [B, S_max, Kv, hd] cache: each gives what
+    contiguous copies give."""
+    from repro_torch.kernels.attention import kernel as AK, ref as AR
+
+    b, s, h, kv, s_max = 2, 333, 6, 2, 700
+    fused = _normal((b, s, h + 2 * kv, hd), torch.bfloat16, 0)
+    q, k, v = fused[:, :, :h], fused[:, :, h:h + kv], fused[:, :, h + kv:]
+    want = AR.mha_ref(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(AK.flash_attention(q, k, v).float(), want.float(), rtol=2e-2, atol=2e-2)
+    qt = _normal((b, h, s, hd), torch.bfloat16, 1).transpose(1, 2)
+    kt, vt = (_normal((b, kv, s, hd), torch.bfloat16, i).transpose(1, 2) for i in (2, 3))
+    want = AR.mha_ref(qt.contiguous(), kt.contiguous(), vt.contiguous())
+    torch.testing.assert_close(AK.flash_attention(qt, kt, vt).float(), want.float(), rtol=2e-2, atol=2e-2)
+    kc, vc = _normal((b, s_max, kv, hd), torch.bfloat16, 4), _normal((b, s_max, kv, hd), torch.bfloat16, 5)
+    q = _normal((b, s, h, hd), torch.bfloat16, 6)
+    want = AR.mha_ref(q, kc[:, :s].contiguous(), vc[:, :s].contiguous())
+    torch.testing.assert_close(AK.flash_attention(q, kc[:, :s], vc[:, :s]).float(), want.float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+# flash decode over lengths around its 64-position tile and split edges,
+# and q heads per kv head
+DECODE_LENGTHS = [0, 1, 63, 64, 65, 700, 2176]
+DECODE_GROUPS = [1, 3, 4, 8]
+
+
+@needs_card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", DECODE_GROUPS)
+@pytest.mark.parametrize("length", DECODE_LENGTHS)
+def test_cuda_flash_decode_lengths_and_groups(length, g, dtype):
+    from repro_torch.kernels.decode import kernel as DK, ref as DR
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, kv, hd, s_max = 2, 2, 128, 2176
+    q = _normal((b, kv * g, hd), dtype, 0)
+    kc, vc = _normal((b, s_max, kv, hd), dtype, 1), _normal((b, s_max, kv, hd), dtype, 2)
+    out, m, l = DK.flash_decode(q, kc, vc, length)
+    want = DR.decode_attention_ref(q, kc, vc, length)
+    tol = DECODE_TOLS[dtype]
+    torch.testing.assert_close(out.float(), want[0].float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(m, want[1], rtol=tol, atol=tol)
+    torch.testing.assert_close(l, want[2], rtol=tol, atol=tol)
+    if length == 0:
+        assert not out.any() and bool((m == -1e30).all()) and not l.any()

@@ -85,3 +85,40 @@ def test_length_zero_gives_the_pallas_kernels_empty_result():
     np.testing.assert_array_equal(out.reshape(4, 32).numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(m.reshape(-1).numpy(), np.asarray(want[1]))
     np.testing.assert_array_equal(l.reshape(-1).numpy(), np.asarray(want[2]))
+
+
+# -- how the decode kernel cuts its work (plain Python) ------------------------
+
+from repro_torch.kernels.decode import kernel as K  # noqa: E402
+
+SERVING = dict(b=8, kv=8, h=24, length=2176, n_sm=132)
+
+
+@pytest.mark.parametrize("length", [0, 1, 63, 64, 65, 700, 2176, 10_000])
+@pytest.mark.parametrize("b,kv,h", [(8, 8, 24), (1, 2, 2), (2, 2, 16), (4, 1, 4)])
+def test_splits_cover_every_position_exactly_once(b, kv, h, length):
+    splits = K.splits_for(b, kv, h, length, 132)
+    chunk = K.split_chunk(length, splits)
+    assert splits >= 1 and chunk % K.TILE == 0 and chunk >= K.TILE
+    covered = np.zeros(length, dtype=int)
+    for i in range(splits):
+        covered[i * chunk:min((i + 1) * chunk, length)] += 1
+    assert (covered == 1).all()
+    assert splits <= max(1, -(-length // K.TILE))  # no split without a tile to read
+
+
+def test_splits_fill_two_waves_at_the_serving_shape():
+    s = SERVING
+    splits = K.splits_for(s["b"], s["kv"], s["h"], s["length"], s["n_sm"])
+    g = s["h"] // s["kv"]
+    blocks = splits * s["b"] * s["kv"] * (g // K.head_group(g))
+    assert blocks >= K.MIN_WAVES * K.BLOCKS_PER_SM * s["n_sm"] == 528
+    # every split has positions to read
+    assert (splits - 1) * K.split_chunk(s["length"], splits) < s["length"]
+
+
+@pytest.mark.parametrize("g", range(1, 33))
+def test_head_group_divides_g_with_no_dead_slot(g):
+    n = K.head_group(g)
+    assert 1 <= n <= K.MAX_GROUP and g % n == 0
+    assert all(g % m for m in range(n + 1, K.MAX_GROUP + 1))
