@@ -9,7 +9,11 @@ the kernels build for sm_90a). Phases, each printed as it ends:
 1. build the fused-IGD CUDA kernels from src/repro_torch/kernels/igd_fused/csrc;
 2. hold each kernel against its plain PyTorch version on the card, for the
    three losses (rtol=2e-4, atol=2e-5, the reference's kernel tolerance;
-   TF32 off for matmuls and cuDNN);
+   TF32 off for matmuls and cuDNN); igd_fold also at the shapes that cut
+   its 32-row sub-tile and cross its D = 256 instance boundary, there held
+   to both the per-row fold and the tiled fold (ref.igd_fold_tiled_ref) on
+   the CPU, and on a 65,536-row Forest prefix to a float64 fold on the CPU
+   (beside the per-row float32 fold's distance from it);
 3. run the engine end to end on a Forest-shaped table (581,012 x 54 f32,
    UCI Covertype's shape, label-clustered, generated on the card from
    --seed): logreg with no hints (the probe-priced plan must choose
@@ -18,7 +22,8 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    cuda_minibatch by hint; then a small-input agreement check against the
    eager fold on the CPU;
 4. time each kernel at the main path's shape with CUDA events, beside its
-   plain version and its bound;
+   plain version and its bound; igd_fold also beside its chain floor (N
+   times one grad_scale + FMA step timed alone in one warp);
 5. build the flash-attention and flash-decode CUDA kernels from
    src/repro_torch/kernels/{attention,decode}/csrc (all three sources are
    compiled at once, one nvcc each, when the script starts);
@@ -63,6 +68,9 @@ FOREST_ROWS, FOREST_DIM = 581_012, 54  # UCI Covertype (paper Table 1)
 FOLD_PREFIX = 16_384  # rows the per-row plain fold is held to on the card
 # N not a multiple of 256, D not of 128; one warp, then 8 and 16 warps
 RAGGED = ((3_001, 77), (777, 1_500), (257, 4_096))
+# igd_fold: N around its 32-row sub-tile, D on both sides of its instance boundary
+FOLD_SHAPES = tuple((n, d) for n in (1, 31, 33, 16_385) for d in (54, 128, 256, 257))
+F64_PREFIX = 65_536  # rows the kernel is held to a float64 fold on
 KERNEL_RTOL, KERNEL_ATOL = 2e-4, 2e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -139,6 +147,37 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def sm_clocks_during(fn, launches: int) -> str:
+    """nvidia-smi's SM clock (and the reasons it reports for holding it
+    down) sampled while ``fn`` runs ``launches`` times back to back."""
+    import threading
+
+    fields = "clocks.sm,power.draw,clocks_event_reasons.active"
+    try:
+        smi(fields)
+    except subprocess.CalledProcessError:
+        fields = "clocks.sm,power.draw"
+    samples, done = [], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            samples.append(smi(fields))
+
+    torch.cuda.synchronize()
+    thread = threading.Thread(target=sample)
+    thread.start()
+    for _ in range(launches):
+        fn()
+    torch.cuda.synchronize()
+    done.set()
+    thread.join()
+    mhz = sorted(float(line.split(",")[0].split()[0]) for line in samples)
+    if not mhz:
+        return "no sample"
+    return (f"{len(mhz)} samples ({fields}), SM clock min {mhz[0]:.0f} / median {mhz[len(mhz) // 2]:.0f} / "
+            f"max {mhz[-1]:.0f} MHz; last sample: {samples[-1]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -198,6 +237,31 @@ def main() -> int:
     log("parity", f"igd_fold max |err| {errs['igd_fold']:.3g} ({FOLD_PREFIX}x{FOREST_DIM} prefix, {shapes}), "
         f"igd_fold_minibatch max |err| {errs['igd_fold_minibatch']:.3g} ({FOREST_ROWS}x{FOREST_DIM}, {shapes}); "
         f"lr, svm, lsq within rtol={KERNEL_RTOL}, atol={KERNEL_ATOL}")
+    # the sub-tile's edges and the instance boundary, against both plain folds on the CPU
+    fold_errs = {"per-row": 0.0, "tiled": 0.0}
+    for n, d in FOLD_SHAPES:
+        args_ = inputs(gen, n, d, dev)
+        on_cpu = [t.cpu() for t in args_]
+        for loss in LOSSES:
+            got = K.igd_fold(*args_, loss=loss).cpu()
+            for name, plain in (("per-row", R.igd_fold_ref), ("tiled", R.igd_fold_tiled_ref)):
+                fold_errs[name] = max(fold_errs[name], max_err(
+                    got, plain(*on_cpu, loss=loss), f"igd_fold {loss} {n}x{d} vs the {name} fold"))
+    errs["igd_fold"] = max(errs["igd_fold"], *fold_errs.values())
+    log("parity", f"igd_fold at N in (1, 31, 33, 16385) x D in (54, 128, 256, 257), lr, svm, lsq: max |err| "
+        f"{fold_errs['per-row']:.3g} against the per-row fold, {fold_errs['tiled']:.3g} against the tiled fold")
+    # a longer prefix against float64: the per-row float32 fold drifts from it
+    # with N (it rounds w every row), so the kernel is held to float64 here
+    xf, yf, af = (t[:F64_PREFIX] for t in (x, y, alpha))
+    f64 = [t.cpu().double() for t in (xf, yf, af, w0)]
+    f32 = [t.cpu() for t in (xf, yf, af, w0)]
+    for loss in LOSSES:
+        exact = R.igd_fold_ref(*f64, loss=loss)
+        got = K.igd_fold(xf, yf, af, w0, loss=loss).cpu().double()
+        per_row = R.igd_fold_ref(*f32, loss=loss).double()
+        err = max_err(got, exact, f"igd_fold {loss} {F64_PREFIX}x{FOREST_DIM} vs a float64 fold")
+        log("parity", f"igd_fold {loss} {F64_PREFIX}x{FOREST_DIM} Forest prefix: kernel vs float64 fold "
+            f"max |dw| {err:.3g}; per-row float32 fold vs float64 fold {float((per_row - exact).abs().max()):.3g}")
 
     # -- 3. the main path, end to end --------------------------------------
     eng = engine.Engine()
@@ -274,8 +338,10 @@ def main() -> int:
     # -- 4. timings at the main path's shape -------------------------------
     n, d = FOREST_ROWS, FOREST_DIM
     io_bytes = n * (d + 2) * 4 + 2 * d * 4
+    fold_calls = [event_ms(lambda: K.igd_fold(x, y, alpha, w0, loss="lr"), 1) for _ in range(5)]
+    clocks = sm_clocks_during(lambda: K.igd_fold(x, y, alpha, w0, loss="lr"), 30)
     ms = {
-        "igd_fold": event_ms(lambda: K.igd_fold(x, y, alpha, w0, loss="lr"), 5),
+        "igd_fold": sum(fold_calls) / len(fold_calls),
         "igd_fold_minibatch": event_ms(lambda: K.igd_fold_minibatch(x, y, alpha, w0, loss="lsq"), 10),
     }
     plain_ms = {
@@ -304,15 +370,21 @@ def main() -> int:
             f"plain {plain_ms[name]:.2f} ms on {plain_rows} rows ({plain_ms[name] * 1e3 / plain_rows:.3f} us/row); "
             f"bound {max(bytes_ms, ops_ms):.4f} ms (bytes {io_bytes} at 3.35 TB/s: {bytes_ms:.4f} ms; "
             f"fp32 ops at 67 TFLOP/s: {ops_ms:.4f} ms)")
-    # the chain: per row, ceil(D/32) dependent FMAs, 5 shuffle+add steps and
-    # the axpy FMA at >= 4 cycles each (the loss scale's ops left out)
-    vpl = 1
-    while 32 * vpl < d:
-        vpl *= 2
-    chain_ms = n * (vpl + 2 * 5 + 1) * 4 / (clock_mhz * 1e6) * 1e3
-    log("timing", f"igd_fold serial chain: {ms['igd_fold'] * 1e-3 * clock_mhz * 1e6 / n:.0f} SM cycles/row "
-        f"measured at the {clock_mhz:.0f} MHz max SM clock; chain floor (model, {vpl + 11} dependent "
-        f"ops x 4 cycles) {chain_ms:.3f} ms vs the bytes' {io_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    # the chain floor: the tiled kernel's serial work a row (grad_scale, the
+    # multiply by alpha, one FMA) timed alone in one warp, clock64 and events
+    floor_cycles, floor_s = K.chain_probe("lr")
+    floor_ms = n * floor_s * 1e3
+    clock_run = floor_cycles / floor_s / 1e6  # MHz the probe ran at
+    row_cycles = ms["igd_fold"] * 1e-3 * clock_run * 1e6 / n
+    kernels[0].update(chain_floor_ms=floor_ms, cycles_per_row=row_cycles)
+    log("timing", f"igd_fold (lr, {n}x{d}): {ms['igd_fold']:.4f} ms/launch (5 calls: "
+        f"{', '.join(f'{t:.4f}' for t in fold_calls)}); chain floor {floor_ms:.3f} ms = {n} rows x "
+        f"{floor_cycles:.1f} cycles (grad_scale + FMA timed alone in one warp, {floor_s * 1e9:.2f} ns a step), "
+        f"{floor_ms / ms['igd_fold']:.3f} of the kernel's time; the SM ran the probe at {clock_run:.0f} MHz "
+        f"(max {clock_mhz:.0f}): the kernel takes {row_cycles:.1f} cycles/row at that clock, "
+        f"{ms['igd_fold'] * 1e-3 * clock_mhz * 1e6 / n:.1f} at the max; bytes "
+        f"{io_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {card}")
+    log("timing", f"igd_fold: nvidia-smi during 30 more launches: {clocks}")
     log("timing", "library_ms: none — no single PyTorch call computes a serial IGD fold or the "
         "tile-serial minibatch fold")
 

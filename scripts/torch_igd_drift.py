@@ -1,0 +1,61 @@
+#!/usr/bin/env python3
+"""How far the per-row and the tiled float32 IGD folds land from a float64 fold.
+
+    PYTHONPATH=src python scripts/torch_igd_drift.py [--rows N] [--seed S]
+
+Runs on the CPU, with the port's plain versions: ``igd_fold_ref`` (one
+rounding of w per row, the per-row kernel's order) and ``igd_fold_tiled_ref``
+(the tiled CUDA kernel's algebra: w rounded once per 32-row tile), both in
+float32, against ``igd_fold_ref`` in float64 on the same inputs. The data
+follow ``dense_classification``'s recipe in numpy at the Forest shape
+(581,012 x 54 by default), shuffled, with logreg's step sizes
+diminishing(0.5, decay=N) and w0 = 0; the loss is lr. Prints max |dw| for
+each float32 fold and for the two against each other. The default size
+takes a few minutes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch.kernels.igd_fused import ref as R  # noqa: E402
+
+
+def forest_like(n: int, d: int, seed: int):
+    r = np.random.default_rng(seed)
+    w_true = r.normal(size=d) / np.sqrt(d)
+    y = np.concatenate([np.ones(n // 2), -np.ones(n - n // 2)])
+    x = r.normal(size=(n, d)) / np.sqrt(d)
+    x += ((y - x @ w_true) / np.sum(w_true**2))[:, None] * w_true[None, :]
+    x += 0.5 * r.normal(size=(n, d)) / np.sqrt(d)
+    perm = r.permutation(n)
+    alpha = np.float32(0.5) / (np.float32(1.0) + np.arange(n, dtype=np.float32) / np.float32(n))
+    return x[perm].astype(np.float32), y[perm].astype(np.float32), alpha, np.zeros(d, np.float32)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rows", type=int, default=581_012)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    torch.set_num_threads(1)
+    a = [torch.from_numpy(v) for v in forest_like(args.rows, 54, args.seed)]
+    exact = R.igd_fold_ref(*(t.double() for t in a), loss="lr")
+    per_row = R.igd_fold_ref(*a, loss="lr")
+    tiled = R.igd_fold_tiled_ref(*a, loss="lr")
+    print(f"{args.rows} x 54 Forest-shaped rows, lr, seed {args.seed}: max |dw| against the float64 fold: "
+          f"per-row float32 {float((per_row.double() - exact).abs().max()):.3g}, "
+          f"tiled float32 {float((tiled.double() - exact).abs().max()):.3g}; "
+          f"per-row against tiled {float((per_row - tiled).abs().max()):.3g}; max |w| {float(exact.abs().max()):.3g}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,24 +5,59 @@
 //   src/repro/kernels/igd_fused/kernel.py: igd_fold (_igd_kernel).
 //   Per row i: wx = w.x_i; margin = y_i*wx (lr, svm) or wx (lsq);
 //   c = grad_scale(margin, y_i) * alpha_i; w -= c * x_i.
-//   What bounds it: the serial dependency chain. Row i+1 reads the w that
-//   row i wrote, so the rows cannot run in parallel; one epoch over N rows
-//   is N trips through dot -> warp reduction -> loss scale -> axpy. The
-//   bytes (N*(D+2)*4) would take microseconds at 3.35 TB/s; the chain
-//   takes N * (a few hundred cycles).
-//   Design: one warp owns the whole fold and keeps w in registers
-//   (VPL = ceil(D/32) floats per lane), so the chain touches no memory
-//   but the row it reads. The dot ends in a __shfl_xor_sync butterfly,
-//   which leaves the bit-identical sum in every lane, so every lane
-//   computes c itself and no barrier sits on the chain. Rows, y and
+//   Row i+1 reads the w that row i wrote, so the rows cannot run in
+//   parallel. The bytes (N*(D+2)*4) would take microseconds at 3.35 TB/s;
+//   the serial chain takes N times its dependent latency. igd_fold_launch
+//   picks one of two instances by D.
+//
+//   D <= 256: tiled Gram look-ahead (igd_fold_gram_kernel). Inside a
+//   sub-tile of T = 32 rows that starts from w_0,
+//     w_i = w_0 - sum_{k<i} c_k x_k,  so  w_i.x_i = p_i - sum_{k<i} c_k G_ki
+//   with p = X_T w_0 and G = X_T X_T^T. p and G do not depend on the
+//   chain, so the serial work left is a scalar recurrence over T values:
+//   c_k = grad_scale(r_k, y_k) * alpha_k, then r_j -= c_k G_kj for j > k.
+//   What bounds it: that recurrence, i.e. the dependent latency of
+//   grad_scale (for lr __expf and an approximate reciprocal, see
+//   grad_scale_fast) and one FMA a row, not bytes, once the rest of the
+//   block keeps up with it.
+//   Design: one block of 8 warps; rows, y and alpha stream into shared
+//   memory through cp.async double-buffered stages (a multiple of T rows,
+//   rows padded to a stride whose 16-byte slots miss each other's banks;
+//   the pad columns hold zeros, so the dots need no masks), a warp a row
+//   and a lane a column (8-byte copies for even D), with no arithmetic a
+//   float beyond an address.
+//   Warp 0 runs the chain: lane j holds r_j; every lane computes the same
+//   c_k bit for bit and lane j applies its FMA with G_kj. The broadcast of
+//   r_k+1 is taken from lane k+1 a step early, during grad_scale, and
+//   finished with one FMA by G_k,k+1. The loop is unrolled by 8, not in
+//   full, so that it stays in the instruction cache; each step loads the
+//   next step's operands ahead. While warp 0 runs sub-tile s, the helpers
+//   prepare s+1 without touching the chain: four product warps form
+//   G_{s+1} and C_{s+1} = X_{s+1} X_s^T (4 x 4 register blocks a lane),
+//   and three vector warps apply c_{s-1} to w (one thread per column, the
+//   sum taken first in row order, so w is rounded once a sub-tile), form
+//   q_{s+1} = X_{s+1} w and move the stages. Warp 0 then starts s+1 from
+//   p_{s+1} = q_{s+1} - C_{s+1} c_s: one block barrier a sub-tile, and no
+//   w update or dot between two chains.
+//   Numerics: on 581,012 Forest-shaped rows (lr), this fold is nearer a
+//   float64 fold than the per-row float32 fold is, because the per-row
+//   fold rounds w at every row; ref.igd_fold_tiled_ref is its plain
+//   version, and the tests hold it to the per-row fold and a float64 one.
+//
+//   D > 256: the per-row chain. One warp owns the fold and keeps w in
+//   registers (VPL = ceil(D/32) floats per lane), so the chain touches no
+//   memory but the row it reads. The dot ends in a __shfl_xor_sync
+//   butterfly, which leaves the bit-identical sum in every lane, so every
+//   lane computes c itself and no barrier sits on the chain. Rows, y and
 //   alpha stream into shared memory ahead of use with cp.async double
-//   buffering, so the chain never waits on device memory. The kernel
-//   loops over exactly N rows and masks the lanes past D: no padding.
-//   Past one warp's reach (D > 1024) the block has 8 or 16 warps and the
-//   warps' partial dots meet in shared memory, one block barrier per row
-//   (two alternating slots, so one barrier suffices); D <= 4096.
-//   One block means 131 of 132 SMs idle; filling the card needs many
-//   independent folds (fused serving lanes, sharded segments), which
+//   buffering. Past one warp's reach (D > 1024) the block has 8 or 16
+//   warps and the warps' partial dots meet in shared memory, one block
+//   barrier per row (two alternating slots, so one barrier suffices);
+//   D <= 4096.
+//
+//   Both loop over exactly N rows and take D as it is: no padding of the
+//   inputs. One block means 131 of 132 SMs idle; filling the card needs
+//   many independent folds (fused serving lanes, sharded segments), which
 //   later slices bring.
 //
 // igd_fold_minibatch — replaces the Pallas TPU kernel
@@ -40,7 +75,11 @@
 //   its real rows and still divides by 256, which is the reference's
 //   padded semantics.
 //
-// Neither kernel allocates; both launch on the caller's stream. Each C
+// igd_chain_probe_kernel is no port of a TPU kernel: it times the tiled
+// instance's dependent chain alone (clock64 around grad_scale_fast + FMA
+// in one warp), which chip_smoke.py reports as igd_fold's floor.
+//
+// No kernel allocates; all launch on the caller's stream. Each C
 // entry returns cudaGetLastError() (or cudaErrorInvalidValue for
 // arguments the kernels do not take).
 
@@ -60,6 +99,17 @@ constexpr int kFoldMaxDim = 16 * kWarp * kWideVpl;  // 16 warps: D <= 4096
 constexpr int kStageFloatBudget = 6000;  // per stage; two stages + partials < 48 KB
 constexpr int kTile = 256;               // minibatch rows per step
 constexpr int kMinibatchMaxDim = 12288 - kTile;  // w + c in 48 KB
+constexpr int kGramMaxDim = 256;         // tiled Gram instance: one column a thread
+constexpr int kSub = 32;                 // T: rows a sub-tile, one a lane of the chain warp
+constexpr int kGramWarps = 8;            // warp 0 runs the chain, warps 1-7 help
+constexpr int kGramThreads = kWarp * kGramWarps;
+constexpr int kHelperThreads = kGramThreads - kWarp;
+constexpr int kVectorWarps = 3;         // warps 4, 6, 7: loads, the w update, q
+constexpr int kVectorThreads = kVectorWarps * kWarp;
+constexpr int kProductRows = kSub + 1;   // the look-ahead product: C's 32 rows, then q
+constexpr int kGramStageFloats = 24576;  // per stage (96 KB): two stages + G, P, w, c < 227 KB
+constexpr int kGramMaxTileRows = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
 // d loss / d (w.x), given wx = w.x (the kernel forms the margin itself).
 template <int LOSS>
@@ -68,6 +118,18 @@ __device__ __forceinline__ float grad_scale(float wx, float y) {
   const float m = y * wx;
   if (LOSS == kLossLr) return -y * (1.0f / (1.0f + expf(m)));  // -y*sigmoid(-m)
   return m < 1.0f ? -y : 0.0f;
+}
+
+// grad_scale for the tiled instance's chain: lr takes __expf and an
+// approximate reciprocal (__fdividef: MUFU.RCP, within 2 ulp) where
+// grad_scale takes IEEE expf and division. Measured on the H100, it cuts
+// the chain's dependent latency by a third, and the fold stays within the
+// reference's kernel tolerance of the per-row and float64 folds
+// (chip_smoke.py, tests/test_torch_cuda.py). svm and lsq are unchanged.
+template <int LOSS>
+__device__ __forceinline__ float grad_scale_fast(float wx, float y) {
+  if (LOSS == kLossLr) return -y * __fdividef(1.0f, 1.0f + __expf(y * wx));
+  return grad_scale<LOSS>(wx, y);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -94,6 +156,20 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A barrier of the helper warps alone (id 1; __syncthreads is id 0).
+__device__ __forceinline__ void helpers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kHelperThreads) : "memory");
+}
+
+// A barrier of the vector warps alone (id 2).
+__device__ __forceinline__ void vector_sync() {
+  asm volatile("bar.sync 2, %0;\n" ::"n"(kVectorThreads) : "memory");
+}
+
 // The block's threads copy rows [row0, row0 + rows) of x, y and alpha into a
 // shared-memory stage laid out as x[tile_rows * d] | y[tile_rows] |
 // alpha[tile_rows]. With vec set, x and the stage are 16-byte aligned
@@ -117,6 +193,38 @@ __device__ __forceinline__ void load_stage(float* stage, const float* x,
   for (int i = tid; i < rows; i += nt) {
     cp_async4(ys + i, y + row0 + i);
     cp_async4(as + i, alpha + row0 + i);
+  }
+}
+
+__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+
+// The tiled instance's stage load, by the vector warps: rows [row0, row0 +
+// rows) of x into a stage laid out as x[tile_rows][ld] | y[tile_rows] |
+// alpha[tile_rows], a warp a row and a lane a column, two columns (8 bytes)
+// a copy when D is even and x 8-byte aligned. The pad columns [d, ld) are
+// not written. No division a float: the loads' issue stays off the steps.
+__device__ __forceinline__ void load_rows(float* stage, const float* x, const float* y,
+                                          const float* alpha, long long row0, int rows, int d,
+                                          int ld, int tile_rows, bool pairs, int vw, int lane) {
+  const float* src = x + row0 * d;
+  if (pairs) {
+#pragma unroll 4
+    for (int r = vw; r < rows; r += kVectorWarps) {
+      for (int c = 2 * lane; c < d; c += 2 * kWarp) cp_async8(stage + r * ld + c, src + r * d + c);
+    }
+  } else {
+#pragma unroll 4
+    for (int r = vw; r < rows; r += kVectorWarps) {
+      for (int c = lane; c < d; c += kWarp) cp_async4(stage + r * ld + c, src + r * d + c);
+    }
+  }
+  float* ys = stage + tile_rows * ld;
+  for (int i = vw * kWarp + lane; i < rows; i += kVectorWarps * kWarp) {
+    cp_async4(ys + i, y + row0 + i);
+    cp_async4(ys + tile_rows + i, alpha + row0 + i);
   }
 }
 
@@ -207,6 +315,264 @@ __global__ void __launch_bounds__(kWarp * WARPS)
   }
 }
 
+// A 16 x 32 block of a product of two sub-tiles, by one warp:
+// out[k][j] = a_k . b_j for k < 16 (rows of xa) and j < 32 (rows of xb),
+// over the first dp columns (the pad columns are zero). Lane (a, b) =
+// (lane % 8, lane / 8) keeps the 4 x 4 sums k in {b, b+4, b+8, b+12},
+// j in {a, a+8, a+16, a+24}: per 4 columns, 8 LDS.128 feed 64 FMAs, and
+// the rows a lane reads fall in distinct 16-byte bank groups (the row
+// stride is an odd multiple of 16 bytes), so each load is one wavefront.
+__device__ __forceinline__ void product_block(const float* xa, const float* xb, float* out,
+                                              int dp, int ld, int lane) {
+  const int a = lane & 7, b = lane >> 3;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+#pragma unroll 2  // one step's loads beside the other's FMAs
+  for (int c = 0; c < dp; c += 4) {
+    float4 ak[4], bj[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ak[i] = *reinterpret_cast<const float4*>(xa + (b + 4 * i) * ld + c);
+      bj[i] = *reinterpret_cast<const float4*>(xb + (a + 8 * i) * ld + c);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(ak[i].x, bj[j].x, acc[i][j]);
+        acc[i][j] = fmaf(ak[i].y, bj[j].y, acc[i][j]);
+        acc[i][j] = fmaf(ak[i].z, bj[j].z, acc[i][j]);
+        acc[i][j] = fmaf(ak[i].w, bj[j].w, acc[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[(b + 4 * i) * kSub + a + 8 * j] = acc[i][j];
+  }
+}
+
+// q = X_T w for the sub-tile at xs, by one warp: lane j's row . w.
+__device__ __forceinline__ float row_dot(const float* xs, const float* ws, int dp, int ld,
+                                         int lane) {
+  const float* xr = xs + lane * ld;
+  float acc = 0.0f;
+  for (int c = 0; c < dp; c += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(xr + c);
+    const float4 b = *reinterpret_cast<const float4*>(ws + c);
+    acc = fmaf(a.x, b.x, acc);
+    acc = fmaf(a.y, b.y, acc);
+    acc = fmaf(a.z, b.z, acc);
+    acc = fmaf(a.w, b.w, acc);
+  }
+  return acc;
+}
+
+// The scalar recurrence of one sub-tile, in warp 0, from r = p (lane j
+// holds r_j). Every lane holds the final r_k and computes the same c_k;
+// lane j then subtracts c_k G_kj (lanes j <= k update a value no step
+// reads again). The broadcast is off the chain: r_k+1 less its last term
+// was shuffled from lane k+1 during step k-1's grad_scale, so step k ends
+// with r_k+1 = that - c_k G_k,k+1, one FMA. The loop is unrolled by 8,
+// not in full: 32 steps of grad_scale would not stay in the instruction
+// cache, and a fetch on the chain costs more than the step. So each step loads
+// the next step's G_k+1,j, G_k+1,k+2, y and alpha ahead of use. Writes c
+// to cs[0..31] (0 past m).
+template <int LOSS>
+__device__ __forceinline__ void chain(float r, const float* gram, const float* ys,
+                                      const float* as, float* cs, int m, int lane) {
+  float gk = gram[lane], sk = gram[1], yk = ys[0], ak = as[0], mine = 0.0f;
+  float rk = __shfl_sync(kFull, r, 0);
+  float ahead = __shfl_sync(kFull, r, 1);
+#pragma unroll 8
+  for (int k = 0; k < m; ++k) {
+    // k + 1 <= 32: past the last step these read G's other buffer and the
+    // stage's next y and alpha, within shared memory and never used
+    const float* next = gram + (k + 1) * kSub;
+    const float gn = next[lane], sn = next[k + 2], yn = ys[k + 1], an = as[k + 1];
+    const float c = grad_scale_fast<LOSS>(rk, yk) * ak;
+    r = fmaf(-c, gk, r);
+    rk = fmaf(-c, sk, ahead);
+    ahead = __shfl_sync(kFull, r, k + 2);
+    if (lane == k) mine = c;
+    gk = gn;
+    sk = sn;
+    yk = yn;
+    ak = an;
+  }
+  cs[lane] = mine;
+}
+
+// w -= X_T^T c over the first m rows of a sub-tile, for the columns
+// first, first + step, ... < d: the sum first, in row order, then one
+// rounding of w.
+__device__ __forceinline__ void apply_step(float* ws, const float* xs, const float* cs, int m,
+                                           int d, int ld, int first, int step) {
+  for (int j = first; j < d; j += step) {
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int k = 0; k < m; ++k) acc = fmaf(cs[k], xs[k * ld + j], acc);
+    ws[j] -= acc;
+  }
+}
+
+// Smem: two stages of stage_floats (x rows at stride ld, then y, alpha);
+// G [2][32][32]; P [2][33][32], the look-ahead product (rows 0-31:
+// C = X_next X_T^T, row 32: q = X_next w); w [ld]; c [2][32]. G, P and c
+// are double-buffered: warp 0 reads one while the helpers fill the other.
+//
+// Step s (s = -1 only prepares sub-tile 0): warp 0 turns q and C c_{s-1}
+// into p_s = X_s w_s (w_s is w after sub-tile s-1), then runs the chain,
+// writing c_s. Meanwhile the product warps (1, 2, 3, 5: not 4, which
+// shares warp 0's scheduler) form G_{s+1} and C_{s+1} = X_{s+1} X_s^T, 16
+// rows each, and the vector warps (4, 6, 7) apply c_{s-1} to w (w_s),
+// issue the stage loads and form q_{s+1} = X_{s+1} w_s, so that
+// p_{s+1} = q_{s+1} - C_{s+1} c_s. One block barrier a step.
+template <int LOSS>
+__global__ void __launch_bounds__(kGramThreads)
+    igd_fold_gram_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                         const float* __restrict__ alpha, const float* __restrict__ w0,
+                         float* __restrict__ wout, long long n, int d, int ld, int tile_rows,
+                         int stage_floats, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* gram = smem + 2 * stage_floats;
+  float* prod = gram + 2 * kSub * kSub;
+  float* ws = prod + 2 * kProductRows * kSub;
+  float* cs = ws + ld;
+  const int tid = threadIdx.x;
+  const int warp = tid / kWarp;
+  const int lane = tid % kWarp;
+  const int pw = warp >= 1 && warp <= 3 ? warp - 1 : (warp == 5 ? 3 : -1);  // product warp
+  const int vw = warp == 4 ? 0 : (warp >= 6 ? warp - 5 : -1);               // vector warp
+  const int vtid = vw * kWarp + lane;
+  const int dp = (d + 3) & ~3;  // the dots run over dp columns; [d, dp) are zero
+
+  for (int i = tid; i < 2 * tile_rows * (ld - d); i += kGramThreads) {
+    const int rr = i / (ld - d);
+    smem[(rr / tile_rows) * stage_floats + (rr % tile_rows) * ld + d + i % (ld - d)] = 0.0f;
+  }
+  for (int i = tid; i < ld; i += kGramThreads) ws[i] = i < d ? w0[i] : 0.0f;
+  for (int i = tid; i < 2 * kSub; i += kGramThreads) cs[i] = 0.0f;
+
+  const int n_sub = static_cast<int>((n + kSub - 1) / kSub);
+  const int n_stages = static_cast<int>((n + tile_rows - 1) / tile_rows);
+  auto rows_in = [&](int v) {
+    const long long left = n - static_cast<long long>(v) * tile_rows;
+    return static_cast<int>(left < tile_rows ? left : tile_rows);
+  };
+  auto load = [&](int v) {  // stage v, by the vector warps
+    const long long row0 = static_cast<long long>(v) * tile_rows;
+    load_rows(smem + (v & 1) * stage_floats, x, y, alpha, row0, rows_in(v), d, ld, tile_rows,
+              vec != 0, vw, lane);
+  };
+  // sub-tile s sits in stage u at row `base`; sub-tile t = s + 1 at (u1, base1)
+  int u = 0, base = -kSub, u1 = 0, base1 = 0;
+  __syncthreads();  // the pad columns, w and c are set
+  for (int s = -1; s < n_sub; ++s) {
+    const int t = s + 1;
+    const float* xs = smem + (u & 1) * stage_floats + base * ld;  // X_s (s >= 0)
+    const float* xt = smem + (u1 & 1) * stage_floats + base1 * ld;  // X_t (t < n_sub)
+    if (warp == 0) {
+      if (s >= 0) {
+        const float* pb = prod + (s & 1) * kProductRows * kSub;
+        float r = pb[kSub * kSub + lane];  // q_s
+        if (s > 0) {  // less C_s c_{s-1}
+          const float* cp = cs + ((s - 1) & 1) * kSub;
+          float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+#pragma unroll
+          for (int k = 0; k < kSub; k += 4) {
+            a0 = fmaf(pb[k * kSub + lane], cp[k], a0);
+            a1 = fmaf(pb[(k + 1) * kSub + lane], cp[k + 1], a1);
+            a2 = fmaf(pb[(k + 2) * kSub + lane], cp[k + 2], a2);
+            a3 = fmaf(pb[(k + 3) * kSub + lane], cp[k + 3], a3);
+          }
+          r -= (a0 + a1) + (a2 + a3);
+        }
+        const long long left = n - static_cast<long long>(s) * kSub;
+        const float* ys = smem + (u & 1) * stage_floats + tile_rows * ld + base;
+        chain<LOSS>(r, gram + (s & 1) * kSub * kSub, ys, ys + tile_rows,
+                    cs + (s & 1) * kSub, left < kSub ? static_cast<int>(left) : kSub, lane);
+      }
+    } else if (vw >= 0) {
+      if (s > 0) {  // w_s = w_{s-1} - X_{s-1}^T c_{s-1}
+        apply_step(ws, smem + ((base == 0 ? u - 1 : u) & 1) * stage_floats +
+                           (base == 0 ? tile_rows - kSub : base - kSub) * ld,
+                   cs + ((s - 1) & 1) * kSub, kSub, d, ld, vtid, kVectorThreads);
+        vector_sync();
+      }
+      if (s < 0) {
+        load(0);
+        cp_async_commit();
+        if (n_stages > 1) load(1);
+        cp_async_commit();  // possibly empty: keeps "wait for all but one" exact
+      } else if (base == 0 && u >= 1 && u + 1 < n_stages) {
+        load(u + 1);  // into stage u-1's buffer: its last reader was the update above
+        cp_async_commit();
+      }
+      if (t < n_sub && base1 == 0) {  // t opens stage u1: its loads are in flight
+        if (s < 0) {
+          cp_async_wait_one();
+        } else {
+          cp_async_wait_all();
+        }
+        helpers_sync();
+      }
+      if (vw == 0 && t < n_sub) prod[(t & 1) * kProductRows * kSub + kSub * kSub + lane] =
+          row_dot(xt, ws, dp, ld, lane);
+    } else {
+      if (t < n_sub && base1 == 0) helpers_sync();
+      if (t < n_sub) {  // G_t (product warps 0, 1) and C_t = X_t X_s^T (2, 3; unread for t = 0)
+        const int half = (pw & 1) * 16;
+        float* out = pw < 2 ? gram + (t & 1) * kSub * kSub : prod + (t & 1) * kProductRows * kSub;
+        product_block((pw < 2 || s < 0 ? xt : xs) + half * ld, xt, out + half * kSub, dp, ld,
+                      lane);
+      }
+    }
+    __syncthreads();  // c_s, G_t, C_t and q_t, and stage u1 are visible to all
+    u = u1;
+    base = base1;
+    base1 += kSub;
+    if (base1 == tile_rows) {
+      base1 = 0;
+      ++u1;
+    }
+  }
+
+  if (n_sub > 0) {  // the last sub-tile's step
+    const int last = (n_sub - 1) * kSub;
+    apply_step(ws, smem + ((last / tile_rows) & 1) * stage_floats + (last % tile_rows) * ld,
+               cs + ((n_sub - 1) & 1) * kSub, static_cast<int>(n - last), d, ld, tid,
+               kGramThreads);
+  }
+  __syncthreads();
+  for (int j = tid; j < d; j += kGramThreads) wout[j] = ws[j];
+}
+
+// Cycles of `steps` dependent steps of igd_fold_gram_kernel's chain,
+// c = grad_scale_fast(r) * alpha then r -= c * g, timed alone in one warp
+// (as the chain runs: every lane the same values). out[0] = cycles,
+// out[1] = the final r's bits (which keeps the loop).
+template <int LOSS>
+__global__ void igd_chain_probe_kernel(float r, float yv, float av, float gv, int steps,
+                                       long long* out) {
+  const long long t0 = clock64();
+#pragma unroll 8
+  for (int i = 0; i < steps; ++i) {
+    const float c = grad_scale_fast<LOSS>(r, yv) * av;
+    r = fmaf(-c, gv, r);
+  }
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) {
+    out[0] = t1 - t0;
+    out[1] = __float_as_int(r);
+  }
+}
+
 template <int LOSS>
 __global__ void __launch_bounds__(kTile)
     igd_minibatch_kernel(const float* __restrict__ x, const float* __restrict__ y,
@@ -264,10 +630,6 @@ cudaError_t launch_fold(int vpl, int warps, const float* x, const float* y,
         x, y, alpha, w0, wout, n, d, tile_rows, stage_floats, vec);             \
     return cudaGetLastError();                                                   \
   }
-  REPRO_FOLD_CASE(1, 1)
-  REPRO_FOLD_CASE(2, 1)
-  REPRO_FOLD_CASE(4, 1)
-  REPRO_FOLD_CASE(8, 1)
   REPRO_FOLD_CASE(16, 1)
   REPRO_FOLD_CASE(32, 1)
   REPRO_FOLD_CASE(kWideVpl, 8)
@@ -276,26 +638,34 @@ cudaError_t launch_fold(int vpl, int warps, const float* x, const float* y,
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-extern "C" {
-
-int igd_fused_fold_max_dim() { return kFoldMaxDim; }
-
-int igd_fused_minibatch_max_dim() { return kMinibatchMaxDim; }
-
-int igd_fused_tile() { return kTile; }
-
-const char* igd_fused_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+template <int LOSS>
+cudaError_t launch_gram(const float* x, const float* y, const float* alpha, const float* w0,
+                        float* wout, long long n, int d, cudaStream_t stream) {
+  int ld = (d + 3) & ~3;  // 16-byte rows at an odd multiple of 16 bytes: no bank conflicts
+  if ((ld / 4) % 2 == 0) ld += 4;
+  int tile_rows = kGramStageFloats / (ld + 2) / kSub * kSub;  // 64 or more for D <= 256
+  if (tile_rows > kGramMaxTileRows) tile_rows = kGramMaxTileRows;
+  const int stage_floats = (tile_rows * (ld + 2) + 3) / 4 * 4;
+  const int vec = d % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;  // 8-byte copies
+  const size_t smem = (2 * static_cast<size_t>(stage_floats) + 2 * kSub * kSub +
+                       2 * kProductRows * kSub + ld + 2 * kSub) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      igd_fold_gram_kernel<LOSS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  igd_fold_gram_kernel<LOSS><<<1, kGramThreads, smem, stream>>>(
+      x, y, alpha, w0, wout, n, d, ld, tile_rows, stage_floats, vec);
+  return cudaGetLastError();
 }
 
-int igd_fold_launch(const float* x, const float* y, const float* alpha, const float* w0,
-                    float* wout, long long n, int d, int loss, void* stream) {
-  if (n < 0 || d < 1 || d > kFoldMaxDim) return cudaErrorInvalidValue;
-  int vpl = 1, warps = 1;
+template <int LOSS>
+cudaError_t launch_fold_any(const float* x, const float* y, const float* alpha,
+                            const float* w0, float* wout, long long n, int d,
+                            cudaStream_t stream) {
+  if (d <= kGramMaxDim) return launch_gram<LOSS>(x, y, alpha, w0, wout, n, d, stream);
+  int vpl = kWarp, warps = 1;
   if (d <= kWarp * kFoldMaxVpl) {
-    while (vpl * kWarp < d) vpl *= 2;
+    vpl = d <= kWarp * 16 ? 16 : 32;
   } else {
     vpl = kWideVpl;
     warps = d <= 8 * kWarp * kWideVpl ? 8 : 16;
@@ -308,17 +678,58 @@ int igd_fold_launch(const float* x, const float* y, const float* alpha, const fl
                   ((static_cast<long long>(tile_rows) * d) % 4 == 0);
   const int stage_floats = (tile_rows * (d + 2) + 3) / 4 * 4;
   const size_t smem = (2 * static_cast<size_t>(stage_floats) + 2 * warps) * sizeof(float);
+  return launch_fold<LOSS>(vpl, warps, x, y, alpha, w0, wout, n, d, tile_rows, stage_floats,
+                           vec, smem, stream);
+}
+
+template <int LOSS>
+cudaError_t launch_chain_probe(int steps, long long* out, cudaStream_t stream) {
+  igd_chain_probe_kernel<LOSS><<<1, kWarp, 0, stream>>>(0.1f, 1.0f, 0.01f, 0.5f, steps, out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int igd_fused_fold_max_dim() { return kFoldMaxDim; }
+
+int igd_fused_gram_max_dim() { return kGramMaxDim; }
+
+int igd_fused_minibatch_max_dim() { return kMinibatchMaxDim; }
+
+int igd_fused_tile() { return kTile; }
+
+const char* igd_fused_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+int igd_fold_launch(const float* x, const float* y, const float* alpha, const float* w0,
+                    float* wout, long long n, int d, int loss, void* stream) {
+  if (n < 0 || d < 1 || d > kFoldMaxDim) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (loss) {
     case kLossLr:
-      return launch_fold<kLossLr>(vpl, warps, x, y, alpha, w0, wout, n, d, tile_rows,
-                                  stage_floats, vec, smem, s);
+      return launch_fold_any<kLossLr>(x, y, alpha, w0, wout, n, d, s);
     case kLossSvm:
-      return launch_fold<kLossSvm>(vpl, warps, x, y, alpha, w0, wout, n, d, tile_rows,
-                                   stage_floats, vec, smem, s);
+      return launch_fold_any<kLossSvm>(x, y, alpha, w0, wout, n, d, s);
     case kLossLsq:
-      return launch_fold<kLossLsq>(vpl, warps, x, y, alpha, w0, wout, n, d, tile_rows,
-                                   stage_floats, vec, smem, s);
+      return launch_fold_any<kLossLsq>(x, y, alpha, w0, wout, n, d, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int igd_chain_probe_launch(int loss, int steps, long long* out, void* stream) {
+  if (steps < 1) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (loss) {
+    case kLossLr:
+      return launch_chain_probe<kLossLr>(steps, out, s);
+    case kLossSvm:
+      return launch_chain_probe<kLossSvm>(steps, out, s);
+    case kLossLsq:
+      return launch_chain_probe<kLossLsq>(steps, out, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -21,6 +21,7 @@ from repro_torch.kernels._build import BUILD_DIR, NVCC_FLAGS, CudaLibrary  # noq
 
 TILE = 256  # examples per minibatch step (the reference's VMEM block)
 FOLD_MAX_DIM = 4096  # one warp up to 1024, then 8 or 16 warps
+FOLD_GRAM_MAX_DIM = 256  # igd_fold's tiled Gram instance; the per-row chain above it
 MINIBATCH_MAX_DIM = 12288 - TILE  # w and the tile's scales in 48 KB
 
 LOSS_IDS = {"lr": 0, "svm": 1, "lsq": 2}
@@ -45,12 +46,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i32
     lib.igd_fused_error_string.argtypes = [i32]
     lib.igd_fused_error_string.restype = ctypes.c_char_p
-    for name in ("igd_fused_fold_max_dim", "igd_fused_minibatch_max_dim",
-                 "igd_fused_tile"):
+    lib.igd_chain_probe_launch.argtypes = [i32, i32, ptr, ptr]
+    lib.igd_chain_probe_launch.restype = i32
+    for name in ("igd_fused_fold_max_dim", "igd_fused_gram_max_dim",
+                 "igd_fused_minibatch_max_dim", "igd_fused_tile"):
         getattr(lib, name).restype = i32
-    limits = (lib.igd_fused_fold_max_dim(), lib.igd_fused_minibatch_max_dim(),
-              lib.igd_fused_tile())
-    if limits != (FOLD_MAX_DIM, MINIBATCH_MAX_DIM, TILE):
+    limits = (lib.igd_fused_fold_max_dim(), lib.igd_fused_gram_max_dim(),
+              lib.igd_fused_minibatch_max_dim(), lib.igd_fused_tile())
+    if limits != (FOLD_MAX_DIM, FOLD_GRAM_MAX_DIM, MINIBATCH_MAX_DIM, TILE):
         raise RuntimeError(f"igd_fused library limits {limits} disagree with kernel.py")
 
 
@@ -103,7 +106,8 @@ def _launch(name: str, x, y, alpha, w0, loss: str):
 def igd_fold(x, y, alpha, w0, *, loss: str = "lr"):
     """Sequential IGD over all N rows of x [N, D] (D <= 4096) with per-row
     step sizes alpha [N], from w0 [D] -> final w [D]. Float32, CUDA,
-    contiguous."""
+    contiguous. The library picks the instance by D: the tiled Gram
+    look-ahead up to FOLD_GRAM_MAX_DIM, the per-row chain above it."""
     _check(x, y, alpha, w0, loss, FOLD_MAX_DIM)
     return _launch("igd_fold", x, y, alpha, w0, loss)
 
@@ -113,3 +117,27 @@ def igd_fold_minibatch(x, y, alpha, w0, *, loss: str = "lr"):
     is over TILE (rows past N add zero)."""
     _check(x, y, alpha, w0, loss, MINIBATCH_MAX_DIM)
     return _launch("igd_fold_minibatch", x, y, alpha, w0, loss)
+
+
+def chain_probe(loss: str = "lr", *, steps: int = 1 << 16, device=None):
+    """(SM cycles, seconds) per step of igd_fold's dependent chain (the
+    tiled instance's: grad_scale_fast, the multiply by alpha, one FMA),
+    timed alone in one warp: clock64 inside the kernel, CUDA events around
+    it (after a warm-up launch). A measurement probe, not a kernel of the
+    path: it counts no launch."""
+    lib = _load()
+    if loss not in LOSS_IDS:
+        raise ValueError(f"unknown loss {loss!r}; valid: {sorted(LOSS_IDS)}")
+    out = torch.zeros(2, dtype=torch.int64, device=device or "cuda")
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for timed in (False, True):
+            start.record(stream)
+            rc = lib.igd_chain_probe_launch(LOSS_IDS[loss], steps, out.data_ptr(), stream.cuda_stream)
+            end.record(stream)
+            if rc != 0:
+                raise RuntimeError(f"igd_chain_probe launch failed: CUDA error {rc} "
+                                   f"({lib.igd_fused_error_string(rc).decode()})")
+        end.synchronize()
+    return int(out[0]) / steps, start.elapsed_time(end) * 1e-3 / steps

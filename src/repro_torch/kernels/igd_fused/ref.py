@@ -29,6 +29,39 @@ def igd_fold_ref(x, y, alpha, w0, *, loss: str = "lr"):
     return w
 
 
+def igd_fold_tiled_ref(x, y, alpha, w0, *, loss: str = "lr", tile: int = 32):
+    """The same sequential fold, in the algebra and order of the CUDA
+    kernel's narrow instance (D <= 256). Inside a tile of T rows that
+    starts from w_t, w_i = w_t - sum_{k<i} c_k x_k, so row i's w.x is
+    p_i - sum_{k<i} c_k G_ki with p = X_T w_t and G = X_T X_T^T. Per tile:
+    p and G first, then the scalar recurrence (c_k from r_k, then
+    r_j -= c_k G_kj for j > k), then w -= X_T^T c with the sum taken
+    first, row by row in order, so w is rounded once a tile. p of the
+    next tile is formed before this tile's step is applied, as
+    X_next w_t - (X_next X_T^T) c. Only the tests and chip_smoke.py use
+    it; ``ops`` keeps ``igd_fold_ref`` for CPU tensors."""
+    w, prev = w0, None
+    for t0 in range(0, x.shape[0], tile):
+        xt, yt, at = x[t0:t0 + tile], y[t0:t0 + tile], alpha[t0:t0 + tile]
+        if prev is None:
+            r = xt @ w
+        else:
+            xp, cp, wp = prev
+            r = xt @ wp - (xt @ xp.T) @ cp
+        g = xt @ xt.T
+        c = torch.zeros_like(r)
+        for k in range(xt.shape[0]):
+            m = r[k] if loss == "lsq" else yt[k] * r[k]
+            c[k] = _grad_scale(loss, m, yt[k]) * at[k]
+            r[k + 1:] -= c[k] * g[k, k + 1:]
+        step = torch.zeros_like(w)
+        for k in range(xt.shape[0]):
+            step = step + c[k] * xt[k]
+        prev = (xt, c, w)
+        w = w - step
+    return w
+
+
 def igd_fold_minibatch_ref(x, y, alpha, w0, *, loss: str = "lr", tile: int = 256):
     """One mean-gradient step per ``tile`` rows. The last tile may be
     short; its mean is still over ``tile`` rows (the missing rows add

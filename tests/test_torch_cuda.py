@@ -21,6 +21,11 @@ TOL = dict(rtol=2e-4, atol=2e-5)
 # ragged (N % 256, D % 128), one warp up to D = 1024, then 8 and 16 warps
 SHAPES = [(300, 7), (513, 16), (97, 1), (4096, 54), (300, 2000), (100, 4096)]
 
+# igd_fold: N around the tiled instance's 32-row sub-tile, D on both sides
+# of its boundary with the per-row instance (256)
+FOLD_N = (1, 31, 33, 16_385)
+FOLD_D = (54, 128, 256, 257)
+
 needs_card = pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
 
 
@@ -47,6 +52,33 @@ def test_cuda_kernels_match_plain_versions(loss, n, d):
     assert K.launches["igd_fold_minibatch"] == before["igd_fold_minibatch"] + 1
     torch.testing.assert_close(got, R.igd_fold_ref(x, y, alpha, w0, loss=loss), **TOL)
     torch.testing.assert_close(mb, R.igd_fold_minibatch_ref(x, y, alpha, w0, loss=loss), **TOL)
+
+
+@needs_card
+@pytest.mark.parametrize("loss", ["lr", "svm", "lsq"])
+@pytest.mark.parametrize("d", FOLD_D)
+@pytest.mark.parametrize("n", FOLD_N)
+def test_cuda_igd_fold_matches_per_row_and_tiled_folds(n, d, loss):
+    """Both igd_fold instances against the per-row fold and the tiled
+    fold (the plain versions run on the CPU, where small ops are cheaper)."""
+    args = _inputs(n, d)
+    before = K.launches["igd_fold"]
+    got = K.igd_fold(*args, loss=loss).cpu()
+    assert K.launches["igd_fold"] == before + 1
+    on_cpu = [t.cpu() for t in args]
+    torch.testing.assert_close(got, R.igd_fold_ref(*on_cpu, loss=loss), **TOL)
+    torch.testing.assert_close(got, R.igd_fold_tiled_ref(*on_cpu, loss=loss), **TOL)
+
+
+@needs_card
+def test_cuda_igd_fold_takes_zero_rows_and_unaligned_rows():
+    """N = 0 returns w0; x starting off a 16-byte boundary takes the
+    4-byte copies and gives the same w."""
+    x, y, alpha, w0 = _inputs(300, 128)
+    torch.testing.assert_close(K.igd_fold(x[:0], y[:0], alpha[:0], w0), w0, rtol=0, atol=0)
+    shifted = torch.empty(300 * 128 + 1, device=x.device)[1:].view(300, 128)
+    shifted.copy_(x)
+    torch.testing.assert_close(K.igd_fold(shifted, y, alpha, w0), K.igd_fold(x, y, alpha, w0), rtol=0, atol=0)
 
 
 @needs_card

@@ -19,6 +19,9 @@ TOL = dict(rtol=2e-4, atol=2e-5)
 LOSSES = ("lr", "svm", "lsq")
 # ragged shapes: N % 256 != 0, D % 128 != 0, and aligned ones
 SHAPES = [(300, 7), (513, 16), (256, 12), (97, 1)]
+# the tiled fold: N around its 32-row tile, D up to the CUDA instance's 256
+TILED_N = (0, 1, 31, 32, 33, 300, 4097)
+TILED_D = (1, 7, 54, 256)
 
 
 def _inputs(n, d, seed=3):
@@ -71,6 +74,67 @@ def test_minibatch_ragged_tail_divides_by_full_tile(loss):
     assert not torch.allclose(got, wrong, rtol=1e-3, atol=1e-5)
 
 
+@pytest.mark.parametrize("loss", LOSSES)
+@pytest.mark.parametrize("d", TILED_D)
+@pytest.mark.parametrize("n", TILED_N)
+def test_igd_fold_tiled_ref_matches_per_row_fold_and_pallas(n, d, loss):
+    """The CUDA kernel's algebra (p and the Gram matrix per 32-row tile, a
+    scalar recurrence, one w update a tile) against the per-row fold and
+    the reference's Pallas kernel in interpret mode. The Pallas kernel
+    cannot take N = 0 rows, so there the reference's plain fold stands in."""
+    a = _inputs(n, d)
+    got = R.igd_fold_tiled_ref(*(torch.from_numpy(v) for v in a), loss=loss)
+    assert got.shape == (d,) and got.dtype == torch.float32
+    plain = R.igd_fold_ref(*(torch.from_numpy(v) for v in a), loss=loss)
+    want = ref_ops.igd_fold(*(jnp.asarray(v) for v in a), loss=loss, use_kernel=n > 0, interpret=True)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if n == 0:
+        assert torch.equal(got, torch.from_numpy(a[3]))
+
+
+def test_tiled_ref_restarts_from_any_row():
+    """Folding in two calls, at a tile boundary or inside a tile, agrees
+    with one call: the second call forms its first p from w itself, where
+    one call forms it by the look-ahead X w_prev - (X X_prev^T) c_prev.
+    One tile from w0 is the per-row fold's arithmetic regrouped."""
+    x, y, alpha, w0 = (torch.from_numpy(v) for v in _inputs(96, 9))
+    whole = R.igd_fold_tiled_ref(x, y, alpha, w0, loss="lr")
+    for cut in (32, 64, 50):
+        head = R.igd_fold_tiled_ref(x[:cut], y[:cut], alpha[:cut], w0, loss="lr")
+        tail = R.igd_fold_tiled_ref(x[cut:], y[cut:], alpha[cut:], head, loss="lr")
+        np.testing.assert_allclose(tail.numpy(), whole.numpy(), **TOL)
+    np.testing.assert_allclose(R.igd_fold_tiled_ref(x[:32], y[:32], alpha[:32], w0, loss="lr").numpy(),
+                               R.igd_fold_ref(x[:32], y[:32], alpha[:32], w0, loss="lr").numpy(), **TOL)
+
+
+def _forest_like(n, d, seed):
+    """dense_classification's recipe in numpy (labels +-1, rows pushed to
+    their side of a random separator, noise), shuffled, with logreg's
+    step sizes diminishing(0.5, decay=n)."""
+    r = np.random.default_rng(seed)
+    w_true = r.normal(size=d) / np.sqrt(d)
+    y = np.concatenate([np.ones(n // 2), -np.ones(n - n // 2)])
+    x = r.normal(size=(n, d)) / np.sqrt(d)
+    x += ((y - x @ w_true) / np.sum(w_true**2))[:, None] * w_true[None, :]
+    x += 0.5 * r.normal(size=(n, d)) / np.sqrt(d)
+    perm = r.permutation(n)
+    alpha = np.float32(0.5) / (np.float32(1.0) + np.arange(n, dtype=np.float32) / np.float32(n))
+    return x[perm].astype(np.float32), y[perm].astype(np.float32), alpha, np.zeros(d, np.float32)
+
+
+def test_tiled_fold_is_no_farther_from_float64_than_the_per_row_fold():
+    """The per-row float32 fold rounds w at every row and drifts from an
+    exact fold as N grows; the tiled fold rounds w once a tile. On 32,768
+    Forest-shaped rows (lr) the tiled fold must be at least as near a
+    float64 fold as the per-row one is."""
+    a = [torch.from_numpy(v) for v in _forest_like(32_768, 54, seed=0)]
+    exact = R.igd_fold_ref(*(t.double() for t in a), loss="lr")
+    per_row = float((R.igd_fold_ref(*a, loss="lr").double() - exact).abs().max())
+    tiled = float((R.igd_fold_tiled_ref(*a, loss="lr").double() - exact).abs().max())
+    assert tiled <= per_row, (tiled, per_row)
+
+
 def test_fold_ref_is_the_sequential_recurrence():
     """igd_fold_ref applies one transition per row in order: folding the
     rows in two calls equals one call."""
@@ -108,6 +172,7 @@ def test_launch_counter_reset():
 
 
 def test_library_name_tracks_the_source():
+    assert K.FOLD_GRAM_MAX_DIM == 256 and K.FOLD_GRAM_MAX_DIM < K.FOLD_MAX_DIM
     path = K.library_path()
     assert path.parent == K.BUILD_DIR and path.name.startswith("libigd_fused-")
     assert "compute_90a" in " ".join(K.NVCC_FLAGS) and "--use_fast_math" not in K.NVCC_FLAGS
