@@ -6,7 +6,8 @@
 Run from the repository root on a machine with a CUDA card (Hopper:
 the kernels build for sm_90a). Phases, each printed as it ends:
 
-1. build the fused-IGD CUDA kernels from src/repro_torch/kernels/igd_fused/csrc;
+1. build the fused-IGD CUDA kernels from src/repro_torch/kernels/igd_fused/csrc
+   (and print igd_fold_minibatch's cluster size and shared memory a CTA);
 2. hold each kernel against its plain PyTorch version on the card, for the
    three losses (rtol=2e-4, atol=2e-5, the reference's kernel tolerance;
    TF32 off for matmuls and cuDNN); igd_fold also at the shapes that cut
@@ -14,6 +15,11 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    to both the per-row fold and the tiled fold (ref.igd_fold_tiled_ref) on
    the CPU, and on a 65,536-row Forest prefix to a float64 fold on the CPU
    (beside the per-row float32 fold's distance from it);
+   igd_fold_minibatch also to the plain version of its cluster's order
+   (ref.igd_fold_minibatch_split_ref) over the full epoch, and to both
+   plain versions at N around the 256-row tile and the cluster's span and
+   D across its D = 256 instance boundary up to its limit, N = 0 (w0
+   exactly) and x, y, alpha off a 16-byte boundary;
 3. run the engine end to end on a Forest-shaped table (581,012 x 54 f32,
    UCI Covertype's shape, label-clustered, generated on the card from
    --seed): logreg with no hints (the probe-priced plan must choose
@@ -23,7 +29,9 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    eager fold on the CPU;
 4. time each kernel at the main path's shape with CUDA events, beside its
    plain version and its bound; igd_fold also beside its chain floor (N
-   times one grad_scale + FMA step timed alone in one warp);
+   times one grad_scale + FMA step timed alone in one warp),
+   igd_fold_minibatch beside its tile-chain floor (the tiles times one
+   tile's step timed with the tile resident in shared memory);
 5. build the flash-attention and flash-decode CUDA kernels from
    src/repro_torch/kernels/{attention,decode}/csrc (all three sources are
    compiled at once, one nvcc each, when the script starts);
@@ -56,6 +64,7 @@ script exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -71,6 +80,12 @@ RAGGED = ((3_001, 77), (777, 1_500), (257, 4_096))
 # igd_fold: N around its 32-row sub-tile, D on both sides of its instance boundary
 FOLD_SHAPES = tuple((n, d) for n in (1, 31, 33, 16_385) for d in (54, 128, 256, 257))
 F64_PREFIX = 65_536  # rows the kernel is held to a float64 fold on
+# igd_fold_minibatch: D across the cluster instance's bound (256) up to the
+# one-block kernel's limit (12,032); N around the 256-row tile (and, added
+# at run time, around the cluster's span of 256 x its CTAs; N = 0 must
+# return w0 exactly)
+MB_D = (1, 54, 256, 257, 12_032)
+MB_N = (0, 1, 255, 257, 16_385)
 KERNEL_RTOL, KERNEL_ATOL = 2e-4, 2e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -207,8 +222,10 @@ def main() -> int:
               for lib in (K.LIBRARY, AK.LIBRARY, DK.LIBRARY)}
     ptxas = builds["igd_fused"].result()
     K._load()
+    cluster, mb_smem = K.minibatch_design(FOREST_DIM)
     log("build", f"igd_fused.cu -> {K.library_path().name} in {watch.lap():.2f} s "
-        f"({ptxas_report('igd_fused.cu', ptxas)})")
+        f"({ptxas_report('igd_fused.cu', ptxas)}); igd_fold_minibatch at D={FOREST_DIM}: a cluster of "
+        f"{cluster} CTAs, {mb_smem} bytes of dynamic shared memory a CTA")
 
     # -- 2. kernels against their plain versions ---------------------------
     gen = torch.Generator(device=dev)
@@ -250,6 +267,40 @@ def main() -> int:
     errs["igd_fold"] = max(errs["igd_fold"], *fold_errs.values())
     log("parity", f"igd_fold at N in (1, 31, 33, 16385) x D in (54, 128, 256, 257), lr, svm, lsq: max |err| "
         f"{fold_errs['per-row']:.3g} against the per-row fold, {fold_errs['tiled']:.3g} against the tiled fold")
+    # igd_fold_minibatch: the cluster's order over the full epoch, then the
+    # tile's and the cluster's edges and the instance boundary, against both
+    # plain versions (on the card, TF32 off)
+    k = K.MINIBATCH_CLUSTER
+    split = functools.partial(R.igd_fold_minibatch_split_ref, parts=k)
+    mb_errs = {"plain": 0.0, "split": 0.0}
+    for loss in LOSSES:
+        mb_errs["split"] = max(mb_errs["split"], max_err(K.igd_fold_minibatch(x, y, alpha, w0, loss=loss),
+                                                         split(x, y, alpha, w0, loss=loss),
+                                                         f"igd_fold_minibatch {loss} full epoch vs the split fold"))
+    mb_shapes = [(n, d) for n in MB_N + (256 * k - 1, 256 * k + 1) for d in MB_D]
+    for n, d in mb_shapes:
+        args_ = inputs(gen, n, d, dev)
+        for loss in LOSSES:
+            got = K.igd_fold_minibatch(*args_, loss=loss)
+            for name, plain in (("plain", R.igd_fold_minibatch_ref), ("split", split)):
+                mb_errs[name] = max(mb_errs[name], max_err(
+                    got, plain(*args_, loss=loss), f"igd_fold_minibatch {loss} {n}x{d} vs the {name} fold"))
+            if n == 0 and not torch.equal(got, args_[3]):
+                raise AssertionError(f"igd_fold_minibatch {loss} 0x{d} did not return w0")
+        del args_
+    # off a 16-byte boundary: the plain-load path, the same w bit for bit
+    for d in (54, 256):
+        args_ = inputs(gen, 3_001, d, dev)
+        shifted = [torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape).copy_(t) for t in args_[:3]]
+        for loss in LOSSES:
+            want = K.igd_fold_minibatch(*args_, loss=loss)
+            if not torch.equal(K.igd_fold_minibatch(*shifted, args_[3], loss=loss), want):
+                raise AssertionError(f"igd_fold_minibatch {loss} 3001x{d}: unaligned rows give another w")
+    errs["igd_fold_minibatch"] = max(errs["igd_fold_minibatch"], *mb_errs.values())
+    log("parity", f"igd_fold_minibatch: full {FOREST_ROWS}x{FOREST_DIM} epoch vs the split fold (parts={k}) and N in "
+        f"{sorted({n for n, _ in mb_shapes})} x D in {MB_D} vs both plain folds, lr, svm, lsq: max |err| "
+        f"{mb_errs['plain']:.3g} against the plain fold, {mb_errs['split']:.3g} against the split fold; "
+        "N = 0 returned w0; x, y, alpha off a 16-byte boundary gave the same w bit for bit (D 54, 256)")
     # a longer prefix against float64: the per-row float32 fold drifts from it
     # with N (it rounds w every row), so the kernel is held to float64 here
     xf, yf, af = (t[:F64_PREFIX] for t in (x, y, alpha))
@@ -340,10 +391,8 @@ def main() -> int:
     io_bytes = n * (d + 2) * 4 + 2 * d * 4
     fold_calls = [event_ms(lambda: K.igd_fold(x, y, alpha, w0, loss="lr"), 1) for _ in range(5)]
     clocks = sm_clocks_during(lambda: K.igd_fold(x, y, alpha, w0, loss="lr"), 30)
-    ms = {
-        "igd_fold": sum(fold_calls) / len(fold_calls),
-        "igd_fold_minibatch": event_ms(lambda: K.igd_fold_minibatch(x, y, alpha, w0, loss="lsq"), 10),
-    }
+    mb_calls = [event_ms(lambda: K.igd_fold_minibatch(x, y, alpha, w0, loss="lsq"), 2) for _ in range(5)]
+    ms = {"igd_fold": sum(fold_calls) / len(fold_calls), "igd_fold_minibatch": sum(mb_calls) / len(mb_calls)}
     plain_ms = {
         "igd_fold": timing.seconds(lambda: R.igd_fold_ref(xp, yp, ap, w0, loss="lr"), dev) * 1e3,
         "igd_fold_minibatch": timing.seconds(
@@ -385,6 +434,20 @@ def main() -> int:
         f"{ms['igd_fold'] * 1e-3 * clock_mhz * 1e6 / n:.1f} at the max; bytes "
         f"{io_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {card}")
     log("timing", f"igd_fold: nvidia-smi during 30 more launches: {clocks}")
+    # the tile-chain floor: one tile's dependent work (margins, block barrier,
+    # partial sums, the exchange of partials, w update) with the tile resident
+    step_cycles, step_s = K.minibatch_step_probe("lsq", d)
+    n_tiles = -(-n // K.TILE)
+    tile_floor_ms = n_tiles * step_s * 1e3
+    mb_ms, bytes_ms = ms["igd_fold_minibatch"], io_bytes / HBM_BYTES_PER_S * 1e3
+    kernels[1].update(tile_floor_ms=tile_floor_ms, cycles_per_tile_step=step_cycles)
+    log("timing", f"igd_fold_minibatch (lsq, {n}x{d}): {mb_ms:.4f} ms/launch (5 calls: "
+        f"{', '.join(f'{t:.4f}' for t in mb_calls)}), {io_bytes / mb_ms / 1e6:.1f} GB/s of the table; a cluster of "
+        f"{cluster} CTAs; tile-chain floor {tile_floor_ms:.4f} ms = {n_tiles} tiles x {step_s * 1e6:.4f} us "
+        f"({step_cycles:.0f} cycles a tile with the tile resident: margins, block barrier, partial sums, the "
+        f"exchange of partials, w update), {tile_floor_ms / mb_ms:.3f} of the kernel's time; byte bound "
+        f"{bytes_ms:.4f} ms, "
+        f"{bytes_ms / mb_ms:.4f} of it; {card}")
     log("timing", "library_ms: none — no single PyTorch call computes a serial IGD fold or the "
         "tile-serial minibatch fold")
 

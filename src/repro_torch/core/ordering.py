@@ -19,6 +19,8 @@ from typing import Callable, Protocol
 
 import torch
 
+from repro_torch.device import resolve_device
+
 Draw = Callable[[], torch.Tensor]
 
 
@@ -109,8 +111,9 @@ def cluster_by_label(data, labels):
 
 def make_catx_dataset(n: int, device=None):
     """The 1-D CA-TX example (paper Example 2.1 / 3.1): 2n points, x_i = 1,
-    y_i = +1 for the first n ('California'), -1 for the rest ('Texas')."""
-    f32 = dict(dtype=torch.float32, device=device)
+    y_i = +1 for the first n ('California'), -1 for the rest ('Texas').
+    ``device=None`` means the CUDA card, and raises without one."""
+    f32 = dict(dtype=torch.float32, device=resolve_device(device))
     x = torch.ones((2 * n, 1), **f32)
     y = torch.cat([torch.ones(n, **f32), -torch.ones(n, **f32)])
     return {"x": x, "y": y}

@@ -23,6 +23,7 @@ import torch
 from repro_torch import timing
 from repro_torch.core import convergence, ordering as ordering_lib
 from repro_torch.core.tracecount import fresh_counter
+from repro_torch.device import resolve_device
 from repro_torch.engine import catalog, planner as planner_lib, probes
 from repro_torch.engine import program as program_lib
 from repro_torch.engine.query import AnalyticsQuery
@@ -33,22 +34,6 @@ _ORDERINGS = {
     "shuffle_once": ordering_lib.ShuffleOnce,
     "shuffle_always": ordering_lib.ShuffleAlways,
 }
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the current CUDA card, and raises without one: an
-    entry point never runs quietly on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: repro_torch runs on the card by default; "
-                "pass device='cpu' to run on the CPU"
-            )
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def _fresh_stats() -> Dict[str, int]:

@@ -65,15 +65,49 @@
 //   (_minibatch_kernel). One mean-gradient step per 256-row tile:
 //   wx = X_t w; c = grad_scale * alpha; w -= (c X_t) / 256.
 //   What bounds it: tiles are serial (tile t+1 reads the w tile t wrote),
-//   and inside a tile two dependent phases each end in a block barrier.
-//   Design: one block of 256 threads, w in shared memory. Phase 1: one
-//   thread per row walks its row (independent loads the compiler keeps
-//   in flight, where a warp taking its 32 rows in turn would wait on
-//   device memory once per row). Phase 2: one thread per column sums
-//   c_r * x_rj over the tile's rows (coalesced across threads; the tile
-//   was just read, so it comes from L1). The ragged last tile sums only
-//   its real rows and still divides by 256, which is the reference's
-//   padded semantics.
+//   so the kernel takes n_tiles times one tile's dependent work (margins,
+//   the update's sum, a barrier) or the table's bytes over the rate at
+//   which the SMs it runs on can pull them, whichever is longer. One SM
+//   pulling rows with per-thread loads reaches ~8 GB/s: 16 ms for the
+//   130 MB Forest table, where the bytes alone take 0.039 ms.
+//   igd_fold_minibatch_launch picks one of two instances by D.
+//
+//   D <= 256: a thread-block cluster of kMbCluster CTAs on as many SMs
+//   (igd_minibatch_cluster_kernel). Each tile's 256 rows are split into
+//   kMbCluster row shares, one a CTA. Each CTA streams its shares of the
+//   coming tiles into a shared-memory ring ahead of use: one thread issues
+//   three bulk copies a tile (cp.async.bulk of the share's x, y and alpha,
+//   as they lie in memory) completing on the slot's mbarrier, a ring's
+//   depth ahead. Per tile, each CTA: computes its rows' margins (a warp a
+//   row, lanes across D, w in registers, a shuffle sum) and c; block
+//   barrier; sums its partial update u = sum_i c_i x_i in row order (a
+//   thread a column) and pushes it into its slot of every CTA's receive
+//   buffer (16-byte st.async stores into distributed shared memory, four
+//   columns each, completing on the receiver's own mbarrier); every warp
+//   waits on its CTA's mbarrier, sums the kMbCluster partials in rank
+//   order from local shared memory and applies w -= (sum) / 256 to its
+//   own registers. Every warp of every CTA forms the same sum in the same
+//   order, so w is the same bit for bit everywhere: no all-reduce through
+//   device memory, no cluster-wide barrier and no remote load a tile (the
+//   first design, a cluster barrier and remote loads, spent most of its
+//   tile step there). The receive buffers alternate by tile parity, so a
+//   CTA can be sent tile t+1's partials while it still reads tile t's.
+//   ref.igd_fold_minibatch_split_ref is this order in plain PyTorch.
+//   Bulk copies need 16-byte aligned sources: with x, y or alpha off a
+//   16-byte boundary, and for the ragged last tile's short shares, the
+//   CTA's threads copy the share with plain loads when its turn comes.
+//
+//   D > 256: one block of 256 threads, w in shared memory. Phase 1: one
+//   thread per row walks its row. Phase 2: one thread per column sums
+//   c_r * x_rj over the tile's rows.
+//
+//   Both: the ragged last tile sums only its real rows and still divides
+//   by 256, which is the reference's padded semantics.
+//
+// igd_minibatch_step_probe_launch times the cluster instance's dependent
+// work of one tile with the tile already resident in shared memory (no
+// copies: margins, the block barrier, the partial sums, the exchange of
+// partials, the w update), clock64 in rank 0 around a loop of tiles.
 //
 // igd_chain_probe_kernel is no port of a TPU kernel: it times the tiled
 // instance's dependent chain alone (clock64 around grad_scale_fast + FMA
@@ -83,10 +117,13 @@
 // entry returns cudaGetLastError() (or cudaErrorInvalidValue for
 // arguments the kernels do not take).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kLossLr = 0;
 constexpr int kLossSvm = 1;
@@ -110,6 +147,19 @@ constexpr int kProductRows = kSub + 1;   // the look-ahead product: C's 32 rows,
 constexpr int kGramStageFloats = 24576;  // per stage (96 KB): two stages + G, P, w, c < 227 KB
 constexpr int kGramMaxTileRows = 256;
 constexpr unsigned kFull = 0xffffffffu;
+// igd_fold_minibatch's cluster instance (D <= kMbMaxDim)
+constexpr int kMbCluster = 8;                    // CTAs a cluster, one row share of a tile each
+constexpr int kMbRows = kTile / kMbCluster;      // rows a share
+constexpr int kMbWarps = 8;
+constexpr int kMbThreads = kMbWarps * kWarp;
+constexpr int kMbRowsPerWarp = (kMbRows + kMbWarps - 1) / kMbWarps;
+constexpr int kMbMaxDim = 256;                   // one column a thread in the partial sums
+constexpr int kMbMaxStages = 8;                  // ring slots, each one share of a tile
+constexpr int kMbRingBytes = 180 * 1024;
+constexpr int kMbBarBytes = 128;                 // the mbarriers, 16-byte padded
+static_assert(kTile % kMbCluster == 0 && kMbRows % 4 == 0, "shares of 16-byte multiples");
+static_assert(kMbMaxDim <= kMbThreads, "one column a thread");
+static_assert((kMbMaxStages + 2) * 8 <= kMbBarBytes, "the mbarriers fit their header");
 
 // d loss / d (w.x), given wx = w.x (the kernel forms the margin itself).
 template <int LOSS>
@@ -619,6 +669,348 @@ __global__ void __launch_bounds__(kTile)
   for (int j = tid; j < d; j += kTile) wout[j] = ws[j];
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16) from 16-byte aligned global memory into this
+// CTA's shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Dynamic shared memory of the cluster instance: mbarriers (the ring's
+// [kMbMaxStages], then the partials' [2]; padded to kMbBarBytes) |
+// partials received [2][kMbCluster][kMbMaxDim] | c [kMbRows] |
+// ring [stages][kMbRows * (d + 2)] (a slot: x[kMbRows][d] | y | alpha).
+__host__ __device__ constexpr int mb_slot_floats(int d) { return kMbRows * (d + 2); }
+
+__host__ __device__ constexpr size_t mb_smem_bytes(int d, int stages) {
+  return kMbBarBytes + (2 * kMbCluster * kMbMaxDim + kMbRows +
+                        static_cast<size_t>(stages) * mb_slot_floats(d)) * sizeof(float);
+}
+
+int mb_stages(int d) {
+  const int by_bytes = kMbRingBytes / (mb_slot_floats(d) * static_cast<int>(sizeof(float)));
+  return by_bytes < kMbMaxStages ? by_bytes : kMbMaxStages;
+}
+
+// Bytes of partials a CTA receives a tile: every rank's columns, four a store.
+__host__ __device__ constexpr uint32_t mb_partial_bytes(int d) {
+  return kMbCluster * ((d + 3) / 4) * 4 * sizeof(float);
+}
+
+// This CTA's rows of tile t (all of them before the last, ragged tile).
+__device__ __forceinline__ int share_rows(long long t, long long n, long long full_tiles,
+                                          int rank) {
+  if (t < full_tiles) return kMbRows;
+  const long long left = n - t * kTile - rank * kMbRows;
+  return static_cast<int>(left < 0 ? 0 : (left < kMbRows ? left : kMbRows));
+}
+
+// One thread: tile t's share of x, y and alpha into ring slot xs, three
+// bulk copies completing on bar.
+__device__ __forceinline__ void issue_share(float* xs, uint64_t* bar, const float* x,
+                                            const float* y, const float* alpha, long long t,
+                                            int rank, int d) {
+  const long long row0 = t * kTile + rank * kMbRows;
+  const uint32_t xbytes = kMbRows * d * sizeof(float), vbytes = kMbRows * sizeof(float);
+  mbar_expect_tx(bar, xbytes + 2 * vbytes);
+  bulk_copy(xs, x + row0 * d, xbytes, bar);
+  bulk_copy(xs + kMbRows * d, y + row0, vbytes, bar);
+  bulk_copy(xs + kMbRows * d + kMbRows, alpha + row0, vbytes, bar);
+}
+
+// This CTA's share of tile t: c_r for its rows, into cs (a warp a row,
+// lanes across D, the tile-start w in registers).
+template <int LOSS, int VPL>
+__device__ __forceinline__ void tile_margins(const float* xs, const float* ys, const float* as,
+                                             const float (&w)[VPL], float* cs, int rows, int d,
+                                             int warp, int lane) {
+  float dot[kMbRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kMbRowsPerWarp; ++i) {
+    const int r = warp + kMbWarps * i;
+    float acc = 0.0f;
+    if (r < rows) {
+      const float* xr = xs + r * d;
+#pragma unroll
+      for (int m = 0; m < VPL; ++m) {
+        const int j = lane + kWarp * m;
+        if (j < d) acc = fmaf(w[m], xr[j], acc);
+      }
+    }
+    dot[i] = acc;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < kMbRowsPerWarp; ++i) dot[i] += __shfl_xor_sync(kFull, dot[i], o);
+  }
+  // lane i takes row warp + kMbWarps * i: the scales in parallel
+  float mine = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kMbRowsPerWarp; ++i) mine = lane == i ? dot[i] : mine;
+  const int r = warp + kMbWarps * lane;
+  if (lane < kMbRowsPerWarp && r < rows) cs[r] = grad_scale<LOSS>(mine, ys[r]) * as[r];
+}
+
+// This CTA's partial update of column tid, u = sum_r c_r x_r,tid over its
+// rows in row order (0 past D).
+__device__ __forceinline__ float tile_partial(const float* xs, const float* cs, int rows, int d,
+                                              int tid) {
+  float u = 0.0f;
+  if (tid < d) {
+#pragma unroll 8
+    for (int r = 0; r < rows; ++r) u = fmaf(cs[r], xs[r * d + tid], u);
+  }
+  return u;
+}
+
+// Push this CTA's partial into its slot [rank] of every CTA's receive
+// buffer for the tile's parity: lanes 4i gather columns 4i..4i+3 by
+// shuffles and send them as one 16-byte st.async, which completes on the
+// receiver's own mbarrier. Called by every thread (the shuffles).
+__device__ __forceinline__ void send_partial(float u, float* recv, uint64_t* recv_bar, int parity,
+                                             int rank, int d, int tid) {
+  const float u1 = __shfl_down_sync(kFull, u, 1);
+  const float u2 = __shfl_down_sync(kFull, u, 2);
+  const float u3 = __shfl_down_sync(kFull, u, 3);
+  if (tid % 4 == 0 && tid < d) {
+    const uint32_t dst = smem_u32(recv + (parity * kMbCluster + rank) * kMbMaxDim + tid);
+    const uint32_t bar = smem_u32(recv_bar + parity);
+#pragma unroll
+    for (int q = 0; q < kMbCluster; ++q) {
+      uint32_t rdst, rbar;
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rdst) : "r"(dst), "r"(q));
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rbar) : "r"(bar), "r"(q));
+      asm volatile(
+          "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+          "[%5];\n" ::"r"(rdst),
+          "r"(__float_as_uint(u)), "r"(__float_as_uint(u1)), "r"(__float_as_uint(u2)),
+          "r"(__float_as_uint(u3)), "r"(rbar)
+          : "memory");
+    }
+  }
+}
+
+// w -= (sum over ranks, in rank order, of the received partials) / TILE,
+// by every warp for its own lanes' columns.
+template <int VPL>
+__device__ __forceinline__ void tile_update(const float* slots, float (&w)[VPL], int d,
+                                            int lane) {
+#pragma unroll
+  for (int m = 0; m < VPL; ++m) {
+    const int j = lane + kWarp * m;
+    if (j < d) {
+      float s = 0.0f;
+#pragma unroll
+      for (int q = 0; q < kMbCluster; ++q) s += slots[q * kMbMaxDim + j];
+      w[m] = w[m] - s / static_cast<float>(kTile);
+    }
+  }
+}
+
+// The cluster instance (D <= kMbMaxDim; w in registers, VPL = ceil(D/32)
+// a lane). RESIDENT is the step probe: no copies, `n / kTile` tiles of
+// made-up rows that stay in slot 0, clock64 around the loop into probe.
+template <int LOSS, int VPL, bool RESIDENT>
+__global__ void __launch_bounds__(kMbThreads)
+    igd_minibatch_cluster_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                                 const float* __restrict__ alpha, const float* __restrict__ w0,
+                                 float* __restrict__ wout, long long n, int d, int stages,
+                                 int vec, long long* probe) {
+  extern __shared__ __align__(16) unsigned char mb_smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(mb_smem);  // the ring's
+  uint64_t* recv_bar = bars + kMbMaxStages;                  // the partials', [2]
+  float* recv = reinterpret_cast<float*>(mb_smem + kMbBarBytes);
+  float* cs = recv + 2 * kMbCluster * kMbMaxDim;  // [kMbRows]
+  float* ring = cs + kMbRows;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int slot_floats = mb_slot_floats(d);
+  const long long n_tiles = (n + kTile - 1) / kTile;
+  const long long full_tiles = n / kTile;  // every share of these is full
+  const uint32_t partial_bytes = mb_partial_bytes(d);
+
+  float w[VPL];
+#pragma unroll
+  for (int m = 0; m < VPL; ++m) {
+    const int j = lane + kWarp * m;
+    w[m] = j < d ? (RESIDENT ? 0.01f : w0[j]) : 0.0f;
+  }
+  // a share goes by bulk copies when it is whole and the sources are aligned
+  const long long bulk_tiles = vec ? (share_rows(full_tiles, n, full_tiles, rank) == kMbRows
+                                          ? full_tiles + 1 : full_tiles) : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(bars + s, 1);
+    for (int s = 0; s < 2; ++s) mbar_init(recv_bar + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // tiles 0 and 1 expect their partials; tile t re-arms its slot for t + 2
+    for (int s = 0; s < 2; ++s) mbar_expect_tx(recv_bar + s, partial_bytes);
+  }
+  if (RESIDENT) {
+    for (int i = tid; i < kMbRows * d; i += kMbThreads) ring[i] = 0.01f * static_cast<float>(i % 13 - 6);
+    for (int i = tid; i < kMbRows; i += kMbThreads) {
+      ring[kMbRows * d + i] = i % 2 ? 1.0f : -1.0f;
+      ring[kMbRows * d + kMbRows + i] = 0.01f;
+    }
+  }
+  cluster.sync();  // barriers set and armed, every CTA of the cluster running
+  if (!RESIDENT && tid == 0) {
+    for (int s = 0; s < stages - 1 && s < bulk_tiles; ++s) {
+      issue_share(ring + s * slot_floats, bars + s, x, y, alpha, s, rank, d);
+    }
+  }
+
+  const long long clock0 = clock64();
+  int slot = 0;          // tile t's ring slot: t % stages
+  uint32_t parity = 0;   // of its mbarrier's phase: (t / stages) & 1
+  for (long long t = 0; t < n_tiles; ++t) {
+    const int rows = RESIDENT ? kMbRows : share_rows(t, n, full_tiles, rank);
+    float* xs = ring + (RESIDENT ? 0 : slot) * slot_floats;
+    float* ys = xs + kMbRows * d;
+    float* as = ys + kMbRows;
+    if (!RESIDENT) {
+      if (t < bulk_tiles) {
+        mbar_wait(bars + slot, parity);
+      } else if (rows > 0) {  // off a 16-byte boundary, or the ragged last tile
+        const long long row0 = t * kTile + rank * kMbRows;
+        for (int i = tid; i < rows * d; i += kMbThreads) xs[i] = x[row0 * d + i];
+        for (int i = tid; i < rows; i += kMbThreads) {
+          ys[i] = y[row0 + i];
+          as[i] = alpha[row0 + i];
+        }
+        __syncthreads();
+      }
+    }
+    const int half = static_cast<int>(t & 1);  // the partials' slot and its phase parity
+    tile_margins<LOSS, VPL>(xs, ys, as, w, cs, rows, d, warp, lane);
+    __syncthreads();  // c is complete; every warp is past the previous tile's update
+    if (!RESIDENT) {
+      // the slot before this one was last read before the previous tile's
+      // partials went out: refill it, a ring's depth ahead, from the last
+      // thread (idle in the partial sums while D <= 224), off the margins'
+      // path
+      const long long ahead = t + stages - 1;
+      const int before = slot == 0 ? stages - 1 : slot - 1;
+      if (tid == kMbThreads - 1 && ahead < bulk_tiles) {
+        issue_share(ring + before * slot_floats, bars + before, x, y, alpha, ahead, rank, d);
+      }
+      if (++slot == stages) {
+        slot = 0;
+        parity ^= 1u;
+      }
+    }
+    const float u = tile_partial(xs, cs, rows, d, tid);
+    send_partial(u, recv, recv_bar, half, rank, d, tid);
+    mbar_wait(recv_bar + half, static_cast<uint32_t>((t >> 1) & 1));
+    tile_update<VPL>(recv + half * kMbCluster * kMbMaxDim, w, d, lane);
+    if (tid == 0 && t + 2 < n_tiles) mbar_expect_tx(recv_bar + half, partial_bytes);
+  }
+  const long long clock1 = clock64();
+
+  cluster.sync();  // no CTA leaves while its partials may still be in flight
+  if (RESIDENT) {
+    if (rank == 0 && tid == 0) {
+      probe[0] = clock1 - clock0;
+      probe[1] = __float_as_int(w[0]);
+    }
+  } else if (rank == 0 && warp == 0) {
+#pragma unroll
+    for (int m = 0; m < VPL; ++m) {
+      const int j = lane + kWarp * m;
+      if (j < d) wout[j] = w[m];
+    }
+  }
+}
+
+template <int LOSS, int VPL, bool RESIDENT>
+cudaError_t launch_mb_cluster(const float* x, const float* y, const float* alpha,
+                              const float* w0, float* wout, long long n, int d,
+                              long long* probe, cudaStream_t stream) {
+  const int stages = mb_stages(d);
+  if (stages < 2) return cudaErrorInvalidValue;
+  const int vec = !RESIDENT && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(alpha) % 16 == 0;
+  const size_t smem = mb_smem_bytes(d, stages);
+  auto kernel = igd_minibatch_cluster_kernel<LOSS, VPL, RESIDENT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  if (kMbCluster > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kMbCluster, 1, 1);
+  cfg.blockDim = dim3(kMbThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kMbCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, y, alpha, w0, wout, n, d, stages, vec, probe);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int LOSS, bool RESIDENT>
+cudaError_t launch_mb_cluster_any(const float* x, const float* y, const float* alpha,
+                                  const float* w0, float* wout, long long n, int d,
+                                  long long* probe, cudaStream_t stream) {
+  if (d <= 32) return launch_mb_cluster<LOSS, 1, RESIDENT>(x, y, alpha, w0, wout, n, d, probe, stream);
+  if (d <= 64) return launch_mb_cluster<LOSS, 2, RESIDENT>(x, y, alpha, w0, wout, n, d, probe, stream);
+  if (d <= 128) return launch_mb_cluster<LOSS, 4, RESIDENT>(x, y, alpha, w0, wout, n, d, probe, stream);
+  return launch_mb_cluster<LOSS, 8, RESIDENT>(x, y, alpha, w0, wout, n, d, probe, stream);
+}
+
+template <int LOSS>
+cudaError_t launch_minibatch(const float* x, const float* y, const float* alpha, const float* w0,
+                             float* wout, long long n, int d, cudaStream_t stream) {
+  if (d <= kMbMaxDim) {
+    return launch_mb_cluster_any<LOSS, false>(x, y, alpha, w0, wout, n, d, nullptr, stream);
+  }
+  const size_t smem = static_cast<size_t>(d + kTile) * sizeof(float);
+  igd_minibatch_kernel<LOSS><<<1, kTile, smem, stream>>>(x, y, alpha, w0, wout, n, d);
+  return cudaGetLastError();
+}
+
 template <int LOSS>
 cudaError_t launch_fold(int vpl, int warps, const float* x, const float* y,
                         const float* alpha, const float* w0, float* wout, long long n,
@@ -739,22 +1131,46 @@ int igd_fold_minibatch_launch(const float* x, const float* y, const float* alpha
                               const float* w0, float* wout, long long n, int d, int loss,
                               void* stream) {
   if (n < 0 || d < 1 || d > kMinibatchMaxDim) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(d + kTile) * sizeof(float);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (loss) {
     case kLossLr:
-      igd_minibatch_kernel<kLossLr><<<1, kTile, smem, s>>>(x, y, alpha, w0, wout, n, d);
-      break;
+      return launch_minibatch<kLossLr>(x, y, alpha, w0, wout, n, d, s);
     case kLossSvm:
-      igd_minibatch_kernel<kLossSvm><<<1, kTile, smem, s>>>(x, y, alpha, w0, wout, n, d);
-      break;
+      return launch_minibatch<kLossSvm>(x, y, alpha, w0, wout, n, d, s);
     case kLossLsq:
-      igd_minibatch_kernel<kLossLsq><<<1, kTile, smem, s>>>(x, y, alpha, w0, wout, n, d);
-      break;
+      return launch_minibatch<kLossLsq>(x, y, alpha, w0, wout, n, d, s);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+}
+
+int igd_fused_minibatch_cluster() { return kMbCluster; }
+
+int igd_fused_minibatch_cluster_max_dim() { return kMbMaxDim; }
+
+// Dynamic shared memory a CTA of the cluster instance takes at D (0 past
+// its D range: the one-block instance runs there).
+long long igd_fused_minibatch_smem_bytes(int d) {
+  if (d < 1 || d > kMbMaxDim) return 0;
+  return static_cast<long long>(mb_smem_bytes(d, mb_stages(d)));
+}
+
+// out[0] = SM cycles of `steps` tiles of the cluster instance's dependent
+// work at D with the tile resident (rank 0's clock64), out[1] = bits of w[0].
+int igd_minibatch_step_probe_launch(int loss, int d, int steps, long long* out, void* stream) {
+  if (steps < 1 || d < 1 || d > kMbMaxDim) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = static_cast<long long>(steps) * kTile;
+  switch (loss) {
+    case kLossLr:
+      return launch_mb_cluster_any<kLossLr, true>(nullptr, nullptr, nullptr, nullptr, nullptr, n, d, out, s);
+    case kLossSvm:
+      return launch_mb_cluster_any<kLossSvm, true>(nullptr, nullptr, nullptr, nullptr, nullptr, n, d, out, s);
+    case kLossLsq:
+      return launch_mb_cluster_any<kLossLsq, true>(nullptr, nullptr, nullptr, nullptr, nullptr, n, d, out, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -22,7 +22,9 @@ from repro_torch.kernels._build import BUILD_DIR, NVCC_FLAGS, CudaLibrary  # noq
 TILE = 256  # examples per minibatch step (the reference's VMEM block)
 FOLD_MAX_DIM = 4096  # one warp up to 1024, then 8 or 16 warps
 FOLD_GRAM_MAX_DIM = 256  # igd_fold's tiled Gram instance; the per-row chain above it
-MINIBATCH_MAX_DIM = 12288 - TILE  # w and the tile's scales in 48 KB
+MINIBATCH_MAX_DIM = 12288 - TILE  # the one-block instance: w and the tile's scales in 48 KB
+MINIBATCH_CLUSTER = 8  # CTAs of igd_fold_minibatch's cluster instance, one row share of a tile each
+MINIBATCH_CLUSTER_MAX_DIM = 256  # the cluster instance; the one-block kernel above it
 
 LOSS_IDS = {"lr": 0, "svm": 1, "lsq": 2}
 
@@ -38,7 +40,10 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def _declare(lib: ctypes.CDLL, cluster: int = MINIBATCH_CLUSTER) -> None:
+    """Set every entry's types and check the library's limits against this
+    module's (``cluster``: the minibatch cluster size the source was built
+    with, which a variant of the source may change)."""
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     for name in ("igd_fold_launch", "igd_fold_minibatch_launch"):
         fn = getattr(lib, name)
@@ -48,12 +53,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.igd_fused_error_string.restype = ctypes.c_char_p
     lib.igd_chain_probe_launch.argtypes = [i32, i32, ptr, ptr]
     lib.igd_chain_probe_launch.restype = i32
-    for name in ("igd_fused_fold_max_dim", "igd_fused_gram_max_dim",
-                 "igd_fused_minibatch_max_dim", "igd_fused_tile"):
+    lib.igd_minibatch_step_probe_launch.argtypes = [i32, i32, i32, ptr, ptr]
+    lib.igd_minibatch_step_probe_launch.restype = i32
+    lib.igd_fused_minibatch_smem_bytes.argtypes = [i32]
+    lib.igd_fused_minibatch_smem_bytes.restype = i64
+    for name in ("igd_fused_fold_max_dim", "igd_fused_gram_max_dim", "igd_fused_minibatch_max_dim",
+                 "igd_fused_tile", "igd_fused_minibatch_cluster", "igd_fused_minibatch_cluster_max_dim"):
         getattr(lib, name).restype = i32
     limits = (lib.igd_fused_fold_max_dim(), lib.igd_fused_gram_max_dim(),
-              lib.igd_fused_minibatch_max_dim(), lib.igd_fused_tile())
-    if limits != (FOLD_MAX_DIM, FOLD_GRAM_MAX_DIM, MINIBATCH_MAX_DIM, TILE):
+              lib.igd_fused_minibatch_max_dim(), lib.igd_fused_tile(),
+              lib.igd_fused_minibatch_cluster(), lib.igd_fused_minibatch_cluster_max_dim())
+    if limits != (FOLD_MAX_DIM, FOLD_GRAM_MAX_DIM, MINIBATCH_MAX_DIM, TILE, cluster, MINIBATCH_CLUSTER_MAX_DIM):
         raise RuntimeError(f"igd_fused library limits {limits} disagree with kernel.py")
 
 
@@ -114,9 +124,56 @@ def igd_fold(x, y, alpha, w0, *, loss: str = "lr"):
 
 def igd_fold_minibatch(x, y, alpha, w0, *, loss: str = "lr"):
     """One mean-gradient step per TILE rows; the ragged last tile's mean
-    is over TILE (rows past N add zero)."""
+    is over TILE (rows past N add zero). The library picks the instance
+    by D: a cluster of MINIBATCH_CLUSTER CTAs up to
+    MINIBATCH_CLUSTER_MAX_DIM (ref.igd_fold_minibatch_split_ref is its
+    order of sums), the one-block kernel above it."""
     _check(x, y, alpha, w0, loss, MINIBATCH_MAX_DIM)
     return _launch("igd_fold_minibatch", x, y, alpha, w0, loss)
+
+
+def minibatch_design(d: int):
+    """(CTAs a cluster, dynamic shared memory bytes a CTA) of
+    igd_fold_minibatch's instance at D; (1, 0) for the one-block
+    kernel past MINIBATCH_CLUSTER_MAX_DIM (its 48 KB are static)."""
+    lib = _load()
+    smem = lib.igd_fused_minibatch_smem_bytes(d)
+    return (lib.igd_fused_minibatch_cluster(), smem) if smem else (1, 0)
+
+
+def _probe(launch, args, steps: int, device, what: str):
+    """(SM cycles, seconds) a step of a probe kernel: clock64 inside, CUDA
+    events around one launch after a warm-up launch."""
+    lib = _load()
+    out = torch.zeros(2, dtype=torch.int64, device=device or "cuda")
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for _ in range(2):
+            start.record(stream)
+            rc = getattr(lib, launch)(*args, steps, out.data_ptr(), stream.cuda_stream)
+            end.record(stream)
+            if rc != 0:
+                raise RuntimeError(f"{what} launch failed: CUDA error {rc} "
+                                   f"({lib.igd_fused_error_string(rc).decode()})")
+        end.synchronize()
+    return int(out[0]) / steps, start.elapsed_time(end) * 1e-3 / steps
+
+
+def minibatch_step_probe(loss: str = "lsq", d: int = 54, *, steps: int = 1 << 14, device=None):
+    """(SM cycles, seconds) per tile of igd_fold_minibatch's cluster
+    instance with the tile already resident in shared memory: the margins,
+    the block barrier, the partial sums, the exchange of partials and the
+    w update, with no copies (clock64 in rank 0 around the tile loop, CUDA
+    events around the launch). N_tiles times it is the kernel's tile-chain
+    floor. A measurement probe, not a kernel of the path: it counts no
+    launch."""
+    if loss not in LOSS_IDS:
+        raise ValueError(f"unknown loss {loss!r}; valid: {sorted(LOSS_IDS)}")
+    if not 1 <= d <= MINIBATCH_CLUSTER_MAX_DIM:
+        raise ValueError(f"D={d} outside the cluster instance (1..{MINIBATCH_CLUSTER_MAX_DIM})")
+    return _probe("igd_minibatch_step_probe_launch", (LOSS_IDS[loss], d), steps, device,
+                  "igd_minibatch_step_probe")
 
 
 def chain_probe(loss: str = "lr", *, steps: int = 1 << 16, device=None):
@@ -125,19 +182,6 @@ def chain_probe(loss: str = "lr", *, steps: int = 1 << 16, device=None):
     timed alone in one warp: clock64 inside the kernel, CUDA events around
     it (after a warm-up launch). A measurement probe, not a kernel of the
     path: it counts no launch."""
-    lib = _load()
     if loss not in LOSS_IDS:
         raise ValueError(f"unknown loss {loss!r}; valid: {sorted(LOSS_IDS)}")
-    out = torch.zeros(2, dtype=torch.int64, device=device or "cuda")
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        for timed in (False, True):
-            start.record(stream)
-            rc = lib.igd_chain_probe_launch(LOSS_IDS[loss], steps, out.data_ptr(), stream.cuda_stream)
-            end.record(stream)
-            if rc != 0:
-                raise RuntimeError(f"igd_chain_probe launch failed: CUDA error {rc} "
-                                   f"({lib.igd_fused_error_string(rc).decode()})")
-        end.synchronize()
-    return int(out[0]) / steps, start.elapsed_time(end) * 1e-3 / steps
+    return _probe("igd_chain_probe_launch", (LOSS_IDS[loss],), steps, device, "igd_chain_probe")

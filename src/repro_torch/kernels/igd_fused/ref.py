@@ -74,3 +74,33 @@ def igd_fold_minibatch_ref(x, y, alpha, w0, *, loss: str = "lr", tile: int = 256
         c = _grad_scale(loss, m, yb) * ab
         w = w - (c @ xb) / tile
     return w
+
+
+def igd_fold_minibatch_split_ref(x, y, alpha, w0, *, loss: str = "lr", tile: int = 256,
+                                 parts: int = 8):
+    """``igd_fold_minibatch_ref`` in the order of the CUDA kernel's cluster
+    instance (D <= 256): each tile's rows are cut into ``parts`` row
+    shares of ``tile // parts`` rows (the ragged last tile's shares hold
+    its real rows, then none); every row's c is taken from the tile-start
+    w; each share's update u_p = c_p @ X_p is summed on its own; the
+    tile's update is the sum of the u_p in share order, divided by
+    ``tile``. Only the tests and chip_smoke.py use it; ``ops`` keeps
+    ``igd_fold_minibatch_ref`` for CPU tensors."""
+    if tile % parts:
+        raise ValueError(f"{parts} parts do not cut a {tile}-row tile evenly")
+    w = w0
+    for t0 in range(0, x.shape[0], tile):
+        xb, yb, ab = x[t0:t0 + tile], y[t0:t0 + tile], alpha[t0:t0 + tile]
+        wx = xb @ w
+        m = wx if loss == "lsq" else yb * wx
+        c = _grad_scale(loss, m, yb) * ab
+        short = tile - xb.shape[0]  # the ragged tile's missing rows add zero
+        if short:
+            c = torch.cat([c, c.new_zeros(short)])
+            xb = torch.cat([xb, xb.new_zeros(short, xb.shape[1])])
+        u = torch.bmm(c.view(parts, 1, -1), xb.view(parts, tile // parts, -1)).squeeze(1)
+        total = u[0]
+        for p in range(1, parts):
+            total = total + u[p]
+        w = w - total / tile
+    return w

@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.engine.executor import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.models import layers
 
 _FAMILY_SLICES = {

@@ -81,6 +81,75 @@ def test_cuda_igd_fold_takes_zero_rows_and_unaligned_rows():
     torch.testing.assert_close(K.igd_fold(shifted, y, alpha, w0), K.igd_fold(x, y, alpha, w0), rtol=0, atol=0)
 
 
+# igd_fold_minibatch: N around the 256-row tile and the cluster's span of
+# tiles, D on both sides of the cluster instance's bound (256) up to the
+# one-block kernel's limit
+MB_K = K.MINIBATCH_CLUSTER
+MB_N = (0, 1, 255, 257, 256 * MB_K - 1, 256 * MB_K + 1, 16_385)
+MB_D = (1, 54, 256, 257, K.MINIBATCH_MAX_DIM)
+
+
+def _card_inputs(n, d, seed=5):
+    """_inputs' recipe drawn on the card (the widest shapes hold 200M floats)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device="cuda") / d**0.5
+    y = torch.sign(torch.randn((n,), generator=g, device="cuda"))
+    alpha = 0.1 / (1.0 + torch.arange(n, device="cuda", dtype=torch.float32) / max(n, 1))
+    w0 = 0.01 * torch.randn((d,), generator=g, device="cuda")
+    return x, y, alpha, w0
+
+
+@needs_card
+@pytest.mark.parametrize("loss", ["lr", "svm", "lsq"])
+@pytest.mark.parametrize("d", MB_D)
+@pytest.mark.parametrize("n", MB_N)
+def test_cuda_igd_fold_minibatch_matches_plain_and_split_folds(n, d, loss):
+    """Both igd_fold_minibatch instances against the plain fold and the
+    plain version of the cluster's order (shares of 256 / MB_K rows, then
+    across shares in rank order); N = 0 returns w0 exactly."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _card_inputs(n, d)
+    before = K.launches["igd_fold_minibatch"]
+    got = K.igd_fold_minibatch(*args, loss=loss)
+    torch.cuda.synchronize()
+    assert K.launches["igd_fold_minibatch"] == before + 1
+    torch.testing.assert_close(got, R.igd_fold_minibatch_ref(*args, loss=loss), **TOL)
+    torch.testing.assert_close(got, R.igd_fold_minibatch_split_ref(*args, loss=loss, parts=MB_K), **TOL)
+    if n == 0:
+        assert torch.equal(got, args[3])
+
+
+@needs_card
+@pytest.mark.parametrize("d", [54, 256, 300])
+def test_cuda_igd_fold_minibatch_takes_unaligned_rows(d):
+    """x, y and alpha starting off a 16-byte boundary (the cluster instance
+    then copies with plain loads, not bulk copies) give the same w bit for
+    bit, and so does a table sliced at an odd row."""
+    x, y, alpha, w0 = _card_inputs(3_001, d)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
+        buf.copy_(t)
+        return buf
+
+    for loss in ("lr", "svm", "lsq"):
+        want = K.igd_fold_minibatch(x, y, alpha, w0, loss=loss)
+        got = K.igd_fold_minibatch(shifted(x), shifted(y), shifted(alpha), w0, loss=loss)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        odd = K.igd_fold_minibatch(x[1:], y[1:], alpha[1:], w0, loss=loss)
+        torch.testing.assert_close(odd, R.igd_fold_minibatch_split_ref(x[1:], y[1:], alpha[1:], w0, loss=loss,
+                                                                        parts=MB_K), **TOL)
+
+
+@needs_card
+def test_cuda_minibatch_step_probe_times_the_cluster_step():
+    cycles, seconds = K.minibatch_step_probe("lsq", 54, steps=256)
+    assert cycles > 0 and seconds > 0
+    cluster, smem = K.minibatch_design(54)
+    assert cluster == MB_K and 0 < smem <= 232_448
+    assert K.minibatch_design(257) == (1, 0)
+
+
 @needs_card
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     x, y, alpha, w0 = _inputs(64, 8)

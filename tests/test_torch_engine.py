@@ -160,7 +160,7 @@ def test_catx_costs_out_the_clustered_scan():
     """The label-clustered CA-TX table, on the port's own probes: every
     clustered candidate is costed out (paper §3.2), whatever the rates."""
     rep = engine.Engine(device="cpu").explain(
-        engine.AnalyticsQuery(**_catx_query(ordering.make_catx_dataset(512))))
+        engine.AnalyticsQuery(**_catx_query(ordering.make_catx_dataset(512, device="cpu"))))
     assert rep.clusteredness > 0.9
     assert rep.chosen.ordering != "clustered"
     best = min(c.cost_seconds for c in rep.candidates)
@@ -186,7 +186,7 @@ def test_catx_plans_shuffle_once_on_the_references_constants():
         impl_per_row={"cuda_fused": rc.impl_per_row["pallas_fused"],
                       "cuda_minibatch": rc.impl_per_row["pallas_minibatch"]},
     )
-    rep = planner.plan(engine.AnalyticsQuery(**_catx_query(ordering.make_catx_dataset(512))), cal)
+    rep = planner.plan(engine.AnalyticsQuery(**_catx_query(ordering.make_catx_dataset(512, device="cpu"))), cal)
     assert rep.chosen.ordering == ref_rep.chosen.ordering == "shuffle_once"
     assert rep.clusteredness == ref_rep.clusteredness
     ref_serial = {(c.plan.ordering, c.plan.implementation): c.cost_seconds for c in ref_rep.candidates

@@ -4,6 +4,8 @@ against the port's plain versions; plus the wrapper's checks, which run
 before any launch. The CUDA kernels themselves need a card: their tests
 are in tests/test_torch_cuda.py, and chip_smoke.py runs them on the H100."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -93,6 +95,44 @@ def test_igd_fold_tiled_ref_matches_per_row_fold_and_pallas(n, d, loss):
         assert torch.equal(got, torch.from_numpy(a[3]))
 
 
+# the minibatch kernel's cluster order: N with a ragged last tile (44 rows;
+# 9 rows, shorter than any share), D up to the cluster instance's 256,
+# and the CTAs a cluster
+SPLIT_N = (300, 521)
+SPLIT_D = (1, 7, 54, 256)
+SPLIT_PARTS = (1, 2, 8, 16)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_minibatch(n, d, loss):
+    a = _inputs(n, d)
+    return np.asarray(ref_ops.igd_fold_minibatch(*(jnp.asarray(v) for v in a), loss=loss, use_kernel=True,
+                                                 interpret=True))
+
+
+@pytest.mark.parametrize("loss", LOSSES)
+@pytest.mark.parametrize("parts", SPLIT_PARTS)
+@pytest.mark.parametrize("d", SPLIT_D)
+@pytest.mark.parametrize("n", SPLIT_N)
+def test_minibatch_split_ref_matches_pallas_and_plain(n, d, parts, loss):
+    """The CUDA cluster instance's order of sums (each tile's update as
+    `parts` row-share partials, then across shares in rank order) against
+    the reference's Pallas kernel in interpret mode and the plain
+    minibatch fold; the ragged last tile still divides by 256."""
+    a = [torch.from_numpy(v) for v in _inputs(n, d)]
+    got = R.igd_fold_minibatch_split_ref(*a, loss=loss, parts=parts)
+    assert got.shape == (d,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _pallas_minibatch(n, d, loss), **TOL)
+    np.testing.assert_allclose(got.numpy(), R.igd_fold_minibatch_ref(*a, loss=loss).numpy(), **TOL)
+
+
+def test_minibatch_split_ref_takes_zero_rows_and_refuses_uneven_parts():
+    x, y, alpha, w0 = (torch.from_numpy(v) for v in _inputs(0, 5))
+    assert torch.equal(R.igd_fold_minibatch_split_ref(x, y, alpha, w0, parts=8), w0)
+    with pytest.raises(ValueError, match="evenly"):
+        R.igd_fold_minibatch_split_ref(x, y, alpha, w0, parts=3)
+
+
 def test_tiled_ref_restarts_from_any_row():
     """Folding in two calls, at a tile boundary or inside a tile, agrees
     with one call: the second call forms its first p from w itself, where
@@ -173,6 +213,7 @@ def test_launch_counter_reset():
 
 def test_library_name_tracks_the_source():
     assert K.FOLD_GRAM_MAX_DIM == 256 and K.FOLD_GRAM_MAX_DIM < K.FOLD_MAX_DIM
+    assert K.MINIBATCH_CLUSTER_MAX_DIM == 256 < K.MINIBATCH_MAX_DIM and K.TILE % K.MINIBATCH_CLUSTER == 0
     path = K.library_path()
     assert path.parent == K.BUILD_DIR and path.name.startswith("libigd_fused-")
     assert "compute_90a" in " ".join(K.NVCC_FLAGS) and "--use_fast_math" not in K.NVCC_FLAGS

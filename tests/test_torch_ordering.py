@@ -70,10 +70,20 @@ def test_cluster_by_label_matches_reference():
 
 
 def test_catx_dataset_matches_reference():
-    want, got = ref_ordering.make_catx_dataset(5), ordering.make_catx_dataset(5)
+    want, got = ref_ordering.make_catx_dataset(5), ordering.make_catx_dataset(5, device="cpu")
     for k in ("x", "y"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
     assert ordering.catx_closed_form(0.3, 0.05, 200) == ref_ordering.catx_closed_form(0.3, 0.05, 200)
+
+
+def test_catx_dataset_without_a_card_raises_instead_of_running_on_cpu():
+    """Like Engine(), make_catx_dataset builds on the card unless asked for
+    the CPU, so its table and an Engine() on the card agree."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: make_catx_dataset(5) builds there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ordering.make_catx_dataset(5)
+    assert ordering.make_catx_dataset(5, device="cpu")["x"].device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("losses,epoch", [([], 1), ([3.0], 1), ([3.0, 2.999], 2), ([3.0, 2.0], 2), ([0.0, 0.0], 2)])

@@ -72,7 +72,7 @@ def test_catx_closed_form_is_the_ports_fold(n, alpha, w0):
     """Appendix C: one clustered epoch over CA-TX lands exactly on the
     closed form — an exact check of the port's fold with no reference
     run."""
-    data = ordering.make_catx_dataset(n)
+    data = ordering.make_catx_dataset(n, device="cpu")
     agg = uda.IGDAggregate(tasks.LeastSquares(dim=1), igd.constant(alpha))
     state = convert.state_from_numpy(np.array([w0]), 0, 0.0, "cpu")
     out = uda.fold(agg, state, data)
