@@ -27,6 +27,20 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    shuffle_always + cuda_fused and least_squares under clustered +
    cuda_minibatch by hint; then a small-input agreement check against the
    eager fold on the CPU;
+3b. the paper's other execution schemes (eager, no kernel form) on the
+   Forest-shaped table cut to SCHEME_ROWS rows at full width (its first and
+   last SCHEME_ROWS / 2 rows, so both labels, clustered): logreg with an
+   L1 prox (mu > 0, not kernel-eligible) under a memory budget below the
+   table's bytes, which the planner must answer with buffered MRS; svm
+   segmented (k = 8) and under each shared-memory scheme by hint; each
+   run's loss and per-row time on the card beside the probed eager fold;
+   the same plans on a 4,096-row slice: one epoch of each scheme's program
+   under torch.cuda.set_sync_debug_mode("error") (no scheme reads data
+   back to the host), then each run on the card and on the CPU with the
+   same draws (draws.HostDraws), held to rtol=2e-4, atol=2e-5; a cold and
+   a warm Engine.run wall of a planned
+   query (logreg, 2,048 x 32, 5 epochs: benchmarks/engine_bench.py's
+   quick query);
 4. time each kernel at the main path's shape with CUDA events, beside its
    plain version and its bound; igd_fold also beside its chain floor (N
    times one grad_scale + FMA step timed alone in one warp),
@@ -66,6 +80,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -87,6 +102,11 @@ F64_PREFIX = 65_536  # rows the kernel is held to a float64 fold on
 MB_D = (1, 54, 256, 257, 12_032)
 MB_N = (0, 1, 255, 257, 16_385)
 KERNEL_RTOL, KERNEL_ATOL = 2e-4, 2e-5
+# phase 3b: rows of the Forest-shaped table the eager schemes run on (cut
+# so the phase stays within ~90 s on the card: the eager fold costs
+# 140-310 us a row there, with the host's speed, MRS 2-3x that), their
+# epochs, and the slice held to the CPU
+SCHEME_ROWS, SCHEME_EPOCHS, SCHEME_SLICE = 12_288, 3, 4_096
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
@@ -202,6 +222,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     from repro_torch import engine, timing
+    from repro_torch.core import draws
     from repro_torch.data import synthetic
     from repro_torch.engine import catalog
     from repro_torch.kernels.igd_fused import kernel as K, ref as R
@@ -363,16 +384,11 @@ def main() -> int:
 
     # small input: the card's kernel lanes against the CPU's eager fold,
     # on the same rows and the same permutations
-    class SamePermutations:
-        def stream(self, seed, n, device):
-            g = torch.Generator().manual_seed(seed)
-            return lambda: torch.randperm(n, generator=g).to(device)
-
     small = {k: v[:4096].contiguous() for k, v in table.items()}
-    cpu_eng = engine.Engine(device="cpu", permutations=SamePermutations())
-    gpu_eng = engine.Engine(permutations=SamePermutations())
+    cpu_eng = engine.Engine(device="cpu", draws=draws.HostDraws())
+    gpu_eng = engine.Engine(draws=draws.HostDraws())
     for task in ("logreg", "least_squares"):
-        hint = {"ordering": "shuffle_always"}
+        hint = {"ordering": "shuffle_always", "scheme": "serial"}
         qg = engine.AnalyticsQuery(task=task, data=small, task_args=task_args, epochs=2,
                                    tolerance=0.0, hints=dict(hint, implementation="cuda_fused"))
         qc = engine.AnalyticsQuery(task=task, data={k: v.cpu() for k, v in small.items()},
@@ -385,6 +401,8 @@ def main() -> int:
             raise AssertionError(f"{task}: card's cuda_fused run disagrees with the CPU's torch_fold")
         log("reference", f"{task} 4096x54 shuffle_always: cuda_fused on the card vs torch_fold "
             f"on the CPU, max |err| {float((got - want).abs().max()):.3g}")
+
+    schemes(args.seed, table, dev)
 
     # -- 4. timings at the main path's shape -------------------------------
     n, d = FOREST_ROWS, FOREST_DIM
@@ -464,6 +482,126 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0
+
+
+def schemes(seed: int, table: dict, dev) -> None:
+    """Phase 3b: segmented, shared-memory and MRS plans through the
+    engine on the card (no kernel: they run eagerly, as the reference runs
+    them in XLA), held to the CPU on a slice."""
+    import dataclasses
+
+    from repro_torch import engine, timing
+    from repro_torch.core import draws, mrs
+    from repro_torch.engine import catalog, program
+
+    phase = timing.Stopwatch()
+    half = SCHEME_ROWS // 2
+    data = {k: torch.cat([v[:half], v[-half:]]).contiguous() for k, v in table.items()}
+    n, d = SCHEME_ROWS, FOREST_DIM
+    nbytes = sum(v.numel() * v.element_size() for v in data.values())
+    log("schemes", f"Forest-shaped table cut to {n} x {d} (rows 0..{half - 1} and the last {half}: "
+        f"label-clustered, {nbytes} bytes), {SCHEME_EPOCHS} epochs a run")
+    eng = engine.Engine()
+    runs = []  # (label, query, plan)
+
+    # the memory budget: an ineligible query (L1 prox: torch_fold only)
+    # over a table twice its budget must stream through buffered MRS
+    mrs_args = {"dim": d, "mu": 1e-4}
+    q_mrs = engine.AnalyticsQuery(task="logreg", data=data, task_args=mrs_args, epochs=SCHEME_EPOCHS,
+                                  tolerance=0.0, seed=seed, memory_budget_bytes=nbytes // 2)
+    rep = eng.explain(q_mrs)
+    print(rep.describe(), flush=True)
+    if rep.chosen.scheme != "mrs" or rep.chosen.mrs_buffer < 8:
+        raise AssertionError(f"under a budget of {nbytes // 2} bytes the planner chose {rep.chosen}, not MRS")
+    runs.append(("logreg mu>0, budget", q_mrs, rep.chosen))
+    svm_args = {"dim": d}
+    q_seg = engine.AnalyticsQuery(task="svm", data=data, task_args=svm_args, epochs=SCHEME_EPOCHS, tolerance=0.0,
+                                  seed=seed, hints={"scheme": "segmented", "num_segments": 8})
+    rep_seg = eng.explain(q_seg)
+    runs.append(("svm segmented", q_seg, rep_seg.chosen))
+    q_sm = dataclasses.replace(q_seg, hints={"scheme": "shared_memory"})
+    rep_sm = eng.explain(q_sm)
+    log("schemes", f"shared_memory hint: planned {rep_sm.chosen.describe()} over "
+        f"{len(rep_sm.candidates)} candidates; each scheme runs that ordering")
+    for sm in ("lock", "aig", "nolock"):
+        runs.append((f"svm shared_memory/{sm}", q_sm, dataclasses.replace(rep_sm.chosen, sm_scheme=sm)))
+
+    for what, cal in (("logreg mu>0", rep.calibration), ("svm", rep_seg.calibration)):
+        log("schemes", f"probed on the card ({what}, {cal.probe_rows}-row slab): eager fold "
+            f"{cal.fold_per_row * 1e6:.1f} us a row, segmented {cal.seg_per_row_at(8) * 1e6:.1f} us a row at k = 8, "
+            f"merge {cal.merge_seconds * 1e6:.1f} us")
+    for label, q, plan in runs:
+        res = eng.run(q, plan=plan)
+        l0 = float(catalog.get(q.task).make_task(**q.task_args).full_loss(torch.zeros(d, device=dev), data))
+        if (res.plan.scheme != plan.scheme or res.kernel_launches or res.model.shape != (d,)
+                or not bool(torch.isfinite(res.model).all())):
+            raise AssertionError(f"{label}: plan {res.plan}, {res.kernel_launches} kernel launches, or model not finite")
+        if not (res.losses and all(map(math.isfinite, res.losses)) and res.losses[-1] < l0):
+            raise AssertionError(f"{label}: loss {l0} -> {res.losses}")
+        us_row = res.gradient_seconds / (res.epochs * n) * 1e6
+        log("schemes", f"{label} ({res.plan.describe()}): {res.epochs} epochs, loss {l0:.6g} -> "
+            f"{res.losses[-1]:.6g}; grad {res.gradient_seconds:.3f} s, {us_row:.1f} us a row on the card "
+            f"(shuffle {res.shuffle_seconds:.4f} s)")
+
+    # the same plans on a slice (MRS with a reservoir of an eighth of it)
+    quarter = SCHEME_SLICE // 2
+    small = {k: torch.cat([v[:quarter], v[-quarter:]]).contiguous() for k, v in data.items()}
+    runs = [(label, q, dataclasses.replace(plan, mrs_buffer=SCHEME_SLICE // 8) if plan.scheme == "mrs" else plan)
+            for label, q, plan in runs]
+    # one epoch of each scheme's program, its draws included, with host
+    # syncs made errors: the epoch reads nothing back to the host
+    for label, q, plan in runs:
+        task, agg = eng._aggregate_for(q)
+        compiled = program.build_program(task, agg, program.EpochProgram(plan))
+        state = agg.initialize(torch.Generator(device=dev).manual_seed(seed))
+        if plan.scheme == "mrs":
+            zero = mrs.zero_buffer(plan.mrs_buffer, small)
+            state = (state, zero, zero, True)
+        epoch_draws = draws.TorchDraws().stream(seed, SCHEME_SLICE, dev).epoch()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            compiled.epoch_fn(state, small, epoch_draws)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    log("schemes", f"one epoch of each scheme's program on the {SCHEME_SLICE}-row slice ran with "
+        "set_sync_debug_mode('error'): no host sync")
+
+    # ... and on the card and on the CPU, with the same draws
+    gpu_eng, cpu_eng = engine.Engine(draws=draws.HostDraws()), engine.Engine(device="cpu", draws=draws.HostDraws())
+    worst = 0.0
+    for label, q, plan in runs:
+        qs = dataclasses.replace(q, data=small, epochs=2, memory_budget_bytes=None)
+        got = gpu_eng.run(qs, plan=plan).model.cpu()
+        want = cpu_eng.run(dataclasses.replace(qs, data={k: v.cpu() for k, v in small.items()}), plan=plan).model
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+            raise AssertionError(f"{label}: the card's run disagrees with the CPU's (max |err| {err:.3g})")
+    log("reference", f"{SCHEME_SLICE}x{d} slice, 2 epochs, {len(runs)} scheme plans: card vs CPU with the same "
+        f"draws, max |err| {worst:.3g} (rtol={KERNEL_RTOL}, atol={KERNEL_ATOL})")
+
+    # a planned query cold (probes, plan, build) and warm (memo hits)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    from repro_torch.data import synthetic
+
+    bench = synthetic.dense_classification(gen, 2048, 32)
+    qb = engine.AnalyticsQuery(task="logreg", data=bench, task_args={"dim": 32}, epochs=5, tolerance=0.0)
+    fresh = engine.Engine()
+    walls = []
+    for _ in range(2):
+        watch = timing.Stopwatch()
+        res = fresh.run(qb)
+        torch.cuda.synchronize()
+        walls.append((watch.lap(), res))
+    (cold, r_cold), (warm, r_warm) = walls
+    if r_warm.trace_count != r_cold.trace_count or fresh.stats["plans_computed"] != 1:
+        raise AssertionError(f"warm repeat built or planned again: {fresh.cache_info()}")
+    log("e2e", f"planned query (logreg 2048x32, 5 epochs, {r_cold.plan.describe()}): cold {cold * 1e3:.1f} ms "
+        f"(probes, plan, build, run), warm {warm * 1e3:.2f} ms (grad {r_warm.gradient_seconds * 1e3:.2f} ms); "
+        f"cache {fresh.cache_info()}")
+    log("schemes", f"phase 3b took {phase.lap():.1f} s")
 
 
 def graph_ms(fn, iters: int) -> float:

@@ -1,0 +1,122 @@
+"""Where a run's random draws come from.
+
+Every random choice a run makes outside its initial model comes from one
+injectable source, so a test can replay another implementation's streams
+in the order the run consumes them:
+
+* the orderings' permutations (``ShuffleOnce`` / ``ShuffleAlways``, §3.2);
+* each epoch's reservoir draws (buffered MRS, §3.4);
+* each epoch's shared-memory draws (which model version each component
+  is read from, and which component writes survive; §3.3).
+
+``DrawSource.stream(seed, n, device)`` opens a run over an ``n``-row
+table and returns its :class:`RunDraws`. Within an epoch the run takes
+its permutation (if its ordering draws one) first, then ``epoch()``
+once, and the scheme's draws from what ``epoch()`` returned — the order
+in which the reference executor splits its key.
+"""
+
+from __future__ import annotations
+
+from typing import Protocol
+
+import torch
+
+# randint's bound for reservoir draws: one 62-bit draw taken mod (i + 1);
+# the bias, at most n / 2**62, is far below anything a run can see
+_RESERVOIR_BITS = 2**62
+
+
+class EpochDraws(Protocol):
+    """One epoch's draws for the scheme, each a tensor on the run's
+    device covering the whole epoch."""
+
+    def reservoir(self) -> torch.Tensor:
+        """int64 [n]: draw i is uniform over ``range(i + 1)`` — the slot
+        Vitter's reservoir offers the (i+1)-th streamed tuple."""
+        ...
+
+    def read_versions(self, d: int, workers: int) -> torch.Tensor:
+        """int64 [n, d], uniform over ``range(workers)``: how many model
+        versions back each component of row i's read lies."""
+        ...
+
+    def kept_writes(self, d: int, keep: float) -> torch.Tensor:
+        """bool [n, d], each True with probability ``keep``: which
+        components of row i's update survive a racing writer."""
+        ...
+
+
+class RunDraws(Protocol):
+    def permutation(self) -> torch.Tensor:
+        """The next int64 permutation of ``range(n)``."""
+        ...
+
+    def epoch(self) -> EpochDraws:
+        """Open the next epoch's scheme draws (called once an epoch, after
+        the ordering has drawn)."""
+        ...
+
+
+class DrawSource(Protocol):
+    def stream(self, seed: int, n: int, device: torch.device) -> RunDraws: ...
+
+
+class TorchDraws:
+    """The default source: one ``torch.Generator`` on the run's device,
+    seeded with the query's seed, hands out every draw of the run."""
+
+    def stream(self, seed: int, n: int, device: torch.device) -> "_TorchRun":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return _TorchRun(gen, n, torch.device(device))
+
+
+class _TorchRun:
+    def __init__(self, gen: torch.Generator, n: int, device: torch.device):
+        self.gen, self.n, self.device = gen, n, device
+
+    def permutation(self) -> torch.Tensor:
+        return torch.randperm(self.n, generator=self.gen, device=self.device)
+
+    def epoch(self) -> "_TorchRun":
+        return self  # the epoch's draws come from the same generator
+
+    def reservoir(self) -> torch.Tensor:
+        raw = torch.randint(0, _RESERVOIR_BITS, (self.n,), generator=self.gen, device=self.device)
+        return raw % torch.arange(1, self.n + 1, device=self.device)
+
+    def read_versions(self, d: int, workers: int) -> torch.Tensor:
+        return torch.randint(0, workers, (self.n, d), generator=self.gen, device=self.device)
+
+    def kept_writes(self, d: int, keep: float) -> torch.Tensor:
+        return torch.rand((self.n, d), generator=self.gen, device=self.device) < keep
+
+
+class HostDraws:
+    """``TorchDraws`` made on the CPU and moved to the run's device: the
+    same values whichever device the run is on, which is how a run on the
+    card is held to the same run on the CPU."""
+
+    def stream(self, seed: int, n: int, device: torch.device) -> "_Moved":
+        return _Moved(TorchDraws().stream(seed, n, torch.device("cpu")), torch.device(device))
+
+
+class _Moved:
+    def __init__(self, run, device: torch.device):
+        self.run, self.device = run, device
+
+    def permutation(self) -> torch.Tensor:
+        return self.run.permutation().to(self.device)
+
+    def epoch(self) -> "_Moved":
+        return _Moved(self.run.epoch(), self.device)
+
+    def reservoir(self) -> torch.Tensor:
+        return self.run.reservoir().to(self.device)
+
+    def read_versions(self, d: int, workers: int) -> torch.Tensor:
+        return self.run.read_versions(d, workers).to(self.device)
+
+    def kept_writes(self, d: int, keep: float) -> torch.Tensor:
+        return self.run.kept_writes(d, keep).to(self.device)

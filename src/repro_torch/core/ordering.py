@@ -7,40 +7,18 @@ pathologically slowly. The paper's fix: shuffle ONCE before the first epoch
 worse per-epoch rate for much lower wall-clock per epoch.
 
 A policy's ``order(data, n, epoch, draw) -> examples`` returns the epoch's
-stream; ``draw()`` hands out the next permutation of a
-:class:`PermutationSource`'s stream. ``Clustered`` returns the stored
-order unchanged and draws nothing.
+stream; ``draw()`` hands out the run's next permutation
+(``RunDraws.permutation`` of ``repro_torch.core.draws``). ``Clustered``
+returns the stored order unchanged and draws nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Protocol
 
 import torch
 
 from repro_torch.device import resolve_device
-
-Draw = Callable[[], torch.Tensor]
-
-
-class PermutationSource(Protocol):
-    """Where a run's permutations come from. ``stream(seed, n, device)``
-    returns ``draw``, which yields one int64 permutation of ``range(n)``
-    on ``device`` per call, in the order the orderings ask for them."""
-
-    def stream(self, seed: int, n: int, device: torch.device) -> Draw: ...
-
-
-class TorchPermutations:
-    """The default source: ``torch.randperm`` driven by a
-    ``torch.Generator`` on the run's device, seeded with the query's
-    seed."""
-
-    def stream(self, seed: int, n: int, device: torch.device) -> Draw:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-        return lambda: torch.randperm(n, generator=gen, device=device)
 
 
 def _permute(data, perm):

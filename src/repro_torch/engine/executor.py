@@ -4,9 +4,12 @@ The executor is a *driver* over the program compiler
 (``repro_torch.engine.program``): a chosen ``Plan`` becomes an
 ``EpochProgram`` (batch=1), ``build_program`` lowers it to an epoch
 callable, and the callable is memoized keyed by (task, task_args, table
-signature, plan). A cache hit builds nothing: ``trace_count`` on each
-plan counts the builds, which the cache tests pin across repeat
-queries.
+signature, plan) beside the objective evaluator. A cache hit builds
+nothing: ``trace_count`` and ``loss_trace_count`` count the builds,
+which the cache tests pin across repeat queries.
+
+Every random draw of a run (permutations, reservoir draws, hogwild
+draws) comes from the engine's one ``core.draws.DrawSource``.
 
 The engine runs on one device. ``Engine()`` means the CUDA card and
 raises when there is none; ``Engine(device="cpu")`` runs on the CPU. A
@@ -21,8 +24,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import timing
-from repro_torch.core import convergence, ordering as ordering_lib
-from repro_torch.core.tracecount import fresh_counter
+from repro_torch.core import convergence, draws as draws_lib, mrs as mrs_lib
+from repro_torch.core import ordering as ordering_lib
+from repro_torch.core.tracecount import count_build, fresh_counter
 from repro_torch.device import resolve_device
 from repro_torch.engine import catalog, planner as planner_lib, probes
 from repro_torch.engine import program as program_lib
@@ -45,18 +49,37 @@ def _fresh_stats() -> Dict[str, int]:
     }
 
 
+@dataclasses.dataclass
+class CompiledPlan:
+    """One compiled-plan cache entry: the plan's epoch program and the
+    objective evaluator, each with its build counter."""
+
+    program: program_lib.CompiledProgram
+    loss_fn: Any
+    loss_trace_counter: Dict[str, int]
+
+    @property
+    def trace_count(self) -> int:
+        return self.program.trace_count
+
+    @property
+    def loss_trace_count(self) -> int:
+        return self.loss_trace_counter["traces"]
+
+
 class Engine:
     """The unified analytics engine: query -> plan -> cached execute.
 
-    ``permutations`` is the source of the shuffle orderings'
-    permutations (``core.ordering.PermutationSource``); the default
-    draws ``torch.randperm`` from a generator seeded with the query's
-    seed on the engine's device."""
+    ``draws`` is the source of every random draw a run makes
+    (``core.draws.DrawSource``: the shuffle orderings' permutations and
+    the MRS and shared-memory schemes' draws); the default,
+    ``TorchDraws``, draws from a generator seeded with the query's seed
+    on the engine's device."""
 
-    def __init__(self, device=None, permutations: Optional[ordering_lib.PermutationSource] = None):
+    def __init__(self, device=None, draws: Optional[draws_lib.DrawSource] = None):
         self.device = resolve_device(device)
-        self.permutations = permutations or ordering_lib.TorchPermutations()
-        self._compiled: Dict[Tuple, program_lib.CompiledProgram] = {}
+        self.draws = draws or draws_lib.TorchDraws()
+        self._compiled: Dict[Tuple, CompiledPlan] = {}
         # key -> (pinned table columns, report); see explain()
         self._reports: Dict[Tuple, Tuple] = {}
         self._calibrations: Dict[Tuple, probes.Calibration] = {}
@@ -125,7 +148,7 @@ class Engine:
 
     # -- compiled-plan cache ----------------------------------------------
 
-    def _compile(self, query: AnalyticsQuery, plan: planner_lib.Plan) -> program_lib.CompiledProgram:
+    def _compile(self, query: AnalyticsQuery, plan: planner_lib.Plan) -> CompiledPlan:
         key = query.cache_key_fields() + (plan,)
         hit = self._compiled.get(key)
         if hit is not None:
@@ -133,14 +156,29 @@ class Engine:
             return hit
         self.stats["plan_cache_misses"] += 1
         task, agg = self._aggregate_for(query)
-        compiled = program_lib.build_program(
+        program = program_lib.build_program(
             task, agg, program_lib.EpochProgram(plan=plan), counter=fresh_counter(),
+        )
+        loss_counter = fresh_counter()
+        count_build(loss_counter)
+        compiled = CompiledPlan(
+            program=program,
+            loss_fn=lambda model, data: task.full_loss(model, data),
+            loss_trace_counter=loss_counter,
         )
         self._compiled[key] = compiled
         return compiled
 
     def cache_info(self) -> Dict[str, int]:
         return dict(self.stats, compiled_plans=len(self._compiled))
+
+    def clear_cache(self) -> None:
+        """Forget the compiled plans and the plan memo, and zero the
+        stats. The probed calibrations stay, as the reference keeps its
+        probe cache apart from the engine's."""
+        self._compiled.clear()
+        self._reports.clear()
+        self.stats = _fresh_stats()
 
     # -- execution --------------------------------------------------------
 
@@ -171,6 +209,7 @@ class EngineResult:
     shuffle_seconds: float
     gradient_seconds: float
     trace_count: int  # builds of this query's epoch callable, cumulative
+    loss_trace_count: int = 0  # builds of its objective evaluator
     # fused-IGD kernel launches made by this run's epochs (0 for
     # torch_fold and for CPU runs, which take the plain versions)
     kernel_launches: int = 0
@@ -183,17 +222,18 @@ class EngineResult:
 
 
 def _execute(
-    compiled: program_lib.CompiledProgram,
+    compiled: CompiledPlan,
     query: AnalyticsQuery,
     report: Optional[planner_lib.PlanReport],
     engine: Engine,
 ) -> EngineResult:
-    plan = compiled.plan
-    agg = compiled.agg
+    program = compiled.program
+    plan = program.plan
+    agg = program.agg
     data = query.data
     device = engine.device
     n = query.n_examples
-    draw = engine.permutations.stream(query.seed, n, device)
+    draws = engine.draws.stream(query.seed, n, device)
     ordering = _ORDERINGS[plan.ordering]()
     if query.target_loss is not None:
         stop = lambda losses, epoch: bool(  # noqa: E731
@@ -205,11 +245,14 @@ def _execute(
         stop = None
 
     def eval_loss(state) -> float:
-        return float(compiled.task.full_loss(agg.terminate(state), data))
+        return float(compiled.loss_fn(agg.terminate(state), data))
 
     gen = torch.Generator(device=device)
     gen.manual_seed(query.seed)
     state = agg.initialize(gen)
+    if plan.scheme == "mrs":
+        zero_buf = mrs_lib.zero_buffer(plan.mrs_buffer, data)
+        carry = (state, zero_buf, zero_buf, False)
     launches0 = sum(igd_kernel.launches.values())
     losses: List[float] = []
     shuffle_s = 0.0
@@ -218,10 +261,16 @@ def _execute(
     epoch = 0
     for epoch in range(1, query.epochs + 1):
         watch = timing.Stopwatch()
-        examples = ordering.order(data, n, epoch, draw)
+        examples = ordering.order(data, n, epoch, draws.permutation)
         timing.sync(device)
         shuffle_s += watch.lap()
-        state = compiled.epoch_fn(state, examples)
+        epoch_draws = draws.epoch()
+        if plan.scheme == "mrs":
+            state, buf_a, buf_b, _ = program.epoch_fn(carry, examples, epoch_draws)
+            # swap: the memory worker cycles last epoch's reservoir
+            carry = (state, buf_b, buf_a, True)
+        else:
+            state = program.epoch_fn(state, examples, epoch_draws)
         timing.sync(device)
         grad_s += watch.lap()
         # A stop rule needs the per-epoch objective; without one, a single
@@ -244,5 +293,6 @@ def _execute(
         shuffle_seconds=shuffle_s,
         gradient_seconds=grad_s,
         trace_count=compiled.trace_count,
+        loss_trace_count=compiled.loss_trace_count,
         kernel_launches=sum(igd_kernel.launches.values()) - launches0,
     )

@@ -1,17 +1,24 @@
 """Cost-based physical planning for analytics queries.
 
 The planner enumerates the physical-plan space the paper studies as
-independent knobs and picks the cheapest plan under a cost model whose
-constants are measured by micro-probes (``repro_torch.engine.probes``)
-rather than assumed. Statistics about the table (label-clusteredness via
-a Wald–Wolfowitz runs statistic) feed the convergence-rate term, so the
-pathological clustered scan on label-sorted data is costed out, not
-special-cased.
+independent knobs —
 
-This slice of the port plans the serial scheme on one device over an
-in-memory table: ordering (§3.2) × implementation (``torch_fold`` |
-``cuda_fused`` | ``cuda_minibatch``). A hint for a scheme, parallelism
-or source that a later slice brings raises ``NotImplementedError``.
+    ordering policy (§3.2)  x  execution scheme (§3.3: serial fold,
+    shared-nothing segmented fold, shared-memory concurrency; §3.4:
+    buffered MRS)  x  implementation of the serial lane body
+    (``torch_fold`` | ``cuda_fused`` | ``cuda_minibatch``) —
+
+and picks the cheapest plan under a cost model whose constants are
+measured by micro-probes (``repro_torch.engine.probes``) rather than
+assumed. Statistics about the table (label-clusteredness via a
+Wald–Wolfowitz runs statistic) feed the convergence-rate term, so the
+pathological clustered scan on label-sorted data is costed out, not
+special-cased. A table over the query's memory budget makes every
+shuffled plan infeasible, which leaves MRS (§3.4).
+
+This slice of the port plans on one device over an in-memory table. A
+hint for the parallelism or source that a later slice brings raises
+``NotImplementedError``.
 
 ``PlanReport.describe()`` renders the choice and every rejected
 candidate with its estimated cost — the engine's EXPLAIN.
@@ -33,22 +40,28 @@ ORDERINGS = ("clustered", "shuffle_once", "shuffle_always")
 SCHEMES = ("serial", "segmented", "shared_memory", "mrs")
 PARALLELISMS = ("singleton", "sharded")
 SOURCES = ("memory", "table")
+SEGMENT_CANDIDATES = (2, 4, 8)
+SM_SCHEMES = ("lock", "aig", "nolock")
+SM_WORKERS = 8
+MRS_RATIO = 2
 # Convergence-penalty cap for a fully label-clustered scan (paper Fig. 5:
 # orders of magnitude more epochs; 50x is enough to always reject it).
 CLUSTERED_PENALTY_CAP = 50.0
+# Per-step overhead factor of the shared-memory simulator (ring reads and
+# writes around each transition). The simulator runs on ONE device — its
+# cost model claims no parallel speedup (it exists to reproduce Fig. 9's
+# convergence behavior, not to be fast).
+SM_OVERHEAD = 3.0
 
 # What each not-yet-ported axis value waits for (ROADMAP queue 1).
 _LATER = {
-    "segmented": "the schemes slice (segmented fold)",
-    "shared_memory": "the schemes slice (shared-memory simulator)",
-    "mrs": "the schemes slice (buffered MRS)",
     "sharded": "the sharding slice (engine/shard.py)",
     "table": "the stored-table slice (engine/table.py)",
 }
-# hint keys that only the later schemes read
+# hint keys that only the later parallelism reads
 _LATER_HINT_KEYS = {
-    "num_segments": "segmented", "num_shards": "sharded",
-    "merge_period": "sharded", "shard_devices": "sharded",
+    "num_shards": "sharded", "merge_period": "sharded",
+    "shard_devices": "sharded",
 }
 
 
@@ -62,31 +75,54 @@ def _not_ported(what: str, value: str) -> NotImplementedError:
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """A fully physical execution plan. Hashable: part of the compiled-
-    plan cache key. In this slice every plan is a serial fold on one
-    device over the in-memory table; the other axes join the plan with
+    plan cache key. In this slice every plan runs on one device over the
+    in-memory table; the parallelism and source axes join the plan with
     the slices that bring a second value for them."""
 
     ordering: str  # clustered | shuffle_once | shuffle_always
+    scheme: str = "serial"  # serial | segmented | shared_memory | mrs
+    num_segments: int = 1
+    sm_scheme: str = "nolock"
+    sm_workers: int = SM_WORKERS
+    mrs_buffer: int = 0
+    mrs_ratio: int = MRS_RATIO
     # torch_fold: the eager uda.fold loop. cuda_fused: the fused-IGD
     # kernel's per-tuple lane (probe-priced against the loop for
-    # kernel-eligible plans). cuda_minibatch: one mean-gradient step per
-    # tile — different algorithm semantics, hint-only.
+    # kernel-eligible serial plans). cuda_minibatch: one mean-gradient
+    # step per tile — different algorithm semantics, hint-only.
     implementation: str = "torch_fold"
 
     def axes(self, batch: str = "1") -> str:
         """The composed-axes line (EXPLAIN's ``why``)."""
         return (
-            f"ordering={self.ordering} × parallelism=singleton/serial × "
+            f"ordering={self.ordering} × parallelism=singleton/{self.scheme} × "
             f"batch={batch} × source=memory × "
             f"implementation={self.implementation}"
         )
 
     def describe(self) -> str:
+        if self.scheme == "serial":
+            ex = "serial fold"
+        elif self.scheme == "segmented":
+            ex = (
+                f"segmented fold ({self.num_segments} shared-nothing "
+                "segments, merge=model-averaging)"
+            )
+        elif self.scheme == "shared_memory":
+            ex = (
+                f"shared-memory fold ({self.sm_scheme}, "
+                f"{self.sm_workers} workers)"
+            )
+        else:
+            ex = (
+                f"buffered MRS (reservoir={self.mrs_buffer}, "
+                f"{self.mrs_ratio} memory steps/tuple)"
+            )
         impl = (
             f" · impl={self.implementation} (fused-IGD kernel)"
             if self.implementation != "torch_fold" else ""
         )
-        return f"ordering={self.ordering} · serial fold{impl}"
+        return f"ordering={self.ordering} · {ex}{impl}"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,6 +209,10 @@ def _conv_multiplier(plan: Plan, clusteredness: float) -> Tuple[float, str]:
     """Relative epochs-to-tolerance vs the shuffle-once serial baseline."""
     mult = 1.0
     note = ""
+    if plan.scheme == "mrs":
+        # the reservoir randomizes the gradient order itself, so MRS is
+        # immune to the stored order (that is its whole point, §3.4)
+        return 1.25, note  # reservoir ~ shuffle-once rate (paper Fig. 10)
     if plan.ordering == "clustered":
         # runs-starved gradient order: rate degrades sharply with c
         penalty = 1.0 / max(1.0 - clusteredness, 1.0 / CLUSTERED_PENALTY_CAP)
@@ -181,6 +221,10 @@ def _conv_multiplier(plan: Plan, clusteredness: float) -> Tuple[float, str]:
             note = f"label-clustered scan: ~{penalty:.0f}x more epochs"
     elif plan.ordering == "shuffle_always":
         mult *= 0.95  # marginally better per-epoch rate (paper Fig. 5)
+    if plan.scheme == "segmented":
+        mult *= 1.0 + 0.1 * (plan.num_segments - 1)  # model-averaging loss
+    elif plan.scheme == "shared_memory":
+        mult *= 1.1 if plan.sm_scheme != "lock" else 1.0
     return mult, note
 
 
@@ -195,10 +239,13 @@ def cost_components(
     """The cost model's arithmetic, decomposed along the EpochProgram
     axes it prices: ``{"ordering": s, "parallelism": s, "source": s,
     "implementation": s}`` whose sum is :func:`program_cost`'s total.
-    The serial lane body's compute sits on the implementation axis,
-    priced at the probed rate of the chosen lowering; parallelism and
-    source are 0 in this slice's plan space. The note gains the measured
-    us/epoch of every probed lane implementation."""
+
+    A serial plan's lane body sits on the implementation axis, priced at
+    the probed rate of the chosen lowering (and the note gains the
+    measured us/epoch of every probed lane implementation); parallelism
+    is 0 there. Every other scheme keeps its compute under parallelism
+    (its lane body is defined by the scheme) with implementation = 0.
+    Source is 0 in this slice's plan space."""
     n = query.n_examples
     fold_row = cal.fold_per_row
 
@@ -207,27 +254,43 @@ def cost_components(
                 "shuffle_always": est_epochs}[plan.ordering]
     ordering = cal.shuffle_per_row * n * shuffles
 
+    # -- parallelism axis: the epoch compute of a non-serial scheme -------
+    if plan.scheme == "serial":
+        parallelism = 0.0  # the lane body is priced on the impl axis below
+    elif plan.scheme == "segmented":
+        # measured batched segmented fold (interpolated off the probed
+        # point), plus the k-1 merges an epoch
+        per_epoch = cal.seg_per_row_at(plan.num_segments) * n
+        per_epoch += cal.merge_seconds * (plan.num_segments - 1)
+        parallelism = per_epoch * est_epochs
+    elif plan.scheme == "shared_memory":
+        parallelism = SM_OVERHEAD * fold_row * n * est_epochs
+    else:  # mrs: 1 I/O step + ratio memory steps per streamed tuple
+        parallelism = fold_row * n * (1 + plan.mrs_ratio) * est_epochs
+
     # -- implementation axis: the serial lane body -----------------------
-    impl_row = (
-        cal.impl_per_row.get(plan.implementation, fold_row)
-        if plan.implementation != "torch_fold" else fold_row
-    )
-    implementation = impl_row * n * est_epochs
-    if cal.impl_per_row:
-        # the probe-derived choice, shown in EXPLAIN: measured us/epoch
-        # for every lane lowering probed on this device
-        rates = {"torch_fold": fold_row, **cal.impl_per_row}
-        probed = ", ".join(
-            f"{name} {rate * n * 1e6:.0f} us/epoch"
-            for name, rate in rates.items()
+    implementation = 0.0
+    if plan.scheme == "serial":
+        impl_row = (
+            cal.impl_per_row.get(plan.implementation, fold_row)
+            if plan.implementation != "torch_fold" else fold_row
         )
-        impl_note = f"impl-probed: {probed}"
-        note = f"{note}; {impl_note}" if note else impl_note
+        implementation = impl_row * n * est_epochs
+        if cal.impl_per_row:
+            # the probe-derived choice, shown in EXPLAIN: measured
+            # us/epoch for every lane lowering probed on this device
+            rates = {"torch_fold": fold_row, **cal.impl_per_row}
+            probed = ", ".join(
+                f"{name} {rate * n * 1e6:.0f} us/epoch"
+                for name, rate in rates.items()
+            )
+            impl_note = f"impl-probed: {probed}"
+            note = f"{note}; {impl_note}" if note else impl_note
 
     return (
         {
             "ordering": ordering,
-            "parallelism": 0.0,
+            "parallelism": parallelism,
             "source": 0.0,
             "implementation": implementation,
         },
@@ -240,19 +303,43 @@ def program_cost(
     query: AnalyticsQuery,
     cal: probes.Calibration,
     clusteredness: float,
+    shuffle_feasible: bool,
 ) -> Candidate:
     """THE cost model: one function costs every point of the plan space
-    from the same measured constants."""
+    from the same measured constants. A shuffled plan is infeasible
+    (cost ``inf``) when the shuffled copy does not fit the query's
+    memory budget."""
     epochs = max(query.epochs, 1)
     mult, note = _conv_multiplier(plan, clusteredness)
     est_epochs = min(epochs * mult, epochs * CLUSTERED_PENALTY_CAP)
+    if plan.ordering != "clustered" and not shuffle_feasible:
+        return Candidate(
+            plan, float("inf"), est_epochs,
+            "shuffled copy exceeds memory budget",
+        )
     comps, note = cost_components(plan, query, cal, est_epochs, note=note)
-    return Candidate(plan, sum(comps.values()), est_epochs, note)
+    cost = (
+        comps["ordering"] + comps["source"] + comps["parallelism"]
+        + comps["implementation"]
+    )
+    return Candidate(plan, cost, est_epochs, note)
 
 
 # ---------------------------------------------------------------------------
 # enumeration + choice
 # ---------------------------------------------------------------------------
+
+
+def _mrs_buffer_rows(query: AnalyticsQuery) -> int:
+    """Reservoir rows: half the memory budget (buffers A and B), at least
+    8; a tenth of the table without a budget; never more than the table."""
+    n = query.n_examples
+    if query.memory_budget_bytes:
+        per_row = max(query.data_bytes // max(n, 1), 1)
+        rows = max(int(query.memory_budget_bytes // (2 * per_row)), 8)
+    else:
+        rows = max(n // 10, 8)
+    return int(min(rows, n))
 
 
 def _check_hints(query: AnalyticsQuery, hints: dict, cal) -> None:
@@ -280,6 +367,9 @@ def _check_hints(query: AnalyticsQuery, hints: dict, cal) -> None:
                 "identity prox + dense (x, y) rows — see "
                 "program.kernel_eligibility)"
             )
+    k = hints.get("num_segments")
+    if k is not None and (not isinstance(k, int) or k < 1):
+        raise ValueError(f"num_segments hint must be an int >= 1, got {k!r}")
     if hints.get("scheme") == "mrs" and hints.get("ordering") not in (
         None, "clustered",
     ):
@@ -288,51 +378,92 @@ def _check_hints(query: AnalyticsQuery, hints: dict, cal) -> None:
             "the shuffle); it cannot be combined with an ordering hint of "
             f"{hints['ordering']!r}"
         )
-    for key, default in (("scheme", "serial"), ("parallelism", "singleton"),
-                         ("source", "memory")):
+    for key, default in (("parallelism", "singleton"), ("source", "memory")):
         if hints.get(key, default) != default:
             raise _not_ported(key, hints[key])
     for key, value in _LATER_HINT_KEYS.items():
         if key in hints:
-            raise _not_ported(f"{key} hint implies scheme", value)
-    if (
-        query.memory_budget_bytes is not None
-        and query.data_bytes > query.memory_budget_bytes
-    ):
-        raise _not_ported("a table over memory_budget_bytes needs scheme", "mrs")
+            raise _not_ported(f"{key} hint implies parallelism", value)
 
 
 def enumerate_plans(query: AnalyticsQuery, cal=None) -> List[Plan]:
+    """Every singleton plan the hints admit: ordering × scheme (the
+    segment counts that divide the table, each shared-memory scheme, one
+    MRS plan over the stored order) × the implementation of the serial
+    lane body."""
     hints = dict(query.hints)
     if "ordering" in hints:
         # one source of truth for the IR's ordering names
         hints["ordering"] = canonical_ordering(hints["ordering"])
     _check_hints(query, hints, cal)
-    orderings = [hints["ordering"]] if "ordering" in hints else list(ORDERINGS)
     impl_hint = hints.get("implementation")
-    if impl_hint is not None:
-        impls = [impl_hint]
-    elif cal is not None and cal.impl_per_row.get("cuda_fused") is not None:
-        # auto: enumerate the kernel lane next to the eager fold — the
-        # probe-derived choice falls out of the ranking. cuda_minibatch is
-        # never auto-chosen (one averaged step per tile is a different
-        # algorithm, not a faster identical one).
-        impls = ["torch_fold", "cuda_fused"]
-    else:
-        impls = ["torch_fold"]
-    return [Plan(o, implementation=i) for o in orderings for i in impls]
+    if impl_hint not in (None, "torch_fold"):
+        hints["scheme"] = "serial"
+    n = query.n_examples
+    orderings = [hints["ordering"]] if "ordering" in hints else list(ORDERINGS)
+    schemes = [hints["scheme"]] if "scheme" in hints else list(SCHEMES)
+    plans: List[Plan] = []
+    for o in orderings:
+        for s in schemes:
+            if s == "serial":
+                plans.append(Plan(o))
+            elif s == "segmented":
+                ks = (
+                    [hints["num_segments"]]
+                    if "num_segments" in hints
+                    else [k for k in SEGMENT_CANDIDATES if n % k == 0]
+                )
+                plans.extend(Plan(o, "segmented", num_segments=k) for k in ks)
+            elif s == "shared_memory":
+                plans.extend(
+                    Plan(o, "shared_memory", sm_scheme=sm) for sm in SM_SCHEMES
+                )
+            elif s == "mrs" and (o == "clustered" or "scheme" in hints):
+                # MRS exists to avoid the shuffle: stream stored order
+                plans.append(Plan(
+                    "clustered", "mrs", mrs_buffer=_mrs_buffer_rows(query),
+                ))
+    # -- the implementation axis: lane-body lowering ----------------------
+    if impl_hint not in (None, "torch_fold"):
+        # forced: every admitted plan is serial (validated above)
+        plans = [dataclasses.replace(p, implementation=impl_hint) for p in plans]
+    elif impl_hint is None and cal is not None and cal.impl_per_row.get(
+        "cuda_fused"
+    ) is not None:
+        # auto: enumerate the kernel lane next to the eager fold for serial
+        # plans — the probe-derived choice falls out of the ranking.
+        # cuda_minibatch is never auto-chosen (one averaged step per tile
+        # is a different algorithm, not a faster identical one).
+        plans.extend([
+            dataclasses.replace(p, implementation="cuda_fused")
+            for p in plans if p.scheme == "serial"
+        ])
+    return list(dict.fromkeys(plans))  # Plan is frozen/hashable
 
 
 def plan(query: AnalyticsQuery, cal: probes.Calibration) -> PlanReport:
     """Choose a physical plan for ``query`` from the calibration ``cal``
     the engine probed for its aggregate."""
     clustered = label_clusteredness(query.data)
+    shuffle_feasible = (
+        query.memory_budget_bytes is None
+        or query.data_bytes <= query.memory_budget_bytes
+    )
     cands = [
-        program_cost(p, query, cal, clustered)
+        program_cost(p, query, cal, clustered, shuffle_feasible)
         for p in enumerate_plans(query, cal)
     ]
+    if not cands:
+        raise ValueError(
+            f"hints {dict(query.hints)!r} admit no physical plan"
+        )
     cands.sort(key=lambda c: c.cost_seconds)
     best = cands[0]
+    if math.isinf(best.cost_seconds):
+        raise RuntimeError(
+            f"no feasible plan for query (budget="
+            f"{query.memory_budget_bytes}); candidates: {cands}"
+        )
     return PlanReport(
         chosen=best.plan,
         cost_seconds=best.cost_seconds,

@@ -3,13 +3,14 @@
 The planner's constants are MEASURED, not guessed: on first contact with
 a (task, table-signature) pair the engine times, on a probe slab of the
 table, (a) a random shuffle-gather, (b) one eager serial fold
-(``torch_fold``), (c) one pairwise merge, and (e) for kernel-eligible
+(``torch_fold``), (c) one pairwise merge, (d) the batched segmented fold
+at its largest feasible segment count, and (e) for kernel-eligible
 aggregates the fused-IGD kernel lanes of the implementation axis. Each
 is the median of a few timed calls; on a card the time comes from CUDA
 events. Results are cached on the engine, once per signature.
 
-The segmented-fold and sharded-block probes, (d) and (f) of the
-reference, come with the slices that run those schemes.
+The sharded-block probe, (f) of the reference, comes with the sharding
+slice.
 """
 
 from __future__ import annotations
@@ -35,6 +36,10 @@ def time_call(fn, *args, device, warmup: int = 1, iters: int = 3) -> float:
 # Slab size: one slab for every per-row constant, so the rankings
 # compare rates amortized over the same row count.
 PROBE_ROWS = 2048
+# Segment counts the batched segmented fold is probed at (the planner's
+# SEGMENT_CANDIDATES, largest first): the largest that divides the slab
+# is measured, the rest interpolate (Calibration.seg_per_row_at).
+_SEG_PROBE_CANDIDATES = (8, 4, 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,10 +52,24 @@ class Calibration:
     fold_per_row: float
     merge_seconds: float
     probe_rows: int
+    # measured batched segmented fold (num_segments -> seconds/row)
+    seg_per_row: Dict[int, float] = dataclasses.field(default_factory=dict)
     # measured fused-IGD kernel lanes (implementation -> seconds/row:
     # "cuda_fused", "cuda_minibatch"), probed on the SAME slab as the
     # eager fold; empty when the aggregate is not kernel-eligible
     impl_per_row: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    def seg_per_row_at(self, k: int) -> float:
+        """Per-row cost of a k-segment batched fold. The largest candidate
+        is measured; other k interpolate between the serial fold (k=1) and
+        the measured point on the (1 - 1/k) scan-shortening curve."""
+        if k in self.seg_per_row:
+            return self.seg_per_row[k]
+        if not self.seg_per_row:
+            return self.fold_per_row  # nothing measured: no claimed speedup
+        k_ref, ref = max(self.seg_per_row.items())
+        frac = (1.0 - 1.0 / k) / (1.0 - 1.0 / k_ref)
+        return self.fold_per_row + (ref - self.fold_per_row) * frac
 
 
 def calibrate(agg, data, *, device, cache: Dict[Tuple, Calibration],
@@ -85,6 +104,16 @@ def calibrate(agg, data, *, device, cache: Dict[Tuple, Calibration],
     # (c) one pairwise merge
     t_merge = time_call(agg.merge, state0, state0, device=device)
 
+    # (d) the batched segmented fold at its largest feasible segment count
+    # (the rest interpolate — see seg_per_row_at)
+    seg_per_row = {}
+    k_seg = next((k for k in _SEG_PROBE_CANDIDATES if rows % k == 0), None)
+    if k_seg is not None:
+        seg_per_row[k_seg] = time_call(
+            lambda s, ex: uda_lib.segmented_fold(agg, s, ex, k_seg),
+            state0, slab, device=device,
+        ) / rows
+
     # (e) the fused-IGD kernel lanes (the implementation axis), on the
     # SAME slab as the eager fold
     impl_per_row = _probe_implementations(agg, slab, state0, rows, device)
@@ -94,6 +123,7 @@ def calibrate(agg, data, *, device, cache: Dict[Tuple, Calibration],
         fold_per_row=fold_per_row,
         merge_seconds=t_merge,
         probe_rows=rows,
+        seg_per_row=seg_per_row,
         impl_per_row=impl_per_row,
     )
     cache[key] = cal

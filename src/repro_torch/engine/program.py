@@ -3,20 +3,30 @@
 The IR composes a physical ``Plan``'s axes (ordering × parallelism ×
 batch × source × implementation) and ``build_program`` lowers it to the
 epoch callable the executor drives. This slice of the port lowers the
-singleton, serial, in-memory, batch=1 corner under every ordering and
-every implementation:
+singleton, in-memory, batch=1 corner under every ordering and every
+scheme of paper §3.3–3.4:
 
-* ``torch_fold`` — the eager ``uda.fold`` loop (the counterpart of the
-  reference's ``xla_fold``);
-* ``cuda_fused`` — the fused-IGD CUDA kernel's per-tuple lane
-  (``repro_torch.kernels.igd_fused``: the model held on chip while rows
-  stream past — the paper's Bismarck inner loop as a real kernel);
-* ``cuda_minibatch`` — one mean-gradient step per 256-row tile, a
-  DIFFERENT algorithm (hint-only; never auto-chosen).
+* ``serial`` — the serial lane body, by implementation:
 
-Hints for the rest of the IR (other schemes, sharding, stored tables,
-fused batches) are refused by the planner with ``NotImplementedError``
-naming the slice that brings them.
+  * ``torch_fold`` — the eager ``uda.fold`` loop (the counterpart of the
+    reference's ``xla_fold``);
+  * ``cuda_fused`` — the fused-IGD CUDA kernel's per-tuple lane
+    (``repro_torch.kernels.igd_fused``: the model held on chip while rows
+    stream past — the paper's Bismarck inner loop as a real kernel);
+  * ``cuda_minibatch`` — one mean-gradient step per 256-row tile, a
+    DIFFERENT algorithm (hint-only; never auto-chosen);
+
+* ``segmented`` — ``uda.segmented_fold`` (shared-nothing lanes, merged);
+* ``shared_memory`` — ``parallel.hogwild_fold`` (the Lock/AIG/NoLock
+  simulator);
+* ``mrs`` — ``mrs.mrs_epoch`` (buffered reservoir sampling), whose epoch
+  carries ``(state, buf_a, buf_b, active)``.
+
+The non-serial schemes run eagerly and have no kernel form: a ``cuda_*``
+implementation with any scheme but ``serial`` is refused, as the
+reference refuses ``pallas_*``. Hints for the rest of the IR (sharding,
+stored tables, fused batches) are refused by the planner with
+``NotImplementedError`` naming the slice that brings them.
 
 Eligibility for the kernel lanes is a catalog property
 (``TaskSpec.kernel_loss`` + identity prox — :func:`kernel_eligibility`).
@@ -37,7 +47,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core import ordering as ordering_lib, uda as uda_lib
+from repro_torch.core import mrs as mrs_lib, ordering as ordering_lib
+from repro_torch.core import parallel as parallel_lib, uda as uda_lib
 from repro_torch.core.tracecount import count_build, fresh_counter
 
 # "sequential" is the stored order by another name (the storage layer
@@ -105,8 +116,10 @@ class EpochProgram:
 
 @dataclasses.dataclass
 class CompiledProgram:
-    """``build_program``'s output: ``epoch_fn(state, examples) -> state``,
-    one epoch of the plan's lane body over the epoch's stream."""
+    """``build_program``'s output: ``epoch_fn(state, examples, draws) ->
+    state``, one epoch of the plan's scheme over the epoch's stream;
+    ``draws`` is the epoch's ``core.draws.EpochDraws``. For MRS plans the
+    state is the carry ``(state, buf_a, buf_b, active)``."""
 
     program: EpochProgram
     task: Any
@@ -129,16 +142,63 @@ class CompiledProgram:
 
 
 def build_epoch_fn(task, agg, plan) -> Callable:
-    """The plan's epoch function ``(state, examples) -> state`` — the
-    singleton serial lane body."""
+    """The plan's epoch function ``(state_or_carry, examples, draws) ->
+    state_or_carry`` — the singleton lane body of its scheme."""
     impl = plan.implementation
     if impl not in IMPLEMENTATIONS:
         raise ValueError(
             f"unknown implementation {impl!r}; valid: {IMPLEMENTATIONS}"
         )
-    if impl != "torch_fold":
-        return _kernel_lane_for(task, agg, impl)
-    return lambda s, ex: uda_lib.fold(agg, s, ex)
+    if impl != "torch_fold" and plan.scheme != "serial":
+        raise ValueError(
+            f"implementation={impl!r} lowers the serial lane body; "
+            f"scheme={plan.scheme!r} has no kernel form (use "
+            "scheme='serial' or implementation='torch_fold')"
+        )
+    if plan.scheme == "serial":
+        if impl != "torch_fold":
+            lane = _kernel_lane_for(task, agg, impl)
+            return lambda s, ex, draws: lane(s, ex)
+        return lambda s, ex, draws: uda_lib.fold(agg, s, ex)
+    if plan.scheme == "segmented":
+        return lambda s, ex, draws: uda_lib.segmented_fold(
+            agg, s, ex, plan.num_segments
+        )
+    if plan.scheme == "shared_memory":
+        cfg = parallel_lib.SharedMemoryConfig(
+            scheme=plan.sm_scheme, workers=plan.sm_workers
+        )
+
+        def sm_epoch(state, ex, draws):
+            versions, keep = parallel_lib.hogwild_draws(
+                draws, cfg, state.model.shape[0]
+            )
+            model = parallel_lib.hogwild_fold(
+                task, agg.step_size, state.model, ex, cfg, versions, keep,
+                prox=agg.prox,
+            )
+            n = next(iter(ex.values())).shape[0]
+            return uda_lib.IGDState(model, state.step + n, state.weight + n)
+
+        return sm_epoch
+    if plan.scheme == "mrs":
+        if plan.mrs_buffer <= 0:
+            raise ValueError(
+                "an MRS plan needs mrs_buffer > 0 (the planner sizes "
+                "it from the memory budget)"
+            )
+        cfg = mrs_lib.MRSConfig(buffer_size=plan.mrs_buffer,
+                                ratio=plan.mrs_ratio)
+
+        def mrs_epoch(carry, ex, draws):
+            state, buf_a, buf_b, active = carry
+            state, buf_a = mrs_lib.mrs_epoch(
+                agg, state, ex, buf_a, buf_b, active, cfg, draws.reservoir()
+            )
+            return (state, buf_a, buf_b, active)
+
+        return mrs_epoch
+    raise ValueError(f"unknown scheme {plan.scheme!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -201,8 +261,8 @@ def build_program(
     *,
     counter: Optional[Dict[str, int]] = None,
 ) -> CompiledProgram:
-    """Lower ``prog`` to its epoch callable (the singleton, serial,
-    in-memory, batch=1 corner of the IR — all this slice plans)."""
+    """Lower ``prog`` to its epoch callable (the singleton, in-memory,
+    batch=1 corner of the IR — all this slice plans)."""
     counter = counter if counter is not None else fresh_counter()
     epoch_fn = build_epoch_fn(task, agg, prog.plan)
     count_build(counter)

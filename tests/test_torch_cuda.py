@@ -175,6 +175,54 @@ def test_cuda_engine_plans_the_kernel_lane():
     assert bool(torch.isfinite(res.model).all())
 
 
+# the schemes of paper §3.3-3.4: (ordering, scheme, plan fields)
+SCHEME_PLANS = [("clustered", "segmented", {"num_segments": 8}), ("shuffle_once", "segmented", {"num_segments": 2}),
+                ("shuffle_always", "shared_memory", {"sm_scheme": "lock"}),
+                ("shuffle_once", "shared_memory", {"sm_scheme": "aig"}),
+                ("clustered", "shared_memory", {"sm_scheme": "nolock"}),
+                ("clustered", "mrs", {"mrs_buffer": 64}), ("clustered", "mrs", {"mrs_buffer": 100, "mrs_ratio": 1})]
+
+
+@needs_card
+@pytest.mark.parametrize("task,task_args", [("svm", {}), ("logreg", {"mu": 1e-3})])
+@pytest.mark.parametrize("ordering,scheme,fields", SCHEME_PLANS)
+def test_cuda_scheme_plans_match_the_cpu_run(ordering, scheme, fields, task, task_args):
+    """Each non-serial scheme runs eagerly on the card (no kernel launch)
+    and lands where the same plan lands on the CPU with the same draws."""
+    from repro_torch import engine
+    from repro_torch.core import draws
+    from repro_torch.data import synthetic
+    from repro_torch.engine import planner
+
+    table = synthetic.dense_classification(torch.Generator().manual_seed(1), 1024, 54)
+    plan = planner.Plan(ordering, scheme, **fields)
+    res = {}
+    for device in ("cuda", "cpu"):
+        q = engine.AnalyticsQuery(task=task, data={k: v.to(device) for k, v in table.items()},
+                                  task_args={"dim": 54, **task_args}, epochs=3, tolerance=0.0)
+        res[device] = engine.Engine(device=device, draws=draws.HostDraws()).run(q, plan=plan)
+    assert res["cuda"].model.device.type == "cuda" and res["cuda"].kernel_launches == 0
+    assert bool(torch.isfinite(res["cuda"].model).all())
+    torch.testing.assert_close(res["cuda"].model.cpu(), res["cpu"].model, **TOL)
+    np.testing.assert_allclose(res["cuda"].losses, res["cpu"].losses, rtol=TOL["rtol"])
+
+
+@needs_card
+def test_cuda_engine_falls_back_to_mrs_under_a_budget():
+    """An ineligible query (L1 prox) over a label-clustered table twice its
+    memory budget: the card's planner streams it through MRS."""
+    from repro_torch import engine
+    from repro_torch.data import synthetic
+
+    table = synthetic.dense_classification(torch.Generator(device="cuda").manual_seed(0), 4096, 54)
+    nbytes = sum(v.numel() * v.element_size() for v in table.values())
+    q = engine.AnalyticsQuery(task="logreg", data=table, task_args={"dim": 54, "mu": 1e-4}, epochs=2,
+                              tolerance=0.0, memory_budget_bytes=nbytes // 2)
+    res = engine.Engine().run(q)
+    assert res.plan.scheme == "mrs" and res.plan.mrs_buffer == 1024
+    assert res.kernel_launches == 0 and bool(torch.isfinite(res.model).all())
+
+
 # the reference's attention/decode tolerances (tests/test_kernels.py)
 ATTN_TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 DECODE_TOLS = {torch.float32: 5e-5, torch.bfloat16: 2e-2}

@@ -1,23 +1,34 @@
 """repro_torch.engine against repro.engine, end to end on the CPU.
 
 The same table (made with numpy from a seed) goes through both engines.
-The port's engine is given a permutation source that replays the
-reference's threefry stream, so the shuffle orderings fold the same rows
-in the same order, and each port implementation is held to its
-reference counterpart: torch_fold <-> xla_fold, cuda_fused <->
-pallas_fused, cuda_minibatch <-> pallas_minibatch (on the CPU the cuda_*
-lanes run the kernels' plain versions; the reference runs its Pallas
-kernels in interpret mode). Mirrors tests/test_implementation.py.
+The port's engine is given a draw source that replays the reference's
+threefry streams (``_threefry_replay``), so the shuffle orderings fold the
+same rows in the same order and the MRS and shared-memory schemes make
+the same draws. Held pairs:
+
+* each serial implementation to its reference counterpart: torch_fold
+  <-> xla_fold, cuda_fused <-> pallas_fused, cuda_minibatch <->
+  pallas_minibatch (on the CPU the cuda_* lanes run the kernels' plain
+  versions; the reference runs its Pallas kernels in interpret mode);
+  mirrors tests/test_implementation.py;
+* each other scheme under a forced plan: segmented (k = 2, 4, 8),
+  shared_memory (lock, aig, nolock) and MRS;
+* the planner: every candidate priced as the reference prices it, on the
+  reference's measured constants, with and without a memory budget.
 """
+
+import dataclasses
+import math
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+from _threefry_replay import ThreefryReplay
 from repro import engine as ref_engine
 from repro.core import ordering as ref_ordering
-from repro.engine.program import PERM_STREAM_SALT
+from repro.engine import planner as ref_planner, probes as ref_probes
 from repro_torch import convert, engine
 from repro_torch.core import ordering
 from repro_torch.engine import planner, probes, program
@@ -31,25 +42,6 @@ IMPLS = {"torch_fold": "xla_fold", "cuda_fused": "pallas_fused", "cuda_minibatch
 RTOL, ATOL = 1e-5, 1e-6
 
 
-class ThreefryReplay:
-    """The reference executor's permutation stream: perm_rng =
-    fold_in(PRNGKey(seed), 0x5EED); each shuffle splits it (rng, sub) and
-    permutes with sub; the executor then splits rng once per epoch. Every
-    draw of the port's orderings happens at an epoch's start, so draw k
-    is the reference's k-th shuffle."""
-
-    def stream(self, seed, n, device):
-        key = [jax.random.fold_in(jax.random.PRNGKey(seed), PERM_STREAM_SALT)]
-
-        def draw():
-            rng, sub = jax.random.split(key[0])
-            perm = np.asarray(jax.random.permutation(sub, n))
-            key[0] = jax.random.split(rng)[0]
-            return torch.tensor(perm, dtype=torch.int64, device=device)
-
-        return draw
-
-
 def _table(n=96, d=4, seed=0):
     """Label-clustered dense rows made with numpy (+1 first)."""
     r = np.random.default_rng(seed)
@@ -60,12 +52,12 @@ def _table(n=96, d=4, seed=0):
     return {"x": x.astype(np.float32), "y": y}
 
 
-def _pair(data, task="logreg", epochs=3, hints=None, **kw):
+def _pair(data, task="logreg", epochs=3, hints=None, task_args_extra=None, **kw):
     kw.setdefault("tolerance", 0.0)
-    args = dict(task=task, task_args={"dim": data["x"].shape[1]}, epochs=epochs, **kw)
+    args = dict(task=task, task_args={"dim": data["x"].shape[1], **(task_args_extra or {})}, epochs=epochs, **kw)
     ref_q = ref_engine.AnalyticsQuery(data={k: jax.numpy.asarray(v) for k, v in data.items()},
                                       hints=dict(hints or {}), **args)
-    port_hints = {k: v for k, v in (hints or {}).items() if k != "scheme"}
+    port_hints = dict(hints or {})
     if "implementation" in port_hints:
         port_hints["implementation"] = {v: k for k, v in IMPLS.items()}[port_hints["implementation"]]
     port_q = engine.AnalyticsQuery(data=convert.table_from_numpy(data, "cpu"), hints=port_hints, **args)
@@ -79,7 +71,7 @@ def ref_eng():
 
 @pytest.fixture(scope="module")
 def eng():
-    return engine.Engine(device="cpu", permutations=ThreefryReplay())
+    return engine.Engine(device="cpu", draws=ThreefryReplay())
 
 
 def _assert_same(res, ref_res):
@@ -130,6 +122,7 @@ def test_warm_repeat_builds_nothing():
     again = eng.run(q)
     after = eng.cache_info()
     assert again.trace_count == first.trace_count == 1
+    assert again.loss_trace_count == first.loss_trace_count == 1
     assert after["plan_cache_hits"] == info["plan_cache_hits"] + 1
     assert after["plans_computed"] == info["plans_computed"] == 1
     assert after["probe_runs"] == info["probe_runs"] == 1
@@ -164,37 +157,78 @@ def test_catx_costs_out_the_clustered_scan():
     assert rep.clusteredness > 0.9
     assert rep.chosen.ordering != "clustered"
     best = min(c.cost_seconds for c in rep.candidates)
-    clustered = [c for c in rep.candidates if c.plan.ordering == "clustered"]
+    # MRS streams the stored order too, but its reservoir randomizes it
+    clustered = [c for c in rep.candidates if c.plan.ordering == "clustered" and c.plan.scheme != "mrs"]
     assert clustered and all(c.cost_seconds > 10 * best for c in clustered)
     text = rep.describe()
     assert "plan   :" in text and "reject :" in text and "impl-probed" in text
     assert "torch_fold" in text and "cuda_fused" in text and "us/epoch" in text
 
 
-def test_catx_plans_shuffle_once_on_the_references_constants():
-    """Which shuffle wins depends on the measured rates: the eager fold on
-    a CPU is ~500x slower than XLA's scan, which makes the per-epoch
-    reshuffle cheap next to the fold. Given the constants the reference
-    measured, the port's cost model must price every serial candidate
-    exactly as the reference does and plan shuffle_once as it does."""
+@pytest.fixture(scope="module")
+def catx_constants():
+    """The reference's measured calibration for the CA-TX query, and both
+    planners' view of it. The port's eager fold has one rate, so the
+    reference is given its best unroll's rate as its only one (and no
+    mesh points: the sharded axis is not in this slice)."""
     ref_rep = ref_engine.Engine().explain(
         ref_engine.AnalyticsQuery(**_catx_query(ref_ordering.make_catx_dataset(512))))
     rc = ref_rep.calibration
+    fold = rc.fold_per_row[rc.best_unroll()]
     cal = probes.Calibration(
-        shuffle_per_row=rc.shuffle_per_row, fold_per_row=rc.fold_per_row[rc.best_unroll()],
-        merge_seconds=rc.merge_seconds, probe_rows=rc.probe_rows,
+        shuffle_per_row=rc.shuffle_per_row, fold_per_row=fold,
+        merge_seconds=rc.merge_seconds, probe_rows=rc.probe_rows, seg_per_row=dict(rc.seg_per_row),
         impl_per_row={"cuda_fused": rc.impl_per_row["pallas_fused"],
                       "cuda_minibatch": rc.impl_per_row["pallas_minibatch"]},
     )
-    rep = planner.plan(engine.AnalyticsQuery(**_catx_query(ordering.make_catx_dataset(512, device="cpu"))), cal)
-    assert rep.chosen.ordering == ref_rep.chosen.ordering == "shuffle_once"
-    assert rep.clusteredness == ref_rep.clusteredness
-    ref_serial = {(c.plan.ordering, c.plan.implementation): c.cost_seconds for c in ref_rep.candidates
-                  if c.plan.scheme == "serial" and c.plan.parallelism == "singleton"}
-    assert len(rep.candidates) == 6
+    return ref_rep, dataclasses.replace(rc, fold_per_row={1: fold}, shard={}), cal
+
+
+def _ref_key(p, ref_names=()):
+    """A plan's axes in the reference's names (its plans already use them)."""
+    impl = p.implementation if p.implementation in ref_names else IMPLS[p.implementation]
+    return (p.ordering, p.scheme, p.num_segments, p.sm_scheme, p.sm_workers, p.mrs_buffer, p.mrs_ratio, impl)
+
+
+def _plan_on_both(constants, monkeypatch, **kw):
+    """The port's planner and the reference's (its own plan(), with its
+    probe swapped for the shared constants) on the same CA-TX query."""
+    _, ref_cal, cal = constants
+    monkeypatch.setattr(ref_probes, "calibrate", lambda *a, **k: ref_cal)
+    ref_rep = ref_planner.plan(ref_engine.AnalyticsQuery(**_catx_query(ref_ordering.make_catx_dataset(512)), **kw), None)
+    rep = planner.plan(engine.AnalyticsQuery(**_catx_query(ordering.make_catx_dataset(512, device="cpu")), **kw), cal)
+    want = {_ref_key(c.plan, IMPLS.values()): c.cost_seconds for c in ref_rep.candidates}
+    assert len(rep.candidates) == len(ref_rep.candidates) == len(want)
     for c in rep.candidates:
-        want = ref_serial[(c.plan.ordering, IMPLS[c.plan.implementation])]
-        assert c.cost_seconds == pytest.approx(want, rel=1e-12)
+        assert c.cost_seconds == pytest.approx(want[_ref_key(c.plan)], rel=1e-12)
+    assert _ref_key(rep.chosen) == _ref_key(ref_rep.chosen, IMPLS.values())
+    assert rep.clusteredness == ref_rep.clusteredness
+    return rep, ref_rep
+
+
+def test_catx_plans_shuffle_once_on_the_references_constants(catx_constants, monkeypatch):
+    """Which shuffle wins depends on the measured rates: the eager fold on
+    a CPU is ~500x slower than XLA's scan, which makes the per-epoch
+    reshuffle cheap next to the fold. Given the constants the reference
+    measured, the port's cost model must price every candidate of every
+    scheme exactly as the reference does and plan shuffle_once as it
+    does."""
+    ref_rep = catx_constants[0]
+    rep, _ = _plan_on_both(catx_constants, monkeypatch)
+    assert rep.chosen.ordering == ref_rep.chosen.ordering == "shuffle_once"
+    assert {c.plan.scheme for c in rep.candidates} == set(planner.SCHEMES)
+
+
+def test_catx_falls_back_to_mrs_on_the_references_constants(catx_constants, monkeypatch):
+    """Mirrors tests/test_engine.py::test_planner_falls_back_to_mrs_under_memory_budget:
+    a table larger than the buffer budget makes every shuffled plan
+    infeasible, and buffered MRS (§3.4) is chosen — by both planners."""
+    rep, ref_rep = _plan_on_both(catx_constants, monkeypatch, memory_budget_bytes=1024)
+    assert rep.chosen.scheme == ref_rep.chosen.scheme == "mrs"
+    assert rep.chosen.mrs_buffer >= 8
+    shuffled = [c for c in rep.candidates if c.plan.ordering != "clustered"]
+    assert shuffled and all(math.isinf(c.cost_seconds) for c in shuffled)
+    assert {c.plan.scheme for c in rep.candidates} == set(planner.SCHEMES)
 
 
 def test_planner_prices_implementations_from_probes():
@@ -203,7 +237,10 @@ def test_planner_prices_implementations_from_probes():
     assert rates.get("cuda_fused", 0.0) > 0.0 and rates.get("cuda_minibatch", 0.0) > 0.0
     impls = {c.plan.implementation for c in rep.candidates}
     assert impls == {"torch_fold", "cuda_fused"}  # minibatch is hint-only
-    assert len(rep.candidates) == 6
+    assert {c.plan.implementation for c in rep.candidates if c.plan.scheme != "serial"} == {"torch_fold"}
+    # the reference's candidate set over 96 rows: 3 orderings x (serial +
+    # 3 segment counts + 3 shared-memory schemes), 1 MRS, 3 cuda_fused
+    assert len(rep.candidates) == 25
 
 
 def test_forced_kernel_on_ineligible_task_raises():
@@ -226,11 +263,12 @@ def test_forced_kernel_on_ineligible_task_raises():
     ({"implementation": "cuda"}, ValueError),
     ({"ordering": "random"}, ValueError),
     ({"scheme": "mrs", "ordering": "shuffle_once"}, ValueError),
-    ({"scheme": "segmented"}, NotImplementedError),
-    ({"scheme": "mrs"}, NotImplementedError),
+    ({"scheme": "segmented", "implementation": "cuda_fused"}, ValueError),
+    ({"scheme": "shared_memory", "implementation": "cuda_minibatch"}, ValueError),
     ({"parallelism": "sharded"}, NotImplementedError),
     ({"source": "table"}, NotImplementedError),
     ({"num_shards": 2}, NotImplementedError),
+    ({"scheme": "segmented", "num_segments": 0}, ValueError),
 ])
 def test_bad_or_later_hints_raise(hints, exc):
     q = engine.AnalyticsQuery(task="svm", data=convert.table_from_numpy(_table(), "cpu"),
@@ -239,11 +277,104 @@ def test_bad_or_later_hints_raise(hints, exc):
         engine.Engine(device="cpu").explain(q)
 
 
-def test_memory_budget_over_table_raises_until_mrs_is_ported():
+@pytest.mark.parametrize("hints,scheme,n_plans", [
+    ({"scheme": "segmented"}, "segmented", 9),
+    ({"scheme": "segmented", "num_segments": 4, "ordering": "clustered"}, "segmented", 1),
+    ({"scheme": "shared_memory"}, "shared_memory", 9),
+    ({"scheme": "mrs"}, "mrs", 1),
+])
+def test_scheme_hints_plan_that_scheme(hints, scheme, n_plans):
+    """A scheme hint plans only that scheme (the reference's enumeration:
+    every segment count that divides the table and every shared-memory
+    scheme under each ordering; one MRS plan, over the stored order)."""
     q = engine.AnalyticsQuery(task="svm", data=convert.table_from_numpy(_table(), "cpu"),
-                              task_args={"dim": 4}, memory_budget_bytes=64)
-    with pytest.raises(NotImplementedError, match="mrs"):
+                              task_args={"dim": 4}, hints=hints)
+    rep = engine.Engine(device="cpu").explain(q)
+    assert rep.chosen.scheme == scheme and {c.plan.scheme for c in rep.candidates} == {scheme}
+    assert len(rep.candidates) == len({c.plan for c in rep.candidates}) == n_plans
+    if scheme == "mrs":
+        assert rep.chosen.ordering == "clustered" and rep.chosen.mrs_buffer == 9  # a tenth of 96 rows
+    assert f"singleton/{scheme}" in rep.describe()
+
+
+def test_memory_budget_over_table_falls_back_to_mrs(ref_eng, eng):
+    """On the port's own probes: a table over the budget makes every
+    shuffled plan infeasible and the clustered scan costs ~50x its epochs,
+    so the planner streams it through buffered MRS — whose run equals the
+    reference's run of the same plan."""
+    ref_q, q = _pair(_table(), "svm", epochs=4, memory_budget_bytes=64)
+    rep = eng.explain(q)
+    assert rep.chosen.scheme == "mrs" and rep.chosen.ordering == "clustered"
+    assert rep.chosen.mrs_buffer == 8  # max(64 bytes // (2 x 20 bytes a row), 8)
+    assert all(math.isinf(c.cost_seconds) for c in rep.candidates if c.plan.ordering != "clustered")
+    res = eng.run(q)
+    assert res.plan == rep.chosen and bool(torch.isfinite(res.model).all())
+    ref_res = ref_eng.run(ref_q, plan=ref_planner.Plan("clustered", "mrs", mrs_buffer=8))
+    _assert_same(res, ref_res)
+
+
+def test_budget_that_no_plan_fits_is_an_error():
+    """A shuffle-only hint under a budget the table exceeds: every
+    candidate is infeasible, as in the reference."""
+    q = engine.AnalyticsQuery(task="svm", data=convert.table_from_numpy(_table(), "cpu"), task_args={"dim": 4},
+                              memory_budget_bytes=64, hints={"ordering": "shuffle_once", "scheme": "serial"})
+    with pytest.raises(RuntimeError, match="no feasible plan"):
         engine.Engine(device="cpu").explain(q)
+    q = dataclasses.replace(q, hints={"scheme": "segmented", "num_segments": 4}, memory_budget_bytes=None,
+                            data={k: v[:7] for k, v in q.data.items()})
+    assert all(c.plan.num_segments == 4 for c in engine.Engine(device="cpu").explain(q).candidates)
+    q = dataclasses.replace(q, hints={"scheme": "segmented"})
+    with pytest.raises(ValueError, match="admit no physical plan"):
+        engine.Engine(device="cpu").explain(q)
+
+
+# forced plans: (ordering, scheme, plan fields) — every scheme under one
+# ordering or more, each held to the reference's run of the same plan
+FORCED = [
+    ("clustered", "segmented", {"num_segments": 2}),
+    ("shuffle_once", "segmented", {"num_segments": 4}),
+    ("shuffle_always", "segmented", {"num_segments": 8}),
+    ("shuffle_always", "shared_memory", {"sm_scheme": "lock"}),
+    ("shuffle_once", "shared_memory", {"sm_scheme": "aig"}),
+    ("shuffle_always", "shared_memory", {"sm_scheme": "nolock"}),
+    ("clustered", "shared_memory", {"sm_scheme": "nolock", "sm_workers": 3}),
+    ("clustered", "mrs", {"mrs_buffer": 12}),
+    ("clustered", "mrs", {"mrs_buffer": 7, "mrs_ratio": 1}),
+]
+
+
+@pytest.mark.parametrize("task", ["logreg", "least_squares"])
+@pytest.mark.parametrize("ordering_name,scheme,fields", FORCED)
+def test_forced_scheme_plan_matches_reference(ordering_name, scheme, fields, task, ref_eng, eng):
+    """Model, losses and epochs of the port's run of a forced plan equal
+    the reference's, the draws replayed (logreg with the L1 prox)."""
+    ref_q, q = _pair(_table(), task, epochs=3, task_args_extra={"mu": 0.01} if task == "logreg" else {})
+    ref_res = ref_eng.run(ref_q, plan=ref_planner.Plan(ordering_name, scheme, **fields))
+    res = eng.run(q, plan=planner.Plan(ordering_name, scheme, **fields))
+    assert res.plan.scheme == scheme and res.kernel_launches == 0
+    _assert_same(res, ref_res)
+
+
+def test_mrs_run_with_a_stop_rule_matches_reference(ref_eng, eng):
+    ref_q, q = _pair(_table(), "svm", epochs=30, tolerance=1e-2)
+    plan = {"ordering": "clustered", "scheme": "mrs", "mrs_buffer": 10}
+    ref_res = ref_eng.run(ref_q, plan=ref_planner.Plan(**plan))
+    res = eng.run(q, plan=planner.Plan(**plan))
+    assert res.converged and ref_res.converged and len(res.losses) == res.epochs
+    _assert_same(res, ref_res)
+
+
+def test_clear_cache_forgets_compiled_plans_and_keeps_calibrations():
+    eng = engine.Engine(device="cpu")
+    _, q = _pair(_table(), "svm", epochs=1, hints={"scheme": "segmented", "num_segments": 2})
+    eng.run(q)
+    assert eng.cache_info()["compiled_plans"] == 1 and eng.stats["probe_runs"] == 1
+    eng.clear_cache()
+    assert eng.cache_info() == {"plan_cache_hits": 0, "plan_cache_misses": 0, "plans_computed": 0,
+                                "probe_runs": 0, "compiled_plans": 0}
+    res = eng.run(q)
+    assert res.trace_count == res.loss_trace_count == 1
+    assert eng.stats["plans_computed"] == 1 and eng.stats["probe_runs"] == 0
 
 
 def test_sequential_alias_and_forced_plan():
@@ -286,3 +417,18 @@ def test_build_program_counts_builds_and_refuses_unknown_lowerings():
     assert "B=1" in prog.program.describe()
     with pytest.raises(ValueError):
         program.build_program(task, agg, program.EpochProgram(planner.Plan("clustered", implementation="xla")))
+
+
+@pytest.mark.parametrize("plan,match", [
+    (planner.Plan("clustered", "mrs"), "mrs_buffer > 0"),
+    (planner.Plan("clustered", "segmented", num_segments=2, implementation="cuda_fused"), "no kernel form"),
+    (planner.Plan("shuffle_once", "shared_memory", implementation="cuda_minibatch"), "no kernel form"),
+    (planner.Plan("clustered", "mrs", mrs_buffer=4, implementation="cuda_fused"), "no kernel form"),
+    (planner.Plan("clustered", "sharded"), "unknown scheme"),
+])
+def test_build_program_refuses_what_has_no_lowering(plan, match):
+    """The reference's refusals: an MRS plan without a buffer, and a
+    kernel implementation for any scheme but serial."""
+    task, agg = engine.Engine(device="cpu")._aggregate_for(_pair(_table(), "svm")[1])
+    with pytest.raises(ValueError, match=match):
+        program.build_program(task, agg, program.EpochProgram(plan))

@@ -10,7 +10,7 @@ import torch
 
 from repro.core import convergence as ref_conv, ordering as ref_ordering
 from repro.data import synthetic as ref_synthetic
-from repro_torch.core import convergence, ordering, tracecount
+from repro_torch.core import convergence, draws, ordering, tracecount
 from repro_torch.data import synthetic
 
 torch.set_num_threads(1)
@@ -53,11 +53,15 @@ def test_shuffle_once_is_fixed_and_invalidates_on_new_data():
 
 
 def test_torch_permutations_are_seeded_streams():
-    src = ordering.TorchPermutations()
+    """The default draw source: one seeded generator a run, so two runs
+    with one seed draw the same permutations and scheme draws in turn."""
+    src = draws.TorchDraws()
     a, b = src.stream(7, 50, torch.device("cpu")), src.stream(7, 50, torch.device("cpu"))
-    p1, p2 = a(), a()
-    assert torch.equal(p1, b()) and not torch.equal(p1, p2)
+    p1, p2 = a.permutation(), a.permutation()
+    assert torch.equal(p1, b.permutation()) and not torch.equal(p1, p2)
     assert torch.equal(torch.sort(p1).values, torch.arange(50))
+    assert torch.equal(b.permutation(), p2)
+    assert torch.equal(a.epoch().reservoir(), b.epoch().reservoir())
 
 
 def test_cluster_by_label_matches_reference():
