@@ -107,6 +107,17 @@ KERNEL_RTOL, KERNEL_ATOL = 2e-4, 2e-5
 # 140-310 us a row there, with the host's speed, MRS 2-3x that), their
 # epochs, and the slice held to the CPU
 SCHEME_ROWS, SCHEME_EPOCHS, SCHEME_SLICE = 12_288, 3, 4_096
+# phase 3c: the other techniques' tables at their sources' widths (see
+# techniques() for the sources and the row cuts), the rows each runs
+# IGD over, the LMF slice the non-serial schemes run on, and the slice
+# held to the CPU
+DBLIFE_ROWS, DBLIFE_DIM = 1_024, 41_000  # DBLife (paper Table 1): 16,384 rows
+ML_USERS, ML_MOVIES, ML_RATINGS = 6_040, 3_952, 1_000_209  # MovieLens 1M (GroupLens)
+ML_SAMPLE = 1_024
+CONLL_SENTENCES, CONLL_TOKENS, CONLL_TAGS = 128, 32, 23  # CoNLL-2000 chunking: 23 tags, 8,936 sentences
+KALMAN_HORIZON, KALMAN_OBS = 1_024, 8  # paper_tasks.KALMAN: horizon 2,048
+SP500_ASSETS, SP500_PERIODS = 500, 1_024  # an S&P 500-sized universe; ten years are 2,520 trading days
+TECH_SLICE, SYNC_SLICE = 512, 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
@@ -365,6 +376,7 @@ def main() -> int:
             or after["probe_runs"] != before["probe_runs"]):
         raise AssertionError(f"warm repeat built something: {before} -> {after}")
     log("e2e", f"warm repeat: builds {warm.trace_count} (unchanged), cache {after}")
+    phase3 = {"logreg": res}
     for task, hints in (("svm", {"ordering": "shuffle_always", "implementation": "cuda_fused"}),
                         ("least_squares", {"ordering": "clustered", "implementation": "cuda_minibatch"})):
         qh = engine.AnalyticsQuery(task=task, data=table, task_args=task_args, epochs=3,
@@ -377,6 +389,7 @@ def main() -> int:
             raise AssertionError(f"{task}: loss {l0} -> {rh.losses[-1]}, {rh.kernel_launches} launches")
         log("e2e", f"{task} {rh.plan.ordering}/{rh.plan.implementation}: {rh.epochs} epochs, "
             f"loss {l0:.6g} -> {rh.losses[-1]:.6g}, {rh.kernel_launches} kernel launches")
+        phase3[task] = rh
     launches = dict(K.launches)
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
@@ -403,6 +416,7 @@ def main() -> int:
             f"on the CPU, max |err| {float((got - want).abs().max()):.3g}")
 
     schemes(args.seed, table, dev)
+    techniques(args.seed, table, dev, phase3)
 
     # -- 4. timings at the main path's shape -------------------------------
     n, d = FOREST_ROWS, FOREST_DIM
@@ -602,6 +616,253 @@ def schemes(seed: int, table: dict, dev) -> None:
         f"(probes, plan, build, run), warm {warm * 1e3:.2f} ms (grad {r_warm.gradient_seconds * 1e3:.2f} ms); "
         f"cache {fresh.cache_info()}")
     log("schemes", f"phase 3b took {phase.lap():.1f} s")
+
+
+def techniques(seed: int, forest: dict, dev, phase3: dict) -> None:
+    """Phase 3c: the paper's other techniques (sparse LR/SVM, LMF, CRF,
+    Kalman, portfolio) through Engine.run on the card with no hints (LMF
+    pinned to shuffle_once, as Fig. 7 pins it), each on a table made on
+    the card from --seed at its source's widths:
+
+    - sparse_logreg, sparse_svm (L1 prox, mu = 1e-4): DBLife's 41,000
+      features (paper Table 1), 16 non-zeros a row (paper_tasks.DBLIFE);
+    - lmf: MovieLens 1M's 6,040 users x 3,952 movies and 1,000,209
+      ratings, rank 8 (paper_tasks.MOVIELENS); IGD over a random sample
+      of the ratings, kept in the table's row-sorted order;
+    - crf: CoNLL-2000 chunking's 23 tags, 32 tokens, 64 features a token
+      (paper_tasks.CONLL);
+    - kalman: state 16 (paper_tasks.KALMAN), 8 observed;
+    - portfolio: 500 assets (an S&P 500-sized universe).
+
+    Rows are cut, widths are not. Each transition is 40-800 small
+    launches (torch.func.grad of the task's loss): 1.5-2.1 ms a row on the
+    card, CRF 17 ms; and the planner's probes fold 4 x min(rows, 2,048)
+    rows before each first run. So each table holds 1,024 rows (DBLife
+    16,384; the sample of the ratings 32,768; Kalman's horizon 2,048;
+    2,520 trading days), CRF 128 of CoNLL's 8,936 training sentences.
+
+    Then, in the same phase: LMF's factors (a dict model) through the
+    segmented, shared-memory (AIG) and MRS schemes on the same sample;
+    the Fig. 7 baselines (IRLS beside phase 3's logreg, full-batch GD for
+    svm and crf, ALS on all the ratings and on the sample); one epoch of
+    every plan's program on a SYNC_SLICE-row slice under
+    torch.cuda.set_sync_debug_mode("error"); and every plan on a
+    TECH_SLICE-row slice on the card and on the CPU with the same draws
+    and initial model (draws.HostDraws), held to rtol=2e-4, atol=2e-5
+    (CRF, whose float32 runs drift past that from exact, to a float64
+    run on the CPU).
+    No technique has a kernel form: the phase must launch no kernel."""
+    import dataclasses
+
+    from repro_torch import engine, timing
+    from repro_torch.configs import paper_tasks
+    from repro_torch.core import draws, mrs, tree, uda
+    from repro_torch.data import synthetic
+    from repro_torch.engine import program
+    from repro_torch.kernels.igd_fused import kernel as K
+    from repro_torch.tasks import baselines
+
+    phase = timing.Stopwatch()
+    K.reset_launches()
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    rank, tags = paper_tasks.MOVIELENS.rank, CONLL_TAGS
+    ratings = synthetic.ratings(gen, ML_USERS, ML_MOVIES, ML_RATINGS)
+
+    def subsample(table, n):  # n random rows, in the table's stored order
+        pick = torch.sort(torch.randperm(next(iter(table.values())).shape[0], generator=gen, device=dev)[:n]).values
+        return {k: v[pick].contiguous() for k, v in table.items()}
+
+    sample = subsample(ratings, ML_SAMPLE)
+    lmf_args = {"n_rows": ML_USERS, "n_cols": ML_MOVIES, "rank": rank, "mu": paper_tasks.MOVIELENS.mu}
+    cost = tuple(torch.linspace(-0.1, 0.1, SP500_ASSETS).tolist())
+    dblife = synthetic.sparse_classification(gen, DBLIFE_ROWS, DBLIFE_DIM, paper_tasks.DBLIFE.nnz)
+    cells = [  # (task, table, task_args, epochs, hints)
+        ("sparse_logreg", dblife, {"dim": DBLIFE_DIM}, 2, {}),
+        ("sparse_svm", dblife, {"dim": DBLIFE_DIM, "mu": 1e-4}, 2, {}),
+        ("lmf", sample, lmf_args, 2, {"ordering": "shuffle_once"}),
+        ("crf", synthetic.tagged_sequences(gen, CONLL_SENTENCES, CONLL_TOKENS, tags, paper_tasks.CONLL.dim),
+         {"n_labels": tags, "feat_dim": paper_tasks.CONLL.dim}, 2, {}),
+        ("kalman", synthetic.kalman_series(gen, KALMAN_HORIZON, paper_tasks.KALMAN.dim, KALMAN_OBS),
+         {"horizon": KALMAN_HORIZON, "state_dim": paper_tasks.KALMAN.dim, "obs_dim": KALMAN_OBS}, 3, {}),
+        ("portfolio", synthetic.returns(gen, SP500_PERIODS, SP500_ASSETS),
+         {"n_assets": SP500_ASSETS, "expected_returns": cost}, 3, {}),
+    ]
+    torch.cuda.synchronize()
+    log("techniques", f"tables made on the card in {phase.lap():.2f} s: " + "; ".join(
+        f"{name} " + ", ".join(f"{k} {list(v.shape)}" for k, v in data.items()) for name, data, *_ in cells))
+
+    def finite(model):
+        return all(bool(torch.isfinite(x).all()) for x in tree.leaves(model))
+
+    def run(eng, label, q, plan=None):
+        """One Engine.run with its loss every epoch (target_loss=-inf: the
+        stop rule evaluates the objective each epoch and never stops)."""
+        q = dataclasses.replace(q, tolerance=0.0, target_loss=-math.inf)
+        res = eng.run(q, plan=plan)
+        task, _ = eng._aggregate_for(q)
+        loss0 = float(task.full_loss(eng.draws.stream(q.seed, q.n_examples, dev).initial_model(task), q.data))
+        if (res.kernel_launches or not finite(res.model) or len(res.losses) != q.epochs
+                or not all(map(math.isfinite, res.losses)) or not res.losses[-1] < loss0):
+            raise AssertionError(f"{label}: {res.kernel_launches} kernel launches, loss {loss0} -> {res.losses}")
+        fold = (res.report.calibration if res.report else eng.explain(q).calibration).fold_per_row
+        us_row = res.gradient_seconds / (res.epochs * q.n_examples) * 1e6
+        log("techniques", f"{label} ({res.plan.describe()}), {q.n_examples} rows: loss {loss0:.6g} -> "
+            + ", ".join(f"{x:.6g}" for x in res.losses) + f"; grad {res.gradient_seconds:.3f} s, "
+            f"{us_row:.1f} us a row (probed eager fold {fold * 1e6:.1f}); shuffle {res.shuffle_seconds:.4f} s")
+        return res
+
+    eng = engine.Engine()
+    plans, results = [], {}  # (label, query, plan): what the sync and CPU checks replay
+    for name, data, args, epochs, hints in cells:
+        q = engine.AnalyticsQuery(task=name, data=data, task_args=args, epochs=epochs, seed=seed, hints=hints)
+        results[name] = run(eng, name, q)
+        plans.append((name, q, results[name].plan))
+
+    # -- one dict model through each non-serial scheme ---------------------
+    # the sample again: the probes of its first run serve these plans too
+    nbytes = sum(v.numel() * v.element_size() for v in sample.values())
+    q = engine.AnalyticsQuery(task="lmf", data=sample, task_args=lmf_args, epochs=2, seed=seed)
+    rep_budget = eng.explain(dataclasses.replace(q, memory_budget_bytes=nbytes // 2))
+    q_mrs = dataclasses.replace(q, memory_budget_bytes=nbytes // 2, hints={"scheme": "mrs"})
+    mrs_plan = eng.explain(q_mrs).chosen
+    sm_plan = dataclasses.replace(eng.explain(dataclasses.replace(q, hints={"scheme": "shared_memory"})).chosen,
+                                  sm_scheme="aig")
+    log("techniques", f"lmf on {ML_SAMPLE} ratings ({nbytes} bytes) under a budget of {nbytes // 2}: the "
+        f"planner chose {rep_budget.chosen.describe()} (ratings have no label column, so the stored order is not "
+        f"costed out); MRS by hint: {mrs_plan.describe()}")
+    if mrs_plan.scheme != "mrs":
+        raise AssertionError(f"an MRS hint under a budget planned {mrs_plan}")
+    for label, qs, plan in (("lmf segmented", dataclasses.replace(q, hints={"scheme": "segmented", "num_segments": 8}),
+                             None),
+                            ("lmf shared_memory/aig", q, sm_plan), ("lmf mrs, budget", q_mrs, mrs_plan)):
+        res = run(eng, label, qs, plan)
+        if sorted(res.model) != ["L", "R"] or res.plan.scheme != (plan or res.plan).scheme:
+            raise AssertionError(f"{label}: plan {res.plan}, model {sorted(res.model)}")
+        plans.append((label, qs, res.plan))
+
+    # -- the Fig. 7 baselines ----------------------------------------------
+    bgen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+
+    def timed(key, fn):
+        out[key + "_s"] = timing.seconds(lambda: out.__setitem__(key, fn()), dev)
+        return out[key]
+
+    n_forest = next(iter(forest.values())).shape[0]
+    w_star = timed("irls", lambda: baselines.irls_logistic(forest, steps=25, ridge=1e-3))
+    lr_task = engine.get("logreg").make_task(dim=FOREST_DIM)
+    lr = phase3["logreg"]
+    if not finite(w_star):
+        raise AssertionError("IRLS's optimum is not finite")
+    log("fig7", f"LR on {n_forest}x{FOREST_DIM}: IRLS (25 Newton steps, ridge 1e-3) {out['irls_s']:.4f} s, loss "
+        f"{float(lr_task.full_loss(w_star, forest)):.6g}; IGD (phase 3, {lr.plan.implementation}) {lr.epochs} epochs "
+        f"{lr.gradient_seconds:.4f} s, loss {lr.losses[-1]:.6g}")
+    svm_task = engine.get("svm").make_task(dim=FOREST_DIM)
+    _, svm_losses = timed("svm_gd", lambda: baselines.full_batch_gd(
+        svm_task, forest, steps=60, lr=0.5 / n_forest, model=torch.zeros(FOREST_DIM, device=dev)))
+    sv = phase3["svm"]
+    log("fig7", f"SVM on {n_forest}x{FOREST_DIM}: full-batch GD (60 steps, lr 0.5/n) {out['svm_gd_s']:.4f} s, loss "
+        f"{svm_losses[0]:.6g} -> {svm_losses[-1]:.6g}; IGD (phase 3, {sv.plan.implementation}) {sv.epochs} epochs "
+        f"{sv.gradient_seconds:.4f} s, loss {sv.losses[-1]:.6g}")
+    crf_name, crf_data, crf_args = cells[3][:3]
+    crf_task = engine.get(crf_name).make_task(**crf_args)
+    _, crf_losses = timed("crf_gd", lambda: baselines.full_batch_gd(
+        crf_task, crf_data, steps=25, lr=2e-3, model=crf_task.init_model(bgen)))
+    cr = results["crf"]
+    log("fig7", f"CRF on {CONLL_SENTENCES} sentences: full-batch GD (25 steps, lr 2e-3) {out['crf_gd_s']:.4f} s, loss "
+        f"{crf_losses[0]:.6g} -> {crf_losses[-1]:.6g}; IGD {cr.epochs} epochs {cr.gradient_seconds:.4f} s, "
+        f"loss {cr.losses[-1]:.6g}")
+    if not (svm_losses[-1] < svm_losses[0] and crf_losses[-1] < crf_losses[0]):
+        raise AssertionError("full-batch GD did not lower a loss")
+    sweeps = 8
+    als_full = timed("als_full", lambda: baselines.als_lmf(ratings, ML_USERS, ML_MOVIES, rank, sweeps=sweeps,
+                                                            mu=lmf_args["mu"], generator=bgen))
+    als_sample = timed("als_sample", lambda: baselines.als_lmf(sample, ML_USERS, ML_MOVIES, rank, sweeps=sweeps,
+                                                                mu=lmf_args["mu"], generator=bgen))
+    lmf_task, _ = eng._aggregate_for(plans[2][1])
+    full_task = engine.get("lmf").make_task(**lmf_args, **lmf_task.degrees_for(ML_USERS, ML_MOVIES, ML_RATINGS))
+    if not (finite(als_full) and finite(als_sample)):
+        raise AssertionError("ALS's factors are not finite")
+    lm = results["lmf"]
+    log("fig7", f"LMF: ALS ({sweeps} sweeps) on all {ML_RATINGS} ratings {out['als_full_s']:.4f} s, loss "
+        f"{float(full_task.full_loss(als_full, ratings)):.6g}; on the {ML_SAMPLE}-rating sample "
+        f"{out['als_sample_s']:.4f} s, loss {float(lmf_task.full_loss(als_sample, sample)):.6g}; IGD on the sample "
+        f"{lm.epochs} epochs {lm.gradient_seconds:.4f} s, loss {lm.losses[-1]:.6g}")
+
+    # -- no host sync: one epoch of every plan's program ---------------------
+    for label, q, plan in plans:
+        small = {k: v[:SYNC_SLICE] for k, v in q.data.items()}
+        task, agg = eng._aggregate_for(q)
+        compiled = program.build_program(task, agg, program.EpochProgram(plan))
+        run_draws = draws.TorchDraws().stream(seed, SYNC_SLICE, dev)
+        state = uda.initial_state(run_draws.initial_model(task))
+        if plan.scheme == "mrs":
+            zero = mrs.zero_buffer(plan.mrs_buffer, small)
+            state = (state, zero, zero, True)
+        epoch_draws = run_draws.epoch()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            compiled.epoch_fn(state, small, epoch_draws)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    log("techniques", f"one epoch of each of the {len(plans)} plans' programs on a {SYNC_SLICE}-row slice ran with "
+        "set_sync_debug_mode('error'): no host sync")
+
+    # -- card against CPU ----------------------------------------------------
+    gpu_eng, cpu_eng = engine.Engine(draws=draws.HostDraws()), engine.Engine(device="cpu", draws=draws.HostDraws())
+
+    def float64_run(q, plan):
+        """``plan`` over ``q`` (on the CPU) in float64 from the run's own
+        initial model and draws, epoch by epoch as the executor runs it."""
+        from repro_torch.core import ordering
+
+        task, agg = cpu_eng._aggregate_for(q)
+        data = {k: v.double() if v.is_floating_point() else v for k, v in q.data.items()}
+        run_draws = cpu_eng.draws.stream(q.seed, q.n_examples, torch.device("cpu"))
+        state = uda.initial_state(tree.tree_map(torch.Tensor.double, run_draws.initial_model(task)))
+        epoch_fn = program.build_program(task, agg, program.EpochProgram(plan)).epoch_fn
+        order = {"clustered": ordering.Clustered, "shuffle_once": ordering.ShuffleOnce,
+                 "shuffle_always": ordering.ShuffleAlways}[plan.ordering]()
+        for epoch in range(1, q.epochs + 1):
+            state = epoch_fn(state, order.order(data, q.n_examples, epoch, run_draws.permutation), run_draws.epoch())
+        return state.model
+
+    worst = 0.0
+    for label, q, plan in plans:
+        small = {k: v[:TECH_SLICE] for k, v in q.data.items()}
+        if plan.scheme == "mrs":
+            plan = dataclasses.replace(plan, mrs_buffer=TECH_SLICE // 8)
+        qs = dataclasses.replace(q, data=small, epochs=2, memory_budget_bytes=None, tolerance=0.0)
+        q_cpu = dataclasses.replace(qs, data={k: v.cpu() for k, v in small.items()})
+        got = [x.cpu() for x in tree.leaves(gpu_eng.run(qs, plan=plan).model)]
+        want = tree.leaves(cpu_eng.run(q_cpu, plan=plan).model)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        if q.task == "crf" and plan.scheme != "mrs":
+            # CRF's first steps are large (a sentence's loss starts near 100),
+            # and they amplify rounding: the CPU's own float32 run lands
+            # ~5e-4 from a float64 run, past the tolerance below. So CRF is
+            # held to a float64 run: the card's float32 run must land no
+            # farther from it than the CPU's float32 run does, twice over
+            # (two float32 runs that round differently).
+            exact = [x.float() for x in tree.leaves(float64_run(q_cpu, plan))]
+            card = max(float((g - x).abs().max()) for g, x in zip(got, exact))
+            host = max(float((w - x).abs().max()) for w, x in zip(want, exact))
+            if not card <= 2 * host + KERNEL_ATOL:
+                raise AssertionError(f"{label}: the card's run is {card:.3g} from a float64 run, the CPU's {host:.3g}")
+            log("reference", f"{label}, {next(iter(small.values())).shape[0]} rows, 2 epochs: card vs CPU max |err| "
+                f"{err:.3g}; from a float64 run on the CPU: card {card:.3g}, CPU {host:.3g}")
+            continue
+        worst = max(worst, err)
+        for g, w in zip(got, want):
+            if not torch.allclose(g, w, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+                raise AssertionError(f"{label}: the card's run disagrees with the CPU's (max |err| {err:.3g})")
+    log("reference", f"{TECH_SLICE}-row slices, 2 epochs, the other {len(plans) - 1} plans: card vs CPU with the same "
+        f"draws and initial model, max |err| {worst:.3g} (rtol={KERNEL_RTOL}, atol={KERNEL_ATOL})")
+    if any(K.launches.values()):
+        raise AssertionError(f"the eager techniques launched a kernel: {dict(K.launches)}")
+    log("techniques", f"phase 3c took {phase.lap():.1f} s after its tables; no kernel launched")
 
 
 def graph_ms(fn, iters: int) -> float:

@@ -13,15 +13,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.tree import tree_map
 from repro_torch.core.uda import IGDState
+
+
+def model_from_numpy(model, device):
+    """A float32 model on ``device`` from the reference model's arrays:
+    one array, or a dict of them (``jax.tree.map(np.asarray, model)``)."""
+    return tree_map(lambda a: torch.tensor(np.asarray(a, dtype=np.float32), device=device), model)
 
 
 def state_from_numpy(model, step, weight, device) -> IGDState:
     """An ``IGDState`` on ``device`` from the reference state's arrays:
-    ``model`` float32 [dim], ``step`` int32 scalar, ``weight`` float32
-    scalar."""
+    ``model`` as :func:`model_from_numpy` takes it, ``step`` int32
+    scalar, ``weight`` float32 scalar."""
     return IGDState(
-        torch.tensor(np.asarray(model, dtype=np.float32), device=device),
+        model_from_numpy(model, device),
         torch.tensor(np.asarray(step, dtype=np.int32), device=device),
         torch.tensor(np.asarray(weight, dtype=np.float32), device=device),
     )

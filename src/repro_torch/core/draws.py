@@ -1,16 +1,19 @@
 """Where a run's random draws come from.
 
-Every random choice a run makes outside its initial model comes from one
-injectable source, so a test can replay another implementation's streams
-in the order the run consumes them:
+Every random choice a run makes comes from one injectable source, so a
+test can replay another implementation's streams in the order the run
+consumes them:
 
+* the initial model (random for ``lmf``, and for ``crf`` with
+  ``init_scale > 0``; the task's own ``init_model``);
 * the orderings' permutations (``ShuffleOnce`` / ``ShuffleAlways``, §3.2);
 * each epoch's reservoir draws (buffered MRS, §3.4);
 * each epoch's shared-memory draws (which model version each component
   is read from, and which component writes survive; §3.3).
 
 ``DrawSource.stream(seed, n, device)`` opens a run over an ``n``-row
-table and returns its :class:`RunDraws`. Within an epoch the run takes
+table and returns its :class:`RunDraws`. The run takes its initial model
+first, from a stream of its own. Within an epoch the run takes
 its permutation (if its ordering draws one) first, then ``epoch()``
 once, and the scheme's draws from what ``epoch()`` returned — the order
 in which the reference executor splits its key.
@@ -21,6 +24,8 @@ from __future__ import annotations
 from typing import Protocol
 
 import torch
+
+from repro_torch.core.tree import tree_map
 
 # randint's bound for reservoir draws: one 62-bit draw taken mod (i + 1);
 # the bias, at most n / 2**62, is far below anything a run can see
@@ -48,6 +53,11 @@ class EpochDraws(Protocol):
 
 
 class RunDraws(Protocol):
+    def initial_model(self, task):
+        """``task``'s initial model (a tensor or a dict of them) on the
+        run's device."""
+        ...
+
     def permutation(self) -> torch.Tensor:
         """The next int64 permutation of ``range(n)``."""
         ...
@@ -64,17 +74,27 @@ class DrawSource(Protocol):
 
 class TorchDraws:
     """The default source: one ``torch.Generator`` on the run's device,
-    seeded with the query's seed, hands out every draw of the run."""
+    seeded with the query's seed, hands out every draw of the run; the
+    initial model is ``task.init_model`` of another generator seeded
+    alike."""
 
     def stream(self, seed: int, n: int, device: torch.device) -> "_TorchRun":
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-        return _TorchRun(gen, n, torch.device(device))
+        return _TorchRun(seed, n, torch.device(device))
+
+
+def _seeded(seed: int, device: torch.device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
 
 
 class _TorchRun:
-    def __init__(self, gen: torch.Generator, n: int, device: torch.device):
-        self.gen, self.n, self.device = gen, n, device
+    def __init__(self, seed: int, n: int, device: torch.device):
+        self.seed, self.n, self.device = seed, n, device
+        self.gen = _seeded(seed, device)
+
+    def initial_model(self, task):
+        return task.init_model(_seeded(self.seed, self.device))
 
     def permutation(self) -> torch.Tensor:
         return torch.randperm(self.n, generator=self.gen, device=self.device)
@@ -105,6 +125,9 @@ class HostDraws:
 class _Moved:
     def __init__(self, run, device: torch.device):
         self.run, self.device = run, device
+
+    def initial_model(self, task):
+        return tree_map(lambda t: t.to(self.device), self.run.initial_model(task))
 
     def permutation(self) -> torch.Tensor:
         return self.run.permutation().to(self.device)

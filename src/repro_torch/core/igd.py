@@ -22,6 +22,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.tree import tree_map
+
 Tensor = torch.Tensor
 
 
@@ -114,7 +116,8 @@ def project_simplex(x: Tensor) -> Tensor:
     return torch.clamp(x - theta, min=0.0)
 
 
-# A "prox rule" maps (model, alpha_k) -> model.
+# A "prox rule" maps (model, alpha_k) -> model; a model is a tensor or a
+# dict of them (``core.tree``), and the rules below act leaf by leaf.
 ProxFn = Callable[[Tensor, Tensor], Tensor]
 
 
@@ -124,19 +127,19 @@ def identity_prox(w, t):
 
 
 def make_l1_prox(mu: float) -> Callable:
-    """Prox for P(w) = mu * ||w||_1 (LR / SVM regularizer)."""
+    """Tree-wise prox for P(w) = mu * ||w||_1 (LR / SVM regularizer)."""
 
     def prox(w, t):
-        return prox_l1(w, t * mu)
+        return tree_map(lambda a: prox_l1(a, t * mu), w)
 
     return prox
 
 
 def make_l2_prox(mu: float) -> Callable:
-    """Prox for P(w) = mu/2 * ||w||_F^2 (LMF regularizer)."""
+    """Tree-wise prox for P(w) = mu/2 * ||w||_F^2 (LMF regularizer)."""
 
     def prox(w, t):
-        return prox_l2sq(w, t * mu)
+        return tree_map(lambda a: prox_l2sq(a, t * mu), w)
 
     return prox
 
@@ -146,11 +149,11 @@ def make_simplex_prox() -> Callable:
 
     def prox(w, t):
         del t
-        return project_simplex(w)
+        return tree_map(project_simplex, w)
 
     return prox
 
 
-def igd_step(w: Tensor, grad: Tensor, alpha, prox: Callable = identity_prox) -> Tensor:
-    """One proximal IGD update (paper Eq. 3) on a dense model tensor."""
-    return prox(w - alpha * grad, alpha)
+def igd_step(w, grad, alpha, prox: Callable = identity_prox):
+    """One proximal IGD update (paper Eq. 3) on a model tree."""
+    return prox(tree_map(lambda p, g: p - alpha * g, w, grad), alpha)

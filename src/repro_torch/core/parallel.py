@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core import igd as igd_lib
+from repro_torch.core import igd as igd_lib, tree
 from repro_torch.core.tracecount import count_build
 
 
@@ -56,11 +56,13 @@ def hogwild_draws(epoch_draws, cfg: SharedMemoryConfig, d: int
 
 def hogwild_fold(task, step_size, model, examples, cfg: SharedMemoryConfig,
                  versions=None, keep=None, prox=None):
-    """Simulate one epoch of shared-memory parallel IGD over a dense
-    model ``[d]``.
+    """Simulate one epoch of shared-memory parallel IGD.
 
-    Carry: a ring of the last ``workers`` model versions. At step k a
-    worker reads a stale model:
+    The model (a tensor or a dict of them) is raveled to one vector of
+    ``d`` components (``core.tree.ravel``: sorted-key order, as the
+    reference's ``ravel_pytree``) and unraveled for each gradient and each
+    prox. Carry: a ring of the last ``workers`` raveled model versions. At
+    step k a worker reads a stale model:
       * lock   — staleness 0 (serial; the mutex serializes read+write),
       * aig    — component j is read from ``versions[k, j]`` versions back
                  in the window (mixed-version reads; writes never lost),
@@ -74,11 +76,12 @@ def hogwild_fold(task, step_size, model, examples, cfg: SharedMemoryConfig,
         raise ValueError(f"unknown shared-memory scheme {cfg.scheme!r}")
     prox = prox or igd_lib.identity_prox
     p = cfg.workers
-    d = model.shape[0]
+    flat, unravel = tree.ravel(model)
+    d = flat.shape[0]
     n = next(iter(examples.values())).shape[0]
-    ring = model[None, :].repeat(p, 1)
-    cols = torch.arange(d, device=model.device)
-    alphas = step_size(torch.arange(n, dtype=torch.int32, device=model.device))
+    ring = flat[None, :].repeat(p, 1)
+    cols = torch.arange(d, device=flat.device)
+    alphas = step_size(torch.arange(n, dtype=torch.int32, device=flat.device))
     ptr = 0
     for k in range(n):
         fresh = ring[ptr]
@@ -87,14 +90,14 @@ def hogwild_fold(task, step_size, model, examples, cfg: SharedMemoryConfig,
         else:
             read = ring[(ptr - versions[k]) % p, cols]
         alpha = alphas[k]
-        g = task.example_grad(read, {name: v[k] for name, v in examples.items()})
-        upd = -alpha * g
+        g = task.example_grad(unravel(read), {name: v[k] for name, v in examples.items()})
+        upd = -alpha * tree.ravel(g)[0]
         if cfg.scheme == "nolock":
             upd = torch.where(keep[k], upd, torch.zeros_like(upd))
-        new = prox(fresh + upd, alpha)
+        new = tree.ravel(prox(unravel(fresh + upd), alpha))[0]
         ptr = (ptr + 1) % p
         ring[ptr] = new
-    return ring[ptr].clone()
+    return unravel(ring[ptr].clone())
 
 
 def run_shared_memory(task, step_size, data, *, generator: torch.Generator, epochs: int,
@@ -115,7 +118,7 @@ def run_shared_memory(task, step_size, data, *, generator: torch.Generator, epoc
     losses = []
     for epoch in range(1, epochs + 1):
         examples = ordering.order(data, n, epoch, draws.permutation)
-        versions, keep = hogwild_draws(draws.epoch(), cfg, model.shape[0])
+        versions, keep = hogwild_draws(draws.epoch(), cfg, tree.size(model))
         model = hogwild_fold(task, step_size, model, examples, cfg, versions, keep, prox)
         if loss_fn is not None:
             losses.append(float(loss_fn(model, data)))

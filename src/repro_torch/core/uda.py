@@ -22,12 +22,13 @@ import torch
 
 from repro_torch import timing
 from repro_torch.core import igd as igd_lib
+from repro_torch.core.tree import leaves, tree_map
 
 
 class IGDState(NamedTuple):
     """Aggregation context: the model plus meta data (paper §3.1)."""
 
-    model: torch.Tensor  # float32 [dim]
+    model: Any  # a float32 tensor or a dict of them (core.tree)
     step: torch.Tensor  # int32 scalar — number of gradient steps taken
     weight: torch.Tensor  # float32 scalar — examples folded (for weighted merge)
 
@@ -49,13 +50,7 @@ class IGDAggregate:
     prox: Callable = igd_lib.identity_prox
 
     def initialize(self, generator: torch.Generator) -> IGDState:
-        model = self.task.init_model(generator)
-        dev = model.device
-        return IGDState(
-            model,
-            torch.zeros((), dtype=torch.int32, device=dev),
-            torch.zeros((), dtype=torch.float32, device=dev),
-        )
+        return initial_state(self.task.init_model(generator))
 
     def transition(self, state: IGDState, example) -> IGDState:
         alpha = self.step_size(state.step)
@@ -70,11 +65,22 @@ class IGDAggregate:
             tot > 0, a.weight / torch.clamp(tot, min=1e-30), torch.full_like(tot, 0.5)
         )
         wb = 1.0 - wa
-        model = wa * a.model + wb * b.model
+        model = tree_map(lambda x, y: wa * x + wb * y, a.model, b.model)
         return IGDState(model, torch.maximum(a.step, b.step), tot)
 
     def terminate(self, state: IGDState):
         return state.model
+
+
+def initial_state(model) -> IGDState:
+    """The state before any step: ``model``, step 0 and weight 0 on the
+    model's device."""
+    dev = leaves(model)[0].device
+    return IGDState(
+        model,
+        torch.zeros((), dtype=torch.int32, device=dev),
+        torch.zeros((), dtype=torch.float32, device=dev),
+    )
 
 
 class NullAggregate:
@@ -154,14 +160,9 @@ def segmented_fold(uda, state, examples, num_segments: int):
         lane_state = IGDState(state.model, state.step, torch.zeros_like(state.weight))
     states = torch.func.vmap(lambda ex: fold(uda, lane_state, ex))(seg)
 
-    def lane(i):  # a state is a tensor or a NamedTuple of tensors
-        if isinstance(states, torch.Tensor):
-            return states[i]
-        return type(states)(*(x[i] for x in states))
-
-    merged = lane(0)
+    merged = tree_map(lambda x: x[0], states)
     for i in range(1, num_segments):
-        merged = uda.merge(merged, lane(i))
+        merged = uda.merge(merged, tree_map(lambda x, i=i: x[i], states))
     if isinstance(state, IGDState):
         merged = IGDState(merged.model, merged.step, state.weight + n)
     return merged

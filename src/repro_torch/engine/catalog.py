@@ -16,8 +16,9 @@ prox operator, planning, execution, caching)::
             r = torch.dot(w, ex["x"]) - ex["y"]
             return torch.where(r.abs() < 1.0, 0.5 * r * r, r.abs() - 0.5)
 
-This slice of the port registers the dense GLMs; the sparse and
-structured techniques come with their tasks.
+A technique whose model is a dict of tensors (``lmf``'s factors,
+``crf``'s weights) registers the same way: the engine's core maps over
+the model's leaves (``repro_torch.core.tree``).
 """
 
 from __future__ import annotations
@@ -49,6 +50,15 @@ class TaskSpec:
     step_size: Callable[[int], igd.StepSize]
     # task instance -> prox rule (regularizer / feasible-set projection)
     prox: Callable[[Any], Callable] = _no_prox
+    # (task_args, n_examples) -> extra args the ENGINE fills in from the
+    # table it is about to run on (explicit task_args always win). Lets a
+    # technique depend on table statistics the user shouldn't have to
+    # remember — e.g. LMF's degree apportionment.
+    derive_args: Optional[Callable[[dict, int], dict]] = None
+    # Non-convex objective: model averaging across shards can cancel
+    # (factor rotations) instead of combine. Carried for the sharded
+    # plans' cap (the sharding slice); no singleton plan reads it.
+    nonconvex: bool = False
     # Loss name in the fused-IGD kernel's dispatch table
     # (kernels/igd_fused: "lr" | "svm" | "lsq"), for techniques whose
     # transition is exactly margin -> scale -> axpy on a dense (x, y)
@@ -67,12 +77,17 @@ def register_task(
     *,
     step_size: Optional[Callable[[int], igd.StepSize]] = None,
     prox: Callable[[Any], Callable] = _no_prox,
+    derive_args: Optional[Callable[[dict, int], dict]] = None,
+    nonconvex: bool = False,
     kernel_loss: Optional[str] = None,
 ):
     """Class decorator registering a ``Task`` under ``name``.
 
     ``step_size``: n_examples -> StepSize (default: diminishing 0.1/epoch).
     ``prox``: task -> prox rule (default: identity).
+    ``derive_args``: (task_args, n_examples) -> args the engine derives
+    from the live table when the user left them unset (default: none).
+    ``nonconvex``: the objective is non-convex (default: convex).
     ``kernel_loss``: fused-IGD kernel loss name ("lr"/"svm"/"lsq") when
     the transition matches the kernel's margin/scale/axpy shape (default:
     none — implementation axis stays torch_fold)."""
@@ -81,7 +96,9 @@ def register_task(
     def deco(cls):
         if name in _REGISTRY:
             raise ValueError(f"task {name!r} already registered")
-        _REGISTRY[name] = TaskSpec(name, cls, step, prox, kernel_loss)
+        _REGISTRY[name] = TaskSpec(
+            name, cls, step, prox, derive_args, nonconvex, kernel_loss
+        )
         return cls
 
     return deco
@@ -115,8 +132,8 @@ def kernel_loss_for(task) -> Optional[str]:
 
 
 # ---------------------------------------------------------------------------
-# Built-in techniques (paper Fig. 1B) with the hyperparameter defaults of
-# the reference catalog.
+# Built-in techniques (paper Fig. 1B): every repro_torch.tasks technique
+# with the hyperparameter defaults of the reference catalog.
 # ---------------------------------------------------------------------------
 
 register_task(
@@ -138,3 +155,58 @@ register_task(
     step_size=lambda n: igd.diminishing(0.1, decay=max(n, 1)),
     kernel_loss="lsq",
 )(tasks_lib.LeastSquares)
+
+register_task(
+    "sparse_logreg",
+    step_size=lambda n: igd.diminishing(0.5, decay=max(n, 1)),
+    prox=_l1_from_mu,
+)(tasks_lib.SparseLogisticRegression)
+
+register_task(
+    "sparse_svm",
+    step_size=lambda n: igd.diminishing(0.2, decay=max(n, 1)),
+    prox=_l1_from_mu,
+)(tasks_lib.SparseSVM)
+
+# LMF localizes its Frobenius regularizer inside example_loss (the
+# Gemulla/Bismarck transition touches only rows L_i and R_j, so the
+# penalty rides along apportioned by degree — see tasks/lmf.py). It must
+# NOT also get an L2 prox: a prox applies the full-table penalty once
+# per tuple, i.e. n_ratings× too strong, which shrinks every factor by
+# ~exp(-alpha*mu*n) per epoch. The degree apportionment is derived from
+# the live table by the engine (the 1.0 class defaults over-penalize by
+# the mean degree otherwise).
+
+
+def _lmf_derive_degrees(task_args: dict, n_examples: int) -> dict:
+    if "mean_row_degree" in task_args or "mean_col_degree" in task_args:
+        return {}  # explicit user choice wins
+    if "n_rows" not in task_args or "n_cols" not in task_args:
+        return {}  # let make_task raise its own missing-arg TypeError
+    return tasks_lib.LowRankMF.degrees_for(
+        task_args["n_rows"], task_args["n_cols"], n_examples
+    )
+
+
+register_task(
+    "lmf",
+    step_size=lambda n: igd.diminishing(0.1, decay=max(n, 1)),
+    derive_args=_lmf_derive_degrees,
+    nonconvex=True,
+)(tasks_lib.LowRankMF)
+
+register_task(
+    "crf",
+    step_size=lambda n: igd.diminishing(0.2, decay=max(n, 1)),
+)(tasks_lib.LinearChainCRF)
+
+register_task(
+    "kalman",
+    step_size=lambda n: igd.diminishing(0.02, decay=max(n, 1)),
+)(tasks_lib.KalmanFilterTask)
+
+register_task(
+    "portfolio",
+    step_size=lambda n: igd.diminishing(0.02, decay=max(n, 1)),
+    prox=lambda task: igd.make_simplex_prox(),
+)(tasks_lib.PortfolioOpt)

@@ -8,8 +8,9 @@ signature, plan) beside the objective evaluator. A cache hit builds
 nothing: ``trace_count`` and ``loss_trace_count`` count the builds,
 which the cache tests pin across repeat queries.
 
-Every random draw of a run (permutations, reservoir draws, hogwild
-draws) comes from the engine's one ``core.draws.DrawSource``.
+Every random draw of a run (the initial model, permutations, reservoir
+draws, hogwild draws) comes from the engine's one
+``core.draws.DrawSource``.
 
 The engine runs on one device. ``Engine()`` means the CUDA card and
 raises when there is none; ``Engine(device="cpu")`` runs on the CPU. A
@@ -25,6 +26,7 @@ import torch
 
 from repro_torch import timing
 from repro_torch.core import convergence, draws as draws_lib, mrs as mrs_lib
+from repro_torch.core import uda as uda_lib
 from repro_torch.core import ordering as ordering_lib
 from repro_torch.core.tracecount import count_build, fresh_counter
 from repro_torch.device import resolve_device
@@ -71,10 +73,10 @@ class Engine:
     """The unified analytics engine: query -> plan -> cached execute.
 
     ``draws`` is the source of every random draw a run makes
-    (``core.draws.DrawSource``: the shuffle orderings' permutations and
-    the MRS and shared-memory schemes' draws); the default,
-    ``TorchDraws``, draws from a generator seeded with the query's seed
-    on the engine's device."""
+    (``core.draws.DrawSource``: the initial model, the shuffle orderings'
+    permutations and the MRS and shared-memory schemes' draws); the
+    default, ``TorchDraws``, draws from generators seeded with the
+    query's seed on the engine's device."""
 
     def __init__(self, device=None, draws: Optional[draws_lib.DrawSource] = None):
         self.device = resolve_device(device)
@@ -99,10 +101,11 @@ class Engine:
                 )
 
     def _aggregate_for(self, query: AnalyticsQuery):
-        from repro_torch.core import uda as uda_lib
-
         spec = catalog.get(query.task)
-        task = spec.make_task(**query.task_args)
+        args = dict(query.task_args)
+        if spec.derive_args is not None:
+            args.update(spec.derive_args(args, query.n_examples))
+        task = spec.make_task(**args)
         agg = uda_lib.IGDAggregate(
             task,
             spec.step_size(query.n_examples),
@@ -247,9 +250,7 @@ def _execute(
     def eval_loss(state) -> float:
         return float(compiled.loss_fn(agg.terminate(state), data))
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(query.seed)
-    state = agg.initialize(gen)
+    state = uda_lib.initial_state(draws.initial_model(agg.task))
     if plan.scheme == "mrs":
         zero_buf = mrs_lib.zero_buffer(plan.mrs_buffer, data)
         carry = (state, zero_buf, zero_buf, False)

@@ -48,7 +48,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import mrs as mrs_lib, ordering as ordering_lib
-from repro_torch.core import parallel as parallel_lib, uda as uda_lib
+from repro_torch.core import parallel as parallel_lib, tree, uda as uda_lib
 from repro_torch.core.tracecount import count_build, fresh_counter
 
 # "sequential" is the stored order by another name (the storage layer
@@ -171,7 +171,7 @@ def build_epoch_fn(task, agg, plan) -> Callable:
 
         def sm_epoch(state, ex, draws):
             versions, keep = parallel_lib.hogwild_draws(
-                draws, cfg, state.model.shape[0]
+                draws, cfg, tree.size(state.model)
             )
             model = parallel_lib.hogwild_fold(
                 task, agg.step_size, state.model, ex, cfg, versions, keep,

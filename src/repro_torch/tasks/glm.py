@@ -1,11 +1,15 @@
-"""Generalized linear tasks, dense half: LR, SVM, least squares.
+"""Generalized linear tasks: LR, SVM, least squares (dense and sparse).
 
 Paper Fig. 4 — the transitions differ by a couple of lines:
 
     LR :  w += alpha * y * sigmoid(-y w.x) * x
     SVM:  w += alpha * y * x               if 1 - y w.x > 0
 
-The sparse variants come with the sparse-task slice of the port."""
+Sparse variants take (idx, val) feature pairs (padded to fixed nnz,
+idx=-1 padding); ``torch.func.grad`` through the ``index_select`` gather
+gives the scatter-add (``index_add``) sparse update inside the fold — the
+RDBMS sparse-vector path. The gather reads its indices on the device, so
+a transition never syncs with the host."""
 
 from __future__ import annotations
 
@@ -75,3 +79,42 @@ class LeastSquares(Task):
 
     def example_loss(self, w, ex):
         return 0.5 * (torch.dot(w, ex["x"]) - ex["y"]) ** 2
+
+
+def _sparse_dot(w, idx, val):
+    safe = torch.clamp(idx, min=0)
+    gathered = torch.index_select(w, 0, safe) * (idx >= 0).to(w.dtype)
+    return torch.sum(gathered * val)
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseLogisticRegression(Task):
+    dim: int
+    mu: float = 0.0
+
+    def init_model(self, generator):
+        return _zeros(self.dim, generator)
+
+    def example_loss(self, w, ex):
+        margin = ex["y"] * _sparse_dot(w, ex["idx"], ex["val"])
+        return torch.logaddexp(torch.zeros_like(margin), -margin)
+
+    def regularizer(self, w):
+        return self.mu * torch.sum(torch.abs(w))
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseSVM(Task):
+    dim: int
+    mu: float = 0.0
+
+    def init_model(self, generator):
+        return _zeros(self.dim, generator)
+
+    def example_loss(self, w, ex):
+        hinge = 1.0 - ex["y"] * _sparse_dot(w, ex["idx"], ex["val"])
+        # torch.maximum splits the gradient at a tie, as jnp.maximum does
+        return torch.maximum(hinge, torch.zeros_like(hinge))
+
+    def regularizer(self, w):
+        return self.mu * torch.sum(torch.abs(w))

@@ -91,3 +91,68 @@ def test_prox_factories_and_igd_step(factory, arg):
     ident = igd.igd_step(torch.from_numpy(w), torch.from_numpy(g), torch.tensor(0.1))
     np.testing.assert_array_equal(ident.numpy(), np.asarray(
         ref.igd_step(jnp.asarray(w), jnp.asarray(g), jnp.float32(0.1))))
+
+
+# ---------------------------------------------------------------------------
+# dict models (core/tree.py): LMF's {"L", "R"}, CRF's {"E", "T"}
+# ---------------------------------------------------------------------------
+
+
+def _tree(seed):
+    """A dict model whose insertion order is not sorted, and its leaves'
+    gradient."""
+    r = np.random.default_rng(seed)
+    w = {"R": r.normal(size=(3, 2)).astype(np.float32), "L": r.normal(size=(4, 2)).astype(np.float32)}
+    g = {k: r.normal(size=v.shape).astype(np.float32) for k, v in w.items()}
+    return w, g
+
+
+def test_ravel_order_is_jaxs_sorted_key_order():
+    from jax.flatten_util import ravel_pytree
+    from repro_torch.core import tree
+
+    w, _ = _tree(0)
+    w["E"] = {"z": np.arange(3, dtype=np.float32), "a": np.float32(7.0)[None]}  # nested, unsorted too
+    flat, unravel = tree.ravel({k: torch.from_numpy(np.asarray(v)) if not isinstance(v, dict)
+                                else {kk: torch.from_numpy(vv) for kk, vv in v.items()} for k, v in w.items()})
+    want, _ = ravel_pytree(w)
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(want))
+    back = unravel(flat * 2)
+    assert list(back) == ["E", "L", "R"] and list(back["E"]) == ["a", "z"]
+    np.testing.assert_array_equal(back["R"].numpy(), 2 * w["R"])
+    assert tree.size(back) == flat.numel() == 4 + 8 + 6
+    # a lone tensor is its own leaf: raveled as it is, unraveled to its shape
+    m = torch.arange(6.0).view(2, 3)
+    flat, unravel = tree.ravel(m)
+    assert flat.shape == (6,) and torch.equal(unravel(flat), m) and tree.leaves(m)[0] is m
+
+
+@pytest.mark.parametrize("factory,arg", [("make_l1_prox", 0.3), ("make_l2_prox", 0.3), ("make_simplex_prox", None),
+                                         ("identity_prox", None)])
+def test_igd_step_on_a_dict_model_matches_reference(factory, arg):
+    w, g = _tree(1)
+    if factory == "identity_prox":
+        ref_prox, prox = ref.identity_prox, igd.identity_prox
+    else:
+        a = () if arg is None else (arg,)
+        ref_prox, prox = getattr(ref, factory)(*a), getattr(igd, factory)(*a)
+    want = ref.igd_step({k: jnp.asarray(v) for k, v in w.items()}, {k: jnp.asarray(v) for k, v in g.items()},
+                        jnp.float32(0.1), ref_prox)
+    got = igd.igd_step({k: torch.from_numpy(v) for k, v in w.items()}, {k: torch.from_numpy(v) for k, v in g.items()},
+                       torch.tensor(0.1), prox)
+    assert list(got) == ["L", "R"]
+    for k in w:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("factory,arg", [("make_l1_prox", 0.3), ("make_l2_prox", 0.3), ("make_simplex_prox", None)])
+def test_dense_prox_and_step_are_unchanged_bit_for_bit(factory, arg):
+    """On one tensor the tree-wise rules are the single-tensor formulas
+    they were, bit for bit."""
+    w, g, t = torch.from_numpy(_vec(8, 11)), torch.from_numpy(_vec(9, 11)), torch.tensor(0.07)
+    a = () if arg is None else (arg,)
+    plain = {"make_l1_prox": lambda x, s: igd.prox_l1(x, s * arg), "make_l2_prox": lambda x, s: igd.prox_l2sq(x, s * arg),
+             "make_simplex_prox": lambda x, s: igd.project_simplex(x)}[factory]
+    prox = getattr(igd, factory)(*a)
+    assert torch.equal(prox(w, t), plain(w, t))
+    assert torch.equal(igd.igd_step(w, g, t, prox), plain(w - t * g, t))

@@ -359,3 +359,108 @@ def test_all_schemes_converge_and_averaging_is_slower():
     l_avg = float(task.full_loss(agg.terminate(uda.segmented_fold(agg, st0, data, 8)), data))
     l_serial = float(task.full_loss(agg.terminate(uda.fold(agg, st0, data)), data))
     assert l_avg < base and l_serial <= l_avg + 1e-6
+
+
+# ---------------------------------------------------------------------------
+# dict models through the schemes (core/tree.py)
+# ---------------------------------------------------------------------------
+
+
+def _lmf(n=48, seed=3):
+    kw = {"n_rows": 6, "n_cols": 5, "rank": 2, "mu": 0.05, "mean_row_degree": 8.0, "mean_col_degree": 9.6}
+    r = np.random.default_rng(seed)
+    data = {"i": r.integers(0, 6, n).astype(np.int32), "j": r.integers(0, 5, n).astype(np.int32),
+            "v": r.normal(size=n).astype(np.float32)}
+    # factors at the task's own initial scale (LowRankMF.init_scale = 0.1)
+    model = {"R": 0.1 * r.normal(size=(5, 2)).astype(np.float32), "L": 0.1 * r.normal(size=(6, 2)).astype(np.float32)}
+    ragg = ref_uda.IGDAggregate(ref_tasks.LowRankMF(**kw), ref_igd.diminishing(0.2, decay=n))
+    agg = uda.IGDAggregate(tasks.LowRankMF(**kw), igd.diminishing(0.2, decay=n))
+    return ragg, agg, data, model
+
+
+def _close_tree(got, want):
+    assert sorted(got) == sorted(want)
+    for k in got:
+        _close(got[k], want[k])
+
+
+@pytest.mark.parametrize("scheme", ["lock", "aig", "nolock"])
+def test_hogwild_fold_of_a_dict_model_matches_reference(scheme):
+    """The ring holds the raveled factors (L before R, as ravel_pytree
+    orders them), so each component gets the reference's draws."""
+    ragg, agg, data, model = _lmf()
+    rdata, tdata = _both(data)
+    key = jax.random.PRNGKey(21)
+    cfg = parallel.SharedMemoryConfig(scheme=scheme, workers=4, lost_update_rate=0.3)
+    want = ref_parallel.hogwild_fold(ragg.task, ragg.step_size, {k: jnp.asarray(v) for k, v in model.items()},
+                                     rdata, key, ref_parallel.SharedMemoryConfig(scheme, 4, 0.3), prox=ragg.prox)
+    versions, keep = parallel.hogwild_draws(_Epoch(key, 48, "cpu"), cfg, 22)
+    got = parallel.hogwild_fold(agg.task, agg.step_size, convert.model_from_numpy(model, "cpu"), tdata, cfg,
+                                versions, keep, prox=agg.prox)
+    _close_tree(got, want)
+
+
+def _hogwild_dense(task, step_size, model, examples, cfg, versions=None, keep=None, prox=None):
+    """The dense-only simulator as it was before models became trees."""
+    prox = prox or igd.identity_prox
+    p, d = cfg.workers, model.shape[0]
+    n = next(iter(examples.values())).shape[0]
+    ring = model[None, :].repeat(p, 1)
+    cols = torch.arange(d)
+    alphas = step_size(torch.arange(n, dtype=torch.int32))
+    ptr = 0
+    for k in range(n):
+        fresh = ring[ptr]
+        read = fresh if cfg.scheme == "lock" else ring[(ptr - versions[k]) % p, cols]
+        upd = -alphas[k] * task.example_grad(read, {name: v[k] for name, v in examples.items()})
+        if cfg.scheme == "nolock":
+            upd = torch.where(keep[k], upd, torch.zeros_like(upd))
+        ptr = (ptr + 1) % p
+        ring[ptr] = prox(fresh + upd, alphas[k])
+    return ring[ptr].clone()
+
+
+@pytest.mark.parametrize("scheme", ["lock", "aig", "nolock"])
+def test_hogwild_fold_of_a_dense_model_is_unchanged_bit_for_bit(scheme):
+    _, data = _both(_table(64))
+    _, agg = _aggs("logreg", 6)
+    _, s = _state(6)
+    cfg = parallel.SharedMemoryConfig(scheme=scheme, workers=4, lost_update_rate=0.3)
+    versions, keep = parallel.hogwild_draws(draws.TorchDraws().stream(2, 64, "cpu").epoch(), cfg, 6)
+    got = parallel.hogwild_fold(agg.task, agg.step_size, s.model, data, cfg, versions, keep, prox=agg.prox)
+    assert torch.equal(got, _hogwild_dense(agg.task, agg.step_size, s.model, data, cfg, versions, keep, agg.prox))
+
+
+@pytest.mark.parametrize("active", [False, True])
+def test_mrs_epoch_carries_a_dict_model(active):
+    ragg, agg, data, model = _lmf(40)
+    rdata, tdata = _both(data)
+    rs = ref_uda.IGDState({k: jnp.asarray(v) for k, v in model.items()}, jnp.int32(5), jnp.float32(5.0))
+    s = convert.state_from_numpy(model, 5, 5.0, "cpu")
+    b = 6
+    (ra, ta), (rb, tb) = _both({k: v[:b] for k, v in data.items()}), _both({k: v[-b:] for k, v in data.items()})
+    key = jax.random.PRNGKey(8)
+    want, want_a = ref_mrs.mrs_epoch(ragg, rs, rdata, ra, rb, jnp.bool_(active), ref_mrs.MRSConfig(b, 2), key)
+    got, got_a = mrs.mrs_epoch(agg, s, tdata, ta, tb, active, mrs.MRSConfig(b, 2), _Epoch(key, 40, "cpu").reservoir())
+    _close_tree(got.model, want.model)
+    assert int(got.step) == int(want.step) == 5 + 40 * (1 + 2 * active)
+    for k in data:
+        np.testing.assert_array_equal(got_a[k].numpy(), np.asarray(want_a[k]))
+
+
+def test_run_mrs_carries_a_dict_model():
+    """CRF's {"E", "T"} (zero initial model) through the MRS epoch loop."""
+    key = jax.random.PRNGKey(3)
+    from repro.data import synthetic as ref_synthetic
+
+    rdata, tdata = _both(jax.tree.map(np.asarray, ref_synthetic.tagged_sequences(key, 24, 4, 3, 4)))
+    ragg = ref_uda.IGDAggregate(ref_tasks.LinearChainCRF(3, 4), ref_igd.diminishing(0.2, decay=24))
+    agg = uda.IGDAggregate(tasks.LinearChainCRF(3, 4), igd.diminishing(0.2, decay=24))
+    cfg = ref_mrs.MRSConfig(buffer_size=6, ratio=2)
+    want, wl = ref_mrs.run_mrs(ragg, rdata, rng=key, epochs=3, cfg=cfg, loss_fn=ragg.task.full_loss)
+    got, gl = mrs.run_mrs(agg, tdata, generator=torch.Generator().manual_seed(3), epochs=3, cfg=mrs.MRSConfig(6, 2),
+                          draws=ThreefryReplay(salt=None).stream(3, 24, "cpu"), loss_fn=agg.task.full_loss)
+    _close_tree(got, want)
+    # the loss sums 24 differences log Z - gold of terms near 10: float32
+    # leaves ~1e-5 of it whatever the model, so atol is 24 x 10 x 2^-23 x 8
+    np.testing.assert_allclose(gl, wl, rtol=RTOL, atol=2e-5)

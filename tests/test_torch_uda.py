@@ -84,3 +84,48 @@ def test_convert_keeps_dtypes_and_device():
     assert t["x"].dtype == torch.float32 and t["i"].dtype == torch.int32
     s = convert.state_from_numpy(np.zeros(2), np.int32(4), np.float32(4), "cpu")
     assert s.model.dtype == torch.float32 and s.step.dtype == torch.int32 and int(s.step) == 4
+
+
+def _lmf_aggs(n_rows=7, n_cols=5, rank=2):
+    kw = {"n_rows": n_rows, "n_cols": n_cols, "rank": rank, "mu": 0.05, "mean_row_degree": 3.0, "mean_col_degree": 4.0}
+    return (ref_uda.IGDAggregate(ref_tasks.LowRankMF(**kw), ref_igd.diminishing(0.2, decay=40)),
+            uda.IGDAggregate(tasks.LowRankMF(**kw), igd.diminishing(0.2, decay=40)))
+
+
+def _lmf_state(seed, step=3, weight=3.0):
+    r = np.random.default_rng(seed)
+    model = {"R": r.normal(size=(5, 2)).astype(np.float32), "L": r.normal(size=(7, 2)).astype(np.float32)}
+    return (ref_uda.IGDState({k: jnp.asarray(v) for k, v in model.items()}, jnp.int32(step), jnp.float32(weight)),
+            convert.state_from_numpy(model, step, weight, "cpu"))
+
+
+def _ratings(n=40, seed=2):
+    r = np.random.default_rng(seed)
+    return {"i": r.integers(0, 7, n).astype(np.int32), "j": r.integers(0, 5, n).astype(np.int32),
+            "v": r.normal(size=n).astype(np.float32)}
+
+
+@pytest.mark.parametrize("wa,wb", [(3.0, 1.0), (0.0, 0.0)])
+def test_merge_of_dict_models_matches_reference(wa, wb):
+    ragg, agg = _lmf_aggs()
+    (ra, a), (rb, b) = _lmf_state(1, 7, wa), _lmf_state(2, 9, wb)
+    want, got = ragg.merge(ra, rb), agg.merge(a, b)
+    for k in ("L", "R"):
+        np.testing.assert_allclose(got.model[k].numpy(), np.asarray(want.model[k]), rtol=1e-6, atol=1e-7)
+    assert int(got.step) == int(want.step) == 9 and float(got.weight) == float(want.weight)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_fold_and_segmented_fold_of_a_dict_model_match_reference(k):
+    """LMF's factors through the fold and the shared-nothing lanes
+    (``torch.func.vmap`` over the fold, merged leaf by leaf)."""
+    ragg, agg = _lmf_aggs()
+    rs, s = _lmf_state(3)
+    data = _ratings()
+    rdata = {c: jnp.asarray(v) for c, v in data.items()}
+    tdata = convert.table_from_numpy(data, "cpu")
+    want = ref_uda.fold(ragg, rs, rdata) if k == 1 else ref_uda.segmented_fold(ragg, rs, rdata, k)
+    got = uda.fold(agg, s, tdata) if k == 1 else uda.segmented_fold(agg, s, tdata, k)
+    for c in ("L", "R"):
+        np.testing.assert_allclose(got.model[c].numpy(), np.asarray(want.model[c]), rtol=RTOL, atol=ATOL)
+    assert int(got.step) == int(want.step) and float(got.weight) == float(want.weight) == 43.0
