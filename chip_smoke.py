@@ -41,11 +41,33 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    a warm Engine.run wall of a planned
    query (logreg, 2,048 x 32, 5 epochs: benchmarks/engine_bench.py's
    quick query);
+3d. stored tables and serving (the engine's data-source and batching
+   axes): the lane kernels (B folds in one launch, a block or a cluster a
+   lane) against their plain versions on the CPU and every lane against
+   its own one-lane launch bit for bit (B 1, 3, 32; shared and stacked
+   tables; D 54 and 200 on the Gram and cluster instances, 300 on the
+   per-row and one-block ones; N across the sub-tile and tile edges); the
+   Forest-shaped table as a ChunkedTable of 65,536-row host chunks,
+   logreg (clustered serial by hint; the planner streams it,
+   source="table", and picks the lane body by probe)
+   and least_squares (cuda_minibatch) for 3 epochs beside the resident
+   run (seconds an epoch, from pageable and from pinned host memory,
+   bytes to the card an epoch, launches an epoch, distance), one
+   igd_fold epoch streamed chunk by chunk against one
+   launch and a float64 fold on the CPU; 32 logreg queries (cuda_fused)
+   and 8 least_squares queries (cuda_minibatch), shuffle_always, budgets
+   3 and 2 alternating, served as one masked fused batch each through
+   ServingEngine beside the same queries one at a time through
+   Engine.run (queries a second; every kernel lane equal to its
+   singleton run bit for bit; one launch an epoch); a fresh server on the
+   same plan store that plans and probes nothing;
 4. time each kernel at the main path's shape with CUDA events, beside its
    plain version and its bound; igd_fold also beside its chain floor (N
    times one grad_scale + FMA step timed alone in one warp),
    igd_fold_minibatch beside its tile-chain floor (the tiles times one
-   tile's step timed with the tile resident in shared memory);
+   tile's step timed with the tile resident in shared memory); both also
+   as lane launches at B = 1, 8, 32 over the shared table, beside 32
+   one-lane launches in the same call;
 5. build the flash-attention and flash-decode CUDA kernels from
    src/repro_torch/kernels/{attention,decode}/csrc (all three sources are
    compiled at once, one nvcc each, when the script starts);
@@ -118,6 +140,14 @@ CONLL_SENTENCES, CONLL_TOKENS, CONLL_TAGS = 128, 32, 23  # CoNLL-2000 chunking: 
 KALMAN_HORIZON, KALMAN_OBS = 1_024, 8  # paper_tasks.KALMAN: horizon 2,048
 SP500_ASSETS, SP500_PERIODS = 500, 1_024  # an S&P 500-sized universe; ten years are 2,520 trading days
 TECH_SLICE, SYNC_SLICE = 512, 64
+# phase 3d: lane launches (B, D, N), the stored table's chunks and epochs,
+# the served queries, and the lane widths timed in phase 4
+LANE_B = (1, 3, 32)
+LANE_FOLD_D, LANE_FOLD_N = (54, 200, 300), (31, 33, 257)
+LANE_MB_D, LANE_MB_N = (54, 200, 300), (255, 257, 2_049)
+TABLE_CHUNK, TABLE_EPOCHS = 65_536, 3
+SERVE_QUERIES, SERVE_MB_QUERIES = 32, 8
+TIMED_LANES = (1, 8, 32)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
@@ -417,6 +447,7 @@ def main() -> int:
 
     schemes(args.seed, table, dev)
     techniques(args.seed, table, dev, phase3)
+    phase3d = tables_and_serving(args.seed, table, dev)
 
     # -- 4. timings at the main path's shape -------------------------------
     n, d = FOREST_ROWS, FOREST_DIM
@@ -482,6 +513,25 @@ def main() -> int:
         f"{bytes_ms / mb_ms:.4f} of it; {card}")
     log("timing", "library_ms: none — no single PyTorch call computes a serial IGD fold or the "
         "tile-serial minibatch fold")
+    # lanes: B folds in one launch over the shared table (a block, or a
+    # cluster, a lane), beside 32 one-lane launches in the same call
+    for entry, loss, iters in ((kernels[0], "lr", 2), (kernels[1], "lsq", 5)):
+        kernel = getattr(K, entry["name"])
+        lane_ms, lane_bound = {}, {}
+        for b in TIMED_LANES:
+            a_b, w_b = alpha.expand(b, n).contiguous(), w0.expand(b, d).contiguous()
+            lane_ms[b] = event_ms(lambda: kernel(x, y, a_b, w_b, loss=loss), iters)
+            lane_bytes = n * (d + 1) * 4 + b * (n + 2 * d) * 4  # the table once, each lane's alphas and w
+            lane_bound[b] = max(lane_bytes / HBM_BYTES_PER_S, b * flops[entry["name"]] / FP32_FLOPS) * 1e3
+        singles_ms = event_ms(lambda: [kernel(x, y, alpha, w0, loss=loss) for _ in range(32)], 1)
+        entry.update(lane_ms=lane_ms, lane_bound_ms=lane_bound, one_lane_launches_x32_ms=singles_ms,
+                     launches_stored_table=phase3d["tables"][entry["name"]],
+                     launches_serving=phase3d["serving"][entry["name"]],
+                     max_abs_err=max(entry["max_abs_err"], phase3d["lane_err"][entry["name"]]))
+        log("timing", f"{entry['name']} ({loss}, {n}x{d}, shared table) lane launches: " + ", ".join(
+            f"B={b} {lane_ms[b]:.4f} ms ({lane_ms[b] / lane_ms[1]:.3f}x B=1; bound {lane_bound[b]:.4f} ms)"
+            for b in TIMED_LANES) + f"; 32 one-lane launches {singles_ms:.3f} ms "
+            f"({singles_ms / lane_ms[32]:.2f}x the B=32 launch); {card}")
 
     # -- 5. build the serving path's kernels --------------------------------
     for lib in (AK.LIBRARY, DK.LIBRARY):
@@ -863,6 +913,184 @@ def techniques(seed: int, forest: dict, dev, phase3: dict) -> None:
     if any(K.launches.values()):
         raise AssertionError(f"the eager techniques launched a kernel: {dict(K.launches)}")
     log("techniques", f"phase 3c took {phase.lap():.1f} s after its tables; no kernel launched")
+
+
+def tables_and_serving(seed: int, table: dict, dev) -> dict:
+    """Phase 3d: the lane kernels against their plain versions and their
+    own one-lane launches; a stored (host-chunked) Forest table streamed
+    through the engine beside the resident run; 32 + 8 queries served as
+    fused masked batches beside the same queries one at a time; a warm
+    start from the plan store. Returns the kernels' launches on the
+    phase's paths (counts zeroed just before, read just after)."""
+    import dataclasses
+    import shutil
+    import threading
+
+    from repro_torch import engine, timing
+    from repro_torch.engine import executor, serve
+    from repro_torch.kernels.igd_fused import kernel as K, ref as R
+
+    phase = timing.Stopwatch()
+    n, d = FOREST_ROWS, FOREST_DIM
+
+    # -- lane kernels: plain versions (on the CPU) and one-lane launches ----
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    worst = {"igd_fold": 0.0, "igd_fold_minibatch": 0.0}
+    cases = 0
+    for name, plain, dims, rows in (("igd_fold", R.igd_fold_ref, LANE_FOLD_D, LANE_FOLD_N),
+                                    ("igd_fold_minibatch", R.igd_fold_minibatch_ref, LANE_MB_D, LANE_MB_N)):
+        kernel = getattr(K, name)
+        for b in LANE_B:
+            for dd in dims:
+                for nn in rows:
+                    for shared in (True, False):
+                        lead = () if shared else (b,)
+                        x = torch.randn(lead + (nn, dd), generator=gen, device=dev) / dd**0.5
+                        y = torch.sign(torch.randn(lead + (nn,), generator=gen, device=dev))
+                        alpha = 0.1 / (1.0 + (torch.arange(nn, device=dev)
+                                              + torch.randint(0, 5 * nn, (b, 1), generator=gen, device=dev)) / nn)
+                        w0 = 0.01 * torch.randn((b, dd), generator=gen, device=dev)
+                        loss = LOSSES[cases % 3]
+                        got = kernel(x, y, alpha, w0, loss=loss)
+                        for i in range(b):
+                            xi, yi = (x, y) if shared else (x[i], y[i])
+                            if not torch.equal(got[i], kernel(xi, yi, alpha[i].contiguous(), w0[i].contiguous(),
+                                                              loss=loss)):
+                                raise AssertionError(f"{name} B={b} {nn}x{dd} lane {i}: not its one-lane launch")
+                        on_cpu = [t.cpu() for t in (x, y, alpha, w0)]
+                        worst[name] = max(worst[name], max_err(
+                            got.cpu(), R.lanes_ref(plain, *on_cpu, loss=loss),
+                            f"{name} B={b} {nn}x{dd} {'shared' if shared else 'stacked'} vs its plain version"))
+                        cases += 1
+    log("tables", f"lane kernels: {cases} launches (B in {LANE_B}; igd_fold D in {LANE_FOLD_D} x N in "
+        f"{LANE_FOLD_N}, igd_fold_minibatch D in {LANE_MB_D} x N in {LANE_MB_N}; shared and stacked tables; "
+        f"lr, svm, lsq in turn): every lane equal to its own one-lane launch bit for bit; max |err| against the "
+        f"plain version igd_fold {worst['igd_fold']:.3g}, igd_fold_minibatch {worst['igd_fold_minibatch']:.3g} "
+        f"(rtol={KERNEL_RTOL}, atol={KERNEL_ATOL})")
+
+    # -- a stored table: host chunks streamed to the card --------------------
+    host = {k: v.cpu() for k, v in table.items()}
+    alpha = engine.get("logreg").step_size(n)(torch.arange(n, dtype=torch.int32))
+    w0 = torch.zeros(d)
+    exact = {}  # a float64 epoch on the CPU, beside the card's work
+    f64 = threading.Thread(target=lambda: exact.update(w=R.igd_fold_ref(
+        host["x"].double(), host["y"].double(), alpha.double(), w0.double(), loss="lr")))
+    f64.start()
+    tab = engine.ChunkedTable.from_arrays(host, TABLE_CHUNK)
+    pinned = engine.ChunkedTable.from_arrays({k: v.pin_memory() for k, v in host.items()}, TABLE_CHUNK)
+    table_launches = {"igd_fold": 0, "igd_fold_minibatch": 0}
+    eng = engine.Engine()
+    for task, hints in (("logreg", {"ordering": "clustered", "scheme": "serial"}),
+                        ("least_squares", {"ordering": "clustered", "scheme": "serial",
+                                           "implementation": "cuda_minibatch"})):
+        q = engine.AnalyticsQuery(task=task, data=tab, task_args={"dim": d}, epochs=TABLE_EPOCHS,
+                                  tolerance=0.0, seed=seed, hints=hints)
+        rep = eng.explain(q)
+        moved0 = eng.stats["bytes_to_device"]
+        K.reset_launches()  # the streamed run alone: not the probes, nor the runs beside it
+        res = eng.run(q)
+        for name in table_launches:
+            table_launches[name] += K.launches[name]
+        moved = eng.stats["bytes_to_device"] - moved0 - tab.data_bytes()  # less the objective's one copy
+        if res.plan.source != "table" or res.kernel_launches != TABLE_EPOCHS * tab.num_chunks:
+            raise AssertionError(f"{task}: plan {res.plan}, {res.kernel_launches} launches; a chunk stream "
+                                 f"launches {tab.num_chunks} an epoch")
+        resident = eng.run(dataclasses.replace(q, data=table, hints={}),
+                           plan=dataclasses.replace(res.plan, source="memory"))
+        if res.plan.implementation == "cuda_minibatch":
+            # 65,536-row chunks are whole 256-row tiles: the same steps
+            if not torch.equal(res.model, resident.model):
+                raise AssertionError(f"{task}: the minibatch chunk stream differs from the resident run")
+        dist = max_err(res.model, resident.model, f"{task} chunk stream vs the resident run")
+        # the same chunks in page-locked host memory: the copies leave the
+        # host at once and run on the copy engine, in stream order
+        res_pinned = eng.run(dataclasses.replace(q, data=pinned))
+        if not torch.equal(res_pinned.model, res.model):
+            raise AssertionError(f"{task}: the pinned chunk stream differs from the pageable one")
+        epoch_ms = {k: r.gradient_seconds / TABLE_EPOCHS * 1e3 for k, r in
+                    (("pageable", res), ("pinned", res_pinned), ("resident", resident))}
+        log("tables", f"{task} over a ChunkedTable of {tab.num_chunks} host chunks of {TABLE_CHUNK} rows "
+            f"({tab.chunk_shapes()}): plan {rep.chosen.describe()}; {res.kernel_launches // TABLE_EPOCHS} "
+            f"launches an epoch; ms an epoch streamed from pageable host memory {epoch_ms['pageable']:.2f} "
+            f"({epoch_ms['pageable'] / epoch_ms['resident']:.3f}x), from pinned {epoch_ms['pinned']:.2f} "
+            f"({epoch_ms['pinned'] / epoch_ms['resident']:.3f}x), resident {epoch_ms['resident']:.2f}; "
+            f"{moved / TABLE_EPOCHS:.0f} bytes to the card an epoch; max |dw| vs the resident run {dist:.3g} "
+            f"(pinned: the same w bit for bit); loss {res.losses[-1]:.6g}; {smi('name,power.limit')}")
+    # one epoch a chunk at a time at the kernel, against one launch and float64
+    w_stream = w0.to(dev)
+    for i, chunk in enumerate(tab.chunks()):
+        rows = slice(i * TABLE_CHUNK, i * TABLE_CHUNK + chunk["x"].shape[0])
+        w_stream = K.igd_fold(chunk["x"].to(dev), chunk["y"].to(dev), alpha[rows].to(dev), w_stream, loss="lr")
+    w_one = K.igd_fold(table["x"], table["y"], alpha.to(dev), w0.to(dev), loss="lr")
+    f64.join()
+    to_one = max_err(w_stream, w_one, "igd_fold chunk stream vs one launch, one epoch")
+    to_f64 = max_err(w_stream.cpu().double(), exact["w"], "igd_fold chunk stream vs a float64 fold")
+    one_f64 = float((w_one.cpu().double() - exact["w"]).abs().max())
+    log("tables", f"igd_fold lr, one {n}x{d} epoch in {tab.num_chunks} launches (a chunk each, w carried): "
+        f"max |dw| {to_one:.3g} vs one launch, {to_f64:.3g} vs a float64 fold (one launch: {one_f64:.3g}); "
+        f"stored-table path launches {table_launches}")
+
+    # -- serving: fused masked batches against the same queries one by one ---
+    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "plan_cache_smoke")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    serving_launches = {"igd_fold": 0, "igd_fold_minibatch": 0}
+    kernel_of = {"cuda_fused": "igd_fold", "cuda_minibatch": "igd_fold_minibatch"}
+    for task, impl, count, batch in (("logreg", "cuda_fused", SERVE_QUERIES, SERVE_QUERIES),
+                                     ("least_squares", "cuda_minibatch", SERVE_MB_QUERIES, SERVE_MB_QUERIES)):
+        hints = {"ordering": "shuffle_always", "scheme": "serial", "implementation": impl}
+        queries = [engine.AnalyticsQuery(task=task, data=table, task_args={"dim": d}, tolerance=0.0, seed=s,
+                                          epochs=3 if s % 2 == 0 else 2, hints=hints) for s in range(count)]
+        srv = serve.ServingEngine(serve.ServeConfig(max_batch=batch, cache_dir=cache_dir),
+                                  engine=executor.Engine(plan_store=serve.PlanStore(cache_dir)))
+        for q in queries:  # plan first: the walls below are warm
+            srv.engine.explain(q)
+        K.reset_launches()  # the fused drain alone: not the probes, nor the singleton runs
+        watch = timing.Stopwatch()
+        tickets = [srv.submit(q) for q in queries]
+        srv.drain()
+        torch.cuda.synchronize()
+        fused_s = watch.lap()
+        fused_launches = sum(K.launches.values())
+        for name in serving_launches:
+            serving_launches[name] += K.launches[name]
+        singles = [srv.engine.run(q) for q in queries]
+        torch.cuda.synchronize()
+        single_s = watch.lap()
+        if (srv.stats["batches"] != 1 or srv.stats["masked_batches"] != 1
+                or fused_launches != max(q.epochs for q in queries)):
+            raise AssertionError(f"{task}: {srv.stats}, {fused_launches} launches for one fused batch")
+        diff = 0.0
+        for t, single in zip(tickets, singles):
+            if t.error is not None or t.result.epochs != single.epochs:
+                raise AssertionError(f"{task}: ticket {t.error or t.result.epochs}")
+            diff = max(diff, float((t.result.model - single.model).abs().max()))
+            if not bool(torch.isfinite(t.result.model).all()):
+                raise AssertionError(f"{task}: a served model is not finite")
+        if diff != 0.0:
+            raise AssertionError(f"{task}: a kernel lane differs from its singleton run by {diff:.3g}")
+        log("serving", f"{count} {task} queries ({impl}, shuffle_always, budgets 3 and 2 alternating, "
+            f"max_batch={batch}): {srv.stats['batches']} batch, {srv.stats['fused_lanes']} fused lanes, "
+            f"{srv.stats['masked_batches']} masked; {fused_launches} {kernel_of[impl]} launches for the batch "
+            f"(one an epoch); drain {fused_s:.3f} s = {count / fused_s:.2f} queries/s; the same queries one at a "
+            f"time through Engine.run {single_s:.3f} s = {count / single_s:.2f} queries/s "
+            f"({single_s / fused_s:.2f}x); max |lane - singleton| {diff}")
+        if task == "logreg":
+            # -- warm start: a fresh server on the same store plans nothing
+            warm = serve.ServingEngine(serve.ServeConfig(max_batch=batch, cache_dir=cache_dir))
+            for q in queries:
+                warm.submit(q)
+            warm.drain()
+            st = warm.engine.stats
+            if st["plans_computed"] != 0 or st["probe_runs"] != 0 or not st["plan_disk_hits"]:
+                raise AssertionError(f"warm start planned or probed: {st}")
+            log("serving", f"warm start on {cache_dir} ({warm.engine.plan_store.size()} entries): "
+                f"plans_computed {st['plans_computed']}, probe_runs {st['probe_runs']}, "
+                f"plan_disk_hits {st['plan_disk_hits']}; {warm.stats['batches']} fused batch")
+    if not all(table_launches.values()) or not all(serving_launches.values()):
+        raise AssertionError(f"a kernel never launched: tables {table_launches}, serving {serving_launches}")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    log("tables", f"phase 3d took {phase.lap():.1f} s")
+    return {"tables": table_launches, "serving": serving_launches, "lane_err": worst}
 
 
 def graph_ms(fn, iters: int) -> float:

@@ -63,7 +63,7 @@ LR_FAST = "  if (LOSS == kLossLr) return -y * __fdividef(1.0f, 1.0f + __expf(y *
 VARIANTS = {
     # the per-row chain of the D > 256 instance (one warp, w in registers, a shuffle butterfly per row) at D <= 256
     "per_row_chain": [
-        ("  if (d <= kGramMaxDim) return launch_gram", "  if (d < 1) return launch_gram"),
+        ("  if (d <= kGramMaxDim) {\n    return launch_gram", "  if (d < 1) {\n    return launch_gram"),
         ("    vpl = d <= kWarp * 16 ? 16 : 32;", "    vpl = 1;\n    while (vpl * kWarp < d) vpl *= 2;"),
         ("  REPRO_FOLD_CASE(16, 1)\n",
          "  REPRO_FOLD_CASE(1, 1)\n  REPRO_FOLD_CASE(2, 1)\n  REPRO_FOLD_CASE(4, 1)\n"
@@ -119,7 +119,7 @@ def variant(name: str, edits) -> CudaLibrary:
 def fold(lib: CudaLibrary, x, y, alpha, w0, loss: str):
     out = torch.empty_like(w0)
     rc = lib.load().igd_fold_launch(x.data_ptr(), y.data_ptr(), alpha.data_ptr(), w0.data_ptr(),
-                                    out.data_ptr(), x.shape[0], x.shape[1], K.LOSS_IDS[loss],
+                                    out.data_ptr(), x.shape[0], x.shape[1], K.LOSS_IDS[loss], 1, 0, 0,
                                     torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{lib.name}: CUDA error {rc}")

@@ -125,9 +125,10 @@ def variant(name: str, k: int, edits) -> CudaLibrary:
 
 def declare_entry(lib) -> None:
     """Types of igd_fold_minibatch_launch alone, for a source of another
-    commit, which need not have this one's other entries."""
+    commit, which need not have this one's other entries (it must take
+    the lane arguments: lanes, x/y lane rows, alpha lane stride)."""
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.igd_fold_minibatch_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+    lib.igd_fold_minibatch_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64, i64, ptr]
     lib.igd_fold_minibatch_launch.restype = i32
     lib.igd_fused_error_string.argtypes = [i32]
     lib.igd_fused_error_string.restype = ctypes.c_char_p
@@ -137,7 +138,7 @@ def minibatch(lib: CudaLibrary, x, y, alpha, w0, loss: str):
     out = torch.empty_like(w0)
     rc = lib.load().igd_fold_minibatch_launch(x.data_ptr(), y.data_ptr(), alpha.data_ptr(), w0.data_ptr(),
                                               out.data_ptr(), x.shape[0], x.shape[1], K.LOSS_IDS[loss],
-                                              torch.cuda.current_stream().cuda_stream)
+                                              1, 0, 0, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{lib.name}: CUDA error {rc} ({lib.load().igd_fused_error_string(rc).decode()})")
     return out

@@ -40,6 +40,15 @@ def table_from_numpy(arrays, device) -> dict:
     return {k: torch.tensor(np.asarray(v), device=device) for k, v in arrays.items()}
 
 
+def chunked_table_from_numpy(arrays, chunk_rows: int, device):
+    """A ``ChunkedTable`` of ``chunk_rows``-row chunks on ``device`` from a
+    dict of numpy-convertible columns: the port's counterpart of the
+    reference's ``ChunkedTable.from_arrays`` over the same arrays."""
+    from repro_torch.engine.table import ChunkedTable
+
+    return ChunkedTable.from_arrays(table_from_numpy(arrays, device), chunk_rows)
+
+
 def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits

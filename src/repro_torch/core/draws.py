@@ -17,6 +17,13 @@ first, from a stream of its own. Within an epoch the run takes
 its permutation (if its ordering draws one) first, then ``epoch()``
 once, and the scheme's draws from what ``epoch()`` returned — the order
 in which the reference executor splits its key.
+
+A fused batch of B queries (the serving front end) opens one run's draws
+per lane (:func:`lane_streams`): lane i's stream is the one its singleton
+``Engine.run`` would open, so it takes exactly the permutations its
+singleton run takes, and a lane whose epoch budget is spent cannot shift
+another lane's draws. (The reference batches its threefry splits with
+``vmap``, which equals its per-query streams for the same reason.)
 """
 
 from __future__ import annotations
@@ -70,6 +77,12 @@ class RunDraws(Protocol):
 
 class DrawSource(Protocol):
     def stream(self, seed: int, n: int, device: torch.device) -> RunDraws: ...
+
+
+def lane_streams(source: DrawSource, seeds, n: int, device: torch.device) -> list:
+    """One ``RunDraws`` per lane of a fused batch, lane i seeded with
+    ``seeds[i]``: each the stream its query's singleton run opens."""
+    return [source.stream(seed, n, device) for seed in seeds]
 
 
 class TorchDraws:

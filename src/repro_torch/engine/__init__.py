@@ -21,7 +21,9 @@ from repro_torch.engine.executor import Engine, EngineResult  # noqa: F401
 from repro_torch.engine.planner import Plan, PlanReport, label_clusteredness  # noqa: F401
 from repro_torch.engine.program import CompiledProgram, EpochProgram, build_program  # noqa: F401
 from repro_torch.engine.query import AnalyticsQuery  # noqa: F401
-from repro_torch.engine import probes, program  # noqa: F401
+from repro_torch.engine.serve import PlanStore, ServeConfig, ServingEngine, Ticket  # noqa: F401
+from repro_torch.engine.table import ChunkedTable  # noqa: F401
+from repro_torch.engine import probes, program, serve, sweep, table  # noqa: F401
 
 _DEFAULT = None
 

@@ -14,7 +14,17 @@ draws, hogwild draws) comes from the engine's one
 
 The engine runs on one device. ``Engine()`` means the CUDA card and
 raises when there is none; ``Engine(device="cpu")`` runs on the CPU. A
-query whose table lies on another device is an error, not a silent copy.
+query whose in-memory table lies on another device is an error, not a
+silent copy. A stored table (``repro_torch.engine.table``) is the one
+exception, by design: its chunks stay where the storage layer keeps them
+and move to the engine's device as the fold takes them (``source="table"``
+plans), or once through ``table.resolve`` for every other plan; the
+bytes moved are counted in ``stats["bytes_to_device"]``.
+
+``plan_store`` (optional) is a persistent plan cache — an object with
+``load(plan_key, query) -> PlanReport | None`` and ``store(plan_key,
+query, report)`` (``repro_torch.engine.serve.PlanStore``). A fresh engine
+pointed at a populated store warm-starts: it probes and plans nothing.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ from repro_torch.core import ordering as ordering_lib
 from repro_torch.core.tracecount import count_build, fresh_counter
 from repro_torch.device import resolve_device
 from repro_torch.engine import catalog, planner as planner_lib, probes
-from repro_torch.engine import program as program_lib
+from repro_torch.engine import program as program_lib, table as table_lib
 from repro_torch.engine.query import AnalyticsQuery
 from repro_torch.kernels.igd_fused import kernel as igd_kernel
 
@@ -46,8 +56,10 @@ def _fresh_stats() -> Dict[str, int]:
     return {
         "plan_cache_hits": 0,
         "plan_cache_misses": 0,
-        "plans_computed": 0,  # planner actually ran (vs memo hit)
+        "plans_computed": 0,  # planner actually ran (vs memo/disk hit)
+        "plan_disk_hits": 0,  # reports loaded from the plan store
         "probe_runs": 0,  # micro-probe calibrations actually measured
+        "bytes_to_device": 0,  # stored-table bytes moved to the engine's device
     }
 
 
@@ -78,9 +90,11 @@ class Engine:
     default, ``TorchDraws``, draws from generators seeded with the
     query's seed on the engine's device."""
 
-    def __init__(self, device=None, draws: Optional[draws_lib.DrawSource] = None):
+    def __init__(self, device=None, draws: Optional[draws_lib.DrawSource] = None,
+                 plan_store=None):
         self.device = resolve_device(device)
         self.draws = draws or draws_lib.TorchDraws()
+        self.plan_store = plan_store
         self._compiled: Dict[Tuple, CompiledPlan] = {}
         # key -> (pinned table columns, report); see explain()
         self._reports: Dict[Tuple, Tuple] = {}
@@ -90,6 +104,8 @@ class Engine:
     # -- planning ---------------------------------------------------------
 
     def _check_data(self, query: AnalyticsQuery) -> None:
+        if table_lib.is_stored_table(query.data):
+            return  # its chunks move to this device as they are read
         for name, col in query.data.items():
             if not isinstance(col, torch.Tensor):
                 raise TypeError(f"column {name!r} is not a torch.Tensor")
@@ -116,24 +132,39 @@ class Engine:
     def explain(self, query: AnalyticsQuery) -> planner_lib.PlanReport:
         """Plan the query; memoized on the live table + query knobs.
 
-        The table component of the key uses column identity, NOT just
-        shapes: a different table of the same shape may have different
-        statistics and must be re-planned. The serving hot path — the
-        same table queried repeatedly — hits."""
+        The table component of the key uses column identity (a stored
+        table's handle is itself the identity), NOT just shapes: a
+        different table of the same shape may have different statistics
+        and must be re-planned. The serving hot path — the same table
+        queried repeatedly — hits. With a plan store, a report stored by
+        an earlier engine is loaded (and its calibration seeds the probe
+        cache) instead of probing and planning."""
         self._check_data(query)
-        columns = tuple(query.data.values())
+        stored = table_lib.is_stored_table(query.data)
+        columns = (query.data,) if stored else tuple(query.data.values())
         plan_key = self._query_plan_key(query)
         key = (plan_key, tuple(id(c) for c in columns))
         hit = self._reports.get(key)
         if hit is not None:
             return hit[1]
-        _, agg = self._aggregate_for(query)
-        cal = probes.calibrate(
-            agg, query.data, device=self.device, cache=self._calibrations,
-            key=query.cache_key_fields(), stats=self.stats,
-        )
-        report = planner_lib.plan(query, cal)
-        self.stats["plans_computed"] += 1
+        report = None
+        if self.plan_store is not None:
+            report = self.plan_store.load(plan_key, query)
+            if report is not None:
+                self.stats["plan_disk_hits"] += 1
+                # a re-plan against the same table (other epochs, other
+                # hints) measures nothing in this engine either
+                self._calibrations.setdefault(query.cache_key_fields(), report.calibration)
+        if report is None:
+            _, agg = self._aggregate_for(query)
+            cal = probes.calibrate(
+                agg, query.data, device=self.device, cache=self._calibrations,
+                key=query.cache_key_fields(), stats=self.stats,
+            )
+            report = planner_lib.plan(query, cal)
+            self.stats["plans_computed"] += 1
+            if self.plan_store is not None:
+                self.plan_store.store(plan_key, query, report)
         # pin the columns so a live memo entry's ids cannot be recycled
         # for a different table; bound the memo so pins don't accumulate
         while len(self._reports) >= 128:
@@ -214,8 +245,10 @@ class EngineResult:
     trace_count: int  # builds of this query's epoch callable, cumulative
     loss_trace_count: int = 0  # builds of its objective evaluator
     # fused-IGD kernel launches made by this run's epochs (0 for
-    # torch_fold and for CPU runs, which take the plain versions)
+    # torch_fold and for CPU runs, which take the plain versions); a
+    # fused batch's lanes share their launches
     kernel_launches: int = 0
+    batch_size: int = 1  # queries fused into the run that computed this
 
     def describe(self) -> str:
         loss = f"loss={self.losses[-1]:.6g}" if self.losses else "loss=n/a"
@@ -233,8 +266,26 @@ def _execute(
     program = compiled.program
     plan = program.plan
     agg = program.agg
-    data = query.data
     device = engine.device
+    stored = table_lib.is_stored_table(query.data)
+    streaming = plan.source == "table"
+    if streaming and not stored:
+        raise ValueError(
+            "plan.source='table' needs a stored Table (duck-typed: "
+            "is_stored_table); got an in-memory table"
+        )
+    data = query.data
+    if stored and not streaming:
+        # the plan needs random access: materialize once through resolve
+        data = materialize(query.data, device, engine.stats)
+    loss_data = None  # a streamed run's objective reads the materialized table
+
+    def full_table():
+        nonlocal loss_data
+        if loss_data is None:
+            loss_data = materialize(query.data, device, engine.stats) if streaming else data
+        return loss_data
+
     n = query.n_examples
     draws = engine.draws.stream(query.seed, n, device)
     ordering = _ORDERINGS[plan.ordering]()
@@ -248,7 +299,7 @@ def _execute(
         stop = None
 
     def eval_loss(state) -> float:
-        return float(compiled.loss_fn(agg.terminate(state), data))
+        return float(compiled.loss_fn(agg.terminate(state), full_table()))
 
     state = uda_lib.initial_state(draws.initial_model(agg.task))
     if plan.scheme == "mrs":
@@ -262,7 +313,10 @@ def _execute(
     epoch = 0
     for epoch in range(1, query.epochs + 1):
         watch = timing.Stopwatch()
-        examples = ordering.order(data, n, epoch, draws.permutation)
+        if streaming:
+            examples = stream_chunks(query.data, device, engine.stats)
+        else:
+            examples = ordering.order(data, n, epoch, draws.permutation)
         timing.sync(device)
         shuffle_s += watch.lap()
         epoch_draws = draws.epoch()
@@ -297,3 +351,28 @@ def _execute(
         loss_trace_count=compiled.loss_trace_count,
         kernel_launches=sum(igd_kernel.launches.values()) - launches0,
     )
+
+
+def _to_device(chunk, device, stats):
+    """A stored table's columns on ``device``, counting the bytes that
+    moved; host chunks go without a host sync (the fold that reads them
+    is queued behind the copy on the same stream)."""
+    out = {}
+    for k, v in chunk.items():
+        if v.device != device:
+            stats["bytes_to_device"] += v.numel() * v.element_size()
+            v = v.to(device, non_blocking=True)
+        out[k] = v
+    return out
+
+
+def stream_chunks(table, device, stats):
+    """The ``source='table'`` epoch stream: the table's chunks in stored
+    order, each moved to ``device`` as the fold takes it."""
+    for chunk in table.chunks():
+        yield _to_device(chunk, device, stats)
+
+
+def materialize(table, device, stats):
+    """A stored table resolved to one column dict on ``device``."""
+    return _to_device(table_lib.resolve(table), device, stats)

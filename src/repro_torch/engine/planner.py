@@ -16,9 +16,12 @@ pathological clustered scan on label-sorted data is costed out, not
 special-cased. A table over the query's memory budget makes every
 shuffled plan infeasible, which leaves MRS (§3.4).
 
-This slice of the port plans on one device over an in-memory table. A
-hint for the parallelism or source that a later slice brings raises
-``NotImplementedError``.
+The data-source axis: over a stored table (``repro_torch.engine.table``)
+the clustered serial plan streams the chunk order (``source="table"``);
+every other plan materializes the table once through ``table.resolve``,
+which the source term prices. This slice of the port plans on one
+device: a hint for the sharded parallelism raises
+``NotImplementedError`` until the sharding slice.
 
 ``PlanReport.describe()`` renders the choice and every rejected
 candidate with its estimated cost — the engine's EXPLAIN.
@@ -32,7 +35,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from repro_torch.engine import probes
+from repro_torch.engine import probes, table as table_lib
 from repro_torch.engine.program import IMPLEMENTATIONS, canonical_ordering
 from repro_torch.engine.query import AnalyticsQuery
 
@@ -56,7 +59,6 @@ SM_OVERHEAD = 3.0
 # What each not-yet-ported axis value waits for (ROADMAP queue 1).
 _LATER = {
     "sharded": "the sharding slice (engine/shard.py)",
-    "table": "the stored-table slice (engine/table.py)",
 }
 # hint keys that only the later parallelism reads
 _LATER_HINT_KEYS = {
@@ -75,9 +77,8 @@ def _not_ported(what: str, value: str) -> NotImplementedError:
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """A fully physical execution plan. Hashable: part of the compiled-
-    plan cache key. In this slice every plan runs on one device over the
-    in-memory table; the parallelism and source axes join the plan with
-    the slices that bring a second value for them."""
+    plan cache key. In this slice every plan runs on one device; the
+    parallelism axis joins the plan with the sharding slice."""
 
     ordering: str  # clustered | shuffle_once | shuffle_always
     scheme: str = "serial"  # serial | segmented | shared_memory | mrs
@@ -91,12 +92,17 @@ class Plan:
     # kernel-eligible serial plans). cuda_minibatch: one mean-gradient
     # step per tile — different algorithm semantics, hint-only.
     implementation: str = "torch_fold"
+    # memory: the table is (or is materialized as) one resident table.
+    # table: a stored table's chunk stream is folded in stored order —
+    # picked for clustered serial plans over a stored table, where it
+    # avoids the materialization entirely.
+    source: str = "memory"
 
     def axes(self, batch: str = "1") -> str:
         """The composed-axes line (EXPLAIN's ``why``)."""
         return (
             f"ordering={self.ordering} × parallelism=singleton/{self.scheme} × "
-            f"batch={batch} × source=memory × "
+            f"batch={batch} × source={self.source} × "
             f"implementation={self.implementation}"
         )
 
@@ -118,11 +124,19 @@ class Plan:
                 f"buffered MRS (reservoir={self.mrs_buffer}, "
                 f"{self.mrs_ratio} memory steps/tuple)"
             )
+        src = " · source=table stream" if self.source == "table" else ""
         impl = (
             f" · impl={self.implementation} (fused-IGD kernel)"
             if self.implementation != "torch_fold" else ""
         )
-        return f"ordering={self.ordering} · {ex}{impl}"
+        return f"ordering={self.ordering} · {ex}{src}{impl}"
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Plan":
+        return cls(**d)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +145,25 @@ class Candidate:
     cost_seconds: float
     est_epochs: float
     note: str = ""
+
+    def to_dict(self) -> dict:
+        return {
+            "plan": self.plan.to_dict(),
+            # inf (infeasible) is not valid JSON: round-trip as None
+            "cost_seconds": None if math.isinf(self.cost_seconds) else self.cost_seconds,
+            "est_epochs": self.est_epochs,
+            "note": self.note,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Candidate":
+        cost = d["cost_seconds"]
+        return cls(
+            plan=Plan.from_dict(d["plan"]),
+            cost_seconds=float("inf") if cost is None else cost,
+            est_epochs=d["est_epochs"],
+            note=d.get("note", ""),
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +203,28 @@ class PlanReport:
             note = f"  — {c.note}" if c.note else ""
             lines.append(f"reject : {c.plan.describe()} ({cost}){note}")
         return "\n".join(lines)
+
+    def to_dict(self) -> dict:
+        """JSON-serializable form (the on-disk plan cache's payload)."""
+        return {
+            "chosen": self.chosen.to_dict(),
+            "cost_seconds": self.cost_seconds,
+            "candidates": [c.to_dict() for c in self.candidates],
+            "clusteredness": self.clusteredness,
+            "calibration": self.calibration.to_dict(),
+            "axes": self.axes,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "PlanReport":
+        return cls(
+            chosen=Plan.from_dict(d["chosen"]),
+            cost_seconds=d["cost_seconds"],
+            candidates=tuple(Candidate.from_dict(c) for c in d["candidates"]),
+            clusteredness=d["clusteredness"],
+            calibration=probes.Calibration.from_dict(d["calibration"]),
+            axes=d.get("axes", ""),
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -245,7 +300,8 @@ def cost_components(
     measured us/epoch of every probed lane implementation); parallelism
     is 0 there. Every other scheme keeps its compute under parallelism
     (its lane body is defined by the scheme) with implementation = 0.
-    Source is 0 in this slice's plan space."""
+    Source is the one materialization of a stored table by a plan that
+    does not stream it."""
     n = query.n_examples
     fold_row = cal.fold_per_row
 
@@ -253,6 +309,12 @@ def cost_components(
     shuffles = {"clustered": 0.0, "shuffle_once": 1.0,
                 "shuffle_always": est_epochs}[plan.ordering]
     ordering = cal.shuffle_per_row * n * shuffles
+
+    # -- source axis: getting the rows resident ---------------------------
+    if table_lib.is_stored_table(query.data) and plan.source != "table":
+        source = cal.shuffle_per_row * n
+    else:
+        source = 0.0
 
     # -- parallelism axis: the epoch compute of a non-serial scheme -------
     if plan.scheme == "serial":
@@ -291,7 +353,7 @@ def cost_components(
         {
             "ordering": ordering,
             "parallelism": parallelism,
-            "source": 0.0,
+            "source": source,
             "implementation": implementation,
         },
         note,
@@ -306,9 +368,9 @@ def program_cost(
     shuffle_feasible: bool,
 ) -> Candidate:
     """THE cost model: one function costs every point of the plan space
-    from the same measured constants. A shuffled plan is infeasible
-    (cost ``inf``) when the shuffled copy does not fit the query's
-    memory budget."""
+    from the same measured constants. A
+    shuffled plan is infeasible (cost ``inf``) when the shuffled copy
+    does not fit the query's memory budget."""
     epochs = max(query.epochs, 1)
     mult, note = _conv_multiplier(plan, clusteredness)
     est_epochs = min(epochs * mult, epochs * CLUSTERED_PENALTY_CAP)
@@ -345,6 +407,11 @@ def _mrs_buffer_rows(query: AnalyticsQuery) -> int:
 def _check_hints(query: AnalyticsQuery, hints: dict, cal) -> None:
     """Reject unknown and contradictory hints (ValueError), then hints
     that name what a later slice brings (NotImplementedError)."""
+    if hints.get("source") == "table" and not table_lib.is_stored_table(query.data):
+        raise ValueError(
+            "source='table' needs the query's data to be a stored Table "
+            "(duck-typed: is_stored_table)"
+        )
     for key, valid in (("ordering", ORDERINGS), ("scheme", SCHEMES),
                        ("parallelism", PARALLELISMS), ("source", SOURCES),
                        ("implementation", IMPLEMENTATIONS)):
@@ -378,9 +445,8 @@ def _check_hints(query: AnalyticsQuery, hints: dict, cal) -> None:
             "the shuffle); it cannot be combined with an ordering hint of "
             f"{hints['ordering']!r}"
         )
-    for key, default in (("parallelism", "singleton"), ("source", "memory")):
-        if hints.get(key, default) != default:
-            raise _not_ported(key, hints[key])
+    if hints.get("parallelism", "singleton") != "singleton":
+        raise _not_ported("parallelism", hints["parallelism"])
     for key, value in _LATER_HINT_KEYS.items():
         if key in hints:
             raise _not_ported(f"{key} hint implies parallelism", value)
@@ -389,8 +455,9 @@ def _check_hints(query: AnalyticsQuery, hints: dict, cal) -> None:
 def enumerate_plans(query: AnalyticsQuery, cal=None) -> List[Plan]:
     """Every singleton plan the hints admit: ordering × scheme (the
     segment counts that divide the table, each shared-memory scheme, one
-    MRS plan over the stored order) × the implementation of the serial
-    lane body."""
+    MRS plan over the stored order) × the data source (a stored table's
+    clustered serial plan streams its chunks) × the implementation of the
+    serial lane body."""
     hints = dict(query.hints)
     if "ordering" in hints:
         # one source of truth for the IR's ordering names
@@ -423,6 +490,26 @@ def enumerate_plans(query: AnalyticsQuery, cal=None) -> List[Plan]:
                 plans.append(Plan(
                     "clustered", "mrs", mrs_buffer=_mrs_buffer_rows(query),
                 ))
+    # -- the data-source axis: a stored table's clustered serial plan
+    # streams the chunk order; every other plan needs random access and
+    # materializes
+    if table_lib.is_stored_table(query.data):
+        plans = [
+            dataclasses.replace(p, source="table")
+            if p.ordering == "clustered" and p.scheme == "serial" else p
+            for p in plans
+        ]
+        if hints.get("source") == "table":
+            plans = [p for p in plans if p.source == "table"]
+            if not plans:
+                raise ValueError(
+                    "source='table' streams the stored chunk order: it "
+                    "requires ordering='clustered' (or 'sequential') and "
+                    "scheme='serial' — the other hints exclude every "
+                    "streaming plan"
+                )
+        elif hints.get("source") == "memory":
+            plans = [dataclasses.replace(p, source="memory") for p in plans]
     # -- the implementation axis: lane-body lowering ----------------------
     if impl_hint not in (None, "torch_fold"):
         # forced: every admitted plan is serial (validated above)
@@ -441,10 +528,29 @@ def enumerate_plans(query: AnalyticsQuery, cal=None) -> List[Plan]:
     return list(dict.fromkeys(plans))  # Plan is frozen/hashable
 
 
+def batchable(query: AnalyticsQuery, chosen: Plan) -> bool:
+    """Whether the serving front end may fuse this query into a batched
+    lane (the batching axis): fixed-epoch, unbudgeted, in memory,
+    non-MRS."""
+    return (
+        query.target_loss is None
+        and not query.tolerance
+        and query.epochs >= 1
+        and query.memory_budget_bytes is None
+        and chosen.scheme != "mrs"
+        and not table_lib.is_stored_table(query.data)
+    )
+
+
 def plan(query: AnalyticsQuery, cal: probes.Calibration) -> PlanReport:
     """Choose a physical plan for ``query`` from the calibration ``cal``
-    the engine probed for its aggregate."""
-    clustered = label_clusteredness(query.data)
+    the engine probed for its aggregate. Statistics read a head sample of
+    a stored table: ranking plans must not materialize it."""
+    stats_data = (
+        query.data.probe_slab(min(query.n_examples, 4096))
+        if table_lib.is_stored_table(query.data) else query.data
+    )
+    clustered = label_clusteredness(stats_data)
     shuffle_feasible = (
         query.memory_budget_bytes is None
         or query.data_bytes <= query.memory_budget_bytes
@@ -470,5 +576,5 @@ def plan(query: AnalyticsQuery, cal: probes.Calibration) -> PlanReport:
         candidates=tuple(cands),
         clusteredness=clustered,
         calibration=cal,
-        axes=best.plan.axes(),
+        axes=best.plan.axes(batch="fusable" if batchable(query, best.plan) else "1"),
     )

@@ -9,8 +9,15 @@ aggregates the fused-IGD kernel lanes of the implementation axis. Each
 is the median of a few timed calls; on a card the time comes from CUDA
 events. Results are cached on the engine, once per signature.
 
+A stored table hands over its head rows (``probe_slab``), moved to the
+engine's device: the probe measures time, not values, and must not
+materialize the table.
+
 The sharded-block probe, (f) of the reference, comes with the sharding
-slice.
+slice. The reference's ``probe_batch_unroll`` (the fused batch's scan
+unroll, re-probed on a stacked slab) is not applicable: PyTorch runs the
+eager fold as a Python loop with no scan unroll to choose, and the
+kernel lanes have no unroll knob either.
 """
 
 from __future__ import annotations
@@ -71,6 +78,19 @@ class Calibration:
         frac = (1.0 - 1.0 / k) / (1.0 - 1.0 / k_ref)
         return self.fold_per_row + (ref - self.fold_per_row) * frac
 
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        # JSON keys are strings; from_dict restores the int keys
+        d["seg_per_row"] = {str(k): v for k, v in self.seg_per_row.items()}
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Calibration":
+        d = dict(d)
+        d["seg_per_row"] = {int(k): v for k, v in d.get("seg_per_row", {}).items()}
+        d.setdefault("impl_per_row", {})
+        return cls(**d)
+
 
 def calibrate(agg, data, *, device, cache: Dict[Tuple, Calibration],
               key: Tuple, stats: Dict[str, int]) -> Calibration:
@@ -81,10 +101,14 @@ def calibrate(agg, data, *, device, cache: Dict[Tuple, Calibration],
         return cache[key]
     stats["probe_runs"] += 1
     from repro_torch.core import uda as uda_lib
+    from repro_torch.engine import table as table_lib
 
-    n = next(iter(data.values())).shape[0]
-    rows = min(n, PROBE_ROWS)
-    slab = {k: v[:rows] for k, v in data.items()}
+    if table_lib.is_stored_table(data):
+        rows = min(data.n_rows, PROBE_ROWS)
+        slab = {k: v.to(device) for k, v in data.probe_slab(rows).items()}
+    else:
+        rows = min(next(iter(data.values())).shape[0], PROBE_ROWS)
+        slab = {k: v[:rows] for k, v in data.items()}
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
 

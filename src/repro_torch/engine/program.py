@@ -2,9 +2,9 @@
 
 The IR composes a physical ``Plan``'s axes (ordering × parallelism ×
 batch × source × implementation) and ``build_program`` lowers it to the
-epoch callable the executor drives. This slice of the port lowers the
-singleton, in-memory, batch=1 corner under every ordering and every
-scheme of paper §3.3–3.4:
+callables its driver runs. The port lowers the singleton parallelism
+under every ordering, every scheme of paper §3.3–3.4, both data sources
+and any batch width:
 
 * ``serial`` — the serial lane body, by implementation:
 
@@ -24,9 +24,28 @@ scheme of paper §3.3–3.4:
 
 The non-serial schemes run eagerly and have no kernel form: a ``cuda_*``
 implementation with any scheme but ``serial`` is refused, as the
-reference refuses ``pallas_*``. Hints for the rest of the IR (sharding,
-stored tables, fused batches) are refused by the planner with
-``NotImplementedError`` naming the slice that brings them.
+reference refuses ``pallas_*``. Sharding is refused by the planner with
+``NotImplementedError`` naming the slice that brings it.
+
+* **data source** — ``memory`` (one resident table) or ``table`` (a
+  stored table's chunk stream, ``repro_torch.engine.table``): the
+  serial fold over each chunk in stored order with carried state
+  (:func:`build_chunk_epoch_fn`); kernel lanes continue their alphas
+  from ``state.step``, so chunk boundaries change nothing but the
+  working set (and, for ``cuda_fused``, where the tiled kernel starts a
+  launch's first margins from ``X·w``, the rounding).
+* **query batching** — ``B`` fused query lanes, each with its own draws
+  (``core.draws.lane_streams``) and its own *epoch budget*: a fused run
+  takes ``budgets[B]`` and keeps a lane's state once its budget is spent
+  (``torch.where`` with a mask made on the device), so queries that
+  differ only in ``epochs`` fuse into one run (:func:`_build_fused`).
+  Kernel lanes are ONE lane launch of the fused-IGD kernel an epoch (a
+  block, or a cluster, a lane: the counterpart of ``jax.vmap`` over the
+  Pallas call); eager serial lanes are ``torch.func.vmap`` over the
+  eager fold (one lane runs the fold itself: B = 1 is the singleton run
+  bit for bit); the non-serial schemes run their epoch lane by lane
+  (their draws are per-lane objects and the shared-memory simulator
+  writes its ring in place, which ``vmap`` refuses).
 
 Eligibility for the kernel lanes is a catalog property
 (``TaskSpec.kernel_loss`` + identity prox — :func:`kernel_eligibility`).
@@ -50,6 +69,7 @@ import torch
 from repro_torch.core import mrs as mrs_lib, ordering as ordering_lib
 from repro_torch.core import parallel as parallel_lib, tree, uda as uda_lib
 from repro_torch.core.tracecount import count_build, fresh_counter
+from repro_torch.core.tree import tree_map
 
 # "sequential" is the stored order by another name (the storage layer
 # just didn't cluster it); the IR canonicalizes so downstream code has
@@ -105,27 +125,48 @@ def require_kernel_loss(task, agg, implementation: str) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class EpochProgram:
-    """One composed execution: a physical ``Plan`` (batch=1; fused
-    query batches come with the serving slice). Hashable."""
+    """One composed execution: a physical ``Plan`` plus the serving-time
+    batching axis. Hashable."""
 
     plan: Any  # planner.Plan (duck-typed: this module never imports it)
+    batch: int = 1  # B fused query lanes (1 = driver-paced singleton)
+    shared_table: bool = True  # lanes read one table vs a stacked bank
+    # the epoch bound of a fused run; per-lane budgets <= epochs mask the
+    # tail. 0 = driver-paced.
+    epochs: int = 0
 
     def describe(self) -> str:
-        return self.plan.axes(batch="B=1")
+        b = f"B={self.batch}"
+        if self.batch > 1 and self.epochs:
+            b += " (per-lane budgets)"
+        return self.plan.axes(batch=b)
 
 
 @dataclasses.dataclass
 class CompiledProgram:
-    """``build_program``'s output: ``epoch_fn(state, examples, draws) ->
-    state``, one epoch of the plan's scheme over the epoch's stream;
-    ``draws`` is the epoch's ``core.draws.EpochDraws``. For MRS plans the
-    state is the carry ``(state, buf_a, buf_b, active)``."""
+    """``build_program``'s output, by the axes it lowers:
+
+    * driver-paced (``batch == 1``, ``epochs == 0``) — ``epoch_fn(state,
+      examples, draws) -> state``, one epoch of the plan's scheme over
+      the epoch's stream (for ``source="table"`` an iterable of chunks);
+      ``draws`` is the epoch's ``core.draws.EpochDraws``. For MRS plans
+      the state is the carry ``(state, buf_a, buf_b, active)``;
+    * fused (``epochs >= 1``) — ``run_fn(states, examples, lane_draws,
+      budgets)`` runs the WHOLE masked multi-epoch batch; ``init_fn``,
+      ``loss_fn`` and (mode ``"fixed"`` under shuffle_once) ``prep_fn``
+      beside it, see :func:`_build_fused`."""
 
     program: EpochProgram
     task: Any
     agg: Any
     trace_counter: Dict[str, int]
-    epoch_fn: Callable
+    epoch_fn: Optional[Callable] = None
+    # fused-batch fields
+    mode: Optional[str] = None  # "fused" | "fixed"
+    run_fn: Optional[Callable] = None
+    prep_fn: Optional[Callable] = None
+    init_fn: Optional[Callable] = None
+    loss_fn: Optional[Callable] = None
 
     @property
     def plan(self):
@@ -201,6 +242,36 @@ def build_epoch_fn(task, agg, plan) -> Callable:
     raise ValueError(f"unknown scheme {plan.scheme!r}")
 
 
+def build_chunk_epoch_fn(task, agg, plan) -> Callable:
+    """The ``source='table'`` epoch: the serial fold over each chunk of
+    the stored order with carried state, ``(state, chunks, draws) ->
+    state``; ``chunks`` yields the chunks on the run's device (the
+    executor moves them as the fold takes them). The eager fold's result
+    is bit-identical to folding the concatenated table; the working set
+    is one chunk, which is the point of the axis."""
+    if plan.scheme != "serial" or plan.ordering != "clustered":
+        raise ValueError(
+            "source='table' streams the stored order through the serial "
+            f"fold; got scheme={plan.scheme!r}, ordering={plan.ordering!r} "
+            "(the planner materializes for every other combination)"
+        )
+    if plan.implementation != "torch_fold":
+        # alphas continue from state.step: the chunk is one more stretch
+        # of the same sequential schedule
+        fold_chunk = _kernel_lane_for(task, agg, plan.implementation)
+    else:
+        def fold_chunk(state, chunk):
+            return uda_lib.fold(agg, state, chunk)
+
+    def epoch(state, chunks, draws):
+        del draws  # the stored order consumes no randomness
+        for chunk in chunks:
+            state = fold_chunk(state, chunk)
+        return state
+
+    return epoch
+
+
 # ---------------------------------------------------------------------------
 # kernel lane bodies (the implementation axis's cuda_* lowerings)
 # ---------------------------------------------------------------------------
@@ -213,15 +284,22 @@ def kernel_lane_fold(agg, loss: str, *, minibatch: bool = False):
     per example). The per-example step sizes are the sequential
     schedule's exact values — transition i reads ``step_size(step0 + i)``
     and ``StepSize`` is elementwise over the step vector, so the kernel
-    sees the same alphas the eager fold computes one at a time."""
+    sees the same alphas the eager fold computes one at a time.
+
+    The same body runs B lanes in ONE launch over stacked states (model
+    [B, d], step [B], weight [B]) and a stream shared by every lane
+    (``x [n, d]``) or stacked (``x [B, n, d]``, ``y [B, n]``): lane b's
+    alphas are its own schedule from its own step, and the lane launch
+    does each lane's arithmetic as a one-lane launch would, so lane b is
+    its singleton run bit for bit."""
     from repro_torch.kernels.igd_fused import ops as igd_ops
 
     op = igd_ops.igd_fold_minibatch if minibatch else igd_ops.igd_fold
 
     def lane(state, ex):
         x, y = ex["x"], ex["y"]
-        n = x.shape[0]
-        steps = state.step + torch.arange(n, dtype=torch.int32, device=x.device)
+        n = x.shape[-2]
+        steps = state.step[..., None] + torch.arange(n, dtype=torch.int32, device=x.device)
         alphas = agg.step_size(steps)
         model = op(x, y, alphas, state.model, loss=loss)
         return uda_lib.IGDState(model, state.step + n, state.weight + n)
@@ -250,6 +328,163 @@ def _kernel_lane_for(task, agg, implementation: str):
 
 
 # ---------------------------------------------------------------------------
+# fused batches (B lanes, singleton parallelism)
+# ---------------------------------------------------------------------------
+
+
+def _stack(trees):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _lane(tree_, b: int):
+    return tree_map(lambda x: x[b], tree_)
+
+
+def _lane_select(keep, new, old):
+    """Per-lane mask select: ``keep[B]`` gates the leading lane axis of
+    every state leaf (a lane whose budget is spent keeps its state — the
+    masked-epoch mechanism of the batching axis)."""
+    return tree_map(
+        lambda a, b: torch.where(keep.view((-1,) + (1,) * (a.dim() - 1)), a, b),
+        new, old,
+    )
+
+
+def _gather_lanes(data, perms, shared: bool):
+    """Each lane's permuted copy, stacked: ``data[perms[b]]`` for lane b
+    (the same rows, gathered once up front, that its singleton run's
+    ``index_select`` gathers)."""
+    if shared:
+        return {k: v[perms] for k, v in data.items()}
+    lanes = torch.arange(perms.shape[0], device=perms.device)[:, None]
+    return {k: v[lanes, perms] for k, v in data.items()}
+
+
+def _build_fused(task, agg, prog: EpochProgram, counter: Dict[str, int]) -> CompiledProgram:
+    """Stack B query lanes and run the ENTIRE multi-epoch batch as one
+    call, with per-lane draws and per-lane epoch budgets. ``run_fn``'s
+    contract:
+
+    * mode ``"fused"`` (serial shuffle_always, and eager serial
+      shuffle_once): ``run_fn(states, data, lane_draws, budgets)`` —
+      each lane draws its permutations in-run, in its singleton run's
+      order (shuffle_once's one draw, or one an epoch), and folds
+      through them: kernel lanes gather the B permuted copies an epoch
+      and launch once (the reference's ``kernel_permuted_lane`` under
+      ``vmap``); eager lanes ``vmap`` ``uda.gather_fold`` through the
+      indices, writing no copy;
+    * mode ``"fixed"`` (clustered, kernel or non-serial shuffle_once):
+      the epoch stream is prepared once outside (``prep_fn(data,
+      lane_draws)`` draws each lane's one permutation and gathers the
+      B copies; clustered lanes read the table as it is) and
+      ``run_fn(states, examples, lane_draws, budgets)`` only takes the
+      per-epoch draws;
+    * non-serial shuffle_always is mode ``"fused"`` too: each lane's
+      permuted copy an epoch, then the scheme's epoch lane by lane.
+
+    ``examples``/``data`` is the one table every lane reads
+    (``prog.shared_table``) or a stacked bank with a leading lane axis.
+    ``budgets`` (host ints) keep lane i's state after ``budgets[i]``
+    epochs: the mask is made once on the device, and a spent lane's
+    draws go on in its own stream, where they shift no other lane's.
+    All-equal budgets select the new state everywhere. ``init_fn``
+    stacks each lane's initial state from its draws; ``loss_fn(models,
+    data)`` evaluates each lane's objective as its singleton run does."""
+    plan = prog.plan
+    epochs, shared = prog.epochs, prog.shared_table
+    ordering = plan.ordering
+    serial = plan.scheme == "serial"
+    data_dim = None if shared else 0
+    impl = plan.implementation
+    kernel = impl != "torch_fold"
+    if kernel:
+        lanes = kernel_lane_fold(agg, require_kernel_loss(task, agg, impl),
+                                 minibatch=impl == "cuda_minibatch")
+    raw = build_epoch_fn(task, agg, plan)
+
+    def lane_by_lane(states, examples, eds):
+        """The plan's singleton epoch, once a lane."""
+        return _stack([
+            raw(_lane(states, b), examples if shared and ordering == "clustered"
+                else _lane(examples, b), ed)
+            for b, ed in enumerate(eds)
+        ])
+
+    def draw_perms(lane_draws):
+        return torch.stack([ld.permutation() for ld in lane_draws])
+
+    # eager serial lanes vmap the fold; one lane runs the singleton fold
+    # itself, so B = 1 is the singleton run bit for bit (vmap's batched
+    # dots round differently)
+    vmapped = serial and not kernel and prog.batch > 1
+    prep_fn = None
+    # kernel lanes read rows in array order: under shuffle_once their B
+    # permuted copies are gathered once, in prep_fn ("fixed")
+    if serial and (ordering == "shuffle_always" or ordering == "shuffle_once" and not kernel):
+        mode = "fused"
+        if kernel:
+            def step(states, data, perms, eds):
+                return lanes(states, _gather_lanes(data, perms, shared))
+        elif vmapped:
+            vfold = torch.func.vmap(
+                lambda s, d, p: uda_lib.gather_fold(agg, s, d, p),
+                in_dims=(0, data_dim, 0),
+            )
+
+            def step(states, data, perms, eds):
+                return vfold(states, data, perms)
+    elif ordering == "shuffle_always":
+        mode = "fused"
+    else:
+        mode = "fixed"
+        if ordering == "shuffle_once":
+            def prep_fn(data, lane_draws):
+                return _gather_lanes(data, draw_perms(lane_draws), shared)
+        if kernel:
+            def step(states, examples, perms, eds):
+                return lanes(states, examples)
+        elif vmapped:
+            ex_dim = None if shared and ordering == "clustered" else 0
+            vfold = torch.func.vmap(lambda s, ex: uda_lib.fold(agg, s, ex), in_dims=(0, ex_dim))
+
+            def step(states, examples, perms, eds):
+                return vfold(states, examples)
+    if not kernel and not vmapped:
+        # the scheme's singleton epoch, once a lane
+        def step(states, data, perms, eds):
+            examples = data if mode == "fixed" else _gather_lanes(data, perms, shared)
+            return lane_by_lane(states, examples, eds)
+
+    def run(states, data, lane_draws, budgets):
+        device = tree.leaves(states)[0].device
+        budgets_dev = torch.tensor(list(budgets), dtype=torch.int64, device=device)
+        perms = None
+        if mode == "fused" and ordering == "shuffle_once":
+            perms = draw_perms(lane_draws)  # ShuffleOnce's one draw
+        for t in range(epochs):
+            if mode == "fused" and ordering == "shuffle_always":
+                perms = draw_perms(lane_draws)
+            eds = [ld.epoch() for ld in lane_draws]
+            states = _lane_select(budgets_dev > t, step(states, data, perms, eds), states)
+        return states
+
+    def init_fn(lane_draws):
+        return _stack([uda_lib.initial_state(ld.initial_model(task)) for ld in lane_draws])
+
+    def loss_fn(models, data):
+        return torch.stack([
+            task.full_loss(_lane(models, b), data if shared else _lane(data, b))
+            for b in range(prog.batch)
+        ])
+
+    return CompiledProgram(
+        program=prog, task=task, agg=agg, trace_counter=counter,
+        mode=mode, run_fn=run, prep_fn=prep_fn, init_fn=init_fn,
+        loss_fn=loss_fn,
+    )
+
+
+# ---------------------------------------------------------------------------
 # the compiler
 # ---------------------------------------------------------------------------
 
@@ -261,12 +496,32 @@ def build_program(
     *,
     counter: Optional[Dict[str, int]] = None,
 ) -> CompiledProgram:
-    """Lower ``prog`` to its epoch callable (the singleton, in-memory,
-    batch=1 corner of the IR — all this slice plans)."""
+    """Lower ``prog`` to its callables: the executor's driver-paced
+    epoch (``batch == 1``, ``epochs == 0``; a stored table's chunk stream
+    for ``source='table'``) or the serving front end's fused run
+    (``epochs >= 1``; B = 1 is a valid single-lane run)."""
     counter = counter if counter is not None else fresh_counter()
-    epoch_fn = build_epoch_fn(task, agg, prog.plan)
+    plan = prog.plan
+    if prog.batch < 1:
+        raise ValueError(f"batch must be >= 1, got {prog.batch}")
+    if prog.batch == 1 and prog.epochs == 0:
+        if plan.source == "table":
+            epoch_fn = build_chunk_epoch_fn(task, agg, plan)
+        else:
+            epoch_fn = build_epoch_fn(task, agg, plan)
+        count_build(counter)
+        return CompiledProgram(
+            program=prog, task=task, agg=agg, trace_counter=counter,
+            epoch_fn=epoch_fn,
+        )
+    if plan.scheme == "mrs":
+        raise ValueError("MRS plans carry per-query reservoirs and cannot be fused")
+    if plan.source == "table":
+        raise ValueError("a stored table's chunk stream is not fused: its queries run singleton")
+    if prog.epochs < 1:
+        raise ValueError(
+            f"a fused program runs a fixed epoch bound: epochs must be >= 1, got {prog.epochs}"
+        )
+    compiled = _build_fused(task, agg, prog, counter)
     count_build(counter)
-    return CompiledProgram(
-        program=prog, task=task, agg=agg, trace_counter=counter,
-        epoch_fn=epoch_fn,
-    )
+    return compiled

@@ -56,9 +56,24 @@
 //   D <= 4096.
 //
 //   Both loop over exactly N rows and take D as it is: no padding of the
-//   inputs. One block means 131 of 132 SMs idle; filling the card needs
-//   many independent folds (fused serving lanes, sharded segments), which
-//   later slices bring.
+//   inputs. One fold is one block, so one fold leaves 131 of 132 SMs idle.
+//
+// Lanes — the counterpart of jax.vmap over the Pallas call (the reference
+//   fuses a serving batch by vmapping kernel.py:74 and :119). Every C
+//   entry takes `lanes` independent folds and launches them at once: a
+//   grid of `lanes` blocks (igd_fold, the one-block minibatch instance)
+//   or of `lanes` clusters (gridDim = (kMbCluster, lanes), clusterDim =
+//   (kMbCluster, 1, 1)). Block (or cluster) b reads lane b's rows at
+//   x + b * xy_lane_rows * D, y + b * xy_lane_rows, alpha + b *
+//   alpha_lane_stride, w0 + b * D and writes wout + b * D, and runs
+//   exactly the arithmetic of a one-lane launch, so each lane's w is the
+//   one-lane launch's bit for bit. xy_lane_rows is 0 when every lane reads
+//   one shared table (a fused clustered batch) and N for stacked or
+//   permuted per-lane copies; alpha_lane_stride is N (each lane has its
+//   own steps). No sum crosses lanes. Launch limits: the Gram instance's
+//   ~200 KB of shared memory leaves one block an SM, so 132 lanes run in
+//   one wave; the minibatch cluster takes 8 SMs a lane, so 16 lanes fill
+//   the card and more run in further waves; lanes <= 65535 (gridDim.y).
 //
 // igd_fold_minibatch — replaces the Pallas TPU kernel
 //   src/repro/kernels/igd_fused/kernel.py: igd_fold_minibatch
@@ -294,9 +309,18 @@ __global__ void __launch_bounds__(kWarp * WARPS)
     igd_fold_kernel(const float* __restrict__ x, const float* __restrict__ y,
                     const float* __restrict__ alpha, const float* __restrict__ w0,
                     float* __restrict__ wout, long long n, int d, int tile_rows,
-                    int stage_floats, int vec) {
+                    int stage_floats, int vec, long long xy_lane_rows,
+                    long long alpha_lane_stride) {
   constexpr int kThreads = kWarp * WARPS;
   extern __shared__ __align__(16) float smem[];
+  {  // lane blockIdx.x: the only change from a one-lane launch
+    const long long b = blockIdx.x;
+    x += b * xy_lane_rows * d;
+    y += b * xy_lane_rows;
+    alpha += b * alpha_lane_stride;
+    w0 += b * d;
+    wout += b * d;
+  }
   float* partial = smem + 2 * stage_floats;  // [2][WARPS]
   const int tid = threadIdx.x;
   const int lane = tid % kWarp;
@@ -488,8 +512,17 @@ __global__ void __launch_bounds__(kGramThreads)
     igd_fold_gram_kernel(const float* __restrict__ x, const float* __restrict__ y,
                          const float* __restrict__ alpha, const float* __restrict__ w0,
                          float* __restrict__ wout, long long n, int d, int ld, int tile_rows,
-                         int stage_floats, int vec) {
+                         int stage_floats, int vec, long long xy_lane_rows,
+                         long long alpha_lane_stride) {
   extern __shared__ __align__(16) float smem[];
+  {  // lane blockIdx.x: the only change from a one-lane launch
+    const long long b = blockIdx.x;
+    x += b * xy_lane_rows * d;
+    y += b * xy_lane_rows;
+    alpha += b * alpha_lane_stride;
+    w0 += b * d;
+    wout += b * d;
+  }
   float* gram = smem + 2 * stage_floats;
   float* prod = gram + 2 * kSub * kSub;
   float* ws = prod + 2 * kProductRows * kSub;
@@ -627,8 +660,17 @@ template <int LOSS>
 __global__ void __launch_bounds__(kTile)
     igd_minibatch_kernel(const float* __restrict__ x, const float* __restrict__ y,
                          const float* __restrict__ alpha, const float* __restrict__ w0,
-                         float* __restrict__ wout, long long n, int d) {
+                         float* __restrict__ wout, long long n, int d,
+                         long long xy_lane_rows, long long alpha_lane_stride) {
   extern __shared__ __align__(16) float smem[];
+  {  // lane blockIdx.x: the only change from a one-lane launch
+    const long long b = blockIdx.x;
+    x += b * xy_lane_rows * d;
+    y += b * xy_lane_rows;
+    alpha += b * alpha_lane_stride;
+    w0 += b * d;
+    wout += b * d;
+  }
   float* ws = smem;      // [d]
   float* cs = smem + d;  // [kTile]
   const int tid = threadIdx.x;
@@ -847,8 +889,17 @@ __global__ void __launch_bounds__(kMbThreads)
     igd_minibatch_cluster_kernel(const float* __restrict__ x, const float* __restrict__ y,
                                  const float* __restrict__ alpha, const float* __restrict__ w0,
                                  float* __restrict__ wout, long long n, int d, int stages,
-                                 int vec, long long* probe) {
+                                 int vec, long long* probe, long long xy_lane_rows,
+                                 long long alpha_lane_stride) {
   extern __shared__ __align__(16) unsigned char mb_smem[];
+  if (!RESIDENT) {  // lane blockIdx.y, one cluster a lane: the only change from a one-lane launch
+    const long long b = blockIdx.y;
+    x += b * xy_lane_rows * d;
+    y += b * xy_lane_rows;
+    alpha += b * alpha_lane_stride;
+    w0 += b * d;
+    wout += b * d;
+  }
   uint64_t* bars = reinterpret_cast<uint64_t*>(mb_smem);  // the ring's
   uint64_t* recv_bar = bars + kMbMaxStages;                  // the partials', [2]
   float* recv = reinterpret_cast<float*>(mb_smem + kMbBarBytes);
@@ -955,15 +1006,24 @@ __global__ void __launch_bounds__(kMbThreads)
   }
 }
 
+// Lane strides that keep every lane's x, y and alpha on the base pointers'
+// 16-byte boundaries (whole floats of 4).
+__host__ __device__ constexpr bool lanes_keep_16(long long xy_lane_rows, long long alpha_lane_stride,
+                                                 int d) {
+  return (xy_lane_rows * d) % 4 == 0 && xy_lane_rows % 4 == 0 && alpha_lane_stride % 4 == 0;
+}
+
 template <int LOSS, int VPL, bool RESIDENT>
 cudaError_t launch_mb_cluster(const float* x, const float* y, const float* alpha,
                               const float* w0, float* wout, long long n, int d,
-                              long long* probe, cudaStream_t stream) {
+                              long long* probe, int lanes, long long xy_lane_rows,
+                              long long alpha_lane_stride, cudaStream_t stream) {
   const int stages = mb_stages(d);
   if (stages < 2) return cudaErrorInvalidValue;
   const int vec = !RESIDENT && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(alpha) % 16 == 0;
+                  reinterpret_cast<uintptr_t>(alpha) % 16 == 0 &&
+                  lanes_keep_16(xy_lane_rows, alpha_lane_stride, d);
   const size_t smem = mb_smem_bytes(d, stages);
   auto kernel = igd_minibatch_cluster_kernel<LOSS, VPL, RESIDENT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -974,7 +1034,7 @@ cudaError_t launch_mb_cluster(const float* x, const float* y, const float* alpha
     if (err != cudaSuccess) return err;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kMbCluster, 1, 1);
+  cfg.gridDim = dim3(kMbCluster, lanes, 1);
   cfg.blockDim = dim3(kMbThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -985,7 +1045,8 @@ cudaError_t launch_mb_cluster(const float* x, const float* y, const float* alpha
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, x, y, alpha, w0, wout, n, d, stages, vec, probe);
+  err = cudaLaunchKernelEx(&cfg, kernel, x, y, alpha, w0, wout, n, d, stages, vec, probe,
+                           xy_lane_rows, alpha_lane_stride);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -993,21 +1054,29 @@ cudaError_t launch_mb_cluster(const float* x, const float* y, const float* alpha
 template <int LOSS, bool RESIDENT>
 cudaError_t launch_mb_cluster_any(const float* x, const float* y, const float* alpha,
                                   const float* w0, float* wout, long long n, int d,
-                                  long long* probe, cudaStream_t stream) {
-  if (d <= 32) return launch_mb_cluster<LOSS, 1, RESIDENT>(x, y, alpha, w0, wout, n, d, probe, stream);
-  if (d <= 64) return launch_mb_cluster<LOSS, 2, RESIDENT>(x, y, alpha, w0, wout, n, d, probe, stream);
-  if (d <= 128) return launch_mb_cluster<LOSS, 4, RESIDENT>(x, y, alpha, w0, wout, n, d, probe, stream);
-  return launch_mb_cluster<LOSS, 8, RESIDENT>(x, y, alpha, w0, wout, n, d, probe, stream);
+                                  long long* probe, int lanes, long long xy_lane_rows,
+                                  long long alpha_lane_stride, cudaStream_t stream) {
+#define REPRO_MB_CASE(V)                                                                       \
+  return launch_mb_cluster<LOSS, V, RESIDENT>(x, y, alpha, w0, wout, n, d, probe, lanes,     \
+                                              xy_lane_rows, alpha_lane_stride, stream)
+  if (d <= 32) REPRO_MB_CASE(1);
+  if (d <= 64) REPRO_MB_CASE(2);
+  if (d <= 128) REPRO_MB_CASE(4);
+  REPRO_MB_CASE(8);
+#undef REPRO_MB_CASE
 }
 
 template <int LOSS>
 cudaError_t launch_minibatch(const float* x, const float* y, const float* alpha, const float* w0,
-                             float* wout, long long n, int d, cudaStream_t stream) {
+                             float* wout, long long n, int d, int lanes, long long xy_lane_rows,
+                             long long alpha_lane_stride, cudaStream_t stream) {
   if (d <= kMbMaxDim) {
-    return launch_mb_cluster_any<LOSS, false>(x, y, alpha, w0, wout, n, d, nullptr, stream);
+    return launch_mb_cluster_any<LOSS, false>(x, y, alpha, w0, wout, n, d, nullptr, lanes,
+                                              xy_lane_rows, alpha_lane_stride, stream);
   }
   const size_t smem = static_cast<size_t>(d + kTile) * sizeof(float);
-  igd_minibatch_kernel<LOSS><<<1, kTile, smem, stream>>>(x, y, alpha, w0, wout, n, d);
+  igd_minibatch_kernel<LOSS><<<lanes, kTile, smem, stream>>>(x, y, alpha, w0, wout, n, d,
+                                                             xy_lane_rows, alpha_lane_stride);
   return cudaGetLastError();
 }
 
@@ -1015,11 +1084,13 @@ template <int LOSS>
 cudaError_t launch_fold(int vpl, int warps, const float* x, const float* y,
                         const float* alpha, const float* w0, float* wout, long long n,
                         int d, int tile_rows, int stage_floats, int vec, size_t smem,
+                        int lanes, long long xy_lane_rows, long long alpha_lane_stride,
                         cudaStream_t stream) {
 #define REPRO_FOLD_CASE(V, W)                                                    \
   if (vpl == V && warps == W) {                                                  \
-    igd_fold_kernel<LOSS, V, W><<<1, kWarp * W, smem, stream>>>(                 \
-        x, y, alpha, w0, wout, n, d, tile_rows, stage_floats, vec);             \
+    igd_fold_kernel<LOSS, V, W><<<lanes, kWarp * W, smem, stream>>>(             \
+        x, y, alpha, w0, wout, n, d, tile_rows, stage_floats, vec, xy_lane_rows, \
+        alpha_lane_stride);                                                      \
     return cudaGetLastError();                                                   \
   }
   REPRO_FOLD_CASE(16, 1)
@@ -1032,29 +1103,36 @@ cudaError_t launch_fold(int vpl, int warps, const float* x, const float* y,
 
 template <int LOSS>
 cudaError_t launch_gram(const float* x, const float* y, const float* alpha, const float* w0,
-                        float* wout, long long n, int d, cudaStream_t stream) {
+                        float* wout, long long n, int d, int lanes, long long xy_lane_rows,
+                        long long alpha_lane_stride, cudaStream_t stream) {
   int ld = (d + 3) & ~3;  // 16-byte rows at an odd multiple of 16 bytes: no bank conflicts
   if ((ld / 4) % 2 == 0) ld += 4;
   int tile_rows = kGramStageFloats / (ld + 2) / kSub * kSub;  // 64 or more for D <= 256
   if (tile_rows > kGramMaxTileRows) tile_rows = kGramMaxTileRows;
   const int stage_floats = (tile_rows * (ld + 2) + 3) / 4 * 4;
-  const int vec = d % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;  // 8-byte copies
+  // 8-byte copies (a lane's rows start xy_lane_rows * d floats on: even for even d)
+  const int vec = d % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;
   const size_t smem = (2 * static_cast<size_t>(stage_floats) + 2 * kSub * kSub +
                        2 * kProductRows * kSub + ld + 2 * kSub) * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
       igd_fold_gram_kernel<LOSS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  igd_fold_gram_kernel<LOSS><<<1, kGramThreads, smem, stream>>>(
-      x, y, alpha, w0, wout, n, d, ld, tile_rows, stage_floats, vec);
+  igd_fold_gram_kernel<LOSS><<<lanes, kGramThreads, smem, stream>>>(
+      x, y, alpha, w0, wout, n, d, ld, tile_rows, stage_floats, vec, xy_lane_rows,
+      alpha_lane_stride);
   return cudaGetLastError();
 }
 
 template <int LOSS>
 cudaError_t launch_fold_any(const float* x, const float* y, const float* alpha,
-                            const float* w0, float* wout, long long n, int d,
+                            const float* w0, float* wout, long long n, int d, int lanes,
+                            long long xy_lane_rows, long long alpha_lane_stride,
                             cudaStream_t stream) {
-  if (d <= kGramMaxDim) return launch_gram<LOSS>(x, y, alpha, w0, wout, n, d, stream);
+  if (d <= kGramMaxDim) {
+    return launch_gram<LOSS>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
+                             alpha_lane_stride, stream);
+  }
   int vpl = kWarp, warps = 1;
   if (d <= kWarp * kFoldMaxVpl) {
     vpl = d <= kWarp * 16 ? 16 : 32;
@@ -1067,17 +1145,25 @@ cudaError_t launch_fold_any(const float* x, const float* y, const float* alpha,
   if (tile_rows >= 4) tile_rows -= tile_rows % 4;
   if (tile_rows < 1) tile_rows = 1;
   const int vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-                  ((static_cast<long long>(tile_rows) * d) % 4 == 0);
+                  ((static_cast<long long>(tile_rows) * d) % 4 == 0) &&
+                  ((xy_lane_rows * d) % 4 == 0);
   const int stage_floats = (tile_rows * (d + 2) + 3) / 4 * 4;
   const size_t smem = (2 * static_cast<size_t>(stage_floats) + 2 * warps) * sizeof(float);
   return launch_fold<LOSS>(vpl, warps, x, y, alpha, w0, wout, n, d, tile_rows, stage_floats,
-                           vec, smem, stream);
+                           vec, smem, lanes, xy_lane_rows, alpha_lane_stride, stream);
 }
 
 template <int LOSS>
 cudaError_t launch_chain_probe(int steps, long long* out, cudaStream_t stream) {
   igd_chain_probe_kernel<LOSS><<<1, kWarp, 0, stream>>>(0.1f, 1.0f, 0.01f, 0.5f, steps, out);
   return cudaGetLastError();
+}
+
+// The lane arguments of every entry: 1 <= lanes <= kMaxLanes, strides >= 0.
+constexpr int kMaxLanes = 65535;
+
+bool bad_lanes(int lanes, long long xy_lane_rows, long long alpha_lane_stride) {
+  return lanes < 1 || lanes > kMaxLanes || xy_lane_rows < 0 || alpha_lane_stride < 0;
 }
 
 }  // namespace
@@ -1096,17 +1182,25 @@ const char* igd_fused_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+int igd_fused_max_lanes() { return kMaxLanes; }
+
+// `lanes` folds in one launch (see "Lanes" at the head of this file).
 int igd_fold_launch(const float* x, const float* y, const float* alpha, const float* w0,
-                    float* wout, long long n, int d, int loss, void* stream) {
+                    float* wout, long long n, int d, int loss, int lanes,
+                    long long xy_lane_rows, long long alpha_lane_stride, void* stream) {
   if (n < 0 || d < 1 || d > kFoldMaxDim) return cudaErrorInvalidValue;
+  if (bad_lanes(lanes, xy_lane_rows, alpha_lane_stride)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (loss) {
     case kLossLr:
-      return launch_fold_any<kLossLr>(x, y, alpha, w0, wout, n, d, s);
+      return launch_fold_any<kLossLr>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
+                                      alpha_lane_stride, s);
     case kLossSvm:
-      return launch_fold_any<kLossSvm>(x, y, alpha, w0, wout, n, d, s);
+      return launch_fold_any<kLossSvm>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
+                                       alpha_lane_stride, s);
     case kLossLsq:
-      return launch_fold_any<kLossLsq>(x, y, alpha, w0, wout, n, d, s);
+      return launch_fold_any<kLossLsq>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
+                                       alpha_lane_stride, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1129,16 +1223,21 @@ int igd_chain_probe_launch(int loss, int steps, long long* out, void* stream) {
 
 int igd_fold_minibatch_launch(const float* x, const float* y, const float* alpha,
                               const float* w0, float* wout, long long n, int d, int loss,
+                              int lanes, long long xy_lane_rows, long long alpha_lane_stride,
                               void* stream) {
   if (n < 0 || d < 1 || d > kMinibatchMaxDim) return cudaErrorInvalidValue;
+  if (bad_lanes(lanes, xy_lane_rows, alpha_lane_stride)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (loss) {
     case kLossLr:
-      return launch_minibatch<kLossLr>(x, y, alpha, w0, wout, n, d, s);
+      return launch_minibatch<kLossLr>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
+                                       alpha_lane_stride, s);
     case kLossSvm:
-      return launch_minibatch<kLossSvm>(x, y, alpha, w0, wout, n, d, s);
+      return launch_minibatch<kLossSvm>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
+                                        alpha_lane_stride, s);
     case kLossLsq:
-      return launch_minibatch<kLossLsq>(x, y, alpha, w0, wout, n, d, s);
+      return launch_minibatch<kLossLsq>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
+                                        alpha_lane_stride, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1163,11 +1262,14 @@ int igd_minibatch_step_probe_launch(int loss, int d, int steps, long long* out, 
   const long long n = static_cast<long long>(steps) * kTile;
   switch (loss) {
     case kLossLr:
-      return launch_mb_cluster_any<kLossLr, true>(nullptr, nullptr, nullptr, nullptr, nullptr, n, d, out, s);
+      return launch_mb_cluster_any<kLossLr, true>(nullptr, nullptr, nullptr, nullptr, nullptr, n, d, out, 1,
+                                                     0, 0, s);
     case kLossSvm:
-      return launch_mb_cluster_any<kLossSvm, true>(nullptr, nullptr, nullptr, nullptr, nullptr, n, d, out, s);
+      return launch_mb_cluster_any<kLossSvm, true>(nullptr, nullptr, nullptr, nullptr, nullptr, n, d, out, 1,
+                                                     0, 0, s);
     case kLossLsq:
-      return launch_mb_cluster_any<kLossLsq, true>(nullptr, nullptr, nullptr, nullptr, nullptr, n, d, out, s);
+      return launch_mb_cluster_any<kLossLsq, true>(nullptr, nullptr, nullptr, nullptr, nullptr, n, d, out, 1,
+                                                     0, 0, s);
     default:
       return cudaErrorInvalidValue;
   }

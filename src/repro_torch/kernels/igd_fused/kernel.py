@@ -7,6 +7,14 @@ The source is built and loaded at first use by ``kernels._build``
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output with ``torch.empty``, launches on PyTorch's current stream, raises
 on a non-zero CUDA status, and adds one to its entry in ``launches``.
+
+Both wrappers take one fold (``x [N, D]``, ``y [N]``, ``alpha [N]``,
+``w0 [D]`` -> ``w [D]``) or B lanes of folds in one launch, the
+counterpart of ``jax.vmap`` over the reference's Pallas call:
+``alpha [B, N]`` and ``w0 [B, D]`` -> ``w [B, D]``, over one shared table
+(``x [N, D]``, ``y [N]``: every lane reads the same rows) or a stacked one
+(``x [B, N, D]``, ``y [B, N]``). A lane launch is one launch however many
+lanes it carries; each lane's w equals its one-lane launch's bit for bit.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ FOLD_GRAM_MAX_DIM = 256  # igd_fold's tiled Gram instance; the per-row chain abo
 MINIBATCH_MAX_DIM = 12288 - TILE  # the one-block instance: w and the tile's scales in 48 KB
 MINIBATCH_CLUSTER = 8  # CTAs of igd_fold_minibatch's cluster instance, one row share of a tile each
 MINIBATCH_CLUSTER_MAX_DIM = 256  # the cluster instance; the one-block kernel above it
+MAX_LANES = 65535  # lanes a launch (the cluster instance's gridDim.y)
 
 LOSS_IDS = {"lr": 0, "svm": 1, "lsq": 2}
 
@@ -47,7 +56,8 @@ def _declare(lib: ctypes.CDLL, cluster: int = MINIBATCH_CLUSTER) -> None:
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     for name in ("igd_fold_launch", "igd_fold_minibatch_launch"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+        # x, y, alpha, w0, wout, n, d, loss, lanes, x/y lane rows, alpha lane stride, stream
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64, i64, ptr]
         fn.restype = i32
     lib.igd_fused_error_string.argtypes = [i32]
     lib.igd_fused_error_string.restype = ctypes.c_char_p
@@ -58,12 +68,15 @@ def _declare(lib: ctypes.CDLL, cluster: int = MINIBATCH_CLUSTER) -> None:
     lib.igd_fused_minibatch_smem_bytes.argtypes = [i32]
     lib.igd_fused_minibatch_smem_bytes.restype = i64
     for name in ("igd_fused_fold_max_dim", "igd_fused_gram_max_dim", "igd_fused_minibatch_max_dim",
-                 "igd_fused_tile", "igd_fused_minibatch_cluster", "igd_fused_minibatch_cluster_max_dim"):
+                 "igd_fused_tile", "igd_fused_minibatch_cluster", "igd_fused_minibatch_cluster_max_dim",
+                 "igd_fused_max_lanes"):
         getattr(lib, name).restype = i32
     limits = (lib.igd_fused_fold_max_dim(), lib.igd_fused_gram_max_dim(),
               lib.igd_fused_minibatch_max_dim(), lib.igd_fused_tile(),
-              lib.igd_fused_minibatch_cluster(), lib.igd_fused_minibatch_cluster_max_dim())
-    if limits != (FOLD_MAX_DIM, FOLD_GRAM_MAX_DIM, MINIBATCH_MAX_DIM, TILE, cluster, MINIBATCH_CLUSTER_MAX_DIM):
+              lib.igd_fused_minibatch_cluster(), lib.igd_fused_minibatch_cluster_max_dim(),
+              lib.igd_fused_max_lanes())
+    if limits != (FOLD_MAX_DIM, FOLD_GRAM_MAX_DIM, MINIBATCH_MAX_DIM, TILE, cluster, MINIBATCH_CLUSTER_MAX_DIM,
+                  MAX_LANES):
         raise RuntimeError(f"igd_fused library limits {limits} disagree with kernel.py")
 
 
@@ -73,7 +86,31 @@ build = LIBRARY.build
 _load = LIBRARY.load
 
 
-def _check(x, y, alpha, w0, loss: str, max_dim: int) -> None:
+def lane_layout(x, y, alpha, w0):
+    """(lanes, xy_lane_rows, alpha_lane_stride) of a call, or ValueError
+    when the shapes fit neither one fold nor a lane launch: one fold is
+    x [N, D], y [N], alpha [N], w0 [D]; B lanes are alpha [B, N] and
+    w0 [B, D] over x [N, D], y [N] (shared: xy_lane_rows 0) or x [B, N, D],
+    y [B, N] (stacked: xy_lane_rows N)."""
+    shapes = (f"x {tuple(x.shape)}, y {tuple(y.shape)}, "
+              f"alpha {tuple(alpha.shape)}, w0 {tuple(w0.shape)}")
+    if x.dim() not in (2, 3) or w0.dim() not in (1, 2):
+        raise ValueError(f"shapes fit neither one fold nor a lane launch: {shapes}")
+    n, d = x.shape[-2:]
+    if w0.dim() == 1:
+        if x.dim() != 2 or tuple(y.shape) != (n,) or tuple(alpha.shape) != (n,) or tuple(w0.shape) != (d,):
+            raise ValueError(f"shapes disagree: {shapes}")
+        return 1, 0, 0
+    b = w0.shape[0]
+    shared = x.dim() == 2
+    want_y = (n,) if shared else (b, n)
+    if (b < 1 or tuple(w0.shape) != (b, d) or tuple(alpha.shape) != (b, n) or tuple(y.shape) != want_y
+            or (not shared and x.shape[0] != b)):
+        raise ValueError(f"lane shapes disagree: {shapes}")
+    return b, 0 if shared else n, n
+
+
+def _check(x, y, alpha, w0, loss: str, max_dim: int):
     if loss not in LOSS_IDS:
         raise ValueError(f"unknown loss {loss!r}; valid: {sorted(LOSS_IDS)}")
     named = {"x": x, "y": y, "alpha": alpha, "w0": w0}
@@ -84,27 +121,26 @@ def _check(x, y, alpha, w0, loss: str, max_dim: int) -> None:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if x.dim() != 2:
-        raise ValueError(f"x must be [N, D], got shape {tuple(x.shape)}")
-    n, d = x.shape
-    if tuple(y.shape) != (n,) or tuple(alpha.shape) != (n,) or tuple(w0.shape) != (d,):
-        raise ValueError(
-            f"shapes disagree: x {tuple(x.shape)}, y {tuple(y.shape)}, "
-            f"alpha {tuple(alpha.shape)}, w0 {tuple(w0.shape)}"
-        )
+    layout = lane_layout(x, y, alpha, w0)
+    d = x.shape[-1]
     if not 1 <= d <= max_dim:
         raise ValueError(f"D={d} outside what this kernel supports (1..{max_dim})")
+    if layout[0] > MAX_LANES:
+        raise ValueError(f"{layout[0]} lanes, more than a launch takes ({MAX_LANES})")
+    return layout
 
 
-def _launch(name: str, x, y, alpha, w0, loss: str):
+def _launch(name: str, x, y, alpha, w0, loss: str, layout):
     lib = _load()
     out = torch.empty_like(w0)
-    n, d = x.shape
+    n, d = x.shape[-2:]
+    lanes, xy_lane_rows, alpha_lane_stride = layout
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, f"{name}_launch")(
             x.data_ptr(), y.data_ptr(), alpha.data_ptr(), w0.data_ptr(),
-            out.data_ptr(), n, d, LOSS_IDS[loss], stream,
+            out.data_ptr(), n, d, LOSS_IDS[loss], lanes, xy_lane_rows,
+            alpha_lane_stride, stream,
         )
     if rc != 0:
         msg = lib.igd_fused_error_string(rc).decode()
@@ -115,21 +151,23 @@ def _launch(name: str, x, y, alpha, w0, loss: str):
 
 def igd_fold(x, y, alpha, w0, *, loss: str = "lr"):
     """Sequential IGD over all N rows of x [N, D] (D <= 4096) with per-row
-    step sizes alpha [N], from w0 [D] -> final w [D]. Float32, CUDA,
-    contiguous. The library picks the instance by D: the tiled Gram
-    look-ahead up to FOLD_GRAM_MAX_DIM, the per-row chain above it."""
-    _check(x, y, alpha, w0, loss, FOLD_MAX_DIM)
-    return _launch("igd_fold", x, y, alpha, w0, loss)
+    step sizes alpha [N], from w0 [D] -> final w [D]; or B such folds in
+    one launch (see the module's note). Float32, CUDA, contiguous. The
+    library picks the instance by D: the tiled Gram look-ahead up to
+    FOLD_GRAM_MAX_DIM, the per-row chain above it; a block a lane."""
+    layout = _check(x, y, alpha, w0, loss, FOLD_MAX_DIM)
+    return _launch("igd_fold", x, y, alpha, w0, loss, layout)
 
 
 def igd_fold_minibatch(x, y, alpha, w0, *, loss: str = "lr"):
     """One mean-gradient step per TILE rows; the ragged last tile's mean
-    is over TILE (rows past N add zero). The library picks the instance
-    by D: a cluster of MINIBATCH_CLUSTER CTAs up to
-    MINIBATCH_CLUSTER_MAX_DIM (ref.igd_fold_minibatch_split_ref is its
-    order of sums), the one-block kernel above it."""
-    _check(x, y, alpha, w0, loss, MINIBATCH_MAX_DIM)
-    return _launch("igd_fold_minibatch", x, y, alpha, w0, loss)
+    is over TILE (rows past N add zero); or B such folds in one launch.
+    The library picks the instance by D: a cluster of MINIBATCH_CLUSTER
+    CTAs a lane up to MINIBATCH_CLUSTER_MAX_DIM
+    (ref.igd_fold_minibatch_split_ref is its order of sums), the
+    one-block kernel above it."""
+    layout = _check(x, y, alpha, w0, loss, MINIBATCH_MAX_DIM)
+    return _launch("igd_fold_minibatch", x, y, alpha, w0, loss, layout)
 
 
 def minibatch_design(d: int):

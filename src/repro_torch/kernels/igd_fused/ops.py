@@ -6,7 +6,13 @@ raise; nothing on the card falls back to the plain versions. On CPU
 tensors they run the plain PyTorch versions (``ref``), which is how the
 tests reach this path on a machine without a card. Any (N, D) the kernel
 supports is taken as it is: the kernels loop over exactly N rows and mask
-their last D chunk, so nothing is padded."""
+their last D chunk, so nothing is padded.
+
+Both take one fold or B lanes of folds in one launch (``w0 [B, D]``,
+``alpha [B, N]``; the layout ``kernel.lane_layout`` reads): the
+counterpart of ``jax.vmap`` over the reference's kernel call. On CPU
+tensors the lanes run the plain fold one after the other
+(``ref.lanes_ref``)."""
 
 from __future__ import annotations
 
@@ -21,6 +27,9 @@ def igd_fold(x, y, alpha, w0, *, loss: str = "lr"):
     if dev.type == "cuda":
         return K.igd_fold(x, y, alpha, w0, loss=loss)
     if dev.type == "cpu":
+        if w0.dim() == 2:
+            K.lane_layout(x, y, alpha, w0)  # raises on shapes a lane launch refuses
+            return R.lanes_ref(R.igd_fold_ref, x, y, alpha, w0, loss=loss)
         return R.igd_fold_ref(x, y, alpha, w0, loss=loss)
     raise ValueError(f"igd_fold has no version for device {dev}")
 
@@ -32,5 +41,8 @@ def igd_fold_minibatch(x, y, alpha, w0, *, loss: str = "lr"):
     if dev.type == "cuda":
         return K.igd_fold_minibatch(x, y, alpha, w0, loss=loss)
     if dev.type == "cpu":
+        if w0.dim() == 2:
+            K.lane_layout(x, y, alpha, w0)  # raises on shapes a lane launch refuses
+            return R.lanes_ref(R.igd_fold_minibatch_ref, x, y, alpha, w0, loss=loss, tile=K.TILE)
         return R.igd_fold_minibatch_ref(x, y, alpha, w0, loss=loss, tile=K.TILE)
     raise ValueError(f"igd_fold_minibatch has no version for device {dev}")

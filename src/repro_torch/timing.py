@@ -2,8 +2,9 @@
 
 Device time comes from CUDA events recorded on the current stream; host
 wall time (``EngineResult.shuffle_seconds``/``gradient_seconds``, probe
-timings on the CPU) comes from :class:`Stopwatch`, the only host clock
-in the package. Both wait for the device before they read, because
+timings on the CPU) comes from :class:`Stopwatch`, and timestamps (a
+served query's submit and completion) from :func:`now`: the package's
+only host clock. Both wait for the device before they read, because
 PyTorch returns before the card finishes.
 """
 
@@ -19,6 +20,12 @@ def sync(device: torch.device) -> None:
     """Wait for every queued kernel on ``device`` (no-op on the CPU)."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def now() -> float:
+    """Host clock in seconds (a timestamp: differences of two are wall
+    time; it waits for nothing)."""
+    return time.perf_counter_ns() * 1e-9
 
 
 class Stopwatch:

@@ -10,6 +10,8 @@ This module imports neither JAX nor the JAX package, so it runs where
 only PyTorch is installed (``--noconftest`` keeps the suite's conftest,
 which loads the JAX package's obs layer, out of the run)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -173,6 +175,102 @@ def test_cuda_engine_plans_the_kernel_lane():
                                                     epochs=2, tolerance=0.0))
     assert res.plan.implementation == "cuda_fused" and res.kernel_launches == 2
     assert bool(torch.isfinite(res.model).all())
+
+
+# lane launches: (lanes, N, D) across the sub-tile, the tile and the
+# instance boundaries (D 300: the per-row fold and the one-block minibatch)
+LANE_CASES = [(1, 33, 54), (3, 257, 54), (3, 1000, 200), (4, 31, 300), (3, 2049, 300), (32, 513, 54)]
+
+
+def _lane_inputs(b, n, d, shared, seed=5):
+    r = np.random.default_rng(seed)
+    lead = () if shared else (b,)
+    x = (r.normal(size=lead + (n, d)) / np.sqrt(d)).astype(np.float32)
+    y = np.sign(r.normal(size=lead + (n,))).astype(np.float32)
+    alpha = (0.1 / (1.0 + (np.arange(n) + r.integers(0, 5 * n, size=(b, 1))) / n)).astype(np.float32)
+    w0 = (0.01 * r.normal(size=(b, d))).astype(np.float32)
+    return [torch.from_numpy(v).cuda() for v in (x, y, alpha, w0)]
+
+
+@needs_card
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "stacked"])
+@pytest.mark.parametrize("b,n,d", LANE_CASES)
+@pytest.mark.parametrize("name", ["igd_fold", "igd_fold_minibatch"])
+def test_cuda_lane_launch_matches_single_lanes_and_plain_version(name, b, n, d, shared):
+    """B lanes in one launch (one count): every lane equals its own
+    one-lane launch bit for bit, and the plain version within the
+    kernel tolerance."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y, alpha, w0 = _lane_inputs(b, n, d, shared)
+    kernel, plain = getattr(K, name), getattr(R, f"{name}_ref")
+    before = K.launches[name]
+    got = kernel(x, y, alpha, w0, loss="lr")
+    assert K.launches[name] == before + 1 and got.shape == (b, d)
+    for i in range(b):
+        xi, yi = (x, y) if shared else (x[i], y[i])
+        assert torch.equal(got[i], kernel(xi, yi, alpha[i].contiguous(), w0[i].contiguous(), loss="lr")), i
+    torch.testing.assert_close(got, R.lanes_ref(plain, x, y, alpha, w0, loss="lr"), **TOL)
+
+
+@needs_card
+def test_cuda_lane_wrapper_refuses_lane_shapes_that_disagree():
+    x, y, alpha, w0 = _lane_inputs(3, 64, 8, shared=False)
+    with pytest.raises(ValueError, match="lane shapes"):
+        K.igd_fold(x[:2], y, alpha, w0)
+    with pytest.raises(ValueError, match="lane shapes"):
+        K.igd_fold_minibatch(x[0], y, alpha, w0)  # shared x, stacked y
+    with pytest.raises(ValueError, match="lane shapes"):
+        K.igd_fold(x, y, alpha[:, :10].contiguous(), w0)
+
+
+@needs_card
+@pytest.mark.parametrize("impl", ["cuda_fused", "cuda_minibatch"])
+@pytest.mark.parametrize("ordering", ["clustered", "shuffle_once", "shuffle_always"])
+def test_cuda_served_kernel_lanes_equal_their_singleton_runs(ordering, impl):
+    """A masked fused batch of kernel lanes is one launch an epoch, and
+    each lane is its own Engine.run bit for bit."""
+    from repro_torch import engine
+    from repro_torch.data import synthetic
+    from repro_torch.engine import serve
+
+    table = synthetic.dense_classification(torch.Generator(device="cuda").manual_seed(2), 3000, 54)
+    hints = {"ordering": ordering, "scheme": "serial", "implementation": impl}
+    queries = [engine.AnalyticsQuery(task="logreg", data=table, task_args={"dim": 54}, epochs=e,
+                                     tolerance=0.0, seed=s, hints=hints) for s, e in enumerate((3, 2, 3))]
+    eng = engine.Engine()
+    singles = [eng.run(q) for q in queries]
+    srv = serve.ServingEngine(serve.ServeConfig(max_batch=4), engine=eng)
+    tickets = [srv.submit(q) for q in queries]
+    srv.drain()
+    assert srv.stats["batches"] == 1 and srv.stats["masked_batches"] == 1
+    for t, ref in zip(tickets, singles):
+        assert t.error is None and t.result.batch_size == 3 and t.result.kernel_launches == 3
+        assert torch.equal(t.result.model, ref.model)
+
+
+@needs_card
+@pytest.mark.parametrize("impl", ["cuda_fused", "cuda_minibatch"])
+def test_cuda_chunk_stream_moves_host_chunks_and_matches_the_resident_run(impl):
+    """A ChunkedTable on the host streams to the card a chunk a launch;
+    the fold lands within the kernel tolerance of the resident run."""
+    from repro_torch import engine
+    from repro_torch.data import synthetic
+
+    table = synthetic.dense_classification(torch.Generator().manual_seed(3), 5 * 1024 + 300, 54)
+    tab = engine.ChunkedTable.from_arrays(table, 1024)
+    eng = engine.Engine()
+    q = engine.AnalyticsQuery(task="logreg", data=tab, task_args={"dim": 54}, epochs=2, tolerance=0.0,
+                              hints={"source": "table", "implementation": impl})
+    res = eng.run(q)
+    assert res.plan.source == "table" and res.kernel_launches == 2 * tab.num_chunks
+    assert eng.stats["bytes_to_device"] >= 2 * tab.data_bytes()
+    resident = {k: v.cuda() for k, v in table.items()}
+    ref = eng.run(engine.AnalyticsQuery(task="logreg", data=resident, task_args={"dim": 54}, epochs=2,
+                                        tolerance=0.0), plan=dataclasses.replace(res.plan, source="memory"))
+    if impl == "cuda_fused":
+        torch.testing.assert_close(res.model, ref.model, **TOL)
+    else:  # 1,024-row chunks are whole tiles: the same mean-gradient steps
+        assert torch.equal(res.model, ref.model)
 
 
 # the schemes of paper §3.3-3.4: (ordering, scheme, plan fields)

@@ -266,7 +266,7 @@ def test_forced_kernel_on_ineligible_task_raises():
     ({"scheme": "segmented", "implementation": "cuda_fused"}, ValueError),
     ({"scheme": "shared_memory", "implementation": "cuda_minibatch"}, ValueError),
     ({"parallelism": "sharded"}, NotImplementedError),
-    ({"source": "table"}, NotImplementedError),
+    ({"source": "table"}, ValueError),  # the stored-table slice: needs a stored Table
     ({"num_shards": 2}, NotImplementedError),
     ({"scheme": "segmented", "num_segments": 0}, ValueError),
 ])
@@ -371,7 +371,8 @@ def test_clear_cache_forgets_compiled_plans_and_keeps_calibrations():
     assert eng.cache_info()["compiled_plans"] == 1 and eng.stats["probe_runs"] == 1
     eng.clear_cache()
     assert eng.cache_info() == {"plan_cache_hits": 0, "plan_cache_misses": 0, "plans_computed": 0,
-                                "probe_runs": 0, "compiled_plans": 0}
+                                "plan_disk_hits": 0, "probe_runs": 0, "bytes_to_device": 0,
+                                "compiled_plans": 0}
     res = eng.run(q)
     assert res.trace_count == res.loss_trace_count == 1
     assert eng.stats["plans_computed"] == 1 and eng.stats["probe_runs"] == 0

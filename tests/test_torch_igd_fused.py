@@ -217,3 +217,59 @@ def test_library_name_tracks_the_source():
     path = K.library_path()
     assert path.parent == K.BUILD_DIR and path.name.startswith("libigd_fused-")
     assert "compute_90a" in " ".join(K.NVCC_FLAGS) and "--use_fast_math" not in K.NVCC_FLAGS
+
+
+# -- lanes: B folds in one call (the counterpart of jax.vmap over the kernel)
+
+
+def _lane_inputs(b, n, d, shared, seed=7):
+    r = np.random.default_rng(seed)
+    lead = () if shared else (b,)
+    x = (r.normal(size=lead + (n, d)) / np.sqrt(d)).astype(np.float32)
+    y = np.sign(r.normal(size=lead + (n,))).astype(np.float32)
+    alpha = (0.1 / (1.0 + (np.arange(n) + r.integers(0, 5 * n, size=(b, 1))) / n)).astype(np.float32)
+    w0 = (0.01 * r.normal(size=(b, d))).astype(np.float32)
+    return x, y, alpha, w0
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "stacked"])
+@pytest.mark.parametrize("loss", LOSSES)
+@pytest.mark.parametrize("name", ["igd_fold", "igd_fold_minibatch"])
+def test_lanes_match_vmap_of_the_pallas_kernel(name, loss, shared):
+    """B = 3 lanes through ops (the plain version's lane loop on the
+    CPU) against jax.vmap of the reference's kernel in interpret mode,
+    over one shared table and over stacked per-lane tables."""
+    import jax
+
+    a = _lane_inputs(3, 300, 7, shared)
+    ref_fn = functools.partial(getattr(ref_ops, name), loss=loss, use_kernel=True, interpret=True)
+    in_axes = (None, None, 0, 0) if shared else (0, 0, 0, 0)
+    want = np.asarray(jax.vmap(ref_fn, in_axes=in_axes)(*(jnp.asarray(v) for v in a)))
+    got = getattr(ops, name)(*(torch.from_numpy(v) for v in a), loss=loss)
+    assert got.shape == (3, 7)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "stacked"])
+def test_lanes_ref_is_each_lanes_own_fold(shared):
+    """Lane b of the lane call is the one-lane call on lane b's inputs,
+    bit for bit (what a lane launch guarantees on the card)."""
+    x, y, alpha, w0 = (torch.from_numpy(v) for v in _lane_inputs(4, 97, 5, shared))
+    got = ops.igd_fold(x, y, alpha, w0, loss="lr")
+    for b in range(4):
+        xb, yb = (x, y) if shared else (x[b], y[b])
+        assert torch.equal(got[b], ops.igd_fold(xb, yb, alpha[b], w0[b], loss="lr"))
+
+
+@pytest.mark.parametrize("bad", ["x_lanes", "y_shared", "alpha_rows", "w0_dim"])
+def test_lane_layout_refuses_shapes_that_disagree(bad):
+    x, y, alpha, w0 = (torch.from_numpy(v) for v in _lane_inputs(3, 64, 8, shared=False))
+    assert K.lane_layout(x, y, alpha, w0) == (3, 64, 64)
+    assert K.lane_layout(x[0], y[0], alpha, w0) == (3, 0, 64)
+    assert K.lane_layout(x[0], y[0], alpha[0], w0[0]) == (1, 0, 0)
+    args = {"x_lanes": (x[:2], y, alpha, w0), "y_shared": (x, y[0], alpha, w0),
+            "alpha_rows": (x, y, alpha[:, :10], w0), "w0_dim": (x, y, alpha, w0[:, :4])}[bad]
+    with pytest.raises(ValueError, match="lane shapes"):
+        K.lane_layout(*args)
+    with pytest.raises(ValueError, match="lane shapes"):
+        ops.igd_fold_minibatch(*args)
