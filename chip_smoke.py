@@ -61,6 +61,24 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    Engine.run (queries a second; every kernel lane equal to its
    singleton run bit for bit; one launch an epoch); a fresh server on the
    same plan store that plans and probes nothing;
+3e. sharded local SGD (parallelism="sharded" by hint: the planner probes
+   no mesh point on one card) on the Forest-shaped table, nothing cut:
+   one k = 4 igd_fold lane launch over 4 x 16,384-row segments against
+   its plain version; logreg (cuda_fused) at k in (1, 2, 4) x H in
+   (1, 3), least_squares (cuda_minibatch) at k in (1, 4), and logreg
+   (torch_fold, one epoch) at k in (1, 4) on phase 3b's 12,288-row cut,
+   each under clustered, shuffle_once and shuffle_always: k = 1 equal to
+   the singleton run bit for bit, one launch an epoch (the k shards are
+   the lanes of one launch), losses falling, ms an epoch beside the
+   singleton's; a 3-epoch k = 4 clustered run against a float64 replay
+   of its blocks and merges (1e-4); the merge tree's ms; 8 logreg
+   queries x 4 shards (seeds 0-7, budgets 3 and 2 alternating) served as
+   one fused sharded batch, clustered and shuffle_always, beside the same
+   queries one at a time (queries a second; every query equal to its own
+   sharded run bit for bit; one launch of 32 lanes an epoch); then the
+   k = 4 lane launches alone beside the one-lane launch (CUDA events),
+   igd_fold_minibatch also on 16-byte-aligned lane strides; the `kernels`
+   line's `launches_sharded` counts the sharded runs and drains alone;
 4. time each kernel at the main path's shape with CUDA events, beside its
    plain version and its bound; igd_fold also beside its chain floor (N
    times one grad_scale + FMA step timed alone in one warp),
@@ -147,6 +165,9 @@ LANE_FOLD_D, LANE_FOLD_N = (54, 200, 300), (31, 33, 257)
 LANE_MB_D, LANE_MB_N = (54, 200, 300), (255, 257, 2_049)
 TABLE_CHUNK, TABLE_EPOCHS = 65_536, 3
 SERVE_QUERIES, SERVE_MB_QUERIES = 32, 8
+# phase 3e: epochs a sharded run, the lane check's segment rows, the float64
+# replay's bound, the queries of the fused sharded batch
+SHARD_EPOCHS, SHARD_LANE_ROWS, SHARD_F64_TOL, SHARD_SERVE_QUERIES = 3, 16_384, 1e-4, 8
 TIMED_LANES = (1, 8, 32)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -448,6 +469,7 @@ def main() -> int:
     schemes(args.seed, table, dev)
     techniques(args.seed, table, dev, phase3)
     phase3d = tables_and_serving(args.seed, table, dev)
+    phase3e = sharded(args.seed, table, dev)
 
     # -- 4. timings at the main path's shape -------------------------------
     n, d = FOREST_ROWS, FOREST_DIM
@@ -527,7 +549,10 @@ def main() -> int:
         entry.update(lane_ms=lane_ms, lane_bound_ms=lane_bound, one_lane_launches_x32_ms=singles_ms,
                      launches_stored_table=phase3d["tables"][entry["name"]],
                      launches_serving=phase3d["serving"][entry["name"]],
-                     max_abs_err=max(entry["max_abs_err"], phase3d["lane_err"][entry["name"]]))
+                     launches_sharded=phase3e["launches"][entry["name"]],
+                     sharded_lane_ms=phase3e["lane_ms"][entry["name"]],
+                     max_abs_err=max(entry["max_abs_err"], phase3d["lane_err"][entry["name"]],
+                                     phase3e["lane_err"] if entry["name"] == "igd_fold" else 0.0))
         log("timing", f"{entry['name']} ({loss}, {n}x{d}, shared table) lane launches: " + ", ".join(
             f"B={b} {lane_ms[b]:.4f} ms ({lane_ms[b] / lane_ms[1]:.3f}x B=1; bound {lane_bound[b]:.4f} ms)"
             for b in TIMED_LANES) + f"; 32 one-lane launches {singles_ms:.3f} ms "
@@ -1091,6 +1116,215 @@ def tables_and_serving(seed: int, table: dict, dev) -> dict:
     shutil.rmtree(cache_dir, ignore_errors=True)
     log("tables", f"phase 3d took {phase.lap():.1f} s")
     return {"tables": table_launches, "serving": serving_launches, "lane_err": worst}
+
+
+def sharded(seed: int, table: dict, dev) -> dict:
+    """Phase 3e: sharded local SGD (parallelism="sharded", by hint) on the
+    Forest-shaped table, the k shards as the lanes of the IGD kernels:
+    k = 1 against the singleton run bit for bit (every ordering and lane
+    body), one k = 4 lane launch against its plain version, a 3-epoch
+    k = 4 clustered run against a float64 replay of its blocks and
+    merges, ms an epoch at k = 1, 2, 4 and H = 1, 3 beside the singleton,
+    the merge's ms, and 8 queries x 4 shards served as one fused sharded
+    batch beside the same queries one at a time. Returns the kernels'
+    launches on the sharded runs (counts zeroed just before each run or
+    drain, read just after) and the lane check's error."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import engine, timing
+    from repro_torch.core import uda
+    from repro_torch.dist import data_parallel as dp
+    from repro_torch.engine import catalog, serve, shard
+    from repro_torch.kernels.igd_fused import kernel as K, ref as R
+
+    phase = timing.Stopwatch()
+    n, d = FOREST_ROWS, FOREST_DIM
+    comp = shard.compensated_step_size(catalog.get("logreg").step_size(n), 4)  # k = 4's schedule
+    launches = {"igd_fold": 0, "igd_fold_minibatch": 0}
+    eng = engine.Engine()
+
+    def plan_for(ordering, impl, k=0, h=1):
+        if not k:
+            return engine.Plan(ordering, implementation=impl)
+        return engine.Plan(ordering, implementation=impl, parallelism="sharded", num_shards=k, merge_period=h)
+
+    def run(q, plan, counted=True):
+        if counted:
+            K.reset_launches()
+        res = eng.run(q, plan=plan)
+        if counted:
+            for name in launches:
+                launches[name] += K.launches[name]
+        if not bool(torch.isfinite(res.model).all()) or res.model.shape != (d,):
+            raise AssertionError(f"{plan.describe()}: the model is not a finite [{d}] vector")
+        if plan.implementation != "torch_fold" and res.kernel_launches != res.epochs:
+            raise AssertionError(f"{plan.describe()}: {res.kernel_launches} launches in {res.epochs} epochs")
+        return res
+
+    def query(task, data, epochs=SHARD_EPOCHS, s=seed):
+        return engine.AnalyticsQuery(task=task, data=data, task_args={"dim": d}, epochs=epochs, tolerance=0.0,
+                                     seed=s)
+
+    # -- the hint path: the planner plans the sharded axis on one card -----
+    hinted = engine.AnalyticsQuery(task="logreg", data=table, task_args={"dim": d}, epochs=SHARD_EPOCHS,
+                                   tolerance=0.0, seed=seed, hints={"parallelism": "sharded", "num_shards": 4,
+                                                                    "merge_period": 1,
+                                                                    "implementation": "cuda_fused"})
+    rep = eng.explain(hinted)
+    if rep.chosen.parallelism != "sharded" or rep.calibration.shard:
+        raise AssertionError(f"hinted plan {rep.chosen}; one card must have no probed mesh point")
+    log("sharded", f"hinted plan: {rep.chosen.describe()} ({rep.chosen.axes()}); device_count "
+        f"{rep.calibration.device_count}, probe (f) not run on one card")
+    run(hinted, rep.chosen)
+
+    # -- one k = 4 lane launch against its plain version ---------------------
+    seg_rows = SHARD_LANE_ROWS
+    xs, ys = (t[:4 * seg_rows].reshape((4, seg_rows) + tuple(t.shape[1:])) for t in (table["x"], table["y"]))
+    steps = torch.arange(seg_rows, dtype=torch.int32, device=dev)
+    alphas = torch.stack([comp(steps + i * seg_rows) for i in range(4)])
+    w0s = 0.01 * torch.randn((4, d), generator=torch.Generator(device=dev).manual_seed(seed + 23), device=dev)
+    got = K.igd_fold(xs, ys, alphas, w0s, loss="lr")
+    lane_err = max_err(got.cpu(), R.lanes_ref(R.igd_fold_ref, *(t.cpu() for t in (xs, ys, alphas, w0s)), loss="lr"),
+                       f"igd_fold 4 lanes x {seg_rows} rows vs its plain version")
+    log("sharded", f"igd_fold 4 lanes over 4 x {seg_rows} x {d} stacked segments (one launch): max |err| "
+        f"{lane_err:.3g} against ref.lanes_ref (rtol={KERNEL_RTOL}, atol={KERNEL_ATOL})")
+
+    # -- k = 1 is the singleton run, bit for bit; ms an epoch ----------------
+    half = SCHEME_ROWS // 2
+    cut = {k: torch.cat([v[:half], v[-half:]]).contiguous() for k, v in table.items()}
+    epoch_ms = {}
+    for task, impl, data, ks, hs, epochs in (
+            ("logreg", "cuda_fused", table, (1, 2, 4), (1, 3), SHARD_EPOCHS),
+            ("least_squares", "cuda_minibatch", table, (1, 4), (1,), SHARD_EPOCHS),
+            ("logreg", "torch_fold", cut, (1, 4), (1,), 1)):
+        rows = next(iter(data.values())).shape[0]
+        for ordering in ("clustered", "shuffle_once", "shuffle_always"):
+            q = query(task, data, epochs)
+            single = run(q, plan_for(ordering, impl), counted=False)
+            one = run(q, plan_for(ordering, impl, 1))
+            if not torch.equal(one.model, single.model) or one.losses != single.losses:
+                raise AssertionError(f"{task} {ordering} {impl}: sharded k = 1 is not the singleton run "
+                                     f"(max |dw| {float((one.model - single.model).abs().max()):.3g})")
+            epoch_ms[(impl, ordering, 0, 1)] = single.gradient_seconds / single.epochs * 1e3
+            line = [f"singleton {epoch_ms[(impl, ordering, 0, 1)]:.3f} ms/epoch"]
+            for k in ks:
+                for h in hs:
+                    res = one if (k, h) == (1, 1) else run(q, plan_for(ordering, impl, k, h))
+                    ms = res.gradient_seconds / res.epochs * 1e3
+                    epoch_ms[(impl, ordering, k, h)] = ms
+                    if not res.losses[-1] < float(catalog.get(task).make_task(dim=d).full_loss(
+                            torch.zeros(d, device=dev), data)):
+                        raise AssertionError(f"{task} {ordering} {impl} k={k} H={h}: loss did not fall")
+                    line.append(f"k={k} H={h} {ms:.3f} ms/epoch ({res.kernel_launches / res.epochs:.0f} "
+                                f"launch(es)/epoch, loss {res.losses[-1]:.6g}, place {res.shuffle_seconds * 1e3:.2f} ms)")
+            log("sharded", f"{task} {impl} {ordering} {rows} x {d}, {epochs} epoch(s): k = 1 equals the singleton "
+                f"run bit for bit; " + "; ".join(line))
+    mb_aligned = all((n // k) % 4 == 0 and (n // k) * d % 4 == 0 for k in (4,))
+    log("sharded", f"igd_fold_minibatch at k = 4: a lane holds {n // 4} rows, y's lane stride {n // 4 * 4} bytes "
+        f"({'on' if mb_aligned else 'off'} 16-byte boundaries): the cluster instance "
+        f"{'takes bulk copies' if mb_aligned else 'runs its plain-load path'}; clustered epoch "
+        f"{epoch_ms[('cuda_minibatch', 'clustered', 4, 1)]:.3f} ms vs the singleton's "
+        f"{epoch_ms[('cuda_minibatch', 'clustered', 0, 1)]:.3f} ms")
+
+    # -- a 3-epoch k = 4 clustered run against a float64 replay -------------
+    k, rps = 4, n // 4
+    res = run(query("logreg", table), plan_for("clustered", "cuda_fused", k, 1))
+    task = catalog.get("logreg").make_task(dim=d)
+    x64 = table["x"].cpu().double().numpy().reshape(k, rps, d)
+    y64 = table["y"].cpu().double().numpy().reshape(k, rps)
+    w = eng.draws.stream(seed, n, dev).initial_model(task).cpu().double().numpy()
+    for epoch in range(SHARD_EPOCHS):
+        a = comp(epoch * rps + torch.arange(rps, dtype=torch.int32))  # float32, as the lanes take them
+        a64 = a.double().numpy()
+        lanes = np.repeat(w[None], k, axis=0)
+        for i in range(rps):  # one float64 fold a segment, the 4 segments side by side
+            xi = x64[:, i]
+            m = y64[:, i] * np.einsum("ld,ld->l", lanes, xi)
+            lanes -= ((-y64[:, i] / (1.0 + np.exp(m))) * a64[i])[:, None] * xi
+        merged, wt = lanes[0], float(rps)
+        for j in range(1, k):  # the merge tree: left to right, weights = rows folded
+            wa = wt / (wt + rps)
+            merged, wt = wa * merged + (1.0 - wa) * lanes[j], wt + rps
+        w = merged
+    f64_err = float(np.abs(res.model.cpu().double().numpy() - w).max())
+    if not f64_err <= SHARD_F64_TOL:
+        raise AssertionError(f"k = 4 clustered run is {f64_err:.3g} from its float64 replay")
+    log("sharded", f"logreg k = 4 H = 1 clustered, {SHARD_EPOCHS} epochs (cuda_fused, one 4-lane launch an epoch): "
+        f"max |w - w_float64| {f64_err:.3g} (<= {SHARD_F64_TOL}) against a float64 replay of the same blocks and "
+        f"merges")
+
+    # -- the merge ---------------------------------------------------------------
+    agg = eng._compile(hinted, rep.chosen).program.runner.agg
+    bank_models = torch.randn((4, d), generator=torch.Generator(device=dev).manual_seed(seed + 29), device=dev)
+    bank = uda.IGDState(bank_models, torch.full((4,), rps, dtype=torch.int32, device=dev),
+                        torch.full((4,), float(rps), device=dev))
+    merge_ms = event_ms(lambda: dp.merge_stacked(agg, bank, 4), 50)
+    log("sharded", f"merge tree of 4 lanes ([{d}] models, 3 merges): {merge_ms:.4f} ms (CUDA events, mean of 50)")
+
+    # -- 8 queries x 4 shards served as one fused sharded batch --------------
+    served = {}
+    for ordering in ("clustered", "shuffle_always"):
+        hints = {"ordering": ordering, "parallelism": "sharded", "num_shards": 4, "merge_period": 1,
+                 "implementation": "cuda_fused"}
+        queries = [engine.AnalyticsQuery(task="logreg", data=table, task_args={"dim": d}, tolerance=0.0, seed=s,
+                                          epochs=3 if s % 2 == 0 else 2, hints=hints)
+                   for s in range(SHARD_SERVE_QUERIES)]
+        srv = serve.ServingEngine(serve.ServeConfig(max_batch=SHARD_SERVE_QUERIES), engine=eng)
+        for q in queries:  # plan first: the walls below are warm
+            eng.explain(q)
+        K.reset_launches()
+        watch = timing.Stopwatch()
+        tickets = [srv.submit(q) for q in queries]
+        srv.drain()
+        torch.cuda.synchronize()
+        fused_s = watch.lap()
+        fused_launches = K.launches["igd_fold"]
+        launches["igd_fold"] += fused_launches
+        singles = [eng.run(q) for q in queries]
+        torch.cuda.synchronize()
+        single_s = watch.lap()
+        if srv.stats["batches"] != 1 or srv.stats["masked_batches"] != 1 or fused_launches != 3:
+            raise AssertionError(f"sharded serving {ordering}: {srv.stats}, {fused_launches} launches")
+        for t, single in zip(tickets, singles):
+            if t.error is not None or not torch.equal(t.result.model, single.model):
+                raise AssertionError(f"sharded serving {ordering}: a query differs from its own sharded run "
+                                     f"({t.error})")
+        served[ordering] = (SHARD_SERVE_QUERIES / fused_s, SHARD_SERVE_QUERIES / single_s)
+        log("sharded", f"{SHARD_SERVE_QUERIES} logreg queries x 4 shards ({4 * SHARD_SERVE_QUERIES} lanes, "
+            f"cuda_fused, {ordering}, budgets 3 and 2 alternating): one fused sharded batch, {fused_launches} "
+            f"igd_fold launches (one an epoch), drain {fused_s:.3f} s = {served[ordering][0]:.2f} queries/s; one at "
+            f"a time through Engine.run {single_s:.3f} s = {served[ordering][1]:.2f} queries/s "
+            f"({single_s / fused_s:.2f}x); every query equal to its own sharded run bit for bit")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel never launched on the sharded path: {launches}")
+
+    # -- the lane launches alone (CUDA events, after the counted runs): the
+    # k = 4 segments of an epoch beside the one-lane launch of the whole
+    # table; igd_fold_minibatch also on 4 x (n/4 - 1) rows, whose lane
+    # strides keep 16-byte boundaries (a trimmed view, for the timing only)
+    lane_ms = {}
+    base = catalog.get("logreg").step_size(n)(torch.arange(n, dtype=torch.int32, device=dev))
+    w1 = torch.zeros(d, device=dev)
+    for name, loss, iters in (("igd_fold", "lr", 3), ("igd_fold_minibatch", "lsq", 10)):
+        kernel = getattr(K, name)
+        layouts = {"1 lane": (table["x"], table["y"], base, w1)}
+        for label, r in (("4 lanes", rps), ("4 lanes, aligned", rps - 1)):
+            if label.endswith("aligned") and name == "igd_fold":
+                continue
+            xs4 = table["x"][:4 * r].view(4, r, d)
+            ys4 = table["y"][:4 * r].view(4, r)
+            layouts[label] = (xs4, ys4, comp(torch.arange(r, dtype=torch.int32, device=dev)).expand(4, r)
+                              .contiguous(), w1.expand(4, d).contiguous())
+        lane_ms[name] = {label: event_ms(lambda a=args: kernel(*a, loss=loss), iters)
+                         for label, args in layouts.items()}
+        log("sharded", f"{name} ({loss}, CUDA events): " + ", ".join(
+            f"{label} {ms:.4f} ms" for label, ms in lane_ms[name].items())
+            + f" (the whole {n} x {d} table an epoch; aligned = 4 x {rps - 1} rows)")
+    log("sharded", f"phase 3e took {phase.lap():.1f} s; sharded launches {launches}")
+    return {"launches": launches, "lane_err": lane_err, "epoch_ms": epoch_ms, "merge_ms": merge_ms,
+            "served": served, "lane_ms": lane_ms}
 
 
 def graph_ms(fn, iters: int) -> float:

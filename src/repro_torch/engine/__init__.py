@@ -23,7 +23,7 @@ from repro_torch.engine.program import CompiledProgram, EpochProgram, build_prog
 from repro_torch.engine.query import AnalyticsQuery  # noqa: F401
 from repro_torch.engine.serve import PlanStore, ServeConfig, ServingEngine, Ticket  # noqa: F401
 from repro_torch.engine.table import ChunkedTable  # noqa: F401
-from repro_torch.engine import probes, program, serve, sweep, table  # noqa: F401
+from repro_torch.engine import probes, program, serve, shard, sweep, table  # noqa: F401
 
 _DEFAULT = None
 

@@ -56,8 +56,10 @@ class TaskSpec:
     # remember — e.g. LMF's degree apportionment.
     derive_args: Optional[Callable[[dict, int], dict]] = None
     # Non-convex objective: model averaging across shards can cancel
-    # (factor rotations) instead of combine. Carried for the sharded
-    # plans' cap (the sharding slice); no singleton plan reads it.
+    # (factor rotations) instead of combine. The planner caps such a
+    # task's sharded plans at planner.NONCONVEX_SHARD_CAP shards (probe
+    # (f) probes at the capped count) and prices each shard's averaging
+    # loss into its convergence term; no singleton plan reads it.
     nonconvex: bool = False
     # Loss name in the fused-IGD kernel's dispatch table
     # (kernels/igd_fused: "lr" | "svm" | "lsq"), for techniques whose

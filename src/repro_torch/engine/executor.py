@@ -41,9 +41,10 @@ from repro_torch.core import ordering as ordering_lib
 from repro_torch.core.tracecount import count_build, fresh_counter
 from repro_torch.device import resolve_device
 from repro_torch.engine import catalog, planner as planner_lib, probes
-from repro_torch.engine import program as program_lib, table as table_lib
+from repro_torch.engine import program as program_lib, shard as shard_lib, table as table_lib
 from repro_torch.engine.query import AnalyticsQuery
 from repro_torch.kernels.igd_fused import kernel as igd_kernel
+from repro_torch.launch import mesh as mesh_lib
 
 _ORDERINGS = {
     "clustered": ordering_lib.Clustered,
@@ -172,12 +173,14 @@ class Engine:
         self._reports[key] = (columns, report)
         return report
 
-    @staticmethod
-    def _query_plan_key(query: AnalyticsQuery) -> Tuple:
+    def _query_plan_key(self, query: AnalyticsQuery) -> Tuple:
         return query.cache_key_fields() + (
             query.epochs,
             query.memory_budget_bytes,
             tuple(sorted(query.hints.items())),
+            # plans (and their probed shard placements) are only valid for
+            # the device count they were planned on
+            mesh_lib.shard_device_count(self.device),
         )
 
     # -- compiled-plan cache ----------------------------------------------
@@ -192,6 +195,7 @@ class Engine:
         task, agg = self._aggregate_for(query)
         program = program_lib.build_program(
             task, agg, program_lib.EpochProgram(plan=plan), counter=fresh_counter(),
+            device=self.device,
         )
         loss_counter = fresh_counter()
         count_build(loss_counter)
@@ -229,6 +233,8 @@ class Engine:
             report = self.explain(query)
             plan = report.chosen
         compiled = self._compile(query, plan)
+        if plan.parallelism == "sharded":
+            return shard_lib.execute(compiled, query, report, self)
         return _execute(compiled, query, report, self)
 
 

@@ -5,8 +5,10 @@ independent knobs —
 
     ordering policy (§3.2)  x  execution scheme (§3.3: serial fold,
     shared-nothing segmented fold, shared-memory concurrency; §3.4:
-    buffered MRS)  x  implementation of the serial lane body
-    (``torch_fold`` | ``cuda_fused`` | ``cuda_minibatch``) —
+    buffered MRS)  x  parallelism (one device, or sharded(k, H): k
+    shared-nothing shards as merge-period-H local SGD over d devices)
+    x  implementation of the serial lane body (``torch_fold`` |
+    ``cuda_fused`` | ``cuda_minibatch``) —
 
 and picks the cheapest plan under a cost model whose constants are
 measured by micro-probes (``repro_torch.engine.probes``) rather than
@@ -19,9 +21,13 @@ shuffled plan infeasible, which leaves MRS (§3.4).
 The data-source axis: over a stored table (``repro_torch.engine.table``)
 the clustered serial plan streams the chunk order (``source="table"``);
 every other plan materializes the table once through ``table.resolve``,
-which the source term prices. This slice of the port plans on one
-device: a hint for the sharded parallelism raises
-``NotImplementedError`` until the sharding slice.
+which the source term prices.
+
+The sharded parallelism (``repro_torch.engine.shard``) is enumerated
+from probe (f)'s measured mesh points, which exist only when the
+engine's kind has more than one device (``launch.mesh.shard_device_count``),
+or from a ``num_shards`` hint on any device count; the reference plans
+the same way.
 
 ``PlanReport.describe()`` renders the choice and every rejected
 candidate with its estimated cost — the engine's EXPLAIN.
@@ -35,7 +41,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from repro_torch.engine import probes, table as table_lib
+from repro_torch.engine import catalog, probes, table as table_lib
 from repro_torch.engine.program import IMPLEMENTATIONS, canonical_ordering
 from repro_torch.engine.query import AnalyticsQuery
 
@@ -55,30 +61,20 @@ CLUSTERED_PENALTY_CAP = 50.0
 # cost model claims no parallel speedup (it exists to reproduce Fig. 9's
 # convergence behavior, not to be fast).
 SM_OVERHEAD = 3.0
-
-# What each not-yet-ported axis value waits for (ROADMAP queue 1).
-_LATER = {
-    "sharded": "the sharding slice (engine/shard.py)",
-}
-# hint keys that only the later parallelism reads
-_LATER_HINT_KEYS = {
-    "num_shards": "sharded", "merge_period": "sharded",
-    "shard_devices": "sharded",
-}
-
-
-def _not_ported(what: str, value: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}={value!r} is not in this slice of the port; it comes with "
-        f"{_LATER[value]}"
-    )
+# Merge periods enumerated for sharded plans (filtered to divisors of the
+# epoch budget so a run builds ONE block length).
+MERGE_PERIOD_CANDIDATES = (1, 5, 10, 20)
+# Non-convex tasks (catalog ``nonconvex=True``): model averaging of
+# misaligned factors can cancel instead of combine — cap the shard count
+# (the reference measured tuple-partitioned lmf diverging at k=8 and
+# holding at k<=4).
+NONCONVEX_SHARD_CAP = 4
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """A fully physical execution plan. Hashable: part of the compiled-
-    plan cache key. In this slice every plan runs on one device; the
-    parallelism axis joins the plan with the sharding slice."""
+    plan cache key."""
 
     ordering: str  # clustered | shuffle_once | shuffle_always
     scheme: str = "serial"  # serial | segmented | shared_memory | mrs
@@ -92,6 +88,16 @@ class Plan:
     # kernel-eligible serial plans). cuda_minibatch: one mean-gradient
     # step per tile — different algorithm semantics, hint-only.
     implementation: str = "torch_fold"
+    # -- the parallel-execution axis (repro_torch.engine.shard) ------------
+    # singleton: one device runs the scheme above. sharded: the table is
+    # partitioned into num_shards shared-nothing segments laid out over
+    # shard_devices devices, trained as merge-period-H local SGD (serial
+    # folds per shard, the lanes of one kernel launch or one vmap a
+    # device; pure-UDA model-averaging merges).
+    parallelism: str = "singleton"  # singleton | sharded
+    num_shards: int = 1
+    merge_period: int = 1  # H: epochs between cross-shard merges
+    shard_devices: int = 1  # probed placement (shards / devices lanes each)
     # memory: the table is (or is materialized as) one resident table.
     # table: a stored table's chunk stream is folded in stored order —
     # picked for clustered serial plans over a stored table, where it
@@ -100,14 +106,27 @@ class Plan:
 
     def axes(self, batch: str = "1") -> str:
         """The composed-axes line (EXPLAIN's ``why``)."""
+        if self.parallelism == "sharded":
+            par = (
+                f"sharded(k={self.num_shards}, H={self.merge_period}, "
+                f"{self.shard_devices} dev)"
+            )
+        else:
+            par = f"singleton/{self.scheme}"
         return (
-            f"ordering={self.ordering} × parallelism=singleton/{self.scheme} × "
+            f"ordering={self.ordering} × parallelism={par} × "
             f"batch={batch} × source={self.source} × "
             f"implementation={self.implementation}"
         )
 
     def describe(self) -> str:
-        if self.scheme == "serial":
+        if self.parallelism == "sharded":
+            ex = (
+                f"sharded fold ({self.num_shards} shards over "
+                f"{self.shard_devices} device(s), merge every "
+                f"{self.merge_period} epoch(s))"
+            )
+        elif self.scheme == "serial":
             ex = "serial fold"
         elif self.scheme == "segmented":
             ex = (
@@ -260,7 +279,9 @@ def label_clusteredness(data) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _conv_multiplier(plan: Plan, clusteredness: float) -> Tuple[float, str]:
+def _conv_multiplier(
+    plan: Plan, clusteredness: float, nonconvex: bool = False
+) -> Tuple[float, str]:
     """Relative epochs-to-tolerance vs the shuffle-once serial baseline."""
     mult = 1.0
     note = ""
@@ -276,7 +297,16 @@ def _conv_multiplier(plan: Plan, clusteredness: float) -> Tuple[float, str]:
             note = f"label-clustered scan: ~{penalty:.0f}x more epochs"
     elif plan.ordering == "shuffle_always":
         mult *= 0.95  # marginally better per-epoch rate (paper Fig. 5)
-    if plan.scheme == "segmented":
+    if plan.parallelism == "sharded":
+        # the compensated step schedule keeps the averaged trajectory at
+        # the serial rate; a small staleness/averaging guard still breaks
+        # ties toward simpler plans when the measured speedup is marginal
+        mult *= (1.0 + 0.02 * (1.0 - 1.0 / plan.num_shards)
+                 + 0.02 * (1.0 - 1.0 / plan.merge_period))
+        if nonconvex:
+            # averaged non-convex factors lose real progress per merge
+            mult *= 1.0 + 0.1 * (plan.num_shards - 1)
+    elif plan.scheme == "segmented":
         mult *= 1.0 + 0.1 * (plan.num_segments - 1)  # model-averaging loss
     elif plan.scheme == "shared_memory":
         mult *= 1.1 if plan.sm_scheme != "lock" else 1.0
@@ -295,20 +325,27 @@ def cost_components(
     axes it prices: ``{"ordering": s, "parallelism": s, "source": s,
     "implementation": s}`` whose sum is :func:`program_cost`'s total.
 
-    A serial plan's lane body sits on the implementation axis, priced at
-    the probed rate of the chosen lowering (and the note gains the
-    measured us/epoch of every probed lane implementation); parallelism
-    is 0 there. Every other scheme keeps its compute under parallelism
-    (its lane body is defined by the scheme) with implementation = 0.
+    A serial singleton plan's lane body sits on the implementation axis,
+    priced at the probed rate of the chosen lowering (and the note gains
+    the measured us/epoch of every probed lane implementation);
+    parallelism is 0 there. Every other scheme, and the sharded
+    parallelism, keeps its compute under parallelism with
+    implementation = 0 (a sharded plan's note names its mesh probe).
     Source is the one materialization of a stored table by a plan that
     does not stream it."""
     n = query.n_examples
     fold_row = cal.fold_per_row
 
     # -- ordering axis: the cost of imposing the scan order --------------
-    shuffles = {"clustered": 0.0, "shuffle_once": 1.0,
-                "shuffle_always": est_epochs}[plan.ordering]
-    ordering = cal.shuffle_per_row * n * shuffles
+    if plan.parallelism == "sharded":
+        # shuffle orderings on the sharded path gather through the
+        # permutation every epoch, surcharged per epoch
+        gather_row = cal.shuffle_per_row if plan.ordering != "clustered" else 0.0
+        ordering = gather_row * n * est_epochs
+    else:
+        shuffles = {"clustered": 0.0, "shuffle_once": 1.0,
+                    "shuffle_always": est_epochs}[plan.ordering]
+        ordering = cal.shuffle_per_row * n * shuffles
 
     # -- source axis: getting the rows resident ---------------------------
     if table_lib.is_stored_table(query.data) and plan.source != "table":
@@ -316,8 +353,30 @@ def cost_components(
     else:
         source = 0.0
 
-    # -- parallelism axis: the epoch compute of a non-serial scheme -------
-    if plan.scheme == "serial":
+    # -- parallelism axis: the epoch compute + merges --------------------
+    if plan.parallelism == "sharded":
+        point = cal.shard.get(plan.num_shards)
+        if point is not None:
+            # mesh-probed, not modeled: steady-state local-epoch cost plus
+            # the fixed per-block cost at merge period H
+            blocks = math.ceil(est_epochs / plan.merge_period)
+            parallelism = point.epoch_seconds_per_row * n * est_epochs
+            parallelism += point.block_seconds * blocks
+            speedup = fold_row / max(point.epoch_seconds_per_row, 1e-12)
+            probe_note = (
+                f"mesh-probed {speedup:.2f}x/epoch over "
+                f"{point.devices} device(s)"
+            )
+        else:
+            # hint-forced without a probed mesh point (one device or an
+            # un-probed k): no claimed speedup
+            parallelism = fold_row * n * est_epochs
+            parallelism += cal.merge_seconds * plan.num_shards * math.ceil(
+                est_epochs / plan.merge_period
+            )
+            probe_note = "sharded without a mesh probe: modeled at serial cost"
+        note = f"{note}; {probe_note}" if note else probe_note
+    elif plan.scheme == "serial":
         parallelism = 0.0  # the lane body is priced on the impl axis below
     elif plan.scheme == "segmented":
         # measured batched segmented fold (interpolated off the probed
@@ -330,9 +389,9 @@ def cost_components(
     else:  # mrs: 1 I/O step + ratio memory steps per streamed tuple
         parallelism = fold_row * n * (1 + plan.mrs_ratio) * est_epochs
 
-    # -- implementation axis: the serial lane body -----------------------
+    # -- implementation axis: the serial singleton lane body -------------
     implementation = 0.0
-    if plan.scheme == "serial":
+    if plan.parallelism != "sharded" and plan.scheme == "serial":
         impl_row = (
             cal.impl_per_row.get(plan.implementation, fold_row)
             if plan.implementation != "torch_fold" else fold_row
@@ -366,13 +425,14 @@ def program_cost(
     cal: probes.Calibration,
     clusteredness: float,
     shuffle_feasible: bool,
+    nonconvex: bool = False,
 ) -> Candidate:
     """THE cost model: one function costs every point of the plan space
     from the same measured constants. A
     shuffled plan is infeasible (cost ``inf``) when the shuffled copy
     does not fit the query's memory budget."""
     epochs = max(query.epochs, 1)
-    mult, note = _conv_multiplier(plan, clusteredness)
+    mult, note = _conv_multiplier(plan, clusteredness, nonconvex)
     est_epochs = min(epochs * mult, epochs * CLUSTERED_PENALTY_CAP)
     if plan.ordering != "clustered" and not shuffle_feasible:
         return Candidate(
@@ -405,8 +465,7 @@ def _mrs_buffer_rows(query: AnalyticsQuery) -> int:
 
 
 def _check_hints(query: AnalyticsQuery, hints: dict, cal) -> None:
-    """Reject unknown and contradictory hints (ValueError), then hints
-    that name what a later slice brings (NotImplementedError)."""
+    """Reject unknown and contradictory hints (ValueError)."""
     if hints.get("source") == "table" and not table_lib.is_stored_table(query.data):
         raise ValueError(
             "source='table' needs the query's data to be a stored Table "
@@ -445,19 +504,73 @@ def _check_hints(query: AnalyticsQuery, hints: dict, cal) -> None:
             "the shuffle); it cannot be combined with an ordering hint of "
             f"{hints['ordering']!r}"
         )
-    if hints.get("parallelism", "singleton") != "singleton":
-        raise _not_ported("parallelism", hints["parallelism"])
-    for key, value in _LATER_HINT_KEYS.items():
-        if key in hints:
-            raise _not_ported(f"{key} hint implies parallelism", value)
+    if hints.get("parallelism") == "sharded" and hints.get("scheme") not in (None, "serial"):
+        raise ValueError(
+            "parallelism='sharded' implies scheme='serial' (each shard "
+            "runs the serial fold; segmentation IS the parallelism) — "
+            f"conflicting scheme hint {hints['scheme']!r}"
+        )
+
+
+def _merge_periods(epochs: int, hints: dict) -> List[int]:
+    if "merge_period" in hints:
+        h = int(hints["merge_period"])
+        if h < 1:
+            raise ValueError(f"merge_period hint must be >= 1 epoch, got {h}")
+        return [h]
+    epochs = max(epochs, 1)
+    cands = [h for h in MERGE_PERIOD_CANDIDATES if h <= epochs and epochs % h == 0]
+    return cands or [1]
+
+
+def _sharded_plans(query: AnalyticsQuery, cal, hints: dict, orderings: List[str]) -> List[Plan]:
+    """Sharded candidates: mesh-probed shard counts that divide the table
+    (or a hint-forced configuration), one per merge period. The intra-
+    shard epoch is the serial fold — segmentation IS the parallelism.
+    Non-convex tasks are capped at NONCONVEX_SHARD_CAP shards (an
+    explicit num_shards hint overrides)."""
+    n = query.n_examples
+    plans: List[Plan] = []
+    if "num_shards" in hints:
+        ks = [int(hints["num_shards"])]
+    elif cal is not None:
+        ks = sorted(cal.shard)
+        try:
+            if catalog.get(query.task).nonconvex:
+                ks = [min(k, NONCONVEX_SHARD_CAP) for k in ks]
+        except KeyError:
+            pass
+    else:
+        ks = []
+    for k in dict.fromkeys(ks):
+        if k < 1 or n % k:
+            continue
+        point = cal.shard.get(k) if cal is not None else None
+        d = point.devices if point is not None else 1
+        # placement is normally mesh-probed; the hint is the escape
+        # hatch for forced-topology smokes and experiments
+        d = int(hints.get("shard_devices", d))
+        if d < 1 or k % d:
+            if "num_shards" in hints:
+                # both sides explicitly forced and incompatible: say so
+                raise ValueError(f"shard_devices={d} must divide num_shards={k}")
+            continue  # a probe-derived k this hint can't place: skip it
+        for o in orderings:
+            for h in _merge_periods(query.epochs, hints):
+                plans.append(Plan(
+                    o, "serial", parallelism="sharded", num_shards=k,
+                    merge_period=h, shard_devices=d,
+                ))
+    return plans
 
 
 def enumerate_plans(query: AnalyticsQuery, cal=None) -> List[Plan]:
-    """Every singleton plan the hints admit: ordering × scheme (the
-    segment counts that divide the table, each shared-memory scheme, one
-    MRS plan over the stored order) × the data source (a stored table's
-    clustered serial plan streams its chunks) × the implementation of the
-    serial lane body."""
+    """Every plan the hints admit: ordering × scheme (the segment counts
+    that divide the table, each shared-memory scheme, one MRS plan over
+    the stored order) × parallelism (the sharded plans of the probed
+    mesh points or of a ``num_shards`` hint, one per merge period) × the
+    data source (a stored table's clustered serial singleton plan streams
+    its chunks) × the implementation of the serial lane body."""
     hints = dict(query.hints)
     if "ordering" in hints:
         # one source of truth for the IR's ordering names
@@ -470,43 +583,55 @@ def enumerate_plans(query: AnalyticsQuery, cal=None) -> List[Plan]:
     orderings = [hints["ordering"]] if "ordering" in hints else list(ORDERINGS)
     schemes = [hints["scheme"]] if "scheme" in hints else list(SCHEMES)
     plans: List[Plan] = []
-    for o in orderings:
-        for s in schemes:
-            if s == "serial":
-                plans.append(Plan(o))
-            elif s == "segmented":
-                ks = (
-                    [hints["num_segments"]]
-                    if "num_segments" in hints
-                    else [k for k in SEGMENT_CANDIDATES if n % k == 0]
-                )
-                plans.extend(Plan(o, "segmented", num_segments=k) for k in ks)
-            elif s == "shared_memory":
-                plans.extend(
-                    Plan(o, "shared_memory", sm_scheme=sm) for sm in SM_SCHEMES
-                )
-            elif s == "mrs" and (o == "clustered" or "scheme" in hints):
-                # MRS exists to avoid the shuffle: stream stored order
-                plans.append(Plan(
-                    "clustered", "mrs", mrs_buffer=_mrs_buffer_rows(query),
-                ))
-    # -- the data-source axis: a stored table's clustered serial plan
-    # streams the chunk order; every other plan needs random access and
-    # materializes
+    if hints.get("parallelism") != "sharded":
+        for o in orderings:
+            for s in schemes:
+                if s == "serial":
+                    plans.append(Plan(o))
+                elif s == "segmented":
+                    ks = (
+                        [hints["num_segments"]]
+                        if "num_segments" in hints
+                        else [k for k in SEGMENT_CANDIDATES if n % k == 0]
+                    )
+                    plans.extend(Plan(o, "segmented", num_segments=k) for k in ks)
+                elif s == "shared_memory":
+                    plans.extend(
+                        Plan(o, "shared_memory", sm_scheme=sm) for sm in SM_SCHEMES
+                    )
+                elif s == "mrs" and (o == "clustered" or "scheme" in hints):
+                    # MRS exists to avoid the shuffle: stream stored order
+                    plans.append(Plan(
+                        "clustered", "mrs", mrs_buffer=_mrs_buffer_rows(query),
+                    ))
+    if (
+        hints.get("parallelism") in (None, "sharded")
+        and hints.get("scheme") in (None, "serial")
+        and query.epochs >= 1
+    ):
+        plans.extend(_sharded_plans(query, cal, hints, orderings))
+    if hints.get("parallelism") == "sharded" and not plans:
+        raise ValueError(
+            "parallelism='sharded' needs a probed mesh point or an explicit "
+            "num_shards hint that divides the table"
+        )
+    # -- the data-source axis: a stored table's clustered serial singleton
+    # plan streams the chunk order; every other plan needs random access
+    # and materializes
     if table_lib.is_stored_table(query.data):
-        plans = [
-            dataclasses.replace(p, source="table")
-            if p.ordering == "clustered" and p.scheme == "serial" else p
-            for p in plans
-        ]
+        def streams(p: Plan) -> bool:
+            return (p.ordering == "clustered" and p.scheme == "serial"
+                    and p.parallelism == "singleton")
+
+        plans = [dataclasses.replace(p, source="table") if streams(p) else p for p in plans]
         if hints.get("source") == "table":
             plans = [p for p in plans if p.source == "table"]
             if not plans:
                 raise ValueError(
                     "source='table' streams the stored chunk order: it "
-                    "requires ordering='clustered' (or 'sequential') and "
-                    "scheme='serial' — the other hints exclude every "
-                    "streaming plan"
+                    "requires ordering='clustered' (or 'sequential'), "
+                    "scheme='serial', parallelism='singleton' — the "
+                    "other hints exclude every streaming plan"
                 )
         elif hints.get("source") == "memory":
             plans = [dataclasses.replace(p, source="memory") for p in plans]
@@ -518,12 +643,14 @@ def enumerate_plans(query: AnalyticsQuery, cal=None) -> List[Plan]:
         "cuda_fused"
     ) is not None:
         # auto: enumerate the kernel lane next to the eager fold for serial
-        # plans — the probe-derived choice falls out of the ranking.
-        # cuda_minibatch is never auto-chosen (one averaged step per tile
-        # is a different algorithm, not a faster identical one).
+        # singleton plans — the probe-derived choice falls out of the
+        # ranking. cuda_minibatch is never auto-chosen (one averaged step
+        # per tile is a different algorithm, not a faster identical one)
+        # and sharded plans keep their mesh-probed eager lanes, as the
+        # reference's keep their xla lanes.
         plans.extend([
             dataclasses.replace(p, implementation="cuda_fused")
-            for p in plans if p.scheme == "serial"
+            for p in plans if p.scheme == "serial" and p.parallelism == "singleton"
         ])
     return list(dict.fromkeys(plans))  # Plan is frozen/hashable
 
@@ -555,8 +682,12 @@ def plan(query: AnalyticsQuery, cal: probes.Calibration) -> PlanReport:
         query.memory_budget_bytes is None
         or query.data_bytes <= query.memory_budget_bytes
     )
+    try:
+        nonconvex = catalog.get(query.task).nonconvex
+    except KeyError:
+        nonconvex = False
     cands = [
-        program_cost(p, query, cal, clustered, shuffle_feasible)
+        program_cost(p, query, cal, clustered, shuffle_feasible, nonconvex)
         for p in enumerate_plans(query, cal)
     ]
     if not cands:

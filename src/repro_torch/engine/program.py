@@ -24,8 +24,16 @@ and any batch width:
 
 The non-serial schemes run eagerly and have no kernel form: a ``cuda_*``
 implementation with any scheme but ``serial`` is refused, as the
-reference refuses ``pallas_*``. Sharding is refused by the planner with
-``NotImplementedError`` naming the slice that brings it.
+reference refuses ``pallas_*``.
+
+* **parallelism** — ``singleton`` (one device runs the scheme above) or
+  ``sharded(k, H)`` (paper §3.3 at device scale): k contiguous
+  shared-nothing segments trained as merge-period-H local SGD with the
+  compensated schedule ``k * alpha(k * t)``, laid out over d devices
+  (:func:`build_shard_block`, driven by ``repro_torch.engine.shard``).
+  Each device's k/d shards are the lanes of ONE fused-IGD kernel launch
+  an epoch (``cuda_*``) or of one ``torch.func.vmap`` over the eager fold
+  (``torch_fold``); k = 1 is the singleton run bit for bit.
 
 * **data source** — ``memory`` (one resident table) or ``table`` (a
   stored table's chunk stream, ``repro_torch.engine.table``): the
@@ -70,6 +78,7 @@ from repro_torch.core import mrs as mrs_lib, ordering as ordering_lib
 from repro_torch.core import parallel as parallel_lib, tree, uda as uda_lib
 from repro_torch.core.tracecount import count_build, fresh_counter
 from repro_torch.core.tree import tree_map
+from repro_torch.dist import data_parallel as dp
 
 # "sequential" is the stored order by another name (the storage layer
 # just didn't cluster it); the IR canonicalizes so downstream code has
@@ -150,19 +159,25 @@ class CompiledProgram:
       examples, draws) -> state``, one epoch of the plan's scheme over
       the epoch's stream (for ``source="table"`` an iterable of chunks);
       ``draws`` is the epoch's ``core.draws.EpochDraws``. For MRS plans
-      the state is the carry ``(state, buf_a, buf_b, active)``;
+      the state is the carry ``(state, buf_a, buf_b, active)``. A sharded
+      plan has a ``runner`` (:class:`ShardedRunner`) instead, driven by
+      ``repro_torch.engine.shard``;
     * fused (``epochs >= 1``) — ``run_fn(states, examples, lane_draws,
       budgets)`` runs the WHOLE masked multi-epoch batch; ``init_fn``,
       ``loss_fn`` and (mode ``"fixed"`` under shuffle_once) ``prep_fn``
-      beside it, see :func:`_build_fused`."""
+      beside it, see :func:`_build_fused`. A fused sharded batch (mode
+      ``"sharded"``) carries only ``init_fn`` and ``loss_fn``: its blocks
+      are the singleton compile's runner's (``runner.block(..., batch=B)``)."""
 
     program: EpochProgram
     task: Any
     agg: Any
     trace_counter: Dict[str, int]
     epoch_fn: Optional[Callable] = None
+    # a sharded plan's blocks (driver-paced, batch == 1)
+    runner: Optional["ShardedRunner"] = None
     # fused-batch fields
-    mode: Optional[str] = None  # "fused" | "fixed"
+    mode: Optional[str] = None  # "fused" | "fixed" | "sharded"
     run_fn: Optional[Callable] = None
     prep_fn: Optional[Callable] = None
     init_fn: Optional[Callable] = None
@@ -325,6 +340,338 @@ def _kernel_lane_for(task, agg, implementation: str):
     return kernel_lane_fold(
         agg, loss, minibatch=implementation == "cuda_minibatch"
     )
+
+
+# ---------------------------------------------------------------------------
+# sharded compositions: step compensation + the local-SGD blocks
+# ---------------------------------------------------------------------------
+
+# the epoch stream of each ordering under the sharded parallelism
+SHARD_MODES = {
+    "clustered": "segments",
+    "shuffle_once": "perm_once",
+    "shuffle_always": "perm_epoch",
+}
+
+
+def compensated_step_size(step_size: Callable, num_shards: int) -> Callable:
+    """The linear-scaling schedule for k-way model averaging: shard step
+    counters advance once per *local* example and averaging k lane
+    displacements shrinks the effective step by ~k, so shards run
+    ``alpha'(t) = k * alpha(k * t)`` (in float32, in the reference's
+    order: the int32 product ``k * t``, then the schedule, then the
+    product by k). Identity at k=1 — the singleton path is untouched."""
+    if num_shards == 1:
+        return step_size
+
+    def compensated(t):
+        return num_shards * step_size(num_shards * torch.as_tensor(t))
+
+    return compensated
+
+
+def compensated_aggregate(agg, num_shards: int):
+    """The aggregate the shards fold with: same transition/merge, the
+    compensated schedule."""
+    if num_shards == 1:
+        return agg
+    return dataclasses.replace(
+        agg, step_size=compensated_step_size(agg.step_size, num_shards)
+    )
+
+
+def _bank_select(keep, new, old):
+    """``_lane_select`` over the query axis of a lane bank: every leaf is
+    ``[lanes, B, ...]`` and ``keep[B]`` gates axis 1."""
+    return tree_map(
+        lambda a, b: torch.where(keep.view((1, -1) + (1,) * (a.dim() - 2)), a, b),
+        new, old,
+    )
+
+
+def _flat_lanes(bank):
+    """A ``[lanes, B, ...]`` bank as ``[lanes * B, ...]`` (shard-major)."""
+    return tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), bank)
+
+
+def _kernel_bank(agg, loss: str, minibatch: bool):
+    """The kernel lane body over a bank of lane states (every leaf
+    ``[L, ...]``) and segments ``x [S, rows, d]``, ``y [S, rows]`` with S
+    dividing L: ONE lane launch, lane l reading segment ``l // (L / S)``
+    (``kernel.lanes_per_xy``). A bank of one lane is the singleton launch
+    itself, so k = 1 is the singleton run bit for bit."""
+    lane = kernel_lane_fold(agg, loss, minibatch=minibatch)
+
+    def run(bank, x, y):
+        if x.shape[0] == 1 and bank.step.shape[0] == 1:
+            one = lane(tree_map(lambda v: v[0], bank), {"x": x[0], "y": y[0]})
+            return tree_map(lambda v: v[None], one)
+        return lane(bank, {"x": x, "y": y})
+
+    return run
+
+
+def _gather_rows(table, perm):
+    """``table``'s rows at ``perm`` (any index shape), one gather a column."""
+    return {k: v[perm] for k, v in table.items()}
+
+
+def build_shard_block(
+    agg,
+    devices,
+    *,
+    num_shards: int,
+    block_len: int,
+    mode: str,
+    n_rows: int,
+    batch: int = 0,
+    implementation: str = "torch_fold",
+    kernel_loss: Optional[str] = None,
+) -> Callable:
+    """One merge-period block: ``block_len`` local epochs on every shard
+    lane, then one global merge, over ``devices`` (d devices, k/d lanes
+    each; single controller). ``agg`` is the compensated aggregate.
+
+    ``mode`` selects the epoch stream (mirroring the ordering axis); the
+    inputs are per device, as ``repro_torch.engine.shard`` places them:
+
+    * ``"segments"``   — ``block(state, segs)``: contiguous per-lane
+      segments ``[lanes, rows, ...]`` on each device (clustered
+      ordering; the kernel lanes' shuffle_once too, whose permuted rows
+      the placement gathers once);
+    * ``"perm_once"``  — ``block(state, tables, perms)``: the table
+      replicated, per-lane permutation slices ``[lanes, rows]`` re-used
+      every epoch (shuffle_once of the eager lanes);
+    * ``"perm_epoch"`` — ``block(state, tables, draws)``: a fresh
+      permutation every epoch from the run's draws, in the singleton
+      executor's order (the permutation, then ``epoch()``) — the
+      shuffle_always stream. ``draws`` is the run's ``RunDraws`` (a list
+      of B of them for a batch).
+
+    ``state`` is ONE aggregate state in and out, on the first device:
+    lanes start from it with their weight zeroed (a partial state carries
+    only its own contribution — see ``uda.segmented_fold``), and the
+    block ends with the merge tree (each device's lanes left to right,
+    then the d device partials; ``dist.data_parallel``) and the weight
+    restored to ``weight_in + block_len * n_rows``.
+
+    ``batch = B > 0`` is the fused-serving variant: the state carries a
+    leading query axis of B lanes (a lane bank is ``[lanes, B, ...]``)
+    and the block takes two more arguments ``(budgets, done)``: the
+    lanes' epoch budgets (a tensor on the first device) and the epochs
+    completed before this block. An epoch keeps a query's old lane
+    states once its budget is spent, so a frozen query's partials stop
+    moving and the block-end merge is the one its own shorter run makes.
+
+    Lane bodies, by ``implementation``:
+
+    * ``torch_fold`` — ``torch.func.vmap`` over the eager fold (or
+      ``uda.gather_fold`` through the permutation), as
+      ``uda.segmented_fold`` does; one lane runs the fold itself, so
+      k = 1 is the singleton run bit for bit;
+    * ``cuda_fused`` / ``cuda_minibatch`` — ONE lane launch of the
+      fused-IGD kernel a device an epoch, over the stacked segments
+      (``x [lanes, rows, d]``, a view of the table for clustered). The
+      B queries of a batch share each segment: lane ``s * B + q`` reads
+      segment s (``kernel.lanes_per_xy``), so no segment is copied.
+      Permuted modes gather each lane's rows first, one permuted copy of
+      the table per query (``perm_epoch`` every epoch; ``perm_once``
+      once, at placement).
+    """
+    d = len(devices)
+    if num_shards % d:
+        raise ValueError(f"{num_shards} shards not divisible by {d} devices")
+    if mode not in ("segments", "perm_once", "perm_epoch"):
+        raise ValueError(f"unknown block mode {mode!r}")
+    lanes = num_shards // d
+    rows = n_rows // num_shards
+    batched = batch > 0
+    kernel = implementation != "torch_fold"
+    if kernel:
+        if kernel_loss is None:
+            raise ValueError(
+                f"implementation={implementation!r} shard blocks need the "
+                "kernel_loss resolved by the caller (require_kernel_loss)"
+            )
+        bank_fn = _kernel_bank(agg, kernel_loss, implementation == "cuda_minibatch")
+        if mode == "perm_once":
+            raise ValueError("kernel lanes take shuffle_once as gathered segments (mode 'segments')")
+
+    def fold(s, ex):
+        return uda_lib.fold(agg, s, ex)
+
+    def gfold(s, table, p):
+        return uda_lib.gather_fold(agg, s, table, p)
+
+    def eager_epoch(bank, ex, perms, table):
+        """One eager epoch of a device's lane bank: ``ex`` segments
+        ``[lanes, rows, ...]`` (shared by the B queries) or ``perms``
+        ``[lanes, (B,) rows]`` through ``table``."""
+        one = lanes == 1 and (not batched or batch == 1)
+        if one:
+            s0 = tree_map(lambda v: v.reshape(v.shape[2:] if batched else v.shape[1:]), bank)
+            if perms is None:
+                out = fold(s0, tree_map(lambda v: v[0], ex))
+            else:
+                out = gfold(s0, table, perms.reshape(-1))
+            return tree_map(lambda v: v.reshape((1,) * (2 if batched else 1) + tuple(v.shape)), out)
+        if perms is None:
+            inner = torch.func.vmap(fold, in_dims=(0, None)) if batched else fold
+            return torch.func.vmap(inner, in_dims=(0, 0))(bank, ex)
+        one_perm = lambda s, p: gfold(s, table, p)  # noqa: E731
+        inner = torch.func.vmap(one_perm) if batched else one_perm
+        return torch.func.vmap(inner)(bank, perms)
+
+    def kernel_epoch(bank, x, y):
+        """One lane launch over a device's bank: ``x [lanes, rows, d]``
+        shared by the B queries, or ``[lanes, B, rows, d]`` per query."""
+        flat = _flat_lanes(bank) if batched else bank
+        out = bank_fn(flat, x.reshape((-1,) + tuple(x.shape[-2:])), y.reshape(-1, y.shape[-1]))
+        if batched:
+            out = tree_map(lambda v: v.reshape((lanes, batch) + tuple(v.shape[1:])), out)
+        return out
+
+    def lane_start(state, dev):
+        # partial states carry only their own contribution to the merge
+        state = tree_map(lambda v: v.to(dev), state)
+        if isinstance(state, uda_lib.IGDState):
+            state = uda_lib.IGDState(state.model, state.step, torch.zeros_like(state.weight))
+        return tree_map(lambda v: v[None].expand((lanes,) + tuple(v.shape)).contiguous(), state)
+
+    def lane_end(merged, state_in):
+        if isinstance(merged, uda_lib.IGDState):
+            folded = torch.tensor(float(block_len * n_rows), dtype=torch.float32,
+                                  device=state_in.weight.device)
+            return uda_lib.IGDState(merged.model, merged.step, state_in.weight + folded)
+        return merged
+
+    def merge_tree(banks):
+        partials = [dp.merge_stacked(agg, b, lanes, batched=batched) for b in banks]
+        return dp.device_merge(agg, partials, batched=batched)
+
+    def local_perm(perm, i):
+        """Device i's lanes' slice of a permutation ``[..., n]`` as
+        ``[lanes, (B,) rows]`` on that device."""
+        part = perm[..., i * lanes * rows:(i + 1) * lanes * rows]
+        if batched:
+            return part.reshape(batch, lanes, rows).transpose(0, 1).to(devices[i])
+        return part.reshape(lanes, rows).to(devices[i])
+
+    def run(state_in, step_devices, budgets=None, done=0):
+        banks = [lane_start(state_in, dev) for dev in devices]
+        for t in range(block_len):
+            new = step_devices(banks)
+            if batched:
+                keep = (done + t) < budgets
+                banks = [_bank_select(keep.to(dev), n_, o_) for dev, n_, o_ in zip(devices, new, banks)]
+            else:
+                banks = new
+        return lane_end(merge_tree(banks), state_in)
+
+    def draw(draws):
+        """This epoch's permutation(s), in the singleton executor's order:
+        the ordering's draw, then the epoch's."""
+        if batched:
+            perm = torch.stack([ld.permutation() for ld in draws])
+            for ld in draws:
+                ld.epoch()
+        else:
+            perm = draws.permutation()
+            draws.epoch()
+        return perm
+
+    if mode == "segments":
+        def block(state, segs, *masks):
+            if kernel:
+                step = lambda banks: [kernel_epoch(b, s["x"], s["y"]) for b, s in zip(banks, segs)]  # noqa: E731
+            else:
+                step = lambda banks: [eager_epoch(b, s, None, None) for b, s in zip(banks, segs)]  # noqa: E731
+            return run(state, step, *masks)
+    elif mode == "perm_once":
+        def block(state, tables, perms, *masks):
+            return run(state, lambda banks: [eager_epoch(b, None, p, tab)
+                                             for b, p, tab in zip(banks, perms, tables)], *masks)
+    else:
+        def block(state, tables, draws, *masks):
+            def step(banks):
+                perm = draw(draws)
+                out = []
+                for i, (b, tab) in enumerate(zip(banks, tables)):
+                    p = local_perm(perm, i)
+                    if kernel:
+                        g = _gather_rows(tab, p)
+                        out.append(kernel_epoch(b, g["x"], g["y"]))
+                    else:
+                        out.append(eager_epoch(b, None, p, tab))
+                return out
+            return run(state, step, *masks)
+
+    return block
+
+
+class ShardedRunner:
+    """The sharded blocks of one (query key, plan), on the engine's
+    device and the devices after it.
+
+    Lives in the executor's compiled-plan cache as the plan's runner:
+    repeat queries reuse the built blocks (the build counter stays flat —
+    the same observable as the singleton executor). Blocks are keyed by
+    ``(mode, block_len, n_rows, batch)``: the last block of a run may be
+    shorter (``epochs % H``), and fused batches share the cache."""
+
+    def __init__(self, task, agg, plan, trace_counter: Dict[str, int], device):
+        from repro_torch.launch import mesh as mesh_lib
+
+        self.task = task
+        self.agg = agg  # the registered aggregate (merges, init, terminate)
+        self.agg_sharded = compensated_aggregate(agg, plan.num_shards)
+        self.plan = plan
+        self.trace_counter = trace_counter
+        self.devices = mesh_lib.shard_devices(plan.shard_devices, device)
+        self.implementation = plan.implementation
+        if self.implementation not in IMPLEMENTATIONS:
+            raise ValueError(
+                f"unknown implementation {self.implementation!r}; valid: {IMPLEMENTATIONS}"
+            )
+        self.kernel_loss = (
+            require_kernel_loss(task, self.agg_sharded, self.implementation)
+            if self.implementation != "torch_fold" else None
+        )
+        self._blocks: Dict[Tuple, Callable] = {}
+        # repeat queries over the same live table skip re-partitioning /
+        # re-placing it (leaf identity, like Engine._reports; entries pin
+        # their leaves so ids cannot be recycled)
+        self._placed: Dict[Tuple, Tuple] = {}
+
+    @property
+    def kernel(self) -> bool:
+        return self.implementation != "torch_fold"
+
+    def placed(self, key: Tuple, leaves_: Tuple, build: Callable):
+        hit = self._placed.get(key)
+        if hit is not None:
+            return hit[1]
+        value = build()
+        while len(self._placed) >= 8:
+            self._placed.pop(next(iter(self._placed)))
+        self._placed[key] = (leaves_, value)
+        return value
+
+    def block(self, mode: str, block_len: int, n_rows: int, batch: int = 0) -> Callable:
+        """The block of ``block_len`` epochs in ``mode``; ``batch = B``
+        is the fused-serving variant (a query axis of B lanes with
+        per-lane epoch budgets, for every ordering)."""
+        key = (mode, block_len, n_rows, batch)
+        fn = self._blocks.get(key)
+        if fn is None:
+            fn = build_shard_block(
+                self.agg_sharded, self.devices, num_shards=self.plan.num_shards,
+                block_len=block_len, mode=mode, n_rows=n_rows, batch=batch,
+                implementation=self.implementation, kernel_loss=self.kernel_loss,
+            )
+            count_build(self.trace_counter)
+            self._blocks[key] = fn
+        return fn
 
 
 # ---------------------------------------------------------------------------
@@ -495,15 +842,29 @@ def build_program(
     prog: EpochProgram,
     *,
     counter: Optional[Dict[str, int]] = None,
+    device=None,
 ) -> CompiledProgram:
     """Lower ``prog`` to its callables: the executor's driver-paced
     epoch (``batch == 1``, ``epochs == 0``; a stored table's chunk stream
-    for ``source='table'``) or the serving front end's fused run
-    (``epochs >= 1``; B = 1 is a valid single-lane run)."""
+    for ``source='table'``; a sharded plan's runner, whose blocks are laid
+    out from ``device``, the engine's device, on) or the serving front
+    end's fused run (``epochs >= 1``; B = 1 is a valid single-lane run)."""
     counter = counter if counter is not None else fresh_counter()
     plan = prog.plan
     if prog.batch < 1:
         raise ValueError(f"batch must be >= 1, got {prog.batch}")
+    sharded = getattr(plan, "parallelism", "singleton") == "sharded"
+    if sharded and plan.scheme != "serial":
+        raise ValueError(
+            f"a sharded plan runs the serial fold on each shard; got scheme={plan.scheme!r}"
+        )
+    if prog.batch == 1 and prog.epochs == 0 and sharded:
+        # driver-paced: repro_torch.engine.shard loops blocks (and stop
+        # rules) around the runner's blocks, which count their builds
+        return CompiledProgram(
+            program=prog, task=task, agg=agg, trace_counter=counter,
+            runner=ShardedRunner(task, agg, plan, counter, device),
+        )
     if prog.batch == 1 and prog.epochs == 0:
         if plan.source == "table":
             epoch_fn = build_chunk_epoch_fn(task, agg, plan)
@@ -522,6 +883,24 @@ def build_program(
         raise ValueError(
             f"a fused program runs a fixed epoch bound: epochs must be >= 1, got {prog.epochs}"
         )
+    if sharded:
+        if not prog.shared_table:
+            raise ValueError(
+                "fused sharded batches require one shared table (per-query "
+                "segment banks would multiply the partitioned footprint)"
+            )
+        # the blocks come from the singleton compile's runner
+        # (runner.block(..., batch=B)), so fused and singleton queries share
+        # them; this program carries the lane-wise init and loss
+        compiled = CompiledProgram(
+            program=prog, task=task, agg=agg, trace_counter=counter, mode="sharded",
+            init_fn=lambda lane_draws: _stack([
+                uda_lib.initial_state(ld.initial_model(task)) for ld in lane_draws]),
+            loss_fn=lambda models, data: torch.stack([
+                task.full_loss(_lane(models, b), data) for b in range(prog.batch)]),
+        )
+        count_build(counter)
+        return compiled
     compiled = _build_fused(task, agg, prog, counter)
     count_build(counter)
     return compiled

@@ -21,9 +21,14 @@ with three mechanisms:
   (``core.draws.lane_streams``), so a fused query returns what its
   ``Engine.run`` returns. Kernel lanes (``cuda_fused``/``cuda_minibatch``)
   are ONE lane launch of the fused-IGD kernel an epoch, a block (or a
-  cluster) a lane. Queries with an early-stop rule (``tolerance``/
-  ``target_loss``), a memory budget, an MRS plan or a stored-table source
-  keep per-query control flow and run singleton through ``Engine.run``.
+  cluster) a lane. Sharded plans fuse too, for every ordering: the B
+  queries' lanes ride the plan's local-SGD blocks with a query axis
+  (``runner.block(..., batch=B)``; for kernel lanes ONE launch of k × B lanes
+  a device an epoch over the one partitioned table) — over ONE shared
+  table only: queries over distinct tables run singleton. Queries with
+  an early-stop rule (``tolerance``/``target_loss``), a memory budget,
+  an MRS plan or a stored-table source keep per-query control flow and
+  run singleton through ``Engine.run``.
 
 * **Persistent plan cache** (``PlanStore``): the planner's artifacts —
   chosen plan, full EXPLAIN report, micro-probe calibration — persisted
@@ -34,7 +39,7 @@ with three mechanisms:
 The reference's operational telemetry (its obs spans and metrics, the
 gauges, the flight recorder, SLO monitoring and the EXPLAIN ANALYZE
 drift reports the store keeps beside each plan) comes with the port's
-obs slice; its fused sharded batches come with the sharding slice.
+obs slice (ROADMAP queue 1 item 6).
 
 Typical use::
 
@@ -73,7 +78,10 @@ from repro_torch.kernels.igd_fused import kernel as igd_kernel
 # version-mismatched entries read as a miss and are rewritten.
 # v1: Plan with the source and implementation axes; Calibration with
 # the eager fold's one rate, the segmented points and the kernel lanes.
-FORMAT_VERSION = 1
+# v2: Plan grew the parallelism axis (parallelism, num_shards,
+# merge_period, shard_devices); Calibration the sharded mesh points
+# (shard) and device_count.
+FORMAT_VERSION = 2
 STORE_DIR = "torch"
 
 # bound on retained fused programs, one per (query key, plan, batch
@@ -330,19 +338,28 @@ class ServingEngine:
                 head.result = self.engine.run(head.query)
                 head.done_s = timing.now()
                 self.stats["singleton_queries"] += 1
-            else:
-                self._run_batch(group, key[1])
+            elif self._run_batch(group, key[1]):
                 self.stats["batches"] += 1
                 self.stats["batched_queries"] += len(group)
                 self.stats["fused_lanes"] += len(group)
                 if len({t.query.epochs for t in group}) > 1:
                     self.stats["masked_batches"] += 1
+            else:
+                # the group declined fusion at run time (a sharded plan
+                # over distinct tables): served singleton, still done
+                self.stats["singleton_queries"] += len(group)
         except Exception as e:  # noqa: BLE001 — record on the tickets, keep serving
             now = timing.now()
+            errored = 0
             for t in group:
-                t.error = f"{type(e).__name__}: {e}"
-                t.done_s = now
-            self.stats["failed_queries"] += len(group)
+                if t.done_s is None:
+                    t.error = f"{type(e).__name__}: {e}"
+                    t.done_s = now
+                    errored += 1
+            self.stats["failed_queries"] += errored
+            # tickets already served (the sharded distinct-table fallback
+            # completes them one by one) are successes, not casualties
+            self.stats["singleton_queries"] += len(group) - errored
         return len(group)
 
     def drain(self) -> int:
@@ -397,10 +414,18 @@ class ServingEngine:
             )
             t.done_s = done
 
+    def _batched_put(self, key: Tuple, compiled: program_lib.CompiledProgram) -> None:
+        """Cache a fused program; the bounded cache evicts first-in
+        first-out."""
+        while len(self._batched) >= MAX_COMPILED_BATCHES:
+            self._batched.pop(next(iter(self._batched)))
+        self._batched[key] = compiled
+
     def _batched_compile(self, query: AnalyticsQuery, plan: planner_lib.Plan, batch: int,
                          shared_table: bool, epochs: int) -> program_lib.CompiledProgram:
-        """Build (or fetch) the fused program for this group shape; the
-        bounded cache evicts first-in first-out."""
+        """Build (or fetch) the fused program for this group shape (a
+        singleton-parallelism plan: a sharded group's blocks come from
+        its runner, :meth:`_run_batch_sharded`)."""
         key = (query.cache_key_fields(), plan, batch, shared_table, epochs)
         hit = self._batched.get(key)
         if hit is not None:
@@ -411,17 +436,16 @@ class ServingEngine:
             program_lib.EpochProgram(plan=plan, batch=batch, shared_table=shared_table,
                                      epochs=epochs),
         )
-        while len(self._batched) >= MAX_COMPILED_BATCHES:
-            self._batched.pop(next(iter(self._batched)))
-        self._batched[key] = compiled
+        self._batched_put(key, compiled)
         return compiled
 
-    def _run_batch(self, tickets: List[Ticket], plan: planner_lib.Plan) -> None:
+    def _run_batch(self, tickets: List[Ticket], plan: planner_lib.Plan) -> bool:
         """Stack the group along a new query axis and execute the whole
         multi-epoch run as ONE fused run. Each lane opens the draws of its
         singleton run and keeps its state after its own epoch budget, so
         a fused query returns the model ``Engine.run`` gives it (bit for
-        bit for kernel lanes on the card)."""
+        bit for kernel lanes on the card). Returns False when the group
+        fell back to singleton runs instead of fusing."""
         queries = [t.query for t in tickets]
         q0 = queries[0]
         for q in queries:
@@ -430,6 +454,16 @@ class ServingEngine:
         budgets = [q.epochs for q in queries]
         ids0 = tuple(id(v) for v in q0.data.values())
         shared_table = all(tuple(id(v) for v in q.data.values()) == ids0 for q in queries[1:])
+        if plan.parallelism == "sharded":
+            if not shared_table:
+                # per-query segment banks would multiply the partitioned
+                # table's footprint; distinct tables stay singleton
+                for t in tickets:
+                    t.result = self.engine.run(t.query)
+                    t.done_s = timing.now()
+                return False
+            self._run_batch_sharded(tickets, plan, epochs, budgets)
+            return True
         compiled = self._batched_compile(q0, plan, len(queries), shared_table, epochs)
         lane_draws = draws_lib.lane_streams(
             self.engine.draws, [q.seed for q in queries], q0.n_examples, self.engine.device
@@ -455,6 +489,46 @@ class ServingEngine:
         launches = sum(igd_kernel.launches.values()) - launches0
         models = compiled.agg.terminate(states)
         losses = compiled.loss_fn(models, source)
+        self._finish_group(
+            tickets, models, losses, plan, shuffle_s=shuffle_s, grad_s=grad_s,
+            trace_count=compiled.trace_count, kernel_launches=launches,
+        )
+        return True
+
+    def _run_batch_sharded(self, tickets: List[Ticket], plan: planner_lib.Plan, epochs: int,
+                           budgets: List[int]) -> None:
+        """Fuse same-key queries over ONE shared table into the sharded
+        subsystem: the plan's local-SGD blocks gain a query axis with
+        per-lane epoch budgets (``runner.block(..., batch=B)``), for every
+        ordering — B concurrent fits pay one table placement and share the
+        runner's blocks. Each query draws from its own singleton run's
+        stream, so its result is its ``Engine.run``'s (bit for bit for
+        kernel lanes on the card: lane ``s * B + q`` of the launch is lane
+        s of query q's own launch)."""
+        from repro_torch.engine import shard as shard_lib
+
+        queries = [t.query for t in tickets]
+        q0 = queries[0]
+        b = len(queries)
+        compiled = self.engine._compile(q0, plan)
+        runner = compiled.program.runner
+        n = q0.n_examples
+        key = ("sharded", q0.cache_key_fields(), plan, b, epochs)
+        aux = self._batched.get(key)
+        if aux is None:
+            aux = program_lib.build_program(
+                compiled.program.task, runner.agg,
+                program_lib.EpochProgram(plan=plan, batch=b, shared_table=True, epochs=epochs),
+            )
+            self._batched_put(key, aux)
+        device = self.engine.device
+        lane_draws = draws_lib.lane_streams(self.engine.draws, [q.seed for q in queries], n, device)
+        launches0 = sum(igd_kernel.launches.values())
+        states, shuffle_s, grad_s = shard_lib.run_batch(
+            runner, aux, q0.data, n, lane_draws, epochs, budgets, device)
+        launches = sum(igd_kernel.launches.values()) - launches0
+        models = runner.agg.terminate(states)
+        losses = aux.loss_fn(models, q0.data)
         self._finish_group(
             tickets, models, losses, plan, shuffle_s=shuffle_s, grad_s=grad_s,
             trace_count=compiled.trace_count, kernel_launches=launches,

@@ -63,14 +63,18 @@
 //   entry takes `lanes` independent folds and launches them at once: a
 //   grid of `lanes` blocks (igd_fold, the one-block minibatch instance)
 //   or of `lanes` clusters (gridDim = (kMbCluster, lanes), clusterDim =
-//   (kMbCluster, 1, 1)). Block (or cluster) b reads lane b's rows at
-//   x + b * xy_lane_rows * D, y + b * xy_lane_rows, alpha + b *
-//   alpha_lane_stride, w0 + b * D and writes wout + b * D, and runs
-//   exactly the arithmetic of a one-lane launch, so each lane's w is the
-//   one-lane launch's bit for bit. xy_lane_rows is 0 when every lane reads
-//   one shared table (a fused clustered batch) and N for stacked or
-//   permuted per-lane copies; alpha_lane_stride is N (each lane has its
-//   own steps). No sum crosses lanes. Launch limits: the Gram instance's
+//   (kMbCluster, 1, 1)). Block (or cluster) b reads its rows at
+//   x + s * xy_lane_rows * D, y + s * xy_lane_rows with s = b /
+//   lanes_per_xy, its alphas at alpha + b * alpha_lane_stride and w0 +
+//   b * D, writes wout + b * D, and runs exactly the arithmetic of a
+//   one-lane launch, so each lane's w is the one-lane launch's bit for
+//   bit. xy_lane_rows is 0 when every lane reads one shared table (a
+//   fused clustered batch) and N for stacked or permuted per-lane copies;
+//   alpha_lane_stride is N (each lane has its own steps). lanes_per_xy is
+//   1 but for the fused sharded batch: B queries over the k segments of
+//   one partitioned table, lane s * B + q reading segment s, so no segment
+//   is copied B times (the *_segments_launch entries take it; the others
+//   pass 1). No sum crosses lanes. Launch limits: the Gram instance's
 //   ~200 KB of shared memory leaves one block an SM, so 132 lanes run in
 //   one wave; the minibatch cluster takes 8 SMs a lane, so 16 lanes fill
 //   the card and more run in further waves; lanes <= 65535 (gridDim.y).
@@ -310,13 +314,15 @@ __global__ void __launch_bounds__(kWarp * WARPS)
                     const float* __restrict__ alpha, const float* __restrict__ w0,
                     float* __restrict__ wout, long long n, int d, int tile_rows,
                     int stage_floats, int vec, long long xy_lane_rows,
-                    long long alpha_lane_stride) {
+                    long long alpha_lane_stride, int lanes_per_xy) {
   constexpr int kThreads = kWarp * WARPS;
   extern __shared__ __align__(16) float smem[];
   {  // lane blockIdx.x: the only change from a one-lane launch
     const long long b = blockIdx.x;
-    x += b * xy_lane_rows * d;
-    y += b * xy_lane_rows;
+    // the x/y segment lane b reads (32-bit division: b < 65536 and no 64-bit divide call)
+    const long long s = static_cast<unsigned>(b) / static_cast<unsigned>(lanes_per_xy);
+    x += s * xy_lane_rows * d;
+    y += s * xy_lane_rows;
     alpha += b * alpha_lane_stride;
     w0 += b * d;
     wout += b * d;
@@ -513,12 +519,14 @@ __global__ void __launch_bounds__(kGramThreads)
                          const float* __restrict__ alpha, const float* __restrict__ w0,
                          float* __restrict__ wout, long long n, int d, int ld, int tile_rows,
                          int stage_floats, int vec, long long xy_lane_rows,
-                         long long alpha_lane_stride) {
+                         long long alpha_lane_stride, int lanes_per_xy) {
   extern __shared__ __align__(16) float smem[];
   {  // lane blockIdx.x: the only change from a one-lane launch
     const long long b = blockIdx.x;
-    x += b * xy_lane_rows * d;
-    y += b * xy_lane_rows;
+    // the x/y segment lane b reads (32-bit division: b < 65536 and no 64-bit divide call)
+    const long long s = static_cast<unsigned>(b) / static_cast<unsigned>(lanes_per_xy);
+    x += s * xy_lane_rows * d;
+    y += s * xy_lane_rows;
     alpha += b * alpha_lane_stride;
     w0 += b * d;
     wout += b * d;
@@ -661,12 +669,15 @@ __global__ void __launch_bounds__(kTile)
     igd_minibatch_kernel(const float* __restrict__ x, const float* __restrict__ y,
                          const float* __restrict__ alpha, const float* __restrict__ w0,
                          float* __restrict__ wout, long long n, int d,
-                         long long xy_lane_rows, long long alpha_lane_stride) {
+                         long long xy_lane_rows, long long alpha_lane_stride,
+                         int lanes_per_xy) {
   extern __shared__ __align__(16) float smem[];
   {  // lane blockIdx.x: the only change from a one-lane launch
     const long long b = blockIdx.x;
-    x += b * xy_lane_rows * d;
-    y += b * xy_lane_rows;
+    // the x/y segment lane b reads (32-bit division: b < 65536 and no 64-bit divide call)
+    const long long s = static_cast<unsigned>(b) / static_cast<unsigned>(lanes_per_xy);
+    x += s * xy_lane_rows * d;
+    y += s * xy_lane_rows;
     alpha += b * alpha_lane_stride;
     w0 += b * d;
     wout += b * d;
@@ -890,12 +901,14 @@ __global__ void __launch_bounds__(kMbThreads)
                                  const float* __restrict__ alpha, const float* __restrict__ w0,
                                  float* __restrict__ wout, long long n, int d, int stages,
                                  int vec, long long* probe, long long xy_lane_rows,
-                                 long long alpha_lane_stride) {
+                                 long long alpha_lane_stride, int lanes_per_xy) {
   extern __shared__ __align__(16) unsigned char mb_smem[];
   if (!RESIDENT) {  // lane blockIdx.y, one cluster a lane: the only change from a one-lane launch
     const long long b = blockIdx.y;
-    x += b * xy_lane_rows * d;
-    y += b * xy_lane_rows;
+    // the x/y segment lane b reads (32-bit division: b < 65536 and no 64-bit divide call)
+    const long long s = static_cast<unsigned>(b) / static_cast<unsigned>(lanes_per_xy);
+    x += s * xy_lane_rows * d;
+    y += s * xy_lane_rows;
     alpha += b * alpha_lane_stride;
     w0 += b * d;
     wout += b * d;
@@ -1017,7 +1030,8 @@ template <int LOSS, int VPL, bool RESIDENT>
 cudaError_t launch_mb_cluster(const float* x, const float* y, const float* alpha,
                               const float* w0, float* wout, long long n, int d,
                               long long* probe, int lanes, long long xy_lane_rows,
-                              long long alpha_lane_stride, cudaStream_t stream) {
+                              long long alpha_lane_stride, int lanes_per_xy,
+                              cudaStream_t stream) {
   const int stages = mb_stages(d);
   if (stages < 2) return cudaErrorInvalidValue;
   const int vec = !RESIDENT && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
@@ -1046,7 +1060,7 @@ cudaError_t launch_mb_cluster(const float* x, const float* y, const float* alpha
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, x, y, alpha, w0, wout, n, d, stages, vec, probe,
-                           xy_lane_rows, alpha_lane_stride);
+                           xy_lane_rows, alpha_lane_stride, lanes_per_xy);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -1055,10 +1069,12 @@ template <int LOSS, bool RESIDENT>
 cudaError_t launch_mb_cluster_any(const float* x, const float* y, const float* alpha,
                                   const float* w0, float* wout, long long n, int d,
                                   long long* probe, int lanes, long long xy_lane_rows,
-                                  long long alpha_lane_stride, cudaStream_t stream) {
-#define REPRO_MB_CASE(V)                                                                       \
-  return launch_mb_cluster<LOSS, V, RESIDENT>(x, y, alpha, w0, wout, n, d, probe, lanes,     \
-                                              xy_lane_rows, alpha_lane_stride, stream)
+                                  long long alpha_lane_stride, int lanes_per_xy,
+                                  cudaStream_t stream) {
+#define REPRO_MB_CASE(V)                                                                   \
+  return launch_mb_cluster<LOSS, V, RESIDENT>(x, y, alpha, w0, wout, n, d, probe, lanes, \
+                                              xy_lane_rows, alpha_lane_stride,         \
+                                              lanes_per_xy, stream)
   if (d <= 32) REPRO_MB_CASE(1);
   if (d <= 64) REPRO_MB_CASE(2);
   if (d <= 128) REPRO_MB_CASE(4);
@@ -1069,14 +1085,16 @@ cudaError_t launch_mb_cluster_any(const float* x, const float* y, const float* a
 template <int LOSS>
 cudaError_t launch_minibatch(const float* x, const float* y, const float* alpha, const float* w0,
                              float* wout, long long n, int d, int lanes, long long xy_lane_rows,
-                             long long alpha_lane_stride, cudaStream_t stream) {
+                             long long alpha_lane_stride, int lanes_per_xy, cudaStream_t stream) {
   if (d <= kMbMaxDim) {
     return launch_mb_cluster_any<LOSS, false>(x, y, alpha, w0, wout, n, d, nullptr, lanes,
-                                              xy_lane_rows, alpha_lane_stride, stream);
+                                              xy_lane_rows, alpha_lane_stride, lanes_per_xy,
+                                              stream);
   }
   const size_t smem = static_cast<size_t>(d + kTile) * sizeof(float);
   igd_minibatch_kernel<LOSS><<<lanes, kTile, smem, stream>>>(x, y, alpha, w0, wout, n, d,
-                                                             xy_lane_rows, alpha_lane_stride);
+                                                             xy_lane_rows, alpha_lane_stride,
+                                                             lanes_per_xy);
   return cudaGetLastError();
 }
 
@@ -1085,12 +1103,12 @@ cudaError_t launch_fold(int vpl, int warps, const float* x, const float* y,
                         const float* alpha, const float* w0, float* wout, long long n,
                         int d, int tile_rows, int stage_floats, int vec, size_t smem,
                         int lanes, long long xy_lane_rows, long long alpha_lane_stride,
-                        cudaStream_t stream) {
+                        int lanes_per_xy, cudaStream_t stream) {
 #define REPRO_FOLD_CASE(V, W)                                                    \
   if (vpl == V && warps == W) {                                                  \
     igd_fold_kernel<LOSS, V, W><<<lanes, kWarp * W, smem, stream>>>(             \
         x, y, alpha, w0, wout, n, d, tile_rows, stage_floats, vec, xy_lane_rows, \
-        alpha_lane_stride);                                                      \
+        alpha_lane_stride, lanes_per_xy);                                        \
     return cudaGetLastError();                                                   \
   }
   REPRO_FOLD_CASE(16, 1)
@@ -1104,7 +1122,7 @@ cudaError_t launch_fold(int vpl, int warps, const float* x, const float* y,
 template <int LOSS>
 cudaError_t launch_gram(const float* x, const float* y, const float* alpha, const float* w0,
                         float* wout, long long n, int d, int lanes, long long xy_lane_rows,
-                        long long alpha_lane_stride, cudaStream_t stream) {
+                        long long alpha_lane_stride, int lanes_per_xy, cudaStream_t stream) {
   int ld = (d + 3) & ~3;  // 16-byte rows at an odd multiple of 16 bytes: no bank conflicts
   if ((ld / 4) % 2 == 0) ld += 4;
   int tile_rows = kGramStageFloats / (ld + 2) / kSub * kSub;  // 64 or more for D <= 256
@@ -1120,7 +1138,7 @@ cudaError_t launch_gram(const float* x, const float* y, const float* alpha, cons
   if (err != cudaSuccess) return err;
   igd_fold_gram_kernel<LOSS><<<lanes, kGramThreads, smem, stream>>>(
       x, y, alpha, w0, wout, n, d, ld, tile_rows, stage_floats, vec, xy_lane_rows,
-      alpha_lane_stride);
+      alpha_lane_stride, lanes_per_xy);
   return cudaGetLastError();
 }
 
@@ -1128,10 +1146,10 @@ template <int LOSS>
 cudaError_t launch_fold_any(const float* x, const float* y, const float* alpha,
                             const float* w0, float* wout, long long n, int d, int lanes,
                             long long xy_lane_rows, long long alpha_lane_stride,
-                            cudaStream_t stream) {
+                            int lanes_per_xy, cudaStream_t stream) {
   if (d <= kGramMaxDim) {
     return launch_gram<LOSS>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
-                             alpha_lane_stride, stream);
+                             alpha_lane_stride, lanes_per_xy, stream);
   }
   int vpl = kWarp, warps = 1;
   if (d <= kWarp * kFoldMaxVpl) {
@@ -1150,7 +1168,8 @@ cudaError_t launch_fold_any(const float* x, const float* y, const float* alpha,
   const int stage_floats = (tile_rows * (d + 2) + 3) / 4 * 4;
   const size_t smem = (2 * static_cast<size_t>(stage_floats) + 2 * warps) * sizeof(float);
   return launch_fold<LOSS>(vpl, warps, x, y, alpha, w0, wout, n, d, tile_rows, stage_floats,
-                           vec, smem, lanes, xy_lane_rows, alpha_lane_stride, stream);
+                           vec, smem, lanes, xy_lane_rows, alpha_lane_stride, lanes_per_xy,
+                           stream);
 }
 
 template <int LOSS>
@@ -1159,11 +1178,58 @@ cudaError_t launch_chain_probe(int steps, long long* out, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The lane arguments of every entry: 1 <= lanes <= kMaxLanes, strides >= 0.
+// The lane arguments of every entry: 1 <= lanes <= kMaxLanes, strides >= 0,
+// and lanes a whole number of groups of lanes_per_xy.
 constexpr int kMaxLanes = 65535;
 
-bool bad_lanes(int lanes, long long xy_lane_rows, long long alpha_lane_stride) {
-  return lanes < 1 || lanes > kMaxLanes || xy_lane_rows < 0 || alpha_lane_stride < 0;
+bool bad_lanes(int lanes, long long xy_lane_rows, long long alpha_lane_stride, int lanes_per_xy) {
+  return lanes < 1 || lanes > kMaxLanes || xy_lane_rows < 0 || alpha_lane_stride < 0 ||
+         lanes_per_xy < 1 || lanes % lanes_per_xy != 0;
+}
+
+// The two folds' entries below, with every lane argument (the extern "C"
+// entries without lanes_per_xy pass 1).
+int fold_entry(const float* x, const float* y, const float* alpha, const float* w0,
+               float* wout, long long n, int d, int loss, int lanes, long long xy_lane_rows,
+               int lanes_per_xy, long long alpha_lane_stride, void* stream) {
+  if (n < 0 || d < 1 || d > kFoldMaxDim) return cudaErrorInvalidValue;
+  if (bad_lanes(lanes, xy_lane_rows, alpha_lane_stride, lanes_per_xy)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (loss) {
+    case kLossLr:
+      return launch_fold_any<kLossLr>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
+                                      alpha_lane_stride, lanes_per_xy, s);
+    case kLossSvm:
+      return launch_fold_any<kLossSvm>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
+                                       alpha_lane_stride, lanes_per_xy, s);
+    case kLossLsq:
+      return launch_fold_any<kLossLsq>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
+                                       alpha_lane_stride, lanes_per_xy, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int minibatch_entry(const float* x, const float* y, const float* alpha, const float* w0,
+                    float* wout, long long n, int d, int loss, int lanes,
+                    long long xy_lane_rows, int lanes_per_xy, long long alpha_lane_stride,
+                    void* stream) {
+  if (n < 0 || d < 1 || d > kMinibatchMaxDim) return cudaErrorInvalidValue;
+  if (bad_lanes(lanes, xy_lane_rows, alpha_lane_stride, lanes_per_xy)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (loss) {
+    case kLossLr:
+      return launch_minibatch<kLossLr>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
+                                       alpha_lane_stride, lanes_per_xy, s);
+    case kLossSvm:
+      return launch_minibatch<kLossSvm>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
+                                        alpha_lane_stride, lanes_per_xy, s);
+    case kLossLsq:
+      return launch_minibatch<kLossLsq>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
+                                        alpha_lane_stride, lanes_per_xy, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1188,22 +1254,17 @@ int igd_fused_max_lanes() { return kMaxLanes; }
 int igd_fold_launch(const float* x, const float* y, const float* alpha, const float* w0,
                     float* wout, long long n, int d, int loss, int lanes,
                     long long xy_lane_rows, long long alpha_lane_stride, void* stream) {
-  if (n < 0 || d < 1 || d > kFoldMaxDim) return cudaErrorInvalidValue;
-  if (bad_lanes(lanes, xy_lane_rows, alpha_lane_stride)) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (loss) {
-    case kLossLr:
-      return launch_fold_any<kLossLr>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
-                                      alpha_lane_stride, s);
-    case kLossSvm:
-      return launch_fold_any<kLossSvm>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
-                                       alpha_lane_stride, s);
-    case kLossLsq:
-      return launch_fold_any<kLossLsq>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
-                                       alpha_lane_stride, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return fold_entry(x, y, alpha, w0, wout, n, d, loss, lanes, xy_lane_rows, 1,
+                    alpha_lane_stride, stream);
+}
+
+// The same, with lanes_per_xy consecutive lanes reading one x/y segment.
+int igd_fold_segments_launch(const float* x, const float* y, const float* alpha,
+                             const float* w0, float* wout, long long n, int d, int loss,
+                             int lanes, long long xy_lane_rows, int lanes_per_xy,
+                             long long alpha_lane_stride, void* stream) {
+  return fold_entry(x, y, alpha, w0, wout, n, d, loss, lanes, xy_lane_rows, lanes_per_xy,
+                    alpha_lane_stride, stream);
 }
 
 int igd_chain_probe_launch(int loss, int steps, long long* out, void* stream) {
@@ -1225,22 +1286,17 @@ int igd_fold_minibatch_launch(const float* x, const float* y, const float* alpha
                               const float* w0, float* wout, long long n, int d, int loss,
                               int lanes, long long xy_lane_rows, long long alpha_lane_stride,
                               void* stream) {
-  if (n < 0 || d < 1 || d > kMinibatchMaxDim) return cudaErrorInvalidValue;
-  if (bad_lanes(lanes, xy_lane_rows, alpha_lane_stride)) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (loss) {
-    case kLossLr:
-      return launch_minibatch<kLossLr>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
-                                       alpha_lane_stride, s);
-    case kLossSvm:
-      return launch_minibatch<kLossSvm>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
-                                        alpha_lane_stride, s);
-    case kLossLsq:
-      return launch_minibatch<kLossLsq>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
-                                        alpha_lane_stride, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return minibatch_entry(x, y, alpha, w0, wout, n, d, loss, lanes, xy_lane_rows, 1,
+                         alpha_lane_stride, stream);
+}
+
+int igd_fold_minibatch_segments_launch(const float* x, const float* y, const float* alpha,
+                                       const float* w0, float* wout, long long n, int d,
+                                       int loss, int lanes, long long xy_lane_rows,
+                                       int lanes_per_xy, long long alpha_lane_stride,
+                                       void* stream) {
+  return minibatch_entry(x, y, alpha, w0, wout, n, d, loss, lanes, xy_lane_rows, lanes_per_xy,
+                         alpha_lane_stride, stream);
 }
 
 int igd_fused_minibatch_cluster() { return kMbCluster; }
@@ -1263,13 +1319,13 @@ int igd_minibatch_step_probe_launch(int loss, int d, int steps, long long* out, 
   switch (loss) {
     case kLossLr:
       return launch_mb_cluster_any<kLossLr, true>(nullptr, nullptr, nullptr, nullptr, nullptr, n, d, out, 1,
-                                                     0, 0, s);
+                                                     0, 0, 1, s);
     case kLossSvm:
       return launch_mb_cluster_any<kLossSvm, true>(nullptr, nullptr, nullptr, nullptr, nullptr, n, d, out, 1,
-                                                     0, 0, s);
+                                                     0, 0, 1, s);
     case kLossLsq:
       return launch_mb_cluster_any<kLossLsq, true>(nullptr, nullptr, nullptr, nullptr, nullptr, n, d, out, 1,
-                                                     0, 0, s);
+                                                     0, 0, 1, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -13,8 +13,12 @@ Both wrappers take one fold (``x [N, D]``, ``y [N]``, ``alpha [N]``,
 counterpart of ``jax.vmap`` over the reference's Pallas call:
 ``alpha [B, N]`` and ``w0 [B, D]`` -> ``w [B, D]``, over one shared table
 (``x [N, D]``, ``y [N]``: every lane reads the same rows) or a stacked one
-(``x [B, N, D]``, ``y [B, N]``). A lane launch is one launch however many
-lanes it carries; each lane's w equals its one-lane launch's bit for bit.
+(``x [S, N, D]``, ``y [S, N]`` with S dividing B: lane b reads segment
+``b // (B // S)``; S = B gives each lane its own rows, S < B lets B / S
+consecutive lanes share a segment, as the B queries of a fused sharded
+batch share the k segments of one partitioned table). A lane launch is one
+launch however many lanes it carries; each lane's w equals its one-lane
+launch's bit for bit.
 """
 
 from __future__ import annotations
@@ -59,6 +63,11 @@ def _declare(lib: ctypes.CDLL, cluster: int = MINIBATCH_CLUSTER) -> None:
         # x, y, alpha, w0, wout, n, d, loss, lanes, x/y lane rows, alpha lane stride, stream
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64, i64, ptr]
         fn.restype = i32
+    for name in ("igd_fold_segments_launch", "igd_fold_minibatch_segments_launch"):
+        fn = getattr(lib, name)
+        # the same with lanes a x/y segment after the x/y lane rows
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64, i32, i64, ptr]
+        fn.restype = i32
     lib.igd_fused_error_string.argtypes = [i32]
     lib.igd_fused_error_string.restype = ctypes.c_char_p
     lib.igd_chain_probe_launch.argtypes = [i32, i32, ptr, ptr]
@@ -90,8 +99,9 @@ def lane_layout(x, y, alpha, w0):
     """(lanes, xy_lane_rows, alpha_lane_stride) of a call, or ValueError
     when the shapes fit neither one fold nor a lane launch: one fold is
     x [N, D], y [N], alpha [N], w0 [D]; B lanes are alpha [B, N] and
-    w0 [B, D] over x [N, D], y [N] (shared: xy_lane_rows 0) or x [B, N, D],
-    y [B, N] (stacked: xy_lane_rows N)."""
+    w0 [B, D] over x [N, D], y [N] (shared: xy_lane_rows 0) or x [S, N, D],
+    y [S, N] with S dividing B (stacked: xy_lane_rows N; see
+    :func:`lanes_per_xy`)."""
     shapes = (f"x {tuple(x.shape)}, y {tuple(y.shape)}, "
               f"alpha {tuple(alpha.shape)}, w0 {tuple(w0.shape)}")
     if x.dim() not in (2, 3) or w0.dim() not in (1, 2):
@@ -103,11 +113,17 @@ def lane_layout(x, y, alpha, w0):
         return 1, 0, 0
     b = w0.shape[0]
     shared = x.dim() == 2
-    want_y = (n,) if shared else (b, n)
+    want_y = (n,) if shared else (x.shape[0], n)
     if (b < 1 or tuple(w0.shape) != (b, d) or tuple(alpha.shape) != (b, n) or tuple(y.shape) != want_y
-            or (not shared and x.shape[0] != b)):
+            or (not shared and (x.shape[0] < 1 or b % x.shape[0]))):
         raise ValueError(f"lane shapes disagree: {shapes}")
     return b, 0 if shared else n, n
+
+
+def lanes_per_xy(x, w0) -> int:
+    """Consecutive lanes that read one x/y segment: B / S for a stacked
+    x [S, N, D] under w0 [B, D], else 1."""
+    return w0.shape[0] // x.shape[0] if x.dim() == 3 and w0.dim() == 2 else 1
 
 
 def _check(x, y, alpha, w0, loss: str, max_dim: int):
@@ -137,10 +153,10 @@ def _launch(name: str, x, y, alpha, w0, loss: str, layout):
     lanes, xy_lane_rows, alpha_lane_stride = layout
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, f"{name}_launch")(
+        rc = getattr(lib, f"{name}_segments_launch")(
             x.data_ptr(), y.data_ptr(), alpha.data_ptr(), w0.data_ptr(),
             out.data_ptr(), n, d, LOSS_IDS[loss], lanes, xy_lane_rows,
-            alpha_lane_stride, stream,
+            lanes_per_xy(x, w0), alpha_lane_stride, stream,
         )
     if rc != 0:
         msg = lib.igd_fused_error_string(rc).decode()

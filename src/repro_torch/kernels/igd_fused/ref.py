@@ -109,10 +109,12 @@ def igd_fold_minibatch_split_ref(x, y, alpha, w0, *, loss: str = "lr", tile: int
 def lanes_ref(fold, x, y, alpha, w0, **kw):
     """B lanes of ``fold`` (any plain fold of this module), one after the
     other: the plain version of a lane launch (``kernel.lane_layout``).
-    x [N, D], y [N] are shared by every lane; x [B, N, D], y [B, N] give
-    each lane its own rows; alpha [B, N] and w0 [B, D] always do."""
+    x [N, D], y [N] are shared by every lane; x [S, N, D], y [S, N] give
+    lane b segment ``b // (B // S)`` (S = B: each lane its own rows);
+    alpha [B, N] and w0 [B, D] always give each lane its own."""
     shared = x.dim() == 2
+    per = 1 if shared else w0.shape[0] // x.shape[0]
     return torch.stack([
-        fold(x if shared else x[b], y if shared else y[b], alpha[b], w0[b], **kw)
+        fold(x if shared else x[b // per], y if shared else y[b // per], alpha[b], w0[b], **kw)
         for b in range(w0.shape[0])
     ])

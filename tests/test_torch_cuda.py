@@ -273,6 +273,108 @@ def test_cuda_chunk_stream_moves_host_chunks_and_matches_the_resident_run(impl):
         assert torch.equal(res.model, ref.model)
 
 
+@needs_card
+@pytest.mark.parametrize("name", ["igd_fold", "igd_fold_minibatch"])
+@pytest.mark.parametrize("s,per,n,d", [(4, 3, 2_049, 54), (2, 8, 257, 54), (3, 2, 300, 300)])
+def test_cuda_segment_lanes_match_one_lane_launches(name, s, per, n, d):
+    """S segments under S * per lanes (the fused sharded batch's layout:
+    lane l reads segment l // per): one launch, every lane its one-lane
+    launch on its segment bit for bit, the plain version within the
+    kernel tolerance."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y, _, _ = _lane_inputs(s, n, d, shared=False)
+    _, _, alpha, w0 = _lane_inputs(s * per, n, d, shared=True, seed=9)
+    kernel, plain = getattr(K, name), getattr(R, f"{name}_ref")
+    before = K.launches[name]
+    got = kernel(x, y, alpha, w0, loss="lr")
+    assert K.launches[name] == before + 1 and got.shape == (s * per, d)
+    for lane in range(s * per):
+        one = kernel(x[lane // per], y[lane // per], alpha[lane].contiguous(), w0[lane].contiguous(), loss="lr")
+        assert torch.equal(got[lane], one), lane
+    torch.testing.assert_close(got, R.lanes_ref(plain, x, y, alpha, w0, loss="lr"), **TOL)
+
+
+def _sharded_query(table, seed=0, epochs=3, **hints):
+    from repro_torch import engine
+
+    return engine.AnalyticsQuery(task="logreg", data=table, task_args={"dim": 54}, epochs=epochs,
+                                 tolerance=0.0, seed=seed, hints=hints)
+
+
+def _sharded_plan(ordering, impl, k, h=1):
+    from repro_torch import engine
+
+    return engine.Plan(ordering, implementation=impl, parallelism="sharded", num_shards=k, merge_period=h)
+
+
+@needs_card
+@pytest.mark.parametrize("impl", ["torch_fold", "cuda_fused", "cuda_minibatch"])
+@pytest.mark.parametrize("ordering", ["clustered", "shuffle_once", "shuffle_always"])
+def test_cuda_sharded_k1_is_the_singleton_run(ordering, impl):
+    """sharded(k=1) on the card is Engine.run bit for bit, for every
+    ordering and lane body (the eager fold on a short table)."""
+    from repro_torch import engine
+    from repro_torch.data import synthetic
+
+    n = 256 if impl == "torch_fold" else 3000
+    table = synthetic.dense_classification(torch.Generator(device="cuda").manual_seed(4), n, 54)
+    eng = engine.Engine()
+    q = _sharded_query(table, seed=5)
+    base = eng.run(q, plan=engine.Plan(ordering, implementation=impl))
+    sh = eng.run(q, plan=_sharded_plan(ordering, impl, 1))
+    assert torch.equal(base.model, sh.model) and base.losses == sh.losses
+    assert sh.kernel_launches == base.kernel_launches == (0 if impl == "torch_fold" else 3)
+
+
+@needs_card
+@pytest.mark.parametrize("impl", ["torch_fold", "cuda_fused", "cuda_minibatch"])
+@pytest.mark.parametrize("ordering", ["clustered", "shuffle_once", "shuffle_always"])
+def test_cuda_sharded_run_matches_the_cpu_run(ordering, impl):
+    """k = 4, H = 2 on the card and on the CPU with the same draws
+    (``draws.HostDraws``): within the kernel tolerance; a kernel epoch is
+    one lane launch of the 4 shards."""
+    from repro_torch import engine
+    from repro_torch.core import draws
+    from repro_torch.data import synthetic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = 256 if impl == "torch_fold" else 4096
+    table = synthetic.dense_classification(torch.Generator().manual_seed(6), n, 54)
+    plan = _sharded_plan(ordering, impl, 4, h=2)
+    card = engine.Engine(draws=draws.HostDraws()).run(_sharded_query({k: v.cuda() for k, v in table.items()}),
+                                                      plan=plan)
+    host = engine.Engine(device="cpu", draws=draws.HostDraws()).run(_sharded_query(table), plan=plan)
+    torch.testing.assert_close(card.model.cpu(), host.model, **TOL)
+    assert card.kernel_launches == (0 if impl == "torch_fold" else 3)
+
+
+@needs_card
+@pytest.mark.parametrize("impl", ["cuda_fused", "cuda_minibatch"])
+@pytest.mark.parametrize("ordering", ["clustered", "shuffle_once", "shuffle_always"])
+def test_cuda_served_sharded_kernel_lanes_equal_their_own_runs(ordering, impl):
+    """A masked fused sharded batch (3 queries x 4 shards) is one lane
+    launch of 12 lanes an epoch, and each query is its own sharded
+    Engine.run bit for bit."""
+    from repro_torch import engine
+    from repro_torch.data import synthetic
+    from repro_torch.engine import serve
+
+    table = synthetic.dense_classification(torch.Generator(device="cuda").manual_seed(2), 4 * 1000, 54)
+    hints = {"ordering": ordering, "parallelism": "sharded", "num_shards": 4, "merge_period": 1,
+             "implementation": impl}
+    queries = [_sharded_query(table, seed=s, epochs=e, **hints) for s, e in enumerate((3, 2, 3))]
+    eng = engine.Engine()
+    singles = [eng.run(q) for q in queries]
+    assert all(r.plan.parallelism == "sharded" and r.kernel_launches == r.epochs for r in singles)
+    srv = serve.ServingEngine(serve.ServeConfig(max_batch=4), engine=eng)
+    tickets = [srv.submit(q) for q in queries]
+    srv.drain()
+    assert srv.stats["batches"] == 1 and srv.stats["masked_batches"] == 1
+    for t, ref in zip(tickets, singles):
+        assert t.error is None and t.result.batch_size == 3 and t.result.kernel_launches == 3
+        assert torch.equal(t.result.model, ref.model)
+
+
 # the schemes of paper §3.3-3.4: (ordering, scheme, plan fields)
 SCHEME_PLANS = [("clustered", "segmented", {"num_segments": 8}), ("shuffle_once", "segmented", {"num_segments": 2}),
                 ("shuffle_always", "shared_memory", {"sm_scheme": "lock"}),

@@ -265,9 +265,9 @@ def test_forced_kernel_on_ineligible_task_raises():
     ({"scheme": "mrs", "ordering": "shuffle_once"}, ValueError),
     ({"scheme": "segmented", "implementation": "cuda_fused"}, ValueError),
     ({"scheme": "shared_memory", "implementation": "cuda_minibatch"}, ValueError),
-    ({"parallelism": "sharded"}, NotImplementedError),
+    ({"parallelism": "sharded"}, ValueError),  # one device: no probed mesh point, no num_shards hint
     ({"source": "table"}, ValueError),  # the stored-table slice: needs a stored Table
-    ({"num_shards": 2}, NotImplementedError),
+    ({"parallelism": "sharded", "scheme": "segmented"}, ValueError),  # sharded implies serial
     ({"scheme": "segmented", "num_segments": 0}, ValueError),
 ])
 def test_bad_or_later_hints_raise(hints, exc):
