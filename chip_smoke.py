@@ -79,6 +79,27 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    k = 4 lane launches alone beside the one-lane launch (CUDA events),
    igd_fold_minibatch also on 16-byte-aligned lane strides; the `kernels`
    line's `launches_sharded` counts the sharded runs and drains alone;
+3f. obs (repro_torch.obs) around the fused-IGD path, lines tagged [obs]:
+   EXPLAIN ANALYZE of phase 3's logreg query (cuda_fused) with a plan
+   store in a temporary directory under build/ (drift rows, staleness,
+   critical-path phase shares, the engine.kernel spans' total beside the
+   gradient wall, launches; a fresh Engine reads the same report back);
+   the same query's epoch wall (3 epochs, warm) with tracing off, the
+   flight ring only and full tracing, 3 runs each in turns, beside the
+   disabled and flight span costs; one traced cuda_fused epoch with the
+   ring on under set_sync_debug_mode("error"); a served burst of 16
+   logreg cuda_fused + 8 least_squares cuda_minibatch queries
+   (shuffle_always, budgets 3 and 2 alternating) and one singleton
+   logreg query, under the default SLO rules and the obs HTTP server on
+   an ephemeral port, /metrics scraped from a thread while the pump runs
+   and parsed (fused lanes, accepted and the logreg latency histogram
+   held to the tickets); a forced breach (p99 > 0) whose incident files
+   must validate and hold an engine.kernel span; then logreg at D =
+   4,097 and least_squares at D = 12,033 (WIDE_ROWS rows): planned past
+   the kernels that cannot take D, 2 epochs held to the CPU's run with
+   draws.HostDraws (rtol=2e-4, atol=2e-5), and the cuda_fused /
+   cuda_minibatch hints past their limits refused naming the limit; the
+   `kernels` line's `launches_obs` counts the phase's runs and drains;
 4. time each kernel at the main path's shape with CUDA events, beside its
    plain version and its bound; igd_fold also beside its chain floor (N
    times one grad_scale + FMA step timed alone in one warp),
@@ -169,6 +190,8 @@ SERVE_QUERIES, SERVE_MB_QUERIES = 32, 8
 # replay's bound, the queries of the fused sharded batch
 SHARD_EPOCHS, SHARD_LANE_ROWS, SHARD_F64_TOL, SHARD_SERVE_QUERIES = 3, 16_384, 1e-4, 8
 TIMED_LANES = (1, 8, 32)
+# phase 3f: rows of the tables wider than the IGD kernels take (D 4,097 and 12,033)
+WIDE_ROWS = 8_192
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
@@ -470,6 +493,7 @@ def main() -> int:
     techniques(args.seed, table, dev, phase3)
     phase3d = tables_and_serving(args.seed, table, dev)
     phase3e = sharded(args.seed, table, dev)
+    phase3f = observability(args.seed, table, dev)
 
     # -- 4. timings at the main path's shape -------------------------------
     n, d = FOREST_ROWS, FOREST_DIM
@@ -550,6 +574,7 @@ def main() -> int:
                      launches_stored_table=phase3d["tables"][entry["name"]],
                      launches_serving=phase3d["serving"][entry["name"]],
                      launches_sharded=phase3e["launches"][entry["name"]],
+                     launches_obs=phase3f["launches"][entry["name"]],
                      sharded_lane_ms=phase3e["lane_ms"][entry["name"]],
                      max_abs_err=max(entry["max_abs_err"], phase3d["lane_err"][entry["name"]],
                                      phase3e["lane_err"] if entry["name"] == "igd_fold" else 0.0))
@@ -1325,6 +1350,260 @@ def sharded(seed: int, table: dict, dev) -> dict:
     log("sharded", f"phase 3e took {phase.lap():.1f} s; sharded launches {launches}")
     return {"launches": launches, "lane_err": lane_err, "epoch_ms": epoch_ms, "merge_ms": merge_ms,
             "served": served, "lane_ms": lane_ms}
+
+
+def observability(seed: int, table: dict, dev) -> dict:
+    """Phase 3f: repro_torch.obs around the fused-IGD kernel path on the
+    Forest-shaped table. EXPLAIN ANALYZE of phase 3's logreg query (the
+    plan must be cuda_fused): its drift rows, the engine.kernel spans'
+    total beside the run's gradient wall, a fresh engine reading the
+    report back from the plan store; the same query's epoch wall with
+    tracing off, with the flight ring only and traced, in turns, and the
+    span costs; one traced cuda_fused epoch under
+    set_sync_debug_mode("error") with the ring on (no hook syncs); a
+    served burst (16 logreg cuda_fused lanes, 8 least_squares
+    cuda_minibatch lanes, then one singleton logreg query) with /metrics
+    scraped from a thread while the pump runs, then a forced SLO breach
+    whose incident file must hold an engine.kernel span; and the
+    wide-table planning repair: D = 4,097 and 12,033 planned past the
+    kernels, run and held to the CPU, their kernel hints refused. Returns
+    the kernels' launches on the phase's paths (zeroed just before each,
+    read just after)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    from repro_torch import engine, obs, timing
+    from repro_torch.core import draws, uda
+    from repro_torch.data import synthetic
+    from repro_torch.engine import executor, serve
+    from repro_torch.kernels.igd_fused import kernel as K
+    from repro_torch.launch import obs_server
+    from repro_torch.obs import attribution, export, flight, slo, trace
+
+    phase = timing.Stopwatch()
+    card = smi("name,power.limit")
+    n, d = FOREST_ROWS, FOREST_DIM
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="obs_smoke_", dir=build)
+    launches = {"igd_fold": 0, "igd_fold_minibatch": 0}
+
+    def counted(fn):
+        K.reset_launches()
+        out = fn()
+        for name in launches:
+            launches[name] += K.launches[name]
+        return out
+
+    # -- EXPLAIN ANALYZE of phase 3's query --------------------------------
+    flight.disable()  # the serving phases before this one left the ring on
+    store = serve.PlanStore(root)
+    eng = engine.Engine(plan_store=store)
+    q = engine.AnalyticsQuery(task="logreg", data=table, task_args={"dim": d}, epochs=10, tolerance=0.0,
+                              seed=seed)
+    plan = eng.explain(q).chosen  # probes first: the analyzed run alone is counted
+    if plan.implementation != "cuda_fused":
+        raise AssertionError(f"phase 3's logreg query planned {plan.implementation}, not cuda_fused")
+    ring = flight.enable(capacity=4096)  # mirrors the analyzed run's spans
+    analysis = counted(lambda: eng.explain_analyze(q))
+    spans = ring.snapshot_spans()
+    flight.disable()
+    run_launches = sum(K.launches.values())
+    kernel_spans = [s for s in spans if s["name"] == "engine.kernel"]
+    kernel_s = sum(s["dur"] for s in kernel_spans)
+    grad_s = next(r.measured_s for r in analysis.rows if r.axis == "implementation")
+    if (analysis.plan["implementation"] != "cuda_fused" or run_launches != analysis.epochs_run
+            or len(kernel_spans) != analysis.epochs_run):
+        raise AssertionError(f"EXPLAIN ANALYZE ran {analysis.plan}: {run_launches} launches, "
+                             f"{len(kernel_spans)} engine.kernel spans in {analysis.epochs_run} epochs")
+    for r in analysis.rows:
+        log("obs", f"EXPLAIN ANALYZE {r.axis}: predicted {r.predicted_s:.6f} s, measured {r.measured_s:.6f} s, "
+            f"drift {r.ratio:.4f}x ({r.detail}); {card}")
+    phases = attribution.PhaseReport.from_dict(analysis.attribution)
+    log("obs", f"EXPLAIN ANALYZE total: predicted {analysis.predicted_total_s:.6f} s, measured "
+        f"{analysis.measured_total_s:.6f} s, drift {analysis.drift:.4f}x, stale {analysis.stale}; "
+        f"{analysis.epochs_run} epochs, {run_launches} igd_fold launches; engine.kernel spans {kernel_s:.6f} s "
+        f"beside gradient_seconds {grad_s:.6f} s ({kernel_s / grad_s:.5f}x); phase shares "
+        + ", ".join(f"{p} {phases.share(p):.4f}" for p in attribution.PHASES) + f" ({phases.describe()}); {card}")
+    if engine.Engine(plan_store=serve.PlanStore(root)).load_analysis(q) != analysis:
+        raise AssertionError("a fresh engine on the same plan store did not read the report back")
+    log("obs", f"a fresh Engine on the same plan store read the same report back: {sorted(os.listdir(store.root))}")
+
+    # -- the epoch wall: tracing off, the flight ring only, full tracing ----
+    q3 = dataclasses.replace(q, epochs=3)
+    eng.run(q3)  # warm: planned and built
+    modes = ("off", "flight", "traced")
+    walls = {m: [] for m in modes}
+    for turn in range(3):
+        for mode in (modes if turn % 2 == 0 else modes[::-1]):
+            if mode == "flight":
+                flight.enable(capacity=256)
+            with (obs.tracing() if mode == "traced" else obs.NULL_SPAN):
+                res = counted(lambda: eng.run(q3))
+            flight.disable()
+            walls[mode].append((res.shuffle_seconds + res.gradient_seconds) / res.epochs)
+    epoch_s = {m: sum(v) / len(v) for m, v in walls.items()}
+    off_cost = trace.disabled_span_cost()
+    flight.enable(capacity=256)
+    ring_cost = flight.recording_span_cost()
+    log("obs", f"epoch wall (shuffle + fold, {plan.ordering}/cuda_fused, 3 epochs, 3 runs each in turns): "
+        f"tracing off {epoch_s['off'] * 1e3:.4f} ms, flight ring only {epoch_s['flight'] * 1e3:.4f} ms "
+        f"({epoch_s['flight'] / epoch_s['off']:.5f}x), full tracing {epoch_s['traced'] * 1e3:.4f} ms "
+        f"({epoch_s['traced'] / epoch_s['off']:.5f}x); each run (ms): "
+        + "; ".join(f"{m} " + ", ".join(f"{w * 1e3:.4f}" for w in v) for m, v in walls.items())
+        + f"; span() with tracing off {off_cost * 1e9:.1f} ns, with the flight ring {ring_cost * 1e9:.1f} ns "
+        f"(2 spans an epoch: epoch, engine.kernel); {card}")
+
+    # -- no hook syncs: one traced cuda_fused epoch, the ring on ------------
+    compiled = eng._compile(q3, plan)
+    stream = draws.TorchDraws().stream(seed, n, dev)
+    state = uda.initial_state(stream.initial_model(compiled.program.agg.task))
+    ordering = executor._ORDERINGS[plan.ordering]()
+    examples = ordering.order(table, n, 1, stream.permutation)
+    epoch_draws = stream.epoch()
+    torch.cuda.synchronize()
+    with obs.tracing() as rec:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with obs.span("epoch", index=1), obs.span("engine.kernel", implementation=plan.implementation):
+                state = counted(lambda: compiled.program.epoch_fn(state, examples, epoch_draws))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(state.model).all()) or [s["name"] for s in rec.spans] != ["engine.kernel", "epoch"]:
+        raise AssertionError(f"the traced epoch: spans {rec.spans}")
+    log("obs", f"one traced {plan.ordering}/cuda_fused epoch_fn with the flight ring on ran "
+        f"under set_sync_debug_mode('error'): no host sync; spans {[s['name'] for s in rec.spans]}, "
+        f"{len(flight.get().snapshot_spans())} in the ring")
+    flight.disable()
+
+    # -- a served burst, /metrics scraped while the pump runs ---------------
+    cache_dir = os.path.join(root, "serve")
+    srv = serve.ServingEngine(serve.ServeConfig(max_batch=16, cache_dir=cache_dir, flight_capacity=256,
+                                                slo_rules=slo.default_serve_rules()),
+                              engine=executor.Engine(plan_store=serve.PlanStore(cache_dir)))
+    server = obs_server.start(0)
+    burst = [engine.AnalyticsQuery(task=task, data=table, task_args={"dim": d}, tolerance=0.0, seed=s,
+                                   epochs=3 if s % 2 == 0 else 2,
+                                   hints={"ordering": "shuffle_always", "scheme": "serial", "implementation": impl})
+             for task, impl, count in (("logreg", "cuda_fused", 16), ("least_squares", "cuda_minibatch", 8))
+             for s in range(count)]
+    # a stop rule keeps this one singleton: Engine.run, with engine.kernel spans
+    solo = engine.AnalyticsQuery(task="logreg", data=table, task_args={"dim": d}, epochs=3, tolerance=1e-9,
+                                 seed=seed, hints={"ordering": "shuffle_always", "implementation": "cuda_fused"})
+    for x in burst + [solo]:  # plan first: the drain is warm
+        srv.engine.explain(x)
+    scrapes, stop = [], threading.Event()
+
+    def scrape():
+        while not scrapes or not stop.wait(0.02):
+            text = urllib.request.urlopen(server.url + "/metrics", timeout=10).read().decode()
+            scrapes.append((timing.now(), export.parse_prometheus(text)))
+
+    thread = threading.Thread(target=scrape)
+    thread.start()
+    while not scrapes:
+        stop.wait(0.01)
+    tickets = [srv.submit(x) for x in burst + [solo]]
+    watch = timing.Stopwatch()
+    drain_start = timing.now()
+    counted(srv.drain)
+    drain_s = watch.lap()
+    drain_end = timing.now()
+    stop.set()
+    thread.join(timeout=60)
+    if thread.is_alive() or any(t.error is not None for t in tickets):
+        raise AssertionError(f"the burst: scraper alive {thread.is_alive()}, errors "
+                             f"{[t.error for t in tickets if t.error]}")
+    # the registry is the process's: the earlier phases' servers counted
+    # into it too, so the burst is read as the change from the scrape taken
+    # before its first submit
+    base = scrapes[0][1]
+
+    def delta(p, key):
+        return p.get(key, 0.0) - base.get(key, 0.0)
+
+    mid = [p for t, p in scrapes if drain_start < t < drain_end]
+    final = export.parse_prometheus(urllib.request.urlopen(server.url + "/metrics", timeout=10).read().decode())
+    lanes = [delta(p, ("serve_fused_lanes_total", ())) for _, p in scrapes]
+    logreg_done = sum(t.query.task == "logreg" for t in tickets)
+    want = {("serve_fused_lanes_total", ()): srv.stats["fused_lanes"],
+            ("serve_accepted_total", ()): len(tickets),
+            ("serve_latency_s_logreg_count", ()): logreg_done,
+            ("serve_latency_s_logreg_bucket", (("le", "+Inf"),)): logreg_done,
+            ("serve_latency_s_least_squares_count", ()): 8}
+    if (srv.stats["fused_lanes"] != 24 or srv.stats["batches"] != 2 or srv.stats["singleton_queries"] != 1
+            or any(delta(final, k) != v for k, v in want.items()) or lanes != sorted(lanes)
+            or not all(delta(p, ("serve_accepted_total", ())) == len(tickets) for p in mid)):
+        raise AssertionError(f"/metrics disagrees with the tickets: {srv.stats}, "
+                             f"{ {k: delta(final, k) for k in want} }, lanes seen {lanes}")
+    mean_s = (delta(final, ("serve_latency_s_logreg_sum", ()))
+              / delta(final, ("serve_latency_s_logreg_count", ())))
+    log("obs", f"served burst: {len(tickets)} queries ({srv.stats['batches']} fused batches, "
+        f"{srv.stats['fused_lanes']} lanes, {srv.stats['singleton_queries']} singleton) drained in {drain_s:.3f} s; "
+        f"{len(scrapes)} /metrics scrapes ({len(mid)} while the pump ran, fused lanes seen "
+        f"{sorted(set(lanes))}), each parsed by parse_prometheus; the burst's change in serve_fused_lanes_total "
+        f"{delta(final, ('serve_fused_lanes_total', ())):.0f}, serve_accepted_total "
+        f"{delta(final, ('serve_accepted_total', ())):.0f}, serve_latency_s_logreg_count "
+        f"{delta(final, ('serve_latency_s_logreg_count', ())):.0f} (mean latency {mean_s:.4f} s); SLO breaches "
+        f"under the default rules {srv.metrics()['slo_breaches']}; {card}")
+
+    # -- a forced breach: its incident file holds the flight ring -----------
+    forced = slo.SLOMonitor((slo.SLORule("forced_latency", "serve.latency_s.*", stat="p99", threshold=0.0),),
+                            interval_s=0.0, incident_dir=os.path.join(cache_dir, "incidents"))
+    events = forced.evaluate()
+    if not events:
+        raise AssertionError("the forced breach fired nothing")
+    for event in events:
+        header, span_count = slo.validate_incident(event["incident_path"])
+        with open(event["incident_path"]) as f:
+            names = [json.loads(line)["name"] for line in f.read().splitlines()[1:]]
+        if "engine.kernel" not in names or span_count != header["flight_spans"]:
+            raise AssertionError(f"incident {event['incident_path']}: {span_count} spans, no engine.kernel")
+    log("obs", f"forced breach (p99 of serve.latency_s.* > 0): {len(events)} incident files "
+        f"({', '.join(os.path.basename(e['incident_path']) for e in events)}), each valid, "
+        f"{span_count} flight spans with {names.count('engine.kernel')} engine.kernel spans")
+    obs_server.stop()
+    flight.disable()
+
+    # -- the wide-table repair: D past the kernels plans, runs, matches -----
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    card_eng = engine.Engine(draws=draws.HostDraws())
+    host_eng = engine.Engine(device="cpu", draws=draws.HostDraws())
+    for task, dd, hint, limit in (("logreg", 4_097, "cuda_fused", "4096"),
+                                  ("least_squares", 12_033, "cuda_minibatch", "12032")):
+        wide = synthetic.dense_classification(gen, WIDE_ROWS, dd)
+        qw = engine.AnalyticsQuery(task=task, data=wide, task_args={"dim": dd}, epochs=2, tolerance=0.0, seed=seed)
+        rep = card_eng.explain(qw)
+        if rep.chosen.implementation not in ("torch_fold", "cuda_minibatch") or (
+                dd > K.MINIBATCH_MAX_DIM and rep.chosen.implementation != "torch_fold"):
+            raise AssertionError(f"D={dd}: planned {rep.chosen.implementation}")
+        watch.lap()
+        got = counted(lambda: card_eng.run(qw))
+        run_s = watch.lap()
+        want = host_eng.run(dataclasses.replace(qw, data={k: v.cpu() for k, v in wide.items()}), plan=rep.chosen)
+        err = max_err(got.model, want.model.to(dev), f"{task} D={dd} on the card vs the CPU")
+        try:
+            card_eng.explain(dataclasses.replace(qw, hints={"implementation": hint}))
+        except ValueError as e:
+            if limit not in str(e):
+                raise AssertionError(f"D={dd}: the {hint} hint raised without naming {limit}: {e}")
+            refusal = str(e)
+        else:
+            raise AssertionError(f"D={dd}: a {hint} hint past its kernel's limit planned")
+        log("obs", f"{task} {WIDE_ROWS}x{dd}: planned {rep.chosen.describe()} (probe (e) priced "
+            f"{sorted(rep.calibration.impl_per_row) or 'no kernel'}); 2 epochs on the card in {run_s:.3f} s, "
+            f"loss {got.losses[-1]:.6g}; max |dw| vs the CPU run {err:.3g} (rtol={KERNEL_RTOL}, atol={KERNEL_ATOL}); "
+            f"the {hint} hint refused: {refusal}; {card}")
+        del wide
+    shutil.rmtree(root, ignore_errors=True)
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel never launched on the obs path: {launches}")
+    log("obs", f"phase 3f took {phase.lap():.1f} s; obs-path launches {launches}")
+    return {"launches": launches, "epoch_s": epoch_s, "span_cost_s": {"off": off_cost, "flight": ring_cost}}
 
 
 def graph_ms(fn, iters: int) -> float:

@@ -10,7 +10,7 @@ Typical use::
                                            task_args={"dim": 54}))
     print(res.describe())
 
-``run``/``explain``/``cache_info`` go to ``DEFAULT``, the process-wide
+``run``/``explain``/``explain_analyze``/``cache_info`` go to ``DEFAULT``, the process-wide
 engine on the CUDA card, built at first use (so importing this package
 on a machine without a card works; using ``DEFAULT`` there raises).
 An engine on another device is ``Engine(device=...)``.
@@ -49,6 +49,13 @@ def run(query: AnalyticsQuery, *, plan=None) -> EngineResult:
 
 def explain(query: AnalyticsQuery) -> PlanReport:
     return default_engine().explain(query)
+
+
+def explain_analyze(query: AnalyticsQuery):
+    """EXPLAIN ANALYZE on the default engine: run the chosen plan under
+    the tracer and return the predicted-vs-measured ``obs.DriftReport``
+    (see ``Engine.explain_analyze``)."""
+    return default_engine().explain_analyze(query)
 
 
 def cache_info() -> dict:

@@ -25,6 +25,17 @@ bytes moved are counted in ``stats["bytes_to_device"]``.
 ``load(plan_key, query) -> PlanReport | None`` and ``store(plan_key,
 query, report)`` (``repro_torch.engine.serve.PlanStore``). A fresh engine
 pointed at a populated store warm-starts: it probes and plans nothing.
+
+Every run is instrumented through ``repro_torch.obs`` with the
+reference's names: the ``engine.run``, ``engine.compile``,
+``engine.materialize``, ``epoch``, ``engine.kernel`` (a ``cuda_*`` lane
+body's epoch) and ``engine.loss`` spans, and the ``engine.compile_s``,
+``engine.materialize_s``, ``engine.epoch.shuffle_s``,
+``engine.epoch.grad_s``, ``engine.kernel_us_per_epoch`` and
+``engine.loss_s`` histograms. The spans that cover device work close
+after the syncs the epoch loop already makes; no hook syncs or reads a
+device tensor. ``explain_analyze`` is EXPLAIN ANALYZE: the chosen plan
+run under the tracer, its walls beside the cost model's prediction.
 """
 
 from __future__ import annotations
@@ -34,7 +45,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch import timing
+from repro_torch import obs, timing
 from repro_torch.core import convergence, draws as draws_lib, mrs as mrs_lib
 from repro_torch.core import uda as uda_lib
 from repro_torch.core import ordering as ordering_lib
@@ -192,18 +203,21 @@ class Engine:
             self.stats["plan_cache_hits"] += 1
             return hit
         self.stats["plan_cache_misses"] += 1
-        task, agg = self._aggregate_for(query)
-        program = program_lib.build_program(
-            task, agg, program_lib.EpochProgram(plan=plan), counter=fresh_counter(),
-            device=self.device,
-        )
-        loss_counter = fresh_counter()
-        count_build(loss_counter)
-        compiled = CompiledPlan(
-            program=program,
-            loss_fn=lambda model, data: task.full_loss(model, data),
-            loss_trace_counter=loss_counter,
-        )
+        with obs.span("engine.compile", task=query.task, axes=plan.axes()):
+            watch = timing.Stopwatch()
+            task, agg = self._aggregate_for(query)
+            program = program_lib.build_program(
+                task, agg, program_lib.EpochProgram(plan=plan), counter=fresh_counter(),
+                device=self.device,
+            )
+            loss_counter = fresh_counter()
+            count_build(loss_counter)
+            compiled = CompiledPlan(
+                program=program,
+                loss_fn=lambda model, data: task.full_loss(model, data),
+                loss_trace_counter=loss_counter,
+            )
+            obs.metrics.observe("engine.compile_s", watch.lap())
         self._compiled[key] = compiled
         return compiled
 
@@ -232,10 +246,92 @@ class Engine:
         if plan is None:
             report = self.explain(query)
             plan = report.chosen
-        compiled = self._compile(query, plan)
-        if plan.parallelism == "sharded":
-            return shard_lib.execute(compiled, query, report, self)
-        return _execute(compiled, query, report, self)
+        with obs.span("engine.run", task=query.task, axes=plan.axes()):
+            compiled = self._compile(query, plan)
+            if plan.parallelism == "sharded":
+                return shard_lib.execute(compiled, query, report, self)
+            return _execute(compiled, query, report, self)
+
+    # -- EXPLAIN ANALYZE ---------------------------------------------------
+
+    def explain_analyze(self, query: AnalyticsQuery) -> obs.DriftReport:
+        """Run the chosen plan under the span tracer and diff the cost
+        model against the walls it actually produced, per composed axis.
+
+        The predicted side re-prices the plan through
+        ``planner.cost_components`` at the epoch count the run actually
+        executed (a converged run stops early; epoch-count error is
+        convergence modeling, not calibration drift). The measured side
+        maps the same axes onto the run's walls: ordering <- the
+        shuffle/placement wall, parallelism <- the epoch fold wall (the
+        implementation axis takes it for a serial singleton plan, whose
+        lane body the model prices there), source <- the
+        ``engine.materialize`` span, batching <- zero on this
+        single-query path. Loss evaluation is excluded from both sides.
+        The walls are host time after the epoch loop's syncs, so on the
+        card they cover the kernels. The report persists next to the plan
+        in the plan store (``load_analysis`` reads it back) and sets the
+        ``engine.drift_ratio`` and ``engine.calibration_stale`` gauges."""
+        report = self.explain(query)
+        plan = report.chosen
+        with obs.tracing() as rec:  # restores the caller's tracer state
+            res = self.run(query)
+        materialize_s = rec.total("engine.materialize")
+        attribution = obs.attribution.attribute(rec.spans, root_name="engine.run")
+        comps, _ = planner_lib.cost_components(
+            plan, query, report.calibration, float(max(res.epochs, 1)),
+        )
+        impl_axis = plan.parallelism != "sharded" and plan.scheme == "serial"
+        rows = (
+            obs.AxisCost(
+                "ordering", comps["ordering"], res.shuffle_seconds,
+                "shuffle/placement wall (EngineResult.shuffle_seconds)",
+            ),
+            obs.AxisCost(
+                "parallelism", comps["parallelism"],
+                0.0 if impl_axis else res.gradient_seconds,
+                "lane body measured on the implementation axis"
+                if impl_axis
+                else "epoch fold wall (EngineResult.gradient_seconds)",
+            ),
+            obs.AxisCost(
+                "batching", 0.0, 0.0,
+                "single-query run (B=1); fused lanes are priced on the serving path",
+            ),
+            obs.AxisCost(
+                "source", comps["source"], materialize_s,
+                "engine.materialize span (Table.resolve)",
+            ),
+            obs.AxisCost(
+                "implementation", comps["implementation"],
+                res.gradient_seconds if impl_axis else 0.0,
+                f"epoch fold wall of the {plan.implementation} lane body "
+                "(EngineResult.gradient_seconds)"
+                if impl_axis
+                else "lane body measured on the parallelism axis",
+            ),
+        )
+        analysis = obs.DriftReport(
+            axes=plan.axes(),
+            plan=plan.to_dict(),
+            rows=rows,
+            epochs_run=res.epochs,
+            predicted_total_s=sum(r.predicted_s for r in rows),
+            measured_total_s=sum(r.measured_s for r in rows),
+            attribution=attribution.to_dict() if attribution is not None else None,
+        )
+        obs.metrics.set_gauge("engine.drift_ratio", analysis.drift)
+        obs.metrics.set_gauge("engine.calibration_stale", 1.0 if analysis.stale else 0.0)
+        if self.plan_store is not None:
+            self.plan_store.store_analysis(self._query_plan_key(query), query, analysis)
+        return analysis
+
+    def load_analysis(self, query: AnalyticsQuery) -> Optional[obs.DriftReport]:
+        """The last persisted EXPLAIN ANALYZE for this query's plan key,
+        if the store holds one (e.g. written by another process)."""
+        if self.plan_store is None:
+            return None
+        return self.plan_store.load_analysis(self._query_plan_key(query), query)
 
 
 @dataclasses.dataclass
@@ -283,7 +379,10 @@ def _execute(
     data = query.data
     if stored and not streaming:
         # the plan needs random access: materialize once through resolve
-        data = materialize(query.data, device, engine.stats)
+        watch = timing.Stopwatch()
+        with obs.span("engine.materialize", task=query.task):
+            data = materialize(query.data, device, engine.stats)
+        obs.metrics.observe("engine.materialize_s", watch.lap())
     loss_data = None  # a streamed run's objective reads the materialized table
 
     def full_table():
@@ -305,7 +404,13 @@ def _execute(
         stop = None
 
     def eval_loss(state) -> float:
-        return float(compiled.loss_fn(agg.terminate(state), full_table()))
+        """One objective evaluation, timed into ``engine.loss_s`` (kept
+        out of the epoch walls; the cost model never prices it)."""
+        watch = timing.Stopwatch()
+        with obs.span("engine.loss"):
+            value = float(compiled.loss_fn(agg.terminate(state), full_table()))
+        obs.metrics.observe("engine.loss_s", watch.lap())
+        return value
 
     state = uda_lib.initial_state(draws.initial_model(agg.task))
     if plan.scheme == "mrs":
@@ -317,23 +422,35 @@ def _execute(
     grad_s = 0.0
     converged = False
     epoch = 0
+    # the kernel lane's epoch gets its own span, closed after the epoch's
+    # sync, so drift, SLOs and attribution see the implementation axis
+    kernel_impl = plan.implementation if plan.implementation != "torch_fold" else None
     for epoch in range(1, query.epochs + 1):
-        watch = timing.Stopwatch()
-        if streaming:
-            examples = stream_chunks(query.data, device, engine.stats)
-        else:
-            examples = ordering.order(data, n, epoch, draws.permutation)
-        timing.sync(device)
-        shuffle_s += watch.lap()
-        epoch_draws = draws.epoch()
-        if plan.scheme == "mrs":
-            state, buf_a, buf_b, _ = program.epoch_fn(carry, examples, epoch_draws)
-            # swap: the memory worker cycles last epoch's reservoir
-            carry = (state, buf_b, buf_a, True)
-        else:
-            state = program.epoch_fn(state, examples, epoch_draws)
-        timing.sync(device)
-        grad_s += watch.lap()
+        with obs.span("epoch", index=epoch):
+            watch = timing.Stopwatch()
+            if streaming:
+                examples = stream_chunks(query.data, device, engine.stats)
+            else:
+                examples = ordering.order(data, n, epoch, draws.permutation)
+            timing.sync(device)
+            epoch_shuffle_s = watch.lap()
+            epoch_draws = draws.epoch()
+            with (obs.span("engine.kernel", implementation=kernel_impl) if kernel_impl
+                  else obs.NULL_SPAN):
+                if plan.scheme == "mrs":
+                    state, buf_a, buf_b, _ = program.epoch_fn(carry, examples, epoch_draws)
+                    # swap: the memory worker cycles last epoch's reservoir
+                    carry = (state, buf_b, buf_a, True)
+                else:
+                    state = program.epoch_fn(state, examples, epoch_draws)
+                timing.sync(device)
+            epoch_grad_s = watch.lap()
+        shuffle_s += epoch_shuffle_s
+        grad_s += epoch_grad_s
+        obs.metrics.observe("engine.epoch.shuffle_s", epoch_shuffle_s)
+        obs.metrics.observe("engine.epoch.grad_s", epoch_grad_s)
+        if kernel_impl:
+            obs.metrics.observe("engine.kernel_us_per_epoch", epoch_grad_s * 1e6)
         # A stop rule needs the per-epoch objective; without one, a single
         # evaluation after the last epoch suffices.
         if stop is not None:

@@ -44,6 +44,7 @@ import numpy as np
 from repro_torch.engine import catalog, probes, table as table_lib
 from repro_torch.engine.program import IMPLEMENTATIONS, canonical_ordering
 from repro_torch.engine.query import AnalyticsQuery
+from repro_torch.kernels import igd_fused
 
 ORDERINGS = ("clustered", "shuffle_once", "shuffle_always")
 SCHEMES = ("serial", "segmented", "shared_memory", "mrs")
@@ -464,6 +465,13 @@ def _mrs_buffer_rows(query: AnalyticsQuery) -> int:
     return int(min(rows, n))
 
 
+def _dense_dim(query: AnalyticsQuery):
+    """D of a dense ``{"x": [n, d], "y": [n]}`` table, else None."""
+    cols = {name: shape for name, shape, *_ in query.data_signature()}
+    x = cols.get("x")
+    return x[1] if set(cols) == {"x", "y"} and len(x) == 2 else None
+
+
 def _check_hints(query: AnalyticsQuery, hints: dict, cal) -> None:
     """Reject unknown and contradictory hints (ValueError)."""
     if hints.get("source") == "table" and not table_lib.is_stored_table(query.data):
@@ -486,7 +494,11 @@ def _check_hints(query: AnalyticsQuery, hints: dict, cal) -> None:
                 "body (each lane streams the fused-IGD kernel); "
                 f"conflicting scheme hint {hints['scheme']!r}"
             )
-        if cal is not None and not cal.impl_per_row:
+        if cal is not None and impl_hint not in cal.impl_per_row:
+            d = _dense_dim(query)
+            why = igd_fused.supports(impl_hint, d) if d is not None else None
+            if why is not None:
+                raise ValueError(f"implementation={impl_hint!r} forced past its kernel's limit: {why}")
             raise ValueError(
                 f"implementation={impl_hint!r} forced for a query whose "
                 "aggregate is not kernel-eligible (catalog kernel_loss + "

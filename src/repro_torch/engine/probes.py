@@ -35,7 +35,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch import timing
+from repro_torch import obs, timing
 
 
 def time_call(fn, *args, device, warmup: int = 1, iters: int = 3) -> float:
@@ -129,11 +129,24 @@ class Calibration:
 def calibrate(agg, data, *, device, cache: Dict[Tuple, Calibration],
               key: Tuple, stats: Dict[str, int]) -> Calibration:
     """Measure the planner's constants on a probe slab of ``data``,
-    memoized in ``cache`` under ``key``; ``stats['probe_runs']`` counts
-    real measurements."""
+    memoized in ``cache`` under ``key``; ``stats['probe_runs']`` and the
+    ``probes.runs`` counter count real measurements, each under a
+    ``probe.calibrate`` span timed into ``probes.calibrate_s`` (the probes
+    sync the device, so the span covers their kernels)."""
     if key in cache:
         return cache[key]
     stats["probe_runs"] += 1
+    obs.metrics.inc("probes.runs")
+    watch = timing.Stopwatch()
+    with obs.span("probe.calibrate", task=key[0] if key else ""):
+        cal = _measure(agg, data, device=device, key=key)
+    cache[key] = cal
+    obs.metrics.observe("probes.calibrate_s", watch.lap())
+    return cal
+
+
+def _measure(agg, data, *, device, key: Tuple) -> Calibration:
+    """Probes (a)-(f) on a slab of ``data`` (see the module's note)."""
     from repro_torch.core import uda as uda_lib
     from repro_torch.engine import table as table_lib
 
@@ -186,7 +199,7 @@ def calibrate(agg, data, *, device, cache: Dict[Tuple, Calibration],
     if device_count > 1:
         shard = _probe_sharded(agg, slab, state0, device, task_name=key[0] if key else "")
 
-    cal = Calibration(
+    return Calibration(
         shuffle_per_row=t_shuffle / rows,
         fold_per_row=fold_per_row,
         merge_seconds=t_merge,
@@ -196,16 +209,16 @@ def calibrate(agg, data, *, device, cache: Dict[Tuple, Calibration],
         shard=shard,
         device_count=device_count,
     )
-    cache[key] = cal
-    return cal
 
 
 def _probe_implementations(agg, slab, state0, rows: int, device) -> Dict[str, float]:
     """Time the fused-IGD kernel lanes (seconds/row) for the
-    implementation axis. Empty when the aggregate is not kernel-eligible
-    or the slab is not dense (x, y) rows — the planner then never
-    enumerates a cuda_* candidate."""
+    implementation axis: only those whose kernel takes the slab's D
+    (``igd_fused.supports``, the same answer on every device). Empty when
+    the aggregate is not kernel-eligible or the slab is not dense (x, y)
+    rows — the planner then never enumerates a cuda_* candidate."""
     from repro_torch.engine import program as program_lib
+    from repro_torch.kernels import igd_fused
     from repro_torch.kernels.igd_fused import ops as igd_ops
 
     loss, _why = program_lib.kernel_eligibility(agg.task, agg)
@@ -219,6 +232,8 @@ def _probe_implementations(agg, slab, state0, rows: int, device) -> Dict[str, fl
         ("cuda_fused", igd_ops.igd_fold),
         ("cuda_minibatch", igd_ops.igd_fold_minibatch),
     ):
+        if igd_fused.supports(name, slab["x"].shape[1]) is not None:
+            continue
         out[name] = time_call(
             lambda x, y, a, w, op=op: op(x, y, a, w, loss=loss),
             slab["x"], slab["y"], alphas, state0.model, device=device,

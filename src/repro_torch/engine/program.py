@@ -74,6 +74,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import mrs as mrs_lib, ordering as ordering_lib
 from repro_torch.core import parallel as parallel_lib, tree, uda as uda_lib
 from repro_torch.core.tracecount import count_build, fresh_counter
@@ -118,12 +119,22 @@ def kernel_eligibility(task, agg) -> Tuple[Optional[str], str]:
 
 
 def require_kernel_loss(task, agg, implementation: str) -> str:
+    """The kernel loss of a ``cuda_*`` lowering, or ValueError when the
+    aggregate is not kernel-eligible or the task's D is past the
+    kernel's limit (``igd_fused.supports``): a forced plan that bypassed
+    the planner must not reach a launch the kernel refuses, and on the
+    CPU, whose plain versions take any D, it is refused alike."""
+    from repro_torch.kernels import igd_fused
+
     loss, why = kernel_eligibility(task, agg)
     if loss is None:
         raise ValueError(
             f"implementation={implementation!r} needs a kernel-eligible "
             f"aggregate: {why}"
         )
+    too_wide = igd_fused.supports(implementation, task.dim)
+    if too_wide is not None:
+        raise ValueError(too_wide)
     return loss
 
 
@@ -848,7 +859,15 @@ def build_program(
     epoch (``batch == 1``, ``epochs == 0``; a stored table's chunk stream
     for ``source='table'``; a sharded plan's runner, whose blocks are laid
     out from ``device``, the engine's device, on) or the serving front
-    end's fused run (``epochs >= 1``; B = 1 is a valid single-lane run)."""
+    end's fused run (``epochs >= 1``; B = 1 is a valid single-lane run).
+    The one entry point every driver builds through, counted by the
+    ``program.builds`` counter under a ``program.build`` span."""
+    obs.metrics.inc("program.builds")
+    with obs.span("program.build", axes=prog.plan.axes(), batch=prog.batch):
+        return _build_program(task, agg, prog, counter=counter, device=device)
+
+
+def _build_program(task, agg, prog: EpochProgram, *, counter, device) -> CompiledProgram:
     counter = counter if counter is not None else fresh_counter()
     plan = prog.plan
     if prog.batch < 1:

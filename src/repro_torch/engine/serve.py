@@ -2,7 +2,7 @@
 
 A database serves many concurrent analytics queries, not one script at a
 time. This layer models that multi-tenant reality on top of the engine
-with three mechanisms:
+with three mechanisms, and the telemetry around them:
 
 * **Admission control** (``ServingEngine.submit``): a bounded queue with
   a per-task depth limit. Overload sheds cleanly — a rejected query gets
@@ -36,10 +36,22 @@ with three mechanisms:
   populated store warm-starts: ``explain`` loads the report and seeds the
   probe cache, so it probes and plans nothing.
 
-The reference's operational telemetry (its obs spans and metrics, the
-gauges, the flight recorder, SLO monitoring and the EXPLAIN ANALYZE
-drift reports the store keeps beside each plan) comes with the port's
-obs slice (ROADMAP queue 1 item 6).
+* **Operational telemetry** (``repro_torch.obs``, the reference's
+  names): admission counters (``serve.accepted``,
+  ``serve.shed.queue_full``, ``serve.shed.task_limit``), the
+  ``serve.fused_lanes`` counter, per-task ``serve.queue_wait_s.<task>``
+  and ``serve.latency_s.<task>`` histograms, the ``serve.queue_depth``
+  and ``serve.plan_store_entries`` callback gauges, a ``serve.pump`` span
+  a group and the fused path's ``serve.assemble``/``serve.execute`` spans
+  with ``serve.assembly_s``/``serve.execute_s`` (closed after the phase
+  syncs the pump already makes; ``serve.execute`` carries ``lanes`` and
+  ``implementation``: a fused group's kernel lanes are one launch an
+  epoch and open no ``engine.kernel`` span, as in the reference). The
+  server installs the always-on flight ring (``flight_capacity``) and,
+  with ``slo_rules``, an ``obs.SLOMonitor`` evaluated between pump
+  groups, whose breaches write incident files under ``incident_dir``
+  (default ``<cache_dir>/incidents``). The plan store keeps each plan's
+  last EXPLAIN ANALYZE report beside it (``plan_<digest>.analyze.json``).
 
 Typical use::
 
@@ -64,13 +76,14 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch import timing
+from repro_torch import obs, timing
 from repro_torch.core import draws as draws_lib
 from repro_torch.core.tree import tree_map
 from repro_torch.engine import executor, planner as planner_lib
 from repro_torch.engine import program as program_lib
 from repro_torch.engine.query import AnalyticsQuery
 from repro_torch.kernels.igd_fused import kernel as igd_kernel
+from repro_torch.obs import flight as flight_lib, slo as slo_lib
 
 # The port's own on-disk layout (its own files under the cache dir's
 # torch/ directory; the reference's files are never read). Bump when the
@@ -115,20 +128,24 @@ class PlanStore:
         os.makedirs(self.root, exist_ok=True)
 
     def size(self) -> int:
-        """Live plan-entry count (tmp files excluded)."""
+        """Live plan-entry count (analysis and tmp files excluded) — the
+        ``serve.plan_store_entries`` callback gauge."""
         try:
             names = os.listdir(self.root)
         except OSError:
             return 0
-        return sum(1 for n in names if n.startswith("plan_") and n.endswith(".json"))
+        return sum(1 for n in names if n.startswith("plan_") and n.endswith(".json")
+                   and not n.endswith(".analyze.json"))
 
     def _path(self, plan_key: Tuple) -> str:
         digest = hashlib.sha256(repr(plan_key).encode()).hexdigest()[:32]
         return os.path.join(self.root, f"plan_{digest}.json")
 
-    def load(self, plan_key: Tuple, query: AnalyticsQuery) -> Optional[planner_lib.PlanReport]:
+    def _read(self, path: str, plan_key: Tuple, query: AnalyticsQuery) -> Optional[dict]:
+        """The entry at ``path``, or None on a miss (absent, torn, another
+        version, another key or another table)."""
         try:
-            with open(self._path(plan_key)) as f:
+            with open(path) as f:
                 entry = json.load(f)
         except (OSError, ValueError):
             return None
@@ -138,14 +155,38 @@ class PlanStore:
             or entry.get("fingerprint") != query.content_fingerprint()
         ):
             return None
+        return entry
+
+    def load(self, plan_key: Tuple, query: AnalyticsQuery) -> Optional[planner_lib.PlanReport]:
+        entry = self._read(self._path(plan_key), plan_key, query)
         try:
-            return planner_lib.PlanReport.from_dict(entry["report"])
+            return None if entry is None else planner_lib.PlanReport.from_dict(entry["report"])
         except (KeyError, TypeError, ValueError):
             return None
 
     def store(self, plan_key: Tuple, query: AnalyticsQuery,
               report: planner_lib.PlanReport) -> None:
         self._write(self._path(plan_key), plan_key, query, {"report": report.to_dict()})
+
+    # -- EXPLAIN ANALYZE persistence: the drift report lives NEXT TO the
+    # plan entry (same digest, its own file), so the last measured run
+    # travels with the stored plan and a fresh process can check the
+    # calibration's staleness before trusting it.
+
+    def _analysis_path(self, plan_key: Tuple) -> str:
+        return self._path(plan_key)[: -len(".json")] + ".analyze.json"
+
+    def load_analysis(self, plan_key: Tuple, query: AnalyticsQuery) -> Optional[obs.DriftReport]:
+        entry = self._read(self._analysis_path(plan_key), plan_key, query)
+        try:
+            return None if entry is None else obs.DriftReport.from_dict(entry["analysis"])
+        except (KeyError, TypeError, ValueError):
+            return None
+
+    def store_analysis(self, plan_key: Tuple, query: AnalyticsQuery,
+                       analysis: obs.DriftReport) -> None:
+        self._write(self._analysis_path(plan_key), plan_key, query,
+                    {"analysis": analysis.to_dict()})
 
     def _write(self, path: str, plan_key: Tuple, query: AnalyticsQuery, payload: dict) -> None:
         entry = {
@@ -180,6 +221,16 @@ class ServeConfig:
     max_per_task: int = 32  # per-task queue-depth limit
     max_batch: int = 8  # queries fused into one run
     cache_dir: Optional[str] = None  # persistent plan cache root
+    # always-on flight recorder: the server installs a ring of this many
+    # completed spans (0 opts out), dumped into every SLO incident file
+    flight_capacity: int = 256
+    # declarative SLOs (a tuple of obs.SLORule; None = unmonitored),
+    # evaluated between pump groups at slo_interval_s cadence; breaches
+    # dump the flight ring to incident_dir (default:
+    # <cache_dir>/incidents when a cache_dir is configured)
+    slo_rules: Optional[Tuple] = None
+    slo_interval_s: float = 1.0
+    incident_dir: Optional[str] = None
 
 
 _UNSET = object()  # sentinel: a ticket's batch key may legitimately be None
@@ -241,6 +292,22 @@ class ServingEngine:
         self._queue: collections.deque = collections.deque()
         self._queued_per_task: collections.Counter = collections.Counter()
         self._batched: Dict[Tuple, program_lib.CompiledProgram] = {}
+        # operational telemetry: the always-on flight ring, the live
+        # queue-depth / plan-store-size callback gauges (a snapshot or a
+        # /metrics scrape reads them without calling into the engine),
+        # and the SLO monitor pump() evaluates on its cadence
+        if config.flight_capacity:
+            flight_lib.enable(config.flight_capacity)
+        obs.metrics.gauge("serve.queue_depth", fn=lambda: len(self._queue))
+        if self.engine.plan_store is not None and hasattr(self.engine.plan_store, "size"):
+            obs.metrics.gauge("serve.plan_store_entries", fn=self.engine.plan_store.size)
+        self.slo: Optional[slo_lib.SLOMonitor] = None
+        if config.slo_rules:
+            incident_dir = config.incident_dir
+            if incident_dir is None and config.cache_dir:
+                incident_dir = os.path.join(config.cache_dir, "incidents")
+            self.slo = slo_lib.SLOMonitor(config.slo_rules, interval_s=config.slo_interval_s,
+                                          incident_dir=incident_dir)
         self.stats = {
             "accepted": 0,
             "rejected": 0,
@@ -261,15 +328,18 @@ class ServingEngine:
         if len(self._queue) >= self.config.max_queue:
             self.stats["rejected"] += 1
             self.stats["shed_queue_full"] += 1
+            obs.metrics.inc("serve.shed.queue_full")
             return Ticket(query, False, REJECT_QUEUE_FULL, submit_s=now)
         if self._queued_per_task[query.task] >= self.config.max_per_task:
             self.stats["rejected"] += 1
             self.stats["shed_task_limit"] += 1
+            obs.metrics.inc("serve.shed.task_limit")
             return Ticket(query, False, REJECT_TASK_LIMIT, submit_s=now)
         ticket = Ticket(query, True, submit_s=now)
         self._queue.append(ticket)
         self._queued_per_task[query.task] += 1
         self.stats["accepted"] += 1
+        obs.metrics.inc("serve.accepted")
         return ticket
 
     @property
@@ -330,36 +400,52 @@ class ServingEngine:
                 self._queue.remove(t)
                 self._queued_per_task[t.query.task] -= 1
             group.extend(matches)
+        dequeued = timing.now()
+        for t in group:
+            obs.metrics.observe(f"serve.queue_wait_s.{t.query.task}", dequeued - t.submit_s)
+        # the group span is what tail-latency attribution decomposes:
+        # admission wait is not a span, so the pump stamps the group's
+        # worst wait as an attribute for the queue_wait phase
+        max_wait = max(dequeued - t.submit_s for t in group)
 
         # one bad query must not take the server loop (or the rest of the
         # queue) down with it: failures complete the ticket with an error
-        try:
-            if len(group) == 1:
-                head.result = self.engine.run(head.query)
-                head.done_s = timing.now()
-                self.stats["singleton_queries"] += 1
-            elif self._run_batch(group, key[1]):
-                self.stats["batches"] += 1
-                self.stats["batched_queries"] += len(group)
-                self.stats["fused_lanes"] += len(group)
-                if len({t.query.epochs for t in group}) > 1:
-                    self.stats["masked_batches"] += 1
-            else:
-                # the group declined fusion at run time (a sharded plan
-                # over distinct tables): served singleton, still done
-                self.stats["singleton_queries"] += len(group)
-        except Exception as e:  # noqa: BLE001 — record on the tickets, keep serving
-            now = timing.now()
-            errored = 0
-            for t in group:
-                if t.done_s is None:
-                    t.error = f"{type(e).__name__}: {e}"
-                    t.done_s = now
-                    errored += 1
-            self.stats["failed_queries"] += errored
-            # tickets already served (the sharded distinct-table fallback
-            # completes them one by one) are successes, not casualties
-            self.stats["singleton_queries"] += len(group) - errored
+        with obs.span("serve.pump", batch=len(group), queue_wait_s=max_wait):
+            try:
+                if len(group) == 1:
+                    head.result = self.engine.run(head.query)
+                    head.done_s = timing.now()
+                    self.stats["singleton_queries"] += 1
+                elif self._run_batch(group, key[1]):
+                    self.stats["batches"] += 1
+                    self.stats["batched_queries"] += len(group)
+                    self.stats["fused_lanes"] += len(group)
+                    obs.metrics.inc("serve.fused_lanes", len(group))
+                    if len({t.query.epochs for t in group}) > 1:
+                        self.stats["masked_batches"] += 1
+                else:
+                    # the group declined fusion at run time (a sharded plan
+                    # over distinct tables): served singleton, still done
+                    self.stats["singleton_queries"] += len(group)
+            except Exception as e:  # noqa: BLE001 — record on the tickets, keep serving
+                now = timing.now()
+                errored = 0
+                for t in group:
+                    if t.done_s is None:
+                        t.error = f"{type(e).__name__}: {e}"
+                        t.done_s = now
+                        errored += 1
+                self.stats["failed_queries"] += errored
+                # tickets already served (the sharded distinct-table fallback
+                # completes them one by one) are successes, not casualties
+                self.stats["singleton_queries"] += len(group) - errored
+        for t in group:
+            if t.done_s is not None and t.error is None:
+                obs.metrics.observe(f"serve.latency_s.{t.query.task}", t.done_s - t.submit_s)
+        # SLO cadence: between groups, never mid-batch — monitoring must
+        # not sit inside the fused run's wall
+        if self.slo is not None:
+            self.slo.maybe_evaluate()
         return len(group)
 
     def drain(self) -> int:
@@ -373,21 +459,30 @@ class ServingEngine:
 
     # -- batched execution ------------------------------------------------
 
-    def _timed_phases(self, assemble, execute) -> Tuple[Any, Any, float, float]:
-        """One timing discipline for the fused path: run ``assemble``
-        (input staging — stacking, the one up-front permutation) then
-        ``execute`` (the fused epochs), each timed on the host clock
-        after a wait for the device (``timing.Stopwatch`` +
-        ``timing.sync``). Returns ``(assembled, executed, assemble_s,
-        execute_s)``."""
+    def _timed_phases(self, assemble, execute, *, lanes: int,
+                      implementation: str) -> Tuple[Any, Any, float, float]:
+        """One timing discipline for both fused paths: run ``assemble``
+        (input staging — stacking, permutations, placement) then
+        ``execute`` (the fused epochs), each under its obs span and timed
+        on the host clock after a wait for the device
+        (``timing.Stopwatch`` + ``timing.sync``), into the
+        ``serve.assembly_s``/``serve.execute_s`` histograms. ``lanes``
+        (the queries, times the shards of a sharded plan) and the
+        ``implementation`` ride on the ``serve.execute`` span. Returns
+        ``(assembled, executed, assemble_s, execute_s)``."""
         device = self.engine.device
         watch = timing.Stopwatch()
-        assembled = assemble()
-        timing.sync(device)
+        with obs.span("serve.assemble"):
+            assembled = assemble()
+            timing.sync(device)
         assemble_s = watch.lap()
-        executed = execute(assembled)
-        timing.sync(device)
-        return assembled, executed, assemble_s, watch.lap()
+        with obs.span("serve.execute", lanes=lanes, implementation=implementation):
+            executed = execute(assembled)
+            timing.sync(device)
+        execute_s = watch.lap()
+        obs.metrics.observe("serve.assembly_s", assemble_s)
+        obs.metrics.observe("serve.execute_s", execute_s)
+        return assembled, executed, assemble_s, execute_s
 
     def _finish_group(self, tickets: List[Ticket], models, losses, plan: planner_lib.Plan, *,
                       shuffle_s: float, grad_s: float, trace_count: int,
@@ -485,7 +580,8 @@ class ServingEngine:
             return compiled.run_fn(states0, examples, lane_draws, budgets)
 
         launches0 = sum(igd_kernel.launches.values())
-        _, states, shuffle_s, grad_s = self._timed_phases(assemble, execute)
+        _, states, shuffle_s, grad_s = self._timed_phases(
+            assemble, execute, lanes=len(queries), implementation=plan.implementation)
         launches = sum(igd_kernel.launches.values()) - launches0
         models = compiled.agg.terminate(states)
         losses = compiled.loss_fn(models, source)
@@ -522,10 +618,19 @@ class ServingEngine:
             )
             self._batched_put(key, aux)
         device = self.engine.device
+        shard_lib.check_plan(plan, n)
         lane_draws = draws_lib.lane_streams(self.engine.draws, [q.seed for q in queries], n, device)
+        states0 = aux.init_fn(lane_draws)
+
+        def assemble():
+            return shard_lib.place_batched_inputs(runner, q0.data, n, lane_draws)
+
+        def execute(placed):
+            return shard_lib.run_batch_blocks(runner, states0, placed, n, epochs, budgets, device)
+
         launches0 = sum(igd_kernel.launches.values())
-        states, shuffle_s, grad_s = shard_lib.run_batch(
-            runner, aux, q0.data, n, lane_draws, epochs, budgets, device)
+        _, states, shuffle_s, grad_s = self._timed_phases(
+            assemble, execute, lanes=b * plan.num_shards, implementation=plan.implementation)
         launches = sum(igd_kernel.launches.values()) - launches0
         models = runner.agg.terminate(states)
         losses = aux.loss_fn(models, q0.data)
@@ -536,10 +641,14 @@ class ServingEngine:
 
     def metrics(self) -> Dict[str, Any]:
         """The serving surface in one read: the admission/batching
-        counters (including the shed and fused-lane tallies) and live
-        queue state."""
+        counters (including the shed and fused-lane tallies), live queue
+        state, the SLO breaches and the obs registry's ``serve.*``
+        aggregates — per-task queue-wait and end-to-end latency
+        histograms (p50/p99) plus the fused assembly/execute walls."""
         return dict(self.stats, queue_depth=self.queue_depth,
-                    batched_plans=len(self._batched))
+                    batched_plans=len(self._batched),
+                    slo_breaches=len(self.slo.breaches) if self.slo else 0,
+                    obs=obs.metrics.snapshot("serve."))
 
     def cache_info(self) -> Dict[str, int]:
         return dict(self.stats, batched_plans=len(self._batched), **self.engine.cache_info())

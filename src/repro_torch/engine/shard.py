@@ -20,11 +20,17 @@ what is a driver's job:
 
 Paper context (§3.3, Fig. 9): partition the table, train partial models,
 ``merge`` by weighted model averaging — here the k partitions are the
-lanes of one kernel launch (or of one ``vmap``) on each device. The
-reference's obs spans ``shard.place``/``shard.block``, its
-``shard.place_s``/``shard.block_s`` observations and the
-``shard.merge_staleness_epochs`` gauge come with the port's obs slice
-(ROADMAP queue 1 item 6).
+lanes of one kernel launch (or of one ``vmap``) on each device.
+
+Instrumented as the reference is: the ``shard.place`` span and
+``shard.place_s`` around the placement, a ``shard.block`` span
+(attributes ``epochs`` and ``k``) and ``shard.block_s`` around each block,
+each closed after the sync the driver already makes, and the
+``shard.merge_staleness_epochs`` gauge. A block's kernel lanes open no
+``engine.kernel`` span (the reference opens it only on the singleton
+path): the k shards are the lanes of one launch an epoch a device, so
+``shard.block`` carries ``implementation`` as a further attribute and
+``k`` is the lane count.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from typing import Any, List, Tuple
 
 import torch
 
-from repro_torch import timing
+from repro_torch import obs, timing
 from repro_torch.core import convergence, uda as uda_lib
 from repro_torch.core.tree import leaves
 from repro_torch.dist import data_parallel as dp
@@ -171,9 +177,11 @@ def execute(compiled, query, report, engine) -> Any:
     launches0 = sum(igd_kernel.launches.values())
 
     watch = timing.Stopwatch()
-    mode, args = place_inputs(runner, data, n, draws)
-    timing.sync(device)
+    with obs.span("shard.place", ordering=plan.ordering, k=plan.num_shards):
+        mode, args = place_inputs(runner, data, n, draws)
+        timing.sync(device)
     shuffle_s = watch.lap()
+    obs.metrics.observe("shard.place_s", shuffle_s)
 
     losses: List[float] = []
     grad_s = 0.0
@@ -183,9 +191,16 @@ def execute(compiled, query, report, engine) -> Any:
         block_len = min(plan.merge_period, query.epochs - done)
         fn = runner.block(mode, block_len, n)
         watch.lap()
-        state = fn(state, *args)
-        timing.sync(device)
-        grad_s += watch.lap()
+        with obs.span("shard.block", epochs=block_len, k=plan.num_shards,
+                      implementation=plan.implementation):
+            state = fn(state, *args)
+            timing.sync(device)
+        block_s = watch.lap()
+        obs.metrics.observe("shard.block_s", block_s)
+        # merge staleness: local models drift for block_len epochs
+        # between model-averaging merges (the H in local SGD)
+        obs.metrics.set_gauge("shard.merge_staleness_epochs", block_len)
+        grad_s += block_s
         done += block_len
         # the merged (global) model exists exactly at block boundaries —
         # the natural granularity for the objective and stop rules
@@ -212,25 +227,19 @@ def execute(compiled, query, report, engine) -> Any:
     )
 
 
-def run_batch(runner: ShardedRunner, aux, data, n: int, lane_draws, epochs: int,
-              budgets: List[int], device) -> Tuple[Any, float, float]:
-    """The fused sharded batch's run (``ServingEngine``'s sharded groups):
-    ``aux`` (``build_program``'s mode ``"sharded"``) stacks each query's
-    initial state from its draws; placement, then the blocks of H epochs
-    with the queries' budgets. Returns ``(states, place_s, blocks_s)``."""
+def run_batch_blocks(runner: ShardedRunner, states, placed: Tuple[str, tuple], n: int,
+                     epochs: int, budgets: List[int], device):
+    """The fused sharded batch's blocks (``ServingEngine``'s sharded
+    groups, after :func:`place_batched_inputs` gave ``placed``): blocks
+    of H epochs over the B queries' stacked ``states`` with their epoch
+    budgets. Returns the states (the caller syncs)."""
     plan = runner.plan
-    check_plan(plan, n)
-    b = len(lane_draws)
-    states = aux.init_fn(lane_draws)
-    watch = timing.Stopwatch()
-    mode, args = place_batched_inputs(runner, data, n, lane_draws)
-    timing.sync(device)
-    place_s = watch.lap()
+    mode, args = placed
+    b = len(budgets)
     budgets_dev = torch.tensor(list(budgets), dtype=torch.int64, device=device)
     done = 0
     while done < epochs:
         block_len = min(plan.merge_period, epochs - done)
         states = runner.block(mode, block_len, n, batch=b)(states, *args, budgets_dev, done)
         done += block_len
-    timing.sync(device)
-    return states, place_s, watch.lap()
+    return states

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -93,6 +93,28 @@ LIBRARY = CudaLibrary("igd_fused", SOURCE, _declare)
 library_path = LIBRARY.path
 build = LIBRARY.build
 _load = LIBRARY.load
+
+
+# The implementation axis's kernels and the widest D each takes.
+_IMPLEMENTATION_KERNELS = {
+    "cuda_fused": ("igd_fold", "FOLD_MAX_DIM", FOLD_MAX_DIM),
+    "cuda_minibatch": ("igd_fold_minibatch", "MINIBATCH_MAX_DIM", MINIBATCH_MAX_DIM),
+}
+
+
+def supports(implementation: str, d: int) -> Optional[str]:
+    """Why the kernel behind ``implementation`` cannot take D features,
+    or None when it can (``torch_fold`` takes any D). Plain Python over
+    this module's limits: the planner and the probes call it on any
+    device, so a query plans on the CPU as it will on the card."""
+    if implementation == "torch_fold":
+        return None
+    if implementation not in _IMPLEMENTATION_KERNELS:
+        raise ValueError(f"unknown implementation {implementation!r}")
+    name, limit_name, limit = _IMPLEMENTATION_KERNELS[implementation]
+    if 1 <= d <= limit:
+        return None
+    return f"{implementation}'s kernel {name} takes 1 <= D <= {limit} ({limit_name}); this query has D={d}"
 
 
 def lane_layout(x, y, alpha, w0):

@@ -13,17 +13,16 @@ Two serving surfaces share this module:
   called with the same params object: the reference casts float32 params
   at every use, which on the card would read 12.85 GB and write 6.4 GB
   per llama3.2-3b decode step.
-
-The reference's ``trace_dir``/``obs_port`` (span traces and the metrics
-server) and its SLO rules come with the port's obs slice.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterable, List, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.engine import executor, serve as serve_lib
 from repro_torch.models import lm
 
@@ -34,13 +33,18 @@ def make_analytics_server(
     max_queue: int = 64,
     max_per_task: int = 32,
     max_batch: int = 8,
+    slo_rules=None,
+    incident_dir: Optional[str] = None,
     device=None,
 ) -> serve_lib.ServingEngine:
     """An analytics ``ServingEngine`` with the given admission knobs, over
-    an engine on ``device`` (None: the CUDA card)."""
+    an engine on ``device`` (None: the CUDA card). ``slo_rules`` (a tuple
+    of ``repro_torch.obs.SLORule``, e.g. ``obs.slo.default_serve_rules()``)
+    arms breach monitoring; incidents land in ``incident_dir`` (default:
+    ``<cache_dir>/incidents``)."""
     config = serve_lib.ServeConfig(
         max_queue=max_queue, max_per_task=max_per_task, max_batch=max_batch,
-        cache_dir=cache_dir,
+        cache_dir=cache_dir, slo_rules=slo_rules, incident_dir=incident_dir,
     )
     return serve_lib.ServingEngine(config, engine=executor.Engine(device=device))
 
@@ -49,14 +53,34 @@ def serve_analytics(
     queries: Iterable,
     *,
     server: Optional[serve_lib.ServingEngine] = None,
+    trace_dir: Optional[str] = None,
+    obs_port: Optional[int] = None,
     **server_kw,
 ) -> List[serve_lib.Ticket]:
     """Submit ``queries`` (admission-controlled), drain the queue, and
     return one ticket per query — rejected ones carry ``reject_reason``
-    instead of a result."""
+    instead of a result. With ``trace_dir``, the whole load runs under
+    the span tracer and ``serve.jsonl`` / ``serve.trace.json`` (Chrome
+    trace) are written there after the drain. With ``obs_port`` (0 for
+    an ephemeral port), the process obs server is started first, so
+    ``/metrics``, ``/snapshot`` and ``/healthz`` are scrapeable while the
+    load runs — and stay up afterwards
+    (``repro_torch.launch.obs_server.stop()`` tears it down)."""
+    if obs_port is not None:
+        from repro_torch.launch import obs_server
+
+        obs_server.start(obs_port)
     srv = server if server is not None else make_analytics_server(**server_kw)
-    tickets = [srv.submit(q) for q in queries]
-    srv.drain()
+    if trace_dir is None:
+        tickets = [srv.submit(q) for q in queries]
+        srv.drain()
+        return tickets
+    os.makedirs(trace_dir, exist_ok=True)
+    with obs.tracing() as rec:
+        tickets = [srv.submit(q) for q in queries]
+        srv.drain()
+    rec.export_jsonl(os.path.join(trace_dir, "serve.jsonl"))
+    rec.export_chrome_trace(os.path.join(trace_dir, "serve.trace.json"))
     return tickets
 
 

@@ -4,8 +4,11 @@ Device time comes from CUDA events recorded on the current stream; host
 wall time (``EngineResult.shuffle_seconds``/``gradient_seconds``, probe
 timings on the CPU) comes from :class:`Stopwatch`, and timestamps (a
 served query's submit and completion) from :func:`now`: the package's
-only host clock. Both wait for the device before they read, because
-PyTorch returns before the card finishes.
+host clock for intervals, an obs span's start and end included. Callers
+wait for the device (``sync``) before they read, because PyTorch returns
+before the card finishes. Two more clocks serve ``repro_torch.obs``:
+:func:`wall`, the calendar time stamped on a snapshot or an incident, and
+:func:`monotonic`, the SLO monitor's cadence.
 """
 
 from __future__ import annotations
@@ -26,6 +29,16 @@ def now() -> float:
     """Host clock in seconds (a timestamp: differences of two are wall
     time; it waits for nothing)."""
     return time.perf_counter_ns() * 1e-9
+
+
+def wall() -> float:
+    """Calendar time in seconds since the epoch (a record's timestamp)."""
+    return time.time()
+
+
+def monotonic() -> float:
+    """A clock that never steps back, in seconds (a cadence's clock)."""
+    return time.monotonic()
 
 
 class Stopwatch:

@@ -177,6 +177,44 @@ def test_cuda_engine_plans_the_kernel_lane():
     assert bool(torch.isfinite(res.model).all())
 
 
+@needs_card
+@pytest.mark.parametrize("task,d", [("logreg", 4_097), ("least_squares", 12_033)])
+def test_cuda_wide_query_plans_past_the_kernels_and_matches_the_cpu_run(task, d):
+    """Past igd_fold's D (4,096), and past igd_fold_minibatch's (12,032):
+    the card plans as the CPU does (probe (e) prices only the kernels that
+    take D, the eager fold wins), runs, and equals the CPU run with the
+    same draws; a hint past a kernel's limit raises naming it."""
+    from repro_torch import engine
+    from repro_torch.core import draws
+    from repro_torch.data import synthetic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    table = synthetic.dense_classification(torch.Generator().manual_seed(7), 1_024, d)
+    on_card = {k: v.cuda() for k, v in table.items()}
+
+    def query(data, **hints):
+        return engine.AnalyticsQuery(task=task, data=data, task_args={"dim": d}, epochs=2, tolerance=0.0,
+                                     hints=hints)
+
+    eng = engine.Engine(draws=draws.HostDraws())
+    report = eng.explain(query(on_card))
+    assert report.chosen.implementation == "torch_fold"
+    assert set(report.calibration.impl_per_row) == ({"cuda_minibatch"} if d <= K.MINIBATCH_MAX_DIM else set())
+    card = eng.run(query(on_card))
+    host = engine.Engine(device="cpu", draws=draws.HostDraws()).run(query(table), plan=report.chosen)
+    torch.testing.assert_close(card.model.cpu(), host.model, **TOL)
+    assert card.kernel_launches == 0
+    for impl, limit in (("cuda_fused", "4096"), ("cuda_minibatch", "12032")):
+        if K.supports(impl, d) is not None:
+            with pytest.raises(ValueError, match=limit):
+                eng.explain(query(on_card, implementation=impl))
+    if d <= K.MINIBATCH_MAX_DIM:  # the one-block minibatch kernel still takes this width
+        hinted = eng.run(query(on_card, implementation="cuda_minibatch"))
+        want = engine.Engine(device="cpu", draws=draws.HostDraws()).run(query(table), plan=hinted.plan)
+        torch.testing.assert_close(hinted.model.cpu(), want.model, **TOL)
+        assert hinted.kernel_launches == 2
+
+
 # lane launches: (lanes, N, D) across the sub-tile, the tile and the
 # instance boundaries (D 300: the per-row fold and the one-block minibatch)
 LANE_CASES = [(1, 33, 54), (3, 257, 54), (3, 1000, 200), (4, 31, 300), (3, 2049, 300), (32, 513, 54)]

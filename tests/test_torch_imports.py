@@ -19,7 +19,8 @@ def test_import_loads_neither_jax_nor_repro():
         "import sys, repro_torch, repro_torch.engine, repro_torch.convert, "
         "repro_torch.kernels.igd_fused.ops, repro_torch.kernels.attention.ops, "
         "repro_torch.kernels.decode.ops, repro_torch.models.lm, repro_torch.launch.serve, "
-        "repro_torch.tasks.baselines, repro_torch.data.synthetic, repro_torch.configs.paper_tasks\n"
+        "repro_torch.tasks.baselines, repro_torch.data.synthetic, repro_torch.configs.paper_tasks, "
+        "repro_torch.obs, repro_torch.launch.obs_server, repro_torch.kernels.igd_fused\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"

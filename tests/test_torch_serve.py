@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from _threefry_replay import ThreefryReplay
+from _torch_obs import torch_obs_isolation  # noqa: F401  (autouse: the port's obs state, reset per test)
 from repro import engine as ref_engine
 from repro.engine import serve as ref_serve
 from repro_torch import convert, engine
@@ -107,6 +108,7 @@ def test_fused_lanes_match_the_reference_and_their_singleton_runs(budgets, hints
     own singleton run and the reference's fused lane."""
     tickets, ref_tickets, singles, srv = _fuse_both(_table(), hints, budgets)
     assert srv.stats["batches"] == 1 and srv.stats["fused_lanes"] == 3
+    assert srv.metrics()["obs"]["serve.fused_lanes"]["value"] == 3
     assert srv.stats["masked_batches"] == (len(set(budgets)) > 1)
     assert all(t.result.batch_size == 3 for t in tickets)
     _assert_lanes(tickets, ref_tickets, singles)
@@ -223,6 +225,28 @@ def test_admission_sheds_load_beyond_queue_bound():
     m = srv.metrics()
     assert (m["rejected"], m["shed_queue_full"], m["shed_task_limit"], m["queue_depth"]) == (2, 2, 0, 0)
     assert srv.cache_info()["plans_computed"] == 1
+    assert m["obs"]["serve.shed.queue_full"]["value"] == 2
+    assert m["obs"]["serve.accepted"]["value"] == 2
+    lat = m["obs"]["serve.latency_s.logreg"]  # both served queries
+    assert lat["count"] == 2 and lat["p99"] >= lat["p50"] > 0
+
+
+def test_serving_engine_registers_operational_gauges(tmp_path):
+    """Queue depth and plan-store size are live callback gauges: they
+    read the server's state at snapshot time, not a stale copy."""
+    from repro_torch import obs
+
+    mem = convert.table_from_numpy(_table(64), "cpu")
+    srv = _server(cache_dir=str(tmp_path))
+    srv.submit(_q(mem, seed=0))
+    srv.submit(_q(mem, seed=1))
+    snap = obs.metrics.snapshot("serve.")
+    assert snap["serve.queue_depth"]["value"] == 2
+    assert snap["serve.plan_store_entries"]["value"] == 0
+    srv.drain()
+    snap = obs.metrics.snapshot("serve.")
+    assert snap["serve.queue_depth"]["value"] == 0
+    assert snap["serve.plan_store_entries"]["value"] >= 1
 
 
 def test_admission_per_task_limit():
@@ -346,3 +370,46 @@ def test_sweep_records_every_variant_and_summarizes_each(tmp_path):
     assert [r["status"] for r in recs] == ["OK", "FAIL"] and "boom" in recs[1]["error"]
     assert [json.loads(line)["tag"] for line in out.read_text().splitlines()] == ["good", "bad"]
     assert lines == ["good OK ms 3.0", "bad FAIL ms None"]
+
+
+@pytest.mark.parametrize("ordering", ["clustered", "shuffle_once", "shuffle_always"])
+@pytest.mark.parametrize("name", ["crf", "kalman", "lmf", "portfolio", "sparse_logreg", "sparse_svm"])
+def test_fused_batch_of_the_other_techniques_matches_the_reference(name, ordering, monkeypatch):
+    """A served batch of three queries of each of the six other techniques
+    with masked budgets (1, 3, 2), fused in both servers under the same
+    hinted plan, each lane held to the reference's lane (Kalman's planted
+    system is the reference's, as in test_torch_tasks_engine)."""
+    from repro import tasks as ref_tasks
+    from repro_torch.tasks import kalman
+    from test_torch_tasks_engine import _table
+
+    def planted(c_seed, state_dim, obs_dim, device):
+        c, a = ref_tasks.KalmanFilterTask(1, state_dim, obs_dim, c_seed=c_seed)._mats()
+        return torch.tensor(np.asarray(c), device=device), torch.tensor(np.asarray(a), device=device)
+
+    monkeypatch.setattr(kalman, "system_matrices", planted)
+    arrays, args = _table(name)
+    hints = {"ordering": ordering, "scheme": "serial"}
+    common = [dict(task=name, task_args=args, seed=s, epochs=e, tolerance=0.0, hints=dict(hints))
+              for s, e in enumerate((1, 3, 2))]
+    ref_data = {k: jax.numpy.asarray(v) for k, v in arrays.items()}
+    ref_srv = ref_serve.ServingEngine(ref_serve.ServeConfig(max_batch=4))
+    ref_tickets = [ref_srv.submit(ref_engine.AnalyticsQuery(data=ref_data, **c)) for c in common]
+    ref_srv.drain()
+    data = convert.table_from_numpy(arrays, "cpu")
+    srv = _server()
+    tickets = [srv.submit(engine.AnalyticsQuery(data=data, **c)) for c in common]
+    srv.drain()
+    assert srv.stats["masked_batches"] == 1 and ref_srv.stats["masked_batches"] == 1
+    for t, rt in zip(tickets, ref_tickets):
+        assert t.result.batch_size == rt.result.batch_size == 3
+        assert t.result.epochs == rt.result.epochs
+        want = jax.tree.map(np.asarray, rt.result.model)
+        got = t.result.model
+        if isinstance(got, dict):
+            assert sorted(got) == sorted(want)
+            for k in got:
+                np.testing.assert_allclose(got[k].numpy(), want[k], rtol=RTOL, atol=1e-6)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-6)
+        np.testing.assert_allclose(t.result.losses, rt.result.losses, rtol=RTOL, atol=1e-6)

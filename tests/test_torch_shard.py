@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from _threefry_replay import ThreefryReplay
+from _torch_obs import torch_obs_isolation  # noqa: F401  (autouse: the port's obs state, reset per test)
 from repro import engine as ref_engine
 from repro.engine import planner as ref_planner, probes as ref_probes, serve as ref_serve
 from repro.engine import shard as ref_shard

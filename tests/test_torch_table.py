@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from _threefry_replay import ThreefryReplay
+from _torch_obs import torch_obs_isolation  # noqa: F401  (autouse: the port's obs state, reset per test)
 from repro import engine as ref_engine
 from repro_torch import convert, engine
 from repro_torch.engine import table as table_lib

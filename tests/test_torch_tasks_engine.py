@@ -184,3 +184,18 @@ def test_planned_run_on_the_ports_probes(name):
     assert res.losses[-1] < loss0 and res.report.calibration.impl_per_row == {}
     if name in ("lmf", "crf", "kalman", "portfolio"):
         assert res.report.clusteredness == 0.0
+
+
+@pytest.mark.parametrize("k,h", [(2, 1), (4, 2)])
+@pytest.mark.parametrize("ordering", ORDERINGS)
+@pytest.mark.parametrize("name", NEW)
+def test_sharded_run_matches_reference(name, ordering, k, h, ref_eng, eng):
+    """sharded(k, H) local SGD for the six techniques: k shared-nothing
+    shards of the eager fold, merged every H epochs (3 epochs: a short
+    last block at H = 2), the plans forced equal."""
+    ref_q, q = _pair(name, epochs=3)
+    fields = dict(parallelism="sharded", num_shards=k, merge_period=h)
+    ref_res = ref_eng.run(ref_q, plan=ref_planner.Plan(ordering, "serial", **fields))
+    res = eng.run(q, plan=planner.Plan(ordering, "serial", **fields))
+    assert res.plan.parallelism == "sharded" and res.kernel_launches == 0
+    _assert_same(res, ref_res)
