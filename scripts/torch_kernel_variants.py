@@ -41,15 +41,16 @@ DECODE_VARIANTS = {
         ("    // scores: a quarter of hd for every head of the group\n    {", "    if (tid < 0) {"),
         ("    if (warp < NG) {\n      float s[kTile / 32], mx = m;",
          "    if (warp < NG && tid < 0) {\n      float s[kTile / 32], mx = m;"),
-        ("    for (int i = 0; i < kTile / kPosGroups; ++i) {",
-         "    for (int i = 0; i < kTile / kPosGroups * (tid >= 0 ? 0 : 1); ++i) {"),
+        ("      for (int i = 0; i < kTile / L::kPosGroups; ++i) {",
+         "      for (int i = 0; i < kTile / L::kPosGroups * (tid >= 0 ? 0 : 1); ++i) {"),
     ],
     # two tiles ahead, as a 3-stage ring usually runs, with the loop's end barrier back
     "two_tiles_ahead": [
-        ("constexpr int kAhead = kStages - 2;", "constexpr int kAhead = kStages - 1;"),
-        ("        for (int e = 0; e < 8; ++e) acc[h][e] = fmaf(pr, vf[e], acc[h][e]);\n      }\n    }\n  }\n",
-         "        for (int e = 0; e < 8; ++e) acc[h][e] = fmaf(pr, vf[e], acc[h][e]);\n      }\n    }\n"
-         "    __syncthreads();\n  }\n"),
+        ("  static constexpr int kAhead = kStages - 2;", "  static constexpr int kAhead = kStages - 1;"),
+        ("          for (int e = 0; e < 8; ++e) acc[h][e] = fmaf(pr, vf[e], acc[h][e]);\n        }\n      }\n"
+         "    }\n  }\n",
+         "          for (int e = 0; e < 8; ++e) acc[h][e] = fmaf(pr, vf[e], acc[h][e]);\n        }\n      }\n"
+         "    }\n    __syncthreads();\n  }\n"),
     ],
     # splits fastest in launch order, as PR 12 launched them
     "split_fastest": [

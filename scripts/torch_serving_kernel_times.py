@@ -1,0 +1,85 @@
+#!/usr/bin/env python3
+"""Device ms of the two serving kernels at llama3.2-3b's serving shapes, for one checkout.
+
+    python3 scripts/torch_serving_kernel_times.py [--root DIR] [--turns N]
+
+Loads repro_torch from DIR/src (default: this checkout), so its kernels
+build from DIR's sources into DIR/build, and times flash_attention (B=8,
+S=2,048, 24/8 heads, hd 128, bf16) and flash_decode (B=8, cache 2,176
+positions, length 2,176) in replayed CUDA graphs, each in N turns with
+scaled_dot_product_attention. Prints one JSON line, with the card's name
+and power limit. To compare two checkouts' kernels on one card, run it for
+each in turns in one call (A B B A): for example with another commit's
+tree unpacked under build/ by `git archive`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+B, S, H, KV, HD, LENGTH = 8, 2048, 24, 8, 128, 2176
+
+
+def graph_ms(fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--turns", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_serving_kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels.attention import kernel as AK
+    from repro_torch.kernels.decode import kernel as DK
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v = normal(B, S, H, HD), normal(B, S, KV, HD), normal(B, S, KV, HD)
+    qd, kc, vc = normal(B, H, HD), normal(B, LENGTH, KV, HD), normal(B, LENGTH, KV, HD)
+    calls = {
+        "flash_attention": (lambda: AK.flash_attention(q, k, v), lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True), 10),
+        "flash_decode": (lambda: DK.flash_decode(qd, kc, vc, LENGTH), lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), enable_gqa=True), 100),
+    }
+    out = {"root": str(root), "card": card, "source": str(Path(AK.__file__).resolve())}
+    for name, (kernel, library, iters) in calls.items():
+        turns = [(graph_ms(kernel, iters), graph_ms(library, iters)) for _ in range(args.turns)]
+        out[name] = {"ms": sum(t[0] for t in turns) / len(turns), "turns_ms": [t[0] for t in turns],
+                     "sdpa_ms": sum(t[1] for t in turns) / len(turns)}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

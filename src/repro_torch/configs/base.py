@@ -1,9 +1,8 @@
 """Architecture + shape configuration schema and the --arch registry.
 
 The port's own copy of ``repro.configs.base``: the same dataclasses and
-fields, so a configuration reads the same in both packages. Only the
-architectures whose family the port runs are registered
-(``repro_torch.configs``)."""
+fields, so a configuration reads the same in both packages. Every
+architecture of the reference is registered (``repro_torch.configs``)."""
 
 from __future__ import annotations
 

@@ -1,0 +1,20 @@
+"""starcoder2-7b [dense] — 32L d_model=4608 36H (GQA kv=4) d_ff=18432
+vocab=49152 — GQA, RoPE. [arXiv:2402.19173; hf]"""
+
+from repro_torch.configs.base import ArchConfig, register
+
+CONFIG = register(
+    ArchConfig(
+        name="starcoder2-7b",
+        family="dense",
+        n_layers=32,
+        d_model=4608,
+        n_heads=36,
+        n_kv_heads=4,
+        head_dim=128,
+        d_ff=18432,
+        vocab=49152,
+        mlp="gelu",
+        rope_theta=100000.0,
+    )
+)

@@ -56,26 +56,59 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.tensor(a, device=device)
 
 
+# the reference's stacked subtrees and the leading axes each stacks on:
+# blocks [L]; the hybrid's mamba [n_seg, attn_every]; the ssm's mlstm
+# [n_seg, slstm_every - 1] and slstm [n_seg]; a cache's kv [L] or [n_seg]
+_STACKED = {"blocks": 1, "mamba": 2, "mlstm": 2, "slstm": 1, "kv": 1}
+
+
+def _unstack(tree, depth: int, device):
+    """A stacked subtree (dict of arrays with ``depth`` leading layer axes)
+    as nested lists of per-layer dicts of tensors."""
+
+    def pick(t, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i] for k, v in t.items()}
+
+    def first_leaf(t):
+        return first_leaf(next(iter(t.values()))) if isinstance(t, dict) else np.asarray(t)
+
+    if depth == 0:
+        return {k: _unstack(v, 0, device) if isinstance(v, dict) else _tensor(v, device) for k, v in tree.items()}
+    return [_unstack(pick(tree, i), depth - 1, device) for i in range(first_leaf(tree).shape[0])]
+
+
+def _from_numpy(tree, device):
+    out = {}
+    for k, v in tree.items():
+        if k == "index":
+            out[k] = int(np.asarray(v))
+        elif k in _STACKED:
+            out[k] = _unstack(v, _STACKED[k], device)
+        elif isinstance(v, dict):
+            out[k] = _unstack(v, 0, device)
+        else:
+            out[k] = _tensor(v, device)
+    return out
+
+
 def lm_params_from_numpy(params, cfg, device) -> dict:
     """The port's LM params (``repro_torch.models.lm``) from the reference's
-    pytree as numpy arrays (``jax.tree.map(np.asarray, params)``): the
-    stacked ``blocks`` become a list of ``cfg.n_layers`` per-layer dicts."""
-
-    def layer(tree, i):
-        return {k: layer(v, i) if isinstance(v, dict) else _tensor(v[i], device) for k, v in tree.items()}
-
-    out = {k: _tensor(v, device) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = [layer(params["blocks"], i) for i in range(cfg.n_layers)]
+    pytree as numpy arrays (``jax.tree.map(np.asarray, params)``), any
+    family: the stacked ``blocks`` become a list of ``cfg.n_layers``
+    per-layer dicts (a MoE layer's ``moe`` sub-dict included), the
+    hybrid's ``mamba`` [n_seg, attn_every, ...] and the ssm's ``mlstm``
+    [n_seg, n_m, ...] nested lists, the ssm's ``slstm`` [n_seg, ...] a
+    list; the shared block's params stay single."""
+    out = _from_numpy(params, device)
+    if "blocks" in out and len(out["blocks"]) != cfg.n_layers:
+        raise ValueError(f"{len(out['blocks'])} stacked blocks for a {cfg.n_layers}-layer config")
     return out
 
 
 def cache_from_numpy(cache, device) -> dict:
-    """The port's decode cache from the reference's (dense family):
-    {"kv": {"k", "v": [L, B, S, Kv, hd]}, "index": int32 scalar} ->
-    {"kv": [per-layer {"k", "v"}], "index": int}."""
-    kv = cache["kv"]
-    return {
-        "kv": [{"k": _tensor(kv["k"][i], device), "v": _tensor(kv["v"][i], device)}
-               for i in range(np.asarray(kv["k"]).shape[0])],
-        "index": int(np.asarray(cache["index"])),
-    }
+    """The port's decode cache from the reference's, any family: the
+    stacked ``kv`` {"k", "v": [L or n_seg, B, S, Kv, hd]} becomes a list
+    of per-layer {"k", "v"}, ``mamba`` {"conv", "ssm": [n_seg,
+    attn_every, ...]} and ``mlstm`` {"c", "n", "m": [n_seg, n_m, ...]}
+    nested lists, ``slstm`` a list, and the int32 ``index`` an int."""
+    return _from_numpy(cache, device)

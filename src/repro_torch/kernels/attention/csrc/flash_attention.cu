@@ -3,16 +3,22 @@
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/attention/kernel.py:63 flash_attention (_attn_kernel).
-//   out[b, i, h] = softmax_j<=i(q[b, i, h] . k[b, j, h // g] * scale) v[b, j, h // g]
+//   out[b, i, h] = softmax_{j <= off + i}(cap(q[b, i, h] . k[b, j, h // g] * scale)) v[b, j, h // g]
 //   with the online softmax (m, l, acc) in float32, the reference's -1e30
 //   sentinel for masked logits and max(l, 1e-30) as the denominator.
+//   k and v may be longer than q (Skv >= S): q row i then sits at absolute
+//   position off + i, off = Skv - S, as a prefill chunk written into a KV
+//   cache at index off (the reference's q_pos = cache_index + i, kv_limit =
+//   cache_index + S, models/layers.py). cap(x) = softcap * tanh(x / softcap)
+//   on the scaled logit before the mask when softcap > 0 (grok-1's
+//   attention-logit cap, the reference's _soft_cap), the identity otherwise.
 //
 // What bounds it on this card: operations. At the serving path's shape
 // (B=8, S=2048, H=24, Kv=8, hd=128, bf16) the causal half of QK^T and PV is
 // 4*B*H*hd*S(S+1)/2 = 2.06e11 FLOP, 0.209 ms at the tensor cores' 989
 // TFLOP/s, against 0.08 ms for the 268 MB of q, k, v and o.
 //
-// Two instances, picked by dtype; neither is a fallback for the other.
+// Two kernels, picked by dtype; neither is a fallback for the other.
 //
 // bfloat16, the serving path: a tensor-core kernel in the manner of
 // FlashAttention-3, since only wgmma reaches the card's bf16 rate.
@@ -23,30 +29,39 @@
 // - Tiles arrive by TMA: one 4-D tensor map (hd, heads, positions, batch)
 //   per operand, encoded from the tensor's own strides, so q, k and v are
 //   read in place (cache[:, :s] views included). A box is 64 columns (128
-//   bytes, the 128-byte swizzle's span) by 128 rows; hd 128 takes two boxes
-//   a tile. Out-of-bounds boxes are zero-filled, which covers a ragged S and
-//   any hd below the instantiated width (64 or 128).
+//   bytes, the 128-byte swizzle's span) by 128 q rows or BK k/v rows; a
+//   tile is HD/64 boxes. Out-of-bounds boxes are zero-filled, which covers a
+//   ragged S and any hd below the instantiated width HD (64, 128 or 192).
+// - HD 192 (nemotron-4's heads) takes 64-position k/v tiles (BK = 64): three
+//   stages of 128-position tiles would not fit a block's shared memory, and
+//   the O accumulator (96 floats a thread) leaves no room for a 64-float
+//   score tile besides. HD 64 and 128 keep BK = 128.
 // - k and v tiles stream through a ring of kStages stages, each with its
 //   own full barriers (k and v apart, so QK^T starts before v lands) and one
 //   empty barrier that both consumers arrive on when done.
-// - S = Q K^T: wgmma m64n128k16, both operands K-major from shared memory
+// - S = Q K^T: wgmma m64nBKk16, both operands K-major from shared memory
 //   as they lie. O += P V: P is the A operand from registers, rounded to
 //   bf16 from the S accumulator, whose register layout is the A fragment's;
 //   V is the B operand from shared memory, MN-major (the descriptor's
-//   transpose bit). m, l and O stay in f32 registers; exp2 with the scale
-//   folded into log2 units.
-// - Causal work: k/v tiles past the q tile are never loaded, and only the
-//   diagonal tile (the last) is masked in registers. Tiles are taken
-//   longest first across all heads (grid.y counts q tiles from the end).
+//   transpose bit), wgmma m64nHDk16. m, l and O stay in f32 registers; exp2
+//   with the scale folded into log2 units (with a cap, the cap is taken in
+//   natural units and then multiplied by log2 e). The cap is a template
+//   flag, so the uncapped instances carry no tanh.
+// - Causal work: k/v tiles past the q tile's last row are never loaded, and
+//   only tiles that reach past its first row (the last one or two) are
+//   masked in registers: the tile loop runs the unmasked tiles, then the
+//   masked ones, each a body with the mask as a compile-time flag. Tiles are taken longest first across all heads
+//   (grid.y counts q tiles from the end).
 // - The output is written from registers, bf16 pairs, true hd columns and
 //   rows below S only.
 //
 // float32, the reference's parity checks: the CUDA-core kernel (TF32 tensor
 // cores would break the reference's 2e-5). One block of 256 threads per
 // (64-row q tile, b*h); the q tile is staged in shared memory once and
-// 64-row k/v tiles stream in through cp.async double buffering; each thread
-// owns 4 q rows, a 4x4 block of the score tile and 4 x hd/16 outputs; a
-// row's 16 threads are a half-warp, so the row max and sum are shuffles.
+// 64-row k/v tiles stream in through cp.async, double-buffered up to hd 128
+// and single-buffered above (two stages at hd 192 would not fit); each
+// thread owns 4 q rows, a 4x4 block of the score tile and 4 x hd/16 outputs;
+// a row's 16 threads are a half-warp, so the row max and sum are shuffles.
 // Shared-memory rows are padded by 16 bytes so that the 16-byte reads of
 // eight neighbouring rows hit distinct banks.
 //
@@ -59,16 +74,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kBQ = 64;            // q rows per block
-constexpr int kBK = 64;            // k/v rows per tile (== kBQ: the diagonal tile is the last)
+constexpr int kBK = 64;            // k/v rows per tile
 constexpr int kThreads = 256;      // 16 row groups x 16 threads
-constexpr int kMaxHd = 128;
+constexpr int kMaxHd = 192;
 constexpr int kCols = kMaxHd / 16;  // output columns per thread
 constexpr int kPLd = kBK + 4;      // row stride of the probability tile
 constexpr int kPad = 4;           // shared-memory row padding (16 bytes)
 constexpr float kNegInf = -1e30f;
+
+// k/v stages of the f32 kernel: two (double-buffered) up to hd 128, one above
+__host__ __device__ constexpr int f32_stages(int hd) { return hd <= 128 ? 2 : 1; }
 
 // four consecutive elements of a shared-memory row
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -83,6 +103,7 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 // rows [row0, row0 + 64) of one head, row stride `stride` elements, into a
 // shared tile of row stride `ld`; rows at or past `rows` are zero-filled
@@ -99,20 +120,22 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long lon
   }
 }
 
-// f32 tiles take 186 KB of shared memory at hd 128, so one block per SM:
-// it may use every register a thread can have.
+// f32 tiles take up to 186 KB of shared memory, so one block per SM: it
+// may use every register a thread can have. q rows are [0, S), k/v rows
+// [0, Skv); q row i sits at absolute position Skv - S + i.
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                               const float* __restrict__ v, float* __restrict__ o, int S,
-                               int H, int Kv, int hd, float scale, long long qsb,
+                               const float* __restrict__ v, float* __restrict__ o, int S, int Skv,
+                               int H, int Kv, int hd, float scale, float softcap, long long qsb,
                                long long qss, long long qsh, long long ksb, long long kss,
                                long long ksh, long long vsb, long long vss, long long vsh) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = hd + kPad;
+  const int stages = f32_stages(hd);
   float* sq = reinterpret_cast<float*>(smem);
-  float* sk = sq + kBQ * ld;      // two stages
-  float* sv = sk + 2 * kBK * ld;  // two stages
-  float* sp = reinterpret_cast<float*>(sv + 2 * kBK * ld);
+  float* sk = sq + kBQ * ld;           // `stages` tiles
+  float* sv = sk + stages * kBK * ld;  // `stages` tiles
+  float* sp = reinterpret_cast<float*>(sv + stages * kBK * ld);
 
   const int n_q = (S + kBQ - 1) / kBQ;
   const int qi = n_q - 1 - static_cast<int>(blockIdx.x);  // longest tiles first
@@ -120,6 +143,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h = blockIdx.y - b * H;
   const int kvh = h / (H / Kv);
   const int q0 = qi * kBQ;
+  const int off = Skv - S;  // absolute position of q row 0
   const float* qb = q + b * qsb + h * qsh;
   const float* kb = k + b * ksb + kvh * ksh;
   const float* vb = v + b * vsb + kvh * vsh;
@@ -128,8 +152,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tx = threadIdx.x % 16;  // score columns tx + 16j, output columns tx + 16c
 
   load_tile(sq, qb, qss, q0, S, hd, ld);
-  load_tile(sk, kb, kss, 0, S, hd, ld);
-  load_tile(sv, vb, vss, 0, S, hd, ld);
+  load_tile(sk, kb, kss, 0, Skv, hd, ld);
+  load_tile(sv, vb, vss, 0, Skv, hd, ld);
   cp_async_commit();
 
   float m[4], l[4], acc[4][kCols];
@@ -141,15 +165,24 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
   }
 
-  const int n_k = (min(q0 + kBQ, S) - 1) / kBK + 1;  // causal skip
+  const int n_k = (off + min(q0 + kBQ, S) - 1) / kBK + 1;  // causal skip
   for (int t = 0; t < n_k; ++t) {
-    const int st = t & 1;
-    if (t + 1 < n_k) {
-      load_tile(sk + (st ^ 1) * kBK * ld, kb, kss, (t + 1) * kBK, S, hd, ld);
-      load_tile(sv + (st ^ 1) * kBK * ld, vb, vss, (t + 1) * kBK, S, hd, ld);
+    const int st = stages == 2 ? (t & 1) : 0;
+    if (stages == 2) {
+      if (t + 1 < n_k) {
+        load_tile(sk + (st ^ 1) * kBK * ld, kb, kss, (t + 1) * kBK, Skv, hd, ld);
+        load_tile(sv + (st ^ 1) * kBK * ld, vb, vss, (t + 1) * kBK, Skv, hd, ld);
+      }
+      cp_async_commit();
+      cp_async_wait_one();
+    } else {
+      if (t > 0) {  // the stage was freed by the previous iteration's last barrier
+        load_tile(sk, kb, kss, t * kBK, Skv, hd, ld);
+        load_tile(sv, vb, vss, t * kBK, Skv, hd, ld);
+      }
+      cp_async_commit();
+      cp_async_wait_all();
     }
-    cp_async_commit();
-    cp_async_wait_one();
     __syncthreads();
     const float* ks = sk + st * kBK * ld;
     const float* vs = sv + st * kBK * ld;
@@ -180,15 +213,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int k0 = t * kBK;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+      const int row = off + q0 + ty * 4 + i;  // absolute position
       float mx = m[i];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = (k0 + tx + 16 * j <= row) ? s[i][j] * scale : kNegInf;
+        float x = s[i][j] * scale;
+        if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
+        s[i][j] = (k0 + tx + 16 * j <= row) ? x : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      for (int off2 = 8; off2 > 0; off2 >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off2));
       const float corr = expf(m[i] - mx);
       float sum = 0.0f;
 #pragma unroll
@@ -198,7 +233,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         sp[(ty * 4 + i) * kPLd + tx + 16 * j] = p;
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      for (int off2 = 8; off2 > 0; off2 >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off2);
       l[i] = l[i] * corr + sum;
       m[i] = mx;
 #pragma unroll
@@ -221,7 +256,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
-    __syncthreads();  // the next iteration's loads overwrite this stage and sp
+    __syncthreads();  // the next iteration's loads overwrite a stage and sp
   }
 
 #pragma unroll
@@ -239,12 +274,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 size_t f32_smem_bytes(int hd) {
-  return (kBQ + 4 * kBK) * static_cast<size_t>(hd + kPad) * sizeof(float) + kBQ * kPLd * sizeof(float);
+  return (kBQ + 2 * f32_stages(hd) * kBK) * static_cast<size_t>(hd + kPad) * sizeof(float) +
+         kBQ * kPLd * sizeof(float);
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int Kv,
-               int hd, float scale, const long long* qs, const long long* ks, const long long* vs,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int Skv, int H,
+               int Kv, int hd, float scale, float softcap, const long long* qs, const long long* ks,
+               const long long* vs, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -254,8 +290,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
   flash_attention_f32_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, H, Kv, hd, scale, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0],
-      vs[1], vs[2]);
+      static_cast<float*>(o), S, Skv, H, Kv, hd, scale, softcap, qs[0], qs[1], qs[2], ks[0], ks[1],
+      ks[2], vs[0], vs[1], vs[2]);
   return cudaGetLastError();
 }
 
@@ -265,7 +301,6 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
 namespace tc {
 
 constexpr int kBQ = 128;        // q rows per block: two consumer warpgroups x 64
-constexpr int kBK = 128;        // k/v rows per tile (== kBQ: the diagonal tile is the last)
 constexpr int kStages = 3;      // k/v ring
 constexpr int kThreads = 384;   // producer warpgroup + two consumer warpgroups
 constexpr int kBoxCols = 64;    // 128 bytes of bf16, the 128-byte swizzle's span
@@ -274,15 +309,20 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 65,536
 constexpr float kLog2e = 1.4426950408889634f;
 
+// k/v rows per tile: 128, or 64 at HD 192 (shared memory and registers)
+__host__ __device__ constexpr int block_k(int hd) { return hd > 128 ? 64 : 128; }
+
 template <int HD>
 struct Tiles {
+  static constexpr int kBK = block_k(HD);
   static constexpr int kQ = kBQ * HD * 2;   // bytes of the q tile: HD/64 boxes of 128 x 64
-  static constexpr int kKV = kBK * HD * 2;  // bytes of one k (or v) tile
+  static constexpr int kKV = kBK * HD * 2;  // bytes of one k (or v) tile: HD/64 boxes of kBK x 64
   static constexpr int kBars = 1 + 3 * kStages;  // q full; k full, v full, k/v empty per stage
   // the swizzled tiles need 1024-byte alignment, which the base is rounded up to
   static constexpr int kSmem = 1024 + kQ + 2 * kStages * kKV + 8 * kBars;
 };
-static_assert(Tiles<128>::kSmem <= 232448, "the widest instance must fit a block's shared memory");
+static_assert(Tiles<128>::kSmem <= 232448, "the 128-wide instance must fit a block's shared memory");
+static_assert(Tiles<192>::kSmem <= 232448, "the 192-wide instance must fit a block's shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -343,19 +383,42 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #define ACC16(i) ACC4(i), ACC4(i + 4), ACC4(i + 8), ACC4(i + 12)
 #define ACC32 ACC16(0), ACC16(16)
 #define ACC64 ACC16(0), ACC16(16), ACC16(32), ACC16(48)
+#define ACC96 ACC16(0), ACC16(16), ACC16(32), ACC16(48), ACC16(64), ACC16(80)
 
-// d[64] (+)= A[64 x 16] B[16 x 128]: A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
-                                              int scale_d) {
+// d[N/2] (+)= A[64 x 16] B[16 x N]: A and B K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
-      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
-      "%55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : ACC64
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -365,14 +428,34 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t desc_b);
 
 template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96], const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
+      "%92, %93, %94, %95"
+      "}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : ACC96
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t* a, uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
-      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
-      "%55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : ACC64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
@@ -383,8 +466,10 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t* a, 
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : ACC32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
@@ -396,15 +481,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // grid (B*H, q tiles); block y counts q tiles from the last, so the
-// longest tiles of every head go first
-template <int HD>
+// longest tiles of every head go first. q rows are [0, S), k/v rows [0, Skv);
+// q row i sits at absolute position Skv - S + i. CAP: logits capped as
+// softcap * tanh(x * scale / softcap) (`scale_log2` is then softcap * log2 e
+// and `cap_arg` scale / softcap); otherwise x * scale_log2 (scale * log2 e).
+template <int HD, bool CAP>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                                 const __grid_constant__ CUtensorMap kmap,
                                 const __grid_constant__ CUtensorMap vmap,
-                                __nv_bfloat16* __restrict__ o, int S, int H, int Kv, int hd,
-                                float scale_log2) {
+                                __nv_bfloat16* __restrict__ o, int S, int Skv, int H, int Kv,
+                                int hd, float scale_log2, float cap_arg) {
   using T = Tiles<HD>;
+  constexpr int kBK = T::kBK;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sk = sq + T::kQ;                // kStages k tiles
@@ -421,7 +510,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h = blockIdx.x - b * H;
   const int kvh = h / (H / Kv);
   const int q0 = qi * kBQ;
-  const int n_k = (min(q0 + kBQ, S) - 1) / kBK + 1;  // causal: no tile past the q tile
+  const int off = Skv - S;                               // absolute position of q row 0
+  const int n_k = (off + min(q0 + kBQ, S) - 1) / kBK + 1;  // causal: no tile past the q tile
+  const int t_masked = (off + q0 + 1) / kBK;  // the first tile reaching past the q tile's first row
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -473,7 +564,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
 
     mbar_wait(q_full, 0);
-    for (int t = 0; t < n_k; ++t) {
+    // one k/v tile; MASKED (a compile-time flag) for the tiles from t_masked on
+    auto tile = [&](const int t, auto masked_tag) {
+      constexpr bool kMasked = decltype(masked_tag)::value;
       const int st = t % kStages;
       const int phase = (t / kStages) & 1;
 
@@ -487,7 +580,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
         const uint32_t box = kk / 4, within = (kk % 4) * 32;  // 64-column box, 16-column step
-        wgmma_ss_n128(s, sw128_desc(q_slice + box * kBQ * kRowBytes + within, 16, 1024),
+        wgmma_ss<kBK>(s, sw128_desc(q_slice + box * kBQ * kRowBytes + within, 16, 1024),
                       sw128_desc(sk + st * T::kKV + box * kBK * kRowBytes + within, 16, 1024),
                       kk > 0);
       }
@@ -495,16 +588,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       wg_wait_all();
       fence_regs(s);
 
-      // online softmax over the tile, in log2 units; the diagonal tile is
-      // the only one with masked entries
-      const bool diag = t == n_k - 1;
-      const int k0 = t * kBK + 2 * (lane % 4);
+      // online softmax over the tile, in log2 units; only a tile reaching
+      // past the q tile's first row has masked entries. Key columns are
+      // counted from the q rows' offset once a tile, which keeps the offset
+      // out of the per-element test
+      const int k0 = t * kBK + 2 * (lane % 4) - off;
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int i = 0; i < kBK / 2; ++i) {
         const int row = r0 + 8 * ((i / 2) % 2);
         const int col = k0 + 8 * (i / 4) + (i % 2);
-        const float x = (diag && col > row) ? kNegInf : s[i] * scale_log2;
+        const float y = CAP ? scale_log2 * tanhf(s[i] * cap_arg) : s[i] * scale_log2;
+        const float x = (kMasked && col > row) ? kNegInf : y;
         s[i] = x;
         mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
       }
@@ -550,7 +645,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       wg_wait_all();
       fence_regs(acc);
       mbar_arrive(kv_empty(st));
-    }
+    };
+    // the unmasked tiles, then the masked ones: the select stays out of the main loop
+    int t = 0;
+    for (; t < min(t_masked, n_k); ++t) tile(t, std::false_type{});
+    for (; t < n_k; ++t) tile(t, std::true_type{});
 
     // epilogue: rows below S, the true hd columns
     const float inv[2] = {1.0f / fmaxf(l[0], 1e-30f), 1.0f / fmaxf(l[1], 1e-30f)};
@@ -574,6 +673,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #undef ACC16
 #undef ACC32
 #undef ACC64
+#undef ACC96
 
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime so
 // that the library needs no -lcuda
@@ -600,7 +700,7 @@ EncodeTiled encoder() {
 
 // layout: dims[4] (hd, heads, positions, batch), byte strides[3] of dims
 // 1..3, box[4], as kernel.py's tma_layout computes them
-bool encode(CUtensorMap* map, const void* ptr, const long long* layout) {
+bool encode(CUtensorMap* map, const void* ptr, const long long* layout, int box_rows) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(layout[0]), static_cast<cuuint64_t>(layout[1]),
@@ -611,26 +711,41 @@ bool encode(CUtensorMap* map, const void* ptr, const long long* layout) {
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(layout[7]), static_cast<cuuint32_t>(layout[8]),
                              static_cast<cuuint32_t>(layout[9]), static_cast<cuuint32_t>(layout[10])};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  if (box[0] != kBoxCols || box[1] != 1 || box[2] != kBQ || box[3] != 1) return false;
+  if (box[0] != kBoxCols || box[1] != 1 || static_cast<int>(box[2]) != box_rows || box[3] != 1)
+    return false;
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int Kv,
-           int hd, float scale, const long long* layouts, cudaStream_t stream) {
+template <int HD, bool CAP>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Skv, int H,
+           int Kv, int hd, float scale, float softcap, const long long* layouts,
+           cudaStream_t stream) {
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
+  const int rows[3] = {kBQ, Tiles<HD>::kBK, Tiles<HD>::kBK};
   for (int i = 0; i < 3; ++i)
-    if (!encode(&maps[i], ptrs[i], layouts + 11 * i)) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_bf16_kernel<HD>,
+    if (!encode(&maps[i], ptrs[i], layouts + 11 * i, rows[i])) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_bf16_kernel<HD, CAP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, Tiles<HD>::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  flash_attention_bf16_kernel<HD><<<grid, kThreads, Tiles<HD>::kSmem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), S, H, Kv, hd, scale * kLog2e);
+  const float scale_log2 = CAP ? softcap * kLog2e : scale * kLog2e;
+  const float cap_arg = CAP ? scale / softcap : 0.0f;
+  flash_attention_bf16_kernel<HD, CAP><<<grid, kThreads, Tiles<HD>::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), S, Skv, H, Kv, hd, scale_log2,
+      cap_arg);
   return cudaGetLastError();
+}
+
+template <int HD>
+int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int S, int Skv, int H,
+              int Kv, int hd, float scale, float softcap, const long long* layouts,
+              cudaStream_t stream) {
+  if (softcap > 0.0f)
+    return launch<HD, true>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, layouts, stream);
+  return launch<HD, false>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, layouts, stream);
 }
 
 }  // namespace tc
@@ -642,34 +757,40 @@ int flash_attention_max_hd() { return kMaxHd; }
 
 int flash_attention_block_q() { return tc::kBQ; }
 
+int flash_attention_block_k(int hd_inst) { return tc::block_k(hd_inst); }
+
 const char* flash_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, o: [B, S, H, hd] (o contiguous); k, v: [B, S, Kv, hd]. Strides are in
-// elements, (batch, position, head); the last dimension is contiguous.
-// dtype 0 float32 (the CUDA-core kernel; `tma` unused), 1 bfloat16 (the
-// tensor-core kernel at width hd_inst, 64 or 128; `tma` holds q's, k's and
-// v's tensor-map layouts, 11 values each: dims, byte strides, box).
+// q, o: [B, S, H, hd] (o contiguous); k, v: [B, Skv, Kv, hd], Skv >= S (q
+// row i at absolute position Skv - S + i). Strides are in elements,
+// (batch, position, head); the last dimension is contiguous. softcap > 0
+// caps the scaled logits. dtype 0 float32 (the CUDA-core kernel; `tma`
+// unused), 1 bfloat16 (the tensor-core kernel at width hd_inst, 64, 128 or
+// 192; `tma` holds q's, k's and v's tensor-map layouts, 11 values each:
+// dims, byte strides, box, the box 128 q rows or block_k(hd_inst) k/v rows).
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int dtype,
-                           int B, int S, int H, int Kv, int hd, float scale, long long qsb,
-                           long long qss, long long qsh, long long ksb, long long kss,
-                           long long ksh, long long vsb, long long vss, long long vsh,
-                           int hd_inst, const long long* tma, void* stream) {
-  if (B < 1 || S < 0 || Kv < 1 || H < Kv || H % Kv != 0 || hd < 8 || hd > kMaxHd ||
-      hd % 8 != 0)
+                           int B, int S, int Skv, int H, int Kv, int hd, float scale,
+                           float softcap, long long qsb, long long qss, long long qsh,
+                           long long ksb, long long kss, long long ksh, long long vsb,
+                           long long vss, long long vsh, int hd_inst, const long long* tma,
+                           void* stream) {
+  if (B < 1 || S < 0 || Skv < S || Kv < 1 || H < Kv || H % Kv != 0 || hd < 8 || hd > kMaxHd ||
+      hd % 8 != 0 || !(softcap >= 0.0f))
     return cudaErrorInvalidValue;
   if (S == 0) return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const long long qs[3] = {qsb, qss, qsh}, ks[3] = {ksb, kss, ksh}, vs[3] = {vsb, vss, vsh};
-    return launch_f32(q, k, v, o, B, S, H, Kv, hd, scale, qs, ks, vs, st);
+    return launch_f32(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, qs, ks, vs, st);
   }
   if (dtype != 1 || tma == nullptr || hd > hd_inst || static_cast<long long>(B) * H > 0x7fffffffLL ||
       (S + tc::kBQ - 1) / tc::kBQ > 65535)
     return cudaErrorInvalidValue;
-  if (hd_inst == 64) return tc::launch<64>(q, k, v, o, B, S, H, Kv, hd, scale, tma, st);
-  if (hd_inst == 128) return tc::launch<128>(q, k, v, o, B, S, H, Kv, hd, scale, tma, st);
+  if (hd_inst == 64) return tc::launch_hd<64>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, tma, st);
+  if (hd_inst == 128) return tc::launch_hd<128>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, tma, st);
+  if (hd_inst == 192) return tc::launch_hd<192>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, tma, st);
   return cudaErrorInvalidValue;
 }
 

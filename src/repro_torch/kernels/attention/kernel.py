@@ -2,9 +2,12 @@
 (``csrc/flash_attention.cu``), built and loaded at first use by
 ``kernels._build`` (``build/repro_torch/libflash_attention-<hash>.so``).
 
-The dtype picks the instance: bfloat16 runs the tensor-core kernel (wgmma,
-TMA), float32 the CUDA-core kernel that the reference's f32 tolerance
-needs. The wrapper checks device, dtype, shape, strides and head width,
+The dtype picks the kernel: bfloat16 runs the tensor-core kernel (wgmma,
+TMA) at the width ``instantiated_hd`` picks (64, 128 or 192), float32 the
+CUDA-core kernel that the reference's f32 tolerance needs. k and v may be
+longer than q (a prefill chunk at a KV-cache offset), and ``softcap``
+caps the scaled logits (grok-1's attention soft cap); both kernels take
+both. The wrapper checks device, dtype, shape, strides and head width,
 computes the bf16 kernel's tensor-map layouts (``tma_layout``) and width
 (``instantiated_hd``), allocates the output with ``torch.empty``, launches
 on PyTorch's current stream, raises on a non-zero CUDA status, and adds
@@ -23,8 +26,8 @@ import torch
 
 from repro_torch.kernels._build import CudaLibrary
 
-MAX_HD = 128
-BLOCK_Q = 128  # the bf16 kernel's q tile; it is also the tensor maps' box rows
+MAX_HD = 192
+BLOCK_Q = 128  # the bf16 kernel's q tile; it is also the q tensor map's box rows
 BOX_COLS = 64  # 128 bytes of bf16: the 128-byte swizzle's span
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -41,15 +44,18 @@ def reset_launches() -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.flash_attention_launch.argtypes = (
-        [ptr] * 4 + [i32] * 6 + [ctypes.c_float] + [i64] * 9 + [i32, ptr, ptr]
+        [ptr] * 4 + [i32] * 7 + [ctypes.c_float] * 2 + [i64] * 9 + [i32, ptr, ptr]
     )
     lib.flash_attention_launch.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     lib.flash_attention_max_hd.restype = i32
     lib.flash_attention_block_q.restype = i32
-    limits = (lib.flash_attention_max_hd(), lib.flash_attention_block_q())
-    if limits != (MAX_HD, BLOCK_Q):
+    lib.flash_attention_block_k.argtypes = [i32]
+    lib.flash_attention_block_k.restype = i32
+    limits = (lib.flash_attention_max_hd(), lib.flash_attention_block_q(),
+              *(lib.flash_attention_block_k(w) for w in WIDTHS))
+    if limits != (MAX_HD, BLOCK_Q, *(block_k(w) for w in WIDTHS)):
         raise RuntimeError(f"flash_attention library limits {limits} disagree with kernel.py")
 
 
@@ -71,17 +77,28 @@ def check_rows(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} strides {t.stride()} do not keep its rows on 16-byte boundaries")
 
 
+WIDTHS = (64, 128, 192)  # the bf16 kernel's compiled head widths
+
+
 def instantiated_hd(hd: int) -> int:
-    """The bf16 kernel's compiled width for head dim ``hd``: 64 or 128. The
-    tensor maps zero-fill the columns past hd."""
+    """The bf16 kernel's compiled width for head dim ``hd``: the least of
+    64, 128 and 192 that holds it. The tensor maps zero-fill the columns
+    past hd."""
     check_head_dim(hd)
-    return 64 if hd <= 64 else 128
+    return next(w for w in WIDTHS if hd <= w)
 
 
-def tma_layout(t: torch.Tensor):
+def block_k(hd_inst: int) -> int:
+    """k/v positions a tile of the bf16 kernel at width ``hd_inst``: 128,
+    or 64 at 192 (three 192-wide stages of 128 would not fit a block's
+    shared memory). It is also the k/v tensor maps' box rows."""
+    return 64 if hd_inst > 128 else 128
+
+
+def tma_layout(t: torch.Tensor, rows: int = BLOCK_Q):
     """The 4-D tensor map the bf16 kernel reads ``t`` [B, S, heads, hd]
     through: dims (hd, heads, S, B), innermost first; the byte strides of
-    dims 1..3; the box (64 columns, 1 head, BLOCK_Q positions, 1 batch).
+    dims 1..3; the box (64 columns, 1 head, ``rows`` positions, 1 batch).
     A dimension of size 1 is never stepped along, so its stride is set to
     the packed one (the map wants every stride a multiple of 16). Raises on
     a layout the map cannot describe."""
@@ -97,22 +114,24 @@ def tma_layout(t: torch.Tensor):
             raise ValueError(f"strides {t.stride()} do not keep rows on 16-byte boundaries")
         strides.append(nbytes)
         packed = nbytes * extent
-    return dims, tuple(strides), (BOX_COLS, 1, BLOCK_Q, 1)
+    return dims, tuple(strides), (BOX_COLS, 1, rows, 1)
 
 
-def _tma_args(*tensors):
+def _tma_args(*tensors_rows):
     flat = []
-    for t in tensors:
-        dims, strides, box = tma_layout(t)
+    for t, rows in tensors_rows:
+        dims, strides, box = tma_layout(t, rows)
         flat += [*dims, *strides, *box]
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def flash_attention(q, k, v):
+def flash_attention(q, k, v, softcap: float = 0.0):
     """Causal GQA attention on the card. q: [B, S, H, hd]; k/v:
-    [B, S, Kv, hd] (H a multiple of Kv; q head h reads kv head h // (H/Kv));
-    float32 or bfloat16, all one dtype. Returns [B, S, H, hd] in q's dtype;
-    the scale is 1/sqrt(hd)."""
+    [B, Skv, Kv, hd] with Skv >= S (H a multiple of Kv; q head h reads kv
+    head h // (H/Kv)); q row i sits at position Skv - S + i and sees keys
+    up to it. float32 or bfloat16, all one dtype. Returns [B, S, H, hd] in
+    q's dtype; the scale is 1/sqrt(hd); ``softcap`` > 0 caps the scaled
+    logits as softcap * tanh(x / softcap) before the mask."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must lie on q's CUDA device {q.device}, got {t.device}")
@@ -121,22 +140,27 @@ def flash_attention(q, k, v):
         if t.dim() != 4:
             raise ValueError(f"{name} must be 4-d [B, S, heads, hd], got {tuple(t.shape)}")
     b, s, h, hd = q.shape
-    kv = k.shape[2]
-    if tuple(k.shape) != (b, s, kv, hd) or tuple(v.shape) != tuple(k.shape) or kv < 1 or h % kv:
-        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    skv, kv = k.shape[1], k.shape[2]
+    if (tuple(k.shape) != (b, skv, kv, hd) or tuple(v.shape) != tuple(k.shape) or kv < 1 or h % kv
+            or skv < s):
+        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
+                         "(k and v [B, Skv >= S, Kv, hd])")
+    softcap = float(softcap)
+    if not softcap >= 0.0:
+        raise ValueError(f"softcap must be >= 0 (0 is off), got {softcap}")
     check_head_dim(hd)
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_rows(name, t)
     bf16 = q.dtype == torch.bfloat16
-    tma = _tma_args(q, k, v) if bf16 else None
     hd_inst = instantiated_hd(hd) if bf16 else 0
+    tma = _tma_args((q, BLOCK_Q), (k, block_k(hd_inst)), (v, block_k(hd_inst))) if bf16 else None
     lib = LIBRARY.load()
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPE_IDS[q.dtype],
-            b, s, h, kv, hd, 1.0 / hd ** 0.5,
+            b, s, skv, h, kv, hd, 1.0 / hd ** 0.5, softcap,
             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2), hd_inst, tma, stream,
         )

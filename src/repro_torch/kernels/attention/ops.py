@@ -14,12 +14,14 @@ from repro_torch.kernels.attention import kernel as K
 from repro_torch.kernels.attention import ref as R
 
 
-def mha(q, k, v):
-    """q: [B, S, H, hd]; k/v: [B, S, Kv, hd]; causal GQA attention with
-    scale 1/sqrt(hd). Returns [B, S, H, hd] in q's dtype."""
+def mha(q, k, v, softcap: float = 0.0):
+    """q: [B, S, H, hd]; k/v: [B, Skv, Kv, hd] with Skv >= S (q row i at
+    position Skv - S + i); causal GQA attention with scale 1/sqrt(hd),
+    the scaled logits capped at ``softcap`` (0: off). Returns [B, S, H, hd]
+    in q's dtype."""
     dev = device_of(q, k, v)
     if dev.type == "cuda":
-        return K.flash_attention(q, k, v)
+        return K.flash_attention(q, k, v, softcap)
     if dev.type == "cpu":
-        return R.mha_ref(q, k, v)
+        return R.mha_ref(q, k, v, softcap)
     raise ValueError(f"mha has no version for device {dev}")

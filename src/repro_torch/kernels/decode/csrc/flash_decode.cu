@@ -4,9 +4,11 @@
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/decode/kernel.py:62 flash_decode (_decode_kernel).
-//   out[b, h] = softmax_{j < length}(q[b, h] . k[b, j, h // g] * scale) v[b, j, h // g]
+//   out[b, h] = softmax_{j < length}(cap(q[b, h] . k[b, j, h // g] * scale)) v[b, j, h // g]
 //   with the softmax stats m (max logit) and l (sum of exp(logit - m))
-//   returned beside it, so that partials over slices of the cache combine
+//   returned beside it, both of the capped logits (cap(x) = softcap *
+//   tanh(x / softcap) when softcap > 0, grok-1's attention-logit cap; the
+//   identity otherwise), so that partials over slices of the cache combine
 //   exactly (dist/collectives.py: flash_decode_combine). length == 0 gives
 //   out = 0, m = -1e30, l = 0, as the Pallas kernel does.
 //
@@ -32,7 +34,12 @@
 //   tile's max and runs one online-softmax step per tile; then thread
 //   (8 columns, 4 positions) accumulates P V for all NG heads. No
 //   per-position shuffle butterfly.
-// - A block's 16 position groups are summed once, at its end, and written
+// - Two instances of the layout, by the widest head it takes (MAXHD): 128,
+//   which llama3.2-3b's serving path runs (as before the 192 instance was
+//   added), and 192 (nemotron-4), whose PV pass uses 24 column groups of 8
+//   by 8 position groups (192 of the 256 threads). A f32 192-wide ring keeps
+//   2 stages and loads no tile ahead (3 would not fit shared memory).
+// - A block's position groups are summed once, at its end, and written
 //   as a partial (out normalised by its own l, m, l); a second small kernel
 //   combines a head's partials with the arithmetic of flash_decode_combine:
 //   m* = max m_i, w_i = l_i exp(m_i - m*), out = sum w_i out_i / max(sum w_i,
@@ -53,16 +60,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxHd = 128;
+constexpr int kMaxHd = 192;        // the widest instance
 constexpr int kTile = 64;          // positions per stage
-constexpr int kStages = 3;         // cp.async ring
-// tiles loaded ahead of the one in use: a stage is refilled two tiles after
-// it was read, so the barriers inside an iteration already order the reads
-// before the refill and the loop needs no barrier at its end
-constexpr int kAhead = kStages - 2;
 constexpr int kQuarters = kThreads / kTile;  // hd quarters in the score pass
-constexpr int kColGroups = 16;     // PV: 8 columns each
-constexpr int kPosGroups = kThreads / kColGroups;  // PV: 4 positions each
+constexpr int kCombineThreads = 128;
 constexpr int kMaxGroup = 8;       // q heads per block
 constexpr int kMaxSplits = 1024;   // the combine's weights, in static shared memory
 constexpr int kCombineBatch = 16;  // partials whose loads the combine issues at once
@@ -99,39 +100,55 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
 __device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <typename T>
+// the shared-memory layout of the instance for heads up to MAXHD wide
+template <typename T, int MAXHD>
 struct Layout {
-  static constexpr int kLd = kMaxHd + Chunk<T>::kElems;  // padded row, elements
+  // cp.async ring: 3 stages, or 2 for f32 rows 192 wide (3 would not fit)
+  static constexpr int kStages = (sizeof(T) == 4 && MAXHD > 128) ? 2 : 3;
+  // tiles loaded ahead of the one in use: a stage is refilled kStages - 1
+  // tiles after it was read, so the barriers inside an iteration already
+  // order the reads before the refill and the loop needs no barrier at its end
+  static constexpr int kAhead = kStages - 2;
+  static constexpr int kLd = MAXHD + Chunk<T>::kElems;  // padded row, elements
   static constexpr int kTileElems = kTile * kLd;
   static constexpr size_t kRing = static_cast<size_t>(kStages) * 2 * kTileElems * sizeof(T);
+  static constexpr int kColGroups = MAXHD / 8;                   // PV: 8 columns each
+  static constexpr int kPosGroups = MAXHD > 128 ? 8 : 16;        // PV: kTile / kPosGroups positions each
+  static constexpr int kPvThreads = kColGroups * kPosGroups;     // 256, or 192 of them
+  static_assert(kPvThreads <= kThreads && kTile % kPosGroups == 0, "PV pass layout");
 };
 
-template <typename T, int NG>
+template <typename T, int NG, int MAXHD>
 constexpr size_t smem_bytes() {
-  // ring; q [NG][hd]; quarter scores [4][NG][64]; probabilities [NG][64];
+  // ring; q [NG][MAXHD]; quarter scores [4][NG][64]; probabilities [NG][64];
   // corr, m, l [NG]
-  return Layout<T>::kRing +
-         sizeof(float) * (NG * kMaxHd + kQuarters * NG * kTile + NG * kTile + 3 * NG);
+  return Layout<T, MAXHD>::kRing +
+         sizeof(float) * (NG * MAXHD + kQuarters * NG * kTile + NG * kTile + 3 * NG);
 }
+static_assert(smem_bytes<float, 8, 192>() <= 232448 && smem_bytes<__nv_bfloat16, 8, 192>() <= 232448 &&
+                  smem_bytes<float, 8, 128>() <= 232448,
+              "every instance fits a block's shared memory");
 
 // positions [pos0, pos0 + 64) of k and v into one ring stage; positions at
 // or past `end` and columns at or past hd are zero-filled
-template <typename T>
+template <typename T, int MAXHD>
 __device__ __forceinline__ void load_tile(T* dk, T* dv, const T* kb, const T* vb, long long kss,
                                           long long vss, int pos0, int end, int hd) {
   constexpr int kE = Chunk<T>::kElems;
-  constexpr int kPerRow = kMaxHd / kE;
+  constexpr int kPerRow = MAXHD / kE;
+  constexpr int kLd = Layout<T, MAXHD>::kLd;
   for (int c = threadIdx.x; c < kTile * kPerRow; c += kThreads) {
     const int r = c / kPerRow;
     const int col = (c % kPerRow) * kE;
     const bool valid = pos0 + r < end && col < hd;
     const long long pos = valid ? pos0 + r : 0;
-    cp_async16(dk + r * Layout<T>::kLd + col, kb + pos * kss + (valid ? col : 0), valid);
-    cp_async16(dv + r * Layout<T>::kLd + col, vb + pos * vss + (valid ? col : 0), valid);
+    cp_async16(dk + r * kLd + col, kb + pos * kss + (valid ? col : 0), valid);
+    cp_async16(dv + r * kLd + col, vb + pos * vss + (valid ? col : 0), valid);
   }
 }
 
@@ -140,21 +157,23 @@ __device__ __forceinline__ void load_tile(T* dk, T* dv, const T* kb, const T* vb
 // Split i covers positions [i * chunk, min((i + 1) * chunk, length)),
 // chunk a multiple of kTile.
 // two blocks an SM up to four heads a group (the serving path's three
-// included); wider groups keep their accumulators in registers instead
-template <typename T, int NG>
-__global__ void __launch_bounds__(kThreads, NG <= 4 ? 2 : 1)
+// included) in the 128-wide instance; wider groups keep their accumulators
+// in registers instead. softcap > 0 caps the scaled logits.
+template <typename T, int NG, int MAXHD>
+__global__ void __launch_bounds__(kThreads, (NG <= 4 && MAXHD <= 128) ? 2 : 1)
     flash_decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                 const T* __restrict__ v, float* __restrict__ part_o,
                                 float* __restrict__ part_m, float* __restrict__ part_l, int H,
-                                int Kv, int hd, int length, int chunk, float scale, long long ksb,
-                                long long kss, long long ksh, long long vsb, long long vss,
-                                long long vsh) {
-  using L = Layout<T>;
+                                int Kv, int hd, int length, int chunk, float scale, float softcap,
+                                long long ksb, long long kss, long long ksh, long long vsb,
+                                long long vss, long long vsh) {
+  using L = Layout<T, MAXHD>;
+  constexpr int kAhead = L::kAhead;
   constexpr int kE = Chunk<T>::kElems;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
-  float* q_s = reinterpret_cast<float*>(smem + L::kRing);  // [NG][kMaxHd]
-  float* sc = q_s + NG * kMaxHd;                           // [kQuarters][NG][kTile]
+  float* q_s = reinterpret_cast<float*>(smem + L::kRing);  // [NG][MAXHD]
+  float* sc = q_s + NG * MAXHD;                           // [kQuarters][NG][kTile]
   float* p_s = sc + kQuarters * NG * kTile;                // [NG][kTile]
   float* corr_s = p_s + NG * kTile;                        // [NG]
   float* m_s = corr_s + NG;
@@ -177,13 +196,13 @@ __global__ void __launch_bounds__(kThreads, NG <= 4 ? 2 : 1)
   for (int s = 0; s < kAhead; ++s) {
     if (s < n_tiles) {
       T* stage = ring + s * 2 * L::kTileElems;
-      load_tile(stage, stage + L::kTileElems, kb, vb, kss, vss, start + s * kTile, end, hd);
+      load_tile<T, MAXHD>(stage, stage + L::kTileElems, kb, vb, kss, vss, start + s * kTile, end, hd);
     }
     cp_async_commit();
   }
-  for (int i = tid; i < NG * kMaxHd; i += kThreads) {
-    const int d = i % kMaxHd;
-    q_s[i] = d < hd ? to_f32(q[static_cast<long long>(head0 + i / kMaxHd) * hd + d]) : 0.0f;
+  for (int i = tid; i < NG * MAXHD; i += kThreads) {
+    const int d = i % MAXHD;
+    q_s[i] = d < hd ? to_f32(q[static_cast<long long>(head0 + i / MAXHD) * hd + d]) : 0.0f;
   }
 
   float m = kNegInf, l = 0.0f;  // warp h < NG keeps head h's stats
@@ -193,18 +212,20 @@ __global__ void __launch_bounds__(kThreads, NG <= 4 ? 2 : 1)
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc[h][e] = 0.0f;
   const int sp = tid % kTile, quarter = tid / kTile;                 // score pass
-  const int cg = tid % kColGroups, pg = tid / kColGroups;            // PV pass
+  const int cg = tid % L::kColGroups, pg = tid / L::kColGroups;      // PV pass
+  // every thread takes part in the PV pass of the 128-wide instance
+  const bool pv = L::kPvThreads == kThreads || tid < L::kPvThreads;
 
   for (int t = 0; t < n_tiles; ++t) {
     if (t + kAhead < n_tiles) {
-      T* stage = ring + ((t + kAhead) % kStages) * 2 * L::kTileElems;
-      load_tile(stage, stage + L::kTileElems, kb, vb, kss, vss, start + (t + kAhead) * kTile, end,
-                hd);
+      T* stage = ring + ((t + kAhead) % L::kStages) * 2 * L::kTileElems;
+      load_tile<T, MAXHD>(stage, stage + L::kTileElems, kb, vb, kss, vss,
+                          start + (t + kAhead) * kTile, end, hd);
     }
     cp_async_commit();
-    cp_async_wait_ring();
+    cp_async_wait_ring<kAhead>();
     __syncthreads();
-    const T* ks = ring + (t % kStages) * 2 * L::kTileElems;
+    const T* ks = ring + (t % L::kStages) * 2 * L::kTileElems;
     const T* vs = ks + L::kTileElems;
     const int pos0 = start + t * kTile;
 
@@ -213,14 +234,14 @@ __global__ void __launch_bounds__(kThreads, NG <= 4 ? 2 : 1)
       float dot[NG];
 #pragma unroll
       for (int h = 0; h < NG; ++h) dot[h] = 0.0f;
-      const T* krow = ks + sp * L::kLd + quarter * (kMaxHd / kQuarters);
+      const T* krow = ks + sp * L::kLd + quarter * (MAXHD / kQuarters);
 #pragma unroll
-      for (int c = 0; c < kMaxHd / kQuarters; c += kE) {
+      for (int c = 0; c < MAXHD / kQuarters; c += kE) {
         float kf[kE];
         unpack(krow + c, kf);
 #pragma unroll
         for (int h = 0; h < NG; ++h) {
-          const float* qh = q_s + h * kMaxHd + quarter * (kMaxHd / kQuarters) + c;
+          const float* qh = q_s + h * MAXHD + quarter * (MAXHD / kQuarters) + c;
 #pragma unroll
           for (int e = 0; e < kE; e += 4) {
             const float4 qv = *reinterpret_cast<const float4*>(qh + e);
@@ -245,7 +266,9 @@ __global__ void __launch_bounds__(kThreads, NG <= 4 ? 2 : 1)
         float x = 0.0f;
 #pragma unroll
         for (int qq = 0; qq < kQuarters; ++qq) x += sc[(qq * NG + warp) * kTile + p];
-        s[i] = pos0 + p < end ? x * scale : kNegInf;
+        float y = x * scale;
+        if (softcap > 0.0f) y = softcap * tanhf(y / softcap);
+        s[i] = pos0 + p < end ? y : kNegInf;
         mx = fmaxf(mx, s[i]);
       }
 #pragma unroll
@@ -266,24 +289,26 @@ __global__ void __launch_bounds__(kThreads, NG <= 4 ? 2 : 1)
     }
     __syncthreads();
 
-    // P V: 8 columns x kTile/16 positions for every head of the group
-#pragma unroll
-    for (int h = 0; h < NG; ++h) {
-      const float c = corr_s[h];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[h][e] *= c;
-    }
-#pragma unroll
-    for (int i = 0; i < kTile / kPosGroups; ++i) {
-      const int p = pg * (kTile / kPosGroups) + i;
-      float vf[8];
-#pragma unroll
-      for (int c = 0; c < 8; c += kE) unpack(vs + p * L::kLd + cg * 8 + c, vf + c);
+    // P V: 8 columns x kTile/kPosGroups positions for every head of the group
+    if (pv) {
 #pragma unroll
       for (int h = 0; h < NG; ++h) {
-        const float pr = p_s[h * kTile + p];
+        const float c = corr_s[h];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[h][e] = fmaf(pr, vf[e], acc[h][e]);
+        for (int e = 0; e < 8; ++e) acc[h][e] *= c;
+      }
+#pragma unroll
+      for (int i = 0; i < kTile / L::kPosGroups; ++i) {
+        const int p = pg * (kTile / L::kPosGroups) + i;
+        float vf[8];
+#pragma unroll
+        for (int c = 0; c < 8; c += kE) unpack(vs + p * L::kLd + cg * 8 + c, vf + c);
+#pragma unroll
+        for (int h = 0; h < NG; ++h) {
+          const float pr = p_s[h * kTile + p];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[h][e] = fmaf(pr, vf[e], acc[h][e]);
+        }
       }
     }
   }
@@ -293,11 +318,14 @@ __global__ void __launch_bounds__(kThreads, NG <= 4 ? 2 : 1)
   // sum the position groups (the ring is free now) and write the partial
   asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();  // every thread is done with the ring
-  float* red = reinterpret_cast<float*>(smem);  // [kPosGroups][NG][kMaxHd]
+  float* red = reinterpret_cast<float*>(smem);  // [kPosGroups][NG][MAXHD]
+  static_assert(L::kPosGroups * NG * MAXHD * sizeof(float) <= L::kRing, "the sums fit the ring");
+  if (pv) {
 #pragma unroll
-  for (int h = 0; h < NG; ++h)
+    for (int h = 0; h < NG; ++h)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) red[(pg * NG + h) * kMaxHd + cg * 8 + e] = acc[h][e];
+      for (int e = 0; e < 8; ++e) red[(pg * NG + h) * MAXHD + cg * 8 + e] = acc[h][e];
+  }
   if (warp < NG && lane == 0) {
     m_s[warp] = m;
     l_s[warp] = l;
@@ -308,7 +336,7 @@ __global__ void __launch_bounds__(kThreads, NG <= 4 ? 2 : 1)
     const int h = i / hd, d = i - h * hd;
     float o = 0.0f;
 #pragma unroll
-    for (int r = 0; r < kPosGroups; ++r) o += red[(r * NG + h) * kMaxHd + d];
+    for (int r = 0; r < L::kPosGroups; ++r) o += red[(r * NG + h) * MAXHD + d];
     const long long idx = static_cast<long long>(head0 + h) * n_part + split;
     part_o[idx * hd + d] = o / fmaxf(l_s[h], 1e-30f);
     if (d == 0) {
@@ -323,28 +351,28 @@ __global__ void __launch_bounds__(kThreads, NG <= 4 ? 2 : 1)
 // in shared memory, so each output column's sum has its loads in flight
 // together rather than one L2 round trip per partial.
 template <typename T>
-__global__ void __launch_bounds__(kMaxHd)
+__global__ void __launch_bounds__(kCombineThreads)
     flash_decode_combine_kernel(const float* __restrict__ part_o,
                                 const float* __restrict__ part_m,
                                 const float* __restrict__ part_l, T* __restrict__ out,
                                 float* __restrict__ m_out, float* __restrict__ l_out, int hd,
                                 int n_part) {
   __shared__ float w[kMaxSplits];
-  __shared__ float red[2][kMaxHd / 32];
+  __shared__ float red[2][kCombineThreads / 32];
   asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the partial kernel has finished
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long long bh = blockIdx.x;
   const float* pm = part_m + bh * n_part;
   const float* pl = part_l + bh * n_part;
   float ms = kNegInf, den = 0.0f;
-  for (int i = tid; i < n_part; i += kMaxHd) ms = fmaxf(ms, pm[i]);
+  for (int i = tid; i < n_part; i += kCombineThreads) ms = fmaxf(ms, pm[i]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) ms = fmaxf(ms, __shfl_xor_sync(0xffffffffu, ms, off));
   if (lane == 0) red[0][warp] = ms;
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < kMaxHd / 32; ++i) ms = fmaxf(ms, red[0][i]);
-  for (int i = tid; i < n_part; i += kMaxHd) {
+  for (int i = 0; i < kCombineThreads / 32; ++i) ms = fmaxf(ms, red[0][i]);
+  for (int i = tid; i < n_part; i += kCombineThreads) {
     const float wi = pl[i] * expf(pm[i] - ms);
     w[i] = wi;
     den += wi;
@@ -355,8 +383,8 @@ __global__ void __launch_bounds__(kMaxHd)
   __syncthreads();
   den = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kMaxHd / 32; ++i) den += red[1][i];
-  for (int d = tid; d < hd; d += kMaxHd) {
+  for (int i = 0; i < kCombineThreads / 32; ++i) den += red[1][i];
+  for (int d = tid; d < hd; d += kCombineThreads) {
     const float* po = part_o + bh * n_part * hd + d;
     float num = 0.0f;
     for (int j0 = 0; j0 < n_part; j0 += kCombineBatch) {
@@ -375,34 +403,39 @@ __global__ void __launch_bounds__(kMaxHd)
   }
 }
 
-template <typename T, int NG>
+template <typename T, int NG, int MAXHD>
 cudaError_t launch_partial(const void* q, const void* k, const void* v, float* part_o,
                            float* part_m, float* part_l, int B, int H, int Kv, int hd, int length,
-                           int splits, int chunk, float scale, const long long* ks,
+                           int splits, int chunk, float scale, float softcap, const long long* ks,
                            const long long* vs, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, NG>();
-  cudaError_t err = cudaFuncSetAttribute(flash_decode_partial_kernel<T, NG>,
+  constexpr size_t smem = smem_bytes<T, NG, MAXHD>();
+  cudaError_t err = cudaFuncSetAttribute(flash_decode_partial_kernel<T, NG, MAXHD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(B * Kv, splits, H / Kv / NG);
-  flash_decode_partial_kernel<T, NG><<<grid, kThreads, smem, stream>>>(
+  flash_decode_partial_kernel<T, NG, MAXHD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), part_o,
-      part_m, part_l, H, Kv, hd, length, chunk, scale, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2]);
+      part_m, part_l, H, Kv, hd, length, chunk, scale, softcap, ks[0], ks[1], ks[2], vs[0], vs[1],
+      vs[2]);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, float* m, float* l,
            float* part_o, float* part_m, float* part_l, int B, int H, int Kv, int hd, int length,
-           int splits, int chunk, int ng, float scale, const long long* ks, const long long* vs,
-           cudaStream_t stream) {
+           int splits, int chunk, int ng, float scale, float softcap, const long long* ks,
+           const long long* vs, cudaStream_t stream) {
   cudaError_t err;
   switch (ng) {
-#define CASE(N)                                                                                \
-  case N:                                                                                      \
-    err = launch_partial<T, N>(q, k, v, part_o, part_m, part_l, B, H, Kv, hd, length, splits,  \
-                               chunk, scale, ks, vs, stream);                                  \
+#define CASE(N)                                                                                 \
+  case N:                                                                                       \
+    err = hd <= 128 ? launch_partial<T, N, 128>(q, k, v, part_o, part_m, part_l, B, H, Kv, hd,  \
+                                                length, splits, chunk, scale, softcap, ks, vs,  \
+                                                stream)                                         \
+                    : launch_partial<T, N, 192>(q, k, v, part_o, part_m, part_l, B, H, Kv, hd,  \
+                                                length, splits, chunk, scale, softcap, ks, vs,  \
+                                                stream);                                        \
     break;
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
@@ -415,7 +448,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* m, flo
   // kernel (griddepcontrol.wait), not behind a launch at its end
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(B * H);
-  config.blockDim = dim3(kMaxHd);
+  config.blockDim = dim3(kCombineThreads);
   config.stream = stream;
   cudaLaunchAttribute overlap[1];
   overlap[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -449,13 +482,15 @@ const char* flash_decode_error_string(int code) {
 // covers positions [i * chunk, min((i + 1) * chunk, length)); ng q heads
 // (a divisor of H/Kv, at most 8) share a block. Scratch: part_o float32
 // [B*H, splits, hd], part_m and part_l float32 [B*H, splits].
-// dtype: 0 float32, 1 bfloat16.
+// dtype: 0 float32, 1 bfloat16. hd <= 128 runs the 128-wide instance, up
+// to 192 the 192-wide one. softcap > 0 caps the scaled logits.
 int flash_decode_launch(const void* q, const void* k, const void* v, void* out, float* m,
                         float* l, float* part_o, float* part_m, float* part_l, int dtype, int B,
                         int S, int H, int Kv, int hd, int length, int splits, int chunk, int ng,
-                        float scale, long long ksb, long long kss, long long ksh, long long vsb,
-                        long long vss, long long vsh, void* stream) {
+                        float scale, float softcap, long long ksb, long long kss, long long ksh,
+                        long long vsb, long long vss, long long vsh, void* stream) {
   if (B < 1 || Kv < 1 || H < Kv || H % Kv != 0 || hd < 8 || hd > kMaxHd || hd % 8 != 0 ||
+      !(softcap >= 0.0f) ||
       length < 0 || length > S || splits < 1 || splits > kMaxSplits || chunk < kTile ||
       chunk % kTile != 0 || static_cast<long long>(splits) * chunk < length || ng < 1 ||
       ng > kMaxGroup || (H / Kv) % ng != 0 || H / Kv / ng > 65535)
@@ -464,10 +499,10 @@ int flash_decode_launch(const void* q, const void* k, const void* v, void* out, 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, out, m, l, part_o, part_m, part_l, B, H, Kv, hd, length,
-                         splits, chunk, ng, scale, ks, vs, st);
+                         splits, chunk, ng, scale, softcap, ks, vs, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, out, m, l, part_o, part_m, part_l, B, H, Kv, hd,
-                                 length, splits, chunk, ng, scale, ks, vs, st);
+                                 length, splits, chunk, ng, scale, softcap, ks, vs, st);
   return cudaErrorInvalidValue;
 }
 

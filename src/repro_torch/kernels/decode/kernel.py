@@ -5,7 +5,9 @@ built and loaded at first use by ``kernels._build``
 The wrapper checks device, dtype, shape, strides and head width, allocates
 the outputs and the partials' scratch with ``torch.empty``, launches on
 PyTorch's current stream (the partial kernel, then the combine), raises
-on a non-zero CUDA status, and adds one to ``launches``. The caches are
+on a non-zero CUDA status, and adds one to ``launches``. Heads up to 128
+wide run the 128-wide instance (the serving path's), up to 192 the
+192-wide one; ``softcap`` caps the scaled logits. The caches are
 read in place by strides, so the model's [B, S_max, Kv, hd] cache needs
 no transposed copy. How the work is cut (``head_group``, ``splits_for``,
 ``split_chunk``) is plain Python, pinned by the CPU tests.
@@ -23,7 +25,7 @@ import torch
 from repro_torch.kernels._build import CudaLibrary
 from repro_torch.kernels.attention.kernel import DTYPE_IDS, check_head_dim, check_rows
 
-MAX_HD = 128
+MAX_HD = 192
 TILE = 64  # cache positions per shared-memory stage; a split is whole tiles
 MAX_GROUP = 8  # q heads one block serves
 MAX_SPLITS = 1024  # the combine's weights fit in its shared memory
@@ -43,7 +45,7 @@ def reset_launches() -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.flash_decode_launch.argtypes = (
-        [ptr] * 9 + [i32] * 10 + [ctypes.c_float] + [i64] * 6 + [ptr]
+        [ptr] * 9 + [i32] * 10 + [ctypes.c_float] * 2 + [i64] * 6 + [ptr]
     )
     lib.flash_decode_launch.restype = i32
     lib.flash_decode_error_string.argtypes = [i32]
@@ -84,12 +86,13 @@ def split_chunk(length: int, splits: int) -> int:
     return max(1, math.ceil(math.ceil(length / splits) / TILE)) * TILE
 
 
-def flash_decode(q, k_cache, v_cache, length: int):
+def flash_decode(q, k_cache, v_cache, length: int, softcap: float = 0.0):
     """One query token per sequence against a KV cache, on the card.
     q: [B, H, hd] contiguous; caches: [B, S, Kv, hd]; positions >= length
     are masked (0 <= length <= S). float32 or bfloat16, all one dtype.
     Returns (out [B, H, hd] in q's dtype, m [B, H] f32, l [B, H] f32), the
-    softmax stats of the Pallas kernel; the scale is 1/sqrt(hd)."""
+    softmax stats of the Pallas kernel; the scale is 1/sqrt(hd), and
+    ``softcap`` > 0 caps the scaled logits (m and l are the capped ones')."""
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must lie on q's CUDA device {q.device}, got {t.device}")
@@ -112,6 +115,9 @@ def flash_decode(q, k_cache, v_cache, length: int):
     length = int(length)
     if not 0 <= length <= s:
         raise ValueError(f"length {length} outside the cache's 0..{s}")
+    softcap = float(softcap)
+    if not softcap >= 0.0:
+        raise ValueError(f"softcap must be >= 0 (0 is off), got {softcap}")
     lib = LIBRARY.load()
     dev = q.device
     splits = splits_for(b, kv, h, length, torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -127,7 +133,7 @@ def flash_decode(q, k_cache, v_cache, length: int):
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), m.data_ptr(),
             l.data_ptr(), part_o.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
             DTYPE_IDS[q.dtype], b, s, h, kv, hd, length, splits, split_chunk(length, splits),
-            head_group(h // kv), 1.0 / hd ** 0.5,
+            head_group(h // kv), 1.0 / hd ** 0.5, softcap,
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2), stream,
         )

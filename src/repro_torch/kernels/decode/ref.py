@@ -2,16 +2,19 @@
 
 It computes in float32, like the kernels, and returns the softmax stats
 ``(m, l)`` beside the output. The CPU path and the card's parity checks
-use it."""
+use it. ``softcap`` caps the scaled logits before the mask, as the
+reference's ``layers._soft_cap`` does in its decode attention."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.attention.ref import soft_cap
+
 NEG_INF = -1e30
 
 
-def decode_ref(q, k, v, length: int, *, scale=None):
+def decode_ref(q, k, v, length: int, *, scale=None, softcap: float = 0.0):
     """q: [BH, hd]; k/v: [BKV, S, hd]; positions >= ``length`` masked.
     Returns (out [BH, hd] in q's dtype, m [BH] f32, l [BH] f32).
 
@@ -26,7 +29,7 @@ def decode_ref(q, k, v, length: int, *, scale=None):
         scale = 1.0 / (hd ** 0.5)
     k = k.repeat_interleave(groups, dim=0).float()
     v = v.repeat_interleave(groups, dim=0).float()
-    logits = torch.einsum("hd,hkd->hk", q.float(), k) * scale
+    logits = soft_cap(torch.einsum("hd,hkd->hk", q.float(), k) * scale, softcap)
     pos = torch.arange(s, device=q.device)
     logits = torch.where(pos[None, :] < length, logits, NEG_INF)
     m = logits.max(dim=-1).values
@@ -36,12 +39,12 @@ def decode_ref(q, k, v, length: int, *, scale=None):
     return out.to(q.dtype), m, l
 
 
-def decode_attention_ref(q, k_cache, v_cache, length: int):
+def decode_attention_ref(q, k_cache, v_cache, length: int, softcap: float = 0.0):
     """The ops' layout: q [B, H, hd], caches [B, S, Kv, hd] ->
     (out [B, H, hd], m [B, H], l [B, H]). The scale is 1/sqrt(hd)."""
     b, h, hd = q.shape
     _, s, kv, _ = k_cache.shape
     kf = k_cache.transpose(1, 2).reshape(b * kv, s, hd)
     vf = v_cache.transpose(1, 2).reshape(b * kv, s, hd)
-    of, m, l = decode_ref(q.reshape(b * h, hd), kf, vf, length, scale=1.0 / (hd ** 0.5))
+    of, m, l = decode_ref(q.reshape(b * h, hd), kf, vf, length, scale=1.0 / (hd ** 0.5), softcap=softcap)
     return of.reshape(b, h, hd), m.reshape(b, h), l.reshape(b, h)

@@ -8,11 +8,14 @@ Two serving surfaces share this module:
   persistent plan cache) and ``serve_analytics`` runs a submit-and-drain
   load, returning the tickets.
 * **LM serving**: batched prefill and KV-cache decode step builders with
-  the reference's batch dicts. Each builder makes the compute-dtype copy
-  of the params once (``lm.cast_params``) and reuses it while it is
-  called with the same params object: the reference casts float32 params
-  at every use, which on the card would read 12.85 GB and write 6.4 GB
-  per llama3.2-3b decode step.
+  the reference's batch dicts, for every family of ``models.lm`` (a
+  vlm/audio batch's ``prefix_embeds`` go through both builders: the
+  decode builder prefills them into the cache with the prompt). Each
+  builder makes the compute-dtype copy of the params once
+  (``lm.cast_params``) and reuses it while it is called with the same
+  params object: the reference casts float32 params at every use, which
+  on the card would read 12.85 GB and write 6.4 GB per llama3.2-3b
+  decode step.
 """
 
 from __future__ import annotations
@@ -100,7 +103,8 @@ def make_prefill_step(cfg):
     cast = _cast_once(cfg)
 
     def prefill_step(params, batch):
-        """batch: {"tokens": [B, S]} -> last-position logits [B, vocab]."""
+        """batch: {"tokens": [B, S]} (+ "prefix_embeds" [B, P, D]) ->
+        last-position logits [B, vocab]."""
         return lm.prefill(cast(params), batch["tokens"], cfg,
                           prefix_embeds=batch.get("prefix_embeds"))
 
@@ -111,10 +115,11 @@ def make_decode_step(cfg):
     cast = _cast_once(cfg)
 
     def decode_step(params, batch):
-        """batch: {"tokens": [B, S], "cache": ...} -> (greedy next token
-        [B] int32, cache). With the whole prompt at cache index 0 this
-        prefills into the cache."""
-        logits, cache = lm.decode_step(cast(params), batch["tokens"], batch["cache"], cfg)
+        """batch: {"tokens": [B, S], "cache": ...} (+ "prefix_embeds"
+        [B, P, D]) -> (greedy next token [B] int32, cache). With S > 1 this
+        prefills the chunk into the cache at its index, the prefix first."""
+        logits, cache = lm.decode_step(cast(params), batch["tokens"], batch["cache"], cfg,
+                                       prefix_embeds=batch.get("prefix_embeds"))
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return decode_step

@@ -1,1 +1,2 @@
-"""The LM stack of the port: layers and the unified LM (dense family)."""
+"""The LM stack of the port: layers, MoE, Mamba2, xLSTM and the unified LM
+over every family of the reference."""

@@ -12,7 +12,12 @@ with the reference's key names, so a JAX pytree carries across one to one
 * the KV cache is updated in place: the reference returns a new cache
   (``dynamic_update_slice``), which on the card would copy the whole cache
   every step. ``cache_index`` is a Python int, so routing and the kernels'
-  ``length`` need no device sync;
+  ``length`` need no device sync. The kernels read only the cache's first
+  ``cache_index + S`` positions, which is the reference's ``kv_limit``
+  mask over the whole cache;
+* the attention-logit soft cap (``cfg.logit_softcap``, grok-1) is applied
+  inside the kernels, to the scaled float32 logits before the mask, as the
+  reference's ``_soft_cap`` is;
 * the ``.to(dt)`` casts of the weights are the reference's ``astype(dt)``
   and cost nothing on weights already in the compute dtype
   (``models.lm.cast_params``).
@@ -101,22 +106,20 @@ def attention(params: dict, x, cfg, positions, *, cache: Optional[dict] = None,
     * ``cache`` given ({"k", "v": [B, S_max, Kv, hd]}), S == 1: k/v are
       written at ``cache_index`` and the token attends to the cache's
       first ``cache_index + 1`` positions (``decode_attention``);
-    * ``cache`` given, S > 1, ``cache_index`` 0 (prefill into the cache):
-      k/v are written at [0, S) and ``mha`` runs over those positions,
-      which is the reference's masked attention over the whole cache.
+    * ``cache`` given, S > 1 (a prefill, or a chunk of one at an offset):
+      k/v are written at [cache_index, cache_index + S) and ``mha`` runs
+      the S queries at positions cache_index + i over the cache's first
+      ``cache_index + S`` positions (k/v longer than q).
 
-    A chunk of S > 1 tokens at ``cache_index`` > 0 raises: no kernel of
-    the reference computes it. Returns (out [B, S, D], the cache or None);
-    the returned cache is the given one, updated in place.
+    Returns (out [B, S, D], the cache or None); the returned cache is the
+    given one, updated in place.
 
     q heads are laid kv-major as in the reference (head h = kv * g + j), so
     head h reads kv head h // g, which is the kernels' mapping."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = x.dtype
-    if cfg.logit_softcap:
-        raise NotImplementedError("attention logit soft-capping has no kernel in the port yet "
-                                  "(grok-1's family slice)")
+    cap = cfg.logit_softcap
 
     q = (x @ params["wq"].to(dt)).reshape(b, s, h, hd)
     k = (x @ params["wk"].to(dt)).reshape(b, s, kv, hd)
@@ -125,21 +128,18 @@ def attention(params: dict, x, cfg, positions, *, cache: Optional[dict] = None,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = attention_ops.mha(q, k, v)
+        out = attention_ops.mha(q, k, v, cap)
     else:
         ck, cv = cache["k"], cache["v"]
-        if s > 1 and cache_index > 0:
-            raise NotImplementedError(
-                f"a chunk of {s} tokens at cache index {cache_index} (chunked prefill at an "
-                "offset) has no kernel yet; it comes with a later serving slice")
-        if cache_index + s > ck.shape[1]:
+        end = cache_index + s
+        if end > ck.shape[1]:
             raise ValueError(f"{s} tokens at index {cache_index} overflow the cache's {ck.shape[1]} positions")
-        ck[:, cache_index:cache_index + s] = k.to(ck.dtype)
-        cv[:, cache_index:cache_index + s] = v.to(cv.dtype)
+        ck[:, cache_index:end] = k.to(ck.dtype)
+        cv[:, cache_index:end] = v.to(cv.dtype)
         if s == 1:
-            out = decode_ops.decode_attention(q[:, 0], ck.to(dt), cv.to(dt), cache_index + 1)
+            out = decode_ops.decode_attention(q[:, 0], ck.to(dt), cv.to(dt), end, cap)
         else:
-            out = attention_ops.mha(q, ck[:, :s].to(dt), cv[:, :s].to(dt))
+            out = attention_ops.mha(q, ck[:, :end].to(dt), cv[:, :end].to(dt), cap)
 
     out = out.reshape(b, s, h * hd) @ params["wo"].to(dt)
     return out, cache

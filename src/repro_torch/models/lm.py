@@ -1,12 +1,26 @@
-"""Unified LM (``repro.models.lm``), dense family: init / forward /
-prefill / decode.
+"""Unified LM (``repro.models.lm``): init / forward / prefill / decode for
+every family of the reference.
 
-Layer params are a list of per-layer dicts (the reference stacks them on
-a leading axis for ``lax.scan``); the stack is a Python loop. The
+Families:
+  dense|moe|vlm|audio -> transformer blocks (``"moe"`` in place of
+                         ``"mlp"`` when ``cfg.n_experts``)
+  hybrid (zamba2)     -> Mamba2 segments + ONE weight-shared transformer
+                         block (attention, and its MLP when ``d_ff``)
+                         applied after every ``attn_every`` SSM blocks
+  ssm (xlstm)         -> segments of (slstm_every - 1) mLSTM blocks + 1 sLSTM
+
+VLM/audio frontends are stubs, as in the reference: ``prefix_embeds``
+(precomputed patch/frame embeddings) are cast to the compute dtype and
+prepended to the token embeddings; positions start at the cache index.
+Training (``train_loss``) is not ported yet.
+
+Layer params are lists (the reference stacks them on leading axes for
+``lax.scan``): ``blocks`` a list of per-layer dicts; the hybrid's
+``mamba`` a list of ``n_seg`` lists of ``attn_every`` dicts; the ssm's
+``mlstm`` a list of ``n_seg`` lists of ``slstm_every - 1`` dicts and its
+``slstm`` a list of ``n_seg`` dicts. The stacks are Python loops. The
 reference's ``constrain`` (``dist/sharding.py``) is the identity on one
-card and is left out. Other families (moe, hybrid, ssm, vlm, audio) raise
-``NotImplementedError`` naming their slice; ``train_loss`` waits for the
-training slice.
+card and is left out.
 
 Differences in form, not in numbers:
 
@@ -15,8 +29,12 @@ Differences in form, not in numbers:
   ``logits[:, -1]`` is returned; the full [B, S, vocab] float32 logits of
   a 2,048-token prefill at B=8 would be 8.4 GB. ``forward`` keeps all
   positions.
-* The decode cache is {"kv": [per-layer {"k", "v"}], "index": int}; its
-  tensors are updated in place and ``index`` lives on the host.
+* The decode cache's tensors live in lists like the params; its KV
+  tensors are updated in place, its recurrent states replaced, and
+  ``index`` lives on the host.
+* ``decode_step`` takes ``prefix_embeds`` too (the reference's does not):
+  a vlm/audio prompt is prefilled into the cache with its prefix, which is
+  the reference's ``forward(..., prefix_embeds=, cache=)``.
 * ``cast_params`` makes the compute-dtype copy of the matmul weights once;
   the layers' ``.to(dt)`` are then no-ops, where the reference casts
   float32 params at every use.
@@ -29,22 +47,19 @@ from typing import Optional
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba2, moe, xlstm
 
-_FAMILY_SLICES = {
-    "moe": "the MoE slice (models/moe.py)",
-    "hybrid": "the hybrid slice (models/mamba2.py)",
-    "ssm": "the xLSTM slice (models/xlstm.py)",
-    "vlm": "the vlm/audio prefix-embedding slice",
-    "audio": "the vlm/audio prefix-embedding slice",
-}
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm", "audio")
+# params read in float32 at use (sLSTM's recurrent weights): cast_params
+# leaves them as they are
+_F32_AT_USE = frozenset({"r_h"})
 
 
-def _check_family(cfg) -> None:
-    if cfg.family != "dense" or cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; it comes with "
-            f"{_FAMILY_SLICES.get(cfg.family, 'a later slice')}")
+def _segments(cfg):
+    """(n_seg, blocks a segment) of the hybrid and ssm stacks."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every, cfg.attn_every
+    return cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
 
 
 # ---------------------------------------------------------------------------
@@ -54,12 +69,16 @@ def _check_family(cfg) -> None:
 
 def _init_tf_layer(gen, cfg, device) -> dict:
     pd = layers.dtype_of(cfg.param_dtype)
-    return {
+    p = {
         "ln1": torch.ones((cfg.d_model,), dtype=pd, device=device),
         "attn": layers.init_attention(gen, cfg, device=device),
         "ln2": torch.ones((cfg.d_model,), dtype=pd, device=device),
-        "mlp": layers.init_mlp(gen, cfg, device=device),
     }
+    if cfg.n_experts:
+        p["moe"] = moe.init_moe(gen, cfg, device=device)
+    else:
+        p["mlp"] = layers.init_mlp(gen, cfg, device=device)
+    return p
 
 
 def init_lm(cfg, gen: torch.Generator, device=None) -> dict:
@@ -67,7 +86,6 @@ def init_lm(cfg, gen: torch.Generator, device=None) -> dict:
     the CUDA card). The reference's threefry draws cannot be reproduced:
     tests carry the reference's params across with
     ``convert.lm_params_from_numpy``."""
-    _check_family(cfg)
     device = resolve_device(device)
     pd = layers.dtype_of(cfg.param_dtype)
     params = {
@@ -76,23 +94,43 @@ def init_lm(cfg, gen: torch.Generator, device=None) -> dict:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, (cfg.d_model, cfg.vocab), pd, device=device)
-    params["blocks"] = [_init_tf_layer(gen, cfg, device) for _ in range(cfg.n_layers)]
+    if cfg.family in TRANSFORMER_FAMILIES:
+        params["blocks"] = [_init_tf_layer(gen, cfg, device) for _ in range(cfg.n_layers)]
+    elif cfg.family == "hybrid":
+        n_seg, per = _segments(cfg)
+        params["mamba"] = [[mamba2.init_mamba(gen, cfg, device=device) for _ in range(per)]
+                           for _ in range(n_seg)]
+        params["shared_ln"] = torch.ones((cfg.d_model,), dtype=pd, device=device)
+        params["shared_attn"] = layers.init_attention(gen, cfg, device=device)
+        if cfg.d_ff:  # zamba2's shared block is a full transformer block (attention + MLP)
+            params["shared_ln2"] = torch.ones((cfg.d_model,), dtype=pd, device=device)
+            params["shared_mlp"] = layers.init_mlp(gen, cfg, device=device)
+    elif cfg.family == "ssm":
+        n_seg, per = _segments(cfg)
+        params["mlstm"] = [[xlstm.init_mlstm(gen, cfg, device=device) for _ in range(per)]
+                           for _ in range(n_seg)]
+        params["slstm"] = [xlstm.init_slstm(gen, cfg, device=device) for _ in range(n_seg)]
+    else:
+        raise ValueError(cfg.family)
     return params
 
 
 def cast_params(params: dict, cfg) -> dict:
     """A copy of ``params`` whose matrices are in the compute dtype
     (``cfg.dtype``): the values the reference's per-use ``astype(dt)``
-    gives, bit for bit. Norm weights (1-d) stay as they are, since
-    ``rms_norm`` reads them in float32."""
+    gives, bit for bit. 1-d params (norms, biases, the SSM's a_log,
+    dt_bias, d_skip, conv_b) stay as they are, and so do the sLSTM's
+    recurrent weights (``r_h``): the layers cast each at use where the
+    reference does (``rms_norm`` and the sLSTM cell read theirs in
+    float32)."""
     dt = layers.dtype_of(cfg.dtype)
 
-    def cast(tree):
+    def cast(tree, key=None):
         if isinstance(tree, dict):
-            return {k: cast(v) for k, v in tree.items()}
+            return {k: cast(v, k) for k, v in tree.items()}
         if isinstance(tree, list):
-            return [cast(v) for v in tree]
-        return tree.to(dt) if tree.dim() >= 2 else tree
+            return [cast(v, key) for v in tree]
+        return tree.to(dt) if tree.dim() >= 2 and key not in _F32_AT_USE else tree
 
     return cast(params)
 
@@ -103,16 +141,36 @@ def cast_params(params: dict, cfg) -> dict:
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
-    """Decode cache: per layer {"k", "v": [batch, max_len, Kv, hd]} in the
-    compute dtype, and the host-side ``index`` 0."""
-    _check_family(cfg)
+    """Decode cache for any family: KV tensors [batch, max_len, Kv, hd] in
+    the compute dtype, recurrent states in float32, the host-side
+    ``index`` 0. transformer: {"kv": [per layer {"k", "v"}]}; hybrid:
+    {"mamba": [[{"conv", "ssm"}]], "kv": [one per shared-block
+    application]}; ssm: {"mlstm": [[{"c", "n", "m"}]], "slstm": [{"c",
+    "n", "h", "m"}]}."""
     device = resolve_device(device)
     kv_dt = layers.dtype_of(cfg.dtype)
-    return {
-        "kv": [layers.init_attention_cache(cfg, batch, max_len, kv_dt, device=device)
-               for _ in range(cfg.n_layers)],
-        "index": 0,
-    }
+
+    def kv():
+        return layers.init_attention_cache(cfg, batch, max_len, kv_dt, device=device)
+
+    if cfg.family in TRANSFORMER_FAMILIES:
+        return {"kv": [kv() for _ in range(cfg.n_layers)], "index": 0}
+    n_seg, per = _segments(cfg)
+    if cfg.family == "hybrid":
+        return {
+            "mamba": [[mamba2.init_mamba_cache(cfg, batch, device=device) for _ in range(per)]
+                      for _ in range(n_seg)],
+            "kv": [kv() for _ in range(n_seg)],
+            "index": 0,
+        }
+    if cfg.family == "ssm":
+        return {
+            "mlstm": [[xlstm.init_mlstm_cache(cfg, batch, device=device) for _ in range(per)]
+                      for _ in range(n_seg)],
+            "slstm": [xlstm.init_slstm_cache(cfg, batch, device=device) for _ in range(n_seg)],
+            "index": 0,
+        }
+    raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------------------
@@ -125,30 +183,82 @@ def _tf_block_apply(block, x, cfg, positions, kv=None, index=None):
                                  cfg, positions, cache=kv, cache_index=index)
     x = x + a
     h = layers.rms_norm(x, block["ln2"], cfg.norm_eps)
-    return x + layers.mlp(block["mlp"], h, cfg), new_kv
+    if cfg.n_experts:
+        out, aux = moe.moe_ffn(block["moe"], h, cfg)
+    else:
+        out, aux = layers.mlp(block["mlp"], h, cfg), None
+    return x + out, new_kv, aux
 
 
 def _transformer_stack(params, x, cfg, positions, cache):
     index = cache["index"] if cache is not None else None
-    new_kv = []
+    new_kv, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
     for i, block in enumerate(params["blocks"]):
-        x, kv = _tf_block_apply(block, x, cfg, positions,
-                                cache["kv"][i] if cache is not None else None, index)
+        x, kv, a = _tf_block_apply(block, x, cfg, positions,
+                                   cache["kv"][i] if cache is not None else None, index)
         new_kv.append(kv)
+        if a is not None:
+            aux = aux + a
     new_cache = None if cache is None else {"kv": new_kv, "index": index + x.shape[1]}
-    return x, new_cache
+    return x, aux, new_cache
+
+
+def _hybrid_stack(params, x, cfg, positions, cache):
+    index = cache["index"] if cache is not None else None
+    new_mamba, new_kv = [], []
+    for seg, mp_seg in enumerate(params["mamba"]):
+        new_seg = []
+        for j, mp in enumerate(mp_seg):
+            out, mc = mamba2.mamba_block(mp, x, cfg, cache=cache["mamba"][seg][j] if cache is not None else None)
+            x = x + out
+            new_seg.append(mc)
+        a, kv = layers.attention(params["shared_attn"], layers.rms_norm(x, params["shared_ln"], cfg.norm_eps),
+                                 cfg, positions, cache=cache["kv"][seg] if cache is not None else None,
+                                 cache_index=index)
+        x = x + a
+        if cfg.d_ff:
+            x = x + layers.mlp(params["shared_mlp"], layers.rms_norm(x, params["shared_ln2"], cfg.norm_eps), cfg)
+        new_mamba.append(new_seg)
+        new_kv.append(kv)
+    new_cache = None if cache is None else {"mamba": new_mamba, "kv": new_kv, "index": index + x.shape[1]}
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), new_cache
+
+
+def _xlstm_stack(params, x, cfg, positions, cache):
+    del positions  # recurrent families are position-free
+    new_m, new_s = [], []
+    for seg, (mp_seg, sp) in enumerate(zip(params["mlstm"], params["slstm"])):
+        new_seg = []
+        for j, mp in enumerate(mp_seg):
+            out, mc = xlstm.mlstm_block(mp, x, cfg, cache=cache["mlstm"][seg][j] if cache is not None else None)
+            x = x + out
+            new_seg.append(mc)
+        out, sc = xlstm.slstm_block(sp, x, cfg, cache=cache["slstm"][seg] if cache is not None else None)
+        x = x + out
+        new_m.append(new_seg)
+        new_s.append(sc)
+    new_cache = None
+    if cache is not None:
+        new_cache = {"mlstm": new_m, "slstm": new_s, "index": cache["index"] + x.shape[1]}
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), new_cache
+
+
+_STACKS = {"dense": _transformer_stack, "moe": _transformer_stack, "vlm": _transformer_stack,
+           "audio": _transformer_stack, "hybrid": _hybrid_stack, "ssm": _xlstm_stack}
 
 
 def _hidden(params, tokens, cfg, cache, prefix_embeds):
-    _check_family(cfg)
-    if prefix_embeds is not None:
-        raise NotImplementedError(f"prefix embeddings come with {_FAMILY_SLICES['vlm']}")
+    """The blocks' output before the final norm: (x [B, P + S, D], aux,
+    new cache or None)."""
     dt = layers.dtype_of(cfg.dtype)
+    # cast the table before the gather, as the reference does
     x = params["embed"].to(dt)[tokens]
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(dt), x], dim=1)
     b, s, _ = x.shape
     start = cache["index"] if cache is not None else 0
     positions = (start + torch.arange(s, dtype=torch.int32, device=x.device))[None, :].expand(b, s)
-    return _transformer_stack(params, x, cfg, positions, cache)
+    return _STACKS[cfg.family](params, x, cfg, positions, cache)
 
 
 def _head(params, x, cfg):
@@ -161,22 +271,32 @@ def _head(params, x, cfg):
     return logits
 
 
+def hidden_states(params, tokens, cfg, *, prefix_embeds=None, cache: Optional[dict] = None):
+    """(the blocks' output [B, P + S, D] before the final norm, new cache
+    or None): what ``forward`` feeds its head."""
+    x, _, new_cache = _hidden(params, tokens, cfg, cache, prefix_embeds)
+    return x, new_cache
+
+
 def forward(params, tokens, cfg, *, prefix_embeds=None, cache: Optional[dict] = None):
-    """tokens: [B, S] -> (logits [B, S, vocab] float32, aux, new_cache).
-    aux is the MoE load-balancing loss, 0 for the dense family."""
-    x, new_cache = _hidden(params, tokens, cfg, cache, prefix_embeds)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    """tokens: [B, S_tok] -> (logits [B, P + S_tok, vocab] float32, aux,
+    new_cache). aux is the MoE load-balancing loss summed over layers, 0
+    for the other families. With ``prefix_embeds`` [B, P, D] (vlm/audio)
+    the prefix is prepended."""
+    x, aux, new_cache = _hidden(params, tokens, cfg, cache, prefix_embeds)
     return _head(params, x, cfg), aux, new_cache
 
 
 def prefill(params, tokens, cfg, prefix_embeds=None):
     """Serving prefill: last-position logits [B, vocab]."""
-    x, _ = _hidden(params, tokens, cfg, None, prefix_embeds)
+    x, _, _ = _hidden(params, tokens, cfg, None, prefix_embeds)
     return _head(params, x[:, -1:], cfg)[:, -1]
 
 
-def decode_step(params, tokens, cache: dict, cfg):
+def decode_step(params, tokens, cache: dict, cfg, prefix_embeds=None):
     """One decode step: tokens [B, S] + cache -> (logits [B, vocab], cache).
-    With S > 1 at cache index 0 it prefills into the cache."""
-    x, new_cache = _hidden(params, tokens, cfg, cache, None)
+    With S > 1 it prefills the chunk into the cache at its index (an
+    mLSTM raises, as the reference's does), with ``prefix_embeds``
+    prepended when given."""
+    x, _, new_cache = _hidden(params, tokens, cfg, cache, prefix_embeds)
     return _head(params, x[:, -1:], cfg)[:, -1], new_cache

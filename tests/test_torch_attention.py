@@ -125,11 +125,23 @@ def test_tma_layout_packs_size_one_dims_and_refuses_misaligned_strides():
         K.tma_layout(torch.zeros((1, 40, 64, 4), dtype=torch.bfloat16).transpose(2, 3))
 
 
-@pytest.mark.parametrize("hd", range(8, 129, 8))
+@pytest.mark.parametrize("hd", range(8, 193, 8))
 def test_instantiated_hd_is_the_next_of_64_and_128(hd):
-    assert K.instantiated_hd(hd) == (64 if hd <= 64 else 128)
+    """The bf16 kernel's width: the least of 64, 128 and 192 that holds hd
+    (192 for nemotron-4's heads), and its k/v tile (64 positions at 192)."""
+    assert K.instantiated_hd(hd) == (64 if hd <= 64 else 128 if hd <= 128 else 192)
+    assert K.block_k(K.instantiated_hd(hd)) == (64 if hd > 128 else 128)
     with pytest.raises(ValueError, match="head dim"):
         K.instantiated_hd(hd + 4)
+    if hd == 192:
+        with pytest.raises(ValueError, match="head dim"):
+            K.instantiated_hd(hd + 8)
+
+
+def test_tma_layout_takes_the_k_tiles_rows():
+    t = torch.zeros((1, 100, 2, 192), dtype=torch.bfloat16)
+    assert K.tma_layout(t, K.block_k(192))[2] == (64, 1, 64, 1)
+    assert K.tma_layout(t)[2] == (64, 1, K.BLOCK_Q, 1)
 
 
 def _attention_p_in_bf16(q, k, v, tile=128):
@@ -168,3 +180,43 @@ def test_bf16_p_rounding_stays_within_the_reference_tolerance(b, s, h, kv, hd):
     got = _f32(_attention_p_in_bf16(*tx))
     np.testing.assert_allclose(got, _f32(R.mha_ref(*tx)), rtol=2e-2, atol=2e-2)
     np.testing.assert_allclose(got, _f32(ref_ops.mha(*jx, use_kernel=True, interpret=True)), rtol=2e-2, atol=2e-2)
+
+
+# -- soft cap and a q chunk at a cache offset, against the reference's
+# _attn_core (the XLA attention its models run) -------------------------------
+
+from repro.models import layers as jax_layers  # noqa: E402
+
+
+def _core(q, k, v, offset, softcap):
+    """The reference's _attn_core on q [B, S, H, hd] at positions offset + i
+    over k/v [B, Skv, Kv, hd] with kv_limit offset + S."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    qg = jnp.asarray(q).reshape(b, s, kv, h // kv, hd)
+    pos = jnp.broadcast_to(offset + jnp.arange(s, dtype=jnp.int32), (b, s))
+    limit = jnp.broadcast_to(jnp.int32(offset + s), (b,))
+    out = jax_layers._attn_core(qg, jnp.asarray(k), jnp.asarray(v), pos, limit, softcap)
+    return np.asarray(out).reshape(b, s, h, hd)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0, 1.0])
+@pytest.mark.parametrize("b,s,skv,h,kv,hd", [(2, 7, 16, 4, 2, 16), (1, 64, 64, 6, 2, 32),
+                                             (2, 33, 200, 4, 4, 64), (1, 1, 9, 4, 1, 8)])
+def test_mha_offset_and_softcap_match_the_reference_attn_core(b, s, skv, h, kv, hd, softcap):
+    """k/v longer than q put q row i at position skv - s + i (a prefill
+    chunk at a cache offset); softcap caps the scaled logits before the
+    mask. The cache past skv is the reference's masked tail."""
+    r = np.random.default_rng(2)
+    q = (3.0 * r.normal(size=(b, s, h, hd))).astype(np.float32)
+    k = (3.0 * r.normal(size=(b, skv + 5, kv, hd))).astype(np.float32)
+    v = r.normal(size=(b, skv + 5, kv, hd)).astype(np.float32)
+    want = _core(q, k, v, skv - s, softcap)
+    got = ops.mha(*(torch.from_numpy(a) for a in (q, k[:, :skv], v[:, :skv])), softcap)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_mha_refuses_kv_shorter_than_q_on_the_plain_path_too():
+    q, k = torch.zeros(1, 8, 2, 8), torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.mha(q, k, k)

@@ -557,7 +557,15 @@ def test_cuda_attention_wrappers_refuse_what_the_kernels_do_not_take():
         AK.flash_attention(q, k[:, :32], k[:, :32])
     qd = _normal((1, 4, 64), torch.bfloat16, 3)
     with pytest.raises(ValueError, match="head dim"):
-        DK.flash_decode(_normal((1, 4, 136), torch.bfloat16, 4), *(2 * [_normal((1, 64, 2, 136), torch.bfloat16, 5)]), 8)
+        DK.flash_decode(_normal((1, 4, 200), torch.bfloat16, 4), *(2 * [_normal((1, 64, 2, 200), torch.bfloat16, 5)]), 8)
+    with pytest.raises(ValueError, match="head dim"):
+        AK.flash_attention(*(3 * [_normal((1, 64, 2, 200), torch.bfloat16, 5)]))
+    with pytest.raises(ValueError, match="shapes"):  # k/v shorter than q
+        AK.flash_attention(q, k[:, :32], k[:, :32], 30.0)
+    with pytest.raises(ValueError, match="softcap"):
+        AK.flash_attention(q, k, k, -1.0)
+    with pytest.raises(ValueError, match="softcap"):
+        DK.flash_decode(qd, k, k, 8, -1.0)
     with pytest.raises(ValueError, match="length"):
         DK.flash_decode(qd, k, k, 65)
     with pytest.raises(ValueError, match="contiguous"):
@@ -638,3 +646,108 @@ def test_cuda_flash_decode_lengths_and_groups(length, g, dtype):
     torch.testing.assert_close(l, want[2], rtol=tol, atol=tol)
     if length == 0:
         assert not out.any() and bool((m == -1e30).all()) and not l.any()
+
+
+# soft cap (grok-1's 30, and 2, which bends every logit), q rows at a
+# cache offset (k/v longer than q; offsets on and off the 128-row tile),
+# and head widths past 128 (zamba2's 80, hd 136, nemotron-4's 192), both
+# dtypes, against the plain versions
+OFFSET_CASES = [(2, 200, 0, 4, 2, 128), (2, 200, 1, 6, 2, 128), (2, 200, 127, 6, 2, 64),
+                (1, 300, 128, 4, 1, 128), (1, 1024, 1000, 4, 2, 128), (2, 65, 300, 4, 4, 80),
+                (2, 333, 67, 6, 2, 192), (1, 130, 1000, 8, 1, 192), (2, 64, 0, 4, 2, 136)]
+
+
+@needs_card
+@pytest.mark.parametrize("softcap", [0.0, 30.0, 2.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,offset,h,kv,hd", OFFSET_CASES)
+def test_cuda_flash_attention_cap_offset_and_wide_heads(b, s, offset, h, kv, hd, dtype, softcap):
+    from repro_torch.kernels.attention import kernel as AK, ref as AR
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q = 3.0 * _normal((b, s, h, hd), dtype, 0)
+    kc, vc = _normal((b, s + offset + 9, kv, hd), dtype, 1), _normal((b, s + offset + 9, kv, hd), dtype, 2)
+    k, v = kc[:, :s + offset], vc[:, :s + offset]  # cache[:, :index + S] views
+    before = AK.launches["flash_attention"]
+    got = AK.flash_attention(q, k, v, softcap)
+    torch.cuda.synchronize()
+    assert AK.launches["flash_attention"] == before + 1
+    tol = ATTN_TOLS[dtype]
+    want = AR.mha_ref(q, k.contiguous(), v.contiguous(), softcap)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@needs_card
+@pytest.mark.parametrize("softcap", [0.0, 30.0, 2.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,hd,s,length", [(2, 4, 2, 64, 1024, 700), (8, 48, 8, 128, 2176, 2049),
+                                                (2, 16, 2, 192, 2176, 1000), (2, 12, 1, 192, 300, 257),
+                                                (8, 96, 8, 192, 2080, 2049), (2, 32, 32, 80, 700, 333)])
+def test_cuda_flash_decode_cap_and_wide_heads(b, h, kv, hd, s, length, dtype, softcap):
+    from repro_torch.kernels.decode import kernel as DK, ref as DR
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q = 3.0 * _normal((b, h, hd), dtype, 0)
+    kc, vc = _normal((b, s, kv, hd), dtype, 1), _normal((b, s, kv, hd), dtype, 2)
+    out, m, l = DK.flash_decode(q, kc, vc, length, softcap)
+    want = DR.decode_attention_ref(q, kc, vc, length, softcap)
+    tol = DECODE_TOLS[dtype]
+    torch.testing.assert_close(out.float(), want[0].float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(m, want[1], rtol=tol, atol=tol)
+    torch.testing.assert_close(l, want[2], rtol=tol, atol=tol)
+
+
+@needs_card
+@pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b", "grok-1-314b", "zamba2-2.7b", "xlstm-350m",
+                                  "internvl2-2b", "musicgen-medium", "nemotron-4-340b"])
+def test_cuda_lm_family_matches_the_cpu_run(name):
+    """Each family's smoke config widened to d 256, 4 layers (heads of
+    nemotron-4's 192 and zamba2's 80 kept): a 40-token prefill into the
+    cache (the prefix first) and 4 teacher-forced steps on the card's
+    kernels and on the CPU's plain path, float32, TF32 off; the ssm
+    replays its tokens one at a time."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import kernel as AK
+    from repro_torch.kernels.decode import kernel as DK
+    from repro_torch.models import lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = get_arch(name)
+    cfg = base.smoke().scaled(n_layers=4, d_model=256, head_dim=base.hd if base.hd in (80, 192) else 32,
+                              n_heads=4 if base.family != "ssm" else 4, moe_block=64,
+                              logit_softcap=base.logit_softcap)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = lm.init_lm(cfg, gen, device="cuda")
+    r = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, cfg.vocab, (2, 44), generator=r)
+    prefix = torch.randn((2, cfg.n_prefix, cfg.d_model), generator=r) if cfg.n_prefix else None
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else _to(params, "cpu")
+        cache = lm.init_cache(cfg, 2, 48 + cfg.n_prefix, device=dev)
+        before = (AK.launches["flash_attention"], DK.launches["flash_decode"])
+        out = []
+        if cfg.family == "ssm":
+            for t in range(44):
+                logits, cache = lm.decode_step(p, ids[:, t:t + 1].to(dev), cache, cfg)
+                out.append(logits.cpu())
+        else:
+            logits, cache = lm.decode_step(p, ids[:, :40].to(dev), cache, cfg,
+                                           prefix_embeds=None if prefix is None else prefix.to(dev))
+            out.append(logits.cpu())
+            for t in range(40, 44):
+                logits, cache = lm.decode_step(p, ids[:, t:t + 1].to(dev), cache, cfg)
+                out.append(logits.cpu())
+        runs[dev] = (out, AK.launches["flash_attention"] - before[0], DK.launches["flash_decode"] - before[1])
+    apps = 0 if cfg.family == "ssm" else (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers)
+    assert runs["cuda"][1:] == (apps, 4 * apps) and runs["cpu"][1:] == (0, 0)
+    for got, want in zip(runs["cuda"][0], runs["cpu"][0]):
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)

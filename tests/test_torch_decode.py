@@ -122,3 +122,23 @@ def test_head_group_divides_g_with_no_dead_slot(g):
     n = K.head_group(g)
     assert 1 <= n <= K.MAX_GROUP and g % n == 0
     assert all(g % m for m in range(n + 1, K.MAX_GROUP + 1))
+
+
+@pytest.mark.parametrize("softcap", [30.0, 1.0])
+@pytest.mark.parametrize("b,h,kv,hd,s,length", SHAPES + [(2, 6, 2, 192, 300, 200)])
+def test_soft_capped_decode_matches_the_reference_attn_core(b, h, kv, hd, s, length, softcap):
+    """The capped decode (out) against the reference's _attn_core for one
+    token at position length - 1; m is the capped logits' max."""
+    from repro.models import layers as jax_layers
+
+    q, kc, vc = _inputs(b, h, kv, hd, s, seed=4)
+    q = 4.0 * q
+    qg = jnp.asarray(q).reshape(b, 1, kv, h // kv, hd)
+    want = jax_layers._attn_core(qg, jnp.asarray(kc), jnp.asarray(vc),
+                                 jnp.full((b, 1), length - 1, jnp.int32),
+                                 jnp.full((b,), length, jnp.int32), softcap)
+    out, m, _ = R.decode_attention_ref(*(torch.from_numpy(a) for a in (q, kc, vc)), length, softcap)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want).reshape(b, h, hd), rtol=5e-5, atol=5e-5)
+    assert bool((m.abs() <= softcap).all())  # the capped logits' max
+    np.testing.assert_array_equal(ops.decode_attention(*(torch.from_numpy(a) for a in (q, kc, vc)), length,
+                                                       softcap).numpy(), out.numpy())

@@ -117,14 +117,61 @@ def test_attention_long_sequence_matches_the_chunked_reference():
     _close(got, want)
 
 
-def test_chunk_at_an_offset_raises():
-    _, tcfg = _cfgs()
-    gen = torch.Generator().manual_seed(0)
-    params = layers.init_attention(gen, tcfg, device="cpu")
-    cache = layers.init_attention_cache(tcfg, 1, 16, torch.float32, device="cpu")
-    x = torch.randn(1, 4, tcfg.d_model, generator=gen)
-    with pytest.raises(NotImplementedError, match="offset"):
-        layers.attention(params, x, tcfg, torch.arange(4, 8)[None], cache=cache, cache_index=4)
+@pytest.mark.parametrize("softcap", [0.0, 30.0, 2.0])
+def test_chunk_at_an_offset_matches_the_reference(softcap):
+    """A 7-token chunk written at cache index 9 of a cache that holds 9
+    earlier positions: the chunk's output and the cache equal the
+    reference's (q_pos = index + i, kv_limit = index + S), with and
+    without the attention-logit soft cap."""
+    jcfg, tcfg = _cfgs(logit_softcap=softcap)
+    params = L.init_attention(jax.random.PRNGKey(11), jcfg)
+    x0, x1 = _x(B, 9, jcfg.d_model, 12), _x(B, 7, jcfg.d_model, 13)
+    pos0 = np.broadcast_to(np.arange(9, dtype=np.int32), (B, 9)).copy()
+    pos1 = np.broadcast_to(9 + np.arange(7, dtype=np.int32), (B, 7)).copy()
+    jcache = L.init_attention_cache(jcfg, B, S_MAX, jnp.float32)
+    _, jcache = L.attention(params, jnp.asarray(x0), jcfg, jnp.asarray(pos0), cache=jcache,
+                            cache_index=jnp.int32(0))
+    want, jcache = L.attention(params, jnp.asarray(x1), jcfg, jnp.asarray(pos1), cache=jcache,
+                               cache_index=jnp.int32(9))
+    tp = _tree(params)
+    cache = layers.init_attention_cache(tcfg, B, S_MAX, torch.float32, device="cpu")
+    layers.attention(tp, torch.from_numpy(x0), tcfg, torch.from_numpy(pos0), cache=cache, cache_index=0)
+    got, cache = layers.attention(tp, torch.from_numpy(x1), tcfg, torch.from_numpy(pos1), cache=cache,
+                                  cache_index=9)
+    _close(got, want)
+    for name in ("k", "v"):
+        _close(cache[name], np.asarray(jcache[name]))
+
+
+@pytest.mark.parametrize("mode", ["fresh", "prefill", "decode"])
+def test_soft_capped_attention_matches_the_reference(mode):
+    """cfg.logit_softcap (grok-1's 30, and a cap of 1 that bends every
+    logit) in each routed mode: the kernels' plain versions cap the scaled
+    logits before the mask, as the reference's _soft_cap does."""
+    for cap in (30.0, 1.0):
+        jcfg, tcfg = _cfgs(logit_softcap=cap)
+        params = L.init_attention(jax.random.PRNGKey(14), jcfg)
+        tp = _tree(params)
+        x = _x(B, 12, jcfg.d_model, 15) * 4.0
+        pos = np.broadcast_to(np.arange(12, dtype=np.int32), (B, 12)).copy()
+        if mode == "fresh":
+            want, _ = L.attention(params, jnp.asarray(x), jcfg, jnp.asarray(pos))
+            got, _ = layers.attention(tp, torch.from_numpy(x), tcfg, torch.from_numpy(pos))
+        else:
+            jcache = L.init_attention_cache(jcfg, B, S_MAX, jnp.float32)
+            cache = layers.init_attention_cache(tcfg, B, S_MAX, torch.float32, device="cpu")
+            want, jcache = L.attention(params, jnp.asarray(x), jcfg, jnp.asarray(pos), cache=jcache,
+                                       cache_index=jnp.int32(0))
+            got, cache = layers.attention(tp, torch.from_numpy(x), tcfg, torch.from_numpy(pos), cache=cache,
+                                          cache_index=0)
+            if mode == "decode":
+                xd = _x(B, 1, jcfg.d_model, 16) * 4.0
+                pd = np.full((B, 1), 12, np.int32)
+                want, _ = L.attention(params, jnp.asarray(xd), jcfg, jnp.asarray(pd), cache=jcache,
+                                      cache_index=jnp.int32(12))
+                got, _ = layers.attention(tp, torch.from_numpy(xd), tcfg, torch.from_numpy(pd), cache=cache,
+                                          cache_index=12)
+        _close(got, want)
 
 
 def test_dense_init_is_a_truncated_normal_scaled_by_fan_in():

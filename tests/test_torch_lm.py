@@ -117,18 +117,41 @@ def test_cast_params_casts_matrices_once_and_keeps_norms():
     assert again["embed"] is cast["embed"]  # a cast of cast params copies nothing
 
 
-def test_chunked_prefill_at_an_offset_raises(ref):
-    tcfg, params, tokens, _ = ref
+def test_chunked_prefill_at_an_offset_matches_the_reference(ref):
+    """A prompt prefilled into the cache in two chunks (8 tokens, then 16
+    at index 8): the second chunk's logits and the cache equal the
+    reference's, and the one-shot prefill's last logits."""
+    tcfg, params, tokens, want = ref
+    jcfg = jax_arch("llama3.2-3b").smoke()
+    jparams = jax_lm.init_lm(jcfg, jax.random.PRNGKey(0))
+    jcache = jax_lm.init_cache(jcfg, B, S_MAX)
+    _, jcache = jax_lm.decode_step(jparams, jnp.asarray(tokens[:, :8]), jcache, jcfg)
+    jlogits, jcache = jax_lm.decode_step(jparams, jnp.asarray(tokens[:, 8:PROMPT]), jcache, jcfg)
     cache = lm.init_cache(tcfg, B, S_MAX, device="cpu")
-    _, cache = lm.decode_step(params, torch.from_numpy(tokens[:, :4]), cache, tcfg)
-    with pytest.raises(NotImplementedError, match="offset"):
-        lm.decode_step(params, torch.from_numpy(tokens[:, 4:8]), cache, tcfg)
+    _, cache = lm.decode_step(params, torch.from_numpy(tokens[:, :8]), cache, tcfg)
+    logits, cache = lm.decode_step(params, torch.from_numpy(tokens[:, 8:PROMPT]), cache, tcfg)
+    assert cache["index"] == PROMPT
+    _close(logits, jlogits)
+    _close(logits, want["steps"][0])
+    ref_cache = convert.cache_from_numpy(jax.tree.map(np.asarray, jcache), "cpu")
+    for got_kv, want_kv in zip(cache["kv"], ref_cache["kv"]):
+        for name in ("k", "v"):
+            np.testing.assert_allclose(got_kv[name].numpy(), want_kv[name].numpy(), **TOL)
 
 
-def test_other_families_raise_naming_their_slice():
-    cfg = get_arch("llama3.2-3b").smoke().scaled(family="moe", n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        lm.init_lm(cfg, torch.Generator(), device="cpu")
+def test_every_reference_architecture_registers_with_its_fields():
+    """The port's registry holds the reference's ten architectures, each
+    with the same fields (the configs are copies)."""
+    import dataclasses
+
+    from repro.configs import all_archs as jax_all_archs
+    from repro_torch.configs import all_archs
+
+    ours, theirs = all_archs(), jax_all_archs()
+    assert sorted(ours) == sorted(theirs) and len(ours) == 10
+    for name in ours:
+        assert dataclasses.asdict(ours[name]) == dataclasses.asdict(theirs[name]), name
+    assert {c.family for c in ours.values()} == {"dense", "moe", "hybrid", "ssm", "vlm", "audio"}
 
 
 def test_a_bfloat16_reference_cache_carries_its_bits():
