@@ -107,9 +107,9 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    tile's step timed with the tile resident in shared memory); both also
    as lane launches at B = 1, 8, 32 over the shared table, beside 32
    one-lane launches in the same call;
-5. build the flash-attention and flash-decode CUDA kernels from
-   src/repro_torch/kernels/{attention,decode}/csrc (all three sources are
-   compiled at once, one nvcc each, when the script starts);
+5. build the flash-attention (forward and gradient) and flash-decode CUDA
+   kernels from src/repro_torch/kernels/{attention,decode}/csrc (all four
+   sources are compiled at once, one nvcc each, when the script starts);
 6. hold both against their plain PyTorch versions on the card in float32
    (TF32 off; 2e-5 attention, 5e-5 decode) and bfloat16 (2e-2), the
    reference's tolerances: its test shapes, ragged S, hd 72, decode lengths
@@ -161,6 +161,32 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    offset (llama3.2-3b's second chunk; SDPA with a bottom-right causal
    mask) and at hd 192 (nemotron-4's heads; SDPA is_causal), flash_decode
    soft-capped and at hd 192 (SDPA over the cache, out only).
+
+10. LM training on the card (lines tagged [train]): 10a the forward's lse
+   and the three gradient kernels (flash_attention_bwd.cu: D, dk/dv, dq)
+   against ref.mha_lse_ref / ref.mha_backward_ref over hd 64/80/128/136/192
+   (80 and 136 padded into the 128- and 192-wide bf16 instances) x
+   q heads a kv head 1/3/6/12 x S 37/1,000/2,048 x soft cap off/30, both
+   dtypes, TF32 off; FlashAttention's gradient against autograd through
+   ref.mha_ref; flash_decode and both IGD kernels refusing an input that
+   requires grad; 10b llama3.2-3b at full width, 2 layers, float32, one
+   grad_accum=2 IGD-momentum step (B 2, S 512) on the card and on the CPU
+   from the same params, every updated param and momentum buffer within
+   1e-4 of the CPU's (relative to its largest element); 10c llama3.2-3b at
+   full width and depth (float32 params, bf16 activations, remat "full"),
+   S 4,096, 8 x 4,096 tokens a step (grad_accum 8), token_stream data on
+   the card: 4 IGD steps (momentum 0.9, diminishing(0.002, 200)) then 2
+   AdamW steps from the same start, each step's loss, step time (CUDA
+   events), tokens/s, model FLOP/s against 989 TFLOP/s, peak memory, the
+   launches (flash_attention 28 x 8 x 2 a step, forward and recompute;
+   flash_attention_bwd 28 x 8 x 3), the last IGD step's device time by
+   kind and idle share under the profiler, the optimizer's update alone;
+   10d at full width, 2 layers: 6 fit steps against 3, a checkpoint on
+   disk, a fresh fit and 3 more (rtol 1e-6, atol 1e-7); then the gradient
+   kernels' and the forward's (lse on and off) times at the training shape
+   (B 1, S 4,096, 24/8 heads, hd 128, bf16), where the gradient kernels
+   and lse are also held to mha_backward_ref / mha_lse_ref, beside the
+   plain version, the bound and SDPA's backward.
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's name and power limit; the last line is the run's verdict. Any
@@ -272,6 +298,30 @@ FAMILY_CPU = {"qwen3-moe-235b-a22b": (dict(n_layers=2, moe_block=256), 2),
               "musicgen-medium": (dict(n_layers=2), 2), "minitron-4b": (dict(n_layers=2), 2),
               "starcoder2-7b": (dict(n_layers=2), 2)}
 CPU_PROMPT, CPU_STEPS = 256, 8
+# phase 10, LM training on the card. 10a: the gradient kernels and the
+# forward's lse over hd x g (q heads a kv head) x ragged S x soft cap, both
+# dtypes; a gradient sums up to g * S terms, so the absolute part of each
+# tolerance is scaled by the plain result's largest entry (at least 1). hd
+# 80 (zamba2's) and 136 run padded in the 128- and 192-wide bf16 instances
+BWD_HD, BWD_G, BWD_S, BWD_CAPS = (64, 80, 128, 136, 192), (1, 3, 6, 12), (37, 1000, 2048), (0.0, 30.0)
+BWD_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
+LSE_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (1e-3, 1e-3)}
+# 10b: llama3.2-3b at full width, 2 layers, float32, one grad_accum=2 IGD
+# step on the card and on the CPU; each updated param within 1e-4 of the
+# CPU's, relative to its largest element
+TRAIN_CPU_LAYERS, TRAIN_CPU_B, TRAIN_CPU_S, TRAIN_CPU_TOL = 2, 2, 512, 1e-4
+# 10c: full width and depth at train_4k's sequence (4,096; configs/base.py
+# TRAIN_4K), its global batch of 256 cut to 8 (microbatch 1 x 4,096)
+TRAIN_S, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_IGD_STEPS, TRAIN_ADAMW_STEPS = 4096, 8, 8, 4, 2
+# IGD's step size in phase 10: diminishing(0.002, 200) with momentum 0.9.
+# examples/train_lm.py's 0.02 (set for a ~100M model) diverges at
+# llama3.2-3b's width: losses 12.08, 9.63, 18.21, 24.83 over 4 steps on the
+# card (PR 23), while the step itself is held to the reference on the CPU
+# and to the CPU on the card (10b)
+TRAIN_IGD_STEP = (0.002, 200.0)
+# 10d: resume at full width, 2 layers: 6 steps against 3 + a checkpoint + 3
+RESUME_STEPS, RESUME_B, RESUME_S, RESUME_ACCUM = 6, 2, 1024, 2
+RESUME_RTOL, RESUME_ATOL = 1e-6, 1e-7  # the reference's (tests/test_fault_tolerance.py)
 # the kernel instances the other families added, each a row of the kernels line
 INSTANCES = ("flash_attention[softcap]", "flash_attention[offset]", "flash_attention[hd192]",
              "flash_decode[softcap]", "flash_decode[hd192]")
@@ -391,9 +441,9 @@ def main() -> int:
 
     # -- 1. build (every source at once: one nvcc each) ---------------------
     watch = timing.Stopwatch()
-    pool = ThreadPoolExecutor(max_workers=3)
+    pool = ThreadPoolExecutor(max_workers=4)
     builds = {lib.name: pool.submit(lib.build, ptxas_verbose=True)
-              for lib in (K.LIBRARY, AK.LIBRARY, DK.LIBRARY)}
+              for lib in (K.LIBRARY, AK.LIBRARY, AK.BWD_LIBRARY, DK.LIBRARY)}
     ptxas = builds["igd_fused"].result()
     K._load()
     cluster, mb_smem = K.minibatch_design(FOREST_DIM)
@@ -652,13 +702,14 @@ def main() -> int:
             f"({singles_ms / lane_ms[32]:.2f}x the B=32 launch); {card}")
 
     # -- 5. build the serving path's kernels --------------------------------
-    for lib in (AK.LIBRARY, DK.LIBRARY):
+    for lib in (AK.LIBRARY, AK.BWD_LIBRARY, DK.LIBRARY):
         report = ptxas_report(lib.source.name, builds[lib.name].result())
         lib.load()
         log("build", f"{lib.source.name} -> {lib.path().name} ({report}); "
             f"{watch.lap():.2f} s since phase 1 ended")
     pool.shutdown()
     kernels += serving(args.seed, dev)
+    kernels += training(args.seed, dev, {entry["name"]: entry for entry in kernels})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1696,10 +1747,11 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_busy(fn):
+def device_busy(fn, by_name=None):
     """(host wall s, device busy s, top device events) of one call of
     ``fn`` under torch.profiler. Busy is the union of the device events'
-    intervals (no double counting); None if the trace has no device time."""
+    intervals (no double counting); None if the trace has no device time.
+    ``by_name``, a dict, receives each device event name's total us."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1711,16 +1763,18 @@ def device_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall = watch.lap()
-    spans, by_name = [], {}
+    spans, top_names = [], {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start:
             spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name[:40]] = by_name.get(e.name[:40], 0.0) + (e.time_range.end - e.time_range.start)
+            top_names[e.name[:40]] = top_names.get(e.name[:40], 0.0) + (e.time_range.end - e.time_range.start)
+            if by_name is not None:
+                by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     busy, last = 0.0, float("-inf")
     for start, end in sorted(spans):
         busy += max(0.0, end - max(start, last))
         last = max(last, end)
-    top = sorted(((round(t * 1e-3, 3), k) for k, t in by_name.items()), reverse=True)[:5]
+    top = sorted(((round(t * 1e-3, 3), k) for k, t in top_names.items()), reverse=True)[:5]
     return wall, (busy * 1e-6 if busy > 0 else None), top
 
 
@@ -2286,6 +2340,313 @@ def _xlstm_replay_check(cfg, params, prompt, lm) -> str:
                              "(float32, tol 2e-3)")
     return (f"float32 parallel forward vs {FAMILY_REPLAY}-token replay max |logit err| {diffs[0]:.3g} over the "
             f"first segment ({cfg.slstm_every} layers; tol 2e-3), {diffs[1]:.3g} over all {cfg.n_layers} (not held)")
+
+
+def training(seed: int, dev, entries: dict) -> list:
+    """Phase 10, LM training on the card. Returns the flash_attention_bwd
+    entry of the kernels line and adds the training path's launches and
+    the lse timings to flash_attention's entry."""
+    import re
+    import shutil
+
+    import torch.nn.functional as F
+
+    from repro_torch import timing
+    from repro_torch.configs import get_arch
+    from repro_torch.core import igd
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.attention import kernel as AK, ops as A, ref as AR
+    from repro_torch.kernels.decode import kernel as DK
+    from repro_torch.kernels.igd_fused import kernel as K
+    from repro_torch.launch import train
+    from repro_torch.launch.train_loop import fit
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW, IGD
+
+    phase = timing.Stopwatch()
+    card = smi("name,power.limit")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 10)
+
+    def normal(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def igd_opt():
+        return IGD(igd.diminishing(*TRAIN_IGD_STEP), momentum=0.9)
+
+    # -- 10a. lse and the gradient kernels against their plain versions ------
+    errs = {"lse": 0.0, "bwd": 0.0, "bwd_rel": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst_rel = 0.0
+        for hd in BWD_HD:
+            for g in BWD_G:
+                for s in BWD_S:
+                    for cap in BWD_CAPS:
+                        b, kv = (2 if s < 64 else 1), (2 if g < 6 else 1)
+                        h = g * kv
+                        q = 3.0 * normal((b, s, h, hd), dtype)  # logits past the cap
+                        k, v = normal((b, s, kv, hd), dtype), normal((b, s, kv, hd), dtype)
+                        do = normal((b, s, h, hd), dtype)
+                        o, lse = AK.flash_attention(q, k, v, cap, with_lse=True)
+                        grads = AK.flash_attention_backward(q, k, v, o, lse, do, cap)
+                        what = f"{dtype} (B, S, H, Kv, hd, softcap) {(b, s, h, kv, hd, cap)}"
+                        errs["lse"] = max(errs["lse"], max_err(lse, AR.mha_lse_ref(q, k, cap), f"lse {what}",
+                                                               *LSE_TOL[dtype]))
+                        rtol, atol = BWD_TOL[dtype]
+                        for name, got, want in zip(("dq", "dk", "dv"), grads,
+                                                   AR.mha_backward_ref(q, k, v, o, lse, do, cap)):
+                            scale = max(1.0, float(want.float().abs().max()))
+                            e = max_err(got, want, f"flash_attention_bwd {name} {what}", rtol, atol * scale)
+                            errs["bwd"], worst_rel = max(errs["bwd"], e), max(worst_rel, e / scale)
+                        del q, k, v, do, o, lse, grads
+        errs["bwd_rel"][dtype] = worst_rel
+    n_cases = len(BWD_HD) * len(BWD_G) * len(BWD_S) * len(BWD_CAPS)
+    log("train", f"10a lse and flash_attention_bwd (D, dk/dv, dq) vs mha_lse_ref / mha_backward_ref, {n_cases} shapes "
+        f"a dtype (hd {BWD_HD} x g {BWD_G} x S {BWD_S} x softcap {BWD_CAPS}): lse max |err| {errs['lse']:.3g}; "
+        f"gradients max |err| {errs['bwd']:.3g}, relative to the largest entry f32 "
+        f"{errs['bwd_rel'][torch.float32]:.3g} (tol 2e-4 + 2e-5), bf16 {errs['bwd_rel'][torch.bfloat16]:.3g} (tol 2e-2)")
+    for dtype in (torch.float32, torch.bfloat16):  # the Function's gradient against autograd through mha_ref
+        shapes = ((1, 1000, 24, 128), (1, 1000, 8, 128), (1, 1000, 8, 128))
+        ins = [normal(shape, dtype).requires_grad_() for shape in shapes]
+        plain = [t.detach().clone().requires_grad_() for t in ins]
+        weight = normal((1, 1000, 24, 128), torch.float32)
+        (A.mha(*ins).float() * weight).sum().backward()
+        (AR.mha_ref(*plain).float() * weight).sum().backward()
+        for name, got, want in zip("qkv", ins, plain):
+            rtol, atol = BWD_TOL[dtype]
+            scale = max(1.0, float(want.grad.float().abs().max()))
+            errs["bwd"] = max(errs["bwd"], max_err(got.grad, want.grad, f"FlashAttention d{name} {dtype} vs autograd "
+                                                   "through mha_ref", rtol, atol * scale))
+        del ins, plain, weight
+    refused = []
+    qd, kc = normal((1, 4, 64), torch.bfloat16).requires_grad_(), normal((1, 64, 2, 64), torch.bfloat16)
+    x, y, alpha, w0 = inputs(gen, 300, 54, dev)
+    w0.requires_grad_()
+    for what, call in (("flash_decode", lambda: DK.flash_decode(qd, kc, kc, 8)),
+                       ("igd_fold", lambda: K.igd_fold(x, y, alpha, w0)),
+                       ("igd_fold_minibatch", lambda: K.igd_fold_minibatch(x, y, alpha, w0))):
+        try:
+            call()
+        except ValueError as e:
+            if "no backward" not in str(e):
+                raise
+            refused.append(what)
+        else:
+            raise AssertionError(f"{what} took an input that requires grad")
+    log("train", f"10a FlashAttention's gradient (1 x 1000, 24/8 heads, hd 128, f32 and bf16) matches autograd through "
+        f"mha_ref; {', '.join(refused)} refuse an input that requires grad; 10a took {phase.lap():.1f} s")
+
+    # -- 10b. full width, 2 layers, float32: one step on the card and on the CPU
+    small = get_arch("llama3.2-3b").scaled(n_layers=TRAIN_CPU_LAYERS, dtype="float32")
+    p_gpu = lm.init_lm(small, gen, dev)
+    p_cpu = _tree_to(p_gpu, "cpu")
+    tokens = torch.randint(0, small.vocab, (TRAIN_CPU_B, TRAIN_CPU_S), generator=gen, device=dev)
+    runs = {}
+    for where, p in (("card", p_gpu), ("cpu", p_cpu)):
+        device = dev if where == "card" else torch.device("cpu")
+        opt = igd_opt()
+        state = opt.init(p)
+        watch = timing.Stopwatch()
+        p, state, metrics = train.make_train_step(small, opt, grad_accum=2)(p, state, {"tokens": tokens.to(device)}, 0)
+        timing.sync(device)
+        runs[where] = (leaves(p), leaves(state), float(metrics["loss"]), watch.lap())
+    worst = {"params": 0.0, "momentum": 0.0}
+    for kind, i in (("params", 0), ("momentum", 1)):
+        for got, want in zip(runs["card"][i], runs["cpu"][i]):
+            err = float((got.detach().cpu() - want.detach()).abs().max()) / max(float(want.detach().abs().max()), 1e-30)
+            worst[kind] = max(worst[kind], err)
+            if err > TRAIN_CPU_TOL:
+                raise AssertionError(f"10b: a {kind} leaf {tuple(want.shape)} on the card is {err:.3g} of its largest "
+                                     f"element from the CPU's (tol {TRAIN_CPU_TOL:g})")
+    if abs(runs["card"][2] - runs["cpu"][2]) > TRAIN_CPU_TOL * abs(runs["cpu"][2]):
+        raise AssertionError(f"10b: loss {runs['card'][2]} on the card, {runs['cpu'][2]} on the CPU")
+    log("train", f"10b llama3.2-3b full width, {TRAIN_CPU_LAYERS} layers, float32, TF32 off, B {TRAIN_CPU_B} x S "
+        f"{TRAIN_CPU_S}, one grad_accum=2 IGD-momentum step from the same params: loss card {runs['card'][2]:.7f}, "
+        f"CPU {runs['cpu'][2]:.7f}; max |card - CPU| / max |CPU| over the leaves: params {worst['params']:.3g}, "
+        f"momentum (the step's gradient) {worst['momentum']:.3g} (tol {TRAIN_CPU_TOL:g}); the step took "
+        f"{runs['card'][3]:.2f} s on the card, {runs['cpu'][3]:.2f} s on the CPU; 10b took {phase.lap():.1f} s")
+    del p_gpu, p_cpu, runs, state, p
+    torch.cuda.empty_cache()
+
+    # -- 10c. llama3.2-3b at full width and depth, S 4,096 --------------------
+    cfg = get_arch("llama3.2-3b")
+    h, kv, hd, n_layers = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    data = synthetic.token_stream(gen, TRAIN_BATCH * TRAIN_IGD_STEPS, TRAIN_S, cfg.vocab)["tokens"]
+    tokens_a_step = TRAIN_BATCH * TRAIN_S
+    mm_params = n_layers * (cfg.d_model * (h + 2 * kv) * hd + h * hd * cfg.d_model + 3 * cfg.d_model * cfg.d_ff) \
+        + cfg.d_model * cfg.vocab
+    flops_a_token = 6 * mm_params + 6 * n_layers * h * hd * (TRAIN_S + 1)  # causal attention, forward + backward
+    per_step = {"flash_attention": n_layers * TRAIN_ACCUM * 2, "flash_attention_bwd": n_layers * TRAIN_ACCUM * 3}
+    split = {}
+
+    def run(name, opt, n_steps, profile_last):
+        init = torch.Generator(device=dev)
+        init.manual_seed(seed + 11)  # the same start for both optimizers
+        params = lm.init_lm(cfg, init, dev)
+        state = opt.init(params)
+        step_fn = train.make_train_step(cfg, opt, grad_accum=TRAIN_ACCUM)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in (AK, DK, K):
+            mod.reset_launches()
+        losses, norms, ms = [], [], []
+        for t in range(n_steps):
+            batch = {"tokens": data[t * TRAIN_BATCH:(t + 1) * TRAIN_BATCH]}
+            out = {}
+            if profile_last and t == n_steps - 1:
+                by_name = {}
+                wall, busy, top = device_busy(lambda: out.update(m=step_fn(params, state, batch, t)[2]), by_name)
+                split.update(wall=wall, busy=busy, top=top, by_name=by_name)
+                ms.append(wall * 1e3)
+            else:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out["m"] = step_fn(params, state, batch, t)[2]
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            losses.append(float(out["m"]["loss"]))
+            norms.append(float(out["m"]["grad_norm"]))
+            got = {k: AK.launches[k] for k in per_step}
+            if (got != {k: (t + 1) * n for k, n in per_step.items()} or DK.launches["flash_decode"]
+                    or any(K.launches.values())):
+                raise AssertionError(f"10c {name} step {t}: launches {got}, not {per_step} a step "
+                                     f"(flash_decode {DK.launches}, IGD {K.launches})")
+        launches = {k: AK.launches[k] for k in per_step}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"10c {name}: a loss is not finite: {losses}")
+        log("train", f"10c {name}: llama3.2-3b {n_layers} layers at full width, float32 params, bf16 activations, remat "
+            f"{cfg.remat_policy}, {TRAIN_BATCH} x {TRAIN_S} tokens a step (grad_accum {TRAIN_ACCUM}): losses "
+            + ", ".join(f"{v:.5f}" for v in losses) + "; gradient norms " + ", ".join(f"{v:.4g}" for v in norms)
+            + "; step ms (CUDA events"
+            + (", the last under the profiler" if profile_last else "") + ") " + ", ".join(f"{v:.1f}" for v in ms)
+            + f"; peak {peak:.2f} GB allocated; launches {launches} ({per_step} a step); {card}")
+        return params, state, losses, ms, launches, peak
+
+    params, state, igd_losses, igd_ms, launches, igd_peak = run(
+        f"IGD (momentum 0.9, diminishing{TRAIN_IGD_STEP})", igd_opt(), TRAIN_IGD_STEPS, True)
+    if not igd_losses[-1] < igd_losses[0]:
+        raise AssertionError(f"10c: the last IGD loss {igd_losses[-1]} is not below the first {igd_losses[0]}")
+    # the optimizer alone: one update of the 28-layer params from zero gradients (CUDA events)
+    zeros = tree_map(torch.zeros_like, params)
+    opt_ms = timing.seconds(lambda: igd_opt().update(params, zeros, state, TRAIN_IGD_STEPS), dev) * 1e3
+    del params, state, zeros
+    torch.cuda.empty_cache()
+    steady = igd_ms[1:-1] or igd_ms[:1]  # past the first step's allocations, before the profiled one
+    step_ms = sum(steady) / len(steady)
+    tokens_s = tokens_a_step / (step_ms * 1e-3)
+    mfu = flops_a_token * tokens_s / BF16_FLOPS
+    kinds = {"GEMMs": re.compile(r"gemm|xmma|nvjet|cutlass|cublas", re.I),
+             "attention forward": re.compile(r"flash_attention_(bf16|f32)_kernel"),
+             "attention backward": re.compile(r"dkdv_kernel|dq_kernel|rowdot_kernel")}
+    by_kind = {kind: 0.0 for kind in list(kinds) + ["other (norms, rope, MLP activations, cross-entropy, optimizer)"]}
+    for name, us in split["by_name"].items():
+        kind = next((k for k, pat in kinds.items() if pat.search(name)), None)
+        by_kind[kind or list(by_kind)[-1]] += us * 1e-3
+    idle = "not measured (no device time in the trace)" if split["busy"] is None else \
+        f"{1 - split['busy'] / split['wall']:.4f} idle ({split['busy'] * 1e3:.1f} ms busy of {split['wall'] * 1e3:.1f})"
+    log("train", f"10c IGD: {step_ms:.1f} ms a step (mean of steps 2..{TRAIN_IGD_STEPS - 1}), {tokens_s:.0f} tokens/s, "
+        f"model FLOP/s {flops_a_token * tokens_s / 1e12:.1f} T ({flops_a_token:.4g} FLOP a token: 6 x {mm_params} matmul "
+        f"params + causal attention) = {mfu:.4f} of 989 TFLOP/s bf16 dense; peak {igd_peak:.2f} GB; the optimizer's "
+        f"update alone {opt_ms:.1f} ms; {card}")
+    log("train", f"10c IGD last step under the profiler: device ms by kind "
+        + ", ".join(f"{k} {v:.1f}" for k, v in by_kind.items()) + f"; device {idle}; top {split['top']}")
+    adam = run("AdamW (lr 3e-4, wd 0.1)", AdamW(), TRAIN_ADAMW_STEPS, False)
+    adam_losses, adam_peak = adam[2], adam[5]
+    del adam
+    torch.cuda.empty_cache()
+    log("train", f"10c AdamW from the same start: losses {adam_losses}, peak {adam_peak:.2f} GB; 10c took "
+        f"{phase.lap():.1f} s")
+
+    # -- 10d. resume at full width, 2 layers ---------------------------------
+    small = get_arch("llama3.2-3b").scaled(n_layers=TRAIN_CPU_LAYERS)
+    init = lm.init_lm(small, gen, dev)
+    data = {"tokens": synthetic.token_stream(gen, RESUME_B * RESUME_STEPS, RESUME_S, small.vocab)["tokens"]}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(optimizer=igd_opt(), global_batch=RESUME_B, grad_accum=RESUME_ACCUM, log_every=0, seed=seed,
+              params=init, device=dev, ckpt_every=RESUME_STEPS + 1, log_fn=lambda msg: log("train", msg))
+    full = fit(small, data, steps=RESUME_STEPS, **kw)
+    fit(small, data, steps=RESUME_STEPS // 2, ckpt_dir=root, **kw)
+    resumed = fit(small, data, steps=RESUME_STEPS, ckpt_dir=root, **kw)
+    shutil.rmtree(root, ignore_errors=True)
+    if resumed.resumed_from != RESUME_STEPS // 2:
+        raise AssertionError(f"10d: resumed from {resumed.resumed_from}")
+    worst = 0.0
+    for a, b in zip(leaves(full.params) + [torch.tensor(full.losses[RESUME_STEPS // 2:])],
+                    leaves(resumed.params) + [torch.tensor(resumed.losses)]):
+        a, b = a.detach(), b.detach()
+        worst = max(worst, float((a - b).abs().max()))
+        if not torch.allclose(b, a, rtol=RESUME_RTOL, atol=RESUME_ATOL):
+            raise AssertionError(f"10d: the resumed run differs from the uninterrupted one by {worst:.3g}")
+    log("train", f"10d llama3.2-3b full width, {TRAIN_CPU_LAYERS} layers, {RESUME_STEPS} fit steps against "
+        f"{RESUME_STEPS // 2} + a checkpoint on disk + a fresh fit's {RESUME_STEPS // 2}: losses {full.losses}; max "
+        f"|difference| {worst:.3g} (rtol {RESUME_RTOL:g}, atol {RESUME_ATOL:g}); 10d took {phase.lap():.1f} s")
+    del full, resumed, init, data
+    torch.cuda.empty_cache()
+
+    # -- timings at the training shape (B 1, S 4,096, 24/8 heads, hd 128, bf16) --
+    bf = torch.bfloat16
+    q, do = normal((1, TRAIN_S, h, hd), bf), normal((1, TRAIN_S, h, hd), bf)
+    k, v = normal((1, TRAIN_S, kv, hd), bf), normal((1, TRAIN_S, kv, hd), bf)
+    o, lse = AK.flash_attention(q, k, v, with_lse=True)
+    # the gradient kernels and lse held to their plain versions at the shape
+    # 10c gives them (the microbatch of one layer), as 10a holds its grid
+    what = f"at the training shape (B 1, S {TRAIN_S}, {h}/{kv} heads, hd {hd}, bf16)"
+    errs["lse"] = max(errs["lse"], max_err(lse, AR.mha_lse_ref(q, k), f"lse {what}", *LSE_TOL[bf]))
+    train_rel = 0.0
+    for name, got, want in zip(("dq", "dk", "dv"), AK.flash_attention_backward(q, k, v, o, lse, do),
+                               AR.mha_backward_ref(q, k, v, o, lse, do)):
+        scale = max(1.0, float(want.float().abs().max()))
+        e = max_err(got, want, f"flash_attention_bwd {name} {what}", BWD_TOL[bf][0], BWD_TOL[bf][1] * scale)
+        errs["bwd"], train_rel = max(errs["bwd"], e), max(train_rel, e / scale)
+    errs["bwd_rel"][bf] = max(errs["bwd_rel"][bf], train_rel)
+    del got, want
+    torch.cuda.empty_cache()
+    off_a = graph_ms(lambda: AK.flash_attention(q, k, v), 10)
+    on_a = graph_ms(lambda: AK.flash_attention(q, k, v, with_lse=True), 10)
+    on_b = graph_ms(lambda: AK.flash_attention(q, k, v, with_lse=True), 10)
+    off_b = graph_ms(lambda: AK.flash_attention(q, k, v), 10)
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    dos = do.transpose(1, 2)
+    kernel = lambda: AK.flash_attention_backward(q, k, v, o, lse, do)  # noqa: E731
+    library = lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), dos, retain_graph=True)  # noqa: E731
+    first = event_ms(kernel, 5)
+    library_ms = event_ms(library, 5)
+    bwd_ms = (first + event_ms(kernel, 5)) / 2
+    plain_ms = timing.seconds(lambda: AR.mha_backward_ref(q, k, v, o, lse, do), dev) * 1e3
+    pairs = TRAIN_S * (TRAIN_S + 1) // 2
+    flops = 2.5 * 4 * h * hd * pairs  # the five products over the causal half: 2.5x the forward's
+    nbytes = (4 * TRAIN_S * h * hd + 4 * TRAIN_S * kv * hd) * 2 + h * TRAIN_S * 4  # q, o, do, dq; k, v, dk, dv; lse
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    bound = max(bytes_ms, ops_ms)
+    log("timing", f"flash_attention_bwd (B 1, S {TRAIN_S}, {h}/{kv} heads, hd {hd}, bf16; D, dk/dv and dq): "
+        f"{bwd_ms:.4f} ms a call (CUDA events over 5 calls; turns kernel {first:.4f}, SDPA backward {library_ms:.4f}), "
+        f"{flops / bwd_ms / 1e9:.1f} TFLOP/s, {bound / bwd_ms:.3f} of the bound {bound:.4f} ms (operations: {flops:.4g} "
+        f"FLOP at 989 TFLOP/s; bytes {nbytes} at 3.35 TB/s {bytes_ms:.4f} ms); plain {plain_ms:.2f} ms; "
+        f"scaled_dot_product_attention's backward {library_ms:.4f} ms, kernel/library {bwd_ms / library_ms:.2f}; "
+        f"against mha_backward_ref / mha_lse_ref at this shape max |err| relative to the largest entry "
+        f"{train_rel:.3g} (tol 2e-2); {card}")
+    log("timing", f"flash_attention at the training shape (CUDA graph, in turns lse off, on, on, off): "
+        f"{off_a:.4f}, {on_a:.4f}, {on_b:.4f}, {off_b:.4f} ms; lse on / off {(on_a + on_b) / (off_a + off_b):.4f}")
+    del q, k, v, o, lse, do, qs, ks, vs, sdpa_out, dos
+    torch.cuda.empty_cache()
+    entries["flash_attention"].update(
+        launches_training=launches["flash_attention"], training_ms_lse_off=(off_a + off_b) / 2,
+        training_ms_lse_on=(on_a + on_b) / 2, max_abs_err_lse=errs["lse"])
+    log("train", f"the timings took {phase.lap():.1f} s")
+    return [{
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/attention/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/attention/kernel.py:63", "launches": launches["flash_attention_bwd"],
+        "max_abs_err": errs["bwd"], "ms": bwd_ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": library_ms,
+        "max_rel_err": max(errs["bwd_rel"].values()), "launches_per_step": per_step["flash_attention_bwd"],
+        "train_step_ms": step_ms, "train_tokens_s": tokens_s, "train_mfu": mfu, "train_peak_gb": igd_peak,
+    }]
 
 
 def _leaves(tree):

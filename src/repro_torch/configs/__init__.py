@@ -8,8 +8,10 @@ dense (llama3.2-3b, minitron-4b, nemotron-4-340b, starcoder2-7b), moe
 ``chip_smoke.py`` serves each at full width (phase 7b): at full depth but
 for the three that do not fit one card with their float32 params beside
 the bfloat16 compute copy, which it cuts to 2 of 94 layers (qwen3-moe),
-1 of 64 (grok-1) and 1 of 96 with bfloat16 params (nemotron-4). Training
-is not ported yet."""
+1 of 64 (grok-1) and 1 of 96 with bfloat16 params (nemotron-4). Every
+family trains through ``models.lm.train_loss`` (held to the reference on
+the CPU); ``chip_smoke.py`` phase 10 trains llama3.2-3b at full width and
+depth on the card."""
 
 from repro_torch.configs import (  # noqa: F401
     grok_1_314b,

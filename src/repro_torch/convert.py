@@ -3,9 +3,11 @@ as numpy arrays.
 
 The reference's ``IGDState`` holds a model, an int32 step and a float32
 weight; its tables are dicts of column arrays; its LM params and decode
-caches are pytrees whose layers are stacked on a leading axis. All cross
-over as numpy (``np.asarray`` of a JAX array), so this module needs
-neither package.
+caches are pytrees whose layers are stacked on a leading axis; its
+gradients and optimizer states (``IGD`` ``(buf,)``, ``AdamW`` ``(m, v)``)
+have its params' shape. All cross over as numpy (``np.asarray`` of a JAX
+array), so this module needs neither package; ``lm_params_to_numpy``
+stacks the port's params back into the reference's shape.
 """
 
 from __future__ import annotations
@@ -112,3 +114,45 @@ def cache_from_numpy(cache, device) -> dict:
     attn_every, ...]} and ``mlstm`` {"c", "n", "m": [n_seg, n_m, ...]}
     nested lists, ``slstm`` a list, and the int32 ``index`` an int."""
     return _from_numpy(cache, device)
+
+
+def opt_state_from_numpy(state, cfg, device) -> tuple:
+    """An optimizer state (``IGD``'s ``()`` or ``(buf,)``, ``AdamW``'s
+    ``(m, v)``) from the reference's, each tree unstacked as the params are.
+    A gradient tree is one params-shaped tree: ``lm_params_from_numpy``."""
+    return tuple(lm_params_from_numpy(t, cfg, device) for t in state)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """Host numpy of ``t`` (bf16 as float32)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _stack_like(items):
+    """Per-layer dicts of arrays -> one dict of arrays stacked on axis 0."""
+    if isinstance(items[0], dict):
+        return {k: _stack_like([it[k] for it in items]) for k in items[0]}
+    return np.stack(items)
+
+
+def _stack(tree, depth: int):
+    if depth == 0:
+        return {k: _stack(v, 0) if isinstance(v, dict) else _numpy(v) for k, v in tree.items()}
+    return _stack_like([_stack(t, depth - 1) for t in tree])
+
+
+def lm_params_to_numpy(params) -> dict:
+    """The inverse of ``lm_params_from_numpy``: the port's LM params (or a
+    params-shaped tree: gradients, an optimizer's moments) as the
+    reference's pytree of numpy arrays, the per-layer lists stacked on
+    their leading layer axes again."""
+    out = {}
+    for k, v in params.items():
+        if k in _STACKED:
+            out[k] = _stack(v, _STACKED[k])
+        elif isinstance(v, dict):
+            out[k] = _stack(v, 0)
+        else:
+            out[k] = _numpy(v)
+    return out

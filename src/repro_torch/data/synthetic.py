@@ -8,6 +8,7 @@
 | CoNLL         | tagged_sequences      | (x, y, mask) sentences         |
 | (Fig. 1B)     | kalman_series         | (t, y) observations            |
 | (Fig. 1B)     | returns               | centered return vectors        |
+| (LM training) | token_stream          | Zipf-ish unigram token ids     |
 
 The data is made on ``generator.device`` from the generator's stream, so
 a full-size table never passes through the host. The classification
@@ -15,8 +16,7 @@ tables come *clustered by label* by default (positives first), the
 ratings sorted by row — the RDBMS heap-order pathology the paper
 studies; apply an ordering policy to randomize. The streams are torch's,
 not the JAX package's: the same seed makes other rows of the same
-shapes and distributions. ``token_stream`` comes with the LM training
-slice."""
+shapes and distributions (``token_stream``: the same unigram)."""
 
 from __future__ import annotations
 
@@ -127,3 +127,14 @@ def returns(generator: torch.Generator, n_periods: int, n_assets: int):
     factors = torch.randn((n_periods, n_factors), generator=generator, **f32)
     r = factors @ loadings.T + 0.1 * torch.randn((n_periods, n_assets), generator=generator, **f32)
     return {"r": r - torch.mean(r, dim=0, keepdim=True)}
+
+
+def token_stream(generator: torch.Generator, n_docs: int, seq_len: int, vocab: int):
+    """Synthetic token batches for the LM substrate: int32 [n_docs, seq_len]
+    drawn i.i.d. from the reference's Zipf-ish unigram, softmax of
+    -1.2 * log1p(arange(vocab)). Only the distribution is the reference's:
+    the draws are torch's."""
+    logits = -1.2 * torch.log1p(torch.arange(vocab, dtype=torch.float32, device=generator.device))
+    toks = torch.multinomial(torch.softmax(logits, dim=0), n_docs * seq_len, replacement=True,
+                             generator=generator)
+    return {"tokens": toks.reshape(n_docs, seq_len).to(torch.int32)}

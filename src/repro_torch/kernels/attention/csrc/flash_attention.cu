@@ -12,6 +12,12 @@
 //   cache_index + S, models/layers.py). cap(x) = softcap * tanh(x / softcap)
 //   on the scaled logit before the mask when softcap > 0 (grok-1's
 //   attention-logit cap, the reference's _soft_cap), the identity otherwise.
+//   With a non-null lse ([B, H, S] float32), both kernels also write each q
+//   row's log-sum-exp of its scaled (capped) logits, m + log l in natural
+//   units, in the epilogue: what the gradient kernels
+//   (flash_attention_bwd.cu) recompute P from. The serving path passes
+//   null and writes nothing: in the bf16 kernel lse is a template flag, so
+//   the serving instances are the code they were without it.
 //
 // What bounds it on this card: operations. At the serving path's shape
 // (B=8, S=2048, H=24, Kv=8, hd=128, bf16) the causal half of QK^T and PV is
@@ -128,7 +134,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                                const float* __restrict__ v, float* __restrict__ o, int S, int Skv,
                                int H, int Kv, int hd, float scale, float softcap, long long qsb,
                                long long qss, long long qsh, long long ksb, long long kss,
-                               long long ksh, long long vsb, long long vss, long long vsh) {
+                               long long ksh, long long vsb, long long vss, long long vsh,
+                               float* __restrict__ lse) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = hd + kPad;
   const int stages = f32_stages(hd);
@@ -264,6 +271,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row = q0 + ty * 4 + i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[(static_cast<long long>(b) * H + h) * S + row] = m[i] + logf(denom);
     float* orow = o + ((static_cast<long long>(b) * S + row) * H + h) * hd;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -280,7 +288,7 @@ size_t f32_smem_bytes(int hd) {
 
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int Skv, int H,
                int Kv, int hd, float scale, float softcap, const long long* qs, const long long* ks,
-               const long long* vs, cudaStream_t stream) {
+               const long long* vs, float* lse, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -291,7 +299,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   flash_attention_f32_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), S, Skv, H, Kv, hd, scale, softcap, qs[0], qs[1], qs[2], ks[0], ks[1],
-      ks[2], vs[0], vs[1], vs[2]);
+      ks[2], vs[0], vs[1], vs[2], lse);
   return cudaGetLastError();
 }
 
@@ -308,6 +316,7 @@ constexpr int kRowBytes = 128;  // one swizzled box row
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 65,536
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // k/v rows per tile: 128, or 64 at HD 192 (shared memory and registers)
 __host__ __device__ constexpr int block_k(int hd) { return hd > 128 ? 64 : 128; }
@@ -485,13 +494,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // q row i sits at absolute position Skv - S + i. CAP: logits capped as
 // softcap * tanh(x * scale / softcap) (`scale_log2` is then softcap * log2 e
 // and `cap_arg` scale / softcap); otherwise x * scale_log2 (scale * log2 e).
-template <int HD, bool CAP>
+// LSE: write each row's log-sum-exp into `lse` (a template flag, so the
+// serving path's instances compile without it).
+template <int HD, bool CAP, bool LSE>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                                 const __grid_constant__ CUtensorMap kmap,
                                 const __grid_constant__ CUtensorMap vmap,
                                 __nv_bfloat16* __restrict__ o, int S, int Skv, int H, int Kv,
-                                int hd, float scale_log2, float cap_arg) {
+                                int hd, float scale_log2, float cap_arg, float* __restrict__ lse) {
   using T = Tiles<HD>;
   constexpr int kBK = T::kBK;
   extern __shared__ unsigned char smem_raw[];
@@ -651,12 +662,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (; t < min(t_masked, n_k); ++t) tile(t, std::false_type{});
     for (; t < n_k; ++t) tile(t, std::true_type{});
 
-    // epilogue: rows below S, the true hd columns
+    // epilogue: rows below S, the true hd columns; lse in natural units
     const float inv[2] = {1.0f / fmaxf(l[0], 1e-30f), 1.0f / fmaxf(l[1], 1e-30f)};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + 8 * r;
       if (row >= S) continue;
+      if (LSE && lane % 4 == 0)
+        lse[(static_cast<long long>(b) * H + h) * S + row] = (m[r] + log2f(fmaxf(l[r], 1e-30f))) * kLn2;
       __nv_bfloat16* orow = o + ((static_cast<long long>(b) * S + row) * H + h) * hd;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j) {
@@ -718,34 +731,38 @@ bool encode(CUtensorMap* map, const void* ptr, const long long* layout, int box_
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, bool CAP>
+template <int HD, bool CAP, bool LSE>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Skv, int H,
-           int Kv, int hd, float scale, float softcap, const long long* layouts,
+           int Kv, int hd, float scale, float softcap, const long long* layouts, float* lse,
            cudaStream_t stream) {
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
   const int rows[3] = {kBQ, Tiles<HD>::kBK, Tiles<HD>::kBK};
   for (int i = 0; i < 3; ++i)
     if (!encode(&maps[i], ptrs[i], layouts + 11 * i, rows[i])) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_bf16_kernel<HD, CAP>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_bf16_kernel<HD, CAP, LSE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, Tiles<HD>::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   const float scale_log2 = CAP ? softcap * kLog2e : scale * kLog2e;
   const float cap_arg = CAP ? scale / softcap : 0.0f;
-  flash_attention_bf16_kernel<HD, CAP><<<grid, kThreads, Tiles<HD>::kSmem, stream>>>(
+  flash_attention_bf16_kernel<HD, CAP, LSE><<<grid, kThreads, Tiles<HD>::kSmem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), S, Skv, H, Kv, hd, scale_log2,
-      cap_arg);
+      cap_arg, lse);
   return cudaGetLastError();
 }
 
 template <int HD>
 int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int S, int Skv, int H,
-              int Kv, int hd, float scale, float softcap, const long long* layouts,
+              int Kv, int hd, float scale, float softcap, const long long* layouts, float* lse,
               cudaStream_t stream) {
-  if (softcap > 0.0f)
-    return launch<HD, true>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, layouts, stream);
-  return launch<HD, false>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, layouts, stream);
+  const bool cap = softcap > 0.0f;
+  if (lse != nullptr) {
+    if (cap) return launch<HD, true, true>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, layouts, lse, stream);
+    return launch<HD, false, true>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, layouts, lse, stream);
+  }
+  if (cap) return launch<HD, true, false>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, layouts, lse, stream);
+  return launch<HD, false, false>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, layouts, lse, stream);
 }
 
 }  // namespace tc
@@ -770,12 +787,15 @@ const char* flash_attention_error_string(int code) {
 // unused), 1 bfloat16 (the tensor-core kernel at width hd_inst, 64, 128 or
 // 192; `tma` holds q's, k's and v's tensor-map layouts, 11 values each:
 // dims, byte strides, box, the box 128 q rows or block_k(hd_inst) k/v rows).
+// lse: null, or float32 [B, H, S] that receives each q row's log-sum-exp of
+// its scaled (and capped) logits in natural units, for the backward.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int dtype,
                            int B, int S, int Skv, int H, int Kv, int hd, float scale,
                            float softcap, long long qsb, long long qss, long long qsh,
                            long long ksb, long long kss, long long ksh, long long vsb,
                            long long vss, long long vsh, int hd_inst, const long long* tma,
-                           void* stream) {
+                           void* lse, void* stream) {
+  float* lse_out = static_cast<float*>(lse);
   if (B < 1 || S < 0 || Skv < S || Kv < 1 || H < Kv || H % Kv != 0 || hd < 8 || hd > kMaxHd ||
       hd % 8 != 0 || !(softcap >= 0.0f))
     return cudaErrorInvalidValue;
@@ -783,14 +803,14 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const long long qs[3] = {qsb, qss, qsh}, ks[3] = {ksb, kss, ksh}, vs[3] = {vsb, vss, vsh};
-    return launch_f32(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, qs, ks, vs, st);
+    return launch_f32(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, qs, ks, vs, lse_out, st);
   }
   if (dtype != 1 || tma == nullptr || hd > hd_inst || static_cast<long long>(B) * H > 0x7fffffffLL ||
       (S + tc::kBQ - 1) / tc::kBQ > 65535)
     return cudaErrorInvalidValue;
-  if (hd_inst == 64) return tc::launch_hd<64>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, tma, st);
-  if (hd_inst == 128) return tc::launch_hd<128>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, tma, st);
-  if (hd_inst == 192) return tc::launch_hd<192>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, tma, st);
+  if (hd_inst == 64) return tc::launch_hd<64>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, tma, lse_out, st);
+  if (hd_inst == 128) return tc::launch_hd<128>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, tma, lse_out, st);
+  if (hd_inst == 192) return tc::launch_hd<192>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, tma, lse_out, st);
   return cudaErrorInvalidValue;
 }
 

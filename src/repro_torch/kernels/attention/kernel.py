@@ -1,6 +1,7 @@
-"""CUDA wrapper for the causal GQA flash-attention kernels
-(``csrc/flash_attention.cu``), built and loaded at first use by
-``kernels._build`` (``build/repro_torch/libflash_attention-<hash>.so``).
+"""CUDA wrappers for the causal GQA flash-attention kernels
+(``csrc/flash_attention.cu``) and their gradient
+(``csrc/flash_attention_bwd.cu``), each built and loaded at first use by
+``kernels._build`` (``build/repro_torch/lib<name>-<hash>.so``).
 
 The dtype picks the kernel: bfloat16 runs the tensor-core kernel (wgmma,
 TMA) at the width ``instantiated_hd`` picks (64, 128 or 192), float32 the
@@ -13,7 +14,15 @@ computes the bf16 kernel's tensor-map layouts (``tma_layout``) and width
 on PyTorch's current stream, raises on a non-zero CUDA status, and adds
 one to ``launches``. q, k and v are read in place by strides: any layout
 whose last dimension is contiguous and whose other strides keep every row
-on a 16-byte boundary.
+on a 16-byte boundary. With ``with_lse`` the forward also writes each q
+row's log-sum-exp (float32 [B, H, S]), which the backward reads.
+
+``FlashAttention`` is the autograd Function around both: its forward
+launches the forward kernel (with ``lse`` only when an input needs a
+gradient) and its backward the three gradient kernels
+(``flash_attention_backward``: D = rowsum(dO o O), then dk/dv, then dq;
+``launches["flash_attention_bwd"]`` counts each). Nothing on the card
+falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -32,19 +41,22 @@ BOX_COLS = 64  # 128 bytes of bf16: the 128-byte swizzle's span
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
+BWD_LAUNCHES = 3  # kernels a backward call launches: D, dk/dv, dq
 
-# bumped where the kernel is launched and nowhere else
-launches: Dict[str, int] = {"flash_attention": 0}
+# bumped where the kernels are launched and nowhere else
+launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def reset_launches() -> None:
-    launches["flash_attention"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.flash_attention_launch.argtypes = (
-        [ptr] * 4 + [i32] * 7 + [ctypes.c_float] * 2 + [i64] * 9 + [i32, ptr, ptr]
+        [ptr] * 4 + [i32] * 7 + [ctypes.c_float] * 2 + [i64] * 9 + [i32, ptr, ptr, ptr]
     )
     lib.flash_attention_launch.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
@@ -60,6 +72,20 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("flash_attention", SOURCE, _declare)
+
+
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_bwd_launch.argtypes = [ptr] * 10 + [i32] * 6 + [f32] * 2 + [i32, ptr]
+    lib.flash_attention_bwd_launch.restype = i32
+    lib.flash_attention_bwd_error_string.argtypes = [i32]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    lib.flash_attention_bwd_max_hd.restype = i32
+    if lib.flash_attention_bwd_max_hd() != MAX_HD:
+        raise RuntimeError("flash_attention_bwd library's head-dim limit disagrees with kernel.py")
+
+
+BWD_LIBRARY = CudaLibrary("flash_attention_bwd", BWD_SOURCE, _declare_bwd)
 
 
 def check_head_dim(hd: int) -> None:
@@ -125,20 +151,27 @@ def _tma_args(*tensors_rows):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def flash_attention(q, k, v, softcap: float = 0.0):
-    """Causal GQA attention on the card. q: [B, S, H, hd]; k/v:
-    [B, Skv, Kv, hd] with Skv >= S (H a multiple of Kv; q head h reads kv
-    head h // (H/Kv)); q row i sits at position Skv - S + i and sees keys
-    up to it. float32 or bfloat16, all one dtype. Returns [B, S, H, hd] in
-    q's dtype; the scale is 1/sqrt(hd); ``softcap`` > 0 caps the scaled
-    logits as softcap * tanh(x / softcap) before the mask."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_operands(named) -> None:
+    q = named[0][1]
+    for name, t in named:
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must lie on q's CUDA device {q.device}, got {t.device}")
         if t.dtype not in DTYPE_IDS or t.dtype != q.dtype:
             raise TypeError(f"{name} must be float32 or bfloat16 like q, got {t.dtype} (q {q.dtype})")
         if t.dim() != 4:
             raise ValueError(f"{name} must be 4-d [B, S, heads, hd], got {tuple(t.shape)}")
+
+
+def flash_attention(q, k, v, softcap: float = 0.0, *, with_lse: bool = False):
+    """Causal GQA attention on the card. q: [B, S, H, hd]; k/v:
+    [B, Skv, Kv, hd] with Skv >= S (H a multiple of Kv; q head h reads kv
+    head h // (H/Kv)); q row i sits at position Skv - S + i and sees keys
+    up to it. float32 or bfloat16, all one dtype. Returns [B, S, H, hd] in
+    q's dtype; the scale is 1/sqrt(hd); ``softcap`` > 0 caps the scaled
+    logits as softcap * tanh(x / softcap) before the mask. With
+    ``with_lse`` returns (out, lse): lse float32 [B, H, S], each row's
+    log-sum-exp of its scaled (and capped) logits in natural units."""
+    _check_operands((("q", q), ("k", k), ("v", v)))
     b, s, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
     if (tuple(k.shape) != (b, skv, kv, hd) or tuple(v.shape) != tuple(k.shape) or kv < 1 or h % kv
@@ -156,16 +189,90 @@ def flash_attention(q, k, v, softcap: float = 0.0):
     tma = _tma_args((q, BLOCK_Q), (k, block_k(hd_inst)), (v, block_k(hd_inst))) if bf16 else None
     lib = LIBRARY.load()
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPE_IDS[q.dtype],
             b, s, skv, h, kv, hd, 1.0 / hd ** 0.5, softcap,
             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2), hd_inst, tma, stream,
+            v.stride(0), v.stride(1), v.stride(2), hd_inst, tma,
+            lse.data_ptr() if with_lse else None, stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc} "
                            f"({lib.flash_attention_error_string(rc).decode()})")
     launches["flash_attention"] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_backward(q, k, v, o, lse, do, softcap: float = 0.0):
+    """The gradient of ``flash_attention`` on the card: (dq, dk, dv) in the
+    inputs' dtype from q, o, do [B, S, H, hd], k, v [B, S, Kv, hd] (k/v as
+    long as q: an offset prefill is never trained) and the forward's
+    ``lse`` [B, H, S] float32. Three launches: D = rowsum(do * o), then
+    dk and dv (one block a key tile, summing the group's q heads), then dq;
+    no atomics, so the result is the same bits on every run. Operands are
+    made contiguous (a no-op for the forward's own tensors)."""
+    named = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
+    _check_operands(named)
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if (tuple(k.shape) != (b, s, kv, hd) or tuple(v.shape) != tuple(k.shape) or tuple(o.shape) != tuple(q.shape)
+            or tuple(do.shape) != tuple(q.shape) or kv < 1 or h % kv):
+        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"o {tuple(o.shape)}, do {tuple(do.shape)} (the backward takes k and v as long as q)")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s) or lse.device != q.device:
+        raise ValueError(f"lse must be float32 [B, H, S] = {(b, h, s)} on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    softcap = float(softcap)
+    if not softcap >= 0.0:
+        raise ValueError(f"softcap must be >= 0 (0 is off), got {softcap}")
+    check_head_dim(hd)
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    for name, t in zip(("q", "k", "v", "o", "do"), (q, k, v, o, do)):
+        check_rows(name, t)
+    hd_inst = instantiated_hd(hd) if q.dtype == torch.bfloat16 else 0
+    lib = BWD_LIBRARY.load()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), DTYPE_IDS[q.dtype],
+            b, s, h, kv, hd, 1.0 / hd ** 0.5, softcap, hd_inst, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {rc} "
+                           f"({lib.flash_attention_bwd_error_string(rc).decode()})")
+    launches["flash_attention_bwd"] += BWD_LAUNCHES
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its gradient: ``apply(q, k, v, softcap,
+    grad)``. With ``grad`` (grad mode on and an input that requires it;
+    ``ops.mha`` works it out, since a Function's forward runs with grad
+    mode off) the forward writes ``lse`` and saves (q, k, v, out, lse);
+    without, it launches the forward as ``flash_attention`` does and saves
+    nothing, which is the serving path. Under grad, k/v must be as long as
+    q."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, softcap: float = 0.0, grad: bool = False):
+        if not grad:
+            return flash_attention(q, k, v, softcap)
+        if k.shape[1] != q.shape[1]:
+            raise ValueError(f"the gradient takes k/v as long as q (no offset): q {tuple(q.shape)}, "
+                             f"k {tuple(k.shape)}")
+        out, lse = flash_attention(q, k, v, softcap, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.softcap = softcap
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do, ctx.softcap)
+        return dq, dk, dv, None, None

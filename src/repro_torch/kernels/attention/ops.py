@@ -1,13 +1,17 @@
 """Dispatch for causal GQA attention (``repro.kernels.attention.ops.mha``).
 
-On CUDA tensors ``mha`` launches the hand-written kernel (``kernel``) or
-raises; nothing on the card falls back to the plain version. On CPU
-tensors it runs the plain PyTorch version (``ref``), which is how the
-tests reach this path on a machine without a card. Unlike the JAX
+On CUDA tensors ``mha`` goes through ``kernel.FlashAttention``: the
+hand-written forward kernel, and the hand-written gradient kernels when an
+input needs a gradient; it launches them or raises, and nothing on the
+card falls back to the plain version. On CPU tensors it runs the plain
+PyTorch version (``ref``), through which autograd differentiates; that is
+how the tests reach this path on a machine without a card. Unlike the JAX
 wrapper it neither transposes nor pads: the kernel reads [B, S, H, hd]
 in place and masks its own ragged S."""
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import device_of
 from repro_torch.kernels.attention import kernel as K
@@ -21,7 +25,8 @@ def mha(q, k, v, softcap: float = 0.0):
     in q's dtype."""
     dev = device_of(q, k, v)
     if dev.type == "cuda":
-        return K.flash_attention(q, k, v, softcap)
+        grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+        return K.FlashAttention.apply(q, k, v, softcap, grad)
     if dev.type == "cpu":
         return R.mha_ref(q, k, v, softcap)
     raise ValueError(f"mha has no version for device {dev}")

@@ -49,3 +49,56 @@ def mha_ref(q, k, v, softcap: float = 0.0):
     vf = v.transpose(1, 2).reshape(b * kv, skv, hd)
     of = attention_ref(qf, kf, vf, scale=1.0 / (hd ** 0.5), softcap=softcap)
     return of.reshape(b, h, s, hd).transpose(1, 2)
+
+
+def _heads(t, groups: int = 1):
+    """[B, S, heads, hd] -> float32 [B, heads * groups, S, hd], each head
+    repeated ``groups`` times (kv head j serves q heads j*g .. j*g + g - 1)."""
+    return t.float().transpose(1, 2).repeat_interleave(groups, dim=1)
+
+
+def _logits(q, k, softcap: float):
+    """(scaled and capped causal logits [B, H, S, Skv] float32 with masked
+    entries at NEG_INF, the cap's derivative (1 without a cap), the mask)."""
+    b, s, h, hd = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    x = torch.einsum("bhqd,bhkd->bhqk", _heads(q), _heads(k, h // kv)) * (1.0 / hd ** 0.5)
+    dcap = torch.ones((), device=q.device)
+    if softcap and softcap > 0:
+        t = torch.tanh(x / softcap)
+        x, dcap = softcap * t, 1.0 - t * t
+    mask = torch.ones((s, skv), dtype=torch.bool, device=q.device).tril(skv - s)
+    return torch.where(mask, x, NEG_INF), dcap, mask
+
+
+def mha_lse_ref(q, k, softcap: float = 0.0):
+    """Each q row's log-sum-exp of its scaled (and capped) causal logits in
+    natural units, float32 [B, H, S]: what the forward kernel writes as
+    ``lse``. q [B, S, H, hd], k [B, Skv, Kv, hd]."""
+    return torch.logsumexp(_logits(q, k, softcap)[0], dim=-1)
+
+
+def mha_backward_ref(q, k, v, o, lse, do, softcap: float = 0.0):
+    """The gradient kernels' plain version: (dq, dk, dv) in the inputs'
+    dtype, recomputed from ``lse`` as the kernels do, over float32.
+    P = exp(cap(s) - lse), D = rowsum(do * o), dS = P (dP - D) times the
+    cap's derivative, dq = scale dS k, dk = scale dS^T q and dv = P^T do
+    summed over each kv head's q heads. q, o, do [B, S, H, hd]; k, v
+    [B, S, Kv, hd]; lse float32 [B, H, S]."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    x, dcap, mask = _logits(q, k, softcap)
+    p = torch.where(mask, torch.exp(x - lse.float()[..., None]), 0.0)
+    dof = _heads(do)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, _heads(v, g))
+    delta = (dof * _heads(o)).sum(-1)
+    ds = p * (dp - delta[..., None]) * dcap * (1.0 / hd ** 0.5)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, _heads(k, g))
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, _heads(q))
+
+    def kv_heads(t):  # [B, H, S, hd] -> [B, S, Kv, hd], summing each group
+        return t.reshape(b, kv, g, s, hd).sum(2).transpose(1, 2)
+
+    return (dq.transpose(1, 2).to(q.dtype), kv_heads(dk).to(k.dtype), kv_heads(dv).to(v.dtype))

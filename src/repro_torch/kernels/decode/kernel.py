@@ -92,10 +92,13 @@ def flash_decode(q, k_cache, v_cache, length: int, softcap: float = 0.0):
     are masked (0 <= length <= S). float32 or bfloat16, all one dtype.
     Returns (out [B, H, hd] in q's dtype, m [B, H] f32, l [B, H] f32), the
     softmax stats of the Pallas kernel; the scale is 1/sqrt(hd), and
-    ``softcap`` > 0 caps the scaled logits (m and l are the capped ones')."""
+    ``softcap`` > 0 caps the scaled logits (m and l are the capped ones').
+    Raises on an input that requires grad: the kernel has no backward."""
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must lie on q's CUDA device {q.device}, got {t.device}")
+        if t.requires_grad:
+            raise ValueError(f"{name} requires grad, but flash_decode has no backward (it serves, it does not train)")
         if t.dtype not in DTYPE_IDS or t.dtype != q.dtype:
             raise TypeError(f"{name} must be float32 or bfloat16 like q, got {t.dtype} (q {q.dtype})")
     if q.dim() != 3 or k_cache.dim() != 4:

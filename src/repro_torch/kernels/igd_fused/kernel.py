@@ -155,6 +155,8 @@ def _check(x, y, alpha, w0, loss: str, max_dim: int):
     for name, t in named.items():
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{name} must lie on x's CUDA device {x.device}, got {t.device}")
+        if t.requires_grad:
+            raise ValueError(f"{name} requires grad, but the IGD kernels have no backward")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():

@@ -1,5 +1,5 @@
-"""Unified LM (``repro.models.lm``): init / forward / prefill / decode for
-every family of the reference.
+"""Unified LM (``repro.models.lm``): init / forward / train-loss / prefill /
+decode for every family of the reference.
 
 Families:
   dense|moe|vlm|audio -> transformer blocks (``"moe"`` in place of
@@ -12,7 +12,14 @@ Families:
 VLM/audio frontends are stubs, as in the reference: ``prefix_embeds``
 (precomputed patch/frame embeddings) are cast to the compute dtype and
 prepended to the token embeddings; positions start at the cache index.
-Training (``train_loss``) is not ported yet.
+
+``cfg.remat`` (with no cache, under grad) wraps each block of the three
+stacks (a transformer block; a hybrid or ssm segment, as the reference's
+scan bodies) in ``torch.utils.checkpoint`` (non-reentrant): the block's
+activations are recomputed in the backward instead of kept, as
+``jax.checkpoint`` does. ``remat_policy="dots"`` keeps the outputs of
+``aten.mm`` and ``aten.bmm`` (the matmuls) through a selective-checkpoint
+policy, the reference's ``dots_with_no_batch_dims_saveable``.
 
 Layer params are lists (the reference stacks them on leading axes for
 ``lax.scan``): ``blocks`` a list of per-layer dicts; the hybrid's
@@ -45,6 +52,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint as checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, mamba2, moe, xlstm
@@ -190,12 +198,42 @@ def _tf_block_apply(block, x, cfg, positions, kv=None, index=None):
     return x + out, new_kv, aux
 
 
+def _dots_policy():
+    """Selective-checkpoint contexts that keep matmul outputs (``aten.mm``,
+    ``aten.bmm``) and recompute the rest."""
+    try:
+        from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+    except ImportError as e:  # older torch: no selective checkpointing
+        raise RuntimeError(f"remat_policy='dots' needs torch.utils.checkpoint.create_selective_checkpoint_contexts, "
+                           f"which torch {torch.__version__} lacks") from e
+    saved = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _remat(fn, cfg, cache):
+    """``fn`` checkpointed for training when ``cfg.remat`` is set, there is
+    no cache and grad mode is on (the reference's ``cfg.remat and cache is
+    None``); ``fn`` itself otherwise."""
+    if not (cfg.remat and cache is None and torch.is_grad_enabled()):
+        return fn
+    if cfg.remat_policy == "full":
+        return lambda *args: checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        _dots_policy()  # raises here, not inside the backward, when torch lacks it
+        return lambda *args: checkpoint.checkpoint(fn, *args, use_reentrant=False, context_fn=_dots_policy)
+    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} (full | dots)")
+
+
 def _transformer_stack(params, x, cfg, positions, cache):
     index = cache["index"] if cache is not None else None
     new_kv, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
+    body = _remat(lambda block, h, kv: _tf_block_apply(block, h, cfg, positions, kv, index), cfg, cache)
     for i, block in enumerate(params["blocks"]):
-        x, kv, a = _tf_block_apply(block, x, cfg, positions,
-                                   cache["kv"][i] if cache is not None else None, index)
+        x, kv, a = body(block, x, cache["kv"][i] if cache is not None else None)
         new_kv.append(kv)
         if a is not None:
             aux = aux + a
@@ -205,19 +243,25 @@ def _transformer_stack(params, x, cfg, positions, cache):
 
 def _hybrid_stack(params, x, cfg, positions, cache):
     index = cache["index"] if cache is not None else None
-    new_mamba, new_kv = [], []
-    for seg, mp_seg in enumerate(params["mamba"]):
+
+    def seg_body(mp_seg, h, mc_seg, kv):
         new_seg = []
         for j, mp in enumerate(mp_seg):
-            out, mc = mamba2.mamba_block(mp, x, cfg, cache=cache["mamba"][seg][j] if cache is not None else None)
-            x = x + out
+            out, mc = mamba2.mamba_block(mp, h, cfg, cache=mc_seg[j] if mc_seg is not None else None)
+            h = h + out
             new_seg.append(mc)
-        a, kv = layers.attention(params["shared_attn"], layers.rms_norm(x, params["shared_ln"], cfg.norm_eps),
-                                 cfg, positions, cache=cache["kv"][seg] if cache is not None else None,
-                                 cache_index=index)
-        x = x + a
+        a, kv = layers.attention(params["shared_attn"], layers.rms_norm(h, params["shared_ln"], cfg.norm_eps),
+                                 cfg, positions, cache=kv, cache_index=index)
+        h = h + a
         if cfg.d_ff:
-            x = x + layers.mlp(params["shared_mlp"], layers.rms_norm(x, params["shared_ln2"], cfg.norm_eps), cfg)
+            h = h + layers.mlp(params["shared_mlp"], layers.rms_norm(h, params["shared_ln2"], cfg.norm_eps), cfg)
+        return h, new_seg, kv
+
+    seg_body = _remat(seg_body, cfg, cache)
+    new_mamba, new_kv = [], []
+    for seg, mp_seg in enumerate(params["mamba"]):
+        x, new_seg, kv = seg_body(mp_seg, x, cache["mamba"][seg] if cache is not None else None,
+                                  cache["kv"][seg] if cache is not None else None)
         new_mamba.append(new_seg)
         new_kv.append(kv)
     new_cache = None if cache is None else {"mamba": new_mamba, "kv": new_kv, "index": index + x.shape[1]}
@@ -226,15 +270,21 @@ def _hybrid_stack(params, x, cfg, positions, cache):
 
 def _xlstm_stack(params, x, cfg, positions, cache):
     del positions  # recurrent families are position-free
-    new_m, new_s = [], []
-    for seg, (mp_seg, sp) in enumerate(zip(params["mlstm"], params["slstm"])):
+
+    def seg_body(mp_seg, sp, h, mc_seg, sc):
         new_seg = []
         for j, mp in enumerate(mp_seg):
-            out, mc = xlstm.mlstm_block(mp, x, cfg, cache=cache["mlstm"][seg][j] if cache is not None else None)
-            x = x + out
+            out, mc = xlstm.mlstm_block(mp, h, cfg, cache=mc_seg[j] if mc_seg is not None else None)
+            h = h + out
             new_seg.append(mc)
-        out, sc = xlstm.slstm_block(sp, x, cfg, cache=cache["slstm"][seg] if cache is not None else None)
-        x = x + out
+        out, sc = xlstm.slstm_block(sp, h, cfg, cache=sc)
+        return h + out, new_seg, sc
+
+    seg_body = _remat(seg_body, cfg, cache)
+    new_m, new_s = [], []
+    for seg, (mp_seg, sp) in enumerate(zip(params["mlstm"], params["slstm"])):
+        x, new_seg, sc = seg_body(mp_seg, sp, x, cache["mlstm"][seg] if cache is not None else None,
+                                  cache["slstm"][seg] if cache is not None else None)
         new_m.append(new_seg)
         new_s.append(sc)
     new_cache = None
@@ -285,6 +335,24 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, cache: Optional[dict] = 
     the prefix is prepended."""
     x, aux, new_cache = _hidden(params, tokens, cfg, cache, prefix_embeds)
     return _head(params, x, cfg), aux, new_cache
+
+
+def train_loss(params, batch: dict, cfg, aux_weight: float = 0.01):
+    """Next-token cross-entropy over the token region (prefix positions are
+    context only) plus ``aux_weight`` times the MoE's aux loss. batch:
+    {"tokens": [B, S_tok]} (+ optional "prefix_embeds" [B, P, D]).
+    Returns (loss, {"ce", "aux"}), float32 scalars."""
+    tokens = batch["tokens"]
+    prefix = batch.get("prefix_embeds")
+    logits, aux, _ = forward(params, tokens, cfg, prefix_embeds=prefix)
+    p = 0 if prefix is None else prefix.shape[1]
+    # predict tokens[t + 1] from position p + t
+    pred = logits[:, p:p + tokens.shape[1] - 1]
+    tgt = tokens[:, 1:].long()
+    logz = torch.logsumexp(pred, dim=-1)
+    gold = torch.gather(pred, -1, tgt[..., None])[..., 0]
+    ce = (logz - gold).mean()
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params, tokens, cfg, prefix_embeds=None):

@@ -751,3 +751,157 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# the gradient kernels (flash_attention_bwd.cu) and the forward's lse, over
+# the grid chip_smoke.py's phase 10a runs: hd 64/80/128/136/192 (80 and 136
+# padded into the 128- and 192-wide bf16 instances) x g 1/3/6/12 x
+# softcap off/30 x ragged S, both dtypes. A gradient sums up to g * S
+# terms, so each tolerance's absolute part is scaled by the largest entry
+# of the plain version's result (at least 1): float32 the kernels'
+# rtol=2e-4, atol=2e-5; bfloat16 2e-2 (P and dS are rounded to bf16 for
+# the tensor cores, as the forward rounds P)
+BWD_TOLS = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
+LSE_TOLS = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (1e-3, 1e-3)}
+
+
+def _bwd_close(got, want, dtype, what):
+    rtol, atol = BWD_TOLS[dtype]
+    scale = max(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol * scale, msg=what)
+
+
+@needs_card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("s", [37, 1000, 2048])
+@pytest.mark.parametrize("g", [1, 3, 6, 12])
+@pytest.mark.parametrize("hd", [64, 80, 128, 136, 192])
+def test_cuda_flash_attention_lse_and_backward_match_plain_versions(hd, g, s, softcap, dtype):
+    from repro_torch.kernels.attention import kernel as AK, ref as AR
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, kv = (2 if s < 64 else 1), (2 if g < 6 else 1)
+    h = g * kv
+    q, k, v, do = (_normal(shape, dtype, i) for i, shape in
+                   enumerate(((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd))))
+    q = 3.0 * q  # logits past the cap
+    before = dict(AK.launches)
+    o, lse = AK.flash_attention(q, k, v, softcap, with_lse=True)
+    dq, dk, dv = AK.flash_attention_backward(q, k, v, o, lse, do, softcap)
+    torch.cuda.synchronize()
+    assert AK.launches["flash_attention"] == before["flash_attention"] + 1
+    assert AK.launches["flash_attention_bwd"] == before["flash_attention_bwd"] + AK.BWD_LAUNCHES
+    rtol, atol = LSE_TOLS[dtype]
+    torch.testing.assert_close(lse, AR.mha_lse_ref(q, k, softcap), rtol=rtol, atol=atol)
+    want = AR.mha_backward_ref(q, k, v, o, lse, do, softcap)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == w.shape
+        _bwd_close(got, w, dtype, f"{name} (B, S, H, Kv, hd, softcap) {(b, s, h, kv, hd, softcap)}")
+
+
+@needs_card
+def test_cuda_flash_attention_backward_matches_plain_version_at_llamas_training_shape():
+    """The shape the training step gives the bf16 kernels: llama3.2-3b's
+    microbatch of one layer, B 1, S 4,096, 24/8 heads, hd 128."""
+    from repro_torch.kernels.attention import kernel as AK, ref as AR
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype, (b, s, h, kv, hd) = torch.bfloat16, (1, 4096, 24, 8, 128)
+    q, k, v, do = (_normal(shape, dtype, i) for i, shape in
+                   enumerate(((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd))))
+    o, lse = AK.flash_attention(q, k, v, with_lse=True)
+    rtol, atol = LSE_TOLS[dtype]
+    torch.testing.assert_close(lse, AR.mha_lse_ref(q, k), rtol=rtol, atol=atol)
+    for name, got, w in zip(("dq", "dk", "dv"), AK.flash_attention_backward(q, k, v, o, lse, do),
+                            AR.mha_backward_ref(q, k, v, o, lse, do)):
+        _bwd_close(got, w, dtype, name)
+
+
+@needs_card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_function_gradients_match_autograd_through_the_plain_version(dtype):
+    from repro_torch.kernels.attention import kernel as AK, ops as A, ref as AR
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = ((2, 200, 6, 64), (2, 200, 2, 64), (2, 200, 2, 64))
+    leaves = [_normal(shape, dtype, i).requires_grad_() for i, shape in enumerate(shapes)]
+    plain = [t.detach().clone().requires_grad_() for t in leaves]
+    weight = _normal((2, 200, 6, 64), torch.float32, 9)
+    before = dict(AK.launches)
+    (A.mha(*leaves, 30.0).float() * weight).sum().backward()
+    (AR.mha_ref(*plain, 30.0).float() * weight).sum().backward()
+    assert AK.launches["flash_attention"] == before["flash_attention"] + 1
+    assert AK.launches["flash_attention_bwd"] == before["flash_attention_bwd"] + AK.BWD_LAUNCHES
+    for name, got, want in zip("qkv", leaves, plain):
+        _bwd_close(got.grad, want.grad, dtype, f"d{name}")
+
+
+@needs_card
+def test_cuda_serving_mha_passes_no_lse_and_saves_nothing(monkeypatch):
+    from repro_torch.kernels.attention import kernel as AK, ops as A
+
+    asked, real = [], AK.flash_attention
+    monkeypatch.setattr(AK, "flash_attention", lambda *a, **kw: asked.append(kw.get("with_lse", False)) or real(*a, **kw))
+    q, k = _normal((1, 128, 4, 64), torch.bfloat16, 0), _normal((1, 128, 2, 64), torch.bfloat16, 1)
+    out = A.mha(q, k, k)
+    assert out.grad_fn is None
+    with torch.no_grad():  # params that require grad, served under no_grad
+        A.mha(q.clone().requires_grad_(), k, k)
+    assert asked == [False, False]
+    out = A.mha(q.clone().requires_grad_(), k, k)
+    assert asked[-1] is True and out.grad_fn is not None
+
+
+@needs_card
+def test_cuda_kernels_without_a_backward_refuse_inputs_that_require_grad():
+    from repro_torch.kernels.attention import ops as A
+    from repro_torch.kernels.decode import kernel as DK
+
+    qd, kc = _normal((1, 4, 64), torch.bfloat16, 0), _normal((1, 64, 2, 64), torch.bfloat16, 1)
+    with pytest.raises(ValueError, match="no backward"):
+        DK.flash_decode(qd.clone().requires_grad_(), kc, kc, 8)
+    x, y, alpha, w0 = _inputs(300, 54)
+    for kernel in (K.igd_fold, K.igd_fold_minibatch):
+        with pytest.raises(ValueError, match="no backward"):
+            kernel(x, y, alpha, w0.clone().requires_grad_())
+    # mha under grad: the gradient reaches q, k and v through the kernels
+    q = _normal((1, 64, 4, 64), torch.bfloat16, 2).requires_grad_()
+    kv = _normal((1, 64, 2, 64), torch.bfloat16, 3).requires_grad_()
+    A.mha(q, kv, kv).float().sum().backward()
+    assert q.grad is not None and kv.grad is not None and bool(kv.grad.abs().sum() > 0)
+    with pytest.raises(ValueError, match="as long as q"):
+        A.mha(q[:, :32], kv, kv)
+
+
+@needs_card
+def test_cuda_train_step_matches_the_cpu_run():
+    """One grad_accum=2 IGD-momentum step on llama3.2-3b's smoke config
+    (float32, remat): the card's kernels (forward, its recompute and the
+    gradient kernels) against the CPU's plain path (rtol = atol = 1e-4)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import igd
+    from repro_torch.kernels.attention import kernel as AK
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import IGD
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("llama3.2-3b").smoke()
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (4, 64), generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        opt = IGD(igd.diminishing(0.05, 10.0), momentum=0.9)
+        p = _to(params, dev)
+        before = dict(AK.launches)
+        p, state, metrics = train.make_train_step(cfg, opt, grad_accum=2)(p, opt.init(p), {"tokens": tokens.to(dev)}, 0)
+        runs[dev] = (p, state, float(metrics["loss"]), {k: AK.launches[k] - before[k] for k in before})
+    # forward and its recompute, then the gradient: each layer, each microbatch
+    assert runs["cuda"][3] == {"flash_attention": 2 * 2 * cfg.n_layers, "flash_attention_bwd": 2 * 3 * cfg.n_layers}
+    assert runs["cpu"][3] == {"flash_attention": 0, "flash_attention_bwd": 0}
+    np.testing.assert_allclose(runs["cuda"][2], runs["cpu"][2], rtol=1e-4, atol=1e-4)
+    from repro_torch.core.tree import leaves
+
+    for got, want in zip(leaves(runs["cuda"][:2]), leaves(runs["cpu"][:2])):
+        torch.testing.assert_close(got.detach().cpu(), want.detach(), rtol=1e-4, atol=1e-4)

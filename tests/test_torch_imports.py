@@ -20,7 +20,9 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.kernels.igd_fused.ops, repro_torch.kernels.attention.ops, "
         "repro_torch.kernels.decode.ops, repro_torch.models.lm, repro_torch.launch.serve, "
         "repro_torch.tasks.baselines, repro_torch.data.synthetic, repro_torch.configs.paper_tasks, "
-        "repro_torch.obs, repro_torch.launch.obs_server, repro_torch.kernels.igd_fused\n"
+        "repro_torch.obs, repro_torch.launch.obs_server, repro_torch.kernels.igd_fused, "
+        "repro_torch.optim, repro_torch.optim.compression, repro_torch.ckpt, repro_torch.data.pipeline, "
+        "repro_torch.launch.train, repro_torch.launch.train_loop\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
@@ -74,3 +76,15 @@ def test_lm_entry_points_without_cuda_raise_instead_of_running_on_cpu(monkeypatc
         lm.init_lm(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.init_cache(cfg, 1, 8)
+
+
+def test_fit_without_cuda_raises_instead_of_running_on_cpu(monkeypatch):
+    from repro_torch.configs import get_arch
+    from repro_torch.core import igd
+    from repro_torch.launch.train_loop import fit
+    from repro_torch.optim import IGD
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit(get_arch("llama3.2-3b").smoke(), {"tokens": torch.zeros((8, 16), dtype=torch.int32)},
+            optimizer=IGD(igd.constant(0.1)), steps=1, global_batch=8, log_every=0)
