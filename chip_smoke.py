@@ -50,7 +50,7 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    Forest-shaped table as a ChunkedTable of 65,536-row host chunks,
    logreg (clustered serial by hint; the planner streams it,
    source="table", and picks the lane body by probe)
-   and least_squares (cuda_minibatch) for 3 epochs beside the resident
+   and least_squares (cuda_minibatch) for 2 epochs beside the resident
    run (seconds an epoch, from pageable and from pinned host memory,
    bytes to the card an epoch, launches an epoch, distance), one
    igd_fold epoch streamed chunk by chunk against one
@@ -163,8 +163,10 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    soft-capped and at hd 192 (SDPA over the cache, out only).
 
 10. LM training on the card (lines tagged [train]): 10a the forward's lse
-   and the three gradient kernels (flash_attention_bwd.cu: D, dk/dv, dq)
-   against ref.mha_lse_ref / ref.mha_backward_ref over hd 64/80/128/136/192
+   and the three gradient kernels (flash_attention_bwd.cu: D, dk/dv, dq;
+   bf16 at widths 64 and 128 on wgmma fed by TMA with a producer
+   warpgroup, at 192 on mma.sync) against ref.mha_lse_ref /
+   ref.mha_backward_ref over hd 64/80/128/136/192
    (80 and 136 padded into the 128- and 192-wide bf16 instances) x
    q heads a kv head 1/3/6/12 x S 37/1,000/2,048 x soft cap off/30, both
    dtypes, TF32 off; FlashAttention's gradient against autograd through
@@ -186,7 +188,8 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    kernels' and the forward's (lse on and off) times at the training shape
    (B 1, S 4,096, 24/8 heads, hd 128, bf16), where the gradient kernels
    and lse are also held to mha_backward_ref / mha_lse_ref, beside the
-   plain version, the bound and SDPA's backward.
+   plain version, the bound and SDPA's backward, with each of the call's
+   three launches' device time under the profiler.
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's name and power limit; the last line is the run's verdict. Any
@@ -225,7 +228,7 @@ KERNEL_RTOL, KERNEL_ATOL = 2e-4, 2e-5
 # so the phase stays within ~90 s on the card: the eager fold costs
 # 140-310 us a row there, with the host's speed, MRS 2-3x that), their
 # epochs, and the slice held to the CPU
-SCHEME_ROWS, SCHEME_EPOCHS, SCHEME_SLICE = 12_288, 3, 4_096
+SCHEME_ROWS, SCHEME_EPOCHS, SCHEME_SLICE = 12_288, 2, 4_096
 # phase 3c: the other techniques' tables at their sources' widths (see
 # techniques() for the sources and the row cuts), the rows each runs
 # IGD over, the LMF slice the non-serial schemes run on, and the slice
@@ -242,7 +245,7 @@ TECH_SLICE, SYNC_SLICE = 512, 64
 LANE_B = (1, 3, 32)
 LANE_FOLD_D, LANE_FOLD_N = (54, 200, 300), (31, 33, 257)
 LANE_MB_D, LANE_MB_N = (54, 200, 300), (255, 257, 2_049)
-TABLE_CHUNK, TABLE_EPOCHS = 65_536, 3
+TABLE_CHUNK, TABLE_EPOCHS = 65_536, 2
 SERVE_QUERIES, SERVE_MB_QUERIES = 32, 8
 # phase 3e: epochs a sharded run, the lane check's segment rows, the float64
 # replay's bound, the queries of the fused sharded batch
@@ -322,6 +325,9 @@ TRAIN_IGD_STEP = (0.002, 200.0)
 # 10d: resume at full width, 2 layers: 6 steps against 3 + a checkpoint + 3
 RESUME_STEPS, RESUME_B, RESUME_S, RESUME_ACCUM = 6, 2, 1024, 2
 RESUME_RTOL, RESUME_ATOL = 1e-6, 1e-7  # the reference's (tests/test_fault_tolerance.py)
+# the gradient call's three launches, by a substring of their kernels' names,
+# and the calls profiled to time each
+BWD_KINDS, BWD_PROFILED = {"D": "rowdot_kernel", "dk/dv": "dkdv_kernel", "dq": "dq_kernel"}, 10
 # the kernel instances the other families added, each a row of the kernels line
 INSTANCES = ("flash_attention[softcap]", "flash_attention[offset]", "flash_attention[hd192]",
              "flash_decode[softcap]", "flash_decode[hd192]")
@@ -1778,6 +1784,33 @@ def device_busy(fn, by_name=None):
     return wall, (busy * 1e-6 if busy > 0 else None), top
 
 
+def kernel_ms_by_kind(fn, calls: int, kinds: dict) -> dict:
+    """(device ms a launch, launches traced) of each kind of kernel ``fn``
+    launches once a call (``kinds``: kind -> a substring of the kernels'
+    names), from torch.profiler's per-kernel sums over ``calls`` calls
+    after a warm-up. The mean is over the launches the trace holds (late in
+    a long process it can drop some); ms is None for a kind it holds none
+    of (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = {kind: 0.0 for kind in kinds}, {kind: 0 for kind in kinds}
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = getattr(evt, "cuda_time_total", 0.0)
+        for kind, pat in kinds.items():
+            if pat in evt.key and us:
+                total[kind] += us * 1e-3
+                count[kind] += evt.count
+    return {kind: (total[kind] / count[kind] if count[kind] else None, count[kind]) for kind in kinds}
+
+
 def serving(seed: int, dev) -> list:
     """Phases 6-9: the LM serving path. Returns the two kernels' entries."""
     import torch.nn.functional as F
@@ -2617,6 +2650,7 @@ def training(seed: int, dev, entries: dict) -> list:
     first = event_ms(kernel, 5)
     library_ms = event_ms(library, 5)
     bwd_ms = (first + event_ms(kernel, 5)) / 2
+    launch_ms = kernel_ms_by_kind(kernel, BWD_PROFILED, BWD_KINDS)
     plain_ms = timing.seconds(lambda: AR.mha_backward_ref(q, k, v, o, lse, do), dev) * 1e3
     pairs = TRAIN_S * (TRAIN_S + 1) // 2
     flops = 2.5 * 4 * h * hd * pairs  # the five products over the causal half: 2.5x the forward's
@@ -2628,6 +2662,10 @@ def training(seed: int, dev, entries: dict) -> list:
         f"{flops / bwd_ms / 1e9:.1f} TFLOP/s, {bound / bwd_ms:.3f} of the bound {bound:.4f} ms (operations: {flops:.4g} "
         f"FLOP at 989 TFLOP/s; bytes {nbytes} at 3.35 TB/s {bytes_ms:.4f} ms); plain {plain_ms:.2f} ms; "
         f"scaled_dot_product_attention's backward {library_ms:.4f} ms, kernel/library {bwd_ms / library_ms:.2f}; "
+        f"device ms a launch (profiler, {BWD_PROFILED} calls) "
+        + ", ".join(f"{k} " + ("not measured" if v is None else f"{v:.4f} ({n} traced)")
+                    for k, (v, n) in launch_ms.items())
+        + "; "
         f"against mha_backward_ref / mha_lse_ref at this shape max |err| relative to the largest entry "
         f"{train_rel:.3g} (tol 2e-2); {card}")
     log("timing", f"flash_attention at the training shape (CUDA graph, in turns lse off, on, on, off): "
@@ -2645,6 +2683,7 @@ def training(seed: int, dev, entries: dict) -> list:
         "max_abs_err": errs["bwd"], "ms": bwd_ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": library_ms,
         "max_rel_err": max(errs["bwd_rel"].values()), "launches_per_step": per_step["flash_attention_bwd"],
+        "launch_ms": {kind: ms for kind, (ms, _) in launch_ms.items()},
         "train_step_ms": step_ms, "train_tokens_s": tokens_s, "train_mfu": mfu, "train_peak_gb": igd_peak,
     }]
 

@@ -4,8 +4,9 @@ Each kernel package keeps one CUDA source under its ``csrc/`` with a plain
 C interface (no PyTorch headers, so ``nvcc`` takes seconds). At first use
 the source is compiled for ``sm_90a`` into a shared library under
 ``build/repro_torch/`` at the repository root and loaded with ``ctypes``.
-The library's name carries a hash of the source and the flags, so an
-edited source is rebuilt rather than reused.
+The library's name carries a hash of the source, of every local header it
+includes (``#include "name"``, followed from header to header) and of the
+flags, so an edited source or header is rebuilt rather than reused.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,6 +26,23 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def local_sources(source: Path) -> list:
+    """``source`` and the local headers it includes (quoted ``#include``
+    lines resolved beside the including file, followed recursively), each
+    once, in the order first reached."""
+    seen, stack = [], [Path(source)]
+    while stack:
+        path = stack.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        names = _LOCAL_INCLUDE.findall(path.read_text())
+        stack.extend(path.parent / name for name in reversed(names) if (path.parent / name).exists())
+    return seen
 
 
 def _nvcc() -> str:
@@ -49,7 +68,9 @@ class CudaLibrary:
         self._lib: Optional[ctypes.CDLL] = None
 
     def path(self) -> Path:
-        tag = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        tag = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in local_sources(self.source):
+            tag.update(path.name.encode() + b"\0" + path.read_bytes())
         return BUILD_DIR / f"lib{self.name}-{tag.hexdigest()[:12]}.so"
 
     def build(self, ptxas_verbose: bool = False) -> str:

@@ -23,75 +23,136 @@
 // What bounds it on this card: operations. At llama3.2-3b's training shape
 // (B=1, S=4,096, 24/8 heads, hd 128, bf16) the five products over the
 // causal half are 2.5x the forward's 4*B*H*hd*S(S+1)/2 FLOP: 2.58e11, 0.26 ms
-// at the tensor cores' 989 TFLOP/s, against 0.03 ms for the bytes.
+// at the tensor cores' 989 TFLOP/s, against 0.03 ms for the bytes. The
+// kernels do seven hd-products a (q, key) pair, not five: see below.
 //
-// Design: a simple kernel that is right, in three launches and no atomics,
-// so every gradient is deterministic (bitwise reruns, the resume check):
-// - rowdot: D_i, one warp a row.
-// - dkdv: one block per (key tile of 64, b, kv head). It keeps its k and v
-//   tile in shared memory and loops over the group's q heads and the q
-//   tiles at or after the key tile, accumulating dk and dv in registers.
-// - dq: one block per (q tile of 64, b, q head), looping over the key tiles
-//   up to the diagonal, dq in registers.
-// The dq kernel recomputes S and dP, which the dkdv kernel also forms: the
-// price of no atomics. Tiles are taken longest first.
+// Three launches and no atomics, so every gradient is the same bits on
+// every run (the resume check relies on it):
+// - rowdot: D_i, a half-warp a row. On the wgmma path it also writes lse in
+//   log2 units, and both into [B, H, S_pad] rows padded to 64 (D 0 and lse
+//   +inf past S, so a padded row's P is exactly 0), which the dk/dv
+//   kernel's bulk copies read whole.
+// - dk/dv: one block per (key block, b, kv head), summing the group's q
+//   heads and the q tiles from the diagonal on.
+// - dq: one block per (q block, b, q head), over the key tiles up to the
+//   diagonal.
+// The dq kernel recomputes S and dP, which the dk/dv kernel also forms: the
+// price of no atomics. Blocks are taken longest first.
 //
-// Two instances, picked by dtype, as in the forward:
+// Three instances, a fixed dispatch by dtype and width; none is a fallback
+// for another:
 // - float32 on CUDA cores (TF32 would break the reference's tolerance):
 //   256 threads, a 4 x 4 register block of each 64 x 64 score tile a
 //   thread, tiles staged by cp.async, rows padded by 16 bytes.
-// - bfloat16 on the tensor cores through mma.sync m16n8k16 (f32
-//   accumulators), a warp 16 rows. Tiles stream in by cp.async through
-//   two stages (the next step's copies fly while this one computes), row
-//   major with 16 bytes of padding. A operands and the score products' B
-//   operands are read from shared memory as pairs along the contraction;
-//   P and dS go from the score accumulators straight into A fragments (the
-//   C fragment of two neighbouring n-tiles is the A fragment of one
-//   k-step); the B operands needed along the other axis (Q and dO for dk
-//   and dv, K for dq) come through ldmatrix .trans from the same tiles.
-//   Columns past hd, up to the instantiated width HD (64, 128 or 192), and
-//   rows past S are zero-filled. At HD 192 the dkdv kernel runs 8 warps,
+// - bfloat16 at HD 64 and 128 (every family's width but nemotron-4's;
+//   zamba2's 80 runs padded into 128): wgmma fed by TMA, in the manner of
+//   FlashAttention-3's backward without its atomics, and of the forward
+//   (flash_attention.cu, whose TMA, mbarrier, descriptor and wgmma helpers
+//   hopper.cuh shares). 384 threads: warpgroup 0 is the producer (one
+//   thread issues every TMA load and bulk copy; setmaxnreg gives its
+//   registers away), warpgroups 1 and 2 are consumers of 64 keys (dk/dv)
+//   or 64 q rows (dq) each. Every tile arrives as 64-row boxes of a 4-D
+//   tensor map (hd, heads, positions, batch) with the 128-byte swizzle;
+//   rows past S and columns past hd are zero-filled.
+//   dk/dv: k and v (128 keys) load once and stay resident; each step (q
+//   head j of the group, 64-row q tile from the diagonal on) streams the q
+//   and dO tiles with their lse and D slices (1-D bulk copies) through a
+//   ring of kStages stages, each with full barriers (q, dO apart) and an
+//   empty barrier both consumers arrive on. Per consumer and step: S^T =
+//   K Q^T and dP^T = V dO^T (wgmma m64n64k16, both operands K-major from
+//   shared memory); P^T in registers while dP^T is still on the tensor
+//   cores (exp2 in log2 units; the causal mask only on the diagonal tile,
+//   as a compile-time body; a tile wholly before the warpgroup's keys is
+//   skipped), rounded to bf16 in the accumulators' layout, which is the
+//   register-A layout; dV += P^T dO issued at once; then dS^T and dK +=
+//   dS^T Q (wgmma m64nHDk16, A from registers, dO and Q MN-major through the
+//   descriptor's transpose bit: each q and dO tile is read K-major and
+//   MN-major from the one swizzled copy).
+//   dq: the forward's shape. q and dO (128 rows) resident, k and v
+//   streaming as 64-key tiles through the ring; each consumer keeps its 64
+//   q and dO rows in registers as A fragments, so S = Q K^T and dP = dO V^T
+//   (wgmma m64n64k16) read only k and v from shared memory; P while dP is
+//   on the tensor cores, then dS, and dQ += dS K (K MN-major).
+//   The two consumers take turns to issue each step's first products (two
+//   named barriers, as FlashAttention-3's ping-pong): one warpgroup's score
+//   math then runs beside the other's products instead of both idling the
+//   tensor cores at once (-17% dk/dv, -15% dq at llama's training shape).
+//   The soft cap is a template flag. Its instances run the score math in
+//   two passes once dP is in (tanh and the cap's derivative with D, then P
+//   with lse), read the lse and D slices in order, and read q and dO from
+//   shared memory in dq: the 128-wide ones have no registers to spare.
+//   Registers at HD 128 (240 a consumer thread, no spills): dk/dv 64 + 64
+//   accumulators, S^T and dP^T 32 + 32, then 16 + 16 bf16 fragments in
+//   their place; dq 64 + 32 + 32 and the q and dO fragments 32 + 32.
+// - bfloat16 at HD 192 (nemotron-4's heads) keeps the mma.sync m16n8k16
+//   kernels (namespace mma): the dk/dv accumulators (96 + 96 floats a
+//   thread) do not fit beside the score tiles in one consumer warpgroup.
+//   Tiles stream in by cp.async through two stages, row major with 16
+//   bytes of padding; P and dS go from the score accumulators straight into
+//   A fragments; the B operands needed along the other axis (Q and dO for
+//   dk and dv, K for dq) come through ldmatrix .trans; 8 warps in dk/dv,
 //   two a 16-key row group, each accumulating half of dk's and dv's
-//   columns (96 + 96 accumulators a thread would spill).
-//   wgmma and TMA are work for a later PR.
+//   columns.
 //
 // The kernels allocate nothing and launch on the caller's stream; the C
 // entry returns cudaGetLastError() (or cudaErrorInvalidValue for arguments
-// the kernels do not take).
+// the kernels do not take, or a tensor map the driver refuses).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"  // TMA, mbarriers, wgmma, the tensor-map encoder (shared with the forward)
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kMaxHd = 192;
 constexpr int kT = 64;  // q and key rows a tile
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// D_i = dO_i . O_i, one warp a row; rows are (b, i, h) in the [B, S, H, hd]
-// layout, D is [B, H, S]
+// D_i = dO_i . O_i, a half-warp a row, 16 bytes a load; rows are (b, i, h)
+// over i < S_pad, read from the [B, S, H, hd] layout; D is [B, H, S_pad], 0
+// past S. With lse2, also lse2 [B, H, S_pad] = lse [B, H, S] in log2 units,
+// +inf past S.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                              float* __restrict__ delta, long long rows, int S, int H, int hd) {
-  const long long row = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const T* op = o + row * hd;
-  const T* dp = dout + row * hd;
+__device__ __forceinline__ float dot16(const float* a, const float* b) {
+  const float4 x = *reinterpret_cast<const float4*>(a), y = *reinterpret_cast<const float4*>(b);
+  return fmaf(x.x, y.x, fmaf(x.y, y.y, fmaf(x.z, y.z, x.w * y.w)));
+}
+__device__ __forceinline__ float dot16(const __nv_bfloat16* a, const __nv_bfloat16* b) {
+  const uint4 x = *reinterpret_cast<const uint4*>(a), y = *reinterpret_cast<const uint4*>(b);
+  const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
   float sum = 0.0f;
-  for (int d = lane; d < hd; d += 32) sum = fmaf(to_f(op[d]), to_f(dp[d]), sum);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) {
-    const long long b = row / (static_cast<long long>(S) * H);
-    const long long rem = row - b * S * H;
-    const int i = static_cast<int>(rem / H), h = static_cast<int>(rem - static_cast<long long>(i) * H);
-    delta[(b * H + h) * S + i] = sum;
+  for (int e = 0; e < 4; ++e) {
+    const float2 u = __bfloat1622float2(xp[e]), w = __bfloat1622float2(yp[e]);
+    sum = fmaf(u.x, w.x, fmaf(u.y, w.y, sum));
+  }
+  return sum;
+}
+
+template <typename T>
+__global__ void rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
+                              float* __restrict__ delta, float* __restrict__ lse2, long long rows, int S, int S_pad,
+                              int H, int hd) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte load
+  const long long row = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 16;
+  const int lane = threadIdx.x % 16;
+  const bool live = row < rows;
+  const long long b = live ? row / (static_cast<long long>(S_pad) * H) : 0;
+  const long long rem = row - b * S_pad * H;
+  const int i = live ? static_cast<int>(rem / H) : S, h = static_cast<int>(rem - static_cast<long long>(i) * H);
+  float sum = 0.0f;
+  if (i < S) {
+    const long long at = ((b * S + i) * H + h) * hd;
+    for (int d = lane * kPer; d < hd; d += 16 * kPer) sum += dot16(o + at + d, dout + at + d);
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (live && lane == 0) {
+    const long long out = (b * H + h) * S_pad + i;
+    delta[out] = sum;
+    if (lse2 != nullptr) lse2[out] = i < S ? lse[(b * H + h) * S + i] * kLog2e : __int_as_float(0x7f800000);
   }
 }
 
@@ -361,9 +422,9 @@ size_t smem_bytes(int hd) {
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores: mma.sync m16n8k16
+// bfloat16 at HD 192: mma.sync m16n8k16 (the wgmma instances take 64 and 128)
 // ---------------------------------------------------------------------------
-namespace tc {
+namespace mma {
 
 constexpr int kPad = 8;  // bf16 row padding (16 bytes): fragment loads hit distinct banks
 
@@ -381,10 +442,6 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // the A fragment of rows [row0, row0 + 16), contraction columns [k0, k0 + 16)
 // of a row-major shared tile
@@ -473,8 +530,7 @@ struct Dq {
 };
 
 static_assert(Dkdv<192>::kSmem <= 232448 && Dq<192>::kSmem <= 232448, "tiles must fit a block's shared memory");
-static_assert(Dkdv<64>::kStage % 16 == 0 && Dkdv<128>::kStage % 16 == 0 && Dkdv<192>::kStage % 16 == 0,
-              "stages must keep 16-byte alignment");
+static_assert(Dkdv<192>::kStage % 16 == 0, "stages must keep 16-byte alignment");
 
 // grid (key tiles, B*Kv); block x = key tile (the first has the most q rows).
 // The steps (q head of the group, q tile of kBQ rows from the key tile on)
@@ -753,7 +809,572 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   return cudaGetLastError();
 }
 
-}  // namespace tc
+}  // namespace mma
+
+// ---------------------------------------------------------------------------
+// bfloat16 at HD 64 and 128: wgmma fed by TMA, a producer warpgroup
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int kBox = 64;            // rows of every tensor-map box: a consumer warpgroup's keys or q rows
+constexpr int kBlock = 2 * kBox;    // keys of a dk/dv block, q rows of a dq block
+constexpr int kStages = 3;          // the streamed ring
+constexpr int kThreads = 384;       // producer warpgroup + two consumer warpgroups
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 65,536
+
+// two floats of shared memory at a 32-bit shared address, as a volatile
+// load: the loads keep their order, so the compiler cannot gather a step's
+// worth of them ahead of their use (the capped dk/dv instance has no
+// registers for that)
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+
+// the consumers take turns to issue each step's first products (named
+// barriers 1 and 2, 256 threads: one warpgroup syncs, the other arrives),
+// so that one warpgroup's score math runs beside the other's products
+__device__ __forceinline__ void turn_wait(int w) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + w) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int w) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - w) : "memory");
+}
+
+template <int HD>
+struct Tiles {
+  static constexpr int kTile = kBox * HD * 2;     // bytes of a 64-row tile: HD/64 boxes of 64 x 64
+  static constexpr int kBlockTile = 2 * kTile;    // a 128-row tile: each 64-column chunk two boxes
+  static constexpr int kVec = kBox * 4;           // a 64-row slice of lse2 or D
+  static constexpr int kBars = 1 + 3 * kStages;   // resident tiles full; per stage two full and one empty
+  // the swizzled tiles need 1024-byte alignment, which the base is rounded up to
+  static constexpr int kDkdvSmem = 1024 + 2 * kBlockTile + kStages * (2 * kTile + 2 * kVec) + 8 * kBars;
+  static constexpr int kDqSmem = 1024 + 2 * kBlockTile + kStages * 2 * kTile + 8 * kBars;
+};
+static_assert(Tiles<128>::kDkdvSmem <= 232448 && Tiles<128>::kDqSmem <= 232448,
+              "the 128-wide instance must fit a block's shared memory");
+
+// rows [row0, row0 + 128) of one head: HD/64 column chunks of two 64-row boxes
+template <int HD>
+__device__ __forceinline__ void load_block(uint32_t dst, const CUtensorMap* map, uint32_t bar, int head, int row0,
+                                           int b) {
+#pragma unroll
+  for (int c = 0; c < HD / kBoxCols; ++c)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      tma_load(dst + (c * kBlock + half * kBox) * kRowBytes, map, bar, c * kBoxCols, head, row0 + half * kBox, b);
+}
+
+// rows [row0, row0 + 64) of one head: HD/64 boxes
+template <int HD>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int head, int row0,
+                                          int b) {
+#pragma unroll
+  for (int c = 0; c < HD / kBoxCols; ++c) tma_load(dst + c * kBox * kRowBytes, map, bar, c * kBoxCols, head, row0, b);
+}
+
+// S (+)= A B^T over HD for a warpgroup's 64 rows and a 64-row tile, both
+// K-major; a_chunk and b_chunk are the bytes between their 64-column chunks
+template <int HD>
+__device__ __forceinline__ void scores(float (&d)[kBox / 2], uint32_t a, uint32_t a_chunk, uint32_t b,
+                                       uint32_t b_chunk) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t box = kk / 4, within = (kk % 4) * 32;  // 64-column chunk, 16-column step
+    wgmma_ss<kBox>(d, sw128_desc(a + box * a_chunk + within, 16, 1024), sw128_desc(b + box * b_chunk + within, 16, 1024),
+                   kk > 0);
+  }
+}
+
+// S = A B^T over HD for a warpgroup's 64 rows and a 64-row tile: A the
+// rows' bf16 fragments (4 registers a k-step), B K-major in shared memory
+template <int HD>
+__device__ __forceinline__ void scores_rs(float (&d)[kBox / 2], const uint32_t* a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t box = kk / 4, within = (kk % 4) * 32;
+    wgmma_rs_k<kBox>(d, a + 4 * kk, sw128_desc(b + box * kBox * kRowBytes + within, 16, 1024), kk > 0);
+  }
+}
+
+// d += A B over a 64-row tile: A the bf16 fragments of 4 k-steps, B the
+// tile read MN-major (its HD columns are the output's)
+template <int HD>
+__device__ __forceinline__ void accumulate(float (&d)[HD / 2], const uint32_t* a, uint32_t tile) {
+#pragma unroll
+  for (int kk = 0; kk < kBox / 16; ++kk)
+    wgmma_rs<HD>(d, a + 4 * kk, sw128_desc(tile + kk * 16 * kRowBytes, kBox * kRowBytes, 1024));
+}
+
+// tanh(y) as 1 - 2 / (e^{2y} + 1) with |y| clamped to 15 (tanh is then +-1
+// in float32): two MUFU operations and a few FMAs, within ~1e-7 of tanhf,
+// in fewer registers
+__device__ __forceinline__ float tanh_fast(float y) {
+  const float e = exp2f(fminf(fmaxf(y, -15.0f), 15.0f) * (2.0f * kLog2e));
+  return 1.0f - __fdividef(2.0f, e + 1.0f);
+}
+
+// The capped instances' first pass over a score, once dP is in: with t =
+// tanh(scale s / softcap), dp becomes (dP - D)(1 - t^2), the cap's
+// derivative folded in, and s the capped logit in log2 units, softcap t
+// log2 e (scale_log2 = softcap * log2 e, cap_arg = scale / softcap). The
+// second pass takes P = exp2(s - lse2) and dS = P dp. Each pass reads one of
+// D and lse, which keeps the capped instances within their registers.
+__device__ __forceinline__ void cap_pass(float& s, float& dp, float d, float scale_log2, float cap_arg) {
+  const float t = tanh_fast(s * cap_arg);
+  dp = (dp - d) * (1.0f - t * t);
+  s = scale_log2 * t;
+}
+
+// grid (B*Kv, key blocks): block y is the key block (the first has the most
+// q rows). Steps run over (q head j of the group, 64-row q tile qt from the
+// diagonal on); consumer warpgroup w owns keys k0 + 64w .. + 63.
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(kThreads, 1)
+    dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+                const float* __restrict__ lse2, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                __nv_bfloat16* __restrict__ dv, int S, int S_pad, int H, int Kv, int hd, float scale,
+                float scale_log2, float cap_arg) {
+  using T = Tiles<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sk = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sv = sk + T::kBlockTile;
+  const uint32_t sq = sv + T::kBlockTile;           // kStages q tiles
+  const uint32_t sdo = sq + kStages * T::kTile;     // kStages dO tiles
+  const uint32_t svec = sdo + kStages * T::kTile;   // kStages lse2 slices, then kStages D slices
+  const uint32_t bars = svec + 2 * kStages * T::kVec;
+  const uint32_t kv_full = bars;
+  auto q_full = [&](int st) { return bars + 8u * (1 + st); };
+  auto do_full = [&](int st) { return bars + 8u * (1 + kStages + st); };
+  auto empty = [&](int st) { return bars + 8u * (1 + 2 * kStages + st); };
+
+  const int b = blockIdx.x / Kv, kvh = blockIdx.x - b * Kv, g = H / Kv;
+  const int k0 = blockIdx.y * kBlock;
+  const int n_q = (S + kBox - 1) / kBox;
+  const int qt0 = k0 / kBox;  // the first q tile: the diagonal
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(q_full(st), 1);
+      mbar_init(do_full(st), 1);
+      mbar_init(empty(st), 2 * 128);  // every consumer thread arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    // ---- producer ------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * T::kBlockTile);
+      load_block<HD>(sk, &kmap, kv_full, kvh, k0, b);
+      load_block<HD>(sv, &vmap, kv_full, kvh, k0, b);
+      int step = 0;
+      for (int j = 0; j < g; ++j) {
+        const int h = kvh * g + j;
+        const long long row = (static_cast<long long>(b) * H + h) * S_pad;
+        for (int qt = qt0; qt < n_q; ++qt, ++step) {
+          const int st = step % kStages;
+          mbar_wait(empty(st), ((step / kStages) & 1) ^ 1);
+          mbar_expect_tx(q_full(st), T::kTile + T::kVec);
+          load_tile<HD>(sq + st * T::kTile, &qmap, q_full(st), h, qt * kBox, b);
+          bulk_load(svec + st * T::kVec, lse2 + row + qt * kBox, T::kVec, q_full(st));
+          mbar_expect_tx(do_full(st), T::kTile + T::kVec);
+          load_tile<HD>(sdo + st * T::kTile, &domap, do_full(st), h, qt * kBox, b);
+          bulk_load(svec + (kStages + st) * T::kVec, delta + row + qt * kBox, T::kVec, do_full(st));
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each -----------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int tid = threadIdx.x - 128 * wgi;
+    const int warp = tid / 32, lane = tid % 32;
+    const int w = wgi - 1;
+    const int kw0 = k0 + w * kBox;  // the warpgroup's first key
+    const int key_r = warp * 16 + lane / 4;  // this thread's keys: kw0 + key_r, kw0 + key_r + 8
+    const uint32_t k_slice = sk + w * kBox * kRowBytes;
+    const uint32_t v_slice = sv + w * kBox * kRowBytes;
+
+    float adk[HD / 2], adv[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) adk[i] = adv[i] = 0.0f;
+    mbar_wait(kv_full, 0);
+    if (w == 1) turn_pass(w);  // warpgroup 0 takes the first turn
+
+    // one step; MASKED (a compile-time flag) on the diagonal tile
+    auto step_body = [&](const int st, const int phase, auto masked_tag) {
+      constexpr bool kMasked = decltype(masked_tag)::value;
+      // S^T = K Q^T and dP^T = V dO^T: rows the warpgroup's keys, columns the tile's q rows
+      float s[kBox / 2], dp[kBox / 2];
+      mbar_wait(q_full(st), phase);
+      mbar_wait(do_full(st), phase);
+      turn_wait(w);
+      fence_regs(s);
+      fence_regs(dp);
+      wg_fence();
+      scores<HD>(s, k_slice, kBlock * kRowBytes, sq + st * T::kTile, kBox * kRowBytes);
+      wg_commit();
+      scores<HD>(dp, v_slice, kBlock * kRowBytes, sdo + st * T::kTile, kBox * kRowBytes);
+      wg_commit();
+      turn_pass(w);
+
+      const uint32_t l2 = svec + st * T::kVec;               // the tile's lse2 slice
+      const uint32_t dd = svec + (kStages + st) * T::kVec;  // and its D slice
+      auto slice_f2 = [&](uint32_t addr) -> float2 {
+        if constexpr (CAP) return lds_f2(addr);
+        else return *reinterpret_cast<const float2*>(smem_raw + (addr - smem_u32(smem_raw)));
+      };
+      uint32_t pa[kBox / 4], sa[kBox / 4];
+      if constexpr (CAP) {
+        // once dP^T is in: cap_pass, then P from lse, dS, and both in bf16
+        wg_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < kBox / 8; ++j) {
+          const float2 dv2 = slice_f2(dd + 4 * (8 * j + 2 * (lane % 4)));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) cap_pass(s[4 * j + e], dp[4 * j + e], e % 2 ? dv2.y : dv2.x, scale_log2, cap_arg);
+        }
+#pragma unroll
+        for (int j = 0; j < kBox / 8; ++j) {
+          const int c = 8 * j + 2 * (lane % 4);
+          const float2 lv = slice_f2(l2 + 4 * c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            const bool keep = !kMasked || key_r + 8 * (e / 2) <= c + (e % 2);
+            s[i] = keep ? exp2f(s[i] - (e % 2 ? lv.y : lv.x)) : 0.0f;
+            dp[i] *= s[i];
+          }
+          pa[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
+          pa[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+          sa[2 * j] = pack_bf16(dp[4 * j], dp[4 * j + 1]);
+          sa[2 * j + 1] = pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);
+        }
+        fence_regs(adv);
+        fence_regs(adk);
+        wg_fence();
+        accumulate<HD>(adv, pa, sdo + st * T::kTile);
+        accumulate<HD>(adk, sa, sq + st * T::kTile);
+        wg_commit();
+      } else {
+        // P^T while dP^T is still on the tensor cores, then dV += P^T dO on
+        // them while dS^T is formed, then dK += dS^T Q. Both in the
+        // accumulators' layout, rounded to bf16 as the A fragments of 4
+        // k-steps (element i: key key_r + 8 ((i / 2) % 2), q row 8 (i / 4) +
+        // 2 (lane % 4) + i % 2 of the tile)
+        wg_wait<1>();
+        fence_regs(s);
+#pragma unroll
+        for (int j = 0; j < kBox / 8; ++j) {
+          const int c = 8 * j + 2 * (lane % 4);
+          const float2 lv = slice_f2(l2 + 4 * c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            const bool keep = !kMasked || key_r + 8 * (e / 2) <= c + (e % 2);
+            s[i] = keep ? exp2f(s[i] * scale_log2 - (e % 2 ? lv.y : lv.x)) : 0.0f;
+          }
+          pa[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
+          pa[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+        }
+        fence_regs(adv);
+        wg_fence();
+        accumulate<HD>(adv, pa, sdo + st * T::kTile);
+        wg_commit();
+        wg_wait<1>();
+        fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < kBox / 8; ++j) {
+          const float2 dv2 = slice_f2(dd + 4 * (8 * j + 2 * (lane % 4)));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - (e % 2 ? dv2.y : dv2.x));
+          sa[2 * j] = pack_bf16(dp[4 * j], dp[4 * j + 1]);
+          sa[2 * j + 1] = pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);
+        }
+        fence_regs(adk);
+        wg_fence();
+        accumulate<HD>(adk, sa, sq + st * T::kTile);
+        wg_commit();
+      }
+      wg_wait<0>();
+      fence_regs(adv);
+      fence_regs(adk);
+      mbar_arrive(empty(st));
+    };
+
+    int step = 0;
+    for (int j = 0; j < g; ++j) {
+      for (int qt = qt0; qt < n_q; ++qt, ++step) {
+        const int st = step % kStages, phase = (step / kStages) & 1, q0 = qt * kBox;
+        if (q0 < kw0) {  // every q row precedes every key: nothing to add, but the ring and the turns move on
+          mbar_wait(q_full(st), phase);
+          mbar_wait(do_full(st), phase);
+          turn_wait(w);
+          turn_pass(w);
+          mbar_arrive(empty(st));
+        } else if (q0 == kw0) {
+          step_body(st, phase, std::true_type{});
+        } else {
+          step_body(st, phase, std::false_type{});
+        }
+      }
+    }
+
+    // keys below S, the true hd columns; dk takes the scale here
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = kw0 + key_r + 8 * r;
+      if (key >= S) continue;
+      const long long at = ((static_cast<long long>(b) * S + key) * Kv + kvh) * hd;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const int col = 8 * j + 2 * (lane % 4);
+        if (col < hd) {
+          *reinterpret_cast<uint32_t*>(dk + at + col) =
+              pack_bf16(adk[4 * j + 2 * r] * scale, adk[4 * j + 2 * r + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + at + col) = pack_bf16(adv[4 * j + 2 * r], adv[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// grid (B*H, q blocks); block y counts q blocks from the last (longest
+// first). 64-key tiles up to the block's last row stream through the ring;
+// consumer warpgroup w owns q rows q0 + 64w .. + 63.
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+              const float* __restrict__ lse2, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int S,
+              int S_pad, int H, int Kv, int hd, float scale, float scale_log2, float cap_arg) {
+  using T = Tiles<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sdo = sq + T::kBlockTile;
+  const uint32_t sk = sdo + T::kBlockTile;      // kStages k tiles
+  const uint32_t sv = sk + kStages * T::kTile;  // kStages v tiles
+  const uint32_t bars = sv + kStages * T::kTile;
+  const uint32_t qd_full = bars;
+  auto k_full = [&](int st) { return bars + 8u * (1 + st); };
+  auto v_full = [&](int st) { return bars + 8u * (1 + kStages + st); };
+  auto empty = [&](int st) { return bars + 8u * (1 + 2 * kStages + st); };
+
+  const int n_blocks = (S + kBlock - 1) / kBlock;
+  const int q0 = (n_blocks - 1 - static_cast<int>(blockIdx.y)) * kBlock;
+  const int b = blockIdx.x / H, h = blockIdx.x - b * H, kvh = h / (H / Kv);
+  const int n_k = (min(q0 + kBlock, S) - 1) / kBox + 1;  // causal: no tile past the block's last row
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty(st), 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    // ---- producer ------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qd_full, 2 * T::kBlockTile);
+      load_block<HD>(sq, &qmap, qd_full, h, q0, b);
+      load_block<HD>(sdo, &domap, qd_full, h, q0, b);
+      for (int t = 0; t < n_k; ++t) {
+        const int st = t % kStages;
+        mbar_wait(empty(st), ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(k_full(st), T::kTile);
+        load_tile<HD>(sk + st * T::kTile, &kmap, k_full(st), kvh, t * kBox, b);
+        mbar_expect_tx(v_full(st), T::kTile);
+        load_tile<HD>(sv + st * T::kTile, &vmap, v_full(st), kvh, t * kBox, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows each ---------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int tid = threadIdx.x - 128 * wgi;
+    const int warp = tid / 32, lane = tid % 32;
+    const int w = wgi - 1;
+    const int qw0 = q0 + w * kBox;           // the warpgroup's first q row
+    const int row_r = warp * 16 + lane / 4;  // this thread's rows: qw0 + row_r, qw0 + row_r + 8
+    const int td = qw0 / kBox;               // the key tile on the diagonal
+    const uint32_t q_slice = sq + w * kBox * kRowBytes;
+    const uint32_t do_slice = sdo + w * kBox * kRowBytes;
+    float l2[2], dd[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qw0 + row_r + 8 * r;
+      const long long at = (static_cast<long long>(b) * H + h) * S_pad + row;
+      l2[r] = row < S ? lse2[at] : __int_as_float(0x7f800000);
+      dd[r] = row < S ? delta[at] : 0.0f;
+    }
+
+    float adq[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) adq[i] = 0.0f;
+    mbar_wait(qd_full, 0);
+    if (w == 1) turn_pass(w);  // warpgroup 0 takes the first turn
+    // the warpgroup's q and dO rows stay in registers as the A operands of S
+    // and dP, so that the products read only k and v from shared memory; the
+    // capped instances, short of those registers, read them from there too
+    uint32_t qa[CAP ? 1 : HD / 4], da[CAP ? 1 : HD / 4];
+    if constexpr (!CAP) {
+      load_a_frags<HD>(qa, smem_raw + (q_slice - smem_u32(smem_raw)), kBlock * kRowBytes, warp, lane);
+      load_a_frags<HD>(da, smem_raw + (do_slice - smem_u32(smem_raw)), kBlock * kRowBytes, warp, lane);
+    }
+
+    // one key tile; MASKED (a compile-time flag) on the diagonal
+    auto tile = [&](const int st, const int phase, auto masked_tag) {
+      constexpr bool kMasked = decltype(masked_tag)::value;
+      float s[kBox / 2], dp[kBox / 2];
+      mbar_wait(k_full(st), phase);
+      mbar_wait(v_full(st), phase);
+      turn_wait(w);
+      fence_regs(s);
+      fence_regs(dp);
+      wg_fence();
+      if constexpr (CAP)
+        scores<HD>(s, q_slice, kBlock * kRowBytes, sk + st * T::kTile, kBox * kRowBytes);
+      else
+        scores_rs<HD>(s, qa, sk + st * T::kTile);
+      wg_commit();
+      if constexpr (CAP)
+        scores<HD>(dp, do_slice, kBlock * kRowBytes, sv + st * T::kTile, kBox * kRowBytes);
+      else
+        scores_rs<HD>(dp, da, sv + st * T::kTile);
+      wg_commit();
+      turn_pass(w);
+
+      // dS in the accumulators' layout (element i: q row row_r + 8 ((i / 2) %
+      // 2), key 8 (i / 4) + 2 (lane % 4) + i % 2 of the tile), in bf16
+      uint32_t sa[kBox / 4];
+      if constexpr (CAP) {  // once dP is in: cap_pass, then P and dS
+        wg_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+#pragma unroll
+        for (int i = 0; i < kBox / 2; ++i) cap_pass(s[i], dp[i], dd[(i / 2) % 2], scale_log2, cap_arg);
+#pragma unroll
+        for (int i = 0; i < kBox / 2; ++i) {
+          const int r = (i / 2) % 2;
+          const bool keep = !kMasked || 8 * (i / 4) + 2 * (lane % 4) + (i % 2) <= row_r + 8 * r;
+          dp[i] *= keep ? exp2f(s[i] - l2[r]) : 0.0f;
+        }
+      } else {  // P while dP is still on the tensor cores, then dS
+        wg_wait<1>();
+        fence_regs(s);
+#pragma unroll
+        for (int i = 0; i < kBox / 2; ++i) {
+          const int r = (i / 2) % 2;
+          const bool keep = !kMasked || 8 * (i / 4) + 2 * (lane % 4) + (i % 2) <= row_r + 8 * r;
+          s[i] = keep ? exp2f(s[i] * scale_log2 - l2[r]) : 0.0f;
+        }
+        wg_wait<0>();
+        fence_regs(dp);
+#pragma unroll
+        for (int i = 0; i < kBox / 2; ++i) dp[i] = s[i] * (dp[i] - dd[(i / 2) % 2]);
+      }
+#pragma unroll
+      for (int j = 0; j < kBox / 8; ++j) {
+        sa[2 * j] = pack_bf16(dp[4 * j], dp[4 * j + 1]);
+        sa[2 * j + 1] = pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);
+      }
+
+      // dQ += dS K over the tile's 64 keys
+      fence_regs(adq);
+      wg_fence();
+      accumulate<HD>(adq, sa, sk + st * T::kTile);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(adq);
+      mbar_arrive(empty(st));
+    };
+
+    for (int t = 0; t < n_k; ++t) {
+      const int st = t % kStages, phase = (t / kStages) & 1;
+      if (t > td) {  // every key follows every row: nothing to add, but the ring and the turns move on
+        mbar_wait(k_full(st), phase);
+        mbar_wait(v_full(st), phase);
+        turn_wait(w);
+        turn_pass(w);
+        mbar_arrive(empty(st));
+      } else if (t == td) {
+        tile(st, phase, std::true_type{});
+      } else {
+        tile(st, phase, std::false_type{});
+      }
+    }
+
+    // rows below S, the true hd columns; dq takes the scale here
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qw0 + row_r + 8 * r;
+      if (row >= S) continue;
+      __nv_bfloat16* out = dq + ((static_cast<long long>(b) * S + row) * H + h) * hd;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const int col = 8 * j + 2 * (lane % 4);
+        if (col < hd)
+          *reinterpret_cast<uint32_t*>(out + col) = pack_bf16(adq[4 * j + 2 * r] * scale, adq[4 * j + 2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
+template <int HD, bool CAP>
+int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse2, const float* delta,
+           void* dq, void* dk, void* dv, int B, int S, int S_pad, int H, int Kv, int hd, float scale, float softcap,
+           const long long* layouts, cudaStream_t stream) {
+  using T = Tiles<HD>;
+  using bf16 = __nv_bfloat16;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i)
+    if (!encode(&maps[i], ptrs[i], layouts + 11 * i, kBox)) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(dkdv_kernel<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kDkdvSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dq_kernel<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kDqSmem);
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = CAP ? softcap * kLog2e : scale * kLog2e;
+  const float cap_arg = CAP ? scale / softcap : 0.0f;
+  const int blocks = (S + kBlock - 1) / kBlock;
+  dkdv_kernel<HD, CAP><<<dim3(B * Kv, blocks), kThreads, T::kDkdvSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse2, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, S_pad, H,
+      Kv, hd, scale, scale_log2, cap_arg);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dq_kernel<HD, CAP><<<dim3(B * H, blocks), kThreads, T::kDqSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse2, delta, static_cast<bf16*>(dq), S, S_pad, H, Kv, hd, scale, scale_log2,
+      cap_arg);
+  return cudaGetLastError();
+}
+
+template <int HD>
+int launch_hd(const void* q, const void* k, const void* v, const void* dout, const float* lse2, const float* delta,
+              void* dq, void* dk, void* dv, int B, int S, int S_pad, int H, int Kv, int hd, float scale, float softcap,
+              const long long* layouts, cudaStream_t stream) {
+  if (softcap > 0.0f)
+    return launch<HD, true>(q, k, v, dout, lse2, delta, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, layouts,
+                            stream);
+  return launch<HD, false>(q, k, v, dout, lse2, delta, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, layouts,
+                           stream);
+}
+
+}  // namespace wg
 
 int launch_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* delta, void* dq, void* dk, void* dv, int B, int S, int H, int Kv, int hd, float scale,
@@ -782,43 +1403,61 @@ extern "C" {
 
 int flash_attention_bwd_max_hd() { return kMaxHd; }
 
+// rows of the wgmma instances' tensor-map boxes (kernel.py's BWD_BOX_ROWS);
+// their D and lse2 rows are padded to a multiple of it
+int flash_attention_bwd_box_rows() { return wg::kBox; }
+
 const char* flash_attention_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Three launches: D = rowsum(dO o O) into `delta` [B, H, S] (float32
-// scratch the caller allocates), then dk, dv, then dq. q, o, dout, dq:
+// Three launches: D = rowsum(dO o O) into `delta` (float32 scratch the
+// caller allocates, [B, H, S_pad]), then dk, dv, then dq. q, o, dout, dq:
 // [B, S, H, hd]; k, v, dk, dv: [B, S, Kv, hd]; all contiguous, one dtype
 // (0 float32, 1 bfloat16); lse [B, H, S] float32 from the forward.
 // hd_inst: the bf16 instance's width (64, 128 or 192; unused for float32).
+// The wgmma instances (bf16 at 64 and 128) take S_pad = S rounded up to
+// box_rows, `lse2` ([B, H, S_pad] float32 scratch for lse in log2 units)
+// and `tma`: q's, k's, v's and dout's tensor-map layouts, 11 values each
+// (dims, byte strides, box; box_rows rows). float32 and bf16 at 192 take
+// S_pad = S and ignore lse2 and tma.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                               const void* lse, void* delta, void* dq, void* dk, void* dv, int dtype, int B, int S,
-                               int H, int Kv, int hd, float scale, float softcap, int hd_inst, void* stream) {
-  if (B < 1 || S < 0 || Kv < 1 || H < Kv || H % Kv != 0 || hd < 8 || hd > kMaxHd || hd % 8 != 0 ||
+                               const void* lse, void* delta, void* lse2, void* dq, void* dk, void* dv, int dtype, int B,
+                               int S, int S_pad, int H, int Kv, int hd, float scale, float softcap, int hd_inst,
+                               const long long* tma, void* stream) {
+  if (B < 1 || S < 0 || S_pad < S || Kv < 1 || H < Kv || H % Kv != 0 || hd < 8 || hd > kMaxHd || hd % 8 != 0 ||
       !(softcap >= 0.0f) || static_cast<long long>(B) * H > 65535)
     return cudaErrorInvalidValue;
   if (S == 0) return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long rows = static_cast<long long>(B) * S * H;
-  const unsigned blocks = static_cast<unsigned>((rows * 32 + 255) / 256);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
+  const bool wgmma = dtype == 1 && (hd_inst == 64 || hd_inst == 128);
+  if (wgmma ? (tma == nullptr || lse2 == nullptr || S_pad != (S + wg::kBox - 1) / wg::kBox * wg::kBox)
+            : S_pad != S)
+    return cudaErrorInvalidValue;
+  const long long rows = static_cast<long long>(B) * S_pad * H;
+  const unsigned blocks = static_cast<unsigned>((rows * 16 + 255) / 256);  // a half-warp a row
   if (dtype == 0) {
-    rowdot_kernel<float><<<blocks, 256, 0, st>>>(static_cast<const float*>(o), static_cast<const float*>(dout), d,
-                                                 rows, S, H, hd);
+    rowdot_kernel<float><<<blocks, 256, 0, st>>>(static_cast<const float*>(o), static_cast<const float*>(dout), l, d,
+                                                 nullptr, rows, S, S_pad, H, hd);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     return launch_f32(q, k, v, dout, l, d, dq, dk, dv, B, S, H, Kv, hd, scale, softcap, st);
   }
   if (dtype != 1 || hd > hd_inst) return cudaErrorInvalidValue;
+  if (!wgmma && hd_inst != 192) return cudaErrorInvalidValue;
+  float* l2 = wgmma ? static_cast<float*>(lse2) : nullptr;
   rowdot_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(static_cast<const __nv_bfloat16*>(o),
-                                                       static_cast<const __nv_bfloat16*>(dout), d, rows, S, H, hd);
+                                                       static_cast<const __nv_bfloat16*>(dout), l, d, l2, rows, S,
+                                                       S_pad, H, hd);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (hd_inst == 64) return tc::launch<64>(q, k, v, dout, l, d, dq, dk, dv, B, S, H, Kv, hd, scale, softcap, st);
-  if (hd_inst == 128) return tc::launch<128>(q, k, v, dout, l, d, dq, dk, dv, B, S, H, Kv, hd, scale, softcap, st);
-  if (hd_inst == 192) return tc::launch<192>(q, k, v, dout, l, d, dq, dk, dv, B, S, H, Kv, hd, scale, softcap, st);
-  return cudaErrorInvalidValue;
+  if (hd_inst == 64)
+    return wg::launch_hd<64>(q, k, v, dout, l2, d, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, tma, st);
+  if (hd_inst == 128)
+    return wg::launch_hd<128>(q, k, v, dout, l2, d, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, tma, st);
+  return mma::launch<192>(q, k, v, dout, l, d, dq, dk, dv, B, S, H, Kv, hd, scale, softcap, st);
 }
 
 }  // extern "C"

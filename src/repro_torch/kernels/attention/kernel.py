@@ -21,8 +21,10 @@ row's log-sum-exp (float32 [B, H, S]), which the backward reads.
 launches the forward kernel (with ``lse`` only when an input needs a
 gradient) and its backward the three gradient kernels
 (``flash_attention_backward``: D = rowsum(dO o O), then dk/dv, then dq;
-``launches["flash_attention_bwd"]`` counts each). Nothing on the card
-falls back to the plain version.
+``launches["flash_attention_bwd"]`` counts each). In bfloat16 at widths 64
+and 128 the gradient kernels run on wgmma fed by TMA (tensor maps from
+``tma_layout`` with ``BWD_BOX_ROWS`` rows, D and lse padded to ``bwd_rows``);
+at 192 on mma.sync. Nothing on the card falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 BWD_LAUNCHES = 3  # kernels a backward call launches: D, dk/dv, dq
+BWD_BOX_ROWS = 64  # the bf16 gradient's tensor-map box rows: every q, k, v and dO tile
+BWD_WGMMA_WIDTHS = (64, 128)  # the bf16 gradient's wgmma instances; 192 runs on mma.sync
 
 # bumped where the kernels are launched and nowhere else
 launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
@@ -76,13 +80,15 @@ LIBRARY = CudaLibrary("flash_attention", SOURCE, _declare)
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_bwd_launch.argtypes = [ptr] * 10 + [i32] * 6 + [f32] * 2 + [i32, ptr]
+    lib.flash_attention_bwd_launch.argtypes = [ptr] * 11 + [i32] * 7 + [f32] * 2 + [i32, ptr, ptr]
     lib.flash_attention_bwd_launch.restype = i32
     lib.flash_attention_bwd_error_string.argtypes = [i32]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     lib.flash_attention_bwd_max_hd.restype = i32
-    if lib.flash_attention_bwd_max_hd() != MAX_HD:
-        raise RuntimeError("flash_attention_bwd library's head-dim limit disagrees with kernel.py")
+    lib.flash_attention_bwd_box_rows.restype = i32
+    limits = (lib.flash_attention_bwd_max_hd(), lib.flash_attention_bwd_box_rows())
+    if limits != (MAX_HD, BWD_BOX_ROWS):
+        raise RuntimeError(f"flash_attention_bwd library limits {limits} disagree with kernel.py")
 
 
 BWD_LIBRARY = CudaLibrary("flash_attention_bwd", BWD_SOURCE, _declare_bwd)
@@ -119,6 +125,16 @@ def block_k(hd_inst: int) -> int:
     or 64 at 192 (three 192-wide stages of 128 would not fit a block's
     shared memory). It is also the k/v tensor maps' box rows."""
     return 64 if hd_inst > 128 else 128
+
+
+def bwd_rows(s: int, hd_inst: int) -> int:
+    """Rows of each (b, h) in the gradient's D and lse scratch: S rounded
+    up to ``BWD_BOX_ROWS`` for the wgmma instances (``hd_inst`` 64 or 128,
+    whose bulk copies read 64-row slices whole), S otherwise (float32,
+    ``hd_inst`` 0, and the 192-wide mma.sync instance)."""
+    if hd_inst not in BWD_WGMMA_WIDTHS:
+        return s
+    return -(-s // BWD_BOX_ROWS) * BWD_BOX_ROWS
 
 
 def tma_layout(t: torch.Tensor, rows: int = BLOCK_Q):
@@ -211,9 +227,10 @@ def flash_attention_backward(q, k, v, o, lse, do, softcap: float = 0.0):
     inputs' dtype from q, o, do [B, S, H, hd], k, v [B, S, Kv, hd] (k/v as
     long as q: an offset prefill is never trained) and the forward's
     ``lse`` [B, H, S] float32. Three launches: D = rowsum(do * o), then
-    dk and dv (one block a key tile, summing the group's q heads), then dq;
+    dk and dv (one block a key block, summing the group's q heads), then dq;
     no atomics, so the result is the same bits on every run. Operands are
-    made contiguous (a no-op for the forward's own tensors)."""
+    made contiguous (a no-op for the forward's own tensors); bfloat16 at
+    widths 64 and 128 reads q, k, v and do through tensor maps."""
     named = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
     _check_operands(named)
     b, s, h, hd = q.shape
@@ -233,15 +250,19 @@ def flash_attention_backward(q, k, v, o, lse, do, softcap: float = 0.0):
     for name, t in zip(("q", "k", "v", "o", "do"), (q, k, v, o, do)):
         check_rows(name, t)
     hd_inst = instantiated_hd(hd) if q.dtype == torch.bfloat16 else 0
+    wgmma = hd_inst in BWD_WGMMA_WIDTHS
+    s_pad = bwd_rows(s, hd_inst)
+    tma = _tma_args(*((t, BWD_BOX_ROWS) for t in (q, k, v, do))) if wgmma else None
     lib = BWD_LIBRARY.load()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    # D, and for the wgmma instances lse in log2 units: [B, H, s_pad] each
+    scratch = torch.empty((2 if wgmma else 1, b, h, s_pad), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), DTYPE_IDS[q.dtype],
-            b, s, h, kv, hd, 1.0 / hd ** 0.5, softcap, hd_inst, stream,
+            scratch[0].data_ptr(), scratch[1].data_ptr() if wgmma else None, dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), DTYPE_IDS[q.dtype], b, s, s_pad, h, kv, hd, 1.0 / hd ** 0.5, softcap, hd_inst, tma, stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {rc} "

@@ -144,6 +144,26 @@ def test_tma_layout_takes_the_k_tiles_rows():
     assert K.tma_layout(t)[2] == (64, 1, K.BLOCK_Q, 1)
 
 
+@pytest.mark.parametrize("case", range(4), ids=[v[0] for v in _views()])
+def test_tma_layout_takes_the_gradients_box_rows(case):
+    """The bf16 gradient reads q, k, v and dO through 64-row boxes, the
+    layouts otherwise as the forward's."""
+    _, t, dims, strides = _views()[case]
+    assert K.BWD_BOX_ROWS == 64
+    assert K.tma_layout(t, K.BWD_BOX_ROWS) == (dims, strides, (64, 1, 64, 1))
+
+
+@pytest.mark.parametrize("s", [1, 37, 63, 64, 65, 1000, 4096, 4097])
+def test_bwd_rows_pads_s_to_the_box_for_the_wgmma_widths_only(s):
+    """D and lse2 rows: S rounded up to 64 for the wgmma instances (64 and
+    128 wide), whose bulk copies read whole 64-row slices; S for float32
+    (width 0) and the 192-wide mma.sync instance."""
+    padded = -(-s // 64) * 64
+    assert [K.bwd_rows(s, w) for w in (0, 64, 128, 192)] == [s, padded, padded, s]
+    assert padded % K.BWD_BOX_ROWS == 0 and padded - s < K.BWD_BOX_ROWS
+    assert set(K.BWD_WGMMA_WIDTHS) == {w for w in K.WIDTHS if w <= 128}
+
+
 def _attention_p_in_bf16(q, k, v, tile=128):
     """What the tensor-core kernel computes: f32 scores over 128-key tiles,
     an online softmax in f32, P rounded to bf16 before P V (f32 sums); l

@@ -93,3 +93,60 @@ def test_backward_ref_keeps_the_input_dtype():
     grads = R.mha_backward_ref(q, k, v, o, R.mha_lse_ref(q, k), do)
     assert [t.dtype for t in grads] == [torch.bfloat16] * 3
     assert [t.shape for t in grads] == [q.shape, k.shape, v.shape]
+
+
+LOG2E = 1.4426950408889634
+
+
+def _wgmma_backward(q, k, v, o, lse, do, cap):
+    """What the bf16 tensor-core gradient kernels (flash_attention_bwd.cu,
+    widths 64 and 128) compute, in float32 with bf16 roundings where they
+    round: lse in log2 units; P = exp2(x - lse2) with x the scaled logit in
+    log2 units (capped through tanh as 1 - 2 / (e^{2y} + 1)); P and dS
+    rounded to bf16 as the A operands of dV += P^T dO, dK += dS^T Q and
+    dQ += dS K; dS without the scale, which is applied to dk and dq after
+    the sums; with a cap, the cap's derivative 1 - t^2 from the same t."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    scale = 1.0 / hd ** 0.5
+    bf = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    qh, doh, oh = (t.float().transpose(1, 2) for t in (q, do, o))  # [B, H, S, hd]
+    kh, vh = (t.float().transpose(1, 2).repeat_interleave(g, dim=1) for t in (k, v))
+    lse2 = lse.float()[..., None] * LOG2E
+    delta = (doh * oh).sum(-1, keepdim=True)
+    raw = qh @ kh.transpose(-1, -2)
+    t = 1.0 - 2.0 / (torch.exp2((raw * (scale / cap)).clamp(-15.0, 15.0) * 2.0 * LOG2E) + 1.0) if cap else None
+    x = cap * LOG2E * t if cap else raw * (scale * LOG2E)
+    mask = torch.tril(torch.ones(s, s, dtype=torch.bool))
+    p = torch.where(mask, torch.exp2(x - lse2), torch.zeros(()))
+    ds = p * (doh @ vh.transpose(-1, -2) - delta)
+    if cap:
+        ds = ds * (1.0 - t * t)
+    p, ds = bf(p), bf(ds)
+    dq = scale * (ds @ kh)
+    dk, dv = scale * (ds.transpose(-1, -2) @ qh), p.transpose(-1, -2) @ doh
+
+    def kv_heads(t):  # [B, H, S, hd] -> [B, S, Kv, hd], summing each group
+        return t.reshape(b, kv, g, s, hd).sum(2).transpose(1, 2)
+
+    return dq.transpose(1, 2), kv_heads(dk), kv_heads(dv)
+
+
+@pytest.mark.parametrize("g,hd,s,cap", [(g, hd, s, cap) for g in (1, 3) for hd in (64, 128) for s in (37, 128)
+                                        for cap in (0.0, 30.0)])
+def test_wgmma_gradients_arithmetic_stays_within_the_bf16_tolerance_of_jax_vjp(g, hd, s, cap):
+    """The bf16 kernels' roundings (P and dS in bf16, the scale after the
+    sums, the cap's tanh and derivative as they form them) held to jax.vjp
+    of the reference on the same bf16-valued inputs, at the tolerance the
+    card holds the kernels to (tests/test_torch_cuda.py): 2e-2, the
+    absolute part scaled by the largest entry."""
+    q, k, v, do = (torch.from_numpy(t).to(torch.bfloat16) for t in _inputs(g, hd, s, seed=g + hd + s))
+    o = R.mha_ref(q, k, v, cap)
+    lse = R.mha_lse_ref(q, k, cap)
+    got = _wgmma_backward(q, k, v, o, lse, do, cap)
+    _, want = _jax_vjp(*(t.float().numpy() for t in (q, k, v, do)), cap)
+    for mine, ref in zip(got, want):
+        ref = np.asarray(ref)
+        scale = max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(mine.numpy(), ref, rtol=2e-2, atol=2e-2 * scale)

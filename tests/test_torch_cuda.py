@@ -819,6 +819,31 @@ def test_cuda_flash_attention_backward_matches_plain_version_at_llamas_training_
 
 
 @needs_card
+@pytest.mark.parametrize("b,s,h,kv,hd,softcap", [
+    (1, 4096, 24, 8, 128, 0.0),  # llama3.2-3b's training shape (wgmma)
+    (2, 1000, 6, 2, 128, 30.0),  # ragged S, g = 3, capped (wgmma)
+    (2, 1000, 6, 2, 64, 30.0),   # the 64-wide wgmma instance
+    (1, 1000, 3, 1, 192, 30.0),  # the 192-wide mma.sync instance
+], ids=["training", "ragged-g3-cap", "hd64", "hd192"])
+def test_cuda_flash_attention_backward_reruns_give_the_same_bits(b, s, h, kv, hd, softcap):
+    """No atomics and no order that depends on scheduling: two calls on the
+    same inputs return identical dq, dk and dv (the resume check relies on
+    it)."""
+    from repro_torch.kernels.attention import kernel as AK
+
+    dtype = torch.bfloat16
+    q, k, v, do = (_normal(shape, dtype, i) for i, shape in
+                   enumerate(((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd))))
+    o, lse = AK.flash_attention(q, k, v, softcap, with_lse=True)
+    first = AK.flash_attention_backward(q, k, v, o, lse, do, softcap)
+    second = AK.flash_attention_backward(q, k, v, o, lse, do, softcap)
+    torch.cuda.synchronize()
+    for name, a, c in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, c), f"{name} differs between two calls on the same inputs"
+        assert bool(torch.isfinite(a.float()).all())
+
+
+@needs_card
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_function_gradients_match_autograd_through_the_plain_version(dtype):
     from repro_torch.kernels.attention import kernel as AK, ops as A, ref as AR
