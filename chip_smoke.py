@@ -189,7 +189,23 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    (B 1, S 4,096, 24/8 heads, hd 128, bf16), where the gradient kernels
    and lse are also held to mha_backward_ref / mha_lse_ref, beside the
    plain version, the bound and SDPA's backward, with each of the call's
-   three launches' device time under the profiler.
+   three launches' device time under the profiler; the gradient at hd 192
+   (nemotron-4's heads, B 1, S 4,096, 96/8) beside its bound and SDPA's
+   backward in turns, and the lse forward beside SDPA's forward in turns.
+11. the LM across a mesh (lines tagged [mesh]): 11a the length-sharded
+   decode (dist.collectives.sharded_flash_decode) at llama3.2-3b's heads,
+   B 8, a 32,768-position bf16 cache as 4 and 16 slices of one cache, at
+   lengths 1, 1,000, 8,192, 20,000 and 32,768 (each shard one flash_decode
+   launch, counted: zeroed just before, read just after; the kernels line's
+   launches_sharded), held to the unsharded kernel and to
+   decode_attention_ref (2e-2 bf16, 5e-5 f32 at one case), then through a
+   (1, 1) mesh of one NCCL rank, with ms a call beside the one unsharded
+   launch in turns; 11b make_train_step(param_shardings=...) on that mesh
+   at 10b's shape, 3 steps against the unsharded ones (1e-4 of each leaf's
+   largest element; says whether bitwise), and fit(mesh=...) 2 steps with
+   a checkpoint, elastic_restore onto no mesh and a fit resuming 2 more,
+   against 4 uninterrupted steps on the mesh (10d's tolerances). The
+   process group is destroyed at the end of the phase.
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's name and power limit; the last line is the run's verdict. Any
@@ -325,6 +341,22 @@ TRAIN_IGD_STEP = (0.002, 200.0)
 # 10d: resume at full width, 2 layers: 6 steps against 3 + a checkpoint + 3
 RESUME_STEPS, RESUME_B, RESUME_S, RESUME_ACCUM = 6, 2, 1024, 2
 RESUME_RTOL, RESUME_ATOL = 1e-6, 1e-7  # the reference's (tests/test_fault_tolerance.py)
+# the extra timings of phase 10: the hd 192 gradient (the mma.sync
+# kernels) at nemotron-4's heads, and the lse forward beside SDPA's forward
+BWD192_SHAPE = (1, 4096, 96, 8, 192)  # (B, S, H, Kv, hd), bf16
+# phase 11, the LM across a mesh. 11a: the length-sharded decode at
+# llama3.2-3b's heads over decode_32k's 32,768 cached positions, its batch
+# of 128 cut to 8 (128 would take 17 GB a layer), as n slices of one cache
+# (16: the production mesh's "model" axis); lengths inside shard 0, on a
+# boundary, past the middle and full; f32 at one length
+MESH_DECODE_B, MESH_DECODE_S = 8, 32768
+MESH_SHARDS, MESH_LENGTHS = (4, 16), (1, 1000, 8192, 20000, 32768)
+MESH_F32_CASE = (16, 20000)
+# 11b: a sharded step at 10b's shape on a (1, 1) mesh of one NCCL rank, held
+# to the unsharded step (relative to each leaf's largest element, as 10b);
+# fit on the mesh 2 + 2 steps around a checkpoint, resumed with no mesh,
+# against 4 uninterrupted steps on the mesh (10d's shape and tolerances)
+MESH_TRAIN_TOL, MESH_TRAIN_STEPS, MESH_FIT_STEPS = 1e-4, 3, 4
 # the gradient call's three launches, by a substring of their kernels' names,
 # and the calls profiled to time each
 BWD_KINDS, BWD_PROFILED = {"D": "rowdot_kernel", "dk/dv": "dkdv_kernel", "dq": "dq_kernel"}, 10
@@ -716,6 +748,7 @@ def main() -> int:
     pool.shutdown()
     kernels += serving(args.seed, dev)
     kernels += training(args.seed, dev, {entry["name"]: entry for entry in kernels})
+    mesh_phase(args.seed, dev, {entry["name"]: entry for entry in kernels})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2672,9 +2705,11 @@ def training(seed: int, dev, entries: dict) -> list:
         f"{off_a:.4f}, {on_a:.4f}, {on_b:.4f}, {off_b:.4f} ms; lse on / off {(on_a + on_b) / (off_a + off_b):.4f}")
     del q, k, v, o, lse, do, qs, ks, vs, sdpa_out, dos
     torch.cuda.empty_cache()
+    extra = training_extra_timings(normal, dev, card)
     entries["flash_attention"].update(
         launches_training=launches["flash_attention"], training_ms_lse_off=(off_a + off_b) / 2,
-        training_ms_lse_on=(on_a + on_b) / 2, max_abs_err_lse=errs["lse"])
+        training_ms_lse_on=(on_a + on_b) / 2, max_abs_err_lse=errs["lse"], training_ms_lse=extra["lse_ms"],
+        training_library_ms=extra["lse_library_ms"])
     log("train", f"the timings took {phase.lap():.1f} s")
     return [{
         "name": "flash_attention_bwd", "route": "cuda",
@@ -2685,7 +2720,291 @@ def training(seed: int, dev, entries: dict) -> list:
         "max_rel_err": max(errs["bwd_rel"].values()), "launches_per_step": per_step["flash_attention_bwd"],
         "launch_ms": {kind: ms for kind, (ms, _) in launch_ms.items()},
         "train_step_ms": step_ms, "train_tokens_s": tokens_s, "train_mfu": mfu, "train_peak_gb": igd_peak,
+        **{k: v for k, v in extra.items() if k.startswith("hd192")},
     }]
+
+
+def training_extra_timings(normal, dev, card: str) -> dict:
+    """Two more timings of phase 10: the hd 192 gradient (the mma.sync
+    kernels, which the main path does not launch) at nemotron-4's heads,
+    with its bound and SDPA's backward in turns; and SDPA's forward
+    (is_causal, enable_gqa) in turns with the lse forward at the training
+    shape. Returns the numbers for the kernels line."""
+    import torch.nn.functional as F
+
+    from repro_torch import timing
+    from repro_torch.kernels.attention import kernel as AK, ref as AR
+
+    bf = torch.bfloat16
+    b, s, h, kv, hd = BWD192_SHAPE
+    q, do = normal((b, s, h, hd), bf), normal((b, s, h, hd), bf)
+    k, v = normal((b, s, kv, hd), bf), normal((b, s, kv, hd), bf)
+    o, lse = AK.flash_attention(q, k, v, with_lse=True)
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    dos = do.transpose(1, 2)
+    kernel = lambda: AK.flash_attention_backward(q, k, v, o, lse, do)  # noqa: E731
+    library = lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), dos, retain_graph=True)  # noqa: E731
+    turns = [event_ms(kernel, 3), event_ms(library, 3), event_ms(library, 3), event_ms(kernel, 3)]
+    del sdpa_out, qs, ks, vs
+    torch.cuda.empty_cache()
+    plain = []
+    plain_ms = timing.seconds(lambda: plain.append(AR.mha_backward_ref(q, k, v, o, lse, do)), dev) * 1e3
+    rel = 0.0
+    for name, got, want in zip(("dq", "dk", "dv"), kernel(), plain[0]):
+        scale = max(1.0, float(want.float().abs().max()))
+        rel = max(rel, max_err(got, want, f"flash_attention_bwd {name} at hd 192", BWD_TOL[bf][0],
+                               BWD_TOL[bf][1] * scale) / scale)
+    del plain
+    torch.cuda.empty_cache()
+    flops = 2.5 * 4 * h * hd * (s * (s + 1) // 2)
+    nbytes = (4 * s * h * hd + 4 * s * kv * hd) * 2 + h * s * 4
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    out = {"hd192_ms": (turns[0] + turns[3]) / 2, "hd192_library_ms": (turns[1] + turns[2]) / 2,
+           "hd192_bound_ms": max(bytes_ms, ops_ms), "hd192_bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "hd192_plain_ms": plain_ms, "hd192_max_rel_err": rel}
+    log("timing", f"flash_attention_bwd at hd 192 (B {b}, S {s}, {h}/{kv} heads, bf16; the mma.sync kernels, "
+        f"0 launches on the main path): in turns kernel {turns[0]:.4f}, SDPA backward {turns[1]:.4f}, "
+        f"{turns[2]:.4f}, kernel {turns[3]:.4f} ms a call (CUDA events over 3 calls); bound "
+        f"{out['hd192_bound_ms']:.4f} ms ({out['hd192_bound_by']}: {flops:.4g} FLOP at 989 TFLOP/s {ops_ms:.4f} ms, "
+        f"{nbytes} bytes at 3.35 TB/s {bytes_ms:.4f} ms), {out['hd192_bound_ms'] / out['hd192_ms']:.3f} of it; "
+        f"kernel/library {out['hd192_ms'] / out['hd192_library_ms']:.2f}; plain (mha_backward_ref) {plain_ms:.2f} "
+        f"ms, the kernel against it max |err| relative to the largest entry {rel:.3g} (tol 2e-2); {card}")
+    del q, k, v, o, lse, do, dos
+    torch.cuda.empty_cache()
+    h, kv, hd = 24, 8, 128
+    q = normal((1, TRAIN_S, h, hd), bf)
+    k, v = normal((1, TRAIN_S, kv, hd), bf), normal((1, TRAIN_S, kv, hd), bf)
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    kernel = lambda: AK.flash_attention(q, k, v, with_lse=True)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)  # noqa: E731
+    turns = [graph_ms(kernel, 10), graph_ms(library, 10), graph_ms(library, 10), graph_ms(kernel, 10)]
+    out["lse_ms"], out["lse_library_ms"] = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    log("timing", f"flash_attention with lse (the training forward) at B 1, S {TRAIN_S}, {h}/{kv} heads, hd {hd}, "
+        f"bf16 (CUDA graph, in turns): kernel {turns[0]:.4f}, SDPA forward (is_causal, enable_gqa) {turns[1]:.4f}, "
+        f"{turns[2]:.4f}, kernel {turns[3]:.4f} ms; kernel/library {out['lse_ms'] / out['lse_library_ms']:.2f}; "
+        f"{card}")
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(seed: int, dev, entries: dict) -> None:
+    """Phase 11, the LM across a device mesh, on the one card.
+
+    11a: the length-sharded decode (``dist.collectives.sharded_flash_decode``)
+    at llama3.2-3b's heads over a 32,768-position bf16 cache, as 4 and 16
+    slices of one cache (each shard one ``flash_decode`` launch on its
+    slice, then the combine), at lengths 1, 1,000, 8,192, 20,000 and
+    32,768; held to the unsharded kernel and to ``decode_attention_ref``
+    (2e-2 bf16; 5e-5 f32 at one case); then through a (1, 1) mesh of one
+    NCCL rank; the launches counted (zeroed just before, read just after)
+    and the ms a call of the n launches plus the combine beside the one
+    unsharded launch.
+
+    11b: ``make_train_step(param_shardings=...)`` on that mesh at 10b's
+    shape against the unsharded step; ``fit(mesh=...)`` 2 steps with a
+    checkpoint, ``elastic_restore`` onto no mesh, and a fit without a mesh
+    resuming 2 more, against 4 uninterrupted steps on the mesh. The process
+    group is destroyed at the end of the phase, failed or not. Adds the
+    launches to the kernels line's entries."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch import timing
+    from repro_torch.configs import get_arch
+    from repro_torch.core import igd
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.data import synthetic
+    from repro_torch.dist import collectives, sharding as shd
+    from repro_torch.kernels.attention import kernel as AK
+    from repro_torch.kernels.decode import kernel as DK, ref as DR
+    from repro_torch.launch import mesh as mesh_mod, train
+    from repro_torch.launch.elastic import elastic_restore
+    from repro_torch.launch.train_loop import fit
+    from repro_torch.models import lm
+    from repro_torch.optim import IGD
+
+    phase = timing.Stopwatch()
+    card = smi("name,power.limit")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 12)
+    cfg = get_arch("llama3.2-3b")
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    b, s = MESH_DECODE_B, MESH_DECODE_S
+
+    def normal(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # -- 11a. the length-sharded decode on the kernel -------------------------
+    q, kc, vc = normal((b, h, hd), torch.bfloat16), normal((b, s, kv, hd), torch.bfloat16), \
+        normal((b, s, kv, hd), torch.bfloat16)
+    cases = [(n, length) for n in MESH_SHARDS for length in MESH_LENGTHS]
+    DK.reset_launches()
+    outs = {(n, length): collectives.sharded_flash_decode(q, kc, vc, length, mesh_mod.AbstractMesh({"model": n}))
+            for n, length in cases}
+    torch.cuda.synchronize()
+    launches = DK.launches["flash_decode"]
+    if launches != sum(n for n, _ in cases):
+        raise AssertionError(f"11a: {launches} flash_decode launches for {len(cases)} sharded calls, not one a shard "
+                             f"({sum(n for n, _ in cases)})")
+    errs = {"kernel": 0.0, "plain": 0.0}
+    for (n, length), got in outs.items():
+        what = f"11a sharded_flash_decode bf16 n {n} length {length}"
+        errs["kernel"] = max(errs["kernel"], max_err(got, DK.flash_decode(q, kc, vc, length)[0],
+                                                     f"{what} vs the unsharded kernel", 2e-2, 2e-2))
+        errs["plain"] = max(errs["plain"], max_err(got, DR.decode_attention_ref(q, kc, vc, length)[0],
+                                                   f"{what} vs decode_attention_ref", 2e-2, 2e-2))
+    del outs
+    n32, len32 = MESH_F32_CASE
+    q32, k32, v32 = q.float(), kc.float(), vc.float()
+    got = collectives.sharded_flash_decode(q32, k32, v32, len32, mesh_mod.AbstractMesh({"model": n32}))
+    err32 = max(max_err(got, DK.flash_decode(q32, k32, v32, len32)[0], "11a f32 vs the unsharded kernel", 5e-5, 5e-5),
+                max_err(got, DR.decode_attention_ref(q32, k32, v32, len32)[0], "11a f32 vs decode_attention_ref",
+                        5e-5, 5e-5))
+    del q32, k32, v32, got
+    torch.cuda.empty_cache()
+    timings = {}
+    for n, length in ((4, 8192), (16, 8192), (4, MESH_DECODE_S), (16, MESH_DECODE_S)):
+        am = mesh_mod.AbstractMesh({"model": n})
+        one = lambda: DK.flash_decode(q, kc, vc, length)  # noqa: E731
+        sharded = lambda: collectives.sharded_flash_decode(q, kc, vc, length, am)  # noqa: E731
+        timings[(n, length)] = [event_ms(one, 20), event_ms(sharded, 20), event_ms(sharded, 20), event_ms(one, 20)]
+    log("mesh", f"11a sharded_flash_decode (llama3.2-3b heads {h}/{kv}, hd {hd}, B {b}, a {s}-position bf16 cache; "
+        f"n shards x lengths {MESH_SHARDS} x {MESH_LENGTHS}): {launches} flash_decode launches for {len(cases)} calls "
+        f"(one a shard); max |err| vs the unsharded kernel {errs['kernel']:.3g}, vs decode_attention_ref "
+        f"{errs['plain']:.3g} (tol 2e-2); f32 at n {n32}, length {len32}: {err32:.3g} (tol 5e-5); 11a's checks took "
+        f"{phase.lap():.1f} s")
+    log("mesh", "11a ms a call (CUDA events over 20 calls, in turns unsharded, sharded, sharded, unsharded; a sharded "
+        "call is n launches and the combine): " + "; ".join(
+            f"n {n} length {length}: {t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}, {t[3]:.4f} ms "
+            f"(sharded / unsharded {(t[1] + t[2]) / (t[0] + t[3]):.2f})" for (n, length), t in timings.items())
+        + f"; {card}")
+
+    # -- 11a, 11b through a (1, 1) mesh of one NCCL rank ------------------------
+    mesh_mod.init_world(device=dev)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_mesh_ckpt")
+    try:
+        mesh = mesh_mod.make_host_mesh(1, 1, device=dev)
+        DK.reset_launches()
+        got = {length: collectives.sharded_flash_decode(q, kc, vc, length, mesh) for length in MESH_LENGTHS}
+        torch.cuda.synchronize()
+        group_launches = DK.launches["flash_decode"]
+        for length, out in got.items():
+            errs["kernel"] = max(errs["kernel"], max_err(out, DK.flash_decode(q, kc, vc, length)[0],
+                                                         f"11a NCCL mesh length {length} vs the kernel", 2e-2, 2e-2))
+        if group_launches != len(MESH_LENGTHS):
+            raise AssertionError(f"11a NCCL mesh: {group_launches} launches for {len(MESH_LENGTHS)} calls")
+        del q, kc, vc, got
+        torch.cuda.empty_cache()
+        log("mesh", f"11a through make_host_mesh(1, 1) (world-1 NCCL group, all-reduce combine): {group_launches} "
+            f"launches, max |err| vs the unsharded kernel {errs['kernel']:.3g}; {mesh}")
+
+        # -- 11b. a sharded train step ------------------------------------------
+        small = cfg.scaled(n_layers=TRAIN_CPU_LAYERS, dtype="float32")
+        params = lm.init_lm(small, gen, dev)
+        tokens = torch.randint(0, small.vocab, (TRAIN_CPU_B, TRAIN_CPU_S), generator=gen, device=dev)
+        opt = IGD(igd.diminishing(*TRAIN_IGD_STEP), momentum=0.9)
+        plain_p = tree_map(lambda x: x.clone(), params)
+        plain_o = opt.init(plain_p)
+        plain_step = train.make_train_step(small, opt, grad_accum=2)
+        shd.set_activation_ctx(mesh)
+        pshard = shd.shardings(shd.param_specs(params, small, mesh), mesh)
+        sp = shd.distribute(params, pshard)
+        so = tuple(shd.distribute(t, pshard) for t in opt.init(params))
+        batch = shd.distribute({"tokens": tokens}, shd.shardings(shd.batch_specs(small, "train", mesh, TRAIN_CPU_B),
+                                                                  mesh))
+        sharded_step = train.make_train_step(small, opt, grad_accum=2, param_shardings=pshard)
+        for mod in (AK, DK):
+            mod.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        sharded_ms, plain_ms = [], []
+        for step in range(MESH_TRAIN_STEPS):  # the first step also fills DTensor's sharding caches
+            start.record()
+            sp, so, sm = sharded_step(sp, so, batch, step)
+            end.record()
+            end.synchronize()
+            sharded_ms.append(start.elapsed_time(end))
+        step_launches = {k: AK.launches[k] for k in ("flash_attention", "flash_attention_bwd")}
+        if not all(step_launches.values()):
+            raise AssertionError(f"11b: the sharded steps launched {step_launches}")
+        for step in range(MESH_TRAIN_STEPS):
+            start.record()
+            plain_p, plain_o, pm = plain_step(plain_p, plain_o, {"tokens": tokens}, step)
+            end.record()
+            end.synchronize()
+            plain_ms.append(start.elapsed_time(end))
+        worst, bitwise = 0.0, True
+        for got_t, want in zip(leaves(shd.full(sp)) + leaves(shd.full(so)), leaves(plain_p) + leaves(plain_o)):
+            got_t, want = got_t.detach(), want.detach()
+            bitwise = bitwise and torch.equal(got_t, want)
+            err = float((got_t - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+            worst = max(worst, err)
+            if err > MESH_TRAIN_TOL:
+                raise AssertionError(f"11b: a leaf {tuple(want.shape)} of the sharded step is {err:.3g} of its "
+                                     f"largest element from the unsharded step's (tol {MESH_TRAIN_TOL:g})")
+        loss_gap = abs(float(sm["loss"]) - float(pm["loss"]))
+        if loss_gap > MESH_TRAIN_TOL * abs(float(pm["loss"])):
+            raise AssertionError(f"11b: loss {float(sm['loss'])} sharded, {float(pm['loss'])} unsharded")
+        log("mesh", f"11b make_train_step(param_shardings=...) on make_host_mesh(1, 1), llama3.2-3b full width, "
+            f"{TRAIN_CPU_LAYERS} layers, float32, B {TRAIN_CPU_B} x S {TRAIN_CPU_S}, grad_accum 2, IGD momentum: last loss "
+            f"{float(sm['loss']):.7f} against {float(pm['loss']):.7f} unsharded; max |sharded - unsharded| / max "
+            f"|unsharded| over params and momentum {worst:.3g} (tol {MESH_TRAIN_TOL:g}), "
+            f"{'bitwise equal' if bitwise else 'not bitwise equal'} after {MESH_TRAIN_STEPS} steps; launches "
+            f"{step_launches}; step ms (CUDA events) sharded (DTensor) "
+            + ", ".join(f"{v:.1f}" for v in sharded_ms) + ", unsharded " + ", ".join(f"{v:.1f}" for v in plain_ms)
+            + f"; {card}")
+        del params, plain_p, plain_o, sp, so, batch
+        torch.cuda.empty_cache()
+
+        # fit on the mesh around a checkpoint, resumed with no mesh
+        small = cfg.scaled(n_layers=TRAIN_CPU_LAYERS)
+        init = lm.init_lm(small, gen, dev)
+        data = {"tokens": synthetic.token_stream(gen, RESUME_B * MESH_FIT_STEPS, RESUME_S, small.vocab)["tokens"]}
+        shutil.rmtree(root, ignore_errors=True)
+        kw = dict(optimizer=opt, global_batch=RESUME_B, grad_accum=RESUME_ACCUM, log_every=0, seed=seed,
+                  params=init, device=dev, ckpt_every=MESH_FIT_STEPS + 1, log_fn=lambda msg: log("mesh", msg))
+        AK.reset_launches()
+        full = fit(small, data, steps=MESH_FIT_STEPS, mesh=mesh, **kw)
+        fit_launches = {k: AK.launches[k] for k in ("flash_attention", "flash_attention_bwd")}
+        half = fit(small, data, steps=MESH_FIT_STEPS // 2, mesh=mesh, ckpt_dir=root, **kw)
+        rp, ro, meta = elastic_restore(root, small, opt, None, device=dev)
+        if meta["step"] != MESH_FIT_STEPS // 2 or any(shd.is_dtensor(x) for x in leaves(rp)):
+            raise AssertionError(f"11b: elastic_restore onto no mesh gave step {meta['step']}")
+        for a, b_ in zip(leaves(rp) + leaves(ro), leaves(shd.full(half.params)) + leaves(shd.full(half.opt_state))):
+            if not torch.equal(a, b_.detach()):
+                raise AssertionError("11b: the restored leaves differ from the checkpointed ones")
+        resumed = fit(small, data, steps=MESH_FIT_STEPS, ckpt_dir=root, **kw)
+        if resumed.resumed_from != MESH_FIT_STEPS // 2:
+            raise AssertionError(f"11b: resumed from {resumed.resumed_from}")
+        worst = 0.0
+        for a, b_ in zip(leaves(shd.full(full.params)) + [torch.tensor(full.losses[MESH_FIT_STEPS // 2:])],
+                         leaves(resumed.params) + [torch.tensor(resumed.losses)]):
+            a, b_ = a.detach(), b_.detach()
+            worst = max(worst, float((a - b_).abs().max()))
+            if not torch.allclose(b_, a, rtol=RESUME_RTOL, atol=RESUME_ATOL):
+                raise AssertionError(f"11b: the resumed run differs from the uninterrupted one by {worst:.3g}")
+        log("mesh", f"11b fit(mesh=make_host_mesh(1, 1)) llama3.2-3b full width, {TRAIN_CPU_LAYERS} layers, "
+            f"{MESH_FIT_STEPS} steps of {RESUME_B} x {RESUME_S} (losses {full.losses}) against {MESH_FIT_STEPS // 2} "
+            f"on the mesh + a checkpoint + elastic_restore onto no mesh (bitwise the checkpointed leaves) + a fit "
+            f"with no mesh resuming {MESH_FIT_STEPS // 2}: max |difference| {worst:.3g} (rtol {RESUME_RTOL:g}, "
+            f"atol {RESUME_ATOL:g}); the {MESH_FIT_STEPS} mesh steps launched {fit_launches}; 11b took "
+            f"{phase.lap():.1f} s")
+        del full, half, resumed, init, data, rp, ro
+        torch.cuda.empty_cache()
+    finally:
+        shd.set_activation_ctx(None)
+        shutil.rmtree(root, ignore_errors=True)
+        dist.destroy_process_group()
+    entries["flash_decode"].update(launches_sharded=launches + group_launches, sharded_max_abs_err=errs["kernel"],
+                                   sharded_f32_max_abs_err=err32,
+                                   sharded_ms={f"n{n}_len{length}": (t[1] + t[2]) / 2
+                                               for (n, length), t in timings.items()})
+    entries["flash_attention"].update(launches_mesh=step_launches["flash_attention"] + fit_launches["flash_attention"],
+                                      mesh_step_ms=sharded_ms, mesh_plain_step_ms=plain_ms)
+    entries["flash_attention_bwd"]["launches_mesh"] = step_launches["flash_attention_bwd"] + \
+        fit_launches["flash_attention_bwd"]
 
 
 def _leaves(tree):

@@ -12,8 +12,14 @@ The port updates params in place (``optim``), where the reference's
 writer thread reads immutable arrays. So ``CheckpointManager.save`` copies
 every leaf to host memory before it returns, and the thread only writes
 files: an update that follows a save cannot reach the checkpoint. bf16
-leaves are stored as float32 (exact) and cast back on restore. Mesh
-re-sharding (the reference's ``shardings``) waits for the sharding slice.
+leaves are stored as float32 (exact) and cast back on restore.
+
+Arrays are stored unsharded (logical values), so a restore can place them
+on any mesh: ``restore(shardings=...)`` distributes each leaf as a DTensor
+by its ``dist.sharding.Sharding`` (elastic scaling,
+``launch.elastic``). Saving a DTensor tree needs its logical values
+first: ``dist.sharding.full``, a collective every rank calls (``fit``
+does this, and only rank 0 writes).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch import timing
+from repro_torch.dist.sharding import is_dtensor
 
 
 def _flatten(tree, prefix=""):
@@ -49,6 +56,9 @@ def _unflatten(like, leaves):
 
 def _to_host(x) -> np.ndarray:
     """A host copy of ``x`` that nothing else holds (bf16 as float32)."""
+    if is_dtensor(x):
+        raise ValueError("a DTensor leaf: gather the tree with dist.sharding.full (a collective every rank calls) "
+                         "before saving it")
     if isinstance(x, torch.Tensor):
         dtype = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
         return x.detach().to("cpu", dtype=dtype, copy=True).numpy()
@@ -74,25 +84,40 @@ def _write(path: str, arrays: dict, step: int, meta: Optional[dict]):
     os.rename(tmp, path)
 
 
-def restore(path: str, like: Any, *, shardings: Any = None):
-    """Restore into the structure of ``like`` (a tree of tensors): each
-    leaf on its ``like`` leaf's device in its dtype. Returns (tree,
-    meta dict). Raises KeyError for a missing leaf, ValueError for a shape
-    that disagrees."""
+def restore(path: str, like: Any, *, shardings: Any = None, device=None):
+    """Restore into the structure of ``like`` (a tree of tensors; meta
+    tensors do): each leaf in its ``like`` leaf's dtype, on ``device``
+    (default: the ``like`` leaf's device). ``shardings``: an optional tree
+    of ``dist.sharding.Sharding`` matching ``like``, for elastic placement
+    onto a mesh: each leaf comes back a DTensor placed by it (every rank
+    calls this). Returns (tree, meta dict). Raises KeyError for a missing
+    leaf, ValueError for a shape that disagrees."""
+    shard_leaves = None
     if shardings is not None:
-        raise NotImplementedError("shardings: re-sharding onto a mesh waits for the port's sharding slice")
+        from torch.distributed.tensor import distribute_tensor
+
+        shard_leaves = [s for _, s in _flatten(shardings)]
     with np.load(os.path.join(path, "arrays.npz")) as z:
         data = {k: z[k] for k in z.files}
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
+    flat = _flatten(like)
+    if shard_leaves is not None and len(shard_leaves) != len(flat):
+        raise ValueError(f"{len(shard_leaves)} shardings for {len(flat)} leaves")
     out = []
-    for k, proto in _flatten(like):
+    for i, (k, proto) in enumerate(flat):
         if k not in data:
             raise KeyError(f"checkpoint missing leaf {k!r}")
         arr = data[k]
         if tuple(arr.shape) != tuple(proto.shape):
             raise ValueError(f"leaf {k!r}: checkpoint shape {arr.shape} != expected {tuple(proto.shape)}")
-        out.append(torch.from_numpy(arr).to(device=proto.device, dtype=proto.dtype))
+        if shard_leaves is not None:
+            s = shard_leaves[i]
+            value = torch.from_numpy(arr).to(device=s.mesh.device_type, dtype=proto.dtype)
+            out.append(distribute_tensor(value, s.mesh, s.placements))
+        else:
+            out.append(torch.from_numpy(arr).to(device=proto.device if device is None else device,
+                                                dtype=proto.dtype))
     return _unflatten(like, iter(out)), meta
 
 
@@ -155,11 +180,11 @@ class CheckpointManager:
         else:
             work()
 
-    def restore_latest(self, like: Any, *, shardings: Any = None):
+    def restore_latest(self, like: Any, *, shardings: Any = None, device=None):
         step = self.latest_step()
         if step is None:
             return None, None
-        return restore(self._path(step), like, shardings=shardings)
+        return restore(self._path(step), like, shardings=shardings, device=device)
 
     def _gc(self):
         for s in self.steps()[: -self.keep]:

@@ -31,4 +31,5 @@ from repro_torch.configs.base import (  # noqa: F401
     ShapeConfig,
     all_archs,
     get_arch,
+    shape_applicable,
 )

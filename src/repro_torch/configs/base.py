@@ -121,3 +121,10 @@ def all_archs() -> dict:
     import repro_torch.configs  # noqa: F401
 
     return dict(_REGISTRY)
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> bool:
+    """long_500k only runs for sub-quadratic families."""
+    if shape.name == "long_500k":
+        return cfg.sub_quadratic
+    return True

@@ -1,7 +1,13 @@
-"""Distribution layer of the port: the shared-nothing data-parallel IGD
-layouts and merges behind ``repro_torch.engine.shard``
-(``data_parallel``). The reference's LM-side ``sharding`` and
-``collectives`` come with the rest of the LM stack (ROADMAP queue 1
-item 7)."""
+"""Distribution layer of the port.
+
+* ``data_parallel`` — the shared-nothing data-parallel IGD layouts and
+  merges behind ``repro_torch.engine.shard`` (one process drives every
+  device);
+* ``sharding`` — the LM's partition specs (params, batches, caches,
+  activations) and their DTensor placements on a ``DeviceMesh``, one
+  process a device;
+* ``collectives`` — the length-sharded flash decode and its logsumexp
+  combine.
+"""
 
 from repro_torch.dist import data_parallel  # noqa: F401

@@ -24,14 +24,24 @@ controller, as the reference's ``shard_map`` is):
   that the XLA backend is not yet up are **not applicable**: PyTorch has
   no backend to bring up, and the count can change at any time.
 
-Not ported here: ``make_production_mesh`` and ``make_host_mesh``, the
-LM stack's (data, model) TPU meshes, come with the rest of the LM stack
-(ROADMAP queue 1 item 7).
+The LM stack's meshes (``dist.sharding``'s policy reads only their axis
+sizes, so it takes either kind):
+
+* ``make_host_mesh(data, model)`` — a ``DeviceMesh`` with dims ("data",
+  "model") over the ranks of the process group (one process a device:
+  gloo on the CPU, NCCL on the card). It raises when the world size is
+  not ``data * model``. A world of one needs no launcher:
+  :func:`init_world` builds its group from a ``HashStore``;
+* ``make_production_mesh(multi_pod)`` — the reference's (16, 16) ("data",
+  "model") or (2, 16, 16) ("pod", "data", "model") mesh as an
+  :class:`AbstractMesh`: axis names and sizes, no devices. 512 ranks exist
+  only as shape arithmetic (the dry run's).
 """
 
 from __future__ import annotations
 
-from typing import List
+import math
+from typing import Dict, List, Optional
 
 import torch
 
@@ -72,3 +82,63 @@ def shard_devices(num_devices: int, device=None) -> List[torch.device]:
     if device.type == "cuda":
         return [torch.device("cuda", (device.index + i) % have) for i in range(num_devices)]
     return [device] * num_devices
+
+
+# ---------------------------------------------------------------------------
+# LM meshes (repro_torch.dist.sharding)
+# ---------------------------------------------------------------------------
+
+
+class AbstractMesh:
+    """A mesh's axis names and sizes, with no devices behind it: ``shape``
+    is ``{axis: size}`` in axis order, as a JAX mesh's is."""
+
+    def __init__(self, shape: Dict[str, int]):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+        self.size = math.prod(self.shape.values())
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production mesh, abstract: 256 devices a pod as
+    (data=16, model=16); multi-pod adds a leading pod axis (2, 16, 16)."""
+    if multi_pod:
+        return AbstractMesh({"pod": 2, "data": 16, "model": 16})
+    return AbstractMesh({"data": 16, "model": 16})
+
+
+def init_world(backend: Optional[str] = None, device=None) -> None:
+    """A process group of one rank from a ``HashStore`` (no launcher, no
+    network), unless one is up already. The backend follows ``device``
+    (``resolve_device``): NCCL on the card, gloo on the CPU."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return
+    if backend is None:
+        backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, device=None):
+    """A ("data", "model") ``DeviceMesh`` over the process group's ranks
+    (rank r at data r // model, model r % model), on ``device``'s kind (the
+    card unless ``"cpu"``). The group must be up (``init_world`` for one
+    rank, ``torchrun`` or ``init_process_group`` for more)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_host_mesh needs a process group: call init_world() for one rank, "
+                           "or start the ranks with torchrun")
+    world = dist.get_world_size()
+    if world != data * model:
+        raise ValueError(f"a ({data}, {model}) mesh needs data x model = {data * model} ranks, "
+                         f"but the process group has {world}")
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return init_device_mesh(device.type, (data, model), mesh_dim_names=("data", "model"))

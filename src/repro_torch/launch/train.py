@@ -21,9 +21,27 @@ Differences in form, not in numbers:
 * the optimizer updates the params and its state in place
   (``optim.sgd``), and ``.grad`` is dropped after the update;
 * on one card the local-SGD pod bank is a leading dimension and the pods
-  step one after another, which is the reference's ``vmap``;
-* ``param_shardings`` is accepted only as ``None`` until the sharding
-  slice (``dist/sharding.py``) is ported.
+  step one after another, which is the reference's ``vmap``.
+
+Sharded (``param_shardings``, from ``dist.sharding.shardings``): the
+params and optimizer state are DTensors placed by their specs
+(``dist.sharding.distribute``), the batch is a DTensor placed by
+``batch_specs``, and DTensor's propagation takes GSPMD's place: a matmul
+over a sharded contraction dim all-reduces, a gather all-gathers. The
+step runs under ``implicit_replication``, so the tensors the model makes
+on the spot (RoPE angles, positions, the step size) count as replicated.
+Attention runs on each rank's local heads (``sharding.head_local``). The
+bf16 cast keeps each parameter's placements, as the reference's
+``with_sharding_constraint`` does; then each parameter's shards over the
+data axes are gathered for use (``sharding.gather_data_axes``, FSDP's
+gather), so every matmul sees the batch on the data axes and only the
+"model" split is left to DTensor. Each gradient is redistributed to
+its parameter's placements after every backward, so ``.grad``
+accumulation and the in-place optimizer keep the layout. The metrics come
+back as plain replicated tensors. A batch sharded over the data axes
+splits into microbatches by a reshape that keeps each rank's rows, so
+``global_batch / grad_accum`` must divide by the data axes' size (some
+torch releases refuse the reshape otherwise).
 """
 
 from __future__ import annotations
@@ -31,6 +49,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.tree import leaves, tree_map
+from repro_torch.dist import sharding as shd
 from repro_torch.models import lm
 
 
@@ -59,18 +78,28 @@ def make_train_step(cfg, optimizer, grad_accum: int = 1, compress_grads: bool = 
 
     ``compress_grads`` rounds the gradients through bf16. ``cast_bf16``
     casts the float32 params to bf16 before the forward; the gradients
-    reach the float32 masters through the cast."""
-    if param_shardings is not None:
-        raise NotImplementedError("param_shardings: the port's sharding slice (dist/sharding.py) is not ported yet")
+    reach the float32 masters through the cast.
+
+    ``param_shardings`` (a tree of ``dist.sharding.Sharding`` like the
+    params): the step takes DTensor params, state and batch laid out by
+    them (see the module's docstring) and returns DTensors in the same
+    placements."""
+    sharded = param_shardings is not None
 
     def loss_and_grads(params, mb):
         """The microbatch's loss (detached); its gradient added into each
         param's ``.grad``."""
         fwd = params
-        if cast_bf16:
+        if cast_bf16:  # a DTensor's cast keeps its placements
             fwd = tree_map(lambda p: p.to(torch.bfloat16) if p.dtype == torch.float32 else p, params)
+        if sharded:  # after the cast: the gathers move bf16, as the reference's do
+            fwd = tree_map(shd.gather_data_axes, fwd)
         loss, _ = lm.train_loss(fwd, mb, cfg)
         loss.backward()
+        if sharded:
+            for p in leaves(params):
+                if p.grad is not None and tuple(p.grad.placements) != tuple(p.placements):
+                    p.grad = p.grad.redistribute(p.device_mesh, p.placements)
         return loss.detach()
 
     def grads_of(params):
@@ -80,6 +109,15 @@ def make_train_step(cfg, optimizer, grad_accum: int = 1, compress_grads: bool = 
         tree_map(lambda g: g.copy_(g.to(torch.bfloat16)), grads)
 
     def train_step(params, opt_state, batch, step):
+        if not sharded:
+            return run_step(params, opt_state, batch, step)
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication():
+            params, opt_state, metrics = run_step(params, opt_state, batch, step)
+        return params, opt_state, {k: shd.full(v) for k, v in metrics.items()}
+
+    def run_step(params, opt_state, batch, step):
         step = int(step)
         ps = leaves(params)
         for p in ps:

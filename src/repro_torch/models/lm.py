@@ -26,8 +26,10 @@ Layer params are lists (the reference stacks them on leading axes for
 ``mamba`` a list of ``n_seg`` lists of ``attn_every`` dicts; the ssm's
 ``mlstm`` a list of ``n_seg`` lists of ``slstm_every - 1`` dicts and its
 ``slstm`` a list of ``n_seg`` dicts. The stacks are Python loops. The
-reference's ``constrain`` (``dist/sharding.py``) is the identity on one
-card and is left out.
+reference's three ``constrain`` calls (``dist/sharding.py``: the block's
+residual output, the embedded input, the logits) stand at the same
+places; they redistribute DTensor activations under an installed mesh and
+are the identity otherwise.
 
 Differences in form, not in numbers:
 
@@ -55,6 +57,7 @@ import torch
 import torch.utils.checkpoint as checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import constrain, embed_lookup
 from repro_torch.models import layers, mamba2, moe, xlstm
 
 TRANSFORMER_FAMILIES = ("dense", "moe", "vlm", "audio")
@@ -195,7 +198,7 @@ def _tf_block_apply(block, x, cfg, positions, kv=None, index=None):
         out, aux = moe.moe_ffn(block["moe"], h, cfg)
     else:
         out, aux = layers.mlp(block["mlp"], h, cfg), None
-    return x + out, new_kv, aux
+    return constrain(x + out, "resid"), new_kv, aux
 
 
 def _dots_policy():
@@ -302,9 +305,10 @@ def _hidden(params, tokens, cfg, cache, prefix_embeds):
     new cache or None)."""
     dt = layers.dtype_of(cfg.dtype)
     # cast the table before the gather, as the reference does
-    x = params["embed"].to(dt)[tokens]
+    x = embed_lookup(params["embed"].to(dt), tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(dt), x], dim=1)
+    x = constrain(x, "resid")
     b, s, _ = x.shape
     start = cache["index"] if cache is not None else 0
     positions = (start + torch.arange(s, dtype=torch.int32, device=x.device))[None, :].expand(b, s)
@@ -318,7 +322,7 @@ def _head(params, x, cfg):
     logits = (x @ head).float()
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits
+    return constrain(logits, "logits")
 
 
 def hidden_states(params, tokens, cfg, *, prefix_embeds=None, cache: Optional[dict] = None):
@@ -350,8 +354,11 @@ def train_loss(params, batch: dict, cfg, aux_weight: float = 0.01):
     pred = logits[:, p:p + tokens.shape[1] - 1]
     tgt = tokens[:, 1:].long()
     logz = torch.logsumexp(pred, dim=-1)
-    gold = torch.gather(pred, -1, tgt[..., None])[..., 0]
-    ce = (logz - gold).mean()
+    # the trailing dim is dropped after the subtraction: on vocab-sharded
+    # DTensor logits the gather is a masked partial sum, which must be
+    # reduced at the gather's own shape (the same values either way)
+    gold = torch.gather(pred, -1, tgt[..., None])
+    ce = (logz[..., None] - gold)[..., 0].mean()
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 

@@ -3,7 +3,9 @@ trees (dicts, per-layer lists, optimizer-state tuples, bf16 leaves), the
 reference's layout (``step_<N>/arrays.npz`` keyed by tree path +
 ``meta.json``), refusals, keep-k and the latest checkpoint, and the
 asynchronous writer: a save followed at once by an in-place update writes
-the values from before the update."""
+the values from before the update. ``restore(shardings=...)`` places each
+leaf on a mesh (one gloo rank here; 8 ranks in ``test_torch_elastic.py``)
+and ``restore(device=...)`` fills meta ``like`` trees."""
 
 import json
 import os
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_dist import world1  # noqa: F401
 from repro_torch.ckpt import CheckpointManager, restore, save
 from repro_torch.ckpt import checkpoint as ckpt_mod
 
@@ -56,7 +59,7 @@ def test_restore_refuses_a_shape_that_disagrees_and_a_missing_leaf(tmp_path):
     like["params"]["extra"] = torch.zeros(1)
     with pytest.raises(KeyError, match="extra"):
         restore(str(tmp_path / "c"), like)
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(ValueError, match="shardings for"):
         restore(str(tmp_path / "c"), _tree(), shardings={})
 
 
@@ -102,3 +105,33 @@ def test_a_failed_background_write_is_raised_by_wait(tmp_path, monkeypatch):
     mgr.save(1, _tree())
     with pytest.raises(OSError, match="disk full"):
         mgr.wait()
+
+
+def test_restore_onto_shardings_distributes_each_leaf(tmp_path, world1):
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+
+    tree = _tree(5)
+    save(str(tmp_path / "c"), tree, step=2)
+    mesh = make_host_mesh(1, 1, device="cpu")
+    specs = tree_map(lambda x: shd.P("data", *([None] * (x.dim() - 1))), tree)
+    got, meta = restore(str(tmp_path / "c"), _tree(), shardings=shd.shardings(specs, mesh))
+    assert meta["step"] == 2
+    for g, w in zip(leaves(got), leaves(tree)):
+        assert shd.is_dtensor(g) and g.device_mesh is mesh and g.dtype == w.dtype
+        assert torch.equal(g.full_tensor(), w)
+    # a DTensor tree is gathered before a save: saving it as it is raises
+    with pytest.raises(ValueError, match="sharding.full"):
+        save(str(tmp_path / "d"), got, step=3)
+    save(str(tmp_path / "d"), shd.full(got), step=3)
+    assert _equal(restore(str(tmp_path / "d"), _tree())[0], tree)
+
+
+def test_restore_into_a_meta_tree_takes_the_device(tmp_path):
+    tree = _tree(6)
+    save(str(tmp_path / "c"), tree, step=1)
+    from repro_torch.core.tree import tree_map
+
+    got, _ = restore(str(tmp_path / "c"), tree_map(lambda x: x.to("meta"), _tree()), device="cpu")
+    assert _equal(got, tree)

@@ -930,3 +930,73 @@ def test_cuda_train_step_matches_the_cpu_run():
 
     for got, want in zip(leaves(runs["cuda"][:2]), leaves(runs["cpu"][:2])):
         torch.testing.assert_close(got.detach().cpu(), want.detach(), rtol=1e-4, atol=1e-4)
+
+
+@needs_card
+@pytest.mark.parametrize("n", [1, 4, 16])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
+def test_cuda_sharded_flash_decode_is_one_launch_a_shard_and_matches_the_kernel(n, dtype, tol):
+    """The length-sharded decode on the card: n slices of one cache, each
+    one flash_decode launch (empty slices too), the combine against the
+    unsharded kernel and the plain version, lengths inside the first
+    shard, on a boundary and full."""
+    from repro_torch.dist import collectives
+    from repro_torch.kernels.decode import kernel as DK, ref as DR
+    from repro_torch.launch.mesh import AbstractMesh
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    b, h, kv, hd, s = 2, 12, 4, 128, 4096
+    q = torch.randn((b, h, hd), generator=g, device="cuda").to(dtype)
+    kc = torch.randn((b, s, kv, hd), generator=g, device="cuda").to(dtype)
+    vc = torch.randn((b, s, kv, hd), generator=g, device="cuda").to(dtype)
+    for length in (1, 77, s // n, s):
+        before = DK.launches["flash_decode"]
+        got = collectives.sharded_flash_decode(q, kc, vc, length, AbstractMesh({"model": n}))
+        torch.cuda.synchronize()
+        assert DK.launches["flash_decode"] == before + n
+        torch.testing.assert_close(got, DK.flash_decode(q, kc, vc, length)[0], rtol=tol, atol=tol)
+        torch.testing.assert_close(got, DR.decode_attention_ref(q, kc, vc, length)[0], rtol=tol, atol=tol)
+
+
+@needs_card
+def test_cuda_sharded_train_step_on_a_one_rank_nccl_mesh_is_the_unsharded_step():
+    """make_train_step(param_shardings=...) on a (1, 1) mesh of one NCCL
+    rank, bit for bit the unsharded step on the card; the attention
+    kernels run on the ranks' local tensors (local_map)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import igd
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels.attention import kernel as AK
+    from repro_torch.launch import mesh as mesh_mod, train
+    from repro_torch.models import lm
+    from repro_torch.optim import IGD
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("llama3.2-3b").smoke().scaled(d_model=256, head_dim=64, dtype="bfloat16")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    params = lm.init_lm(cfg, g, "cuda")
+    tokens = torch.randint(0, cfg.vocab, (4, 64), generator=g, device="cuda")
+    opt = IGD(igd.constant(0.05), momentum=0.9)
+    plain_p = tree_map(lambda x: x.clone(), params)
+    plain_o = opt.init(plain_p)
+    mesh_mod.init_world(device="cuda")
+    try:
+        mesh = mesh_mod.make_host_mesh(1, 1, device="cuda")
+        shd.set_activation_ctx(mesh)
+        pshard = shd.shardings(shd.param_specs(params, cfg, mesh), mesh)
+        sp = shd.distribute(params, pshard)
+        so = tuple(shd.distribute(t, pshard) for t in opt.init(params))
+        batch = shd.distribute({"tokens": tokens}, shd.shardings(shd.batch_specs(cfg, "train", mesh, 4), mesh))
+        before = dict(AK.launches)
+        sp, so, sm = train.make_train_step(cfg, opt, grad_accum=2, param_shardings=pshard)(sp, so, batch, 0)
+        assert all(AK.launches[k] > before[k] for k in ("flash_attention", "flash_attention_bwd"))
+        plain_p, plain_o, pm = train.make_train_step(cfg, opt, grad_accum=2)(plain_p, plain_o, {"tokens": tokens}, 0)
+        assert torch.equal(sm["loss"], pm["loss"])
+        for a, b in zip(leaves(shd.full(sp)) + leaves(shd.full(so)), leaves(plain_p) + leaves(plain_o)):
+            assert torch.equal(a, b)
+    finally:
+        shd.set_activation_ctx(None)
+        dist.destroy_process_group()

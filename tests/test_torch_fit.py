@@ -20,6 +20,7 @@ from repro.launch import train as jax_train
 from repro.launch.train_loop import fit as jax_fit
 from repro.models import lm as jax_lm
 from repro.optim import IGD as JaxIGD
+from _torch_dist import world1  # noqa: F401
 from repro_torch import convert
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import igd
@@ -80,10 +81,37 @@ def test_straggler_watchdog_counts(ft):
     assert r.straggler_events == 3
 
 
-def test_fit_refuses_a_mesh(ft):
+def test_fit_refuses_an_object_that_is_not_a_mesh(ft):
     _, cfg, tokens, _ = ft
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         fit(cfg, {"tokens": torch.from_numpy(tokens)}, steps=1, mesh=object(), **_kw())
+
+
+def test_fit_on_a_one_rank_mesh_equals_fit_without_one(ft, tmp_path, world1):
+    """``fit(mesh=...)`` on a (1, 1) mesh of one gloo rank: the same losses
+    and params bit for bit, a checkpoint of logical arrays, and a resume
+    through ``elastic_restore`` equal to the uninterrupted run (the
+    reference's rtol=1e-6, atol=1e-7); the activation context is put back
+    (8 ranks and two meshes: ``test_torch_elastic.py``)."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+
+    _, cfg, tokens, params = ft
+    data = {"tokens": torch.from_numpy(tokens)}
+    mesh = make_host_mesh(1, 1, device="cpu")
+    kw = dict(_kw(), ckpt_every=3, params=params)
+    plain = fit(cfg, data, steps=6, **kw)
+    meshed = fit(cfg, data, steps=6, mesh=mesh, ckpt_dir=str(tmp_path / "a"), **kw)
+    assert shd.activation_ctx() == (None, False)
+    assert meshed.losses == plain.losses
+    for a, b in zip(leaves(meshed.params), leaves(plain.params)):
+        assert shd.is_dtensor(a) and torch.equal(a.full_tensor(), b)
+    fit(cfg, data, steps=3, mesh=mesh, ckpt_dir=str(tmp_path / "b"), **kw)
+    resumed = fit(cfg, data, steps=6, mesh=mesh, ckpt_dir=str(tmp_path / "b"), **kw)
+    assert resumed.resumed_from == 3
+    np.testing.assert_allclose(resumed.losses, plain.losses[3:], rtol=1e-6, atol=1e-7)
+    for a, b in zip(leaves(resumed.params), leaves(plain.params)):
+        np.testing.assert_allclose(a.full_tensor().detach().numpy(), b.detach().numpy(), rtol=1e-6, atol=1e-7)
 
 
 @pytest.fixture(scope="module")

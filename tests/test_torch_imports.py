@@ -22,7 +22,9 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.tasks.baselines, repro_torch.data.synthetic, repro_torch.configs.paper_tasks, "
         "repro_torch.obs, repro_torch.launch.obs_server, repro_torch.kernels.igd_fused, "
         "repro_torch.optim, repro_torch.optim.compression, repro_torch.ckpt, repro_torch.data.pipeline, "
-        "repro_torch.launch.train, repro_torch.launch.train_loop\n"
+        "repro_torch.launch.train, repro_torch.launch.train_loop, repro_torch.dist.sharding, "
+        "repro_torch.dist.collectives, repro_torch.launch.elastic, repro_torch.launch.inputs, "
+        "repro_torch.launch.mesh\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"

@@ -22,6 +22,7 @@ from repro.core import igd as jax_igd
 from repro.launch import train as jax_train
 from repro.models import lm as jax_lm
 from repro.optim import AdamW as JaxAdamW, IGD as JaxIGD
+from _torch_dist import world1  # noqa: F401
 from repro_torch import convert
 from repro_torch.configs import get_arch
 from repro_torch.core import igd
@@ -118,10 +119,42 @@ def test_microbatch_split_is_the_reference_strided_split():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_param_shardings_wait_for_the_sharding_slice():
+@pytest.mark.parametrize("mode", ["grad_accum_2", "cast_bf16"])
+def test_param_shardings_on_one_rank_equal_the_unsharded_step(mode, world1):
+    """``param_shardings`` on a (1, 1) mesh of one gloo rank: DTensor
+    params, state and batch through the same step, bit for bit the
+    unsharded step; every leaf keeps its placements (8 ranks:
+    ``test_torch_distributed.py``)."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+
     cfg = get_arch("llama3.2-3b").smoke()
-    with pytest.raises(NotImplementedError, match="sharding"):
-        train.make_train_step(cfg, IGD(igd.constant(0.1)), param_shardings={})
+    kw = {"grad_accum_2": {"grad_accum": 2}, "cast_bf16": {"cast_bf16": True}}[mode]
+    gen = torch.Generator().manual_seed(4)
+    params = lm.init_lm(cfg, gen, "cpu")
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen)
+    opt = IGD(igd.constant(0.1), momentum=0.9)
+    want_p, want_o = tree_map(lambda x: x.clone(), params), opt.init(params)
+    mesh = make_host_mesh(1, 1, device="cpu")
+    shd.set_activation_ctx(mesh)
+    pshard = shd.shardings(shd.param_specs(params, cfg, mesh), mesh)
+    got_p = shd.distribute(params, pshard)
+    got_o = tuple(shd.distribute(t, pshard) for t in opt.init(params))
+    batch = shd.distribute({"tokens": tokens}, shd.shardings(shd.batch_specs(cfg, "train", mesh, B), mesh))
+    sharded = train.make_train_step(cfg, opt, param_shardings=pshard, **kw)
+    plain = train.make_train_step(cfg, opt, **kw)
+    for step in range(2):
+        got_p, got_o, got_m = sharded(got_p, got_o, batch, step)
+        want_p, want_o, want_m = plain(want_p, want_o, {"tokens": tokens}, step)
+        assert not shd.is_dtensor(got_m["loss"]) and torch.equal(got_m["loss"], want_m["loss"])
+        assert torch.equal(got_m["grad_norm"], want_m["grad_norm"])
+    for g, w, s in zip(leaves(got_p), leaves(want_p), leaves(pshard)):
+        assert shd.is_dtensor(g) and g.placements == s.placements and torch.equal(g.full_tensor(), w)
+    for g, w in zip(leaves(got_o), leaves(want_o)):
+        assert torch.equal(g.full_tensor(), w)
+    assert torch.equal(params["embed"], lm.init_lm(cfg, torch.Generator().manual_seed(4), "cpu")["embed"])
 
 
 @pytest.mark.parametrize("mode", ["igd_momentum", "adamw"])
