@@ -164,8 +164,9 @@ the kernels build for sm_90a). Phases, each printed as it ends:
 
 10. LM training on the card (lines tagged [train]): 10a the forward's lse
    and the three gradient kernels (flash_attention_bwd.cu: D, dk/dv, dq;
-   bf16 at widths 64 and 128 on wgmma fed by TMA with a producer
-   warpgroup, at 192 on mma.sync) against ref.mha_lse_ref /
+   bf16 at widths 64, 128 and 192 on wgmma fed by TMA with a producer
+   warpgroup; at 192 a dk/dv block splits the products between its two
+   consumers) against ref.mha_lse_ref /
    ref.mha_backward_ref over hd 64/80/128/136/192
    (80 and 136 padded into the 128- and 192-wide bf16 instances) x
    q heads a kv head 1/3/6/12 x S 37/1,000/2,048 x soft cap off/30, both
@@ -341,8 +342,8 @@ TRAIN_IGD_STEP = (0.002, 200.0)
 # 10d: resume at full width, 2 layers: 6 steps against 3 + a checkpoint + 3
 RESUME_STEPS, RESUME_B, RESUME_S, RESUME_ACCUM = 6, 2, 1024, 2
 RESUME_RTOL, RESUME_ATOL = 1e-6, 1e-7  # the reference's (tests/test_fault_tolerance.py)
-# the extra timings of phase 10: the hd 192 gradient (the mma.sync
-# kernels) at nemotron-4's heads, and the lse forward beside SDPA's forward
+# the extra timings of phase 10: the hd 192 gradient (the 192-wide wgmma
+# instance) at nemotron-4's heads, and the lse forward beside SDPA's forward
 BWD192_SHAPE = (1, 4096, 96, 8, 192)  # (B, S, H, Kv, hd), bf16
 # phase 11, the LM across a mesh. 11a: the length-sharded decode at
 # llama3.2-3b's heads over decode_32k's 32,768 cached positions, its batch
@@ -359,7 +360,7 @@ MESH_F32_CASE = (16, 20000)
 MESH_TRAIN_TOL, MESH_TRAIN_STEPS, MESH_FIT_STEPS = 1e-4, 3, 4
 # the gradient call's three launches, by a substring of their kernels' names,
 # and the calls profiled to time each
-BWD_KINDS, BWD_PROFILED = {"D": "rowdot_kernel", "dk/dv": "dkdv_kernel", "dq": "dq_kernel"}, 10
+BWD_KINDS, BWD_PROFILED = {"D": "rowdot_kernel", "dk/dv": "dkdv_", "dq": "dq_kernel"}, 10
 # the kernel instances the other families added, each a row of the kernels line
 INSTANCES = ("flash_attention[softcap]", "flash_attention[offset]", "flash_attention[hd192]",
              "flash_decode[softcap]", "flash_decode[hd192]")
@@ -2725,9 +2726,11 @@ def training(seed: int, dev, entries: dict) -> list:
 
 
 def training_extra_timings(normal, dev, card: str) -> dict:
-    """Two more timings of phase 10: the hd 192 gradient (the mma.sync
-    kernels, which the main path does not launch) at nemotron-4's heads,
-    with its bound and SDPA's backward in turns; and SDPA's forward
+    """Two more timings of phase 10: the hd 192 gradient (the 192-wide wgmma
+    instance: dkdv_split_kernel and dq_kernel at 192, which the main path
+    does not launch) at nemotron-4's heads, with its bound and SDPA's
+    backward in turns and each of its three launches' device time under the
+    profiler; and SDPA's forward
     (is_causal, enable_gqa) in turns with the lse forward at the training
     shape. Returns the numbers for the kernels line."""
     import torch.nn.functional as F
@@ -2748,6 +2751,8 @@ def training_extra_timings(normal, dev, card: str) -> dict:
     turns = [event_ms(kernel, 3), event_ms(library, 3), event_ms(library, 3), event_ms(kernel, 3)]
     del sdpa_out, qs, ks, vs
     torch.cuda.empty_cache()
+    launch_ms = kernel_ms_by_kind(kernel, BWD_PROFILED, BWD_KINDS)
+    torch.cuda.empty_cache()
     plain = []
     plain_ms = timing.seconds(lambda: plain.append(AR.mha_backward_ref(q, k, v, o, lse, do)), dev) * 1e3
     rel = 0.0
@@ -2762,14 +2767,19 @@ def training_extra_timings(normal, dev, card: str) -> dict:
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
     out = {"hd192_ms": (turns[0] + turns[3]) / 2, "hd192_library_ms": (turns[1] + turns[2]) / 2,
            "hd192_bound_ms": max(bytes_ms, ops_ms), "hd192_bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "hd192_plain_ms": plain_ms, "hd192_max_rel_err": rel}
-    log("timing", f"flash_attention_bwd at hd 192 (B {b}, S {s}, {h}/{kv} heads, bf16; the mma.sync kernels, "
+           "hd192_plain_ms": plain_ms, "hd192_max_rel_err": rel,
+           "hd192_launch_ms": {kind: ms for kind, (ms, _) in launch_ms.items()}}
+    log("timing", f"flash_attention_bwd at hd 192 (B {b}, S {s}, {h}/{kv} heads, bf16; the 192-wide wgmma instance, "
         f"0 launches on the main path): in turns kernel {turns[0]:.4f}, SDPA backward {turns[1]:.4f}, "
         f"{turns[2]:.4f}, kernel {turns[3]:.4f} ms a call (CUDA events over 3 calls); bound "
         f"{out['hd192_bound_ms']:.4f} ms ({out['hd192_bound_by']}: {flops:.4g} FLOP at 989 TFLOP/s {ops_ms:.4f} ms, "
         f"{nbytes} bytes at 3.35 TB/s {bytes_ms:.4f} ms), {out['hd192_bound_ms'] / out['hd192_ms']:.3f} of it; "
         f"kernel/library {out['hd192_ms'] / out['hd192_library_ms']:.2f}; plain (mha_backward_ref) {plain_ms:.2f} "
-        f"ms, the kernel against it max |err| relative to the largest entry {rel:.3g} (tol 2e-2); {card}")
+        f"ms, the kernel against it max |err| relative to the largest entry {rel:.3g} (tol 2e-2); device ms a launch "
+        f"(profiler, {BWD_PROFILED} calls) "
+        + ", ".join(f"{k} " + ("not measured" if v is None else f"{v:.4f} ({n} traced)")
+                    for k, (v, n) in launch_ms.items())
+        + f"; {card}")
     del q, k, v, o, lse, do, dos
     torch.cuda.empty_cache()
     h, kv, hd = 24, 8, 128
@@ -2800,7 +2810,7 @@ def mesh_phase(seed: int, dev, entries: dict) -> None:
     (2e-2 bf16; 5e-5 f32 at one case); then through a (1, 1) mesh of one
     NCCL rank; the launches counted (zeroed just before, read just after)
     and the ms a call of the n launches plus the combine beside the one
-    unsharded launch.
+    unsharded launch and SDPA over ``cache[:, :length]`` in turns.
 
     11b: ``make_train_step(param_shardings=...)`` on that mesh at 10b's
     shape against the unsharded step; ``fit(mesh=...)`` 2 steps with a
@@ -2811,6 +2821,7 @@ def mesh_phase(seed: int, dev, entries: dict) -> None:
     import shutil
 
     import torch.distributed as dist
+    import torch.nn.functional as F
 
     from repro_torch import timing
     from repro_torch.configs import get_arch
@@ -2870,16 +2881,21 @@ def mesh_phase(seed: int, dev, entries: dict) -> None:
         am = mesh_mod.AbstractMesh({"model": n})
         one = lambda: DK.flash_decode(q, kc, vc, length)  # noqa: E731
         sharded = lambda: collectives.sharded_flash_decode(q, kc, vc, length, am)  # noqa: E731
-        timings[(n, length)] = [event_ms(one, 20), event_ms(sharded, 20), event_ms(sharded, 20), event_ms(one, 20)]
+        # the library yardstick: SDPA over cache[:, :length], one query, out only (as phase 9 times it)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q[:, :, None], kc[:, :length].transpose(1, 2), vc[:, :length].transpose(1, 2), enable_gqa=True)
+        timings[(n, length)] = [event_ms(one, 20), event_ms(sharded, 20), event_ms(library, 20),
+                                event_ms(library, 20), event_ms(sharded, 20), event_ms(one, 20)]
     log("mesh", f"11a sharded_flash_decode (llama3.2-3b heads {h}/{kv}, hd {hd}, B {b}, a {s}-position bf16 cache; "
         f"n shards x lengths {MESH_SHARDS} x {MESH_LENGTHS}): {launches} flash_decode launches for {len(cases)} calls "
         f"(one a shard); max |err| vs the unsharded kernel {errs['kernel']:.3g}, vs decode_attention_ref "
         f"{errs['plain']:.3g} (tol 2e-2); f32 at n {n32}, length {len32}: {err32:.3g} (tol 5e-5); 11a's checks took "
         f"{phase.lap():.1f} s")
-    log("mesh", "11a ms a call (CUDA events over 20 calls, in turns unsharded, sharded, sharded, unsharded; a sharded "
-        "call is n launches and the combine): " + "; ".join(
-            f"n {n} length {length}: {t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}, {t[3]:.4f} ms "
-            f"(sharded / unsharded {(t[1] + t[2]) / (t[0] + t[3]):.2f})" for (n, length), t in timings.items())
+    log("mesh", "11a ms a call (CUDA events over 20 calls, in turns unsharded, sharded, SDPA over cache[:, :length] "
+        "(one query, out only), SDPA, sharded, unsharded; a sharded call is n launches and the combine): " + "; ".join(
+            f"n {n} length {length}: {t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}, {t[3]:.4f}, {t[4]:.4f}, {t[5]:.4f} ms "
+            f"(sharded / unsharded {(t[1] + t[4]) / (t[0] + t[5]):.2f}, sharded / SDPA {(t[1] + t[4]) / (t[2] + t[3]):.2f})"
+            for (n, length), t in timings.items())
         + f"; {card}")
 
     # -- 11a, 11b through a (1, 1) mesh of one NCCL rank ------------------------
@@ -2999,8 +3015,10 @@ def mesh_phase(seed: int, dev, entries: dict) -> None:
         dist.destroy_process_group()
     entries["flash_decode"].update(launches_sharded=launches + group_launches, sharded_max_abs_err=errs["kernel"],
                                    sharded_f32_max_abs_err=err32,
-                                   sharded_ms={f"n{n}_len{length}": (t[1] + t[2]) / 2
-                                               for (n, length), t in timings.items()})
+                                   sharded_ms={f"n{n}_len{length}": (t[1] + t[4]) / 2
+                                               for (n, length), t in timings.items()},
+                                   sharded_library_ms={f"n{n}_len{length}": (t[2] + t[3]) / 2
+                                                       for (n, length), t in timings.items()})
     entries["flash_attention"].update(launches_mesh=step_launches["flash_attention"] + fit_launches["flash_attention"],
                                       mesh_step_ms=sharded_ms, mesh_plain_step_ms=plain_ms)
     entries["flash_attention_bwd"]["launches_mesh"] = step_launches["flash_attention_bwd"] + \

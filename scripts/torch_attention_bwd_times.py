@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Device ms of the attention gradient kernels at llama3.2-3b's training shape, for one checkout.
+"""Device ms of the attention gradient kernels at llama3.2-3b's or nemotron-4's heads, for one checkout.
 
-    python3 scripts/torch_attention_bwd_times.py [--root DIR] [--turns N] [--ptxas]
+    python3 scripts/torch_attention_bwd_times.py [--root DIR] [--hd 128|192] [--turns N] [--ptxas]
 
 Loads repro_torch from DIR/src (default: this checkout), so the kernels
 build from DIR's sources into DIR/build, and times
-``kernel.flash_attention_backward`` (B 1, S 4,096, 24/8 heads, hd 128,
-bf16: the shape each of the training step's 224 gradient calls has) with
-CUDA events over 5 calls, in N turns with scaled_dot_product_attention's
+``kernel.flash_attention_backward`` in bf16 at B 1, S 4,096 and, with
+``--hd 128`` (the default), llama3.2-3b's 24/8 heads (the shape each of
+the training step's 224 gradient calls has) or, with ``--hd 192``,
+nemotron-4's 96/8 heads, with CUDA events over 5 calls, in N turns with
+scaled_dot_product_attention's
 backward (``is_causal``, ``enable_gqa``) on the same inputs; then each of
 the call's three launches (D, dk/dv, dq) under ``torch.profiler``, device
 time per launch. With ``--ptxas`` it rebuilds the gradient library with
@@ -30,9 +32,12 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-B, S, H, KV, HD = 1, 4096, 24, 8, 128
+B, S = 1, 4096
+HEADS = {128: (24, 8), 192: (96, 8)}  # hd -> (H, Kv): llama3.2-3b's, nemotron-4's
 CALLS, PROFILED = 5, 10
-LAUNCH_KINDS = {"D": "rowdot_kernel", "dk/dv": "dkdv_kernel", "dq": "dq_kernel"}
+# a substring of each launch's kernel names in every checkout (dkdv_kernel,
+# dkdv_split_kernel)
+LAUNCH_KINDS = {"D": "rowdot_kernel", "dk/dv": "dkdv_", "dq": "dq_kernel"}
 
 
 def event_ms(fn, iters: int) -> float:
@@ -73,14 +78,15 @@ def launch_ms(fn, calls: int) -> dict:
 
 
 def ptxas_lines(text: str) -> list:
-    """Each kernel's 'Used N registers' and spill lines from ptxas -v, and
-    any warning (a serialized wgmma, for one)."""
+    """Each kernel's 'Used N registers' and spill lines from ptxas -v, any
+    warning, and any 'Potential Performance Loss' note (a serialized wgmma,
+    for one)."""
     keep, name = [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'|Function properties for (\S+)", line)
         if m:
             name = m.group(1) or m.group(2)
-        if "spill" in line or "Used " in line or "warning" in line.lower():
+        if "spill" in line or "Used " in line or "warning" in line.lower() or "Performance" in line:
             keep.append(f"{name}: {line.strip()}")
     return keep
 
@@ -88,6 +94,7 @@ def ptxas_lines(text: str) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--hd", type=int, choices=sorted(HEADS), default=128)
     ap.add_argument("--turns", type=int, default=3)
     ap.add_argument("--ptxas", action="store_true", help="rebuild with -Xptxas -v and report registers and spills")
     args = ap.parse_args()
@@ -100,6 +107,7 @@ def main() -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    (H, KV), HD = HEADS[args.hd], args.hd
     out = {"root": str(root), "card": card, "source": str(Path(AK.BWD_SOURCE).resolve()),
            "shape": {"B": B, "S": S, "H": H, "Kv": KV, "hd": HD, "dtype": "bfloat16"}}
     if args.ptxas:

@@ -39,13 +39,12 @@
 // The dq kernel recomputes S and dP, which the dk/dv kernel also forms: the
 // price of no atomics. Blocks are taken longest first.
 //
-// Three instances, a fixed dispatch by dtype and width; none is a fallback
-// for another:
+// Two designs, a fixed dispatch by dtype; none is a fallback for the other:
 // - float32 on CUDA cores (TF32 would break the reference's tolerance):
 //   256 threads, a 4 x 4 register block of each 64 x 64 score tile a
 //   thread, tiles staged by cp.async, rows padded by 16 bytes.
-// - bfloat16 at HD 64 and 128 (every family's width but nemotron-4's;
-//   zamba2's 80 runs padded into 128): wgmma fed by TMA, in the manner of
+// - bfloat16 at HD 64, 128 and 192 (zamba2's 80 runs padded into 128, 136
+//   into 192): wgmma fed by TMA, in the manner of
 //   FlashAttention-3's backward without its atomics, and of the forward
 //   (flash_attention.cu, whose TMA, mbarrier, descriptor and wgmma helpers
 //   hopper.cuh shares). 384 threads: warpgroup 0 is the producer (one
@@ -84,15 +83,16 @@
 //   Registers at HD 128 (240 a consumer thread, no spills): dk/dv 64 + 64
 //   accumulators, S^T and dP^T 32 + 32, then 16 + 16 bf16 fragments in
 //   their place; dq 64 + 32 + 32 and the q and dO fragments 32 + 32.
-// - bfloat16 at HD 192 (nemotron-4's heads) keeps the mma.sync m16n8k16
-//   kernels (namespace mma): the dk/dv accumulators (96 + 96 floats a
-//   thread) do not fit beside the score tiles in one consumer warpgroup.
-//   Tiles stream in by cp.async through two stages, row major with 16
-//   bytes of padding; P and dS go from the score accumulators straight into
-//   A fragments; the B operands needed along the other axis (Q and dO for
-//   dk and dv, K for dq) come through ldmatrix .trans; 8 warps in dk/dv,
-//   two a 16-key row group, each accumulating half of dk's and dv's
-//   columns.
+//   At HD 192 (nemotron-4's heads) a consumer cannot hold 64 keys' dk and
+//   dv (96 + 96 accumulators a thread) beside the score tiles, nor three
+//   stages fit shared memory beside two resident 128-row tiles, so:
+//   dk/dv (dkdv_split_kernel) takes a block a 64-key tile and splits the
+//   products between the two consumers instead of the keys: one forms S^T,
+//   P^T and dV += P^T dO, the other dP^T, dS^T and dK += dS^T Q, with P^T
+//   (times the cap's derivative) handed over in float through two slots of
+//   shared memory under named barriers; each holds 96 accumulators and one
+//   score tile. dq is the same kernel as at 128 with two stages and q and
+//   dO read from shared memory (96 accumulators and two score tiles).
 //
 // The kernels allocate nothing and launch on the caller's stream; the C
 // entry returns cudaGetLastError() (or cudaErrorInvalidValue for arguments
@@ -422,403 +422,14 @@ size_t smem_bytes(int hd) {
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bfloat16 at HD 192: mma.sync m16n8k16 (the wgmma instances take 64 and 128)
-// ---------------------------------------------------------------------------
-namespace mma {
-
-constexpr int kPad = 8;  // bf16 row padding (16 bytes): fragment loads hit distinct banks
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-// the A fragment of rows [row0, row0 + 16), contraction columns [k0, k0 + 16)
-// of a row-major shared tile
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* t, int ld, int row0, int k0,
-                                       int lane) {
-  const int g = lane / 4, c = k0 + 2 * (lane % 4);
-  a[0] = ld32(t + (row0 + g) * ld + c);
-  a[1] = ld32(t + (row0 + g + 8) * ld + c);
-  a[2] = ld32(t + (row0 + g) * ld + c + 8);
-  a[3] = ld32(t + (row0 + g + 8) * ld + c + 8);
-}
-
-// the B fragment of output columns [n0, n0 + 8), contraction [k0, k0 + 16),
-// from a shared tile laid [n][k]
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* t, int ld, int n0, int k0,
-                                       int lane) {
-  const __nv_bfloat16* p = t + (n0 + lane / 4) * ld + k0 + 2 * (lane % 4);
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// the same B fragment from a shared tile laid [k][n] (row-major along the
-// output columns): two 8 x 8 matrices, rows k0.. and k0 + 8.., transposed
-// by ldmatrix as they load (lanes 0-15 give the row addresses)
-__device__ __forceinline__ void load_bt(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* t, int ld, int n0, int k0,
-                                        int lane) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(smem_u32(t + (k0 + lane % 16) * ld + n0)));
-}
-
-// asynchronous copies into shared memory; a copy that is not valid writes zeros
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [row0, row0 + rows_n) of one head (row stride `stride` elements) into
-// a row-major shared tile [rows_n][HD + kPad]; rows at or past `rows` and
-// columns at or past hd are zeros
-template <int HD>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, long long stride, int row0,
-                                          int rows_n, int rows, int hd, int nthreads) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks a row
-  for (int c = threadIdx.x; c < rows_n * kChunks; c += nthreads) {
-    const int r = c / kChunks, col = (c - r * kChunks) * 8;
-    const bool valid = row0 + r < rows && col < hd;
-    cp16(dst + r * (HD + kPad) + col, src + (valid ? static_cast<long long>(row0 + r) * stride + col : 0), valid);
-  }
-}
-
-// src[i0 .. i0 + n) into dst, zeros at or past `rows`
-__device__ __forceinline__ void load_vec(float* dst, const float* src, int i0, int n, int rows, int nthreads) {
-  for (int i = threadIdx.x; i < n; i += nthreads) {
-    const bool valid = i0 + i < rows;
-    cp4(dst + i, src + (valid ? i0 + i : 0), valid);
-  }
-}
-
-template <int HD>
-struct Dkdv {
-  static constexpr int kSplit = HD > 128 ? 2 : 1;  // warps sharing a 16-key row group's columns
-  static constexpr int kWarps = 4 * kSplit;
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kBQ = 32;                  // q rows a step
-  static constexpr int kNC = HD / 8 / kSplit;     // accumulator n-tiles a warp
-  static constexpr int kLd = HD + kPad;
-  static constexpr int kStage = 2 * kBQ * kLd * 2 + 2 * kBQ * 4;  // bytes: the q and dO tiles, lse and D
-  static constexpr int kSmem = 2 * kT * kLd * 2 + 2 * kStage;     // k and v resident, two stages
-};
-
-template <int HD>
-struct Dq {
-  static constexpr int kThreads = 128;  // 4 warps x 16 q rows
-  static constexpr int kLd = HD + kPad;
-  static constexpr int kStage = 2 * kT * kLd * 2;  // bytes: the k and v tiles
-  static constexpr int kSmem = 2 * kT * kLd * 2 + 2 * kStage;  // q and dO resident, two stages
-};
-
-static_assert(Dkdv<192>::kSmem <= 232448 && Dq<192>::kSmem <= 232448, "tiles must fit a block's shared memory");
-static_assert(Dkdv<192>::kStage % 16 == 0, "stages must keep 16-byte alignment");
-
-// grid (key tiles, B*Kv); block x = key tile (the first has the most q rows).
-// The steps (q head of the group, q tile of kBQ rows from the key tile on)
-// stream through two stages: the next step's copies are in flight while
-// this one computes.
-template <int HD>
-__global__ void __launch_bounds__(Dkdv<HD>::kThreads)
-    dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                __nv_bfloat16* __restrict__ dv, int S, int H, int Kv, int hd, float scale, float softcap) {
-  using L = Dkdv<HD>;
-  constexpr int kBQ = L::kBQ, kLd = L::kLd, kNC = L::kNC;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sv = sk + kT * kLd;
-  unsigned char* stages = smem + 2 * kT * kLd * 2;
-  auto sq = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(stages + st * L::kStage); };
-  auto sdo = [&](int st) { return sq(st) + kBQ * kLd; };
-  auto slse = [&](int st) { return reinterpret_cast<float*>(stages + st * L::kStage + 2 * kBQ * kLd * 2); };
-  auto sdel = [&](int st) { return slse(st) + kBQ; };
-
-  const int kt = blockIdx.x, k0 = kt * kT;
-  const int b = blockIdx.y / Kv, kvh = blockIdx.y - b * Kv, g = H / Kv;
-  const long long qstride = static_cast<long long>(H) * hd, kstride = static_cast<long long>(Kv) * hd;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = 16 * (warp % 4);           // the warp's 16 keys in the tile
-  const int nc0 = (warp / 4) * kNC;           // its first accumulator n-tile
-  const int gr = lane / 4, tq = 2 * (lane % 4);
-  const int n_qs = (S - k0 + kBQ - 1) / kBQ;  // q steps a head
-  const int n_steps = g * n_qs;
-
-  auto issue = [&](int idx, int st) {
-    const int j = idx / n_qs, q0 = k0 + (idx - j * n_qs) * kBQ, h = kvh * g + j;
-    const long long head = static_cast<long long>(b) * S * H + h;
-    const long long row = (static_cast<long long>(b) * H + h) * S;
-    load_rows<HD>(sq(st), q + head * hd, qstride, q0, kBQ, S, hd, L::kThreads);
-    load_rows<HD>(sdo(st), dout + head * hd, qstride, q0, kBQ, S, hd, L::kThreads);
-    load_vec(slse(st), lse + row, q0, kBQ, S, L::kThreads);
-    load_vec(sdel(st), delta + row, q0, kBQ, S, L::kThreads);
-  };
-  load_rows<HD>(sk, k + (static_cast<long long>(b) * S * Kv + kvh) * hd, kstride, k0, kT, S, hd, L::kThreads);
-  load_rows<HD>(sv, v + (static_cast<long long>(b) * S * Kv + kvh) * hd, kstride, k0, kT, S, hd, L::kThreads);
-  issue(0, 0);
-  cp_commit();
-
-  float ak[kNC][4], av[kNC][4];
-#pragma unroll
-  for (int n = 0; n < kNC; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.0f;
-
-  for (int idx = 0; idx < n_steps; ++idx) {
-    const int st = idx & 1;
-    if (idx + 1 < n_steps) {
-      issue(idx + 1, st ^ 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const int q0 = k0 + (idx % n_qs) * kBQ;
-    const __nv_bfloat16 *tq_ = sq(st), *tdo = sdo(st);
-    const float *tl = slse(st), *td = sdel(st);
-
-    // S^T = K Q^T and dP^T = V dO^T over HD: [16 keys x kBQ q]
-    float s_[kBQ / 8][4], dpt[kBQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s_[n][e] = dpt[n][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      uint32_t a[4], a2[4];
-      load_a(a, sk, kLd, row0, kk, lane);
-      load_a(a2, sv, kLd, row0, kk, lane);
-#pragma unroll
-      for (int n = 0; n < kBQ / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, tq_, kLd, 8 * n, kk, lane);
-        mma(s_[n], a, b0, b1);
-        load_b(b0, b1, tdo, kLd, 8 * n, kk, lane);
-        mma(dpt[n], a2, b0, b1);
-      }
-    }
-    // P and dS (scale folded in) in the accumulators' layout, then as A fragments
-    uint32_t pa[kBQ / 16][4], sa[kBQ / 16][4];
-#pragma unroll
-    for (int n = 0; n < kBQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + row0 + gr + 8 * (e / 2);
-        const int c = 8 * n + tq + (e % 2), qi = q0 + c;
-        float dcap;
-        const float x = capped(s_[n][e] * scale, softcap, dcap);
-        const float p = (key <= qi && qi < S) ? expf(x - tl[c]) : 0.0f;
-        s_[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - td[c]) * dcap * scale;
-      }
-      pa[n / 2][2 * (n % 2)] = pack(s_[n][0], s_[n][1]);
-      pa[n / 2][2 * (n % 2) + 1] = pack(s_[n][2], s_[n][3]);
-      sa[n / 2][2 * (n % 2)] = pack(dpt[n][0], dpt[n][1]);
-      sa[n / 2][2 * (n % 2) + 1] = pack(dpt[n][2], dpt[n][3]);
-    }
-    // dV += P^T dO and dK += dS^T Q over the kBQ q rows (B from the row-major tiles)
-#pragma unroll
-    for (int ks = 0; ks < kBQ / 16; ++ks) {
-#pragma unroll
-      for (int n = 0; n < kNC; ++n) {
-        uint32_t b0, b1;
-        load_bt(b0, b1, tdo, kLd, 8 * (nc0 + n), 16 * ks, lane);
-        mma(av[n], pa[ks], b0, b1);
-        load_bt(b0, b1, tq_, kLd, 8 * (nc0 + n), 16 * ks, lane);
-        mma(ak[n], sa[ks], b0, b1);
-      }
-    }
-    __syncthreads();  // the next step's copies refill this stage
-  }
-  // rows below S, the true hd columns
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + row0 + gr + 8 * r;
-    if (key >= S) continue;
-    const long long at = ((static_cast<long long>(b) * S + key) * Kv + kvh) * hd;
-#pragma unroll
-    for (int n = 0; n < kNC; ++n) {
-      const int col = 8 * (nc0 + n) + tq;
-      if (col < hd) {
-        *reinterpret_cast<uint32_t*>(dk + at + col) = pack(ak[n][2 * r], ak[n][2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dv + at + col) = pack(av[n][2 * r], av[n][2 * r + 1]);
-      }
-    }
-  }
-}
-
-// grid (q tiles, B*H); block x counts q tiles from the last (longest first).
-// The key tiles up to the diagonal stream through two stages.
-template <int HD>
-__global__ void __launch_bounds__(Dq<HD>::kThreads)
-    dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int S,
-              int H, int Kv, int hd, float scale, float softcap) {
-  using L = Dq<HD>;
-  constexpr int kLd = L::kLd;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sdo = sq + kT * kLd;
-  auto sk = [&](int st) { return sdo + kT * kLd + st * 2 * kT * kLd; };
-  auto sv = [&](int st) { return sk(st) + kT * kLd; };
-
-  const int n_q = (S + kT - 1) / kT;
-  const int qt = n_q - 1 - static_cast<int>(blockIdx.x), q0 = qt * kT;
-  const int b = blockIdx.y / H, h = blockIdx.y - b * H, kvh = h / (H / Kv);
-  const long long qstride = static_cast<long long>(H) * hd, kstride = static_cast<long long>(Kv) * hd;
-  const long long head = static_cast<long long>(b) * S * H + h;
-  const __nv_bfloat16* kb = k + (static_cast<long long>(b) * S * Kv + kvh) * hd;
-  const __nv_bfloat16* vb = v + (static_cast<long long>(b) * S * Kv + kvh) * hd;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = 16 * warp, gr = lane / 4, tq = 2 * (lane % 4);
-  auto issue = [&](int t, int st) {
-    load_rows<HD>(sk(st), kb, kstride, t * kT, kT, S, hd, L::kThreads);
-    load_rows<HD>(sv(st), vb, kstride, t * kT, kT, S, hd, L::kThreads);
-  };
-  load_rows<HD>(sq, q + head * hd, qstride, q0, kT, S, hd, L::kThreads);
-  load_rows<HD>(sdo, dout + head * hd, qstride, q0, kT, S, hd, L::kThreads);
-  issue(0, 0);
-  cp_commit();
-  float rl[2], rd[2];  // lse and D of the thread's rows
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + row0 + gr + 8 * r;
-    const long long at = (static_cast<long long>(b) * H + h) * S + qi;
-    rl[r] = qi < S ? lse[at] : 0.0f;
-    rd[r] = qi < S ? delta[at] : 0.0f;
-  }
-
-  float aq[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) aq[n][e] = 0.0f;
-
-  for (int t = 0; t <= qt; ++t) {  // key tiles up to the diagonal
-    const int st = t & 1, k0 = t * kT;
-    if (t < qt) {
-      issue(t + 1, st ^ 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16 *tk = sk(st), *tv = sv(st);
-
-    // S = Q K^T and dP = dO V^T over HD: [16 q x 64 keys]
-    float s[kT / 8][4], dp[kT / 8][4];
-#pragma unroll
-    for (int n = 0; n < kT / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      uint32_t a[4], a2[4];
-      load_a(a, sq, kLd, row0, kk, lane);
-      load_a(a2, sdo, kLd, row0, kk, lane);
-#pragma unroll
-      for (int n = 0; n < kT / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, tk, kLd, 8 * n, kk, lane);
-        mma(s[n], a, b0, b1);
-        load_b(b0, b1, tv, kLd, 8 * n, kk, lane);
-        mma(dp[n], a2, b0, b1);
-      }
-    }
-    uint32_t sa[kT / 16][4];
-#pragma unroll
-    for (int n = 0; n < kT / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e / 2, qi = q0 + row0 + gr + 8 * r;
-        const int key = k0 + 8 * n + tq + (e % 2);
-        float dcap;
-        const float x = capped(s[n][e] * scale, softcap, dcap);
-        const float p = (key <= qi && qi < S) ? expf(x - rl[r]) : 0.0f;
-        dp[n][e] = p * (dp[n][e] - rd[r]) * dcap * scale;
-      }
-      sa[n / 2][2 * (n % 2)] = pack(dp[n][0], dp[n][1]);
-      sa[n / 2][2 * (n % 2) + 1] = pack(dp[n][2], dp[n][3]);
-    }
-    // dQ += dS K over the tile's 64 keys (B from the row-major k tile)
-#pragma unroll
-    for (int ks = 0; ks < kT / 16; ++ks) {
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        uint32_t b0, b1;
-        load_bt(b0, b1, tk, kLd, 8 * n, 16 * ks, lane);
-        mma(aq[n], sa[ks], b0, b1);
-      }
-    }
-    __syncthreads();  // the next tile's copies refill this stage
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + row0 + gr + 8 * r;
-    if (qi >= S) continue;
-    __nv_bfloat16* row = dq + (head + static_cast<long long>(qi) * H) * hd;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      const int col = 8 * n + tq;
-      if (col < hd) *reinterpret_cast<uint32_t*>(row + col) = pack(aq[n][2 * r], aq[n][2 * r + 1]);
-    }
-  }
-}
-
-template <int HD>
-int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
-           void* dq, void* dk, void* dv, int B, int S, int H, int Kv, int hd, float scale, float softcap,
-           cudaStream_t stream) {
-  using T = __nv_bfloat16;
-  cudaError_t err = cudaFuncSetAttribute(dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Dkdv<HD>::kSmem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, Dq<HD>::kSmem);
-  if (err != cudaSuccess) return err;
-  const int n_t = (S + kT - 1) / kT;
-  dkdv_kernel<HD><<<dim3(n_t, B * Kv), Dkdv<HD>::kThreads, Dkdv<HD>::kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
-      lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, H, Kv, hd, scale, softcap);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dq_kernel<HD><<<dim3(n_t, B * H), Dq<HD>::kThreads, Dq<HD>::kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
-      lse, delta, static_cast<T*>(dq), S, H, Kv, hd, scale, softcap);
-  return cudaGetLastError();
-}
-
-}  // namespace mma
-
-// ---------------------------------------------------------------------------
-// bfloat16 at HD 64 and 128: wgmma fed by TMA, a producer warpgroup
+// bfloat16 at HD 64, 128 and 192: wgmma fed by TMA, a producer warpgroup
 // ---------------------------------------------------------------------------
 namespace wg {
 
 constexpr int kBox = 64;            // rows of every tensor-map box: a consumer warpgroup's keys or q rows
 constexpr int kBlock = 2 * kBox;    // keys of a dk/dv block, q rows of a dq block
 constexpr int kStages = 3;          // the streamed ring
+constexpr int kHandSlots = 2;       // the 192-wide dk/dv kernel's P^T handover ring
 constexpr int kThreads = 384;       // producer warpgroup + two consumer warpgroups
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 65,536
@@ -833,28 +444,37 @@ __device__ __forceinline__ float2 lds_f2(uint32_t addr) {
   return v;
 }
 
+// named barrier `id` across the two consumer warpgroups (256 threads): one
+// warpgroup syncs, the other arrives
+__device__ __forceinline__ void bar_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void bar_arrive(int id) { asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory"); }
+
 // the consumers take turns to issue each step's first products (named
-// barriers 1 and 2, 256 threads: one warpgroup syncs, the other arrives),
-// so that one warpgroup's score math runs beside the other's products
-__device__ __forceinline__ void turn_wait(int w) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + w) : "memory");
-}
-__device__ __forceinline__ void turn_pass(int w) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - w) : "memory");
-}
+// barriers 1 and 2), so that one warpgroup's score math runs beside the
+// other's products
+__device__ __forceinline__ void turn_wait(int w) { bar_sync(1 + w); }
+__device__ __forceinline__ void turn_pass(int w) { bar_arrive(2 - w); }
 
 template <int HD>
 struct Tiles {
   static constexpr int kTile = kBox * HD * 2;     // bytes of a 64-row tile: HD/64 boxes of 64 x 64
   static constexpr int kBlockTile = 2 * kTile;    // a 128-row tile: each 64-column chunk two boxes
   static constexpr int kVec = kBox * 4;           // a 64-row slice of lse2 or D
-  static constexpr int kBars = 1 + 3 * kStages;   // resident tiles full; per stage two full and one empty
+  static constexpr int kHand = kBox * kBox * 4;   // a float 64 x 64 score tile
+  // the dq ring: three stages of 192-wide k and v beside the resident q and
+  // dO would not fit, two do
+  static constexpr int kDqStages = HD > 128 ? 2 : kStages;
+  // barriers: the resident tiles' full; per stage two full and one empty
+  static constexpr int kBars = 1 + 3 * kStages, kDqBars = 1 + 3 * kDqStages;
   // the swizzled tiles need 1024-byte alignment, which the base is rounded up to
   static constexpr int kDkdvSmem = 1024 + 2 * kBlockTile + kStages * (2 * kTile + 2 * kVec) + 8 * kBars;
-  static constexpr int kDqSmem = 1024 + 2 * kBlockTile + kStages * 2 * kTile + 8 * kBars;
+  static constexpr int kDqSmem = 1024 + 2 * kBlockTile + kDqStages * 2 * kTile + 8 * kDqBars;
+  // the 192-wide dk/dv kernel: a 64-key k and v, the ring, the handover slots
+  static constexpr int kSplitSmem =
+      1024 + 2 * kTile + kStages * (2 * kTile + 2 * kVec) + kHandSlots * kHand + 8 * kBars;
+  static_assert((HD > 128 ? kSplitSmem : kDkdvSmem) <= 232448 && kDqSmem <= 232448,
+                "each instance must fit a block's shared memory");
 };
-static_assert(Tiles<128>::kDkdvSmem <= 232448 && Tiles<128>::kDqSmem <= 232448,
-              "the 128-wide instance must fit a block's shared memory");
 
 // rows [row0, row0 + 128) of one head: HD/64 column chunks of two 64-row boxes
 template <int HD>
@@ -873,6 +493,34 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, 
                                           int b) {
 #pragma unroll
   for (int c = 0; c < HD / kBoxCols; ++c) tma_load(dst + c * kBox * kRowBytes, map, bar, c * kBoxCols, head, row0, b);
+}
+
+// the dk/dv producers' stream, one thread: for each q head of the group and
+// each 64-row q tile from qt0 on, the q and dO tiles with their lse2 and D
+// slices into the ring's next stage once both consumers have released it
+// (barriers at `bars`: the resident tiles' full, then per stage q full, dO
+// full and empty)
+template <int HD>
+__device__ __forceinline__ void stream_q_do(const CUtensorMap* qmap, const CUtensorMap* domap, const float* lse2,
+                                            const float* delta, uint32_t sq, uint32_t sdo, uint32_t svec,
+                                            uint32_t bars, int b, int kvh, int g, int H, int S_pad, int qt0, int n_q) {
+  using T = Tiles<HD>;
+  int step = 0;
+  for (int j = 0; j < g; ++j) {
+    const int h = kvh * g + j;
+    const long long row = (static_cast<long long>(b) * H + h) * S_pad;
+    for (int qt = qt0; qt < n_q; ++qt, ++step) {
+      const int st = step % kStages;
+      const uint32_t q_full = bars + 8u * (1 + st), do_full = bars + 8u * (1 + kStages + st);
+      mbar_wait(bars + 8u * (1 + 2 * kStages + st), ((step / kStages) & 1) ^ 1);  // empty
+      mbar_expect_tx(q_full, T::kTile + T::kVec);
+      load_tile<HD>(sq + st * T::kTile, qmap, q_full, h, qt * kBox, b);
+      bulk_load(svec + st * T::kVec, lse2 + row + qt * kBox, T::kVec, q_full);
+      mbar_expect_tx(do_full, T::kTile + T::kVec);
+      load_tile<HD>(sdo + st * T::kTile, domap, do_full, h, qt * kBox, b);
+      bulk_load(svec + (kStages + st) * T::kVec, delta + row + qt * kBox, T::kVec, do_full);
+    }
+  }
 }
 
 // S (+)= A B^T over HD for a warpgroup's 64 rows and a 64-row tile, both
@@ -906,6 +554,18 @@ __device__ __forceinline__ void accumulate(float (&d)[HD / 2], const uint32_t* a
 #pragma unroll
   for (int kk = 0; kk < kBox / 16; ++kk)
     wgmma_rs<HD>(d, a + 4 * kk, sw128_desc(tile + kk * 16 * kRowBytes, kBox * kRowBytes, 1024));
+}
+
+// 2^x by the MUFU instruction alone: within 2 ulp, a result below 2^-126
+// flushed to 0 (a probability that small adds nothing in bf16). exp2f's
+// care for subnormal results cost the 192-wide dk/dv kernel a quarter of
+// its time, whose score math is on its critical path (2.75 -> 2.11 ms at
+// nemotron-4's heads; dq 0.247 -> 0.229 ms at llama3.2-3b's; H100 SXM,
+// 700 W).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // tanh(y) as 1 - 2 / (e^{2y} + 1) with |y| clamped to 15 (tanh is then +-1
@@ -975,21 +635,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_expect_tx(kv_full, 2 * T::kBlockTile);
       load_block<HD>(sk, &kmap, kv_full, kvh, k0, b);
       load_block<HD>(sv, &vmap, kv_full, kvh, k0, b);
-      int step = 0;
-      for (int j = 0; j < g; ++j) {
-        const int h = kvh * g + j;
-        const long long row = (static_cast<long long>(b) * H + h) * S_pad;
-        for (int qt = qt0; qt < n_q; ++qt, ++step) {
-          const int st = step % kStages;
-          mbar_wait(empty(st), ((step / kStages) & 1) ^ 1);
-          mbar_expect_tx(q_full(st), T::kTile + T::kVec);
-          load_tile<HD>(sq + st * T::kTile, &qmap, q_full(st), h, qt * kBox, b);
-          bulk_load(svec + st * T::kVec, lse2 + row + qt * kBox, T::kVec, q_full(st));
-          mbar_expect_tx(do_full(st), T::kTile + T::kVec);
-          load_tile<HD>(sdo + st * T::kTile, &domap, do_full(st), h, qt * kBox, b);
-          bulk_load(svec + (kStages + st) * T::kVec, delta + row + qt * kBox, T::kVec, do_full(st));
-        }
-      }
+      stream_q_do<HD>(&qmap, &domap, lse2, delta, sq, sdo, svec, bars, b, kvh, g, H, S_pad, qt0, n_q);
     }
   } else {
     // ---- consumers: 64 keys each -----------------------------------------
@@ -1051,7 +697,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int e = 0; e < 4; ++e) {
             const int i = 4 * j + e;
             const bool keep = !kMasked || key_r + 8 * (e / 2) <= c + (e % 2);
-            s[i] = keep ? exp2f(s[i] - (e % 2 ? lv.y : lv.x)) : 0.0f;
+            s[i] = keep ? ex2(s[i] - (e % 2 ? lv.y : lv.x)) : 0.0f;
             dp[i] *= s[i];
           }
           pa[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
@@ -1081,7 +727,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int e = 0; e < 4; ++e) {
             const int i = 4 * j + e;
             const bool keep = !kMasked || key_r + 8 * (e / 2) <= c + (e % 2);
-            s[i] = keep ? exp2f(s[i] * scale_log2 - (e % 2 ? lv.y : lv.x)) : 0.0f;
+            s[i] = keep ? ex2(s[i] * scale_log2 - (e % 2 ? lv.y : lv.x)) : 0.0f;
           }
           pa[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
           pa[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
@@ -1148,6 +794,190 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// The 192-wide dk/dv kernel. grid (B*Kv, 64-key tiles): block y is the key
+// tile (the first has the most q rows); steps run over (q head j of the
+// group, 64-row q tile qt from the diagonal on), as in dkdv_kernel. A
+// consumer warpgroup cannot hold 64 keys' dK and dV at 192 columns (96 + 96
+// floats a thread) beside a score tile, so the two consumers share the
+// block's 64 keys and split the products instead of the keys:
+// - warpgroup 0 forms S^T = K Q^T, then P^T (masked on the diagonal), its
+//   bf16 A fragments and P^T times the cap's derivative (P^T without a
+//   cap), which it hands to warpgroup 1 through a float slot of shared
+//   memory, and accumulates dV += P^T dO;
+// - warpgroup 1 forms dP^T = V dO^T, takes the slot, forms dS^T = P^T (dP^T
+//   - D) in bf16 and accumulates dK += dS^T Q.
+// Each holds one 64 x HD accumulator and one 64 x 64 score tile. A slot
+// holds each thread's score elements where the thread itself keeps them
+// (both warpgroups share the accumulator layout), as [16][128] float2.
+// Handover ring: named barriers 1 + slot (full: warpgroup 0 arrives,
+// warpgroup 1 syncs) and 3 + slot (empty: the reverse).
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(kThreads, 1)
+    dkdv_split_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+                      const float* __restrict__ lse2, const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int S_pad, int H,
+                      int Kv, int hd, float scale, float scale_log2, float cap_arg) {
+  using T = Tiles<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sk = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sv = sk + T::kTile;
+  const uint32_t sq = sv + T::kTile;                   // kStages q tiles
+  const uint32_t sdo = sq + kStages * T::kTile;        // kStages dO tiles
+  const uint32_t svec = sdo + kStages * T::kTile;      // kStages lse2 slices, then kStages D slices
+  const uint32_t hand = svec + 2 * kStages * T::kVec;  // kHandSlots float score tiles
+  const uint32_t bars = hand + kHandSlots * T::kHand;
+  const uint32_t kv_full = bars;
+  auto q_full = [&](int st) { return bars + 8u * (1 + st); };
+  auto do_full = [&](int st) { return bars + 8u * (1 + kStages + st); };
+  auto empty = [&](int st) { return bars + 8u * (1 + 2 * kStages + st); };
+
+  const int b = blockIdx.x / Kv, kvh = blockIdx.x - b * Kv, g = H / Kv;
+  const int k0 = blockIdx.y * kBox;
+  const int n_q = (S + kBox - 1) / kBox;
+  const int qt0 = k0 / kBox;  // the first q tile: the diagonal
+  const int steps = g * (n_q - qt0);
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(q_full(st), 1);
+      mbar_init(do_full(st), 1);
+      mbar_init(empty(st), 2 * 128);  // every consumer thread arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    // ---- producer ------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * T::kTile);
+      load_tile<HD>(sk, &kmap, kv_full, kvh, k0, b);
+      load_tile<HD>(sv, &vmap, kv_full, kvh, k0, b);
+      stream_q_do<HD>(&qmap, &domap, lse2, delta, sq, sdo, svec, bars, b, kvh, g, H, S_pad, qt0, n_q);
+    }
+  } else {
+    // ---- consumers: warpgroup 0 P^T and dV, warpgroup 1 dS^T and dK ------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int tid = threadIdx.x - 128 * wgi;
+    const int warp = tid / 32, lane = tid % 32;
+    const int w = wgi - 1;
+    const int key_r = warp * 16 + lane / 4;  // this thread's keys: k0 + key_r, k0 + key_r + 8
+    auto sptr = [&](uint32_t addr) { return smem_raw + (addr - smem_u32(smem_raw)); };  // a shared address's pointer
+
+    float acc[HD / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+    mbar_wait(kv_full, 0);
+
+    // the warpgroup's 64 keys of k (warpgroup 0) or v (warpgroup 1) stay in
+    // registers as the A operand of its score products, which then read only
+    // the q or dO tile from shared memory (-9% at nemotron-4's heads); the
+    // capped instance, which spills with them, reads them from there too
+    constexpr bool kRegA = !CAP;
+    const uint32_t kv_tile = w == 0 ? sk : sv;
+    uint32_t ka[kRegA ? HD / 4 : 1];
+    if constexpr (kRegA) load_a_frags<HD>(ka, sptr(kv_tile), kBox * kRowBytes, warp, lane);
+
+    int step = 0;
+    for (int j = 0; j < g; ++j) {
+      for (int qt = qt0; qt < n_q; ++qt, ++step) {
+        const int st = step % kStages, phase = (step / kStages) & 1, slot = step % kHandSlots;
+        const bool diag = qt == qt0;
+        const uint32_t mine = hand + slot * T::kHand + 8 * tid;  // this thread's first float2 in the slot
+        float s[kBox / 2];  // S^T (warpgroup 0) or dP^T (warpgroup 1): rows keys, columns the tile's q rows
+        uint32_t a[kBox / 4];
+        mbar_wait(q_full(st), phase);
+        mbar_wait(do_full(st), phase);
+        fence_regs(s);
+        wg_fence();
+        if constexpr (kRegA)
+          scores_rs<HD>(s, ka, (w == 0 ? sq : sdo) + st * T::kTile);
+        else
+          scores<HD>(s, kv_tile, kBox * kRowBytes, (w == 0 ? sq : sdo) + st * T::kTile, kBox * kRowBytes);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(s);
+        if (w == 0) {
+          // P^T in log2 units (element i: key key_r + 8 ((i / 2) % 2), q row
+          // 8 (i / 4) + 2 (lane % 4) + i % 2 of the tile), its A fragments,
+          // and P^T (1 - t^2) into the slot
+          const uint32_t l2 = svec + st * T::kVec;
+#pragma unroll
+          for (int jj = 0; jj < kBox / 8; ++jj) {
+            const int c = 8 * jj + 2 * (lane % 4);
+            const float2 lv = lds_f2(l2 + 4 * c);
+            float p[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * jj + e;
+              float x = s[i] * scale_log2, dcap = 1.0f;
+              if constexpr (CAP) {
+                const float t = tanh_fast(s[i] * cap_arg);
+                x = scale_log2 * t;
+                dcap = 1.0f - t * t;
+              }
+              const bool keep = !diag || key_r + 8 * (e / 2) <= c + (e % 2);
+              p[e] = keep ? ex2(x - (e % 2 ? lv.y : lv.x)) : 0.0f;
+              s[i] = p[e] * dcap;
+            }
+            a[2 * jj] = pack_bf16(p[0], p[1]);
+            a[2 * jj + 1] = pack_bf16(p[2], p[3]);
+          }
+          if (step >= kHandSlots) bar_sync(3 + slot);  // warpgroup 1 has read the slot's last tile
+#pragma unroll
+          for (int e2 = 0; e2 < kBox / 4; ++e2)
+            *reinterpret_cast<float2*>(sptr(mine + e2 * 128 * 8)) = make_float2(s[2 * e2], s[2 * e2 + 1]);
+          bar_arrive(1 + slot);
+          fence_regs(acc);
+          wg_fence();
+          accumulate<HD>(acc, a, sdo + st * T::kTile);  // dV += P^T dO
+        } else {
+          // dS^T = P^T (1 - t^2) (dP^T - D), in bf16 as the A fragments
+          const uint32_t dd = svec + (kStages + st) * T::kVec;
+          bar_sync(1 + slot);
+#pragma unroll
+          for (int jj = 0; jj < kBox / 8; ++jj) {
+            const float2 dv2 = lds_f2(dd + 4 * (8 * jj + 2 * (lane % 4)));
+            const float2 p01 = *reinterpret_cast<const float2*>(sptr(mine + (2 * jj) * 128 * 8));
+            const float2 p23 = *reinterpret_cast<const float2*>(sptr(mine + (2 * jj + 1) * 128 * 8));
+            a[2 * jj] = pack_bf16(p01.x * (s[4 * jj] - dv2.x), p01.y * (s[4 * jj + 1] - dv2.y));
+            a[2 * jj + 1] = pack_bf16(p23.x * (s[4 * jj + 2] - dv2.x), p23.y * (s[4 * jj + 3] - dv2.y));
+          }
+          if (step + kHandSlots < steps) bar_arrive(3 + slot);  // the slot is free for step + kHandSlots
+          fence_regs(acc);
+          wg_fence();
+          accumulate<HD>(acc, a, sq + st * T::kTile);  // dK += dS^T Q
+        }
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(empty(st));
+      }
+    }
+
+    // keys below S, the true hd columns; dk takes the scale here
+    __nv_bfloat16* const out = w == 0 ? dv : dk;
+    const float mul = w == 0 ? 1.0f : scale;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + key_r + 8 * r;
+      if (key >= S) continue;
+      const long long at = ((static_cast<long long>(b) * S + key) * Kv + kvh) * hd;
+#pragma unroll
+      for (int jj = 0; jj < HD / 8; ++jj) {
+        const int col = 8 * jj + 2 * (lane % 4);
+        if (col < hd)
+          *reinterpret_cast<uint32_t*>(out + at + col) =
+              pack_bf16(acc[4 * jj + 2 * r] * mul, acc[4 * jj + 2 * r + 1] * mul);
+      }
+    }
+  }
+}
+
 // grid (B*H, q blocks); block y counts q blocks from the last (longest
 // first). 64-key tiles up to the block's last row stream through the ring;
 // consumer warpgroup w owns q rows q0 + 64w .. + 63.
@@ -1158,16 +988,19 @@ __global__ void __launch_bounds__(kThreads, 1)
               const float* __restrict__ lse2, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int S,
               int S_pad, int H, int Kv, int hd, float scale, float scale_log2, float cap_arg) {
   using T = Tiles<HD>;
+  constexpr int kRing = T::kDqStages;
+  // q and dO as register A fragments of S and dP, where the registers allow
+  constexpr bool kRegA = !CAP && HD <= 128;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sdo = sq + T::kBlockTile;
-  const uint32_t sk = sdo + T::kBlockTile;      // kStages k tiles
-  const uint32_t sv = sk + kStages * T::kTile;  // kStages v tiles
-  const uint32_t bars = sv + kStages * T::kTile;
+  const uint32_t sk = sdo + T::kBlockTile;    // kRing k tiles
+  const uint32_t sv = sk + kRing * T::kTile;  // kRing v tiles
+  const uint32_t bars = sv + kRing * T::kTile;
   const uint32_t qd_full = bars;
   auto k_full = [&](int st) { return bars + 8u * (1 + st); };
-  auto v_full = [&](int st) { return bars + 8u * (1 + kStages + st); };
-  auto empty = [&](int st) { return bars + 8u * (1 + 2 * kStages + st); };
+  auto v_full = [&](int st) { return bars + 8u * (1 + kRing + st); };
+  auto empty = [&](int st) { return bars + 8u * (1 + 2 * kRing + st); };
 
   const int n_blocks = (S + kBlock - 1) / kBlock;
   const int q0 = (n_blocks - 1 - static_cast<int>(blockIdx.y)) * kBlock;
@@ -1177,7 +1010,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(qd_full, 1);
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < kRing; ++st) {
       mbar_init(k_full(st), 1);
       mbar_init(v_full(st), 1);
       mbar_init(empty(st), 2 * 128);
@@ -1194,8 +1027,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       load_block<HD>(sq, &qmap, qd_full, h, q0, b);
       load_block<HD>(sdo, &domap, qd_full, h, q0, b);
       for (int t = 0; t < n_k; ++t) {
-        const int st = t % kStages;
-        mbar_wait(empty(st), ((t / kStages) & 1) ^ 1);
+        const int st = t % kRing;
+        mbar_wait(empty(st), ((t / kRing) & 1) ^ 1);
         mbar_expect_tx(k_full(st), T::kTile);
         load_tile<HD>(sk + st * T::kTile, &kmap, k_full(st), kvh, t * kBox, b);
         mbar_expect_tx(v_full(st), T::kTile);
@@ -1229,9 +1062,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (w == 1) turn_pass(w);  // warpgroup 0 takes the first turn
     // the warpgroup's q and dO rows stay in registers as the A operands of S
     // and dP, so that the products read only k and v from shared memory; the
-    // capped instances, short of those registers, read them from there too
-    uint32_t qa[CAP ? 1 : HD / 4], da[CAP ? 1 : HD / 4];
-    if constexpr (!CAP) {
+    // capped and 192-wide instances, short of those registers, read them
+    // from there too
+    uint32_t qa[kRegA ? HD / 4 : 1], da[kRegA ? HD / 4 : 1];
+    if constexpr (kRegA) {
       load_a_frags<HD>(qa, smem_raw + (q_slice - smem_u32(smem_raw)), kBlock * kRowBytes, warp, lane);
       load_a_frags<HD>(da, smem_raw + (do_slice - smem_u32(smem_raw)), kBlock * kRowBytes, warp, lane);
     }
@@ -1246,15 +1080,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(s);
       fence_regs(dp);
       wg_fence();
-      if constexpr (CAP)
-        scores<HD>(s, q_slice, kBlock * kRowBytes, sk + st * T::kTile, kBox * kRowBytes);
-      else
+      if constexpr (kRegA)
         scores_rs<HD>(s, qa, sk + st * T::kTile);
-      wg_commit();
-      if constexpr (CAP)
-        scores<HD>(dp, do_slice, kBlock * kRowBytes, sv + st * T::kTile, kBox * kRowBytes);
       else
+        scores<HD>(s, q_slice, kBlock * kRowBytes, sk + st * T::kTile, kBox * kRowBytes);
+      wg_commit();
+      if constexpr (kRegA)
         scores_rs<HD>(dp, da, sv + st * T::kTile);
+      else
+        scores<HD>(dp, do_slice, kBlock * kRowBytes, sv + st * T::kTile, kBox * kRowBytes);
       wg_commit();
       turn_pass(w);
 
@@ -1271,7 +1105,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int i = 0; i < kBox / 2; ++i) {
           const int r = (i / 2) % 2;
           const bool keep = !kMasked || 8 * (i / 4) + 2 * (lane % 4) + (i % 2) <= row_r + 8 * r;
-          dp[i] *= keep ? exp2f(s[i] - l2[r]) : 0.0f;
+          dp[i] *= keep ? ex2(s[i] - l2[r]) : 0.0f;
         }
       } else {  // P while dP is still on the tensor cores, then dS
         wg_wait<1>();
@@ -1280,7 +1114,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int i = 0; i < kBox / 2; ++i) {
           const int r = (i / 2) % 2;
           const bool keep = !kMasked || 8 * (i / 4) + 2 * (lane % 4) + (i % 2) <= row_r + 8 * r;
-          s[i] = keep ? exp2f(s[i] * scale_log2 - l2[r]) : 0.0f;
+          s[i] = keep ? ex2(s[i] * scale_log2 - l2[r]) : 0.0f;
         }
         wg_wait<0>();
         fence_regs(dp);
@@ -1304,7 +1138,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     };
 
     for (int t = 0; t < n_k; ++t) {
-      const int st = t % kStages, phase = (t / kStages) & 1;
+      const int st = t % kRing, phase = (t / kRing) & 1;
       if (t > td) {  // every key follows every row: nothing to add, but the ring and the turns move on
         mbar_wait(k_full(st), phase);
         mbar_wait(v_full(st), phase);
@@ -1344,20 +1178,28 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   const void* ptrs[4] = {q, k, v, dout};
   for (int i = 0; i < 4; ++i)
     if (!encode(&maps[i], ptrs[i], layouts + 11 * i, kBox)) return cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(dkdv_kernel<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kDkdvSmem);
+  const float scale_log2 = CAP ? softcap * kLog2e : scale * kLog2e;
+  const float cap_arg = CAP ? scale / softcap : 0.0f;
+  cudaError_t err;
+  if constexpr (HD > 128) {  // a block a 64-key tile, its products split between the consumers
+    err = cudaFuncSetAttribute(dkdv_split_kernel<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               T::kSplitSmem);
+    if (err != cudaSuccess) return err;
+    dkdv_split_kernel<HD, CAP><<<dim3(B * Kv, (S + kBox - 1) / kBox), kThreads, T::kSplitSmem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], lse2, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, S_pad,
+        H, Kv, hd, scale, scale_log2, cap_arg);
+  } else {  // a block a 128-key block, 64 keys a consumer
+    err = cudaFuncSetAttribute(dkdv_kernel<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kDkdvSmem);
+    if (err != cudaSuccess) return err;
+    dkdv_kernel<HD, CAP><<<dim3(B * Kv, (S + kBlock - 1) / kBlock), kThreads, T::kDkdvSmem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], lse2, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, S_pad,
+        H, Kv, hd, scale, scale_log2, cap_arg);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(dq_kernel<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kDqSmem);
   if (err != cudaSuccess) return err;
-  const float scale_log2 = CAP ? softcap * kLog2e : scale * kLog2e;
-  const float cap_arg = CAP ? scale / softcap : 0.0f;
-  const int blocks = (S + kBlock - 1) / kBlock;
-  dkdv_kernel<HD, CAP><<<dim3(B * Kv, blocks), kThreads, T::kDkdvSmem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], lse2, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, S_pad, H,
-      Kv, hd, scale, scale_log2, cap_arg);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dq_kernel<HD, CAP><<<dim3(B * H, blocks), kThreads, T::kDqSmem, stream>>>(
+  dq_kernel<HD, CAP><<<dim3(B * H, (S + kBlock - 1) / kBlock), kThreads, T::kDqSmem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], lse2, delta, static_cast<bf16*>(dq), S, S_pad, H, Kv, hd, scale, scale_log2,
       cap_arg);
   return cudaGetLastError();
@@ -1416,11 +1258,10 @@ const char* flash_attention_bwd_error_string(int code) {
 // [B, S, H, hd]; k, v, dk, dv: [B, S, Kv, hd]; all contiguous, one dtype
 // (0 float32, 1 bfloat16); lse [B, H, S] float32 from the forward.
 // hd_inst: the bf16 instance's width (64, 128 or 192; unused for float32).
-// The wgmma instances (bf16 at 64 and 128) take S_pad = S rounded up to
-// box_rows, `lse2` ([B, H, S_pad] float32 scratch for lse in log2 units)
-// and `tma`: q's, k's, v's and dout's tensor-map layouts, 11 values each
-// (dims, byte strides, box; box_rows rows). float32 and bf16 at 192 take
-// S_pad = S and ignore lse2 and tma.
+// bf16 takes S_pad = S rounded up to box_rows, `lse2` ([B, H, S_pad]
+// float32 scratch for lse in log2 units) and `tma`: q's, k's, v's and
+// dout's tensor-map layouts, 11 values each (dims, byte strides, box;
+// box_rows rows). float32 takes S_pad = S and ignores lse2 and tma.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                                const void* lse, void* delta, void* lse2, void* dq, void* dk, void* dv, int dtype, int B,
                                int S, int S_pad, int H, int Kv, int hd, float scale, float softcap, int hd_inst,
@@ -1432,22 +1273,20 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
-  const bool wgmma = dtype == 1 && (hd_inst == 64 || hd_inst == 128);
-  if (wgmma ? (tma == nullptr || lse2 == nullptr || S_pad != (S + wg::kBox - 1) / wg::kBox * wg::kBox)
-            : S_pad != S)
-    return cudaErrorInvalidValue;
   const long long rows = static_cast<long long>(B) * S_pad * H;
   const unsigned blocks = static_cast<unsigned>((rows * 16 + 255) / 256);  // a half-warp a row
   if (dtype == 0) {
+    if (S_pad != S) return cudaErrorInvalidValue;
     rowdot_kernel<float><<<blocks, 256, 0, st>>>(static_cast<const float*>(o), static_cast<const float*>(dout), l, d,
                                                  nullptr, rows, S, S_pad, H, hd);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     return launch_f32(q, k, v, dout, l, d, dq, dk, dv, B, S, H, Kv, hd, scale, softcap, st);
   }
-  if (dtype != 1 || hd > hd_inst) return cudaErrorInvalidValue;
-  if (!wgmma && hd_inst != 192) return cudaErrorInvalidValue;
-  float* l2 = wgmma ? static_cast<float*>(lse2) : nullptr;
+  if (dtype != 1 || (hd_inst != 64 && hd_inst != 128 && hd_inst != 192) || hd > hd_inst || tma == nullptr ||
+      lse2 == nullptr || S_pad != (S + wg::kBox - 1) / wg::kBox * wg::kBox)
+    return cudaErrorInvalidValue;
+  float* l2 = static_cast<float*>(lse2);
   rowdot_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(static_cast<const __nv_bfloat16*>(o),
                                                        static_cast<const __nv_bfloat16*>(dout), l, d, l2, rows, S,
                                                        S_pad, H, hd);
@@ -1457,7 +1296,7 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
     return wg::launch_hd<64>(q, k, v, dout, l2, d, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, tma, st);
   if (hd_inst == 128)
     return wg::launch_hd<128>(q, k, v, dout, l2, d, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, tma, st);
-  return mma::launch<192>(q, k, v, dout, l, d, dq, dk, dv, B, S, H, Kv, hd, scale, softcap, st);
+  return wg::launch_hd<192>(q, k, v, dout, l2, d, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, tma, st);
 }
 
 }  // extern "C"

@@ -21,10 +21,11 @@ row's log-sum-exp (float32 [B, H, S]), which the backward reads.
 launches the forward kernel (with ``lse`` only when an input needs a
 gradient) and its backward the three gradient kernels
 (``flash_attention_backward``: D = rowsum(dO o O), then dk/dv, then dq;
-``launches["flash_attention_bwd"]`` counts each). In bfloat16 at widths 64
-and 128 the gradient kernels run on wgmma fed by TMA (tensor maps from
-``tma_layout`` with ``BWD_BOX_ROWS`` rows, D and lse padded to ``bwd_rows``);
-at 192 on mma.sync. Nothing on the card falls back to the plain version.
+``launches["flash_attention_bwd"]`` counts each). In bfloat16, at each of
+the widths 64, 128 and 192, the gradient kernels run on wgmma fed by TMA
+(tensor maps from ``tma_layout`` with ``BWD_BOX_ROWS`` rows, D and lse
+padded to ``bwd_rows``). Nothing on the card falls back to the plain
+version.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 BWD_LAUNCHES = 3  # kernels a backward call launches: D, dk/dv, dq
 BWD_BOX_ROWS = 64  # the bf16 gradient's tensor-map box rows: every q, k, v and dO tile
-BWD_WGMMA_WIDTHS = (64, 128)  # the bf16 gradient's wgmma instances; 192 runs on mma.sync
+BWD_WGMMA_WIDTHS = (64, 128, 192)  # the bf16 gradient's wgmma instances: every bf16 width
 
 # bumped where the kernels are launched and nowhere else
 launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
@@ -129,9 +130,9 @@ def block_k(hd_inst: int) -> int:
 
 def bwd_rows(s: int, hd_inst: int) -> int:
     """Rows of each (b, h) in the gradient's D and lse scratch: S rounded
-    up to ``BWD_BOX_ROWS`` for the wgmma instances (``hd_inst`` 64 or 128,
-    whose bulk copies read 64-row slices whole), S otherwise (float32,
-    ``hd_inst`` 0, and the 192-wide mma.sync instance)."""
+    up to ``BWD_BOX_ROWS`` for the wgmma instances (bf16, ``hd_inst`` 64,
+    128 or 192, whose bulk copies read 64-row slices whole), S for float32
+    (``hd_inst`` 0)."""
     if hd_inst not in BWD_WGMMA_WIDTHS:
         return s
     return -(-s // BWD_BOX_ROWS) * BWD_BOX_ROWS
@@ -229,8 +230,8 @@ def flash_attention_backward(q, k, v, o, lse, do, softcap: float = 0.0):
     ``lse`` [B, H, S] float32. Three launches: D = rowsum(do * o), then
     dk and dv (one block a key block, summing the group's q heads), then dq;
     no atomics, so the result is the same bits on every run. Operands are
-    made contiguous (a no-op for the forward's own tensors); bfloat16 at
-    widths 64 and 128 reads q, k, v and do through tensor maps."""
+    made contiguous (a no-op for the forward's own tensors); bfloat16 reads
+    q, k, v and do through tensor maps."""
     named = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
     _check_operands(named)
     b, s, h, hd = q.shape

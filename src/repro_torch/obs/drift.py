@@ -33,6 +33,11 @@ from typing import Optional, Tuple
 # the constants no longer describe this machine.
 DRIFT_STALE_RATIO = 3.0
 
+# What a STALE verdict tells the operator to do. The port keeps its probed
+# calibrations on the engine (Engine.clear_cache keeps them), so a fresh
+# Engine re-probes in-process; across processes the PlanStore entry goes.
+STALE_REMEDY = "a fresh engine.Engine() / invalidate the PlanStore entry"
+
 # Below this many seconds a component is dispatch noise on any host
 # (one launch and a sync run tens of microseconds even for a no-op) and
 # its ratio is reported as 1.0 instead of flagging a zero-priced axis as
@@ -116,8 +121,7 @@ class DriftReport:
             )
         verdict = (
             f"STALE (outside {1 / DRIFT_STALE_RATIO:.2f}-"
-            f"{DRIFT_STALE_RATIO:.1f}x) — re-probe: probes.clear_cache() "
-            "/ invalidate the PlanStore entry"
+            f"{DRIFT_STALE_RATIO:.1f}x) — re-probe: {STALE_REMEDY}"
             if self.stale
             else "ok"
         )

@@ -155,13 +155,13 @@ def test_tma_layout_takes_the_gradients_box_rows(case):
 
 @pytest.mark.parametrize("s", [1, 37, 63, 64, 65, 1000, 4096, 4097])
 def test_bwd_rows_pads_s_to_the_box_for_the_wgmma_widths_only(s):
-    """D and lse2 rows: S rounded up to 64 for the wgmma instances (64 and
-    128 wide), whose bulk copies read whole 64-row slices; S for float32
-    (width 0) and the 192-wide mma.sync instance."""
+    """D and lse2 rows: S rounded up to 64 for the wgmma instances (every
+    bf16 width: 64, 128 and 192), whose bulk copies read whole 64-row
+    slices; S for float32 (width 0)."""
     padded = -(-s // 64) * 64
-    assert [K.bwd_rows(s, w) for w in (0, 64, 128, 192)] == [s, padded, padded, s]
+    assert [K.bwd_rows(s, w) for w in (0, 64, 128, 192)] == [s, padded, padded, padded]
     assert padded % K.BWD_BOX_ROWS == 0 and padded - s < K.BWD_BOX_ROWS
-    assert set(K.BWD_WGMMA_WIDTHS) == {w for w in K.WIDTHS if w <= 128}
+    assert K.BWD_WGMMA_WIDTHS == K.WIDTHS == (64, 128, 192)
 
 
 def _attention_p_in_bf16(q, k, v, tile=128):

@@ -100,12 +100,14 @@ LOG2E = 1.4426950408889634
 
 def _wgmma_backward(q, k, v, o, lse, do, cap):
     """What the bf16 tensor-core gradient kernels (flash_attention_bwd.cu,
-    widths 64 and 128) compute, in float32 with bf16 roundings where they
-    round: lse in log2 units; P = exp2(x - lse2) with x the scaled logit in
-    log2 units (capped through tanh as 1 - 2 / (e^{2y} + 1)); P and dS
-    rounded to bf16 as the A operands of dV += P^T dO, dK += dS^T Q and
+    widths 64, 128 and 192) compute, in float32 with bf16 roundings where
+    they round: lse in log2 units; P = exp2(x - lse2) with x the scaled
+    logit in log2 units (capped through tanh as 1 - 2 / (e^{2y} + 1)); P and
+    dS rounded to bf16 as the A operands of dV += P^T dO, dK += dS^T Q and
     dQ += dS K; dS without the scale, which is applied to dk and dq after
-    the sums; with a cap, the cap's derivative 1 - t^2 from the same t."""
+    the sums; with a cap, the cap's derivative 1 - t^2 from the same t. At
+    192 the dk/dv kernel hands P^T (1 - t^2) from one consumer warpgroup to
+    the other in float32, so dS^T takes the same single rounding to bf16."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -133,8 +135,8 @@ def _wgmma_backward(q, k, v, o, lse, do, cap):
     return dq.transpose(1, 2), kv_heads(dk), kv_heads(dv)
 
 
-@pytest.mark.parametrize("g,hd,s,cap", [(g, hd, s, cap) for g in (1, 3) for hd in (64, 128) for s in (37, 128)
-                                        for cap in (0.0, 30.0)])
+@pytest.mark.parametrize("g,hd,s,cap", [(g, hd, s, cap) for g in (1, 3) for hd in (64, 128, 192)
+                                        for s in (37, 128) for cap in (0.0, 30.0)])
 def test_wgmma_gradients_arithmetic_stays_within_the_bf16_tolerance_of_jax_vjp(g, hd, s, cap):
     """The bf16 kernels' roundings (P and dS in bf16, the scale after the
     sums, the cap's tanh and derivative as they form them) held to jax.vjp

@@ -823,7 +823,7 @@ def test_cuda_flash_attention_backward_matches_plain_version_at_llamas_training_
     (1, 4096, 24, 8, 128, 0.0),  # llama3.2-3b's training shape (wgmma)
     (2, 1000, 6, 2, 128, 30.0),  # ragged S, g = 3, capped (wgmma)
     (2, 1000, 6, 2, 64, 30.0),   # the 64-wide wgmma instance
-    (1, 1000, 3, 1, 192, 30.0),  # the 192-wide mma.sync instance
+    (1, 1000, 3, 1, 192, 30.0),  # the 192-wide wgmma instance (split dk/dv)
 ], ids=["training", "ragged-g3-cap", "hd64", "hd192"])
 def test_cuda_flash_attention_backward_reruns_give_the_same_bits(b, s, h, kv, hd, softcap):
     """No atomics and no order that depends on scheduling: two calls on the

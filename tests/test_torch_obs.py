@@ -11,6 +11,7 @@ check, the reports load in both packages, each instrumented path emits
 the reference's span and metric names, and a port run leaves the
 reference's registry untouched. The engine cases run at 2,048 x 16."""
 
+import dataclasses
 import json
 import math
 
@@ -411,8 +412,12 @@ def test_drift_report_round_trips_through_json():
 
 def test_drift_reports_load_in_both_packages():
     """A port report's JSON loads in repro.obs.DriftReport.from_dict and
-    the reverse, with the same drift, verdict and text."""
+    the reverse, with the same drift, verdict and text. The timed run's
+    total is pinned to its prediction, so its verdict is "ok" on any host:
+    the STALE verdict names each package's own remedy (tested below)."""
     rep = _eng().explain_analyze(_q(_data(512), epochs=2))
+    rep = dataclasses.replace(rep, measured_total_s=rep.predicted_total_s)
+    assert not rep.stale
     theirs = ref_obs.DriftReport.from_dict(json.loads(json.dumps(rep.to_dict())))
     assert theirs.to_dict() == rep.to_dict()
     assert theirs.describe() == rep.describe()
@@ -424,6 +429,45 @@ def test_drift_reports_load_in_both_packages():
     ours = obs.DriftReport.from_dict(json.loads(json.dumps(ref_rep.to_dict())))
     assert ours.to_dict() == ref_rep.to_dict() and ours.stale == ref_rep.stale
     assert ours.describe() == ref_rep.describe()
+
+
+def test_drift_stale_verdict_names_the_ports_remedy():
+    """A STALE report reads as the reference's, line for line, but for its
+    remedy: the port's names a fresh ``engine.Engine()`` (the port keeps its
+    calibrations on the engine; it has no ``probes.clear_cache``), and
+    following it re-probes where ``Engine.clear_cache`` does not."""
+    ref_rows = (ref_obs.AxisCost("ordering", 0.01, 0.15, "w"), ref_obs.AxisCost("source", 0.0, 0.05, "m"))
+    ref_rep = ref_obs.DriftReport(axes="x", plan={"ordering": "clustered"}, rows=ref_rows, epochs_run=3,
+                                  predicted_total_s=0.01, measured_total_s=0.2,
+                                  attribution={"root": "engine.run", "total_s": 0.5,
+                                               "phase_s": {"execute": 0.5}, "path": [["engine.run", 0.5]]})
+    ours = obs.DriftReport.from_dict(json.loads(json.dumps(ref_rep.to_dict())))
+    assert ours.stale and ref_rep.stale
+    mine, theirs = ours.describe().splitlines(), ref_rep.describe().splitlines()
+    assert len(mine) == len(theirs)
+    cut = " — re-probe: "
+    for a, b in zip(mine, theirs):
+        if cut in b:
+            assert a.split(cut)[0] == b.split(cut)[0] and "STALE" in a
+            assert a.split(cut)[1] == drift.STALE_REMEDY != b.split(cut)[1]
+        else:
+            assert a == b
+    assert sum(cut in line for line in mine) == 1
+    # the remedy names what the port has
+    assert "engine.Engine()" in drift.STALE_REMEDY and "PlanStore" in drift.STALE_REMEDY
+    assert callable(engine.Engine) and callable(engine.PlanStore)
+    assert not hasattr(engine.probes, "clear_cache")
+    # and following it re-probes
+    q = _q(_data(512), epochs=1)
+    eng = _eng()
+    eng.explain(q)
+    assert eng.stats["probe_runs"] == 1
+    eng.clear_cache()
+    eng.explain(q)
+    assert eng.stats["probe_runs"] == 0
+    fresh = _eng()
+    fresh.explain(q)
+    assert fresh.stats["probe_runs"] == 1
 
 
 def test_explain_analyze_reports_per_axis_drift():
