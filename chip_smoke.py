@@ -207,6 +207,18 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    a checkpoint, elastic_restore onto no mesh and a fit resuming 2 more,
    against 4 uninterrupted steps on the mesh (10d's tolerances). The
    process group is destroyed at the end of the phase.
+12. the dry run (lines tagged [dryrun]; launch/dryrun.py over a fake process
+   group, fake tensors, the plain attention: it launches no kernel, which
+   the launch counters, zeroed just before the phase and read just after,
+   show): 12a `python -m repro_torch.launch.dryrun` in a subprocess with a
+   time limit, llama3.2-3b decode_32k on the (16, 16) production mesh: its
+   record's FLOPs, bytes, collectives by kind and roofline_summary; 12b
+   10c's cell (llama3.2-3b, 8 x 4,096, grad_accum 8, IGD with momentum) at a
+   (1, 1) fake mesh: its argument bytes at full depth equal the bytes 10c's
+   params, optimizer state and batch hold on the card, exactly; its FLOPs
+   and predicted peak printed beside 10c's (12a's subprocess runs beside it).
+
+Every phase logs its seconds (lines tagged [time]).
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's name and power limit; the last line is the run's verdict. Any
@@ -358,6 +370,13 @@ MESH_F32_CASE = (16, 20000)
 # fit on the mesh 2 + 2 steps around a checkpoint, resumed with no mesh,
 # against 4 uninterrupted steps on the mesh (10d's shape and tolerances)
 MESH_TRAIN_TOL, MESH_TRAIN_STEPS, MESH_FIT_STEPS = 1e-4, 3, 4
+# phase 12, the dry run (launch/dryrun.py) on a fake process group. 12a: one
+# production cell, run as a user runs it (python -m repro_torch.launch.dryrun)
+# in a subprocess with a time limit, beside 12b: 10c's cell at a (1, 1) fake
+# mesh and full depth, its argument bytes held exactly to what 10c holds on
+# the card (its 28 x 8 layer-microbatches trace in ~75 s on the card's host)
+DRYRUN_CELL = ("llama3.2-3b", "decode_32k", "single")
+DRYRUN_LIMIT_S = 110
 # the gradient call's three launches, by a substring of their kernels' names,
 # and the calls profiled to time each
 BWD_KINDS, BWD_PROFILED = {"D": "rowdot_kernel", "dk/dv": "dkdv_", "dq": "dq_kernel"}, 10
@@ -478,6 +497,11 @@ def main() -> int:
     log("setup", f"{torch.cuda.get_device_name(0)} | {card} | torch {torch.__version__} "
         f"CUDA {torch.version.cuda} | TF32 off (matmul, cuDNN)")
 
+    start, phase_watch = timing.now(), timing.Stopwatch()
+
+    def phase_done(name: str) -> None:
+        log("time", f"phase {name} took {phase_watch.lap():.1f} s; {timing.now() - start:.1f} s since the start")
+
     # -- 1. build (every source at once: one nvcc each) ---------------------
     watch = timing.Stopwatch()
     pool = ThreadPoolExecutor(max_workers=4)
@@ -489,6 +513,8 @@ def main() -> int:
     log("build", f"igd_fused.cu -> {K.library_path().name} in {watch.lap():.2f} s "
         f"({ptxas_report('igd_fused.cu', ptxas)}); igd_fold_minibatch at D={FOREST_DIM}: a cluster of "
         f"{cluster} CTAs, {mb_smem} bytes of dynamic shared memory a CTA")
+
+    phase_done("1")
 
     # -- 2. kernels against their plain versions ---------------------------
     gen = torch.Generator(device=dev)
@@ -577,6 +603,8 @@ def main() -> int:
         log("parity", f"igd_fold {loss} {F64_PREFIX}x{FOREST_DIM} Forest prefix: kernel vs float64 fold "
             f"max |dw| {err:.3g}; per-row float32 fold vs float64 fold {float((per_row - exact).abs().max()):.3g}")
 
+    phase_done("2")
+
     # -- 3. the main path, end to end --------------------------------------
     eng = engine.Engine()
     task_args = {"dim": FOREST_DIM}
@@ -646,11 +674,17 @@ def main() -> int:
         log("reference", f"{task} 4096x54 shuffle_always: cuda_fused on the card vs torch_fold "
             f"on the CPU, max |err| {float((got - want).abs().max()):.3g}")
 
+    phase_done("3")
     schemes(args.seed, table, dev)
+    phase_done("3b")
     techniques(args.seed, table, dev, phase3)
+    phase_done("3c")
     phase3d = tables_and_serving(args.seed, table, dev)
+    phase_done("3d")
     phase3e = sharded(args.seed, table, dev)
+    phase_done("3e")
     phase3f = observability(args.seed, table, dev)
+    phase_done("3f")
 
     # -- 4. timings at the main path's shape -------------------------------
     n, d = FOREST_ROWS, FOREST_DIM
@@ -740,6 +774,8 @@ def main() -> int:
             for b in TIMED_LANES) + f"; 32 one-lane launches {singles_ms:.3f} ms "
             f"({singles_ms / lane_ms[32]:.2f}x the B=32 launch); {card}")
 
+    phase_done("4")
+
     # -- 5. build the serving path's kernels --------------------------------
     for lib in (AK.LIBRARY, AK.BWD_LIBRARY, DK.LIBRARY):
         report = ptxas_report(lib.source.name, builds[lib.name].result())
@@ -747,9 +783,16 @@ def main() -> int:
         log("build", f"{lib.source.name} -> {lib.path().name} ({report}); "
             f"{watch.lap():.2f} s since phase 1 ended")
     pool.shutdown()
+    phase_done("5")
     kernels += serving(args.seed, dev)
-    kernels += training(args.seed, dev, {entry["name"]: entry for entry in kernels})
+    phase_done("6-9")
+    held = {}
+    kernels += training(args.seed, dev, {entry["name"]: entry for entry in kernels}, held)
+    phase_done("10")
     mesh_phase(args.seed, dev, {entry["name"]: entry for entry in kernels})
+    phase_done("11")
+    dryrun_phase(held)
+    phase_done("12")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1866,6 +1909,7 @@ def serving(seed: int, dev) -> list:
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     # -- 6. kernels against their plain versions -----------------------------
+    sub = timing.Stopwatch()
     errs = {"flash_attention": {}, "flash_decode": {}}
     for dtype in (torch.float32, torch.bfloat16):
         e = 0.0
@@ -1932,6 +1976,8 @@ def serving(seed: int, dev) -> list:
     for name, by in errs.items():
         log("parity", f"{name} max |err| f32 {by[torch.float32]:.3g}, bf16 {by[torch.bfloat16]:.3g} "
             f"(tol {(ATTN_TOL if name == 'flash_attention' else DECODE_TOL)[torch.float32]:g} / 2e-2)")
+
+    log("time", f"phase 6 took {sub.lap():.1f} s")
 
     # -- 7. llama3.2-3b serving at full width and depth -----------------------
     watch = timing.Stopwatch()
@@ -2000,8 +2046,11 @@ def serving(seed: int, dev) -> list:
     del params, cache, prefill_step, decode_step
     torch.cuda.empty_cache()
 
+    log("time", f"phase 7 took {sub.lap():.1f} s")
+
     # -- 7b. every other architecture at full width -------------------------
     fam = families(gen, dev)
+    log("time", f"phase 7b took {sub.lap():.1f} s")
 
     # -- 8. full width, 2 layers, float32: the card's kernels vs the CPU's plain path
     small = cfg.scaled(n_layers=2, dtype="float32")
@@ -2026,6 +2075,8 @@ def serving(seed: int, dev) -> list:
         f"card kernels vs CPU plain path, max |logit err| {worst:.3g} (tol {CPU_AGREE_TOL:g})")
     del p_gpu, p_cpu, cache
     torch.cuda.empty_cache()
+
+    log("time", f"phase 8 took {sub.lap():.1f} s")
 
     # -- 9. timings at the serving path's shapes (bf16) ----------------------
     bf = torch.bfloat16
@@ -2092,6 +2143,7 @@ def serving(seed: int, dev) -> list:
     del q, k, v, qd, kc, vc
     torch.cuda.empty_cache()
     entries += instance_timings(normal, inst_errs, fam["instances"], dev)
+    log("time", f"phase 9 took {sub.lap():.1f} s")
     return entries
 
 
@@ -2409,10 +2461,11 @@ def _xlstm_replay_check(cfg, params, prompt, lm) -> str:
             f"first segment ({cfg.slstm_every} layers; tol 2e-3), {diffs[1]:.3g} over all {cfg.n_layers} (not held)")
 
 
-def training(seed: int, dev, entries: dict) -> list:
+def training(seed: int, dev, entries: dict, held: dict) -> list:
     """Phase 10, LM training on the card. Returns the flash_attention_bwd
     entry of the kernels line and adds the training path's launches and
-    the lse timings to flash_attention's entry."""
+    the lse timings to flash_attention's entry. Fills ``held`` with what
+    10c's IGD run holds on the card and measured (phase 12 reads it)."""
     import re
     import shutil
 
@@ -2594,6 +2647,11 @@ def training(seed: int, dev, entries: dict) -> list:
 
     params, state, igd_losses, igd_ms, launches, igd_peak = run(
         f"IGD (momentum 0.9, diminishing{TRAIN_IGD_STEP})", igd_opt(), TRAIN_IGD_STEPS, True)
+    # the bytes a step's arguments hold on the card: the params' and the
+    # momentum's storages, and the batch (a view of the token stream: its
+    # own elements)
+    held["argument_bytes"] = sum(t.untyped_storage().nbytes() for t in leaves(params) + leaves(state)) \
+        + TRAIN_BATCH * TRAIN_S * data.element_size()
     if not igd_losses[-1] < igd_losses[0]:
         raise AssertionError(f"10c: the last IGD loss {igd_losses[-1]} is not below the first {igd_losses[0]}")
     # the optimizer alone: one update of the 28-layer params from zero gradients (CUDA events)
@@ -2614,6 +2672,7 @@ def training(seed: int, dev, entries: dict) -> list:
         by_kind[kind or list(by_kind)[-1]] += us * 1e-3
     idle = "not measured (no device time in the trace)" if split["busy"] is None else \
         f"{1 - split['busy'] / split['wall']:.4f} idle ({split['busy'] * 1e3:.1f} ms busy of {split['wall'] * 1e3:.1f})"
+    held.update(peak_bytes=igd_peak * 1e9, step_ms=step_ms, step_flops=flops_a_token * tokens_a_step)
     log("train", f"10c IGD: {step_ms:.1f} ms a step (mean of steps 2..{TRAIN_IGD_STEPS - 1}), {tokens_s:.0f} tokens/s, "
         f"model FLOP/s {flops_a_token * tokens_s / 1e12:.1f} T ({flops_a_token:.4g} FLOP a token: 6 x {mm_params} matmul "
         f"params + causal attention) = {mfu:.4f} of 989 TFLOP/s bf16 dense; peak {igd_peak:.2f} GB; the optimizer's "
@@ -3023,6 +3082,95 @@ def mesh_phase(seed: int, dev, entries: dict) -> None:
                                       mesh_step_ms=sharded_ms, mesh_plain_step_ms=plain_ms)
     entries["flash_attention_bwd"]["launches_mesh"] = step_launches["flash_attention_bwd"] + \
         fit_launches["flash_attention_bwd"]
+
+
+def dryrun_phase(held: dict) -> None:
+    """Phase 12, the dry run (see the module's docstring). ``held``: what
+    10c's IGD run held on the card and measured (``training``)."""
+    from repro_torch import timing
+    from repro_torch.engine.sweep import roofline_summary
+    from repro_torch.kernels.attention import kernel as AK
+    from repro_torch.kernels.decode import kernel as DK
+    from repro_torch.kernels.igd_fused import kernel as K
+
+    phase = timing.Stopwatch()
+    card = smi("name,power.limit")
+    for mod in (AK, DK, K):
+        mod.reset_launches()
+
+    # -- 12a. one production cell, as a user runs it (a subprocess, which
+    # runs while 12b traces in this process) -------------------------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", "chip_smoke_dryrun.jsonl")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    arch, shape, mesh = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                             "--mesh", mesh, "--out", out], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        b = dryrun_12b(held, card)
+        try:
+            stdout, stderr = proc.communicate(timeout=max(1.0, DRYRUN_LIMIT_S - phase.lap()))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"12a: the dry run took more than {DRYRUN_LIMIT_S} s")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"12a: the dry run exited {proc.returncode}: {stdout[-2000:]} {stderr[-4000:]}")
+    with open(out) as f:
+        rec = json.loads(f.read().splitlines()[-1])
+    if rec["status"] != "OK" or not rec["hlo_flops"] > 0 or not rec["collective_traffic_bytes"] > 0:
+        raise AssertionError(f"12a: {rec}")
+    log("dryrun", f"12a python -m repro_torch.launch.dryrun --arch {arch} --shape {shape} --mesh {mesh} "
+        f"(torch {torch.__version__}, a fake group of {rec['n_chips']} ranks, mesh {rec['mesh']}): {rec['status']} "
+        f"(cell built in {rec['lower_s']} s, step traced in {rec['compile_s']} s; the subprocess ran beside 12b); a "
+        f"device's FLOPs {rec['hlo_flops']:.6g}, HBM bytes (matmul operands + 2 x collectives) "
+        f"{rec['hlo_hbm_bytes']:.6g}, arguments {rec['argument_bytes']}, outputs {rec['output_bytes']}, temp (the "
+        f"plain path's peak) {rec['temp_bytes']}; collectives by kind {json.dumps(rec['collectives_by_kind'])}, "
+        f"traffic {rec['collective_traffic_bytes']:.6g} bytes; model FLOPs {rec['model_flops']:.6g}; "
+        f"roofline_summary (s at H100 SXM figures): {roofline_summary(rec)}; {card}")
+    launches = {**AK.launches, **DK.launches, **K.launches}
+    if any(launches.values()):
+        raise AssertionError(f"phase 12 launched kernels: {launches}")
+    log("dryrun", f"phase 12: 12b {b:.1f} s, 12a beside it, {phase.lap():.1f} s more to its end; kernel launches in "
+        f"the phase {launches}")
+
+
+def dryrun_12b(held: dict, card: str) -> float:
+    """Phase 12b (see the module's docstring); returns its seconds."""
+    from repro_torch import timing
+    from repro_torch.configs import get_arch
+    from repro_torch.core import igd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import PEAK_FLOPS
+    from repro_torch.optim import IGD
+
+    watch = timing.Stopwatch()
+    # -- 12b. 10c's cell at a (1, 1) fake mesh --------------------------------
+    cell = dict(grad_accum=TRAIN_ACCUM, optimizer=IGD(igd.diminishing(*TRAIN_IGD_STEP), momentum=0.9),
+                shape_overrides={"global_batch": TRAIN_BATCH}, mesh_shape={"data": 1, "model": 1})
+    rec = dryrun.run_cell("llama3.2-3b", "train_4k", False, **cell)
+    if rec["status"] != "OK" or rec["argument_bytes"] != held["argument_bytes"]:
+        raise AssertionError(f"12b: the dry run's argument bytes {rec.get('argument_bytes')} are not the "
+                             f"{held['argument_bytes']} bytes 10c held on the card")
+    if not rec["hlo_flops"] > 0 or rec["collective_traffic_bytes"]:
+        raise AssertionError(f"12b: {rec}")
+    secs_b = watch.lap()
+    predicted = rec["argument_bytes"] + rec["temp_bytes"]
+    log("dryrun", f"12b llama3.2-3b {TRAIN_BATCH} x {TRAIN_S} tokens, grad_accum {TRAIN_ACCUM}, IGD with momentum, "
+        f"{get_arch('llama3.2-3b').n_layers} layers, a (1, 1) fake mesh: argument bytes ({rec['n_params']} params) "
+        f"{rec['argument_bytes']} = the {held['argument_bytes']} bytes 10c's params, momentum and batch held on the "
+        f"card, exactly; the step traced in {rec['compile_s']} s: FLOPs {rec['hlo_flops']:.6g} (at 989 TFLOP/s "
+        f"{rec['hlo_flops'] / PEAK_FLOPS * 1e3:.1f} ms) beside 10c's {held['step_flops']:.6g} model FLOPs and "
+        f"{held['step_ms']:.1f} ms a step measured; predicted peak (arguments + the plain path's temp) "
+        f"{predicted / 1e9:.3f} GB beside 10c's max_memory_allocated {held['peak_bytes'] / 1e9:.3f} GB; 12b took "
+        f"{secs_b:.1f} s; {card}")
+    return secs_b
 
 
 def _leaves(tree):

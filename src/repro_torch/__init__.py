@@ -24,4 +24,8 @@ Two modules of the reference are **not applicable** and have no port:
   includes);
 * ``compat.py`` (shims over JAX's changing mesh API): PyTorch's API needs
   no shim here.
+
+Nor is the HLO-text parser of ``launch/hlo_analysis.py`` (``analyze``):
+the port has no HLO, and its dry run (``launch.dryrun``) counts the ops a
+step executes with a dispatch mode (``launch.hlo_analysis.StepCounter``).
 """

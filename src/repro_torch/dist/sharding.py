@@ -404,6 +404,77 @@ def abstract_with_sharding(abs_tree, specs, mesh):
     return map_specs(one, specs, abs_tree)
 
 
+def local_shape(shape, placements_, mesh) -> tuple:
+    """The shape of one rank's shard of a tensor of ``shape`` placed by
+    ``placements_`` on ``mesh``: each ``Shard(i)`` divides dim i by its
+    mesh dim's size. The policy shards a dim only where the sizes divide
+    (``_div``), so every shard has this shape; anything else raises."""
+    out = list(shape)
+    for (name, size), p in zip(mesh_shape(mesh).items(), placements_):
+        dim = getattr(p, "dim", None)
+        if dim is None:
+            continue
+        if out[dim] % size:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split evenly over mesh axis {name!r} ({size})")
+        out[dim] //= size
+    return tuple(out)
+
+
+def fake_with_sharding(abs_tree, specs, mesh, fake_mode):
+    """DTensors placed by ``specs`` on ``mesh`` whose local shards are fake
+    tensors (``fake_mode``, a ``FakeTensorMode``) of this rank's local
+    shapes: the dry run's inputs. ``abs_tree`` holds meta tensors (or
+    anything with ``shape`` and ``dtype``); nothing is allocated. The
+    shards are made inside ``fake_mode`` on the CPU, so the plain versions
+    trace on them; the DTensors are made outside it, and the step is
+    called with the mode not entered (the fake shards carry it)."""
+    from torch.distributed.tensor import DTensor
+
+    def one(s, a):
+        pl = placements(s, mesh)
+        with fake_mode:
+            shard = torch.empty(local_shape(a.shape, pl, mesh), dtype=a.dtype, device="cpu")
+        stride = torch.empty(tuple(a.shape), device="meta").stride()
+        return DTensor.from_local(shard, mesh, pl, run_check=False, shape=tuple(a.shape), stride=stride)
+
+    return map_specs(one, specs, abs_tree)
+
+
+def write_positions(cache, start: int, value) -> None:
+    """``cache[:, start:start + S] = value`` in place, for a [B, L, ...]
+    cache and a [B, S, ...] value. On a DTensor cache each rank writes the
+    positions its own shard holds (the cache may be split along L, as
+    ``cache_specs`` lays out a decode cache): the value is laid out like
+    the cache's batch dim and replicated elsewhere, then each rank copies
+    the rows of [start, start + S) that fall in its slice of L. A
+    DTensor's own in-place ``setitem`` would need the cache's layout to
+    change."""
+    n = value.shape[1]
+    if not is_dtensor(cache):
+        cache[:, start:start + n] = value
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = cache.device_mesh
+    want = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in cache.placements]
+    if not is_dtensor(value):  # a plain value is the same on every rank
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    value = value.redistribute(mesh, want).to_local()
+    local = cache.to_local()
+    coord = mesh.get_coordinate()
+    if coord is None:  # this rank holds no shard
+        return
+    # this rank's slice of L: the mesh dims splitting dim 1, the first major
+    offset, chunk = 0, cache.shape[1]
+    for j, p in enumerate(cache.placements):
+        if isinstance(p, Shard) and p.dim == 1:
+            chunk //= mesh.shape[j]
+            offset += coord[j] * chunk
+    lo, hi = max(start, offset), min(start + n, offset + local.shape[1])
+    if lo < hi:
+        local[:, lo - offset:hi - offset] = value[:, lo - start:hi - start]
+
+
 def gather_data_axes(x):
     """A DTensor parameter with its shards over the data axes ("pod",
     "data") all-gathered for use, its "model" split kept: FSDP's gather

@@ -52,3 +52,21 @@ def sweep(
             log_fn(f"{tag} {rec.get('status')}{extra}")
             records.append(rec)
     return records
+
+
+def roofline_summary(rec: dict, *, projected: bool = False) -> str:
+    """The hillclimb status line of a dry-run record: its collective,
+    memory and compute terms in seconds (``launch.hlo_analysis.
+    roofline_terms``, at one H100 SXM's figures where the reference's line
+    uses a TPU v5e's) and its temp GiB."""
+    from repro_torch.launch.hlo_analysis import roofline_terms
+
+    suffix = "_proj" if projected else ""
+    terms = roofline_terms(rec.get("hlo_flops") or 0, rec.get(f"hlo_hbm_bytes{suffix}") or 0,
+                           rec.get(f"collective_traffic_bytes{suffix}") or 0)
+    return (
+        f"coll {round(terms['collective_s'], 1)} "
+        f"mem {round(terms['memory_s'], 1)} "
+        f"comp {round(terms['compute_s'], 1)} "
+        f"temp_gb {round((rec.get('temp_bytes') or 0) / 2**30, 1)}"
+    )

@@ -34,12 +34,19 @@ sizes, so it takes either kind):
   :func:`init_world` builds its group from a ``HashStore``;
 * ``make_production_mesh(multi_pod)`` — the reference's (16, 16) ("data",
   "model") or (2, 16, 16) ("pod", "data", "model") mesh as an
-  :class:`AbstractMesh`: axis names and sizes, no devices. 512 ranks exist
-  only as shape arithmetic (the dry run's).
+  :class:`AbstractMesh`: axis names and sizes, no devices (the sharding
+  policy's tests read it);
+* ``fake_mesh(shape)`` — a context: that mesh as a ``DeviceMesh`` on
+  ``"cpu"`` over a fake process group of ``prod(shape)`` ranks in this
+  process (PyTorch's ``"fake"`` backend: this process is rank 0, and a
+  collective moves nothing but gives outputs of the right shapes). The
+  dry run's mesh (``launch.dryrun``); the group is destroyed when the
+  context ends, failed or not.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, List, Optional
 
@@ -142,3 +149,23 @@ def make_host_mesh(data: int = 1, model: int = 1, device=None):
     if device.type == "cuda":
         torch.cuda.set_device(device)
     return init_device_mesh(device.type, (data, model), mesh_dim_names=("data", "model"))
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: Dict[str, int]):
+    """A ``DeviceMesh`` of ``shape`` ({axis: size}, in axis order) on
+    ``"cpu"`` over a fake process group of ``prod(sizes)`` ranks, this
+    process rank 0; the group is destroyed on exit. No process group may
+    be up already."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    # registers the "fake" backend (PyTorch ships it with its test helpers)
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh needs no process group to be up: it starts its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=math.prod(shape.values()))
+    try:
+        yield init_device_mesh("cpu", tuple(shape.values()), mesh_dim_names=tuple(shape))
+    finally:
+        dist.destroy_process_group()

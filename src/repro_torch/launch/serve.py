@@ -16,6 +16,16 @@ Two serving surfaces share this module:
   params object: the reference casts float32 params at every use, which
   on the card would read 12.85 GB and write 6.4 GB per llama3.2-3b
   decode step.
+
+Sharded (the params DTensors laid out by ``dist.sharding.param_specs``,
+the batch by ``batch_specs`` and a decode cache by ``cache_specs``): the
+steps run as a sharded train step's forward does. Under
+``implicit_replication`` (the tensors the model makes on the spot count as
+replicated), each parameter's shards over the data axes are gathered for
+use (``sharding.gather_data_axes``) at every call, attention runs on each
+rank's local heads (``sharding.head_local``), and the cache is written
+shard by shard (``sharding.write_positions``). They return DTensors: the
+logits, or the token and the cache, whose leaves keep their placements.
 """
 
 from __future__ import annotations
@@ -26,6 +36,8 @@ from typing import Iterable, List, Optional
 import torch
 
 from repro_torch import obs
+from repro_torch.core.tree import tree_map
+from repro_torch.dist import sharding as shd
 from repro_torch.engine import executor, serve as serve_lib
 from repro_torch.models import lm
 
@@ -99,27 +111,40 @@ def _cast_once(cfg):
     return cast
 
 
-def make_prefill_step(cfg):
+def _serving(cfg, body):
+    """``body(params, batch)`` on the compute-dtype copy of the params;
+    on DTensor params under ``implicit_replication`` with each parameter's
+    data-axis shards gathered for the call (see the module's docstring)."""
     cast = _cast_once(cfg)
 
+    def step(params, batch):
+        p = cast(params)
+        if not shd.is_dtensor(p["embed"]):
+            return body(p, batch)
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication():
+            return body(tree_map(shd.gather_data_axes, p), batch)
+
+    return step
+
+
+def make_prefill_step(cfg):
     def prefill_step(params, batch):
         """batch: {"tokens": [B, S]} (+ "prefix_embeds" [B, P, D]) ->
         last-position logits [B, vocab]."""
-        return lm.prefill(cast(params), batch["tokens"], cfg,
-                          prefix_embeds=batch.get("prefix_embeds"))
+        return lm.prefill(params, batch["tokens"], cfg, prefix_embeds=batch.get("prefix_embeds"))
 
-    return prefill_step
+    return _serving(cfg, prefill_step)
 
 
 def make_decode_step(cfg):
-    cast = _cast_once(cfg)
-
     def decode_step(params, batch):
         """batch: {"tokens": [B, S], "cache": ...} (+ "prefix_embeds"
         [B, P, D]) -> (greedy next token [B] int32, cache). With S > 1 this
         prefills the chunk into the cache at its index, the prefix first."""
-        logits, cache = lm.decode_step(cast(params), batch["tokens"], batch["cache"], cfg,
+        logits, cache = lm.decode_step(params, batch["tokens"], batch["cache"], cfg,
                                        prefix_embeds=batch.get("prefix_embeds"))
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
-    return decode_step
+    return _serving(cfg, decode_step)

@@ -153,17 +153,31 @@ def make_train_step(cfg, optimizer, grad_accum: int = 1, compress_grads: bool = 
     return train_step
 
 
-def make_localsgd_step(cfg, optimizer, grad_accum: int = 1, merge_period: int = 16):
+def make_localsgd_step(cfg, optimizer, grad_accum: int = 1, merge_period: int = 16, param_shardings=None):
     """Local SGD across the pod axis (the paper's pure-UDA merge at scale).
 
     The params and optimizer-state banks carry a leading ``n_pods``
     dimension; each pod's instance takes its own step on its own batch
     (``batch_bank`` leaves [n_pods, B, ...]), and at every step with
     ``step % merge_period == merge_period - 1`` the instances are
-    replaced by their mean (the UDA ``merge``). Metrics are the pods' mean."""
-    base_step = make_train_step(cfg, optimizer, grad_accum)
+    replaced by their mean (the UDA ``merge``). Metrics are the pods' mean.
+
+    ``param_shardings`` (one instance's, on the mesh's dims but "pod":
+    ``mesh["data", "model"]``): the banks are DTensors whose leading dim
+    is split over "pod", one instance a pod (the batch bank's placed
+    ("pod", "data")). Each rank steps its own pod's instance on that
+    submesh through the sharded step, in place in its shard of the bank,
+    and the merge is a mean over "pod": the only cross-pod traffic, an
+    all-reduce at merges (and of the scalar metrics)."""
+    base_step = make_train_step(cfg, optimizer, grad_accum, param_shardings=param_shardings)
+
+    def merge(params_bank):
+        with torch.no_grad():
+            tree_map(lambda t: t.copy_(torch.mean(t, dim=0, keepdim=True).expand_as(t)), params_bank)
 
     def step_fn(params_bank, opt_bank, batch_bank, step):
+        if param_shardings is not None:
+            return sharded_step(params_bank, opt_bank, batch_bank, step)
         n_pods = leaves(params_bank)[0].shape[0]
         per_pod = []
         for i in range(n_pods):
@@ -175,9 +189,36 @@ def make_localsgd_step(cfg, optimizer, grad_accum: int = 1, merge_period: int = 
                 tree_map(lambda bank, x: bank[i].copy_(x), opt_bank, o)
             per_pod.append(metrics)
         if int(step) % merge_period == merge_period - 1:
-            with torch.no_grad():
-                tree_map(lambda t: t.copy_(torch.mean(t, dim=0, keepdim=True).expand_as(t)), params_bank)
+            merge(params_bank)
         metrics = {k: torch.stack([m[k] for m in per_pod]).mean(0) for k in per_pod[0]}
+        return params_bank, opt_bank, metrics
+
+    def sharded_step(params_bank, opt_bank, batch_bank, step):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        inner = leaves(param_shardings)[0].mesh
+
+        def own(bank, placements_):
+            """This rank's pod's instance: a view of its shard of the bank."""
+            local = bank.to_local()
+            if local.shape[0] != 1:
+                raise ValueError(f"a bank of {bank.shape[0]} instances over a pod axis of "
+                                 f"{bank.shape[0] // local.shape[0]}: one instance a pod")
+            shape = tuple(bank.shape[1:])
+            return DTensor.from_local(local[0], inner, placements_, run_check=False, shape=shape,
+                                      stride=torch.empty(shape, device="meta").stride())
+
+        p = tree_map(lambda b, s: own(b, s.placements), params_bank, param_shardings)
+        o = tuple(tree_map(lambda b, s: own(b, s.placements), ob, param_shardings) for ob in opt_bank)
+        data = [Shard(0) if name == "data" else Replicate() for name in shd.mesh_shape(inner)]
+        batch = tree_map(lambda b: own(b, data), batch_bank)
+        _, _, metrics = base_step(p, o, batch, step)
+        if int(step) % merge_period == merge_period - 1:
+            merge(params_bank)
+        pods = leaves(params_bank)[0].device_mesh["pod"]
+        # the pods' mean of each metric (every rank holds its pod's value)
+        metrics = {k: DTensor.from_local(v.reshape(1), pods, [Shard(0)], run_check=False).full_tensor().mean(0)
+                   for k, v in metrics.items()}
         return params_bank, opt_bank, metrics
 
     return step_fn

@@ -11,8 +11,9 @@ with the reference's key names, so a JAX pytree carries across one to one
   the logits, so nothing needs chunking;
 * the KV cache is updated in place: the reference returns a new cache
   (``dynamic_update_slice``), which on the card would copy the whole cache
-  every step. ``cache_index`` is a Python int, so routing and the kernels'
-  ``length`` need no device sync. The kernels read only the cache's first
+  every step (a DTensor cache split along its length is written shard by
+  shard, ``dist.sharding.write_positions``). ``cache_index`` is a Python
+  int, so routing and the kernels' ``length`` need no device sync. The kernels read only the cache's first
   ``cache_index + S`` positions, which is the reference's ``kv_limit``
   mask over the whole cache;
 * the attention-logit soft cap (``cfg.logit_softcap``, grok-1) is applied
@@ -30,6 +31,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import write_positions
 from repro_torch.kernels.attention import ops as attention_ops
 from repro_torch.kernels.decode import ops as decode_ops
 
@@ -134,8 +136,8 @@ def attention(params: dict, x, cfg, positions, *, cache: Optional[dict] = None,
         end = cache_index + s
         if end > ck.shape[1]:
             raise ValueError(f"{s} tokens at index {cache_index} overflow the cache's {ck.shape[1]} positions")
-        ck[:, cache_index:end] = k.to(ck.dtype)
-        cv[:, cache_index:end] = v.to(cv.dtype)
+        write_positions(ck, cache_index, k.to(ck.dtype))
+        write_positions(cv, cache_index, v.to(cv.dtype))
         if s == 1:
             out = decode_ops.decode_attention(q[:, 0], ck.to(dt), cv.to(dt), end, cap)
         else:
