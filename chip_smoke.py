@@ -18,8 +18,13 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    igd_fold_minibatch also to the plain version of its cluster's order
    (ref.igd_fold_minibatch_split_ref) over the full epoch, and to both
    plain versions at N around the 256-row tile and the cluster's span and
-   D across its D = 256 instance boundary up to its limit, N = 0 (w0
-   exactly) and x, y, alpha off a 16-byte boundary;
+   D across its D = 256 instance boundary up to the one-block kernel's
+   last D (12,032), N = 0 (w0 exactly) and x, y, alpha off a 16-byte
+   boundary; then both wide instances (igd_fold past D = 4,096,
+   igd_fold_minibatch past 12,032: the kernels take every D >= 1) against
+   their plain versions at D 4,097 to 65,537 and on both sides of each
+   one's shared-memory tier, and as lane launches (B 1 and 8, shared and
+   stacked tables) equal to their one-lane launches bit for bit;
 3. run the engine end to end on a Forest-shaped table (581,012 x 54 f32,
    UCI Covertype's shape, label-clustered, generated on the card from
    --seed): logreg with no hints (the probe-priced plan must choose
@@ -94,19 +99,27 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    an ephemeral port, /metrics scraped from a thread while the pump runs
    and parsed (fused lanes, accepted and the logreg latency histogram
    held to the tickets); a forced breach (p99 > 0) whose incident files
-   must validate and hold an engine.kernel span; then logreg at D =
-   4,097 and least_squares at D = 12,033 (WIDE_ROWS rows): planned past
-   the kernels that cannot take D, 2 epochs held to the CPU's run with
-   draws.HostDraws (rtol=2e-4, atol=2e-5), and the cuda_fused /
-   cuda_minibatch hints past their limits refused naming the limit; the
-   `kernels` line's `launches_obs` counts the phase's runs and drains;
+   must validate and hold an engine.kernel span; then the wide tables,
+   logreg at D = 4,097 and least_squares at D = 12,033 (WIDE_ROWS rows):
+   unhinted, probe (e) prices both kernels and the plan is cuda_fused (the
+   wide igd_fold), and least_squares by the cuda_minibatch hint (the wide
+   igd_fold_minibatch); each runs 2 epochs, one launch of the wide
+   instance an epoch (counted), held to the CPU's run with
+   draws.HostDraws (rtol=2e-4, atol=2e-5); the `kernels` line's
+   `launches_obs` counts the phase's runs and drains, and the wide rows'
+   `launches` the wide-table runs;
 4. time each kernel at the main path's shape with CUDA events, beside its
    plain version and its bound; igd_fold also beside its chain floor (N
    times one grad_scale + FMA step timed alone in one warp),
    igd_fold_minibatch beside its tile-chain floor (the tiles times one
    tile's step timed with the tile resident in shared memory); both also
    as lane launches at B = 1, 8, 32 over the shared table, beside 32
-   one-lane launches in the same call;
+   one-lane launches in the same call; then each wide instance at
+   WIDE_ROWS x D (igd_fold at 4,097 and 12,033, igd_fold_minibatch at
+   12,033) in turns with one epoch of the eager fold (torch_fold) it
+   replaced on the same rows, beside its plain version, its bound and its
+   chain floor (the rows, or tiles, times its dependent step timed alone);
+   the wide igd_fold must be 10x under the eager fold;
 5. build the flash-attention (forward and gradient) and flash-decode CUDA
    kernels from src/repro_torch/kernels/{attention,decode}/csrc (all four
    sources are compiled at once, one nvcc each, when the script starts);
@@ -216,7 +229,13 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    10c's cell (llama3.2-3b, 8 x 4,096, grad_accum 8, IGD with momentum) at a
    (1, 1) fake mesh: its argument bytes at full depth equal the bytes 10c's
    params, optimizer state and batch hold on the card, exactly; its FLOPs
-   and predicted peak printed beside 10c's (12a's subprocess runs beside it).
+   and predicted peak printed beside 10c's (12a's subprocess runs beside it);
+   beside them, in subprocesses: 12c the MoE cell, qwen3-moe-235b-a22b
+   train_4k on the (16, 16) mesh, its depth cut (MOE_DRYRUN_LAYERS), whose
+   record is printed next to 12a's; 12d run_localsgd_cell at its default
+   seq_shard=True on the (2, 16, 16) mesh, llama3.2-3b cut to
+   LOCALSGD_LAYERS; 12e fit(mesh=(2, 2), seq_shard=True) over 4 gloo ranks
+   of the host's CPU against fit with no mesh, losses within SEQ_FIT_TOL.
 
 Every phase logs its seconds (lines tagged [time]).
 
@@ -252,6 +271,17 @@ F64_PREFIX = 65_536  # rows the kernel is held to a float64 fold on
 # return w0 exactly)
 MB_D = (1, 54, 256, 257, 12_032)
 MB_N = (0, 1, 255, 257, 16_385)
+# the wide instances (igd_fold past D = 4,096, igd_fold_minibatch past
+# 12,032): (N, D) at the issue's widths, few rows at the widest, and on both
+# sides of each wide instance's shared-memory tier (kernel.py's
+# FOLD_WIDE_SMEM_MAX_DIM, MINIBATCH_WIDE_SMEM_MAX_DIM); lane launches at B 1
+# and 8 over shared and stacked tables
+WIDE_D = (4_097, 8_192, 12_033, 12_289, 65_537)
+WIDE_FOLD_SHAPES = ((300, 4_097), (1_000, 8_192), (257, 12_033), (100, 12_289), (40, 65_537), (64, 57_280),
+                    (64, 57_281))
+WIDE_MB_SHAPES = ((300, 4_097), (513, 8_192), (300, 12_033), (513, 12_289), (2_049, 65_537), (0, 20_000),
+                  (300, 452_608), (300, 452_609))
+WIDE_LANE_B = (1, 8)
 KERNEL_RTOL, KERNEL_ATOL = 2e-4, 2e-5
 # phase 3b: rows of the Forest-shaped table the eager schemes run on (cut
 # so the phase stays within ~90 s on the card: the eager fold costs
@@ -280,7 +310,8 @@ SERVE_QUERIES, SERVE_MB_QUERIES = 32, 8
 # replay's bound, the queries of the fused sharded batch
 SHARD_EPOCHS, SHARD_LANE_ROWS, SHARD_F64_TOL, SHARD_SERVE_QUERIES = 3, 16_384, 1e-4, 8
 TIMED_LANES = (1, 8, 32)
-# phase 3f: rows of the tables wider than the IGD kernels take (D 4,097 and 12,033)
+# phase 3f and 4: rows of the wide tables (D 4,097 and 12,033, past the IGD
+# kernels' narrow instances)
 WIDE_ROWS = 8_192
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -377,6 +408,18 @@ MESH_TRAIN_TOL, MESH_TRAIN_STEPS, MESH_FIT_STEPS = 1e-4, 3, 4
 # the card (its 28 x 8 layer-microbatches trace in ~75 s on the card's host)
 DRYRUN_CELL = ("llama3.2-3b", "decode_32k", "single")
 DRYRUN_LIMIT_S = 110
+# 12c: the MoE cell, qwen3-moe-235b-a22b train_4k on the (16, 16) mesh, its
+# 94 layers cut to 1 (1 layer took 22 s to build and trace on a CPU, 2
+# layers 29 s alone and 52 s beside 12d and 12e: the phase's limit for it
+# is 60 s, and 94 layers would take ~15 min); 12d: the local-SGD cell at its default seq_shard=True on the
+# (2, 16, 16) mesh, llama3.2-3b's 28 layers cut to 1; 12e: fit with
+# seq_shard=True over 4 gloo ranks of the host's CPU, a (2, 2) mesh,
+# against fit with no mesh (the dense and MoE smoke configs, SEQ_FIT_STEPS
+# steps each, losses within SEQ_FIT_TOL). All three run in subprocesses
+# beside 12a and 12b, within DRYRUN_SIDE_LIMIT_S of the phase's start
+MOE_DRYRUN_LAYERS, LOCALSGD_LAYERS = 1, 1
+SEQ_FIT_STEPS, SEQ_FIT_TOL = 3, 1e-5
+DRYRUN_SIDE_LIMIT_S = 200
 # the gradient call's three launches, by a substring of their kernels' names,
 # and the calls profiled to time each
 BWD_KINDS, BWD_PROFILED = {"D": "rowdot_kernel", "dk/dv": "dkdv_", "dq": "dq_kernel"}, 10
@@ -409,6 +452,128 @@ def inputs(gen, n, d, device):
     alpha = 0.1 / (1.0 + torch.arange(n, device=device, dtype=torch.float32) / n)
     w0 = 0.01 * torch.randn((d,), generator=gen, device=device)
     return x, y, alpha, w0
+
+
+def wide_timings(seed: int, dev, card: str, launches: dict, errs: dict) -> list:
+    """Phase 4's wide-instance rows: each wide instance's ms a launch at
+    WIDE_ROWS x D (CUDA events, 3 launches a turn) in turns with one epoch
+    of the eager fold it replaced there (torch_fold through Engine.run on
+    the same rows: its gradient wall), beside its plain version's ms, its
+    bound and its chain floor (N rows, or N / 256 tiles, times the
+    instance's dependent step timed alone by kernel.wide_step_probe /
+    minibatch_wide_step_probe). ``launches``: the wide instances' launches
+    on phase 3f's path. Returns the rows of the ``kernels`` line."""
+    from repro_torch import engine, timing
+    from repro_torch.data import synthetic
+    from repro_torch.engine import planner
+    from repro_torch.kernels.igd_fused import kernel as K, ref as R
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 37)
+    n, eng = WIDE_ROWS, engine.Engine()
+    eager_plan = planner.Plan("clustered", "serial", implementation="torch_fold")
+    by_name = {}
+    # (task, D, the kernels timed on its rows): one eager epoch a turn serves them all
+    for task, d, timed in (("logreg", 4_097, (("igd_fold", "lr"),)),
+                           ("least_squares", 12_033, (("igd_fold", "lsq"), ("igd_fold_minibatch", "lsq")))):
+        table = synthetic.dense_classification(gen, n, d)
+        x, y = table["x"], table["y"]
+        alpha = engine.get(task).step_size(n)(torch.arange(n, dtype=torch.int32, device=dev))
+        w0 = torch.zeros(d, device=dev)
+        q = engine.AnalyticsQuery(task=task, data=table, task_args={"dim": d}, epochs=1, tolerance=0.0, seed=seed)
+        kernel_ms, eager_ms = {name: [] for name, _ in timed}, []
+        for _ in range(2):  # the kernels, the eager epoch; twice
+            for name, loss in timed:
+                kernel_ms[name].append(event_ms(lambda: getattr(K, name)(x, y, alpha, w0, loss=loss), 3))
+            eager_ms.append(eng.run(q, plan=eager_plan).gradient_seconds * 1e3)
+        eager = sum(eager_ms) / len(eager_ms)
+        for name, loss in timed:
+            plain = getattr(R, f"{name}_ref")
+            plain_ms = timing.seconds(lambda: plain(x, y, alpha, w0, loss=loss), dev) * 1e3
+            if name == "igd_fold":
+                step_cycles, step_s = K.wide_step_probe(loss, d)
+                floor_ms = n * step_s * 1e3
+                floor_what = f"{n} rows x {step_cycles:.0f} cycles ({step_s * 1e6:.3f} us)"
+                flops = n * (4 * d + 8)
+            else:
+                step_cycles, step_s = K.minibatch_wide_step_probe(loss)
+                tiles = -(-n // K.TILE)
+                floor_ms = tiles * step_s * 1e3
+                floor_what = f"{tiles} tiles x {step_cycles:.0f} cycles ({step_s * 1e6:.3f} us) of the exchange alone"
+                flops = n * (4 * d + 8) + 2 * d * tiles
+            io_bytes = n * (d + 2) * 4 + 2 * d * 4
+            bytes_ms, ops_ms = io_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+            turns = kernel_ms[name]
+            ms = sum(turns) / len(turns)
+            if name == "igd_fold" and not eager >= 10 * ms:
+                raise AssertionError(f"{name} at {n}x{d}: {ms:.3f} ms a launch is not 10x under the eager fold's "
+                                     f"{eager:.1f} ms")
+            by_name.setdefault(name, []).append({
+                "d": d, "loss": loss, "ms": ms, "kernel_ms_turns": turns, "eager_ms_turns": eager_ms,
+                "eager_ms": eager, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "chain_floor_ms": floor_ms})
+            log("timing", f"{name} wide instance ({loss}, {n}x{d}): {ms:.4f} ms/launch (turns "
+                f"{', '.join(f'{t:.4f}' for t in turns)}), {ms * 1e3 / n:.3f} us/row; the eager fold it replaced "
+                f"({task} torch_fold, one epoch, same rows, in turns) {', '.join(f'{t:.1f}' for t in eager_ms)} ms: "
+                f"{eager / ms:.1f}x; plain version {plain_ms:.1f} ms; bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
+                f"{io_bytes} at 3.35 TB/s: {bytes_ms:.4f} ms; fp32 ops at 67 TFLOP/s: {ops_ms:.4f} ms), "
+                f"{max(bytes_ms, ops_ms) / ms:.4f} of it; chain floor {floor_ms:.3f} ms = {floor_what}, "
+                f"{floor_ms / ms:.3f} of the kernel's time; {card}")
+        del table, x, y
+    rows = []
+    for name, points in by_name.items():
+        first = points[0]  # the row's numbers are its first width's; by_d holds every width
+        rows.append({
+            "name": f"{name}[wide]", "route": "cuda", "source": "src/repro_torch/kernels/igd_fused/csrc/igd_fused.cu",
+            "replaces": {"igd_fold": "src/repro/kernels/igd_fused/kernel.py:74",
+                         "igd_fold_minibatch": "src/repro/kernels/igd_fused/kernel.py:119"}[name],
+            "launches": launches[name], "max_abs_err": errs[name], "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"], "library_ms": None, "rows": n,
+            "d": first["d"], "eager_ms": first["eager_ms"], "chain_floor_ms": first["chain_floor_ms"], "by_d": points,
+        })
+    return rows
+
+
+def wide_parity(gen, dev) -> dict:
+    """Phase 2's wide-instance checks (see WIDE_*): each wide instance
+    against its plain version for the three losses, and its lane launches
+    against their one-lane launches (bit for bit) and the plain lanes.
+    Returns the largest |err| of each kernel's wide instance."""
+    from repro_torch.kernels.igd_fused import kernel as K, ref as R
+
+    errs = {"igd_fold": 0.0, "igd_fold_minibatch": 0.0}
+    for name, plain, shapes in (("igd_fold", R.igd_fold_ref, WIDE_FOLD_SHAPES),
+                                ("igd_fold_minibatch", R.igd_fold_minibatch_ref, WIDE_MB_SHAPES)):
+        kernel = getattr(K, name)
+        for n, d in shapes:
+            args_ = inputs(gen, n, d, dev)
+            for loss in LOSSES:
+                got = kernel(*args_, loss=loss)
+                errs[name] = max(errs[name], max_err(got, plain(*args_, loss=loss), f"{name} {loss} {n}x{d}"))
+                if n == 0 and not torch.equal(got, args_[3]):
+                    raise AssertionError(f"{name} {loss} 0x{d} did not return w0")
+            del args_
+        for d in WIDE_D:
+            n = 40 if d > 60_000 else 300
+            for b in WIDE_LANE_B:
+                for shared in (True, False):
+                    x, y, _, _ = inputs(gen, n if shared else b * n, d, dev)
+                    if not shared:
+                        x, y = x.view(b, n, d), y.view(b, n)
+                    alpha = (0.1 / (1.0 + torch.arange(n, device=dev) / n)) * (1.0 + torch.rand(
+                        (b, 1), generator=gen, device=dev))
+                    w0 = 0.01 * torch.randn((b, d), generator=gen, device=dev)
+                    for loss in LOSSES:
+                        got = kernel(x, y, alpha, w0, loss=loss)
+                        for i in range(b):
+                            xi, yi = (x, y) if shared else (x[i], y[i])
+                            if not torch.equal(got[i], kernel(xi, yi, alpha[i].contiguous(), w0[i].contiguous(),
+                                                              loss=loss)):
+                                raise AssertionError(f"{name} {loss} D={d} B={b} lane {i} differs from its "
+                                                     f"one-lane launch")
+                        errs[name] = max(errs[name], max_err(got, R.lanes_ref(plain, x, y, alpha, w0, loss=loss),
+                                                             f"{name} {loss} D={d} B={b} lanes"))
+                    del x, y
+    return errs
 
 
 def ptxas_report(name: str, text: str) -> str:
@@ -590,6 +755,13 @@ def main() -> int:
         f"{sorted({n for n, _ in mb_shapes})} x D in {MB_D} vs both plain folds, lr, svm, lsq: max |err| "
         f"{mb_errs['plain']:.3g} against the plain fold, {mb_errs['split']:.3g} against the split fold; "
         "N = 0 returned w0; x, y, alpha off a 16-byte boundary gave the same w bit for bit (D 54, 256)")
+    # the wide instances against their plain versions, then as lane launches
+    wide_errs = wide_parity(gen, dev)
+    log("parity", f"wide instances (every D >= 1): igd_fold at (N, D) in {WIDE_FOLD_SHAPES}, igd_fold_minibatch at "
+        f"{WIDE_MB_SHAPES}, lr, svm, lsq: max |err| {wide_errs['igd_fold']:.3g} / "
+        f"{wide_errs['igd_fold_minibatch']:.3g} against the plain versions (both shared-memory tiers); lane launches "
+        f"at D in {WIDE_D}, B in {WIDE_LANE_B}, shared and stacked tables: every lane equal to its one-lane launch "
+        f"bit for bit, within rtol={KERNEL_RTOL}, atol={KERNEL_ATOL} of the plain lanes")
     # a longer prefix against float64: the per-row float32 fold drifts from it
     # with N (it rounds w every row), so the kernel is held to float64 here
     xf, yf, af = (t[:F64_PREFIX] for t in (x, y, alpha))
@@ -773,6 +945,8 @@ def main() -> int:
             f"B={b} {lane_ms[b]:.4f} ms ({lane_ms[b] / lane_ms[1]:.3f}x B=1; bound {lane_bound[b]:.4f} ms)"
             for b in TIMED_LANES) + f"; 32 one-lane launches {singles_ms:.3f} ms "
             f"({singles_ms / lane_ms[32]:.2f}x the B=32 launch); {card}")
+
+    kernels += wide_timings(args.seed, dev, card, phase3f["wide_launches"], wide_errs)
 
     phase_done("4")
 
@@ -1566,11 +1740,11 @@ def observability(seed: int, table: dict, dev) -> dict:
     served burst (16 logreg cuda_fused lanes, 8 least_squares
     cuda_minibatch lanes, then one singleton logreg query) with /metrics
     scraped from a thread while the pump runs, then a forced SLO breach
-    whose incident file must hold an engine.kernel span; and the
-    wide-table planning repair: D = 4,097 and 12,033 planned past the
-    kernels, run and held to the CPU, their kernel hints refused. Returns
-    the kernels' launches on the phase's paths (zeroed just before each,
-    read just after)."""
+    whose incident file must hold an engine.kernel span; and the wide
+    tables: D = 4,097 and 12,033 planned onto the kernels' wide instances,
+    run and held to the CPU. Returns the kernels' launches on the phase's
+    paths (zeroed just before each, read just after) and the wide
+    instances' share of them."""
     import dataclasses
     import shutil
     import tempfile
@@ -1592,6 +1766,7 @@ def observability(seed: int, table: dict, dev) -> dict:
     os.makedirs(build, exist_ok=True)
     root = tempfile.mkdtemp(prefix="obs_smoke_", dir=build)
     launches = {"igd_fold": 0, "igd_fold_minibatch": 0}
+    wide_launches = {"igd_fold": 0, "igd_fold_minibatch": 0}  # the wide instances' share
 
     def counted(fn):
         K.reset_launches()
@@ -1771,41 +1946,48 @@ def observability(seed: int, table: dict, dev) -> dict:
     obs_server.stop()
     flight.disable()
 
-    # -- the wide-table repair: D past the kernels plans, runs, matches -----
+    # -- the wide tables: D past the narrow instances plans a kernel, whose
+    # wide instance launches, and matches the CPU run -----------------------
     gen = torch.Generator(device=dev).manual_seed(seed + 31)
     card_eng = engine.Engine(draws=draws.HostDraws())
     host_eng = engine.Engine(device="cpu", draws=draws.HostDraws())
-    for task, dd, hint, limit in (("logreg", 4_097, "cuda_fused", "4096"),
-                                  ("least_squares", 12_033, "cuda_minibatch", "12032")):
+    for task, dd, hint in (("logreg", 4_097, None), ("least_squares", 12_033, None),
+                           ("least_squares", 12_033, "cuda_minibatch")):
         wide = synthetic.dense_classification(gen, WIDE_ROWS, dd)
-        qw = engine.AnalyticsQuery(task=task, data=wide, task_args={"dim": dd}, epochs=2, tolerance=0.0, seed=seed)
+        qw = engine.AnalyticsQuery(task=task, data=wide, task_args={"dim": dd}, epochs=2, tolerance=0.0, seed=seed,
+                                   hints={"implementation": hint} if hint else {})
         rep = card_eng.explain(qw)
-        if rep.chosen.implementation not in ("torch_fold", "cuda_minibatch") or (
-                dd > K.MINIBATCH_MAX_DIM and rep.chosen.implementation != "torch_fold"):
-            raise AssertionError(f"D={dd}: planned {rep.chosen.implementation}")
+        want_impl = hint or "cuda_fused"  # unhinted, the probe-priced ranking (cuda_minibatch is hint-only)
+        if rep.chosen.implementation != want_impl or (
+                not hint and set(rep.calibration.impl_per_row) != {"cuda_fused", "cuda_minibatch"}):
+            raise AssertionError(f"D={dd}: planned {rep.chosen.implementation}, probe (e) priced "
+                                 f"{sorted(rep.calibration.impl_per_row)}")
+        name = {"cuda_fused": "igd_fold", "cuda_minibatch": "igd_fold_minibatch"}[want_impl]
         watch.lap()
-        got = counted(lambda: card_eng.run(qw))
+        got = counted(lambda: card_eng.run(qw))  # zeroes the counters first
         run_s = watch.lap()
+        wide_launched = K.wide_launches[name]
+        if got.kernel_launches != got.epochs or wide_launched != got.epochs:
+            raise AssertionError(f"D={dd}: {got.kernel_launches} launches, {wide_launched} of the wide instance, "
+                                 f"in {got.epochs} epochs")
+        wide_launches[name] += wide_launched
         want = host_eng.run(dataclasses.replace(qw, data={k: v.cpu() for k, v in wide.items()}), plan=rep.chosen)
         err = max_err(got.model, want.model.to(dev), f"{task} D={dd} on the card vs the CPU")
-        try:
-            card_eng.explain(dataclasses.replace(qw, hints={"implementation": hint}))
-        except ValueError as e:
-            if limit not in str(e):
-                raise AssertionError(f"D={dd}: the {hint} hint raised without naming {limit}: {e}")
-            refusal = str(e)
-        else:
-            raise AssertionError(f"D={dd}: a {hint} hint past its kernel's limit planned")
-        log("obs", f"{task} {WIDE_ROWS}x{dd}: planned {rep.chosen.describe()} (probe (e) priced "
-            f"{sorted(rep.calibration.impl_per_row) or 'no kernel'}); 2 epochs on the card in {run_s:.3f} s, "
-            f"loss {got.losses[-1]:.6g}; max |dw| vs the CPU run {err:.3g} (rtol={KERNEL_RTOL}, atol={KERNEL_ATOL}); "
-            f"the {hint} hint refused: {refusal}; {card}")
+        rates = ", ".join(f"{k} {v * 1e6:.3f} us/row" for k, v in sorted(rep.calibration.impl_per_row.items()))
+        log("obs", f"{task} {WIDE_ROWS}x{dd}{' (hint ' + hint + ')' if hint else ''}: planned "
+            f"{rep.chosen.describe()} (probe (e): {rates}; the eager fold {rep.calibration.fold_per_row * 1e6:.3f} "
+            f"us/row); 2 epochs on the card in {run_s:.3f} s, {wide_launched} launches of {name}'s wide instance, "
+            f"loss {got.losses[-1]:.6g}; max |dw| vs the CPU run {err:.3g} (rtol={KERNEL_RTOL}, "
+            f"atol={KERNEL_ATOL}); {card}")
         del wide
     shutil.rmtree(root, ignore_errors=True)
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on the obs path: {launches}")
-    log("obs", f"phase 3f took {phase.lap():.1f} s; obs-path launches {launches}")
-    return {"launches": launches, "epoch_s": epoch_s, "span_cost_s": {"off": off_cost, "flight": ring_cost}}
+    if not all(wide_launches.values()):
+        raise AssertionError(f"a wide instance never launched on the wide tables' path: {wide_launches}")
+    log("obs", f"phase 3f took {phase.lap():.1f} s; obs-path launches {launches}, of them wide {wide_launches}")
+    return {"launches": launches, "wide_launches": wide_launches, "epoch_s": epoch_s,
+            "span_cost_s": {"off": off_cost, "flight": ring_cost}}
 
 
 def graph_ms(fn, iters: int) -> float:
@@ -3110,16 +3292,19 @@ def dryrun_phase(held: dict) -> None:
     proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
                              "--mesh", mesh, "--out", out], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
+    side = dryrun_side_start(root, env)
     try:
         b = dryrun_12b(held, card)
         try:
             stdout, stderr = proc.communicate(timeout=max(1.0, DRYRUN_LIMIT_S - phase.lap()))
         except subprocess.TimeoutExpired:
             raise AssertionError(f"12a: the dry run took more than {DRYRUN_LIMIT_S} s")
+        side_out = dryrun_side_wait(side, DRYRUN_SIDE_LIMIT_S - phase.lap())
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+        for p in [proc, *side.values()]:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
     if proc.returncode != 0:
         raise AssertionError(f"12a: the dry run exited {proc.returncode}: {stdout[-2000:]} {stderr[-4000:]}")
     with open(out) as f:
@@ -3134,11 +3319,137 @@ def dryrun_phase(held: dict) -> None:
         f"plain path's peak) {rec['temp_bytes']}; collectives by kind {json.dumps(rec['collectives_by_kind'])}, "
         f"traffic {rec['collective_traffic_bytes']:.6g} bytes; model FLOPs {rec['model_flops']:.6g}; "
         f"roofline_summary (s at H100 SXM figures): {roofline_summary(rec)}; {card}")
+    dryrun_side_report(side_out, rec, card)
     launches = {**AK.launches, **DK.launches, **K.launches}
     if any(launches.values()):
         raise AssertionError(f"phase 12 launched kernels: {launches}")
     log("dryrun", f"phase 12: 12b {b:.1f} s, 12a beside it, {phase.lap():.1f} s more to its end; kernel launches in "
         f"the phase {launches}")
+
+
+_MOE_CELL = r"""
+import json, sys, time, warnings
+warnings.simplefilter("ignore")
+from repro_torch.launch import dryrun
+t = time.time()
+rec = dryrun.run_cell("qwen3-moe-235b-a22b", "train_4k", False, cfg_overrides={"n_layers": int(sys.argv[1])})
+rec["wall_s"] = round(time.time() - t, 1)
+print("RECORD " + json.dumps(rec))
+"""
+
+_LOCALSGD_CELL = r"""
+import json, sys, time, warnings
+warnings.simplefilter("ignore")
+from repro_torch.launch import dryrun
+t = time.time()
+rec = dryrun.run_localsgd_cell("llama3.2-3b", cfg_overrides={"n_layers": int(sys.argv[1])})
+rec["wall_s"] = round(time.time() - t, 1)
+print("RECORD " + json.dumps(rec))
+"""
+
+_SEQ_FIT = r"""
+import json, os, sys, tempfile, warnings
+import torch
+import torch.multiprocessing as mp
+
+
+def worker(rank, world, io, steps):
+    import torch.distributed as dist
+
+    warnings.filterwarnings("ignore")
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(io, "group"), rank=rank, world_size=world)
+    try:
+        from repro_torch.configs import get_arch
+        from repro_torch.core import igd
+        from repro_torch.data import synthetic
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.train_loop import fit
+        from repro_torch.optim import IGD
+
+        mesh = make_host_mesh(2, 2, device="cpu")
+        out = {}
+        for arch in ("llama3.2-3b", "qwen3-moe-235b-a22b"):
+            cfg = get_arch(arch).smoke()
+            data = synthetic.token_stream(torch.Generator().manual_seed(0), 64, 32, cfg.vocab)
+            kw = dict(optimizer=IGD(igd.constant(0.02)), steps=steps, global_batch=8, grad_accum=2, log_every=0,
+                      device="cpu", seed=0)
+            out[arch] = [fit(cfg, data, **kw).losses, fit(cfg, data, mesh=mesh, seq_shard=True, **kw).losses]
+        if rank == 0:
+            print("FIT " + json.dumps(out), flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    mp.spawn(worker, args=(4, tempfile.mkdtemp(dir=sys.argv[1]), int(sys.argv[2])), nprocs=4, join=True)
+"""
+
+
+def dryrun_side_start(root: str, env: dict) -> dict:
+    """Phase 12c-e's subprocesses (see MOE_DRYRUN_LAYERS), started at once."""
+    build = os.path.join(root, "build")
+    script = os.path.join(build, "chip_smoke_seq_fit.py")
+    with open(script, "w") as f:
+        f.write(_SEQ_FIT)
+    cmds = {"12c": [sys.executable, "-c", _MOE_CELL, str(MOE_DRYRUN_LAYERS)],
+            "12d": [sys.executable, "-c", _LOCALSGD_CELL, str(LOCALSGD_LAYERS)],
+            "12e": [sys.executable, script, build, str(SEQ_FIT_STEPS)]}
+    return {k: subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for k, cmd in cmds.items()}
+
+
+def dryrun_side_wait(procs: dict, limit_s: float) -> dict:
+    """Each of 12c-e's outputs: its RECORD / FIT line, parsed; a process that
+    fails or outlasts the limit fails the phase."""
+    from repro_torch import timing
+
+    start, out = timing.now(), {}
+    for key, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=max(1.0, limit_s - (timing.now() - start)))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"{key}: still running past the phase's {DRYRUN_SIDE_LIMIT_S} s")
+        tag = "FIT " if key == "12e" else "RECORD "
+        lines = [line for line in stdout.splitlines() if line.startswith(tag)]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"{key} exited {proc.returncode}: {stdout[-2000:]} {stderr[-4000:]}")
+        out[key] = json.loads(lines[-1][len(tag):])
+    return out
+
+
+def dryrun_side_report(out: dict, rec12a: dict, card: str) -> None:
+    """Phase 12c-e's lines, each checked (see MOE_DRYRUN_LAYERS)."""
+    from repro_torch.engine.sweep import roofline_summary
+
+    moe, lsgd, fits = out["12c"], out["12d"], out["12e"]
+    for key, rec in (("12c", moe), ("12d", lsgd)):
+        if rec["status"] != "OK" or not rec["hlo_flops"] > 0 or not rec["collective_traffic_bytes"] > 0:
+            raise AssertionError(f"{key}: {rec}")
+    if moe["wall_s"] > 60:
+        raise AssertionError(f"12c: the MoE cell took {moe['wall_s']} s to build and trace (over 60 s)")
+    log("dryrun", f"12c qwen3-moe-235b-a22b train_4k on the {moe['mesh']} mesh (torch {torch.__version__}, "
+        f"{moe['n_chips']} fake ranks), its 94 layers cut to {MOE_DRYRUN_LAYERS}: {moe['status']} in {moe['wall_s']} s "
+        f"(built {moe['lower_s']} s, traced {moe['compile_s']} s); a device's FLOPs {moe['hlo_flops']:.6g}, HBM bytes "
+        f"{moe['hlo_hbm_bytes']:.6g}, arguments {moe['argument_bytes']}, outputs {moe['output_bytes']}, temp "
+        f"{moe['temp_bytes']}; collectives {json.dumps(moe['collectives_by_kind'])}, traffic "
+        f"{moe['collective_traffic_bytes']:.6g} bytes; params {moe['n_params']} ({moe['n_params_active']} active), "
+        f"model FLOPs {moe['model_flops']:.6g}; roofline_summary {roofline_summary(moe)}; beside 12a's "
+        f"{rec12a['arch']} {rec12a['shape']} FLOPs {rec12a['hlo_flops']:.6g}, traffic "
+        f"{rec12a['collective_traffic_bytes']:.6g}; {card}")
+    log("dryrun", f"12d run_localsgd_cell llama3.2-3b (its default seq_shard=True, {lsgd['tag']}) on the "
+        f"{lsgd['mesh']} mesh, 28 layers cut to {LOCALSGD_LAYERS}: {lsgd['status']} in {lsgd['wall_s']} s on torch "
+        f"{torch.__version__}; a device's FLOPs {lsgd['hlo_flops']:.6g}, collectives "
+        f"{json.dumps(lsgd['collectives_by_kind'])}, traffic {lsgd['collective_traffic_bytes']:.6g} bytes")
+    for arch, (one, sharded) in fits.items():
+        if len(one) != SEQ_FIT_STEPS or any(abs(a - b) > SEQ_FIT_TOL for a, b in zip(one, sharded)):
+            raise AssertionError(f"12e {arch}: fit with seq_shard=True {sharded} against no mesh {one}")
+    log("dryrun", "12e fit(mesh=(2, 2) of 4 gloo ranks on the host's CPU, seq_shard=True) against fit with no "
+        f"mesh, {SEQ_FIT_STEPS} IGD steps of the smoke configs, torch {torch.__version__}: " + "; ".join(
+            f"{arch} losses {', '.join(f'{v:.6f}' for v in sharded)} against {', '.join(f'{v:.6f}' for v in one)} "
+            f"(max |diff| {max(abs(a - b) for a, b in zip(one, sharded)):.3g})" for arch, (one, sharded) in
+            fits.items()))
 
 
 def dryrun_12b(held: dict, card: str) -> float:

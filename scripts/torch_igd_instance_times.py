@@ -1,0 +1,133 @@
+#!/usr/bin/env python3
+"""Time the fused-IGD kernels' narrow instances against another commit's source, in turns, on one CUDA card.
+
+    python3 scripts/torch_igd_instance_times.py --against PATH/TO/igd_fused.cu
+
+Run from the repository root on a machine with a Hopper card. Builds the
+committed src/repro_torch/kernels/igd_fused/csrc/igd_fused.cu and the
+source at PATH (say, a parent commit's, from ``git show
+<commit>:src/repro_torch/kernels/igd_fused/csrc/igd_fused.cu``) into the
+git-ignored build/, then for each narrow instance (igd_fold's tiled Gram
+instance, its per-row chain with w in registers at one warp and at 16
+warps; igd_fold_minibatch's row-share cluster and its one-block kernel)
+at a shape it runs, times one launch (CUDA events, the mean of 3 launches
+a turn) in turns: against, committed, committed, against. Both sources'
+results must agree bit for bit (the same instance code), and the
+committed one is held to the plain version. The card's name and power
+limit are printed first; each line gives both sources' turns and the
+committed / against ratio of their means.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch import engine  # noqa: E402
+from repro_torch.kernels._build import CudaLibrary  # noqa: E402
+from repro_torch.kernels.igd_fused import kernel as K, ref as R  # noqa: E402
+
+# (kernel, loss, N, D, instance)
+CASES = (
+    ("igd_fold", "lr", 581_012, 54, "tiled Gram, D <= 256"),
+    ("igd_fold", "lr", 65_536, 1_000, "per-row chain, one warp"),
+    ("igd_fold", "lr", 16_384, 4_096, "per-row chain, 16 warps"),
+    ("igd_fold_minibatch", "lsq", 581_012, 54, "row-share cluster, D <= 256"),
+    ("igd_fold_minibatch", "lsq", 65_536, 1_000, "one block"),
+    ("igd_fold_minibatch", "lsq", 8_192, 12_032, "one block, its last D"),
+)
+TOL = dict(rtol=2e-4, atol=2e-5)
+
+
+def declare_entries(lib) -> None:
+    """Types of the two one-fold entries alone, which both sources have."""
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for name in ("igd_fold_launch", "igd_fold_minibatch_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64, i64, ptr]
+        fn.restype = i32
+    lib.igd_fused_error_string.argtypes = [i32]
+    lib.igd_fused_error_string.restype = ctypes.c_char_p
+
+
+def launch(lib: CudaLibrary, name: str, x, y, alpha, w0, loss: str):
+    out = torch.empty_like(w0)
+    rc = getattr(lib.load(), f"{name}_launch")(x.data_ptr(), y.data_ptr(), alpha.data_ptr(), w0.data_ptr(),
+                                                out.data_ptr(), x.shape[0], x.shape[1], K.LOSS_IDS[loss], 1, 0, 0,
+                                                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{lib.name} {name}: CUDA error {rc} ({lib.load().igd_fused_error_string(rc).decode()})")
+    return out
+
+
+def turn_ms(fn, calls: int = 3) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sum(times) / len(times)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", type=Path, required=True, help="another igd_fused.cu to time in the same turns")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_igd_instance_times: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, f"| torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    committed = CudaLibrary("igd_committed", K.SOURCE, declare_entries)
+    against = CudaLibrary("igd_against", args.against.resolve(), declare_entries)
+    committed.build()
+    against.build()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ratios = []
+    for name, loss, n, d, instance in CASES:
+        x = torch.randn((n, d), generator=gen, device="cuda") / d ** 0.5
+        y = torch.sign(torch.randn((n,), generator=gen, device="cuda"))
+        alpha = engine.get("logreg").step_size(n)(torch.arange(n, dtype=torch.int32, device="cuda"))
+        w0 = torch.zeros(d, device="cuda")
+        got = launch(committed, name, x, y, alpha, w0, loss)
+        if not torch.equal(got, launch(against, name, x, y, alpha, w0, loss)):
+            raise AssertionError(f"{name} {n}x{d}: the two sources disagree")
+        rows = min(n, 16_384) if name == "igd_fold" else n  # the per-row plain fold is host-bound
+        if rows == n:
+            torch.testing.assert_close(got, getattr(R, f"{name}_ref")(x, y, alpha, w0, loss=loss), **TOL)
+        else:
+            torch.testing.assert_close(launch(committed, name, x[:rows], y[:rows], alpha[:rows], w0, loss),
+                                       R.igd_fold_ref(x[:rows], y[:rows], alpha[:rows], w0, loss=loss), **TOL)
+        turns = {"against": [], "committed": []}
+        for which in ("against", "committed", "committed", "against"):
+            lib = committed if which == "committed" else against
+            turns[which].append(turn_ms(lambda lib=lib: launch(lib, name, x, y, alpha, w0, loss)))
+        mean = {k: sum(v) / len(v) for k, v in turns.items()}
+        ratios.append(mean["committed"] / mean["against"])
+        print(f"{name} {instance} ({loss}, {n}x{d}): committed {', '.join(f'{t:.4f}' for t in turns['committed'])} "
+              f"ms, against {', '.join(f'{t:.4f}' for t in turns['against'])} ms; committed / against "
+              f"{ratios[-1]:.4f}; the same w bit for bit", flush=True)
+        del x, y, alpha
+    print(f"committed / against over the {len(CASES)} instances: {min(ratios):.4f} to {max(ratios):.4f}; {smi}")
+    return 0
+
+
+if __name__ == "__main__":
+    os.chdir(ROOT)
+    sys.exit(main())

@@ -475,6 +475,46 @@ def write_positions(cache, start: int, value) -> None:
         local[:, lo - offset:hi - offset] = value[:, lo - start:hi - start]
 
 
+def gather_seq(x):
+    """A [B, S, ...] DTensor activation with any split of its inner dims
+    (the sequence, under ``seq_shard=True``) gathered, its batch split
+    kept: the layout a projection ``x @ w`` needs, since DTensor cannot
+    flatten a split sequence into the product's rows (torch 2.11 refuses
+    it outright). XLA gathers the same before the reference's projections.
+    A plain tensor, or one without such a split, passes as it is."""
+    if not is_dtensor(x) or x.dim() < 3:
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = tuple(Replicate() if isinstance(p, Shard) and 0 < p.dim < x.dim() - 1 else p for p in x.placements)
+    return x if want == tuple(x.placements) else x.redistribute(x.device_mesh, want)
+
+
+class _GatherSeqGrad(torch.autograd.Function):
+    """The identity whose backward gathers its gradient's sequence split."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return gather_seq(grad)
+
+
+def seq_gathered_grad(y):
+    """``y`` itself, whose gradient arrives with any split of its inner
+    dims gathered (:func:`gather_seq`): put on a projection's output whose
+    consumer splits the sequence (the residual under ``seq_shard=True``),
+    so the product's backward never flattens a split sequence. DTensor
+    keeps a gradient's split where the forward reduced a partial sum
+    into it, and torch 2.11 cannot flatten it. A plain tensor passes as
+    it is."""
+    if not is_dtensor(y) or y.dim() < 3:
+        return y
+    return _GatherSeqGrad.apply(y)
+
+
 def gather_data_axes(x):
     """A DTensor parameter with its shards over the data axes ("pod",
     "data") all-gathered for use, its "model" split kept: FSDP's gather

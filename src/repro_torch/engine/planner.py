@@ -498,7 +498,7 @@ def _check_hints(query: AnalyticsQuery, hints: dict, cal) -> None:
             d = _dense_dim(query)
             why = igd_fused.supports(impl_hint, d) if d is not None else None
             if why is not None:
-                raise ValueError(f"implementation={impl_hint!r} forced past its kernel's limit: {why}")
+                raise ValueError(f"implementation={impl_hint!r} forced for a width its kernel cannot take: {why}")
             raise ValueError(
                 f"implementation={impl_hint!r} forced for a query whose "
                 "aggregate is not kernel-eligible (catalog kernel_loss + "

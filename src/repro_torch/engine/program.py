@@ -120,8 +120,8 @@ def kernel_eligibility(task, agg) -> Tuple[Optional[str], str]:
 
 def require_kernel_loss(task, agg, implementation: str) -> str:
     """The kernel loss of a ``cuda_*`` lowering, or ValueError when the
-    aggregate is not kernel-eligible or the task's D is past the
-    kernel's limit (``igd_fused.supports``): a forced plan that bypassed
+    aggregate is not kernel-eligible or the kernel cannot take the task's
+    D (``igd_fused.supports``: only D < 1): a forced plan that bypassed
     the planner must not reach a launch the kernel refuses, and on the
     CPU, whose plain versions take any D, it is refused alike."""
     from repro_torch.kernels import igd_fused
@@ -132,9 +132,9 @@ def require_kernel_loss(task, agg, implementation: str) -> str:
             f"implementation={implementation!r} needs a kernel-eligible "
             f"aggregate: {why}"
         )
-    too_wide = igd_fused.supports(implementation, task.dim)
-    if too_wide is not None:
-        raise ValueError(too_wide)
+    why_not = igd_fused.supports(implementation, task.dim)
+    if why_not is not None:
+        raise ValueError(why_not)
     return loss
 
 

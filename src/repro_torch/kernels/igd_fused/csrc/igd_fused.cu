@@ -8,7 +8,7 @@
 //   Row i+1 reads the w that row i wrote, so the rows cannot run in
 //   parallel. The bytes (N*(D+2)*4) would take microseconds at 3.35 TB/s;
 //   the serial chain takes N times its dependent latency. igd_fold_launch
-//   picks one of two instances by D.
+//   picks one of three instances by D; together they take every D >= 1.
 //
 //   D <= 256: tiled Gram look-ahead (igd_fold_gram_kernel). Inside a
 //   sub-tile of T = 32 rows that starts from w_0,
@@ -44,19 +44,33 @@
 //   fold rounds w at every row; ref.igd_fold_tiled_ref is its plain
 //   version, and the tests hold it to the per-row fold and a float64 one.
 //
-//   D > 256: the per-row chain. One warp owns the fold and keeps w in
-//   registers (VPL = ceil(D/32) floats per lane), so the chain touches no
-//   memory but the row it reads. The dot ends in a __shfl_xor_sync
-//   butterfly, which leaves the bit-identical sum in every lane, so every
-//   lane computes c itself and no barrier sits on the chain. Rows, y and
-//   alpha stream into shared memory ahead of use with cp.async double
-//   buffering. Past one warp's reach (D > 1024) the block has 8 or 16
-//   warps and the warps' partial dots meet in shared memory, one block
-//   barrier per row (two alternating slots, so one barrier suffices);
-//   D <= 4096.
+//   256 < D <= 4096: the per-row chain with w in registers. One warp owns
+//   the fold and keeps w in registers (VPL = ceil(D/32) floats per lane),
+//   so the chain touches no memory but the row it reads. The dot ends in a
+//   __shfl_xor_sync butterfly, which leaves the bit-identical sum in every
+//   lane, so every lane computes c itself and no barrier sits on the
+//   chain. Rows, y and alpha stream into shared memory ahead of use with
+//   cp.async double buffering. Past one warp's reach (D > 1024) the block
+//   has 8 or 16 warps and the warps' partial dots meet in shared memory,
+//   one block barrier per row (two alternating slots, so one barrier
+//   suffices).
 //
-//   Both loop over exactly N rows and take D as it is: no padding of the
-//   inputs. One fold is one block, so one fold leaves 131 of 132 SMs idle.
+//   D > 4096: the wide per-row chain (igd_fold_wide_kernel). One CTA of
+//   1,024 threads a lane; thread t owns columns t, t + 1024, ... of w for
+//   the whole fold, so only the dot's partials cross threads. w lives in
+//   opt-in dynamic shared memory up to kFoldWideSmemMaxDim (57,280 floats,
+//   224 KB) and in the lane's output row in global memory (L2-resident)
+//   above it. Row i is one pass over the thread's columns (w -= c_{i-1}
+//   x_{i-1}, then the dot with x_i), the butterfly, the 32 warps' partials
+//   through two alternating shared slots (one block barrier a row), and
+//   c_i; rows kWidePrefetchRows ahead are prefetched into L2. What bounds
+//   it: the row's dependent step (the pass, the barrier, the 32-partial
+//   sum, grad_scale), which kernel.wide_step_probe times alone; the bytes
+//   (134 MB at 8,192 x 4,097) take 0.04 ms.
+//
+//   All loop over exactly N rows and take D as it is: no padding of the
+//   inputs (a padded D would change the dot's length and order). One fold
+//   is one block, so one fold leaves 131 of 132 SMs idle.
 //
 // Lanes — the counterpart of jax.vmap over the Pallas call (the reference
 //   fuses a serving batch by vmapping kernel.py:74 and :119). Every C
@@ -76,8 +90,9 @@
 //   is copied B times (the *_segments_launch entries take it; the others
 //   pass 1). No sum crosses lanes. Launch limits: the Gram instance's
 //   ~200 KB of shared memory leaves one block an SM, so 132 lanes run in
-//   one wave; the minibatch cluster takes 8 SMs a lane, so 16 lanes fill
-//   the card and more run in further waves; lanes <= 65535 (gridDim.y).
+//   one wave, and so does the wide fold's 1,024-thread block; the
+//   minibatch clusters take 8 SMs a lane, so 16 lanes fill the card and
+//   more run in further waves; lanes <= 65535 (gridDim.y).
 //
 // igd_fold_minibatch — replaces the Pallas TPU kernel
 //   src/repro/kernels/igd_fused/kernel.py: igd_fold_minibatch
@@ -89,7 +104,8 @@
 //   which the SMs it runs on can pull them, whichever is longer. One SM
 //   pulling rows with per-thread loads reaches ~8 GB/s: 16 ms for the
 //   130 MB Forest table, where the bytes alone take 0.039 ms.
-//   igd_fold_minibatch_launch picks one of two instances by D.
+//   igd_fold_minibatch_launch picks one of three instances by D; together
+//   they take every D >= 1.
 //
 //   D <= 256: a thread-block cluster of kMbCluster CTAs on as many SMs
 //   (igd_minibatch_cluster_kernel). Each tile's 256 rows are split into
@@ -116,11 +132,24 @@
 //   16-byte boundary, and for the ragged last tile's short shares, the
 //   CTA's threads copy the share with plain loads when its turn comes.
 //
-//   D > 256: one block of 256 threads, w in shared memory. Phase 1: one
-//   thread per row walks its row. Phase 2: one thread per column sums
-//   c_r * x_rj over the tile's rows.
+//   256 < D <= 12032: one block of 256 threads, w in shared memory.
+//   Phase 1: one thread per row walks its row. Phase 2: one thread per
+//   column sums c_r * x_rj over the tile's rows.
 //
-//   Both: the ragged last tile sums only its real rows and still divides
+//   D > 12032: a cluster of kMbCluster CTAs of 1,024 threads a lane
+//   (igd_minibatch_wide_kernel), CTA q owning the column slice [q * slice,
+//   (q + 1) * slice) of w, slice = ceil(D / 8), in shared memory up to D =
+//   kMbWideSmemMaxDim (452,608) and in the lane's output row above it. Per
+//   tile: each CTA forms the 256 rows' partial margins over its slice (a
+//   warp 8 rows, w read once for the 8); one cluster barrier; every CTA
+//   reads the kMbCluster partials of each row from the cluster's shared
+//   memory and sums them in rank order (so every CTA computes the same c);
+//   each thread then updates its own columns. What bounds it: the table's
+//   bytes over what 8 SMs pull (the tile is read twice, the second time
+//   mostly from L2), beside one cluster barrier and the partials' exchange
+//   a tile (kernel.minibatch_wide_step_probe times those alone).
+//
+//   All: the ragged last tile sums only its real rows and still divides
 //   by 256, which is the reference's padded semantics.
 //
 // igd_minibatch_step_probe_launch times the cluster instance's dependent
@@ -130,7 +159,10 @@
 //
 // igd_chain_probe_kernel is no port of a TPU kernel: it times the tiled
 // instance's dependent chain alone (clock64 around grad_scale_fast + FMA
-// in one warp), which chip_smoke.py reports as igd_fold's floor.
+// in one warp), which chip_smoke.py reports as igd_fold's floor. The wide
+// instances' probes (igd_fold_wide_step_probe_launch,
+// igd_minibatch_wide_step_probe_launch) time their dependent steps alone
+// in the same way, for the wide instances' floors.
 //
 // No kernel allocates; all launch on the caller's stream. Each C
 // entry returns cudaGetLastError() (or cudaErrorInvalidValue for
@@ -179,6 +211,19 @@ constexpr int kMbBarBytes = 128;                 // the mbarriers, 16-byte padde
 static_assert(kTile % kMbCluster == 0 && kMbRows % 4 == 0, "shares of 16-byte multiples");
 static_assert(kMbMaxDim <= kMbThreads, "one column a thread");
 static_assert((kMbMaxStages + 2) * 8 <= kMbBarBytes, "the mbarriers fit their header");
+// the wide instances (igd_fold past kFoldMaxDim, igd_fold_minibatch past
+// kMinibatchMaxDim): 1,024 threads a CTA, w in opt-in shared memory while
+// it fits, else in the output row in global memory (L2-resident)
+constexpr int kWideWarps = 32;
+constexpr int kWideThreads = kWideWarps * kWarp;
+constexpr int kWideSmemFloats = 57344;  // 224 KB of the 227 KB a block may opt into
+constexpr int kFoldWideSmemMaxDim = kWideSmemFloats - 2 * kWideWarps;  // w [D] | partials [2][32]
+constexpr int kWidePrefetchRows = 4;    // igd_fold: rows fetched into L2 ahead of use
+constexpr int kMbWideRowsPerWarp = kTile / kWideWarps;
+constexpr int kMbWideSmemMaxSlice = kWideSmemFloats - 3 * kTile;  // partials [2][256] | c [256] | w slice
+constexpr int kMbWideSmemMaxDim = kMbCluster * kMbWideSmemMaxSlice;
+constexpr int kWideProbeMaxDim = kWideSmemFloats / 2 - kWideWarps;  // the step probe: w and a row resident
+static_assert(kTile % kWideWarps == 0, "whole rows a warp");
 
 // d loss / d (w.x), given wx = w.x (the kernel forms the margin itself).
 template <int LOSS>
@@ -1019,6 +1064,277 @@ __global__ void __launch_bounds__(kMbThreads)
   }
 }
 
+__device__ __forceinline__ void prefetch_l2(const float* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// The sum of the 32 warps' partials in slot, in one order that every
+// thread repeats, so every thread holds the same value bit for bit.
+__device__ __forceinline__ float wide_block_sum(const float* slot) {
+  const float4* s4 = reinterpret_cast<const float4*>(slot);
+  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kWideWarps / 4; ++q) {
+    const float4 v = s4[q];
+    a0 += v.x;
+    a1 += v.y;
+    a2 += v.z;
+    a3 += v.w;
+  }
+  return (a0 + a1) + (a2 + a3);
+}
+
+// igd_fold's wide instance (D > kFoldMaxDim): one CTA of 1,024 threads a
+// lane; thread t owns columns t, t + 1024, ... of w for the whole fold,
+// so no thread reads another's w and only the dot's partials are shared.
+// Row i is one pass over the thread's columns, w_j -= c_{i-1} x_{i-1,j}
+// then dot += w_j x_{i,j} (4-byte loads, a warp's 32 consecutive floats
+// at a time), a warp butterfly, the 32 warps' partials through one of
+// two alternating shared slots (one block barrier a row), and c_i, which
+// every thread computes from the same sum. Rows kWidePrefetchRows ahead
+// are prefetched into L2 (x does not depend on w). W_SHARED: w in shared
+// memory (D <= kFoldWideSmemMaxDim), else in the lane's output row.
+template <int LOSS, bool W_SHARED>
+__global__ void __launch_bounds__(kWideThreads)
+    igd_fold_wide_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                         const float* __restrict__ alpha, const float* __restrict__ w0,
+                         float* __restrict__ wout, long long n, int d, long long xy_lane_rows,
+                         long long alpha_lane_stride, int lanes_per_xy) {
+  extern __shared__ __align__(16) float smem[];
+  {  // lane blockIdx.x: the only change from a one-lane launch
+    const long long b = blockIdx.x;
+    // the x/y segment lane b reads (32-bit division: b < 65536 and no 64-bit divide call)
+    const long long s = static_cast<unsigned>(b) / static_cast<unsigned>(lanes_per_xy);
+    x += s * xy_lane_rows * d;
+    y += s * xy_lane_rows;
+    alpha += b * alpha_lane_stride;
+    w0 += b * d;
+    wout += b * d;
+  }
+  float* red = smem;  // [2][kWideWarps]
+  float* w = W_SHARED ? smem + 2 * kWideWarps : wout;
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  for (int j = tid; j < d; j += kWideThreads) w[j] = w0[j];
+  auto prefetch_row = [&](long long r) {  // one address a 128-byte line, and the row's last
+    const float* row = x + r * d;
+    for (int j = tid * kWarp; j < d; j += kWideThreads * kWarp) prefetch_l2(row + j);
+    if (tid == 0) prefetch_l2(row + d - 1);
+  };
+  for (long long r = 0; r < kWidePrefetchRows && r < n; ++r) prefetch_row(r);
+
+  float c = 0.0f;
+  for (long long i = 0; i < n; ++i) {
+    const float* xr = x + i * d;
+    if (i + kWidePrefetchRows < n) prefetch_row(i + kWidePrefetchRows);
+    const float yi = y[i], ai = alpha[i];
+    float dot = 0.0f;
+    if (i == 0) {
+#pragma unroll 4
+      for (int j = tid; j < d; j += kWideThreads) dot = fmaf(w[j], xr[j], dot);
+    } else {
+      const float* xp = xr - d;
+#pragma unroll 4
+      for (int j = tid; j < d; j += kWideThreads) {
+        const float wj = fmaf(-c, xp[j], w[j]);
+        w[j] = wj;
+        dot = fmaf(wj, xr[j], dot);
+      }
+    }
+    dot = warp_sum(dot);
+    float* slot = red + (i & 1) * kWideWarps;
+    if (lane == 0) slot[warp] = dot;
+    __syncthreads();
+    c = grad_scale<LOSS>(wide_block_sum(slot), yi) * ai;
+  }
+  if (n > 0) {  // the last row's step
+    const float* xl = x + (n - 1) * d;
+    for (int j = tid; j < d; j += kWideThreads) w[j] = fmaf(-c, xl[j], w[j]);
+  }
+  if (W_SHARED) {
+    for (int j = tid; j < d; j += kWideThreads) wout[j] = w[j];
+  }
+}
+
+// Cycles of `steps` rows of igd_fold_wide_kernel's step with w and one row
+// resident in shared memory (no row traffic): the update and dot over each
+// thread's columns, the butterfly, the block barrier, the 32-partial sum
+// and grad_scale. out[0] = rank 0's cycles, out[1] = the final c's bits.
+template <int LOSS>
+__global__ void __launch_bounds__(kWideThreads)
+    igd_fold_wide_step_probe_kernel(int d, int steps, long long* out) {
+  extern __shared__ __align__(16) float smem[];
+  float* red = smem;
+  float* w = red + 2 * kWideWarps;
+  float* xr = w + d;
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  for (int j = tid; j < d; j += kWideThreads) {
+    w[j] = 0.0f;
+    xr[j] = 0.01f * static_cast<float>(j % 13 - 6);
+  }
+  __syncthreads();
+  float c = 0.0f;
+  const long long t0 = clock64();
+  for (int i = 0; i < steps; ++i) {
+    float dot = 0.0f;
+#pragma unroll 4
+    for (int j = tid; j < d; j += kWideThreads) {
+      const float wj = fmaf(-c, xr[j], w[j]);
+      w[j] = wj;
+      dot = fmaf(wj, xr[j], dot);
+    }
+    dot = warp_sum(dot);
+    float* slot = red + (i & 1) * kWideWarps;
+    if (lane == 0) slot[warp] = dot;
+    __syncthreads();
+    c = grad_scale<LOSS>(wide_block_sum(slot), (i & 1) ? 1.0f : -1.0f) * 0.01f;
+  }
+  const long long t1 = clock64();
+  if (tid == 0) {
+    out[0] = t1 - t0;
+    out[1] = __float_as_int(c);
+  }
+}
+
+// igd_fold_minibatch's wide instance (D > kMinibatchMaxDim): a cluster of
+// kMbCluster CTAs of 1,024 threads a lane, CTA q owning the column slice
+// [q * slice, (q + 1) * slice) of w for the whole fold (slice = ceil(D /
+// kMbCluster)). Per 256-row tile: each CTA forms the tile's 256 partial
+// margins over its slice (a warp 8 rows, lanes across the slice, w read
+// once for the 8), into one of two alternating shared buffers; a cluster
+// barrier; every CTA reads the kMbCluster partials of each row from the
+// cluster's shared memory (distributed shared memory) and sums them in
+// rank order, so every CTA computes the same c_r; a block barrier; each
+// thread applies w_j -= (sum_r c_r x_rj) / 256 to its own columns (rows
+// in order). One cluster barrier a tile: a CTA writes a partial buffer
+// again only two tiles on, past the next barrier, which every reader of
+// it has reached. W_SHARED: the slice in shared memory (D <=
+// kMbWideSmemMaxDim), else in the lane's output row.
+template <int LOSS, bool W_SHARED>
+__global__ void __launch_bounds__(kWideThreads)
+    igd_minibatch_wide_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                              const float* __restrict__ alpha, const float* __restrict__ w0,
+                              float* __restrict__ wout, long long n, int d, int slice,
+                              long long xy_lane_rows, long long alpha_lane_stride,
+                              int lanes_per_xy) {
+  extern __shared__ __align__(16) float smem[];
+  {  // lane blockIdx.y, one cluster a lane: the only change from a one-lane launch
+    const long long b = blockIdx.y;
+    // the x/y segment lane b reads (32-bit division: b < 65536 and no 64-bit divide call)
+    const long long s = static_cast<unsigned>(b) / static_cast<unsigned>(lanes_per_xy);
+    x += s * xy_lane_rows * d;
+    y += s * xy_lane_rows;
+    alpha += b * alpha_lane_stride;
+    w0 += b * d;
+    wout += b * d;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  float* part = smem;            // [2][kTile]
+  float* cs = smem + 2 * kTile;  // [kTile]
+  const int j0 = rank * slice;
+  const int cols = d - j0 < slice ? (d - j0 > 0 ? d - j0 : 0) : slice;
+  float* w = W_SHARED ? smem + 3 * kTile : wout + j0;
+  const float* xs = x + j0;  // this CTA's columns
+  for (int k = tid; k < cols; k += kWideThreads) w[k] = w0[j0 + k];
+  __syncthreads();
+
+  const long long n_tiles = (n + kTile - 1) / kTile;
+  for (long long t = 0; t < n_tiles; ++t) {
+    const long long row0 = t * kTile;
+    const int rows = static_cast<int>(n - row0 < kTile ? n - row0 : kTile);
+    const float* xt = xs + row0 * d;
+    float* pt = part + (t & 1) * kTile;
+    float acc[kMbWideRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kMbWideRowsPerWarp; ++i) acc[i] = 0.0f;
+    if (rows == kTile) {
+      for (int k = lane; k < cols; k += kWarp) {
+        const float wk = w[k];
+#pragma unroll
+        for (int i = 0; i < kMbWideRowsPerWarp; ++i) {
+          acc[i] = fmaf(wk, xt[static_cast<long long>(warp + kWideWarps * i) * d + k], acc[i]);
+        }
+      }
+    } else {
+      for (int k = lane; k < cols; k += kWarp) {
+        const float wk = w[k];
+#pragma unroll
+        for (int i = 0; i < kMbWideRowsPerWarp; ++i) {
+          const int r = warp + kWideWarps * i;
+          if (r < rows) acc[i] = fmaf(wk, xt[static_cast<long long>(r) * d + k], acc[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMbWideRowsPerWarp; ++i) acc[i] = warp_sum(acc[i]);
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < kMbWideRowsPerWarp; ++i) pt[warp + kWideWarps * i] = acc[i];
+    }
+    cluster.sync();  // every CTA's partials of this tile are complete and visible
+    if (tid < rows) {
+      float m = 0.0f;
+#pragma unroll
+      for (int q = 0; q < kMbCluster; ++q) m += cluster.map_shared_rank(pt, q)[tid];
+      cs[tid] = grad_scale<LOSS>(m, y[row0 + tid]) * alpha[row0 + tid];
+    }
+    __syncthreads();
+    for (int k = tid; k < cols; k += kWideThreads) {
+      const float* xc = xt + k;
+      float s = 0.0f;
+#pragma unroll 8
+      for (int r = 0; r < rows; ++r) s = fmaf(cs[r], xc[static_cast<long long>(r) * d], s);
+      w[k] = w[k] - s / static_cast<float>(kTile);
+    }
+    __syncthreads();  // the next tile's margins read columns other threads wrote
+  }
+  cluster.sync();  // no CTA leaves while another may still read its partials
+  if (W_SHARED) {
+    for (int k = tid; k < cols; k += kWideThreads) wout[j0 + k] = w[k];
+  }
+}
+
+// Cycles of `steps` tiles of igd_minibatch_wide_kernel's dependent skeleton
+// with no row traffic: the partials' write, the cluster barrier, the
+// kMbCluster remote reads and grad_scale of 256 rows, the block barrier.
+// out[0] = rank 0's cycles, out[1] = a c's bits.
+template <int LOSS>
+__global__ void __launch_bounds__(kWideThreads)
+    igd_minibatch_wide_step_probe_kernel(int steps, long long* out) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  float* part = smem;
+  float* cs = smem + 2 * kTile;
+  if (tid < kTile) cs[tid] = 0.0f;
+  cluster.sync();
+  const long long t0 = clock64();
+  for (int t = 0; t < steps; ++t) {
+    float* pt = part + (t & 1) * kTile;
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < kMbWideRowsPerWarp; ++i) {
+        pt[warp + kWideWarps * i] = cs[(warp + kWideWarps * i + t) % kTile] + 0.01f;
+      }
+    }
+    cluster.sync();
+    if (tid < kTile) {
+      float m = 0.0f;
+#pragma unroll
+      for (int q = 0; q < kMbCluster; ++q) m += cluster.map_shared_rank(pt, q)[tid];
+      cs[tid] = grad_scale<LOSS>(m, (tid & 1) ? 1.0f : -1.0f) * 0.01f;
+    }
+    __syncthreads();
+  }
+  const long long t1 = clock64();
+  cluster.sync();
+  if (cluster.block_rank() == 0 && tid == 0) {
+    out[0] = t1 - t0;
+    out[1] = __float_as_int(cs[0]);
+  }
+}
+
 // Lane strides that keep every lane's x, y and alpha on the base pointers'
 // 16-byte boundaries (whole floats of 4).
 __host__ __device__ constexpr bool lanes_keep_16(long long xy_lane_rows, long long alpha_lane_stride,
@@ -1082,10 +1398,58 @@ cudaError_t launch_mb_cluster_any(const float* x, const float* y, const float* a
 #undef REPRO_MB_CASE
 }
 
+// The wide minibatch instance's dynamic shared memory: partials, c, and
+// the CTA's slice of w while it fits.
+size_t mb_wide_smem_bytes(int d) {
+  const int slice = (d + kMbCluster - 1) / kMbCluster;
+  return static_cast<size_t>(3 * kTile + (d <= kMbWideSmemMaxDim ? slice : 0)) * sizeof(float);
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, int lanes, size_t smem, cudaStream_t stream,
+                           Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kMbCluster, lanes, 1);
+  cfg.blockDim = dim3(kWideThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kMbCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int LOSS>
+cudaError_t launch_mb_wide(const float* x, const float* y, const float* alpha, const float* w0,
+                           float* wout, long long n, int d, int lanes, long long xy_lane_rows,
+                           long long alpha_lane_stride, int lanes_per_xy, cudaStream_t stream) {
+  const int slice = (d + kMbCluster - 1) / kMbCluster;
+  const size_t smem = mb_wide_smem_bytes(d);
+  if (d <= kMbWideSmemMaxDim) {
+    return launch_cluster(igd_minibatch_wide_kernel<LOSS, true>, lanes, smem, stream, x, y, alpha,
+                          w0, wout, n, d, slice, xy_lane_rows, alpha_lane_stride, lanes_per_xy);
+  }
+  return launch_cluster(igd_minibatch_wide_kernel<LOSS, false>, lanes, smem, stream, x, y, alpha,
+                        w0, wout, n, d, slice, xy_lane_rows, alpha_lane_stride, lanes_per_xy);
+}
+
 template <int LOSS>
 cudaError_t launch_minibatch(const float* x, const float* y, const float* alpha, const float* w0,
                              float* wout, long long n, int d, int lanes, long long xy_lane_rows,
                              long long alpha_lane_stride, int lanes_per_xy, cudaStream_t stream) {
+  if (d > kMinibatchMaxDim) {
+    return launch_mb_wide<LOSS>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
+                                alpha_lane_stride, lanes_per_xy, stream);
+  }
   if (d <= kMbMaxDim) {
     return launch_mb_cluster_any<LOSS, false>(x, y, alpha, w0, wout, n, d, nullptr, lanes,
                                               xy_lane_rows, alpha_lane_stride, lanes_per_xy,
@@ -1143,10 +1507,30 @@ cudaError_t launch_gram(const float* x, const float* y, const float* alpha, cons
 }
 
 template <int LOSS>
+cudaError_t launch_fold_wide(const float* x, const float* y, const float* alpha,
+                             const float* w0, float* wout, long long n, int d, int lanes,
+                             long long xy_lane_rows, long long alpha_lane_stride,
+                             int lanes_per_xy, cudaStream_t stream) {
+  const bool shared = d <= kFoldWideSmemMaxDim;
+  const size_t smem = (2 * kWideWarps + (shared ? d : 0)) * sizeof(float);
+  auto kernel = shared ? igd_fold_wide_kernel<LOSS, true> : igd_fold_wide_kernel<LOSS, false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<lanes, kWideThreads, smem, stream>>>(x, y, alpha, w0, wout, n, d, xy_lane_rows,
+                                                alpha_lane_stride, lanes_per_xy);
+  return cudaGetLastError();
+}
+
+template <int LOSS>
 cudaError_t launch_fold_any(const float* x, const float* y, const float* alpha,
                             const float* w0, float* wout, long long n, int d, int lanes,
                             long long xy_lane_rows, long long alpha_lane_stride,
                             int lanes_per_xy, cudaStream_t stream) {
+  if (d > kFoldMaxDim) {
+    return launch_fold_wide<LOSS>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
+                                  alpha_lane_stride, lanes_per_xy, stream);
+  }
   if (d <= kGramMaxDim) {
     return launch_gram<LOSS>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
                              alpha_lane_stride, lanes_per_xy, stream);
@@ -1178,6 +1562,23 @@ cudaError_t launch_chain_probe(int steps, long long* out, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int LOSS>
+cudaError_t launch_wide_step_probe(int d, int steps, long long* out, cudaStream_t stream) {
+  const size_t smem = (2 * kWideWarps + 2 * static_cast<size_t>(d)) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(igd_fold_wide_step_probe_kernel<LOSS>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  igd_fold_wide_step_probe_kernel<LOSS><<<1, kWideThreads, smem, stream>>>(d, steps, out);
+  return cudaGetLastError();
+}
+
+template <int LOSS>
+cudaError_t launch_mb_wide_step_probe(int steps, long long* out, cudaStream_t stream) {
+  return launch_cluster(igd_minibatch_wide_step_probe_kernel<LOSS>, 1,
+                        static_cast<size_t>(3 * kTile) * sizeof(float), stream, steps, out);
+}
+
 // The lane arguments of every entry: 1 <= lanes <= kMaxLanes, strides >= 0,
 // and lanes a whole number of groups of lanes_per_xy.
 constexpr int kMaxLanes = 65535;
@@ -1192,7 +1593,7 @@ bool bad_lanes(int lanes, long long xy_lane_rows, long long alpha_lane_stride, i
 int fold_entry(const float* x, const float* y, const float* alpha, const float* w0,
                float* wout, long long n, int d, int loss, int lanes, long long xy_lane_rows,
                int lanes_per_xy, long long alpha_lane_stride, void* stream) {
-  if (n < 0 || d < 1 || d > kFoldMaxDim) return cudaErrorInvalidValue;
+  if (n < 0 || d < 1) return cudaErrorInvalidValue;
   if (bad_lanes(lanes, xy_lane_rows, alpha_lane_stride, lanes_per_xy)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (loss) {
@@ -1214,7 +1615,7 @@ int minibatch_entry(const float* x, const float* y, const float* alpha, const fl
                     float* wout, long long n, int d, int loss, int lanes,
                     long long xy_lane_rows, int lanes_per_xy, long long alpha_lane_stride,
                     void* stream) {
-  if (n < 0 || d < 1 || d > kMinibatchMaxDim) return cudaErrorInvalidValue;
+  if (n < 0 || d < 1) return cudaErrorInvalidValue;
   if (bad_lanes(lanes, xy_lane_rows, alpha_lane_stride, lanes_per_xy)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (loss) {
@@ -1236,11 +1637,22 @@ int minibatch_entry(const float* x, const float* y, const float* alpha, const fl
 
 extern "C" {
 
-int igd_fused_fold_max_dim() { return kFoldMaxDim; }
+// The instance boundaries (the kernels take every D >= 1): igd_fold's
+// register instance up to the first, its wide instance above, with w in
+// shared memory up to the second; igd_fold_minibatch's one-block instance
+// up to the third, its wide cluster above, with w's slices in shared
+// memory up to the fourth.
+int igd_fused_fold_register_max_dim() { return kFoldMaxDim; }
+
+int igd_fused_fold_wide_smem_max_dim() { return kFoldWideSmemMaxDim; }
+
+int igd_fused_minibatch_block_max_dim() { return kMinibatchMaxDim; }
+
+int igd_fused_minibatch_wide_smem_max_dim() { return kMbWideSmemMaxDim; }
+
+int igd_fused_wide_probe_max_dim() { return kWideProbeMaxDim; }
 
 int igd_fused_gram_max_dim() { return kGramMaxDim; }
-
-int igd_fused_minibatch_max_dim() { return kMinibatchMaxDim; }
 
 int igd_fused_tile() { return kTile; }
 
@@ -1303,11 +1715,46 @@ int igd_fused_minibatch_cluster() { return kMbCluster; }
 
 int igd_fused_minibatch_cluster_max_dim() { return kMbMaxDim; }
 
-// Dynamic shared memory a CTA of the cluster instance takes at D (0 past
-// its D range: the one-block instance runs there).
+// Dynamic shared memory a CTA of a cluster instance takes at D (0 where
+// the one-block instance runs: 256 < D <= kMinibatchMaxDim).
 long long igd_fused_minibatch_smem_bytes(int d) {
+  if (d > kMinibatchMaxDim) return static_cast<long long>(mb_wide_smem_bytes(d));
   if (d < 1 || d > kMbMaxDim) return 0;
   return static_cast<long long>(mb_smem_bytes(d, mb_stages(d)));
+}
+
+// out[0] = SM cycles of `steps` rows of igd_fold's wide instance with w
+// and the row resident in shared memory (1 <= d <= kWideProbeMaxDim).
+int igd_fold_wide_step_probe_launch(int loss, int d, int steps, long long* out, void* stream) {
+  if (steps < 1 || d < 1 || d > kWideProbeMaxDim) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (loss) {
+    case kLossLr:
+      return launch_wide_step_probe<kLossLr>(d, steps, out, s);
+    case kLossSvm:
+      return launch_wide_step_probe<kLossSvm>(d, steps, out, s);
+    case kLossLsq:
+      return launch_wide_step_probe<kLossLsq>(d, steps, out, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// out[0] = SM cycles of `steps` tiles of igd_fold_minibatch's wide
+// instance's exchange (partials, cluster barrier, remote reads, c) alone.
+int igd_minibatch_wide_step_probe_launch(int loss, int steps, long long* out, void* stream) {
+  if (steps < 1) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (loss) {
+    case kLossLr:
+      return launch_mb_wide_step_probe<kLossLr>(steps, out, s);
+    case kLossSvm:
+      return launch_mb_wide_step_probe<kLossSvm>(steps, out, s);
+    case kLossLsq:
+      return launch_mb_wide_step_probe<kLossLsq>(steps, out, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // out[0] = SM cycles of `steps` tiles of the cluster instance's dependent

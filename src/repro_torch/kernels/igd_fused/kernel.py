@@ -19,6 +19,17 @@ consecutive lanes share a segment, as the B queries of a fused sharded
 batch share the k segments of one partitioned table). A lane launch is one
 launch however many lanes it carries; each lane's w equals its one-lane
 launch's bit for bit.
+
+Both kernels take every D >= 1; the library picks an instance by D
+(the constants below are the boundaries, checked against the library's
+own when it loads). ``igd_fold``: the tiled Gram look-ahead up to 256,
+the per-row chain with w in registers up to 4,096, the wide per-row chain
+(1,024 threads a lane, w in shared memory up to 57,280, in global memory
+above) past it. ``igd_fold_minibatch``: a cluster of 8 CTAs splitting
+each tile's rows up to 256, the one-block kernel up to 12,032, and past it
+a cluster of 8 CTAs splitting w's columns (each CTA's slice in shared
+memory up to D = 452,608, in global memory above). ``wide_launches``
+counts the wide instances' share of ``launches``.
 """
 
 from __future__ import annotations
@@ -32,12 +43,18 @@ import torch
 from repro_torch.kernels._build import BUILD_DIR, NVCC_FLAGS, CudaLibrary  # noqa: F401
 
 TILE = 256  # examples per minibatch step (the reference's VMEM block)
-FOLD_MAX_DIM = 4096  # one warp up to 1024, then 8 or 16 warps
+# Both kernels take every D >= 1; these are the library's instance
+# boundaries, which pick the instance a launch runs (see the source's head).
 FOLD_GRAM_MAX_DIM = 256  # igd_fold's tiled Gram instance; the per-row chain above it
-MINIBATCH_MAX_DIM = 12288 - TILE  # the one-block instance: w and the tile's scales in 48 KB
-MINIBATCH_CLUSTER = 8  # CTAs of igd_fold_minibatch's cluster instance, one row share of a tile each
-MINIBATCH_CLUSTER_MAX_DIM = 256  # the cluster instance; the one-block kernel above it
-MAX_LANES = 65535  # lanes a launch (the cluster instance's gridDim.y)
+FOLD_REGISTER_MAX_DIM = 4096  # the per-row chain with w in registers; the wide instance above it
+_WIDE_SMEM_FLOATS = 57344  # the wide instances' opt-in shared memory a CTA (224 KB)
+FOLD_WIDE_SMEM_MAX_DIM = _WIDE_SMEM_FLOATS - 64  # the wide instance's w in shared memory; in global memory above it
+MINIBATCH_CLUSTER = 8  # CTAs of igd_fold_minibatch's cluster instances
+MINIBATCH_CLUSTER_MAX_DIM = 256  # the row-share cluster instance; the one-block kernel above it
+MINIBATCH_BLOCK_MAX_DIM = 12288 - TILE  # the one-block instance (w and the tile's scales in 48 KB); the wide above
+MINIBATCH_WIDE_SMEM_MAX_DIM = MINIBATCH_CLUSTER * (_WIDE_SMEM_FLOATS - 3 * TILE)  # its w slices in shared memory
+WIDE_PROBE_MAX_DIM = _WIDE_SMEM_FLOATS // 2 - 32  # wide_step_probe: w and one row resident in shared memory
+MAX_LANES = 65535  # lanes a launch (the cluster instances' gridDim.y)
 
 LOSS_IDS = {"lr": 0, "svm": 1, "lsq": 2}
 
@@ -46,11 +63,16 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "igd_fused.cu"
 # Launch counts, one per wrapper: bumped where the kernel is launched and
 # nowhere else, so a run can show that its path went through the kernel.
 launches: Dict[str, int] = {"igd_fold": 0, "igd_fold_minibatch": 0}
+# The wide instances' share of those launches (D past the narrow
+# instances), bumped at the same place.
+wide_launches: Dict[str, int] = {"igd_fold": 0, "igd_fold_minibatch": 0}
+_WIDE_ABOVE = {"igd_fold": FOLD_REGISTER_MAX_DIM, "igd_fold_minibatch": MINIBATCH_BLOCK_MAX_DIM}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+        wide_launches[k] = 0
 
 
 def _declare(lib: ctypes.CDLL, cluster: int = MINIBATCH_CLUSTER) -> None:
@@ -74,18 +96,22 @@ def _declare(lib: ctypes.CDLL, cluster: int = MINIBATCH_CLUSTER) -> None:
     lib.igd_chain_probe_launch.restype = i32
     lib.igd_minibatch_step_probe_launch.argtypes = [i32, i32, i32, ptr, ptr]
     lib.igd_minibatch_step_probe_launch.restype = i32
+    lib.igd_fold_wide_step_probe_launch.argtypes = [i32, i32, i32, ptr, ptr]
+    lib.igd_fold_wide_step_probe_launch.restype = i32
+    lib.igd_minibatch_wide_step_probe_launch.argtypes = [i32, i32, ptr, ptr]
+    lib.igd_minibatch_wide_step_probe_launch.restype = i32
     lib.igd_fused_minibatch_smem_bytes.argtypes = [i32]
     lib.igd_fused_minibatch_smem_bytes.restype = i64
-    for name in ("igd_fused_fold_max_dim", "igd_fused_gram_max_dim", "igd_fused_minibatch_max_dim",
-                 "igd_fused_tile", "igd_fused_minibatch_cluster", "igd_fused_minibatch_cluster_max_dim",
-                 "igd_fused_max_lanes"):
+    names = ("igd_fused_gram_max_dim", "igd_fused_fold_register_max_dim", "igd_fused_fold_wide_smem_max_dim",
+             "igd_fused_minibatch_block_max_dim", "igd_fused_minibatch_wide_smem_max_dim",
+             "igd_fused_wide_probe_max_dim", "igd_fused_tile", "igd_fused_minibatch_cluster",
+             "igd_fused_minibatch_cluster_max_dim", "igd_fused_max_lanes")
+    for name in names:
         getattr(lib, name).restype = i32
-    limits = (lib.igd_fused_fold_max_dim(), lib.igd_fused_gram_max_dim(),
-              lib.igd_fused_minibatch_max_dim(), lib.igd_fused_tile(),
-              lib.igd_fused_minibatch_cluster(), lib.igd_fused_minibatch_cluster_max_dim(),
-              lib.igd_fused_max_lanes())
-    if limits != (FOLD_MAX_DIM, FOLD_GRAM_MAX_DIM, MINIBATCH_MAX_DIM, TILE, cluster, MINIBATCH_CLUSTER_MAX_DIM,
-                  MAX_LANES):
+    limits = tuple(getattr(lib, name)() for name in names)
+    if limits != (FOLD_GRAM_MAX_DIM, FOLD_REGISTER_MAX_DIM, FOLD_WIDE_SMEM_MAX_DIM, MINIBATCH_BLOCK_MAX_DIM,
+                  cluster * (_WIDE_SMEM_FLOATS - 3 * TILE), WIDE_PROBE_MAX_DIM, TILE, cluster,
+                  MINIBATCH_CLUSTER_MAX_DIM, MAX_LANES):
         raise RuntimeError(f"igd_fused library limits {limits} disagree with kernel.py")
 
 
@@ -95,26 +121,22 @@ build = LIBRARY.build
 _load = LIBRARY.load
 
 
-# The implementation axis's kernels and the widest D each takes.
-_IMPLEMENTATION_KERNELS = {
-    "cuda_fused": ("igd_fold", "FOLD_MAX_DIM", FOLD_MAX_DIM),
-    "cuda_minibatch": ("igd_fold_minibatch", "MINIBATCH_MAX_DIM", MINIBATCH_MAX_DIM),
-}
+# The implementation axis's kernels.
+_IMPLEMENTATION_KERNELS = {"cuda_fused": "igd_fold", "cuda_minibatch": "igd_fold_minibatch"}
 
 
 def supports(implementation: str, d: int) -> Optional[str]:
     """Why the kernel behind ``implementation`` cannot take D features,
-    or None when it can (``torch_fold`` takes any D). Plain Python over
-    this module's limits: the planner and the probes call it on any
+    or None when it can: every kernel takes any D >= 1 (``torch_fold``
+    any D). Plain Python: the planner and the probes call it on any
     device, so a query plans on the CPU as it will on the card."""
     if implementation == "torch_fold":
         return None
     if implementation not in _IMPLEMENTATION_KERNELS:
         raise ValueError(f"unknown implementation {implementation!r}")
-    name, limit_name, limit = _IMPLEMENTATION_KERNELS[implementation]
-    if 1 <= d <= limit:
+    if d >= 1:
         return None
-    return f"{implementation}'s kernel {name} takes 1 <= D <= {limit} ({limit_name}); this query has D={d}"
+    return f"{implementation}'s kernel {_IMPLEMENTATION_KERNELS[implementation]} takes D >= 1; this query has D={d}"
 
 
 def lane_layout(x, y, alpha, w0):
@@ -148,7 +170,7 @@ def lanes_per_xy(x, w0) -> int:
     return w0.shape[0] // x.shape[0] if x.dim() == 3 and w0.dim() == 2 else 1
 
 
-def _check(x, y, alpha, w0, loss: str, max_dim: int):
+def _check(x, y, alpha, w0, loss: str):
     if loss not in LOSS_IDS:
         raise ValueError(f"unknown loss {loss!r}; valid: {sorted(LOSS_IDS)}")
     named = {"x": x, "y": y, "alpha": alpha, "w0": w0}
@@ -163,8 +185,8 @@ def _check(x, y, alpha, w0, loss: str, max_dim: int):
             raise ValueError(f"{name} must be contiguous")
     layout = lane_layout(x, y, alpha, w0)
     d = x.shape[-1]
-    if not 1 <= d <= max_dim:
-        raise ValueError(f"D={d} outside what this kernel supports (1..{max_dim})")
+    if d < 1:
+        raise ValueError(f"D={d}: the kernels take D >= 1")
     if layout[0] > MAX_LANES:
         raise ValueError(f"{layout[0]} lanes, more than a launch takes ({MAX_LANES})")
     return layout
@@ -186,34 +208,43 @@ def _launch(name: str, x, y, alpha, w0, loss: str, layout):
         msg = lib.igd_fused_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
     launches[name] += 1
+    if d > _WIDE_ABOVE[name]:
+        wide_launches[name] += 1
     return out
 
 
 def igd_fold(x, y, alpha, w0, *, loss: str = "lr"):
-    """Sequential IGD over all N rows of x [N, D] (D <= 4096) with per-row
-    step sizes alpha [N], from w0 [D] -> final w [D]; or B such folds in
-    one launch (see the module's note). Float32, CUDA, contiguous. The
-    library picks the instance by D: the tiled Gram look-ahead up to
-    FOLD_GRAM_MAX_DIM, the per-row chain above it; a block a lane."""
-    layout = _check(x, y, alpha, w0, loss, FOLD_MAX_DIM)
+    """Sequential IGD over all N rows of x [N, D] (any D >= 1) with
+    per-row step sizes alpha [N], from w0 [D] -> final w [D]; or B such
+    folds in one launch (see the module's note). Float32, CUDA,
+    contiguous. The library picks the instance by D, a block a lane: the
+    tiled Gram look-ahead up to FOLD_GRAM_MAX_DIM, the per-row chain with
+    w in registers up to FOLD_REGISTER_MAX_DIM, the wide per-row chain of
+    1,024 threads above it (w in shared memory up to
+    FOLD_WIDE_SMEM_MAX_DIM, in global memory past it)."""
+    layout = _check(x, y, alpha, w0, loss)
     return _launch("igd_fold", x, y, alpha, w0, loss, layout)
 
 
 def igd_fold_minibatch(x, y, alpha, w0, *, loss: str = "lr"):
     """One mean-gradient step per TILE rows; the ragged last tile's mean
     is over TILE (rows past N add zero); or B such folds in one launch.
-    The library picks the instance by D: a cluster of MINIBATCH_CLUSTER
-    CTAs a lane up to MINIBATCH_CLUSTER_MAX_DIM
-    (ref.igd_fold_minibatch_split_ref is its order of sums), the
-    one-block kernel above it."""
-    layout = _check(x, y, alpha, w0, loss, MINIBATCH_MAX_DIM)
+    Any D >= 1. The library picks the instance by D: a cluster of
+    MINIBATCH_CLUSTER CTAs a lane, each a row share of a tile, up to
+    MINIBATCH_CLUSTER_MAX_DIM (ref.igd_fold_minibatch_split_ref is its
+    order of sums), the one-block kernel up to MINIBATCH_BLOCK_MAX_DIM,
+    and above it a cluster of MINIBATCH_CLUSTER CTAs a lane, each a
+    column slice of w (in shared memory up to
+    MINIBATCH_WIDE_SMEM_MAX_DIM, in global memory past it)."""
+    layout = _check(x, y, alpha, w0, loss)
     return _launch("igd_fold_minibatch", x, y, alpha, w0, loss, layout)
 
 
 def minibatch_design(d: int):
     """(CTAs a cluster, dynamic shared memory bytes a CTA) of
     igd_fold_minibatch's instance at D; (1, 0) for the one-block
-    kernel past MINIBATCH_CLUSTER_MAX_DIM (its 48 KB are static)."""
+    kernel (MINIBATCH_CLUSTER_MAX_DIM < D <= MINIBATCH_BLOCK_MAX_DIM;
+    its 48 KB are static)."""
     lib = _load()
     smem = lib.igd_fused_minibatch_smem_bytes(d)
     return (lib.igd_fused_minibatch_cluster(), smem) if smem else (1, 0)
@@ -252,6 +283,34 @@ def minibatch_step_probe(loss: str = "lsq", d: int = 54, *, steps: int = 1 << 14
         raise ValueError(f"D={d} outside the cluster instance (1..{MINIBATCH_CLUSTER_MAX_DIM})")
     return _probe("igd_minibatch_step_probe_launch", (LOSS_IDS[loss], d), steps, device,
                   "igd_minibatch_step_probe")
+
+
+def wide_step_probe(loss: str = "lr", d: int = 4_097, *, steps: int = 1 << 12, device=None):
+    """(SM cycles, seconds) per row of igd_fold's wide instance with w
+    and the row resident in shared memory: the update and dot over each
+    thread's columns, the warp butterfly, the block barrier, the sum of
+    the 32 warps' partials and grad_scale, with no row traffic. N times it
+    is the wide instance's chain floor. A measurement probe, not a kernel
+    of the path: it counts no launch."""
+    if loss not in LOSS_IDS:
+        raise ValueError(f"unknown loss {loss!r}; valid: {sorted(LOSS_IDS)}")
+    if not 1 <= d <= WIDE_PROBE_MAX_DIM:
+        raise ValueError(f"D={d} outside the probe's reach (1..{WIDE_PROBE_MAX_DIM})")
+    return _probe("igd_fold_wide_step_probe_launch", (LOSS_IDS[loss], d), steps, device,
+                  "igd_fold_wide_step_probe")
+
+
+def minibatch_wide_step_probe(loss: str = "lsq", *, steps: int = 1 << 12, device=None):
+    """(SM cycles, seconds) per tile of igd_fold_minibatch's wide
+    instance's exchange alone: the partial margins' write, the cluster
+    barrier, the remote reads of every CTA's partials and grad_scale of
+    the tile's 256 rows, the block barrier; no row traffic. N_tiles times
+    it is the wide instance's tile-chain floor. A measurement probe, not a
+    kernel of the path: it counts no launch."""
+    if loss not in LOSS_IDS:
+        raise ValueError(f"unknown loss {loss!r}; valid: {sorted(LOSS_IDS)}")
+    return _probe("igd_minibatch_wide_step_probe_launch", (LOSS_IDS[loss],), steps, device,
+                  "igd_minibatch_wide_step_probe")
 
 
 def chain_probe(loss: str = "lr", *, steps: int = 1 << 16, device=None):

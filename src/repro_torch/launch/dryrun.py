@@ -196,15 +196,19 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, grad_accum=8, optim
     return rec
 
 
-def run_localsgd_cell(arch: str, *, grad_accum=8, merge_period=16, seq_shard=True, tag=None):
+def run_localsgd_cell(arch: str, *, grad_accum=8, merge_period=16, seq_shard=True, tag=None, cfg_overrides=None):
     """Multi-pod local-SGD dry run (the paper's pure-UDA merge at pod
     granularity): per-pod model instances (a leading bank dim sharded over
     "pod", FSDP over "data" within a pod) train independently; every
     ``merge_period`` steps the instances are averaged. Cross-pod traffic
-    only flows at merges. The cell's step is the one at a merge."""
+    only flows at merges. The cell's step is the one at a merge.
+    ``cfg_overrides`` (beyond the reference's arguments) replaces fields of
+    the config, as ``run_cell``'s does (a cut depth, say)."""
     from repro_torch.launch.train import make_localsgd_step
 
     cfg = get_arch(arch)
+    if cfg_overrides:
+        cfg = cfg.scaled(**cfg_overrides)
     shape = SHAPES["train_4k"]
     amesh = make_production_mesh(multi_pod=True)
     n_pods = amesh.shape["pod"]

@@ -68,6 +68,7 @@ def fit(
     log_fn: Callable[[str], None] = print,
     params: Optional[dict] = None,
     device=None,
+    seq_shard: bool = False,
 ) -> FitResult:
     """Train ``cfg`` for ``steps`` steps of ``global_batch`` rows of
     ``data`` ({"tokens": [N, S]} on the device it is gathered on), resuming
@@ -78,13 +79,15 @@ def fit(
     cannot give the reference's threefry draws), and ``device`` (the card
     unless ``"cpu"``; with a mesh, its ranks' device kind). ``mesh``: a
     ``DeviceMesh`` to train across (see the module's docstring); anything
-    else but ``None`` raises ``TypeError``."""
+    else but ``None`` raises ``TypeError``. ``seq_shard``: with a mesh, the
+    residual activations' sequence split over "model"
+    (``sharding.set_activation_ctx``), as the dry run's ``--seq-shard``."""
     if mesh is not None and not hasattr(mesh, "get_group"):
         raise TypeError(f"mesh must be a torch.distributed DeviceMesh (launch.mesh.make_host_mesh), "
                         f"got {type(mesh).__name__}")
     previous_mesh, previous_seq_shard = shd.activation_ctx()
     if mesh is not None:
-        shd.set_activation_ctx(mesh)
+        shd.set_activation_ctx(mesh, seq_shard=seq_shard)
     try:
         device = resolve_device(device)
         if params is None:

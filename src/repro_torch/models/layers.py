@@ -31,7 +31,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import write_positions
+from repro_torch.dist.sharding import gather_seq, seq_gathered_grad, write_positions
 from repro_torch.kernels.attention import ops as attention_ops
 from repro_torch.kernels.decode import ops as decode_ops
 
@@ -118,6 +118,7 @@ def attention(params: dict, x, cfg, positions, *, cache: Optional[dict] = None,
 
     q heads are laid kv-major as in the reference (head h = kv * g + j), so
     head h reads kv head h // g, which is the kernels' mapping."""
+    x = gather_seq(x)
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = x.dtype
@@ -144,7 +145,7 @@ def attention(params: dict, x, cfg, positions, *, cache: Optional[dict] = None,
             out = attention_ops.mha(q, ck[:, :end].to(dt), cv[:, :end].to(dt), cap)
 
     out = out.reshape(b, s, h * hd) @ params["wo"].to(dt)
-    return out, cache
+    return seq_gathered_grad(out), cache
 
 
 def init_attention_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *, device) -> dict:
@@ -174,6 +175,7 @@ def init_mlp(gen: torch.Generator, cfg, *, device) -> dict:
 
 def mlp(params: dict, x, cfg):
     """The reference's variants; its ``jax.nn.gelu`` is the tanh form."""
+    x = gather_seq(x)
     dt = x.dtype
     hidden = x @ params["w_in"].to(dt)
     if cfg.mlp == "swiglu":
@@ -186,4 +188,4 @@ def mlp(params: dict, x, cfg):
         hidden = F.gelu(hidden, approximate="tanh")
     else:
         raise ValueError(cfg.mlp)
-    return hidden @ params["w_out"].to(dt)
+    return seq_gathered_grad(hidden @ params["w_out"].to(dt))

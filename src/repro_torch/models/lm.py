@@ -57,7 +57,7 @@ import torch
 import torch.utils.checkpoint as checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import constrain, embed_lookup
+from repro_torch.dist.sharding import constrain, embed_lookup, gather_seq
 from repro_torch.models import layers, mamba2, moe, xlstm
 
 TRANSFORMER_FAMILIES = ("dense", "moe", "vlm", "audio")
@@ -317,7 +317,7 @@ def _hidden(params, tokens, cfg, cache, prefix_embeds):
 
 def _head(params, x, cfg):
     dt = layers.dtype_of(cfg.dtype)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = layers.rms_norm(gather_seq(x), params["final_norm"], cfg.norm_eps)
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(dt)
     logits = (x @ head).float()
     if cfg.logit_softcap:

@@ -6,17 +6,21 @@ experts per token, each expert taking at most ``_capacity(cfg)`` tokens of
 a group, in the reference's order (token-major, then choice), the rest
 dropped. Switch Transformer's aux load-balance loss, E * sum_e f_e * p_e.
 
+Dispatch and combine are the reference's: one-hot [G, Bt, E, C] tensors
+and einsums, so every shape is fixed by the config and the input's shape,
+never by the routing. No op sizes its output from the data (no boolean
+mask, no ``nonzero``), so the forward needs no device-to-host sync, a
+fake tensor can size it, and DTensor shards it as it does any einsum (the
+groups over the data axes, the experts' ``d_ff`` over "model").
+
 Differences in form, not in numbers:
 
-* the reference dispatches and combines with one-hot einsums over a
-  [G, Bt, E, C] tensor; the port writes each kept (token, choice) into
-  its expert's capacity slot and gathers it back (``index_put`` and a
-  gather), which moves the same values without the one-hot tensors (at
-  qwen3-moe's 128 experts the reference's [G, Bt, k, E, C] capacity
-  one-hot alone would be 2.7 GB at B = 8 x 2,048 tokens);
-* the experts' products are one batched matmul over E ([E, G*C, D] @
-  [E, D, F]), the combine one over the k choices ([G*Bt, 1, k] @
-  [G*Bt, k, D]), both in the compute dtype as the reference's einsums;
+* the two one-hot tensors are built as an einsum over the k choices of
+  the expert one-hot [G, Bt, k, E] and the capacity-slot one-hot
+  [G, Bt, k, C], where the reference sums a [G, Bt, k, E, C] product over
+  k (at qwen3-moe's 128 experts that product alone would be 2.7 GB at
+  B = 8 x 2,048 tokens); each (expert, slot) pair has at most one choice,
+  so the sums are exact;
 * top-k is ``torch.sort(stable=True)``: ``jax.lax.top_k`` puts the lower
   index first among equal probabilities, ``torch.topk`` does not, and the
   reference rounds the router logits to the compute dtype, so in bf16
@@ -26,9 +30,12 @@ Differences in form, not in numbers:
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import is_dtensor, mesh_shape, seq_gathered_grad
 from repro_torch.models import layers
 
 
@@ -58,6 +65,12 @@ def top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _one_hot(index, n: int):
+    """``index[..., None] == arange(n)``: a comparison, where ``F.one_hot``
+    checks its indices' range on the host."""
+    return index[..., None] == torch.arange(n, device=index.device)
+
+
 def route(probs, cfg):
     """The routing of one forward: probs [G, Bt, E] float32 ->
     (gate [G, Bt, k] normalised, expert [G, Bt, k], slot [G, Bt, k],
@@ -69,33 +82,110 @@ def route(probs, cfg):
     k = cfg.top_k
     gate, expert = top_k(probs, k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-    onehot = F.one_hot(expert, e).reshape(g, bt * k, e)  # [G, Bt*k, E], token-major
-    slot_all = torch.cumsum(onehot, dim=1) * onehot - 1  # -1 where unrouted
-    slot = slot_all.gather(-1, expert.reshape(g, bt * k, 1)).reshape(g, bt, k)
+    onehot = _one_hot(expert, e).to(torch.int32).reshape(g, bt * k, e)  # token-major
+    slot = (torch.cumsum(onehot, dim=1) * onehot).sum(-1).reshape(g, bt, k) - 1
     return gate, expert, slot, slot < _capacity(cfg)
 
 
-def _expert_ffn(params, xe, cfg):
-    """xe [E, N, D] -> [E, N, D]: each expert's FFN over its rows."""
+def dispatch_tensors(gate, expert, slot, kept, cfg, dtype):
+    """(dispatch, combine) [G, Bt, E, C] in ``dtype``, the reference's:
+    dispatch 1 where a kept choice of token t sends it to slot c of
+    expert e, combine that choice's gate there."""
+    slots = _one_hot(torch.where(kept, slot, -1), _capacity(cfg))  # [G, Bt, k, C]
+    experts = _one_hot(expert, cfg.n_experts).to(dtype)            # [G, Bt, k, E]
+    dispatch = torch.einsum("gtke,gtkc->gtec", experts, slots.to(dtype))
+    combine = torch.einsum("gtke,gtkc->gtec", experts, (slots * (gate * kept)[..., None]).to(dtype))
+    return dispatch, combine
+
+
+def _expert_ffn(w_in, w_gate, w_out, xe, cfg):
+    """xe [G, E, C, D] -> [G, E, C, D]: each expert's FFN over its slots."""
     dt = xe.dtype
-    hidden = torch.bmm(xe, params["w_in"].to(dt))
-    if cfg.mlp == "swiglu":
-        hidden = F.silu(torch.bmm(xe, params["w_gate"].to(dt))) * hidden
-    elif cfg.mlp == "geglu":
-        hidden = F.gelu(torch.bmm(xe, params["w_gate"].to(dt)), approximate="tanh") * hidden
+    hidden = torch.einsum("gecd,edf->gecf", xe, w_in.to(dt))
+    if cfg.mlp in ("swiglu", "geglu"):
+        gatev = torch.einsum("gecd,edf->gecf", xe, w_gate.to(dt))
+        act = F.silu(gatev) if cfg.mlp == "swiglu" else F.gelu(gatev, approximate="tanh")
+        hidden = act * hidden
     elif cfg.mlp == "relu2":
         hidden = torch.square(F.relu(hidden))
     else:
         hidden = F.gelu(hidden, approximate="tanh")
-    return torch.bmm(hidden, params["w_out"].to(dt))
+    return torch.einsum("gecf,efd->gecd", hidden, w_out.to(dt))
 
 
 def moe_ffn(params: dict, x, cfg):
-    """x: [B, S, D] -> (out [B, S, D], aux loss float32 scalar)."""
+    """x: [B, S, D] -> (out [B, S, D], aux loss float32 scalar). On DTensor
+    params the layer runs on each rank's local tensors (:func:`_sharded`)."""
+    bt = min(cfg.moe_block, x.shape[0] * x.shape[1])
+    if is_dtensor(params["router"]):
+        out, f_e, p_e = _sharded(params, x, cfg, bt)
+    else:
+        out, f_e, p_e = _moe(params["router"], params["w_in"], params.get("w_gate"), params["w_out"], x, cfg, bt)
+    # aux load-balance loss (Switch): fraction routed (top-1) vs mean router prob
+    return out, cfg.n_experts * torch.sum(f_e * p_e)
+
+
+def _sharded(params, x, cfg, bt):
+    """The layer over DTensors: each rank runs :func:`_moe` on its own
+    tensors (``local_map``), as GSPMD partitions the reference's einsums.
+    The groups follow the batch's split over the data axes when every
+    shard holds whole groups of ``bt`` tokens (else every rank routes all
+    the tokens, and the routing stays the reference's); the experts'
+    ``d_ff`` splits over "model" when it divides (each rank's output is
+    then a partial sum), the routing is repeated on every "model" rank.
+    A sequence split is gathered first. f_e and p_e are means over the
+    groups: each rank returns its share, divided by the number of ranks
+    that sum it, so their partial sums are the means and their gradients
+    reach the router once."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = params["router"].device_mesh
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    b, s, _ = x.shape
+    batch = [j for j, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == 0]
+    n_batch = math.prod(mesh.shape[j] for j in batch)
+    if b % n_batch or (b // n_batch) * s % bt:
+        batch, n_batch = [], 1
+    names = list(mesh_shape(mesh))
+    model = names.index("model") if "model" in names else None
+    m = mesh.shape[model] if model is not None else 1
+    if m == 1 or cfg.d_ff % m:
+        model, m = None, 1
+    gated = "w_gate" in params
+
+    def per_dim(on_batch, on_model, otherwise=Replicate()):
+        return [on_batch if j in batch else on_model if j == model else otherwise for j in range(mesh.ndim)]
+
+    x_in = per_dim(Shard(0), Replicate())
+    w_in = per_dim(Replicate(), Shard(2))
+    w_out = per_dim(Replicate(), Shard(1))
+    mean = per_dim(Partial(), Partial())
+
+    def local(router, w_in_, w_gate, w_out_, x_):
+        out, f_e, p_e = _moe(router, w_in_, w_gate, w_out_, x_, cfg, bt)
+        share = n_batch * m
+        return out, f_e / share, p_e / share
+
+    in_placements = (per_dim(Replicate(), Replicate()), w_in, w_in if gated else None, w_out, x_in)
+    in_grad = (per_dim(Partial(), Partial()), per_dim(Partial(), Shard(2)),
+               per_dim(Partial(), Shard(2)) if gated else None, per_dim(Partial(), Shard(1)),
+               per_dim(Shard(0), Partial()))
+    mapped = local_map(local, out_placements=(per_dim(Shard(0), Partial()), mean, mean),
+                       in_placements=in_placements, in_grad_placements=in_grad, device_mesh=mesh,
+                       redistribute_inputs=True)
+    out, f_e, p_e = mapped(params["router"], params["w_in"], params.get("w_gate"), params["w_out"], x)
+    return seq_gathered_grad(out), f_e, p_e
+
+
+def _moe(router, w_in, w_gate, w_out, x, cfg, bt):
+    """The layer on plain tensors, over groups of ``bt`` tokens: (out
+    [B, S, D], f_e [E] the top-1 fraction routed, p_e [E] the mean router
+    probability)."""
     dt = x.dtype
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    bt = min(cfg.moe_block, b * s)
+    e = cfg.n_experts
     tokens = x.reshape(-1, d)
     n = tokens.shape[0]
     pad = (-n) % bt
@@ -104,27 +194,14 @@ def moe_ffn(params: dict, x, cfg):
     g = (n + pad) // bt
     xg = tokens.reshape(g, bt, d)
 
-    logits = (xg @ params["router"].to(dt)).float()  # [G, Bt, E]
+    logits = (xg @ router.to(dt)).float()  # [G, Bt, E]
     probs = torch.softmax(logits, dim=-1)
     gate, expert, slot, kept = route(probs, cfg)
-
-    # aux load-balance loss (Switch): fraction routed (top-1) vs mean router prob
-    f_e = F.one_hot(expert[..., 0], e).float().mean(dim=(0, 1))
+    f_e = _one_hot(expert[..., 0], e).float().mean(dim=(0, 1))
     p_e = probs.mean(dim=(0, 1))
-    aux = e * torch.sum(f_e * p_e)
 
-    # dispatch: each kept (token, choice) into its expert's capacity slot
-    cap = _capacity(cfg)
-    gi = torch.arange(g, device=x.device)[:, None, None].expand(g, bt, k)
-    ti = torch.arange(bt, device=x.device)[None, :, None].expand(g, bt, k)
-    gk, ek, sk, tk = gi[kept], expert[kept], slot[kept], ti[kept]
-    xe = xg.new_zeros((e, g, cap, d))
-    xe[ek, gk, sk] = xg[gk, tk]
-    ye = _expert_ffn(params, xe.reshape(e, g * cap, d), cfg).reshape(e, g, cap, d)
-
-    # combine: the gate-weighted sum of a token's kept choices (a dropped
-    # choice reads slot 0 with weight 0)
-    weight = (gate * kept).to(dt)  # [G, Bt, k]
-    picked = ye[expert, gi, torch.where(kept, slot, 0)]  # [G, Bt, k, D]
-    out = torch.bmm(weight.reshape(g * bt, 1, k), picked.reshape(g * bt, k, d))
-    return out.reshape(-1, d)[:n].reshape(b, s, d), aux
+    dispatch, combine = dispatch_tensors(gate, expert, slot, kept, cfg, dt)
+    xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)  # [G, E, C, D]
+    ye = _expert_ffn(w_in, w_gate, w_out, xe, cfg)
+    out = torch.einsum("gtec,gecd->gtd", combine, ye)  # [G, Bt, D]
+    return out.reshape(-1, d)[:n].reshape(b, s, d), f_e, p_e

@@ -85,10 +85,10 @@ def test_cuda_igd_fold_takes_zero_rows_and_unaligned_rows():
 
 # igd_fold_minibatch: N around the 256-row tile and the cluster's span of
 # tiles, D on both sides of the cluster instance's bound (256) up to the
-# one-block kernel's limit
+# one-block kernel's last D (the wide instance above it: WIDE_CASES)
 MB_K = K.MINIBATCH_CLUSTER
 MB_N = (0, 1, 255, 257, 256 * MB_K - 1, 256 * MB_K + 1, 16_385)
-MB_D = (1, 54, 256, 257, K.MINIBATCH_MAX_DIM)
+MB_D = (1, 54, 256, 257, K.MINIBATCH_BLOCK_MAX_DIM)
 
 
 def _card_inputs(n, d, seed=5):
@@ -155,8 +155,8 @@ def test_cuda_minibatch_step_probe_times_the_cluster_step():
 @needs_card
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     x, y, alpha, w0 = _inputs(64, 8)
-    with pytest.raises(ValueError, match="D=5000"):
-        K.igd_fold(*_inputs(8, 5000))
+    with pytest.raises(ValueError, match="D=0"):
+        K.igd_fold(*_inputs(8, 0))
     with pytest.raises(ValueError, match="contiguous"):
         K.igd_fold(x.t().contiguous().t(), y, alpha, w0)
     with pytest.raises(TypeError):
@@ -179,11 +179,12 @@ def test_cuda_engine_plans_the_kernel_lane():
 
 @needs_card
 @pytest.mark.parametrize("task,d", [("logreg", 4_097), ("least_squares", 12_033)])
-def test_cuda_wide_query_plans_past_the_kernels_and_matches_the_cpu_run(task, d):
-    """Past igd_fold's D (4,096), and past igd_fold_minibatch's (12,032):
-    the card plans as the CPU does (probe (e) prices only the kernels that
-    take D, the eager fold wins), runs, and equals the CPU run with the
-    same draws; a hint past a kernel's limit raises naming it."""
+def test_cuda_wide_query_plans_a_kernel_and_matches_the_cpu_run(task, d):
+    """Past igd_fold's register instance (4,096) and igd_fold_minibatch's
+    one-block instance (12,032): the card plans as the CPU does (probe (e)
+    prices both kernels, the kernel lane wins on the card), launches the
+    wide instance, and equals the CPU run with the same draws; the
+    cuda_minibatch hint runs the wide minibatch instance likewise."""
     from repro_torch import engine
     from repro_torch.core import draws
     from repro_torch.data import synthetic
@@ -198,21 +199,75 @@ def test_cuda_wide_query_plans_past_the_kernels_and_matches_the_cpu_run(task, d)
 
     eng = engine.Engine(draws=draws.HostDraws())
     report = eng.explain(query(on_card))
-    assert report.chosen.implementation == "torch_fold"
-    assert set(report.calibration.impl_per_row) == ({"cuda_minibatch"} if d <= K.MINIBATCH_MAX_DIM else set())
+    assert report.chosen.implementation == "cuda_fused"
+    assert set(report.calibration.impl_per_row) == {"cuda_fused", "cuda_minibatch"}
     card = eng.run(query(on_card))
     host = engine.Engine(device="cpu", draws=draws.HostDraws()).run(query(table), plan=report.chosen)
     torch.testing.assert_close(card.model.cpu(), host.model, **TOL)
-    assert card.kernel_launches == 0
-    for impl, limit in (("cuda_fused", "4096"), ("cuda_minibatch", "12032")):
-        if K.supports(impl, d) is not None:
-            with pytest.raises(ValueError, match=limit):
-                eng.explain(query(on_card, implementation=impl))
-    if d <= K.MINIBATCH_MAX_DIM:  # the one-block minibatch kernel still takes this width
-        hinted = eng.run(query(on_card, implementation="cuda_minibatch"))
-        want = engine.Engine(device="cpu", draws=draws.HostDraws()).run(query(table), plan=hinted.plan)
-        torch.testing.assert_close(hinted.model.cpu(), want.model, **TOL)
-        assert hinted.kernel_launches == 2
+    assert card.kernel_launches == 2
+    hinted = eng.run(query(on_card, implementation="cuda_minibatch"))
+    want = engine.Engine(device="cpu", draws=draws.HostDraws()).run(query(table), plan=hinted.plan)
+    torch.testing.assert_close(hinted.model.cpu(), want.model, **TOL)
+    assert hinted.kernel_launches == 2
+
+
+# the wide instances: (N, D) past igd_fold's register instance (4,096) and
+# igd_fold_minibatch's one-block instance (12,032), on both sides of each
+# wide instance's shared-memory tier (w, or its cluster slices, in shared
+# memory up to the tier and in global memory past it), few rows at the widest
+WIDE_FOLD = [(300, 4_097), (1_000, 8_192), (257, 12_033), (100, 12_289), (40, 65_537),
+             (64, K.FOLD_WIDE_SMEM_MAX_DIM), (64, K.FOLD_WIDE_SMEM_MAX_DIM + 1)]
+WIDE_MB = [(300, 4_097), (513, 8_192), (300, 12_033), (513, 12_289), (2_049, 65_537), (0, 20_000), (1, 13_000),
+           (300, K.MINIBATCH_WIDE_SMEM_MAX_DIM), (300, K.MINIBATCH_WIDE_SMEM_MAX_DIM + 1)]
+WIDE_CASES = [("igd_fold", n, d) for n, d in WIDE_FOLD] + [("igd_fold_minibatch", n, d) for n, d in WIDE_MB]
+
+
+@needs_card
+@pytest.mark.parametrize("loss", ["lr", "svm", "lsq"])
+@pytest.mark.parametrize("name,n,d", WIDE_CASES)
+def test_cuda_wide_instances_match_plain_versions(name, n, d, loss):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _card_inputs(n, d)
+    before = K.launches[name]
+    got = getattr(K, name)(*args, loss=loss)
+    torch.cuda.synchronize()
+    assert K.launches[name] == before + 1
+    torch.testing.assert_close(got, getattr(R, f"{name}_ref")(*args, loss=loss), **TOL)
+    if n == 0:
+        assert torch.equal(got, args[3])
+
+
+@needs_card
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "stacked"])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("d", [4_097, 12_033, 65_537])
+@pytest.mark.parametrize("name", ["igd_fold", "igd_fold_minibatch"])
+def test_cuda_wide_lanes_equal_their_single_lanes(name, d, b, shared):
+    """B lanes of a wide instance in one launch: every lane equals its
+    one-lane launch bit for bit, and the plain version within the kernel
+    tolerance."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = 40 if d > 60_000 else 600
+    x, y, alpha, w0 = _lane_inputs(b, n, d, shared)
+    kernel, plain = getattr(K, name), getattr(R, f"{name}_ref")
+    for loss in ("lr", "svm", "lsq"):
+        got = kernel(x, y, alpha, w0, loss=loss)
+        for i in range(b):
+            xi, yi = (x, y) if shared else (x[i], y[i])
+            assert torch.equal(got[i], kernel(xi, yi, alpha[i].contiguous(), w0[i].contiguous(), loss=loss)), i
+        torch.testing.assert_close(got, R.lanes_ref(plain, x, y, alpha, w0, loss=loss), **TOL)
+
+
+@needs_card
+def test_cuda_wide_probes_time_the_wide_steps():
+    cycles, seconds = K.wide_step_probe("lr", 4_097, steps=64)
+    assert cycles > 0 and seconds > 0
+    cycles, seconds = K.minibatch_wide_step_probe("lsq", steps=64)
+    assert cycles > 0 and seconds > 0
+    cluster, smem = K.minibatch_design(12_033)
+    assert cluster == MB_K and 0 < smem <= 232_448
+    with pytest.raises(ValueError, match="probe"):
+        K.wide_step_probe("lr", K.WIDE_PROBE_MAX_DIM + 1)
 
 
 # lane launches: (lanes, N, D) across the sub-tile, the tile and the

@@ -8,7 +8,9 @@ prefill cell at 256 x 8 beside them), ``grad_accum=2``.
 The reference's own ``repro.launch.dryrun.run_cell`` runs the same cells
 on 8 forced host devices, and the port's records are held to its:
 argument and output bytes, dot count, parameter counts and model FLOPs
-exactly, per-device FLOPs and collective bytes in stated bands.
+exactly, per-device FLOPs and collective bytes in stated bands. A scaled
+qwen3-moe cell (2 layers, 8 experts, top 2) runs on both meshes and is held
+to the reference's the same way (bytes, params and model FLOPs exactly).
 
 Each script runs in its own subprocess, so no fake process group (and no
 forced device count) outlives its test; the scripts start together when
@@ -24,7 +26,6 @@ import sys
 import importlib.util
 
 import pytest
-import torch
 
 from _torch_dist import SRC
 
@@ -51,6 +52,9 @@ base.SHAPES["prefill_32k"] = dataclasses.replace(base.SHAPES["prefill_32k"], seq
 CFG = get_arch("llama3.2-3b").scaled(name="t", n_layers=2, d_model=128, n_heads=8, n_kv_heads=4, head_dim=16,
                                      d_ff=256, vocab=512)
 base._REGISTRY["t"] = CFG
+MOE = get_arch("qwen3-moe-235b-a22b").scaled(name="m", n_layers=2, d_model=128, n_heads=8, n_kv_heads=4, head_dim=16,
+                                              d_ff=64, vocab=512, n_experts=8, top_k=2, moe_block=128)
+base._REGISTRY["m"] = MOE
 ONE = {"data": 1, "model": 1}
 OUT = {}
 """
@@ -68,6 +72,14 @@ OUT["rec"] = dr.run_cell("t", "train_4k", True, grad_accum=2)
 for shape in ("train_4k", "decode_32k", "prefill_32k"):
     OUT[shape] = dr.run_cell("t", shape, False, grad_accum=2)
 OUT["train_1x1"] = dr.run_cell("t", "train_4k", False, grad_accum=2, mesh_shape=ONE)
+""",
+    # the MoE cell (qwen3-moe scaled: 8 experts, top 2, groups of 128
+    # tokens) on both small meshes
+    "moe_4x2": r"""
+OUT["rec"] = dr.run_cell("m", "train_4k", False, grad_accum=2)
+""",
+    "moe_2x2x2": r"""
+OUT["rec"] = dr.run_cell("m", "train_4k", True, grad_accum=2)
 """,
     # the local-SGD cell at the reference's default (sequence-sharded
     # activations) and without
@@ -180,13 +192,17 @@ base.SHAPES["prefill_32k"] = dataclasses.replace(base.SHAPES["prefill_32k"], seq
 CFG = get_arch("llama3.2-3b").scaled(name="t", n_layers=2, d_model=128, n_heads=8, n_kv_heads=4, head_dim=16,
                                      d_ff=256, vocab=512)
 base._REGISTRY["t"] = CFG
+MOE = get_arch("qwen3-moe-235b-a22b").scaled(name="m", n_layers=2, d_model=128, n_heads=8, n_kv_heads=4, head_dim=16,
+                                              d_ff=64, vocab=512, n_experts=8, top_k=2, moe_block=128)
+base._REGISTRY["m"] = MOE
 OUT = {}
-for name, shape, mp in [("train_4x2", "train_4k", False), ("train_2x2x2", "train_4k", True),
-                        ("decode_4x2", "decode_32k", False), ("prefill_4x2", "prefill_32k", False)]:
-    rec = dr.run_cell("t", shape, mp, grad_accum=2)
+for name, arch, shape, mp in [("train_4x2", "t", "train_4k", False), ("train_2x2x2", "t", "train_4k", True),
+                              ("decode_4x2", "t", "decode_32k", False), ("prefill_4x2", "t", "prefill_32k", False),
+                              ("moe_4x2", "m", "train_4k", False), ("moe_2x2x2", "m", "train_4k", True)]:
+    rec = dr.run_cell(arch, shape, mp, grad_accum=2)
     mesh = small_mesh(multi_pod=mp)
     with mesh:
-        fn, args = dr.build_cell(CFG, base.SHAPES[shape], mesh, grad_accum=2)
+        fn, args = dr.build_cell(base._REGISTRY[arch], base.SHAPES[shape], mesh, grad_accum=2)
         compiled = fn.lower(*args).compile()
         outs = jax.tree.leaves(jax.eval_shape(fn, *args))
         rec["output_shard_bytes"] = sum(math.prod(s.shard_shape(o.shape)) * o.dtype.itemsize
@@ -263,15 +279,8 @@ def test_small_mesh_cells_are_ok(runs, script, key):
     assert rec["n_params"] == rec["n_params_active"] == 361_088
 
 
-# DTensor before torch 2.13 refuses to flatten a sequence-sharded
-# activation into a matmul's rows (ROADMAP, Held)
-_SEQ_SHARD_REFUSED = torch.__version__ < "2.13"
-
-
 @pytest.mark.parametrize("script", ["localsgd", "localsgd_seq_shard"])
 def test_localsgd_cell_on_the_multi_pod_mesh_is_ok(runs, script):
-    if script == "localsgd_seq_shard" and _SEQ_SHARD_REFUSED:
-        pytest.skip("DTensor before torch 2.13 cannot flatten a sequence-sharded activation")
     rec = runs.result(script)["rec"]
     _ok(rec)
     assert rec["n_chips"] == 8 and rec["tag"] == "localsgd-H16"
@@ -304,6 +313,35 @@ def test_small_mesh_cells_agree_with_the_references_dry_run(runs, script, key, r
     for k in ("dot_count", "n_params", "n_params_active", "model_flops"):
         assert rec[k] == ref[k], k
     lo, hi = FLOPS_BAND
+    assert lo * ref["hlo_flops"] <= rec["hlo_flops"] <= hi * ref["hlo_flops"]
+    lo, hi = COLLECTIVE_BAND
+    assert lo * ref["collective_traffic_bytes"] <= rec["collective_traffic_bytes"] <= hi * ref["collective_traffic_bytes"]
+
+
+# the MoE cell's FLOPs a device over the reference's: the port routes,
+# dispatches and combines (the one-hot einsums over [G, Bt, E, C]) on every
+# "model" rank, where GSPMD splits that work (measured on torch 2.13: 1.59
+# on both meshes)
+MOE_FLOPS_BAND = (0.8, 2.0)
+
+
+@pytest.mark.parametrize("script,ref_key", [("moe_4x2", "moe_4x2"), ("moe_2x2x2", "moe_2x2x2")])
+def test_moe_cells_agree_with_the_references_dry_run(runs, script, ref_key):
+    """The MoE dispatch has static shapes, so its cell runs sharded: bytes,
+    params and model FLOPs equal the reference's, FLOPs and collective
+    bytes within the bands."""
+    rec = runs.result(script)["rec"]
+    _ok(rec)
+    assert rec["n_chips"] == 8 and rec["n_params"] > rec["n_params_active"]
+    if "reference" not in runs.procs:
+        pytest.skip("the reference package needs jax")
+    ref = runs.result("reference")[ref_key]
+    assert ref["status"] == "OK" and ref["n_chips"] == 8
+    assert rec["argument_bytes"] == ref["argument_bytes"]
+    assert rec["output_bytes"] == ref["output_shard_bytes"]
+    for k in ("n_params", "n_params_active", "model_flops"):
+        assert rec[k] == ref[k], k
+    lo, hi = MOE_FLOPS_BAND
     assert lo * ref["hlo_flops"] <= rec["hlo_flops"] <= hi * ref["hlo_flops"]
     lo, hi = COLLECTIVE_BAND
     assert lo * ref["collective_traffic_bytes"] <= rec["collective_traffic_bytes"] <= hi * ref["collective_traffic_bytes"]

@@ -212,8 +212,9 @@ def test_launch_counter_reset():
 
 
 def test_library_name_tracks_the_source():
-    assert K.FOLD_GRAM_MAX_DIM == 256 and K.FOLD_GRAM_MAX_DIM < K.FOLD_MAX_DIM
-    assert K.MINIBATCH_CLUSTER_MAX_DIM == 256 < K.MINIBATCH_MAX_DIM and K.TILE % K.MINIBATCH_CLUSTER == 0
+    assert K.FOLD_GRAM_MAX_DIM == 256 < K.FOLD_REGISTER_MAX_DIM < K.FOLD_WIDE_SMEM_MAX_DIM
+    assert K.MINIBATCH_CLUSTER_MAX_DIM == 256 < K.MINIBATCH_BLOCK_MAX_DIM < K.MINIBATCH_WIDE_SMEM_MAX_DIM
+    assert K.TILE % K.MINIBATCH_CLUSTER == 0
     path = K.library_path()
     assert path.parent == K.BUILD_DIR and path.name.startswith("libigd_fused-")
     assert "compute_90a" in " ".join(K.NVCC_FLAGS) and "--use_fast_math" not in K.NVCC_FLAGS

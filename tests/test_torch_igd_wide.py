@@ -1,0 +1,75 @@
+"""The fused-IGD functions at widths past the CUDA kernels' narrow
+instances (igd_fold's register instance ends at D = 4,096,
+igd_fold_minibatch's one-block instance at 12,032; the wide instances take
+every D above), on the CPU: the port's ``ops`` (its plain versions on CPU
+tensors) against the reference's ops with ``use_kernel=False`` (its jnp
+oracles, which pad D to 128 and N to the tile, as its kernels do) on the
+same seeded numpy inputs, and at D = 4,097 against the reference's Pallas
+kernels in interpret mode. The wide CUDA instances themselves run on the
+card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phases 2 and 3f)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.igd_fused import ops as ref_ops
+from repro_torch.kernels.igd_fused import kernel as K, ops
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=2e-4, atol=2e-5)  # the reference's kernel tolerance (tests/test_kernels.py)
+LOSSES = ("lr", "svm", "lsq")
+# past each narrow instance, and past the wide fold's shared-memory tier
+WIDE_D = (4_097, 12_033, 65_537)
+ROWS = 300  # a ragged last tile (300 = 256 + 44)
+
+
+def _inputs(n, d, seed=11):
+    r = np.random.default_rng(seed)
+    x = (r.normal(size=(n, d)) / np.sqrt(d)).astype(np.float32)
+    y = np.sign(r.normal(size=n)).astype(np.float32)
+    alpha = (0.1 / (1.0 + np.arange(n, dtype=np.float32) / n)).astype(np.float32)
+    w0 = (0.01 * r.normal(size=d)).astype(np.float32)
+    return x, y, alpha, w0
+
+
+def test_the_wide_widths_cross_every_instance_boundary():
+    assert WIDE_D[0] == K.FOLD_REGISTER_MAX_DIM + 1 and WIDE_D[1] == K.MINIBATCH_BLOCK_MAX_DIM + 1
+    assert WIDE_D[2] > K.FOLD_WIDE_SMEM_MAX_DIM
+    for name in ("cuda_fused", "cuda_minibatch"):
+        assert all(K.supports(name, d) is None for d in WIDE_D)
+
+
+@pytest.mark.parametrize("loss", LOSSES)
+@pytest.mark.parametrize("d", WIDE_D)
+@pytest.mark.parametrize("name", ["igd_fold", "igd_fold_minibatch"])
+def test_wide_fold_matches_the_references_ops(name, d, loss):
+    a = _inputs(ROWS, d)
+    want = np.asarray(getattr(ref_ops, name)(*(jnp.asarray(v) for v in a), loss=loss, use_kernel=False))
+    got = getattr(ops, name)(*(torch.from_numpy(v) for v in a), loss=loss)
+    assert got.shape == (d,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("loss", LOSSES)
+@pytest.mark.parametrize("name", ["igd_fold", "igd_fold_minibatch"])
+def test_wide_fold_matches_the_pallas_kernel_in_interpret_mode(name, loss):
+    a = _inputs(ROWS, K.FOLD_REGISTER_MAX_DIM + 1, seed=12)
+    want = np.asarray(getattr(ref_ops, name)(*(jnp.asarray(v) for v in a), loss=loss, use_kernel=True,
+                                             interpret=True))
+    got = getattr(ops, name)(*(torch.from_numpy(v) for v in a), loss=loss)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("name", ["igd_fold", "igd_fold_minibatch"])
+def test_wide_lanes_match_their_single_folds(name):
+    """B = 3 lanes over a shared table at D = 12,033: each lane the plain
+    fold of its own steps and start."""
+    x, y, alpha, w0 = (torch.from_numpy(v) for v in _inputs(64, K.MINIBATCH_BLOCK_MAX_DIM + 1, seed=13))
+    a_b = torch.stack([alpha, 0.5 * alpha, 2.0 * alpha])
+    w_b = torch.stack([w0, -w0, torch.zeros_like(w0)])
+    fn = getattr(ops, name)
+    got = fn(x, y, a_b, w_b, loss="lsq")
+    for i in range(3):
+        assert torch.equal(got[i], fn(x, y, a_b[i], w_b[i], loss="lsq"))

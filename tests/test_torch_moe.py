@@ -129,3 +129,61 @@ def test_bf16_compute_routes_as_the_reference():
     jprobs = jax.nn.softmax((jnp.asarray(x).astype(jnp.bfloat16).reshape(2, 16, -1)
                              @ params["router"].astype(jnp.bfloat16)).astype(jnp.float32), axis=-1)
     np.testing.assert_array_equal(moe.route(probs, tcfg)[1].numpy(), np.asarray(jax.lax.top_k(jprobs, 4)[1]))
+
+
+class _Ops(torch.utils._python_dispatch.TorchDispatchMode):
+    """The aten ops a region runs, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.add(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+# ops whose output size depends on the data, or that read a value back to the host
+_DATA_DEPENDENT = {"nonzero", "masked_select", "_local_scalar_dense", "item", "unique", "_unique2"}
+
+
+@pytest.mark.parametrize("overflow", [False, True], ids=["kept", "dropped"])
+def test_moe_forward_and_backward_have_static_shapes_and_no_host_sync(overflow):
+    """The dispatch is one-hot einsums: no op of the forward or backward
+    sizes its output from the routing (no ``nonzero``, no boolean-mask
+    index) or reads a value back to the host, with or without dropped
+    tokens; so the forward runs under FakeTensorMode, which cannot size a
+    data-dependent output, and gives the shapes the config fixes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    jcfg, tcfg = _cfgs(moe_block=32, capacity_factor=0.5 if overflow else 1.25)
+    _, tparams = _params(jcfg, seed=6)
+    tparams = {k: v.clone().requires_grad_(True) for k, v in tparams.items()}
+    x = torch.from_numpy(np.abs(_x(2, 16, jcfg.d_model, 7))).requires_grad_(True)
+    with _Ops() as ops:
+        out, aux = moe.moe_ffn(tparams, x, tcfg)
+        (out.sum() + aux).backward()
+    assert ops.names and not ops.names & _DATA_DEPENDENT, ops.names & _DATA_DEPENDENT
+    assert x.grad is not None and all(p.grad is not None for p in tparams.values())
+    with FakeTensorMode():
+        fake = {k: torch.empty(tuple(v.shape)) for k, v in tparams.items()}
+        out, aux = moe.moe_ffn(fake, torch.empty(3, 40, jcfg.d_model), tcfg)
+    assert tuple(out.shape) == (3, 40, jcfg.d_model) and tuple(aux.shape) == ()
+
+
+def test_dispatch_tensors_are_the_references_one_hots():
+    """dispatch / combine [G, Bt, E, C] equal the reference's tensors built
+    its way (a [G, Bt, k, E, C] product summed over k), with drops."""
+    jcfg, tcfg = _cfgs(moe_block=32, capacity_factor=0.5, top_k=3)
+    _, tparams = _params(jcfg, seed=2)
+    x = torch.from_numpy(_x(1, 32, jcfg.d_model, 3))
+    probs = torch.softmax(x.reshape(1, 32, -1) @ tparams["router"], dim=-1)
+    gate, expert, slot, kept = moe.route(probs, tcfg)
+    dispatch, combine = moe.dispatch_tensors(gate, expert, slot, kept, tcfg, torch.float32)
+    cap, e = moe._capacity(tcfg), tcfg.n_experts
+    ohe = torch.nn.functional.one_hot(expert, e)[..., None]                                # [G, Bt, k, E, 1]
+    ohc = torch.nn.functional.one_hot(torch.where(kept, slot, cap), cap + 1)[..., None, :cap]  # [G, Bt, k, 1, C]
+    want = (ohe * ohc).float()
+    assert bool((~kept).any()) and bool(kept.any())
+    assert torch.equal(dispatch, want.sum(2))
+    assert torch.equal(combine, (want * (gate * kept)[..., None, None]).sum(2))
