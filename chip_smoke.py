@@ -252,6 +252,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -583,6 +584,27 @@ def ptxas_report(name: str, text: str) -> str:
     if spills:
         raise AssertionError(f"register spills in {name}: {spills}")
     return f"{len(regs)} kernels, max {max(regs)} registers/thread, no spills"
+
+
+def ptxas_instances(text: str, marker: str) -> str:
+    """Registers and spill bytes of each kernel whose mangled name holds
+    ``marker`` (its template arguments as written), from ptxas -v."""
+    found, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'|Function properties for (\S+)", line)
+        if m:
+            name = m.group(1) or m.group(2)
+        elif name and marker in name:
+            args = ",".join(re.findall(r"L[ib](\d+)E", name.split(marker, 1)[1].split("EEv", 1)[0] + "E"))
+            if "Used " in line:
+                found.setdefault(args, {})["regs"] = int(line.split("Used ")[1].split()[0])
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spills:
+                found.setdefault(args, {})["spills"] = int(spills.group(1)) + int(spills.group(2))
+    if not found:
+        raise AssertionError(f"ptxas reported no kernel named {marker}")
+    return "; ".join(f"{marker}<{args}> {v.get('regs')} registers, {v.get('spills')} spill bytes"
+                     for args, v in sorted(found.items()))
 
 
 def max_err(got, want, what: str, rtol: float = KERNEL_RTOL, atol: float = KERNEL_ATOL) -> float:
@@ -952,7 +974,11 @@ def main() -> int:
 
     # -- 5. build the serving path's kernels --------------------------------
     for lib in (AK.LIBRARY, AK.BWD_LIBRARY, DK.LIBRARY):
-        report = ptxas_report(lib.source.name, builds[lib.name].result())
+        text = builds[lib.name].result()
+        report = ptxas_report(lib.source.name, text)
+        if lib is DK.LIBRARY:  # the bf16 tensor-core instance, <row tiles, cap>, and its planned residency
+            report += (f"; {ptxas_instances(text, 'flash_decode_tc_kernel')}; blocks an SM by row tiles "
+                       f"{DK.TC_BLOCKS_PER_SM} (checked against the occupancy API at load)")
         lib.load()
         log("build", f"{lib.source.name} -> {lib.path().name} ({report}); "
             f"{watch.lap():.2f} s since phase 1 ended")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the port's two serving kernels beside the committed ones, on one CUDA card.
 
-    python3 scripts/torch_kernel_variants.py
+    python3 scripts/torch_kernel_variants.py [--tensor-cores]
 
 Run from the repository root on a machine with a Hopper card. Each variant
 is the committed CUDA source with one textual change, built into the
@@ -12,12 +12,17 @@ B=8, length 2,176 of the same heads), taken in turns with the committed
 kernel and scaled_dot_product_attention in the same run; the profiler
 splits flash_decode into its partial kernel and its combine. Every
 variant but the loads-only one is first held to the plain version (2e-2,
-bf16). The card's name and power limit are printed first.
+bf16). The card's name and power limit are printed first. With
+--tensor-cores it times only the bf16 tensor-core decode instance and its
+variants (TC_DECODE_VARIANTS) at nemotron-4's decode shape (B=8, 96/8
+heads, hd 192, length 2,080), each at its planned split count and at
+TC_SPLITS splits, then the committed instance at TC_LENGTHS.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -28,6 +33,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels._build import CudaLibrary  # noqa: E402
 from repro_torch.kernels.attention import kernel as AK, ref as AR  # noqa: E402
 from repro_torch.kernels.decode import kernel as DK, ref as DR  # noqa: E402
@@ -63,6 +69,27 @@ DECODE_VARIANTS = {
     # the combine as an ordinary launch after the partial kernel
     "plain_launch_combine": [("  config.numAttrs = 1;", "  config.numAttrs = 0;")],
 }
+# the bf16 tensor-core instance (heads past 128) at nemotron-4's decode
+# shape: (old, new) edits of csrc/flash_decode.cu and the kernel.py
+# constants that go with them
+TC_DECODE_VARIANTS = {
+    # three blocks an SM of one row tile (two of two), as shared memory would
+    # allow: ptxas then caps a thread at 168 registers and spills
+    "three_blocks": ([("  static constexpr int kBlocks = RT == 1 ? 2 : 1;", "  static constexpr int kBlocks = RT == 1 ? 3 : 2;")],
+                     {"TC_BLOCKS_PER_SM": {1: 3, 2: 2}}),
+    # a 4-stage ring
+    "four_stages": ([("constexpr int kStages = 3;                     // the k/v ring",
+                      "constexpr int kStages = 4;                     // the k/v ring")], {}),
+    # 64-position tiles, four consumer warps a row tile, one block an SM
+    "tile_64": ([("constexpr int kTile = 32;                      // positions a stage",
+                  "constexpr int kTile = 64;                      // positions a stage"),
+                 ("  static constexpr int kBlocks = RT == 1 ? 2 : 1;", "  static constexpr int kBlocks = 1;")],
+                {"TC_TILE": 64, "TC_BLOCKS_PER_SM": {1: 1, 2: 1}}),
+}
+NEMO_H, NEMO_KV, NEMO_HD, NEMO_LENGTH = 96, 8, 192, 2080
+TC_SPLITS = (5, 7, 9, 13, 17)  # split counts timed beside each variant's plan
+TC_LENGTHS = (2080, 8192, 32768)  # lengths the committed instance is timed at
+
 # (old, new) edits of csrc/flash_attention.cu
 ATTENTION_VARIANTS = {
     "two_stage_ring": [("constexpr int kStages = 3;      // k/v ring", "constexpr int kStages = 2;      // k/v ring")],
@@ -75,6 +102,8 @@ def variant(name: str, source: Path, edits, declare) -> CudaLibrary:
         if old not in text:
             raise SystemExit(f"variant {name}: the source no longer contains {old!r}")
         text = text.replace(old, new)
+    for header in _build._LOCAL_INCLUDE.findall(text):  # the copy includes the committed headers
+        text = text.replace(f'"{header}"', f'"{(source.parent / header).resolve()}"')
     path = ROOT / "build" / "variants" / f"{name}.cu"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(text)
@@ -106,9 +135,82 @@ def decode_split_us(fn) -> str:
             fn()
         torch.cuda.synchronize()
     parts = {e.key: e.device_time for e in prof.key_averages() if e.device_time > 0}
-    partial = sum(t for k, t in parts.items() if "partial" in k)
+    partial = sum(t for k, t in parts.items() if "partial" in k or "tc_kernel" in k)
     combine = sum(t for k, t in parts.items() if "combine" in k)
     return f"partial {partial:.2f} us, combine {combine:.2f} us"
+
+
+def tensor_core_variants() -> None:
+    """The bf16 tensor-core decode instance and TC_DECODE_VARIANTS at
+    nemotron-4's decode shape, each at its planned split count and at
+    TC_SPLITS, in turns with the committed instance and SDPA."""
+    libs = {"committed": (DK.LIBRARY, {})}
+    libs.update({n: (variant(f"decode_tc_{n}", DK.SOURCE, e, DK._declare), consts)
+                 for n, (e, consts) in TC_DECODE_VARIANTS.items()})
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(libs)) as pool:
+        texts = dict(zip(libs, pool.map(lambda lib: lib.build(ptxas_verbose=True), [v[0] for v in libs.values()])))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qd = torch.randn((B, NEMO_H, NEMO_HD), generator=gen, device="cuda").to(torch.bfloat16)
+    kc, vc = (torch.randn((B, NEMO_LENGTH, NEMO_KV, NEMO_HD), generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    want = DR.decode_attention_ref(qd, kc, vc, NEMO_LENGTH)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), enable_gqa=True)
+    kernel = lambda: DK.flash_decode(qd, kc, vc, NEMO_LENGTH)  # noqa: E731
+    committed = {name: getattr(DK, name) for name in ("LIBRARY", "TC_TILE", "TC_BLOCKS_PER_SM", "splits_for")}
+    for name, (lib, consts) in libs.items():
+        regs, spills, kernel_name = [], 0, ""
+        for text_line in texts[name].splitlines():  # the tensor-core kernels' registers and spill bytes
+            m = re.search(r"Compiling entry function '([^']+)'|Function properties for (\S+)", text_line)
+            kernel_name = (m.group(1) or m.group(2)) if m else kernel_name
+            if "flash_decode_tc_kernel" in kernel_name and "Used " in text_line:
+                regs.append(int(text_line.split("Used ")[1].split()[0]))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text_line)
+            if m and "flash_decode_tc_kernel" in kernel_name:
+                spills += int(m.group(1)) + int(m.group(2))
+        for key, value in {**committed, **consts, "LIBRARY": lib}.items():
+            setattr(DK, key, value)
+        lib._lib = None
+        try:
+            lib.load()
+        except RuntimeError as err:  # a residency the card does not give: report it, time nothing
+            print(f"flash_decode[hd192] {name}: {err}", flush=True)
+            continue
+        for g, w in zip(kernel(), want):
+            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2, atol=2e-2)
+        plan = committed["splits_for"](B, NEMO_KV, NEMO_H, NEMO_LENGTH, 132, True)
+        line = []
+        for splits in (plan, *TC_SPLITS):
+            DK.splits_for = lambda *a, s=splits: s
+            first, library, second = graph_ms(kernel, 100), graph_ms(sdpa, 100), graph_ms(kernel, 100)
+            line.append(f"{splits} splits{' (planned)' if splits == plan else ''} {(first + second) / 2 * 1e3:.2f} us "
+                        f"(turns {first * 1e3:.2f}, {second * 1e3:.2f}; SDPA {library * 1e3:.2f})")
+            if splits == plan:
+                line[-1] += f" [{decode_split_us(kernel)}]"
+        print(f"flash_decode[hd192] {name} (ptxas: registers {regs}, {spills} spill bytes; blocks an SM "
+              f"{DK.TC_BLOCKS_PER_SM}): " + "; ".join(line), flush=True)
+    for key, value in committed.items():
+        setattr(DK, key, value)
+    # the committed instance's rate as the length grows: what a launch's
+    # fixed costs (the first tiles' latency, the last wave, the combine)
+    # take at the serving length
+    for length in TC_LENGTHS:
+        kl, vl = (torch.randn((B, length, NEMO_KV, NEMO_HD), generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        kernel = lambda: DK.flash_decode(qd, kl, vl, length)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qd[:, :, None], kl.transpose(1, 2), vl.transpose(1, 2), enable_gqa=True)
+        reads = lambda: (torch.amax(kl), torch.amax(vl))  # noqa: E731  # a read of the same bytes, for scale
+        first, library, second = graph_ms(kernel, 20), graph_ms(sdpa, 20), graph_ms(kernel, 20)
+        read_ms = graph_ms(reads, 20)
+        ms, nbytes = (first + second) / 2, 2 * kl.numel() * 2
+        print(f"flash_decode[hd192] committed at length {length}: {ms * 1e3:.2f} us (turns {first * 1e3:.2f}, "
+              f"{second * 1e3:.2f}), {nbytes / ms / 1e9:.3f} TB/s of the cache; SDPA {library * 1e3:.2f} us "
+              f"({nbytes / library / 1e9:.3f} TB/s); torch.amax of k and v {read_ms * 1e3:.2f} us "
+              f"({nbytes / read_ms / 1e9:.3f} TB/s); {decode_split_us(kernel)}", flush=True)
+        del kl, vl
 
 
 def main() -> int:
@@ -118,6 +220,9 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card, f"| torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
+    if "--tensor-cores" in sys.argv[1:]:
+        tensor_core_variants()
+        return 0
     decode = {"committed": DK.LIBRARY}
     decode.update({n: variant(f"decode_{n}", DK.SOURCE, e, DK._declare) for n, e in DECODE_VARIANTS.items()})
     attention = {"committed": AK.LIBRARY}

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Device ms of the two serving kernels at llama3.2-3b's serving shapes, for one checkout.
+"""Device ms of the serving kernels at llama3.2-3b's and nemotron-4's decode shapes, for one checkout.
 
     python3 scripts/torch_serving_kernel_times.py [--root DIR] [--turns N]
 
 Loads repro_torch from DIR/src (default: this checkout), so its kernels
 build from DIR's sources into DIR/build, and times flash_attention (B=8,
-S=2,048, 24/8 heads, hd 128, bf16) and flash_decode (B=8, cache 2,176
-positions, length 2,176) in replayed CUDA graphs, each in N turns with
-scaled_dot_product_attention. Prints one JSON line, with the card's name
-and power limit. To compare two checkouts' kernels on one card, run it for
+S=2,048, 24/8 heads, hd 128, bf16), flash_decode (B=8, cache 2,176
+positions, length 2,176), flash_decode[hd192] (nemotron-4's decode: B=8,
+96/8 heads, hd 192, length 2,080, bf16), both decode shapes in float32, and
+flash_decode[softcap] (grok-1's 48/8 heads, hd 128, length 2,080, cap 30)
+in replayed CUDA graphs, each in N turns with scaled_dot_product_attention
+where PyTorch has the call. Prints one JSON line, with the card's name and
+power limit and a digest of each kernel's output (the same inputs, from
+one seed, in every checkout). To compare two checkouts' kernels on one card, run it for
 each in turns in one call (A B B A): for example with another commit's
 tree unpacked under build/ by `git archive`.
 """
@@ -16,6 +20,7 @@ tree unpacked under build/ by `git archive`.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -25,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 B, S, H, KV, HD, LENGTH = 8, 2048, 24, 8, 128, 2176
+NEMO_H, NEMO_KV, NEMO_HD, NEMO_LENGTH = 96, 8, 192, 2080
+GROK_H, GROK_SOFTCAP = 48, 30.0
 
 
 def graph_ms(fn, iters: int) -> float:
@@ -61,22 +68,34 @@ def main() -> int:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def normal(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    def normal(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def decode(h, kv, hd, length, dtype=torch.bfloat16, softcap=0.0):
+        qd, kc, vc = normal(B, h, hd, dtype=dtype), normal(B, length, kv, hd, dtype=dtype), normal(
+            B, length, kv, hd, dtype=dtype)
+        library = None if softcap else (lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), enable_gqa=True))
+        return lambda: DK.flash_decode(qd, kc, vc, length, softcap)[0], library, 100
 
     q, k, v = normal(B, S, H, HD), normal(B, S, KV, HD), normal(B, S, KV, HD)
-    qd, kc, vc = normal(B, H, HD), normal(B, LENGTH, KV, HD), normal(B, LENGTH, KV, HD)
     calls = {
         "flash_attention": (lambda: AK.flash_attention(q, k, v), lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True), 10),
-        "flash_decode": (lambda: DK.flash_decode(qd, kc, vc, LENGTH), lambda: F.scaled_dot_product_attention(
-            qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), enable_gqa=True), 100),
+        "flash_decode": decode(H, KV, HD, LENGTH),
+        "flash_decode[hd192]": decode(NEMO_H, NEMO_KV, NEMO_HD, NEMO_LENGTH),
+        "flash_decode[f32]": decode(H, KV, HD, LENGTH, torch.float32),
+        "flash_decode[hd192,f32]": decode(NEMO_H, NEMO_KV, NEMO_HD, NEMO_LENGTH, torch.float32),
+        "flash_decode[softcap]": decode(GROK_H, KV, HD, NEMO_LENGTH, softcap=GROK_SOFTCAP),
     }
     out = {"root": str(root), "card": card, "source": str(Path(AK.__file__).resolve())}
     for name, (kernel, library, iters) in calls.items():
-        turns = [(graph_ms(kernel, iters), graph_ms(library, iters)) for _ in range(args.turns)]
+        turns = [(graph_ms(kernel, iters), graph_ms(library, iters) if library else None) for _ in range(args.turns)]
+        result = kernel()
+        torch.cuda.synchronize()
         out[name] = {"ms": sum(t[0] for t in turns) / len(turns), "turns_ms": [t[0] for t in turns],
-                     "sdpa_ms": sum(t[1] for t in turns) / len(turns)}
+                     "sdpa_ms": sum(t[1] for t in turns) / len(turns) if library else None,
+                     "digest": hashlib.sha256(result.float().cpu().numpy().tobytes()).hexdigest()[:16]}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -13,12 +13,51 @@
 //   out = 0, m = -1e30, l = 0, as the Pallas kernel does.
 //
 // What bounds it on this card: bytes. Every cache row up to `length` is
-// read once and used for about 3 FLOP a byte (g = 3 q heads per kv head);
-// at the serving path's shape (B=8, Kv=8, hd=128, length 2,176, bf16) that
-// is 71.4 MB, 0.0213 ms at 3.35 TB/s. So the design keeps enough bytes in
-// flight on every SM and keeps the per-position work off the issue path.
+// read once and used for g FLOP a byte (g q heads per kv head): 3 at
+// llama3.2-3b's g = 3, 12 at nemotron-4's, far under the tensor cores'
+// 295. At the serving path's shape (B=8, Kv=8, hd=128, length 2,176, bf16)
+// that is 71.4 MB, 0.0213 ms at 3.35 TB/s; at nemotron-4's (B=8, 96/8
+// heads, hd=192, length 2,080) 102 MB, 0.0307 ms.
+// So each design keeps enough bytes in flight on every SM and keeps the
+// per-position work off the issue path.
 //
-// Design:
+// Two designs, picked by dtype and width; neither is a fallback for the
+// other.
+//
+// bfloat16 heads wider than 128 (nemotron-4's 192; 136 runs padded): the
+// tensor-core instance (namespace tc). Its CUDA-core predecessor read each
+// kv head's cache twice at g = 12 (two groups of 6 q heads), filled an SM
+// with one block holding one tile in flight, and did 12 FLOP a byte on CUDA
+// cores in f32, so instruction issue set its pace (0.99 TB/s on an H100
+// SXM at nemotron-4's shape). Instead:
+// - One block per (b, kv head, length split) for all g q heads of the kv
+//   head (up to 32; more take ceil(g / 32) blocks): the q heads are the rows
+//   of 16-row tensor-core tiles, zero rows past g. Each cached position is
+//   read once.
+// - K and V tiles (32 positions x 192 columns, three 64-column boxes of the
+//   128-byte swizzle) arrive by TMA into a 3-stage ring under mbarriers,
+//   from one producer thread. The tensor maps are encoded per call with the
+//   position extent set to `length`: rows past it, and columns past hd, are
+//   zero-filled, so a stale NaN or inf in the cache's tail never reaches
+//   shared memory. 72 KB a block, two blocks an SM: up to 144 KB in flight
+//   on every SM.
+// - Two consumer warps a 16-row tile, each owning 16 positions of every
+//   tile: S = Q K^T and O += P V by mma.sync.m16n8k16 (bf16 in, f32
+//   accumulated), K by ldmatrix and V by ldmatrix.trans from the swizzled
+//   tiles. Q's A fragments stay in registers across the loop; each warp
+//   keeps its own m, l and O [16 x 192] (96 floats a thread). The softmax
+//   runs on the score fragments in log2 units (scale, cap, positions at or
+//   past the split's end masked, ex2.approx); P is rounded to bf16 for the
+//   product, as SDPA and flash_attention do.
+// - At the block's end the warps' (m, l, O) merge once through the freed
+//   ring, and the partial is written in the layout the combine reads, m
+//   back in natural-log units.
+// - The wrapper sizes the splits to this instance (kernel.py: splits_for):
+//   MIN_WAVES full waves of the blocks that fit an SM, the f32 partials at
+//   most a tenth of the cache's bytes.
+//
+// Every other instance (bf16 up to 128 wide, which llama3.2-3b's serving
+// path runs; float32 at either width): the CUDA-core layout.
 // - The cache is read in place from [B, S_max, Kv, hd] by strides, once per
 //   kv head: a block owns a (b, kv head) pair, a group of NG of its q heads
 //   (NG divides g and is at most 8, so no head slot is dead) and a
@@ -34,24 +73,31 @@
 //   tile's max and runs one online-softmax step per tile; then thread
 //   (8 columns, 4 positions) accumulates P V for all NG heads. No
 //   per-position shuffle butterfly.
-// - Two instances of the layout, by the widest head it takes (MAXHD): 128,
-//   which llama3.2-3b's serving path runs (as before the 192 instance was
-//   added), and 192 (nemotron-4), whose PV pass uses 24 column groups of 8
-//   by 8 position groups (192 of the 256 threads). A f32 192-wide ring keeps
-//   2 stages and loads no tile ahead (3 would not fit shared memory).
+// - Two instances of the layout, by the widest head it takes (MAXHD): 128
+//   and, for float32 only, 192, whose PV pass uses 24 column groups of 8 by
+//   8 position groups (192 of the 256 threads) and whose ring keeps 2
+//   stages and loads no tile ahead (3 would not fit shared memory).
 // - A block's position groups are summed once, at its end, and written
-//   as a partial (out normalised by its own l, m, l); a second small kernel
-//   combines a head's partials with the arithmetic of flash_decode_combine:
-//   m* = max m_i, w_i = l_i exp(m_i - m*), out = sum w_i out_i / max(sum w_i,
-//   1e-30), and returns m* and sum w_i as m and l.
+//   as a partial (out normalised by its own l, m, l).
 // - Blocks are launched kv head fastest: blocks that run together read the
 //   same positions of all of a batch row's kv heads, whole cache rows.
 // - The wrapper picks the split count (kernel.py: splits_for) so that the
 //   partial kernel launches at least two full waves at the serving shape.
 //
+// Both designs end in one combine kernel, launched as a programmatic
+// dependent launch, with the arithmetic of flash_decode_combine: m* = max
+// m_i, w_i = l_i exp(m_i - m*), out = sum w_i out_i / max(sum w_i, 1e-30);
+// it returns m* and sum w_i as m and l.
+//
 // Neither kernel allocates (the wrapper passes the partials' scratch); both
 // launch on the caller's stream. The C entry returns cudaGetLastError() (or
-// cudaErrorInvalidValue for arguments the kernels do not take).
+// cudaErrorInvalidValue for arguments the kernels do not take, or a tensor
+// map that cuTensorMapEncodeTiled refuses).
+
+// TMA, mbarriers and the tensor-map encoder, shared with the attention kernels
+#include "../../attention/csrc/hopper.cuh"
+
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,7 +154,8 @@ __device__ __forceinline__ void cp_async_wait_ring() {
 // the shared-memory layout of the instance for heads up to MAXHD wide
 template <typename T, int MAXHD>
 struct Layout {
-  // cp.async ring: 3 stages, or 2 for f32 rows 192 wide (3 would not fit)
+  // cp.async ring: 3 stages, or 2 for f32 rows 192 wide (3 would not fit;
+  // bf16 rows wider than 128 take the tensor-core instance)
   static constexpr int kStages = (sizeof(T) == 4 && MAXHD > 128) ? 2 : 3;
   // tiles loaded ahead of the one in use: a stage is refilled kStages - 1
   // tiles after it was read, so the barriers inside an iteration already
@@ -130,7 +177,7 @@ constexpr size_t smem_bytes() {
   return Layout<T, MAXHD>::kRing +
          sizeof(float) * (NG * MAXHD + kQuarters * NG * kTile + NG * kTile + 3 * NG);
 }
-static_assert(smem_bytes<float, 8, 192>() <= 232448 && smem_bytes<__nv_bfloat16, 8, 192>() <= 232448 &&
+static_assert(smem_bytes<float, 8, 192>() <= 232448 && smem_bytes<__nv_bfloat16, 8, 128>() <= 232448 &&
                   smem_bytes<float, 8, 128>() <= 232448,
               "every instance fits a block's shared memory");
 
@@ -421,26 +468,389 @@ cudaError_t launch_partial(const void* q, const void* k, const void* v, float* p
   return cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, float* m, float* l,
-           float* part_o, float* part_m, float* part_l, int B, int H, int Kv, int hd, int length,
-           int splits, int chunk, int ng, float scale, float softcap, const long long* ks,
-           const long long* vs, cudaStream_t stream) {
-  cudaError_t err;
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core instance, heads wider than 128
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kTile = 32;                      // positions a stage: the tensor maps' box rows
+constexpr int kHd = 192;                       // the instance's width: three 64-column boxes
+constexpr int kBoxes = kHd / kBoxCols;
+constexpr int kStages = 3;                     // the k/v ring
+constexpr int kRows = 16;                      // q heads a row tile: the mma's m
+constexpr int kSlices = kTile / 16;            // consumer warps a row tile, 16 positions each
+constexpr int kMaxRowTiles = 2;                // row tiles a block: g <= 32 reads the cache once
+constexpr int kBoxBytes = kTile * kRowBytes;   // 4 KB
+constexpr int kTileBytes = kBoxes * kBoxBytes;  // one k (or v) tile, 12 KB
+constexpr int kFrag = kHd / 2;                 // O accumulators a thread: 24 n8 tiles x 4
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int RT>
+struct Shape {
+  static constexpr int kConsumers = RT * kSlices;           // warps
+  static constexpr int kThreads = 32 * (1 + kConsumers);    // and one producer warp
+  // blocks an SM: two of one row tile, one of two. Shared memory would take
+  // three of either, but three warps on one of the SM's four sub-partitions
+  // cap a thread at 168 registers, and the kernel then spills; at two blocks
+  // (or one of five warps) it has up to 255 and spills nothing
+  static constexpr int kBlocks = RT == 1 ? 2 : 1;
+  static constexpr int kBars = 3 * kStages;                 // k full, v full, k/v empty
+  // the swizzled boxes need 1024-byte alignment, which the base is rounded up to
+  static constexpr int kSmem = 1024 + kStages * 2 * kTileBytes + 8 * kBars;
+  // the merge's scratch in the ring: each slice past the first of every row
+  // tile, its O fragments and m, l, as [value][lane]
+  static_assert(RT * (kSlices - 1) * (kFrag + 4) * 32 * 4 <= kStages * 2 * kTileBytes, "the merge fits the ring");
+};
+static_assert(Shape<1>::kBlocks * (Shape<1>::kSmem + 1024) <= 233472 &&
+                  Shape<2>::kBlocks * (Shape<2>::kSmem + 1024) <= 233472,
+              "the planned blocks fit an SM's shared memory (1 KB of it reserved a block)");
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// byte offset, in a tile of kBoxes boxes laid out by TMA with the 128-byte
+// swizzle, of row r's 16-byte chunk c (columns 8c .. 8c + 7)
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return (c / 8) * kBoxBytes + r * kRowBytes + (((c % 8) ^ (r % 8)) << 4);
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+// d[4] += A[16 x 16] B[16 x 8], bf16 in, f32 accumulated
+__device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// grid (B*Kv, splits, ceil(g / (16 RT))): kv heads fastest, as the CUDA-core
+// layout. Split i covers positions [i * chunk, min((i + 1) * chunk, length)),
+// chunk a multiple of kTile. Warp 0 produces (one thread issues every TMA
+// load); consumer warp w takes row tile w / kSlices (q heads 16 (w /
+// kSlices) .. + 15 of the block's) and positions 16 (w % kSlices) .. + 15 of
+// every tile. CAP: logits capped as softcap * tanh(x * scale / softcap)
+// (`scale_log2` is then softcap * log2 e and `cap_arg` scale / softcap);
+// otherwise x * scale_log2 (scale * log2 e).
+template <int RT, bool CAP>
+__global__ void __launch_bounds__(Shape<RT>::kThreads, Shape<RT>::kBlocks)
+    flash_decode_tc_kernel(const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __nv_bfloat16* __restrict__ q, float* __restrict__ part_o,
+                           float* __restrict__ part_m, float* __restrict__ part_l, int H, int Kv,
+                           int hd, int length, int chunk, float scale_log2, float cap_arg) {
+  using Sh = Shape<RT>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;  // stage st: k tile, then v tile
+  const uint32_t bars = ring + kStages * 2 * kTileBytes;
+  auto k_full = [&](int st) { return bars + 8u * st; };
+  auto v_full = [&](int st) { return bars + 8u * (kStages + st); };
+  auto kv_empty = [&](int st) { return bars + 8u * (2 * kStages + st); };
+
+  const int split = blockIdx.y;
+  const int b = blockIdx.x / Kv;
+  const int kvh = blockIdx.x - b * Kv;
+  const int g = H / Kv;
+  const int start = split * chunk;
+  const int end = min(start + chunk, length);
+  const int n_tiles = end > start ? (end - start + kTile - 1) / kTile : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(kv_empty(st), Sh::kConsumers * 32);  // every consumer thread arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // ---- producer ------------------------------------------------------
+    if (lane == 0) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        const uint32_t kt = ring + st * 2 * kTileBytes;
+        mbar_wait(kv_empty(st), ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(k_full(st), kTileBytes);
+#pragma unroll
+        for (int c = 0; c < kBoxes; ++c)
+          tma_load(kt + c * kBoxBytes, &kmap, k_full(st), c * kBoxCols, kvh, start + t * kTile, b);
+        mbar_expect_tx(v_full(st), kTileBytes);
+#pragma unroll
+        for (int c = 0; c < kBoxes; ++c)
+          tma_load(kt + kTileBytes + c * kBoxBytes, &vmap, v_full(st), c * kBoxCols, kvh, start + t * kTile, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ---------------------------------------------------------
+  const int cw = warp - 1;
+  const int rt = cw / kSlices, slice = cw % kSlices;
+  const int head0 = blockIdx.z * (RT * kRows) + rt * kRows + lane / 4;  // this thread's rows: head0, head0 + 8
+  const long long qrow = static_cast<long long>(b) * H + kvh * g;      // b*H + the kv head's first q head
+
+  // Q's A fragments (rows past g and columns past hd are zero), kept in
+  // registers across the loop
+  uint32_t qa[kHd / 4];
+#pragma unroll
+  for (int kk = 0; kk < kHd / 16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = head0 + 8 * (e % 2), c = 16 * kk + 2 * (lane % 4) + 8 * (e / 2);
+      qa[4 * kk + e] = r < g && c < hd ? *reinterpret_cast<const uint32_t*>(q + (qrow + r) * hd + c) : 0u;
+    }
+  }
+  float o[kFrag];
+#pragma unroll
+  for (int i = 0; i < kFrag; ++i) o[i] = 0.0f;
+  // m in log2 units (the thread's rows); l the thread's share of the row sum,
+  // summed over its quad at the end
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+  // ldmatrix row addresses: thread t names row t % 8 of matrix t / 8. K:
+  // matrices (positions 0-7, columns +0), (0-7, +8), (8-15, +0), (8-15, +8)
+  // of a 16-column step give the B fragments of both n8 halves; V
+  // (transposed): (0-7, +0), (8-15, +0), (0-7, +8), (8-15, +8) of a
+  // 16-column pair of n8 tiles
+  const int mi = lane / 8, mr = lane % 8;
+  const int k_row = slice * 16 + (mi / 2) * 8 + mr, k_col = mi % 2;
+  const int v_row = slice * 16 + (mi % 2) * 8 + mr, v_col = mi / 2;
+  const int pos_lane = slice * 16 + 2 * (lane % 4);  // the thread's score columns: + 8j + {0, 1}
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    const int phase = (t / kStages) & 1;
+    const uint32_t kt = ring + st * 2 * kTileBytes, vt = kt + kTileBytes;
+
+    // S = Q K^T for the warp's 16 positions: two n8 tiles
+    float s[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = 0.0f;
+    mbar_wait(k_full(st), phase);
+#pragma unroll
+    for (int kk = 0; kk < kHd / 16; ++kk) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, kt + swizzled(k_row, 2 * kk + k_col));
+      mma(s, qa + 4 * kk, kb[0], kb[1]);
+      mma(s + 4, qa + 4 * kk, kb[2], kb[3]);
+    }
+
+    // online softmax on the fragments, in log2 units: s[4j + e] is row
+    // head0 + 8 (e / 2), position pos_lane + 8j + e % 2 of the tile
+    const int p0 = start + t * kTile + pos_lane;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float y = CAP ? scale_log2 * tanhf(s[i] * cap_arg) : s[i] * scale_log2;
+      s[i] = p0 + 8 * (i / 4) + i % 2 < end ? y : -INFINITY;
+      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = ex2(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s[i] = ex2(s[i] - m[(i % 4) / 2]);
+      l[(i % 4) / 2] += s[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kFrag; ++i) o[i] *= corr[(i % 4) / 2];
+    // P in bf16: the A fragment of one 16-position k-step
+    const uint32_t pa[4] = {pack_bf16(s[0], s[1]), pack_bf16(s[2], s[3]), pack_bf16(s[4], s[5]),
+                            pack_bf16(s[6], s[7])};
+
+    // O += P V: 24 n8 tiles, two a transposed ldmatrix
+    mbar_wait(v_full(st), phase);
+#pragma unroll
+    for (int jj = 0; jj < kHd / 16; ++jj) {
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vb, vt + swizzled(v_row, 2 * jj + v_col));
+      mma(o + 8 * jj, pa, vb[0], vb[1]);
+      mma(o + 8 * jj + 4, pa, vb[2], vb[3]);
+    }
+    mbar_arrive(kv_empty(st));
+  }
+
+  // the combine may be placed now; it waits for this grid to finish
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+
+  // merge a row tile's slices through the ring: every load has landed and
+  // been read once all consumers pass the first barrier
+  float* red = reinterpret_cast<float*>(smem_raw + (ring - smem_u32(smem_raw)));
+  asm volatile("bar.sync 1, %0;\n" ::"n"(Sh::kConsumers * 32) : "memory");
+  if (slice > 0) {
+    float* dst = red + (rt * (kSlices - 1) + slice - 1) * (kFrag + 4) * 32 + lane;
+#pragma unroll
+    for (int i = 0; i < kFrag; ++i) dst[i * 32] = o[i];
+    dst[kFrag * 32] = m[0];
+    dst[(kFrag + 1) * 32] = m[1];
+    dst[(kFrag + 2) * 32] = l[0];
+    dst[(kFrag + 3) * 32] = l[1];
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(Sh::kConsumers * 32) : "memory");
+  if (slice > 0) return;
+  float mm[2] = {m[0], m[1]};
+#pragma unroll
+  for (int sl = 1; sl < kSlices; ++sl) {
+    const float* src = red + (rt * (kSlices - 1) + sl - 1) * (kFrag + 4) * 32 + lane;
+    mm[0] = fmaxf(mm[0], src[kFrag * 32]);
+    mm[1] = fmaxf(mm[1], src[(kFrag + 1) * 32]);
+  }
+  float a[2] = {ex2(m[0] - mm[0]), ex2(m[1] - mm[1])};
+  float den[2] = {l[0] * a[0], l[1] * a[1]};
+#pragma unroll
+  for (int i = 0; i < kFrag; ++i) o[i] *= a[(i % 4) / 2];
+#pragma unroll
+  for (int sl = 1; sl < kSlices; ++sl) {
+    const float* src = red + (rt * (kSlices - 1) + sl - 1) * (kFrag + 4) * 32 + lane;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      a[r] = ex2(src[(kFrag + r) * 32] - mm[r]);
+      den[r] += src[(kFrag + 2 + r) * 32] * a[r];
+    }
+#pragma unroll
+    for (int i = 0; i < kFrag; ++i) o[i] += src[i * 32] * a[(i % 4) / 2];
+  }
+
+  // the partial: out normalised by its own l, m in natural-log units (-1e30
+  // for a split with no position), l
+  const int n_part = gridDim.y;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int head = head0 + 8 * r;
+    if (head >= g) continue;
+    const long long idx = (qrow + head) * n_part + split;
+    const float inv = 1.0f / fmaxf(den[r], 1e-30f);
+    float* dst = part_o + idx * hd;
+#pragma unroll
+    for (int j = 0; j < kHd / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      if (col < hd) *reinterpret_cast<float2*>(dst + col) = make_float2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+    if (lane % 4 == 0) {
+      part_m[idx] = den[r] > 0.0f ? mm[r] * kLn2 : kNegInf;
+      part_l[idx] = den[r];
+    }
+  }
+}
+
+template <int RT, bool CAP>
+cudaError_t prepare() {
+  cudaError_t err = cudaFuncSetAttribute(flash_decode_tc_kernel<RT, CAP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Shape<RT>::kSmem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(flash_decode_tc_kernel<RT, CAP>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int RT, bool CAP>
+cudaError_t launch_instance(const CUtensorMap& kmap, const CUtensorMap& vmap, const void* q, float* part_o,
+                            float* part_m, float* part_l, int B, int H, int Kv, int hd, int length,
+                            int splits, int chunk, float scale, float softcap, cudaStream_t stream) {
+  cudaError_t err = prepare<RT, CAP>();
+  if (err != cudaSuccess) return err;
+  const int heads = RT * kRows;
+  const dim3 grid(B * Kv, splits, (H / Kv + heads - 1) / heads);
+  const float scale_log2 = CAP ? softcap * kLog2e : scale * kLog2e;
+  const float cap_arg = CAP ? scale / softcap : 0.0f;
+  flash_decode_tc_kernel<RT, CAP><<<grid, Shape<RT>::kThreads, Shape<RT>::kSmem, stream>>>(
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q), part_o, part_m, part_l, H, Kv, hd, length, chunk,
+      scale_log2, cap_arg);
+  return cudaGetLastError();
+}
+
+// heads: q heads a block (16 or 32); layouts: k's and v's tensor-map
+// layouts, 11 values each (dims with the position extent `length`, byte
+// strides, a box of 64 columns x kTile positions)
+cudaError_t launch(const void* q, const void* k, const void* v, float* part_o, float* part_m,
+                   float* part_l, int B, int H, int Kv, int hd, int length, int splits, int chunk,
+                   int heads, float scale, float softcap, const long long* layouts, cudaStream_t stream) {
+  CUtensorMap maps[2];
+  if (!encode(&maps[0], k, layouts, kTile) || !encode(&maps[1], v, layouts + 11, kTile))
+    return cudaErrorInvalidValue;
+  const bool cap = softcap > 0.0f;
+#define ARGS maps[0], maps[1], q, part_o, part_m, part_l, B, H, Kv, hd, length, splits, chunk, scale, softcap, stream
+  if (heads == kRows) return cap ? launch_instance<1, true>(ARGS) : launch_instance<1, false>(ARGS);
+  if (heads == 2 * kRows) return cap ? launch_instance<2, true>(ARGS) : launch_instance<2, false>(ARGS);
+#undef ARGS
+  return cudaErrorInvalidValue;
+}
+
+// blocks of the RT-row-tile instance that fit one SM (the lesser of the
+// capped and uncapped kernels'), or -1 on an error
+template <int RT>
+int blocks_per_sm() {
+  int n[2] = {0, 0};
+  if (prepare<RT, false>() != cudaSuccess || prepare<RT, true>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n[0], flash_decode_tc_kernel<RT, false>, Shape<RT>::kThreads,
+                                                    Shape<RT>::kSmem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n[1], flash_decode_tc_kernel<RT, true>, Shape<RT>::kThreads,
+                                                    Shape<RT>::kSmem) != cudaSuccess)
+    return -1;
+  return n[0] < n[1] ? n[0] : n[1];
+}
+
+}  // namespace tc
+
+template <typename T, int MAXHD>
+cudaError_t launch_groups(const void* q, const void* k, const void* v, float* part_o, float* part_m,
+                          float* part_l, int B, int H, int Kv, int hd, int length, int splits, int chunk,
+                          int ng, float scale, float softcap, const long long* ks, const long long* vs,
+                          cudaStream_t stream) {
   switch (ng) {
-#define CASE(N)                                                                                 \
-  case N:                                                                                       \
-    err = hd <= 128 ? launch_partial<T, N, 128>(q, k, v, part_o, part_m, part_l, B, H, Kv, hd,  \
-                                                length, splits, chunk, scale, softcap, ks, vs,  \
-                                                stream)                                         \
-                    : launch_partial<T, N, 192>(q, k, v, part_o, part_m, part_l, B, H, Kv, hd,  \
-                                                length, splits, chunk, scale, softcap, ks, vs,  \
-                                                stream);                                        \
-    break;
+#define CASE(N)                                                                                     \
+  case N:                                                                                           \
+    return launch_partial<T, N, MAXHD>(q, k, v, part_o, part_m, part_l, B, H, Kv, hd, length, splits, \
+                                       chunk, scale, softcap, ks, vs, stream);
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* out, float* m, float* l,
+           float* part_o, float* part_m, float* part_l, int B, int H, int Kv, int hd, int length,
+           int splits, int chunk, int ng, float scale, float softcap, const long long* ks,
+           const long long* vs, const long long* tma, cudaStream_t stream) {
+  cudaError_t err;
+  if (hd <= 128) {
+    err = launch_groups<T, 128>(q, k, v, part_o, part_m, part_l, B, H, Kv, hd, length, splits, chunk, ng,
+                                scale, softcap, ks, vs, stream);
+  } else if constexpr (std::is_same<T, float>::value) {
+    err = launch_groups<float, 192>(q, k, v, part_o, part_m, part_l, B, H, Kv, hd, length, splits, chunk,
+                                    ng, scale, softcap, ks, vs, stream);
+  } else {
+    err = tc::launch(q, k, v, part_o, part_m, part_l, B, H, Kv, hd, length, splits, chunk, ng, scale, softcap,
+                     tma, stream);
   }
   if (err != cudaSuccess) return err;
   // a programmatic dependent launch: the combine's blocks are placed while
@@ -472,6 +882,18 @@ int flash_decode_max_group() { return kMaxGroup; }
 
 int flash_decode_max_splits() { return kMaxSplits; }
 
+int flash_decode_tc_tile() { return tc::kTile; }
+
+int flash_decode_tc_rows() { return tc::kRows; }
+
+int flash_decode_tc_max_row_tiles() { return tc::kMaxRowTiles; }
+
+// blocks of the tensor-core instance that fit one SM, for `heads` (16 or
+// 32) q heads a block; -1 on an error
+int flash_decode_tc_blocks_per_sm(int heads) {
+  return heads == tc::kRows ? tc::blocks_per_sm<1>() : heads == 2 * tc::kRows ? tc::blocks_per_sm<2>() : -1;
+}
+
 const char* flash_decode_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -479,31 +901,40 @@ const char* flash_decode_error_string(int code) {
 // q: [B, H, hd] contiguous; k, v: [B, S, Kv, hd] with strides in elements
 // (batch, position, head), a contiguous last dimension and rows on 16-byte
 // boundaries; out [B, H, hd] in q's type, m and l [B, H] float32. Split i
-// covers positions [i * chunk, min((i + 1) * chunk, length)); ng q heads
-// (a divisor of H/Kv, at most 8) share a block. Scratch: part_o float32
-// [B*H, splits, hd], part_m and part_l float32 [B*H, splits].
-// dtype: 0 float32, 1 bfloat16. hd <= 128 runs the 128-wide instance, up
-// to 192 the 192-wide one. softcap > 0 caps the scaled logits.
+// covers positions [i * chunk, min((i + 1) * chunk, length)). Scratch:
+// part_o float32 [B*H, splits, hd], part_m and part_l float32 [B*H, splits].
+// dtype: 0 float32, 1 bfloat16. softcap > 0 caps the scaled logits.
+// bfloat16 with hd > 128 runs the tensor-core instance: ng q heads a block
+// (16 or 32, ceil(H/Kv / ng) blocks a kv head), chunk a multiple of
+// flash_decode_tc_tile(), `tma` k's and v's tensor-map layouts (11 values
+// each: dims (hd, Kv, length, B), byte strides, box (64, 1, tile, 1)).
+// Otherwise the CUDA-core layout (128 wide up to hd 128, else 192): ng q
+// heads (a divisor of H/Kv, at most 8) share a block, chunk a multiple of
+// flash_decode_tile(), `tma` unused.
 int flash_decode_launch(const void* q, const void* k, const void* v, void* out, float* m,
                         float* l, float* part_o, float* part_m, float* part_l, int dtype, int B,
                         int S, int H, int Kv, int hd, int length, int splits, int chunk, int ng,
                         float scale, float softcap, long long ksb, long long kss, long long ksh,
-                        long long vsb, long long vss, long long vsh, void* stream) {
+                        long long vsb, long long vss, long long vsh, const long long* tma,
+                        void* stream) {
   if (B < 1 || Kv < 1 || H < Kv || H % Kv != 0 || hd < 8 || hd > kMaxHd || hd % 8 != 0 ||
-      !(softcap >= 0.0f) ||
-      length < 0 || length > S || splits < 1 || splits > kMaxSplits || chunk < kTile ||
-      chunk % kTile != 0 || static_cast<long long>(splits) * chunk < length || ng < 1 ||
-      ng > kMaxGroup || (H / Kv) % ng != 0 || H / Kv / ng > 65535)
+      !(softcap >= 0.0f) || length < 0 || length > S || splits < 1 || splits > kMaxSplits ||
+      static_cast<long long>(splits) * chunk < length || (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  const bool tensor_cores = dtype == 1 && hd > 128;
+  const int g = H / Kv;
+  if (tensor_cores ? (tma == nullptr || (ng != tc::kRows && ng != 2 * tc::kRows) || chunk < tc::kTile ||
+                      chunk % tc::kTile != 0 || (g + ng - 1) / ng > 65535)
+                   : (chunk < kTile || chunk % kTile != 0 || ng < 1 || ng > kMaxGroup || g % ng != 0 ||
+                      g / ng > 65535))
     return cudaErrorInvalidValue;
   const long long ks[3] = {ksb, kss, ksh}, vs[3] = {vsb, vss, vsh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, out, m, l, part_o, part_m, part_l, B, H, Kv, hd, length,
-                         splits, chunk, ng, scale, softcap, ks, vs, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, m, l, part_o, part_m, part_l, B, H, Kv, hd,
-                                 length, splits, chunk, ng, scale, softcap, ks, vs, st);
-  return cudaErrorInvalidValue;
+                         splits, chunk, ng, scale, softcap, ks, vs, tma, st);
+  return launch<__nv_bfloat16>(q, k, v, out, m, l, part_o, part_m, part_l, B, H, Kv, hd,
+                               length, splits, chunk, ng, scale, softcap, ks, vs, tma, st);
 }
 
 }  // extern "C"

@@ -732,12 +732,22 @@ def test_cuda_flash_attention_cap_offset_and_wide_heads(b, s, offset, h, kv, hd,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# heads past 128: bf16 runs the tensor-core instance, float32 the CUDA-core
+# layout. q heads a kv head across one and two 16-row tiles, hd 136 (padded)
+# and 192, lengths around the 32-position tile and on split edges (2,049
+# leaves the last of 17 splits one position at B 2, Kv 2; 2,080 fills
+# nemotron-4's 13 splits at B 8, 96/8 heads)
+WIDE_DECODE_SHAPES = [(2, 2 * g, 2, hd, 2096, length) for g in (1, 3, 8, 12, 16, 24) for hd in (136, 192)
+                      for length in ((0, 1, 63, 64, 65, 2049, 2080) if hd == 192 else (0, 65, 2049))]
+
+
 @needs_card
 @pytest.mark.parametrize("softcap", [0.0, 30.0, 2.0])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,kv,hd,s,length", [(2, 4, 2, 64, 1024, 700), (8, 48, 8, 128, 2176, 2049),
                                                 (2, 16, 2, 192, 2176, 1000), (2, 12, 1, 192, 300, 257),
-                                                (8, 96, 8, 192, 2080, 2049), (2, 32, 32, 80, 700, 333)])
+                                                (8, 96, 8, 192, 2080, 2049), (2, 32, 32, 80, 700, 333),
+                                                (8, 96, 8, 192, 2080, 2080)] + WIDE_DECODE_SHAPES)
 def test_cuda_flash_decode_cap_and_wide_heads(b, h, kv, hd, s, length, dtype, softcap):
     from repro_torch.kernels.decode import kernel as DK, ref as DR
 
@@ -750,6 +760,33 @@ def test_cuda_flash_decode_cap_and_wide_heads(b, h, kv, hd, s, length, dtype, so
     torch.testing.assert_close(out.float(), want[0].float(), rtol=tol, atol=tol)
     torch.testing.assert_close(m, want[1], rtol=tol, atol=tol)
     torch.testing.assert_close(l, want[2], rtol=tol, atol=tol)
+    if length == 0:
+        assert not out.any() and bool((m == -1e30).all()) and not l.any()
+
+
+@needs_card
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("length", [1, 65, 2049])
+def test_cuda_flash_decode_tensor_cores_ignore_a_nonfinite_tail_and_rerun_bit_for_bit(length, softcap):
+    """The bf16 192-wide instance at nemotron-4's heads: a cache whose tail
+    past length holds NaN and +-inf gives the bits a clean tail gives (the
+    tensor maps stop at length, so the tail is never read), and two runs
+    give the same bits."""
+    from repro_torch.kernels.decode import kernel as DK, ref as DR
+
+    b, h, kv, hd, s = 8, 96, 8, 192, 2080
+    q = 3.0 * _normal((b, h, hd), torch.bfloat16, 0)
+    kc, vc = _normal((b, s, kv, hd), torch.bfloat16, 1), _normal((b, s, kv, hd), torch.bfloat16, 2)
+    clean = DK.flash_decode(q, kc, vc, length, softcap)
+    kc[:, length:] = float("nan")
+    vc[:, length::2], vc[:, length + 1::2] = float("inf"), float("-inf")
+    dirty = DK.flash_decode(q, kc, vc, length, softcap)
+    again = DK.flash_decode(q, kc, vc, length, softcap)
+    torch.cuda.synchronize()
+    for c, d, a in zip(clean, dirty, again):
+        assert torch.equal(c, d) and torch.equal(d, a)
+    want = DR.decode_attention_ref(q, kc[:, :length].contiguous(), vc[:, :length].contiguous(), length, softcap)
+    torch.testing.assert_close(dirty[0].float(), want[0].float(), rtol=2e-2, atol=2e-2)
 
 
 @needs_card
@@ -988,19 +1025,20 @@ def test_cuda_train_step_matches_the_cpu_run():
 
 
 @needs_card
-@pytest.mark.parametrize("n", [1, 4, 16])
+@pytest.mark.parametrize("n,h,kv,hd", [(1, 12, 4, 128), (4, 12, 4, 128), (16, 12, 4, 128), (4, 24, 2, 192)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
-def test_cuda_sharded_flash_decode_is_one_launch_a_shard_and_matches_the_kernel(n, dtype, tol):
+def test_cuda_sharded_flash_decode_is_one_launch_a_shard_and_matches_the_kernel(n, h, kv, hd, dtype, tol):
     """The length-sharded decode on the card: n slices of one cache, each
     one flash_decode launch (empty slices too), the combine against the
     unsharded kernel and the plain version, lengths inside the first
-    shard, on a boundary and full."""
+    shard, on a boundary and full; at hd 192 (bf16: the tensor-core
+    instance on strided slices) too."""
     from repro_torch.dist import collectives
     from repro_torch.kernels.decode import kernel as DK, ref as DR
     from repro_torch.launch.mesh import AbstractMesh
 
     g = torch.Generator(device="cuda").manual_seed(5)
-    b, h, kv, hd, s = 2, 12, 4, 128, 4096
+    b, s = 2, 4096
     q = torch.randn((b, h, hd), generator=g, device="cuda").to(dtype)
     kc = torch.randn((b, s, kv, hd), generator=g, device="cuda").to(dtype)
     vc = torch.randn((b, s, kv, hd), generator=g, device="cuda").to(dtype)
