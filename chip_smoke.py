@@ -340,7 +340,8 @@ CPU_AGREE_TOL = 1e-3  # sums over 3,072 and 8,192 terms in other orders
 ATTN_EXTRA = ((2, 256, 0, 8, 2, 128, 30.0), (2, 300, 1, 6, 2, 128, 0.0), (2, 300, 127, 6, 2, 128, 0.0),
               (2, 300, 128, 6, 2, 64, 0.0), (1, 1024, 1000, 8, 2, 128, 0.0), (1, 1024, 1000, 8, 2, 128, 30.0),
               (2, 300, 0, 32, 32, 80, 0.0), (1, 256, 77, 4, 4, 80, 30.0), (2, 333, 0, 12, 2, 192, 0.0),
-              (1, 1024, 0, 96, 8, 192, 0.0), (2, 200, 128, 6, 2, 192, 30.0))
+              (1, 1024, 0, 96, 8, 192, 0.0), (2, 200, 128, 6, 2, 192, 30.0), (1, 113, 77, 12, 1, 192, 0.0),
+              (2, 112, 0, 24, 2, 136, 30.0))
 # (B, H, Kv, hd, S, length, softcap)
 DECODE_EXTRA = ((2, 48, 8, 128, 2080, 2049, 30.0), (2, 6, 2, 128, 700, 1, 30.0), (8, 96, 8, 192, 2080, 2049, 0.0),
                 (2, 16, 2, 192, 700, 65, 30.0), (2, 12, 1, 192, 300, 0, 0.0), (2, 32, 32, 80, 2080, 2049, 0.0))
@@ -583,7 +584,12 @@ def ptxas_report(name: str, text: str) -> str:
               if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line]
     if spills:
         raise AssertionError(f"register spills in {name}: {spills}")
-    return f"{len(regs)} kernels, max {max(regs)} registers/thread, no spills"
+    # ptxas's C7518: every wgmma of a kernel serialized (a divergent branch
+    # taken while one was in flight), which leaves its tensor cores waiting
+    serialized = [line for line in text.splitlines() if "C7518" in line]
+    if serialized:
+        raise AssertionError(f"wgmma serialized in {name}: {serialized}")
+    return f"{len(regs)} kernels, max {max(regs)} registers/thread, no spills, no wgmma serialized"
 
 
 def ptxas_instances(text: str, marker: str) -> str:
@@ -979,6 +985,9 @@ def main() -> int:
         if lib is DK.LIBRARY:  # the bf16 tensor-core instance, <row tiles, cap>, and its planned residency
             report += (f"; {ptxas_instances(text, 'flash_decode_tc_kernel')}; blocks an SM by row tiles "
                        f"{DK.TC_BLOCKS_PER_SM} (checked against the occupancy API at load)")
+        if lib is AK.LIBRARY:  # the bf16 192-wide instances, <cap, lse>, and their tile
+            report += (f"; {ptxas_instances(text, 'flash_attention_hd192_kernel')}; k/v tile {AK.block_k(192)} "
+                       f"positions, {AK.wide_smem_bytes()} bytes of shared memory")
         lib.load()
         log("build", f"{lib.source.name} -> {lib.path().name} ({report}); "
             f"{watch.lap():.2f} s since phase 1 ended")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the port's two serving kernels beside the committed ones, on one CUDA card.
 
-    python3 scripts/torch_kernel_variants.py [--tensor-cores]
+    python3 scripts/torch_kernel_variants.py [--tensor-cores | --wide [NAME ...]]
 
 Run from the repository root on a machine with a Hopper card. Each variant
 is the committed CUDA source with one textual change, built into the
@@ -16,7 +16,15 @@ bf16). The card's name and power limit are printed first. With
 --tensor-cores it times only the bf16 tensor-core decode instance and its
 variants (TC_DECODE_VARIANTS) at nemotron-4's decode shape (B=8, 96/8
 heads, hd 192, length 2,080), each at its planned split count and at
-TC_SPLITS splits, then the committed instance at TC_LENGTHS.
+TC_SPLITS splits, then the committed instance at TC_LENGTHS. With --wide it
+times only the bf16 192-wide flash_attention kernel and its variants
+(WIDE_VARIANTS: the persistent grid, key tile and stages, the
+consumers' turns, 2^x by exp2f) and probes (WIDE_PROBES, timed only)
+at nemotron-4's prefill shape (B=8, S=2,048, 96/8 heads, hd 192) and at
+the hd-192 gradient's forward (B=1, S=4,096, with lse), in WIDE_ROUNDS
+round-robin rounds with the committed kernel and SDPA, each with ptxas's
+registers and spill bytes for its four instances and any wgmma
+serialization ptxas reports; NAMEs after --wide pick some of them.
 """
 
 from __future__ import annotations
@@ -90,6 +98,56 @@ NEMO_H, NEMO_KV, NEMO_HD, NEMO_LENGTH = 96, 8, 192, 2080
 TC_SPLITS = (5, 7, 9, 13, 17)  # split counts timed beside each variant's plan
 TC_LENGTHS = (2080, 8192, 32768)  # lengths the committed instance is timed at
 
+# the bf16 192-wide attention kernel: (old, new) edits of
+# csrc/flash_attention.cu and the kernel.py constants that go with them
+WIDE_VARIANTS = {
+    # one block a work item (the grid every item), as before the grid was persistent
+    "one_item_a_block": ([("const int grid = static_cast<int>(n_items < sms ? n_items : sms);  // one block an SM",
+                           "const int grid = static_cast<int>(n_items);")], {}),
+    # 96-position tiles, two stages
+    "bk96": ([("constexpr int kBK = 112;            // k/v rows per tile",
+               "constexpr int kBK = 96;             // k/v rows per tile")], {"WIDE_BLOCK_K": 96}),
+    # the tile shape the design replaced: 64 positions, three stages
+    "bk64_3stages": ([("constexpr int kBK = 112;            // k/v rows per tile",
+                       "constexpr int kBK = 64;             // k/v rows per tile"),
+                      ("constexpr int kStages = 2;          // the k and v rings",
+                       "constexpr int kStages = 3;          // the k and v rings")],
+                     {"WIDE_BLOCK_K": 64, "WIDE_STAGES": 3}),
+    # the consumers issue their products whenever they are ready
+    "no_turns": ([("if (w == 1) turn_pass(w);  // warpgroup 0 takes the first turn", ""),
+                  ("turn_wait(w);", ";"), ("turn_pass(w);", ";")], {}),
+    # O rescaled once P(t-1) V(t-1) is in, before P(t) is packed (on the
+    # warpgroup's path), not while Q K(t)^T runs
+    "rescale_after_wait": ([("        rescale();\n        issue_pv(n + t - 1);", "        issue_pv(n + t - 1);"),
+                            ("        mbar_arrive(v_empty((n + t - 1) % kStages));\n        pack();",
+                             "        mbar_arrive(v_empty((n + t - 1) % kStages));\n        rescale();\n        pack();"),
+                            ("        rescale();\n        issue_pv(n + n_w - 1);", "        issue_pv(n + n_w - 1);")], {}),
+    # warpgroup 0 runs every tile of its q tile, past its own rows too
+    "no_skip": ([("const int n_w = (off + min(item.q0 + 64 * (w + 1), S) - 1) / kBK + 1;", "const int n_w = n_k;")], {}),
+    # 2^x of the probabilities and rescale factors by exp2f
+    "exp2f": ([("corr[r] = ex2(m[r] - m_new);", "corr[r] = exp2f(m[r] - m_new);"),
+               ("s[i] = ex2(CAP ? s[i] + neg[r] : fmaf(s[i], scale_log2, neg[r]));",
+                "s[i] = exp2f(CAP ? s[i] + neg[r] : fmaf(s[i], scale_log2, neg[r]));")], {}),
+}
+# timed beside the committed kernel only (their results are not the
+# function's): where its time goes
+WIDE_PROBES = {
+    # no 2^x: the scores' FMA alone
+    "no_ex2": ([("s[i] = ex2(CAP ? s[i] + neg[r] : fmaf(s[i], scale_log2, neg[r]));",
+                 "s[i] = CAP ? s[i] + neg[r] : fmaf(s[i], scale_log2, neg[r]);")], {}),
+    # no softmax: the raw scores packed as P, O never rescaled (the
+    # products, the rings and the turns alone)
+    "no_softmax": ([("      const int k0 = t * kBK + 2 * (lane % 4) - off;\n      float mx[2] = {kNegInf, kNegInf};",
+                     "      corr[0] = corr[1] = 1.0f;\n      if (lane >= 0) return;\n"
+                     "      const int k0 = t * kBK + 2 * (lane % 4) - off;\n      float mx[2] = {kNegInf, kNegInf};")], {}),
+    # O never rescaled
+    "no_rescale": ([("      for (int i = 0; i < kHD / 2; ++i) acc[i] *= corr[(i / 2) % 2];\n    };",
+                     "      for (int i = 0; i < 0; ++i) acc[i] *= corr[(i / 2) % 2];\n    };")], {}),
+}
+WIDE_ROUNDS = 10  # rounds of every library and SDPA in turn, a shape
+WIDE_MARKER = "flash_attention_hd192_kernel"
+WIDE_SWEEP = ((8, 2048), (2, 4096), (1, 8192))  # (B, S) the committed kernel is timed at
+
 # (old, new) edits of csrc/flash_attention.cu
 ATTENTION_VARIANTS = {
     "two_stage_ring": [("constexpr int kStages = 3;      // k/v ring", "constexpr int kStages = 2;      // k/v ring")],
@@ -127,6 +185,25 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def ptxas_stats(text: str, marker: str) -> str:
+    """Registers and spill bytes of each kernel whose mangled name holds
+    ``marker``, and the lines where ptxas serializes wgmma, from ptxas -v."""
+    regs, spills, serialized, name = [], 0, [], ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'|Function properties for (\S+)", line)
+        name = (m.group(1) or m.group(2)) if m else name
+        if marker not in name:
+            continue
+        if "Used " in line:
+            regs.append(int(line.split("Used ")[1].split()[0]))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills += int(m.group(1)) + int(m.group(2))
+        if "serializ" in line:
+            serialized.append(line.strip())
+    return f"registers {regs}, {spills} spill bytes" + (f", serialized: {serialized}" if serialized else "")
+
+
 def decode_split_us(fn) -> str:
     from torch.profiler import ProfilerActivity, profile
 
@@ -161,15 +238,6 @@ def tensor_core_variants() -> None:
     kernel = lambda: DK.flash_decode(qd, kc, vc, NEMO_LENGTH)  # noqa: E731
     committed = {name: getattr(DK, name) for name in ("LIBRARY", "TC_TILE", "TC_BLOCKS_PER_SM", "splits_for")}
     for name, (lib, consts) in libs.items():
-        regs, spills, kernel_name = [], 0, ""
-        for text_line in texts[name].splitlines():  # the tensor-core kernels' registers and spill bytes
-            m = re.search(r"Compiling entry function '([^']+)'|Function properties for (\S+)", text_line)
-            kernel_name = (m.group(1) or m.group(2)) if m else kernel_name
-            if "flash_decode_tc_kernel" in kernel_name and "Used " in text_line:
-                regs.append(int(text_line.split("Used ")[1].split()[0]))
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text_line)
-            if m and "flash_decode_tc_kernel" in kernel_name:
-                spills += int(m.group(1)) + int(m.group(2))
         for key, value in {**committed, **consts, "LIBRARY": lib}.items():
             setattr(DK, key, value)
         lib._lib = None
@@ -189,8 +257,8 @@ def tensor_core_variants() -> None:
                         f"(turns {first * 1e3:.2f}, {second * 1e3:.2f}; SDPA {library * 1e3:.2f})")
             if splits == plan:
                 line[-1] += f" [{decode_split_us(kernel)}]"
-        print(f"flash_decode[hd192] {name} (ptxas: registers {regs}, {spills} spill bytes; blocks an SM "
-              f"{DK.TC_BLOCKS_PER_SM}): " + "; ".join(line), flush=True)
+        print(f"flash_decode[hd192] {name} (ptxas: {ptxas_stats(texts[name], 'flash_decode_tc_kernel')}; "
+              f"blocks an SM {DK.TC_BLOCKS_PER_SM}): " + "; ".join(line), flush=True)
     for key, value in committed.items():
         setattr(DK, key, value)
     # the committed instance's rate as the length grows: what a launch's
@@ -213,6 +281,78 @@ def tensor_core_variants() -> None:
         del kl, vl
 
 
+def wide_variants(names=()) -> None:
+    """The bf16 192-wide flash_attention kernel beside WIDE_VARIANTS (each
+    held to the plain version on one batch row first) and WIDE_PROBES
+    (timed only), at nemotron-4's prefill shape and at the hd-192
+    gradient's forward (with lse): WIDE_ROUNDS rounds, each timing every
+    library and SDPA once in turn, so a drift of the card's clock falls on
+    all of them; each library's ms is the mean over the rounds, and its
+    ratio to the committed kernel the mean of the rounds' ratios. Then the
+    committed kernel at WIDE_SWEEP."""
+    libs = {"committed": (AK.LIBRARY, {})}
+    libs.update({n: (variant(f"attention_wide_{n}", AK.SOURCE, e, AK._declare), consts)
+                 for n, (e, consts) in {**WIDE_VARIANTS, **WIDE_PROBES}.items() if not names or n in names})
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(libs)) as pool:
+        texts = dict(zip(libs, pool.map(lambda lib: lib.build(ptxas_verbose=True), [v[0] for v in libs.values()])))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    committed = {name: getattr(AK, name) for name in ("LIBRARY", "WIDE_BLOCK_K", "WIDE_STAGES")}
+
+    def use(name):
+        lib, consts = libs[name]
+        for key, value in {**committed, **consts, "LIBRARY": lib}.items():
+            setattr(AK, key, value)
+        return lib
+
+    shapes = {"prefill": (B, S, NEMO_H, NEMO_KV, False), "lse": (1, 2 * S, NEMO_H, NEMO_KV, True)}
+    inputs = {key: (normal(b, s, h, NEMO_HD), normal(b, s, kv, NEMO_HD), normal(b, s, kv, NEMO_HD), lse)
+              for key, (b, s, h, kv, lse) in shapes.items()}
+    q, k, v, _ = inputs["prefill"]
+    want = AR.mha_ref(q[:1], k[:1], v[:1]).float()
+    for name in libs:
+        lib = use(name)
+        lib._lib = None
+        lib.load()
+        if name == "committed" or name in WIDE_VARIANTS:
+            torch.testing.assert_close(AK.flash_attention(q[:1], k[:1], v[:1]).float(), want, rtol=2e-2, atol=2e-2)
+        print(f"flash_attention[hd192] {name}{'' if name == 'committed' or name in WIDE_VARIANTS else ' (probe: not checked)'}"
+              f": BK {AK.block_k(192)}, {AK.WIDE_STAGES} stages; ptxas: {ptxas_stats(texts[name], WIDE_MARKER)}",
+              flush=True)
+    for key, (qq, kk, vv, lse) in inputs.items():
+        calls = {name: (lambda n=name: (use(n), AK.flash_attention(qq, kk, vv, with_lse=lse))) for name in libs}
+        calls["SDPA"] = lambda: F.scaled_dot_product_attention(
+            qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2), is_causal=True, enable_gqa=True)
+        rounds = [{name: graph_ms(fn, 10) for name, fn in calls.items()} for _ in range(WIDE_ROUNDS)]
+        clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+                                capture_output=True, text=True, timeout=60).stdout.strip()
+        for name in calls:
+            ms = [r[name] for r in rounds]
+            ratio = sum(r[name] / r["committed"] for r in rounds) / len(rounds)
+            print(f"flash_attention[hd192] {key} {name}: {sum(ms) / len(ms):.4f} ms (min {min(ms):.4f}, max "
+                  f"{max(ms):.4f} over {len(ms)} rounds), {ratio:.4f}x the committed kernel", flush=True)
+        print(f"flash_attention[hd192] {key}: SM clock, power after the rounds: {clocks}", flush=True)
+    use("committed")
+    del inputs, q, k, v
+    # the committed kernel's rate as each block's work grows (the same
+    # FLOPs at B x S^2 = 8 x 2,048^2): what each work item's fixed costs
+    # (its q load, the first k tile's latency, the diagonal, the epilogue)
+    # take at S 2,048
+    for b, s in WIDE_SWEEP:
+        q, k, v = normal(b, s, NEMO_H, NEMO_HD), normal(b, s, NEMO_KV, NEMO_HD), normal(b, s, NEMO_KV, NEMO_HD)
+        kernel = lambda: AK.flash_attention(q, k, v)  # noqa: E731
+        first, second = graph_ms(kernel, 10), graph_ms(kernel, 10)
+        ms, flops = (first + second) / 2, 4 * b * NEMO_H * NEMO_HD * s * (s + 1) // 2
+        print(f"flash_attention[hd192] committed at B {b}, S {s}: {ms:.4f} ms (turns {first:.4f}, {second:.4f}), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {b * NEMO_H * -(-s // AK.BLOCK_Q)} work items", flush=True)
+        del q, k, v
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device", file=sys.stderr)
@@ -222,6 +362,9 @@ def main() -> int:
     print(card, f"| torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
     if "--tensor-cores" in sys.argv[1:]:
         tensor_core_variants()
+        return 0
+    if "--wide" in sys.argv[1:]:
+        wide_variants(sys.argv[sys.argv.index("--wide") + 1:])
         return 0
     decode = {"committed": DK.LIBRARY}
     decode.update({n: variant(f"decode_{n}", DK.SOURCE, e, DK._declare) for n, e in DECODE_VARIANTS.items()})

@@ -5,16 +5,20 @@
 
 Loads repro_torch from DIR/src (default: this checkout), so its kernels
 build from DIR's sources into DIR/build, and times flash_attention (B=8,
-S=2,048, 24/8 heads, hd 128, bf16), flash_decode (B=8, cache 2,176
-positions, length 2,176), flash_decode[hd192] (nemotron-4's decode: B=8,
-96/8 heads, hd 192, length 2,080, bf16), both decode shapes in float32, and
-flash_decode[softcap] (grok-1's 48/8 heads, hd 128, length 2,080, cap 30)
-in replayed CUDA graphs, each in N turns with scaled_dot_product_attention
-where PyTorch has the call. Prints one JSON line, with the card's name and
-power limit and a digest of each kernel's output (the same inputs, from
-one seed, in every checkout). To compare two checkouts' kernels on one card, run it for
-each in turns in one call (A B B A): for example with another commit's
-tree unpacked under build/ by `git archive`.
+S=2,048, 24/8 heads, hd 128, bf16), flash_attention[hd192] (nemotron-4's
+prefill: B=8, S=2,048, 96/8 heads, hd 192), flash_attention[hd192,lse]
+(the forward of the hd-192 gradient: B=1, S=4,096, 96/8 heads, with lse),
+flash_decode (B=8, cache 2,176 positions, length 2,176),
+flash_decode[hd192] (nemotron-4's decode: B=8, 96/8 heads, hd 192, length
+2,080, bf16), both decode shapes in float32, and flash_decode[softcap]
+(grok-1's 48/8 heads, hd 128, length 2,080, cap 30) in replayed CUDA
+graphs, each in N turns with scaled_dot_product_attention where PyTorch
+has the call. Prints one JSON line, with the card's name and power limit,
+a digest of each kernel's output (the same inputs, from one seed, in every
+checkout) and, for the hd-192 prefill, the kernels SDPA launched with
+their device time under torch.profiler. To compare two checkouts' kernels
+on one card, run it for each in turns in one call (A B B A): for example
+with another commit's tree unpacked under build/ by `git archive`.
 """
 
 from __future__ import annotations
@@ -51,6 +55,19 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us_by_kernel(fn) -> dict:
+    """Device µs a call of each kernel ``fn`` launches, under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / 3 for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -78,10 +95,15 @@ def main() -> int:
             qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), enable_gqa=True))
         return lambda: DK.flash_decode(qd, kc, vc, length, softcap)[0], library, 100
 
-    q, k, v = normal(B, S, H, HD), normal(B, S, KV, HD), normal(B, S, KV, HD)
+    def prefill(b, s, h, kv, hd, with_lse=False):
+        q, k, v = normal(b, s, h, hd), normal(b, s, kv, hd), normal(b, s, kv, hd)
+        return (lambda: AK.flash_attention(q, k, v, with_lse=with_lse), lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True), 10)
+
     calls = {
-        "flash_attention": (lambda: AK.flash_attention(q, k, v), lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True), 10),
+        "flash_attention": prefill(B, S, H, KV, HD),
+        "flash_attention[hd192]": prefill(B, S, NEMO_H, NEMO_KV, NEMO_HD),
+        "flash_attention[hd192,lse]": prefill(1, 2 * S, NEMO_H, NEMO_KV, NEMO_HD, with_lse=True),
         "flash_decode": decode(H, KV, HD, LENGTH),
         "flash_decode[hd192]": decode(NEMO_H, NEMO_KV, NEMO_HD, NEMO_LENGTH),
         "flash_decode[f32]": decode(H, KV, HD, LENGTH, torch.float32),
@@ -93,9 +115,14 @@ def main() -> int:
         turns = [(graph_ms(kernel, iters), graph_ms(library, iters) if library else None) for _ in range(args.turns)]
         result = kernel()
         torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for part in result if isinstance(result, tuple) else (result,):
+            digest.update(part.float().cpu().numpy().tobytes())
         out[name] = {"ms": sum(t[0] for t in turns) / len(turns), "turns_ms": [t[0] for t in turns],
                      "sdpa_ms": sum(t[1] for t in turns) / len(turns) if library else None,
-                     "digest": hashlib.sha256(result.float().cpu().numpy().tobytes()).hexdigest()[:16]}
+                     "digest": digest.hexdigest()[:16]}
+        if name == "flash_attention[hd192]":
+            out[name]["sdpa_kernels_us"] = device_us_by_kernel(library)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -24,10 +24,11 @@
 // 4*B*H*hd*S(S+1)/2 = 2.06e11 FLOP, 0.209 ms at the tensor cores' 989
 // TFLOP/s, against 0.08 ms for the 268 MB of q, k, v and o.
 //
-// Two kernels, picked by dtype; neither is a fallback for the other.
+// Three kernels, picked by dtype and width; none is a fallback for another.
 //
-// bfloat16, the serving path: a tensor-core kernel in the manner of
-// FlashAttention-3, since only wgmma reaches the card's bf16 rate.
+// bfloat16 at widths 64 and 128, the serving path (namespace tc): a
+// tensor-core kernel in the manner of FlashAttention-3, since only wgmma
+// reaches the card's bf16 rate.
 // - A block owns a 128-row q tile of one (b, h): warpgroup 0 is the
 //   producer (one thread issues every TMA load; setmaxnreg gives its
 //   registers away), warpgroups 1 and 2 are consumers, each owning 64 q
@@ -35,17 +36,13 @@
 // - Tiles arrive by TMA: one 4-D tensor map (hd, heads, positions, batch)
 //   per operand, encoded from the tensor's own strides, so q, k and v are
 //   read in place (cache[:, :s] views included). A box is 64 columns (128
-//   bytes, the 128-byte swizzle's span) by 128 q rows or BK k/v rows; a
+//   bytes, the 128-byte swizzle's span) by 128 q rows or 128 k/v rows; a
 //   tile is HD/64 boxes. Out-of-bounds boxes are zero-filled, which covers a
-//   ragged S and any hd below the instantiated width HD (64, 128 or 192).
-// - HD 192 (nemotron-4's heads) takes 64-position k/v tiles (BK = 64): three
-//   stages of 128-position tiles would not fit a block's shared memory, and
-//   the O accumulator (96 floats a thread) leaves no room for a 64-float
-//   score tile besides. HD 64 and 128 keep BK = 128.
+//   ragged S and any hd below the instantiated width HD (64 or 128).
 // - k and v tiles stream through a ring of kStages stages, each with its
 //   own full barriers (k and v apart, so QK^T starts before v lands) and one
 //   empty barrier that both consumers arrive on when done.
-// - S = Q K^T: wgmma m64nBKk16, both operands K-major from shared memory
+// - S = Q K^T: wgmma m64n128k16, both operands K-major from shared memory
 //   as they lie. O += P V: P is the A operand from registers, rounded to
 //   bf16 from the S accumulator, whose register layout is the A fragment's;
 //   V is the B operand from shared memory, MN-major (the descriptor's
@@ -60,6 +57,50 @@
 //   (grid.y counts q tiles from the end).
 // - The output is written from registers, bf16 pairs, true hd columns and
 //   rows below S only.
+//
+// bfloat16 at width 192 (nemotron-4's heads; hd 136..191 zero-filled into
+// it), namespace wide: the same contract, producer, tensor maps, masking
+// and epilogue, redesigned for the width in the manner of
+// FlashAttention-3's 192-wide forward. It replaces the 128-wide design
+// fitted to 192 by halving its key tile (64 keys, three stages), which ran
+// at 0.46 of the bound, 1.35x SDPA at nemotron-4's prefill on an H100 SXM
+// at 700 W. What bounds it: operations, 4*B*H*hd*S(S+1)/2 = 1.24e12 FLOP
+// at B 8, S 2,048, 96/8 heads (1.25 ms at 989 TFLOP/s, against 0.20 ms for
+// the bytes). What the design does about what held the fit back:
+// 1. Key tiles of kBK = 112 (two stages) in place of 64 (three): each
+//    tile's fixed costs (barrier waits, the row max and sum, the rescale
+//    of 96 accumulators a thread) are paid per 112 keys, and Q K^T runs as
+//    m64n112k16. Shared memory: 1 KB + 48 KB of Q + 2 x (42 + 42) KB =
+//    217 KB. k and v have rings of their own (full and empty barriers
+//    apiece), loaded k one tile ahead of v, as the consumers take them.
+// 2. The two consumers take turns to issue each tile's products (named
+//    barriers 1 and 2, as the gradient's kernels do): one warpgroup's
+//    softmax then runs while the other's products hold the tensor cores,
+//    instead of both softmaxes at once beside idle tensor cores.
+// 3. Within a warpgroup the softmax overlaps a product too: each turn
+//    issues S(t) = Q K(t)^T, rescales O by tile t-1's factors while that
+//    runs, and issues O += P(t-1) V(t-1); the warpgroup then waits for S(t)
+//    alone (wgmma.wait_group 1) and runs tile t's softmax while P(t-1)
+//    V(t-1) is still on the tensor cores. This keeps one score tile (56
+//    floats a thread) and one P tile (28 registers) live beside O's 96,
+//    which fits 240 registers at 112 keys; overlapping the softmax with
+//    S(t+1) instead would keep two score tiles live. The row sums stay per
+//    thread until the epilogue (the quad's max is shared, so its shares
+//    scale alike), which saves two shuffles a row a tile.
+// 4. 2^x by ex2.approx.ftz on log2e-scaled logits at every site, the
+//    scale folded into one FMA a score (the row max is taken on the raw
+//    scores); the cap is softcap * tanh(x / softcap) in natural units
+//    (tanh_fast), then scaled by log2 e.
+// 5. One block an SM (217 KB of shared memory), so the grid is persistent:
+//    G blocks (the SMs, or fewer items) walk the (b, h, q tile) items
+//    longest first, block k taking items k, k + G, ...; q has a full and an
+//    empty barrier, so the producer loads the next item's q and first k
+//    tiles as soon as the consumers' last Q K^T of an item is in, while
+//    they finish its softmax, last P V and epilogue. The rings run on
+//    across items.
+// 6. Causal work: no tile past a q tile's last row is loaded, and
+//    warpgroup 0 runs no products on a tile wholly past its own 64 rows
+//    (it keeps the turns and releases the tile's stages once they land).
 //
 // float32, the reference's parity checks: the CUDA-core kernel (TF32 tensor
 // cores would break the reference's 2e-5). One block of 256 threads per
@@ -310,15 +351,11 @@ constexpr int kStages = 3;      // k/v ring
 constexpr int kThreads = 384;   // producer warpgroup + two consumer warpgroups
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 65,536
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// k/v rows per tile: 128, or 64 at HD 192 (shared memory and registers)
-__host__ __device__ constexpr int block_k(int hd) { return hd > 128 ? 64 : 128; }
 
 template <int HD>
 struct Tiles {
-  static constexpr int kBK = block_k(HD);
+  static constexpr int kBK = 128;           // k/v rows per tile
   static constexpr int kQ = kBQ * HD * 2;   // bytes of the q tile: HD/64 boxes of 128 x 64
   static constexpr int kKV = kBK * HD * 2;  // bytes of one k (or v) tile: HD/64 boxes of kBK x 64
   static constexpr int kBars = 1 + 3 * kStages;  // q full; k full, v full, k/v empty per stage
@@ -326,7 +363,6 @@ struct Tiles {
   static constexpr int kSmem = 1024 + kQ + 2 * kStages * kKV + 8 * kBars;
 };
 static_assert(Tiles<128>::kSmem <= 232448, "the 128-wide instance must fit a block's shared memory");
-static_assert(Tiles<192>::kSmem <= 232448, "the 192-wide instance must fit a block's shared memory");
 
 // grid (B*H, q tiles); block y counts q tiles from the last, so the
 // longest tiles of every head go first. q rows are [0, S), k/v rows [0, Skv);
@@ -342,6 +378,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 const __grid_constant__ CUtensorMap vmap,
                                 __nv_bfloat16* __restrict__ o, int S, int Skv, int H, int Kv,
                                 int hd, float scale_log2, float cap_arg, float* __restrict__ lse) {
+  static_assert(HD <= 128, "HD 192 is the wide namespace's kernel");
   using T = Tiles<HD>;
   constexpr int kBK = T::kBK;
   extern __shared__ unsigned char smem_raw[];
@@ -556,6 +593,350 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int S
 }
 
 }  // namespace tc
+
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core kernel at HD 192 (see the note at the top)
+// ---------------------------------------------------------------------------
+namespace wide {
+
+constexpr int kHD = 192;
+constexpr int kBQ = tc::kBQ;        // q rows per block: two consumer warpgroups x 64
+constexpr int kBK = 112;            // k/v rows per tile
+constexpr int kStages = 2;          // the k and v rings
+constexpr int kThreads = 384;       // producer warpgroup + two consumer warpgroups
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 65,536
+constexpr int kQ = kBQ * kHD * 2;   // bytes of the q tile: three boxes of 128 x 64
+constexpr int kKV = kBK * kHD * 2;  // bytes of one k (or v) tile: three boxes of kBK x 64
+constexpr int kBars = 2 + 4 * kStages;  // q full, q empty; k full, v full, k empty, v empty per stage
+// the swizzled tiles need 1024-byte alignment, which the base is rounded up to
+constexpr int kSmem = 1024 + kQ + 2 * kStages * kKV + 8 * kBars;
+static_assert(kBK % 16 == 0 && kBK <= 256, "a tile is whole k16 steps of P V and one wgmma N (and box) of Q K^T");
+static_assert(kSmem <= 232448, "the 192-wide instance must fit a block's shared memory");
+
+// The work items are the (b, h, q tile) triples, longest first: item j is
+// q tile n_q - 1 - j / (B*H) of head (b, h) = j % (B*H). Block k takes
+// items k, k + G, k + 2G, ... of a grid of G blocks (one an SM), so each
+// block's producer loads the next item's q and first k tiles while its
+// consumers finish the item before (kernel.py's persistent_items mirrors
+// the order).
+struct Item {
+  int b, h, q0;
+};
+__device__ __forceinline__ Item item_at(int j, int BH, int H, int n_q) {
+  const int bh = j % BH;
+  return {bh / H, bh % H, (n_q - 1 - j / BH) * kBQ};
+}
+
+// arguments as the tc kernel's, with B first
+template <bool CAP, bool LSE>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_hd192_kernel(const __grid_constant__ CUtensorMap qmap,
+                                 const __grid_constant__ CUtensorMap kmap,
+                                 const __grid_constant__ CUtensorMap vmap,
+                                 __nv_bfloat16* __restrict__ o, int B, int S, int Skv, int H, int Kv,
+                                 int hd, float scale_log2, float cap_arg, float* __restrict__ lse) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + kQ;               // kStages k tiles
+  const uint32_t sv = sk + kStages * kKV;    // kStages v tiles
+  const uint32_t bars = sv + kStages * kKV;
+  const uint32_t q_full = bars, q_empty = bars + 8u;
+  auto k_full = [&](int st) { return bars + 8u * (2 + st); };
+  auto v_full = [&](int st) { return bars + 8u * (2 + kStages + st); };
+  auto k_empty = [&](int st) { return bars + 8u * (2 + 2 * kStages + st); };
+  auto v_empty = [&](int st) { return bars + 8u * (2 + 3 * kStages + st); };
+
+  const int n_q = (S + kBQ - 1) / kBQ, BH = B * H, n_items = BH * n_q;
+  const int off = Skv - S;  // absolute position of q row 0
+  const int g = H / Kv;
+  // k/v tiles of a q tile (causal: none past its last row), and the first
+  // that reaches past its first row
+  auto tiles = [&](int q0) { return (off + min(q0 + kBQ, S) - 1) / kBK + 1; };
+  auto first_masked = [&](int q0) { return (off + q0 + 1) / kBK; };
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 2 * 128);  // every consumer thread arrives once its last Q K^T is in
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), 2 * 128);
+      mbar_init(v_empty(st), 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // k and v tiles run through their rings in the order the block takes
+  // them: the block's n-th tile (over all its items) sits in stage n %
+  // kStages, in the ring's (n / kStages)-th round
+  if (wg == 0) {
+    // ---- producer: each item's q, then k one tile ahead of v, as the consumers take them
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full, uint32_t empty, int n, int pos,
+                      int kvh, int b) {
+        mbar_wait(empty + 8u * (n % kStages), ((n / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8u * (n % kStages), kKV);
+#pragma unroll
+        for (int c = 0; c < kHD / kBoxCols; ++c)
+          tma_load(ring + (n % kStages) * kKV + c * kBK * kRowBytes, map, full + 8u * (n % kStages),
+                   c * kBoxCols, kvh, pos, b);
+      };
+      int n = 0;
+      for (int j = blockIdx.x, it = 0; j < n_items; j += gridDim.x, ++it) {
+        const Item item = item_at(j, BH, H, n_q);
+        const int kvh = item.h / g, n_k = tiles(item.q0);
+        mbar_wait(q_empty, (it & 1) ^ 1);
+        mbar_expect_tx(q_full, kQ);
+#pragma unroll
+        for (int c = 0; c < kHD / kBoxCols; ++c)
+          tma_load(sq + c * kBQ * kRowBytes, &qmap, q_full, c * kBoxCols, item.h, item.q0, item.b);
+        load(&kmap, sk, k_full(0), k_empty(0), n, 0, kvh, item.b);
+        for (int t = 0; t < n_k; ++t) {
+          if (t + 1 < n_k) load(&kmap, sk, k_full(0), k_empty(0), n + t + 1, (t + 1) * kBK, kvh, item.b);
+          load(&vmap, sv, v_full(0), v_empty(0), n + t, t * kBK, kvh, item.b);
+        }
+        n += n_k;
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows each ---------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int w = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32, lane = tid % 32;
+    const int row_in_tile = w * 64 + warp * 16 + lane / 4;  // this thread's rows in a q tile, and + 8
+    const uint32_t q_slice = sq + w * 64 * kRowBytes;
+
+    float acc[kHD / 2];   // O, the accumulators' layout of m64n192
+    float s[kBK / 2];     // a tile's scores, then its probabilities
+    uint32_t p[kBK / 4];  // the probabilities in bf16: the A fragments of kBK/16 k-steps
+    // m: the rows' running max in log2 units; l: this thread's share of the
+    // rows' sums (the quad's shares are added once, in the epilogue)
+    float m[2], l[2], corr[2];
+
+    // S = Q K^T over hd, 16 columns a step, into s, from the block's n-th tile
+    auto issue_qk = [&](const int n) {
+      const int st = n % kStages;
+      mbar_wait(k_full(st), (n / kStages) & 1);
+      fence_regs(s);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kHD / 16; ++kk) {
+        const uint32_t box = kk / 4, within = (kk % 4) * 32;  // 64-column box, 16-column step
+        wgmma_ss<kBK>(s, sw128_desc(q_slice + box * kBQ * kRowBytes + within, 16, 1024),
+                      sw128_desc(sk + st * kKV + box * kBK * kRowBytes + within, 16, 1024), kk > 0);
+      }
+      wg_commit();
+    };
+    // O += P V over the tile's rows, 16 a step; V MN-major (the transpose bit)
+    auto issue_pv = [&](const int n) {
+      const int st = n % kStages;
+      mbar_wait(v_full(st), (n / kStages) & 1);
+      fence_regs(acc);
+      fence_regs(p);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_rs<kHD>(acc, p + 4 * kk, sw128_desc(sv + st * kKV + kk * 16 * kRowBytes, kBK * kRowBytes, 1024));
+      wg_commit();
+    };
+    // the online softmax of tile t's scores in s, in log2 units: s becomes P,
+    // m and l move on, corr the factor O is to be rescaled by. Only a tile
+    // reaching past the q tile's first row (MASKED, a compile-time flag) has
+    // masked entries; key columns are counted from the q rows' offset, which
+    // keeps the offset out of the per-element test
+    auto softmax = [&](const int t, const int r0, auto masked_tag) {
+      constexpr bool kMasked = decltype(masked_tag)::value;
+      const int k0 = t * kBK + 2 * (lane % 4) - off;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        const int row = r0 + 8 * ((i / 2) % 2);
+        const int col = k0 + 8 * (i / 4) + (i % 2);
+        // uncapped, the raw score (the scale is folded into the exponent below)
+        float x = CAP ? scale_log2 * tanh_fast(s[i] * cap_arg) : s[i];
+        if (kMasked && col > row) x = kNegInf;
+        s[i] = x;
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
+      }
+      float neg[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], CAP ? mx[r] : mx[r] * scale_log2);
+        corr[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+        neg[r] = -m_new;
+      }
+      float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        const int r = (i / 2) % 2;
+        s[i] = ex2(CAP ? s[i] + neg[r] : fmaf(s[i], scale_log2, neg[r]));
+        sum[r] += s[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+    };
+    auto pack = [&]() {
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        p[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
+        p[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+      }
+    };
+
+    auto rescale = [&]() {
+#pragma unroll
+      for (int i = 0; i < kHD / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+    };
+
+    if (w == 1) turn_pass(w);  // warpgroup 0 takes the first turn
+    int n = 0;                 // the block's tiles so far
+    for (int j = blockIdx.x, it = 0; j < n_items; j += gridDim.x, ++it) {
+      const Item item = item_at(j, BH, H, n_q);
+      const int r0 = item.q0 + row_in_tile, n_k = tiles(item.q0), t_masked = first_masked(item.q0);
+      // this warpgroup's tiles: none past its own last row (warpgroup 0's
+      // 64 rows may end a tile early)
+      const int n_w = (off + min(item.q0 + 64 * (w + 1), S) - 1) / kBK + 1;
+#pragma unroll
+      for (int i = 0; i < kHD / 2; ++i) acc[i] = 0.0f;
+      m[0] = m[1] = kNegInf;
+      l[0] = l[1] = 0.0f;
+      mbar_wait(q_full, it & 1);
+
+      // tile 0: its scores, then its probabilities (O is still 0)
+      turn_wait(w);
+      issue_qk(n);
+      turn_pass(w);
+      wg_wait<0>();
+      fence_regs(s);
+      mbar_arrive(k_empty(n % kStages));
+      if (n_w == 1) mbar_arrive(q_empty);  // the item's last read of q
+      if (t_masked == 0) softmax(0, r0, std::true_type{});
+      else softmax(0, r0, std::false_type{});
+      pack();
+      // tile t >= 1: S(t) = Q K(t)^T, O rescaled by tile t-1's factors while
+      // it runs, and O += P(t-1) V(t-1), all in one turn; the softmax of
+      // tile t runs while P(t-1) V(t-1) (and the other warpgroup's
+      // products) are on the tensor cores
+      auto step = [&](const int t, auto masked_tag) {
+        turn_wait(w);
+        issue_qk(n + t);
+        rescale();
+        issue_pv(n + t - 1);
+        turn_pass(w);
+        wg_wait<1>();
+        fence_regs(s);
+        mbar_arrive(k_empty((n + t) % kStages));
+        if (t == n_w - 1) mbar_arrive(q_empty);
+        softmax(t, r0, masked_tag);
+        wg_wait<0>();
+        fence_regs(acc);
+        fence_regs(p);
+        mbar_arrive(v_empty((n + t - 1) % kStages));
+        pack();
+      };
+      // the last product: O += P V of the warpgroup's last tile
+      auto last_pv = [&]() {
+        turn_wait(w);
+        rescale();
+        issue_pv(n + n_w - 1);
+        turn_pass(w);
+        wg_wait<0>();
+        fence_regs(acc);
+        fence_regs(p);
+        mbar_arrive(v_empty((n + n_w - 1) % kStages));
+      };
+      // the unmasked tiles, then the masked ones: the select stays out of the main loop
+      int t = 1;
+      for (; t < min(t_masked, n_w); ++t) step(t, std::false_type{});
+      for (; t < n_w; ++t) step(t, std::true_type{});
+      last_pv();
+      // tiles past the warpgroup's rows: no products, but the turns go on
+      // (the other warpgroup's tile n_w's products take the turn after the
+      // last P V), and each tile's ring stages are released once they have
+      // landed (a release before would count towards the stage's last round)
+      for (; t < n_k; ++t) {
+        turn_wait(w);
+        turn_pass(w);
+        mbar_wait(k_full((n + t) % kStages), ((n + t) / kStages) & 1);
+        mbar_arrive(k_empty((n + t) % kStages));
+        mbar_wait(v_full((n + t) % kStages), ((n + t) / kStages) & 1);
+        mbar_arrive(v_empty((n + t) % kStages));
+      }
+      n += n_k;
+
+      // epilogue: the quad's shares of l added; rows below S, the true hd
+      // columns; lse in natural units
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
+      const float inv[2] = {1.0f / fmaxf(l[0], 1e-30f), 1.0f / fmaxf(l[1], 1e-30f)};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        if (row >= S) continue;
+        if (LSE && lane % 4 == 0)
+          lse[(static_cast<long long>(item.b) * H + item.h) * S + row] =
+              (m[r] + log2f(fmaxf(l[r], 1e-30f))) * tc::kLn2;
+        __nv_bfloat16* orow = o + ((static_cast<long long>(item.b) * S + row) * H + item.h) * hd;
+#pragma unroll
+        for (int jj = 0; jj < kHD / 8; ++jj) {
+          const int col = 8 * jj + 2 * (lane % 4);
+          if (col < hd)
+            *reinterpret_cast<uint32_t*>(orow + col) =
+                pack_bf16(acc[4 * jj + 2 * r] * inv[r], acc[4 * jj + 2 * r + 1] * inv[r]);
+        }
+      }
+    }
+  }
+}
+
+template <bool CAP, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Skv, int H, int Kv,
+           int hd, float scale, float softcap, const long long* layouts, float* lse, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const int rows[3] = {kBQ, kBK, kBK};
+  for (int i = 0; i < 3; ++i)
+    if (!encode(&maps[i], ptrs[i], layouts + 11 * i, rows[i])) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_hd192_kernel<CAP, LSE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  const long long n_items = static_cast<long long>(B) * H * ((S + kBQ - 1) / kBQ);
+  if (n_items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(n_items < sms ? n_items : sms);  // one block an SM
+  const float scale_log2 = CAP ? softcap * kLog2e : scale * kLog2e;
+  const float cap_arg = CAP ? scale / softcap : 0.0f;
+  flash_attention_hd192_kernel<CAP, LSE><<<grid, kThreads, kSmem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), B, S, Skv, H, Kv, hd, scale_log2, cap_arg, lse);
+  return cudaGetLastError();
+}
+
+int launch_any(const void* q, const void* k, const void* v, void* o, int B, int S, int Skv, int H, int Kv,
+               int hd, float scale, float softcap, const long long* layouts, float* lse, cudaStream_t stream) {
+  const bool cap = softcap > 0.0f;
+  if (lse != nullptr) {
+    if (cap) return launch<true, true>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, layouts, lse, stream);
+    return launch<false, true>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, layouts, lse, stream);
+  }
+  if (cap) return launch<true, false>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, layouts, lse, stream);
+  return launch<false, false>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, layouts, lse, stream);
+}
+
+}  // namespace wide
 }  // namespace
 
 extern "C" {
@@ -564,7 +945,12 @@ int flash_attention_max_hd() { return kMaxHd; }
 
 int flash_attention_block_q() { return tc::kBQ; }
 
-int flash_attention_block_k(int hd_inst) { return tc::block_k(hd_inst); }
+int flash_attention_block_k(int hd_inst) { return hd_inst > 128 ? wide::kBK : tc::Tiles<128>::kBK; }
+
+// the bf16 kernel's dynamic shared memory at width hd_inst
+int flash_attention_smem_bytes(int hd_inst) {
+  return hd_inst > 128 ? wide::kSmem : hd_inst > 64 ? tc::Tiles<128>::kSmem : tc::Tiles<64>::kSmem;
+}
 
 const char* flash_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -600,7 +986,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
     return cudaErrorInvalidValue;
   if (hd_inst == 64) return tc::launch_hd<64>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, tma, lse_out, st);
   if (hd_inst == 128) return tc::launch_hd<128>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, tma, lse_out, st);
-  if (hd_inst == 192) return tc::launch_hd<192>(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, tma, lse_out, st);
+  if (hd_inst == 192) return wide::launch_any(q, k, v, o, B, S, Skv, H, Kv, hd, scale, softcap, tma, lse_out, st);
   return cudaErrorInvalidValue;
 }
 

@@ -106,7 +106,6 @@ namespace {
 
 constexpr int kMaxHd = 192;
 constexpr int kT = 64;  // q and key rows a tile
-constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // D_i = dO_i . O_i, a half-warp a row, 16 bytes a load; rows are (b, i, h)
@@ -444,16 +443,6 @@ __device__ __forceinline__ float2 lds_f2(uint32_t addr) {
   return v;
 }
 
-// named barrier `id` across the two consumer warpgroups (256 threads): one
-// warpgroup syncs, the other arrives
-__device__ __forceinline__ void bar_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
-__device__ __forceinline__ void bar_arrive(int id) { asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory"); }
-
-// the consumers take turns to issue each step's first products (named
-// barriers 1 and 2), so that one warpgroup's score math runs beside the
-// other's products
-__device__ __forceinline__ void turn_wait(int w) { bar_sync(1 + w); }
-__device__ __forceinline__ void turn_pass(int w) { bar_arrive(2 - w); }
 
 template <int HD>
 struct Tiles {
@@ -554,26 +543,6 @@ __device__ __forceinline__ void accumulate(float (&d)[HD / 2], const uint32_t* a
 #pragma unroll
   for (int kk = 0; kk < kBox / 16; ++kk)
     wgmma_rs<HD>(d, a + 4 * kk, sw128_desc(tile + kk * 16 * kRowBytes, kBox * kRowBytes, 1024));
-}
-
-// 2^x by the MUFU instruction alone: within 2 ulp, a result below 2^-126
-// flushed to 0 (a probability that small adds nothing in bf16). exp2f's
-// care for subnormal results cost the 192-wide dk/dv kernel a quarter of
-// its time, whose score math is on its critical path (2.75 -> 2.11 ms at
-// nemotron-4's heads; dq 0.247 -> 0.229 ms at llama3.2-3b's; H100 SXM,
-// 700 W).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// tanh(y) as 1 - 2 / (e^{2y} + 1) with |y| clamped to 15 (tanh is then +-1
-// in float32): two MUFU operations and a few FMAs, within ~1e-7 of tanhf,
-// in fewer registers
-__device__ __forceinline__ float tanh_fast(float y) {
-  const float e = exp2f(fminf(fmaxf(y, -15.0f), 15.0f) * (2.0f * kLog2e));
-  return 1.0f - __fdividef(2.0f, e + 1.0f);
 }
 
 // The capped instances' first pass over a score, once dP is in: with t =

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the attention kernels, included by
-// flash_attention.cu and flash_attention_bwd.cu: mbarriers, TMA loads of
-// one box of a 4-D tensor map and 1-D bulk copies, the 128-byte-swizzle
-// wgmma descriptor, wgmma with A from shared memory or from registers, and
-// the host-side tensor-map encoder (kernel.py's tma_layout computes the
-// layouts it takes). Everything here has internal linkage.
+// flash_attention.cu, flash_attention_bwd.cu and flash_decode.cu:
+// mbarriers, TMA loads of one box of a 4-D tensor map and 1-D bulk copies,
+// the 128-byte-swizzle wgmma descriptor, wgmma with A from shared memory or
+// from registers, the score math's 2^x and tanh, and the host-side
+// tensor-map encoder (kernel.py's tma_layout computes the layouts it
+// takes). Everything here has internal linkage.
 //
 // Layout conventions. A tensor map's box is 64 columns (128 bytes of bf16,
 // the 128-byte swizzle's span) by some rows; a tile of HD columns is HD/64
@@ -93,10 +94,31 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+// the same for A fragments in registers, which an asynchronous wgmma reads
+// until its group is waited for: fencing them after the wait keeps their
+// registers from being reused before it
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// named barrier `id` across the two consumer warpgroups (256 threads): one
+// warpgroup syncs, the other arrives
+__device__ __forceinline__ void bar_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void bar_arrive(int id) { asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory"); }
+
+// the consumers take turns to issue their products (named barriers 1 and
+// 2; warpgroup 1 passes once first, so warpgroup 0 takes the first turn),
+// so that one warpgroup's score math runs beside the other's products
+__device__ __forceinline__ void turn_wait(int w) { bar_sync(1 + w); }
+__device__ __forceinline__ void turn_pass(int w) { bar_arrive(2 - w); }
 
 #define ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define ACC16(i) ACC4(i), ACC4(i + 4), ACC4(i + 8), ACC4(i + 12)
 #define ACC32 ACC16(0), ACC16(16)
+#define ACC48 ACC16(0), ACC16(16), ACC16(32)
+#define ACC56 ACC16(0), ACC16(16), ACC16(32), ACC4(48), ACC4(52)
 #define ACC64 ACC16(0), ACC16(16), ACC16(32), ACC16(48)
 #define ACC96 ACC16(0), ACC16(16), ACC16(32), ACC16(48), ACC16(64), ACC16(80)
 
@@ -134,6 +156,38 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a, ui
       "}, "
       "%32, %33, p, 1, 1, 0, 0;\n}\n"
       : ACC32
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<96>(float (&d)[48], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : ACC48
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<112>(float (&d)[56], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55"
+      "}, "
+      "%56, %57, p, 1, 1, 0, 0;\n}\n"
+      : ACC56
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -212,6 +266,8 @@ __device__ __forceinline__ void wgmma_rs_k<64>(float (&d)[32], const uint32_t* a
 #undef ACC4
 #undef ACC16
 #undef ACC32
+#undef ACC48
+#undef ACC56
 #undef ACC64
 #undef ACC96
 
@@ -237,6 +293,28 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&a)[HD / 4], const unsign
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the MUFU instruction alone: within 2 ulp, a result below 2^-126
+// flushed to 0 (a probability that small adds nothing in bf16). exp2f's
+// care for subnormal results cost the 192-wide dk/dv kernel a quarter of
+// its time, whose score math is on its critical path (2.75 -> 2.11 ms at
+// nemotron-4's heads; dq 0.247 -> 0.229 ms at llama3.2-3b's; H100 SXM,
+// 700 W).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tanh(y) as 1 - 2 / (e^{2y} + 1) with |y| clamped to 15 (tanh is then +-1
+// in float32): two MUFU operations and a few FMAs, within ~1e-7 of tanhf,
+// in fewer registers
+__device__ __forceinline__ float tanh_fast(float y) {
+  const float e = exp2f(fminf(fmaxf(y, -15.0f), 15.0f) * (2.0f * kLog2e));
+  return 1.0f - __fdividef(2.0f, e + 1.0f);
 }
 
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime so

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -70,9 +70,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_block_q.restype = i32
     lib.flash_attention_block_k.argtypes = [i32]
     lib.flash_attention_block_k.restype = i32
+    lib.flash_attention_smem_bytes.argtypes = [i32]
+    lib.flash_attention_smem_bytes.restype = i32
     limits = (lib.flash_attention_max_hd(), lib.flash_attention_block_q(),
-              *(lib.flash_attention_block_k(w) for w in WIDTHS))
-    if limits != (MAX_HD, BLOCK_Q, *(block_k(w) for w in WIDTHS)):
+              *(lib.flash_attention_block_k(w) for w in WIDTHS), lib.flash_attention_smem_bytes(MAX_HD))
+    if limits != (MAX_HD, BLOCK_Q, *(block_k(w) for w in WIDTHS), wide_smem_bytes()):
         raise RuntimeError(f"flash_attention library limits {limits} disagree with kernel.py")
 
 
@@ -111,6 +113,8 @@ def check_rows(name: str, t: torch.Tensor) -> None:
 
 
 WIDTHS = (64, 128, 192)  # the bf16 kernel's compiled head widths
+WIDE_BLOCK_K = 112  # k/v positions a tile of the 192-wide kernel
+WIDE_STAGES = 2  # its k and v rings
 
 
 def instantiated_hd(hd: int) -> int:
@@ -123,9 +127,33 @@ def instantiated_hd(hd: int) -> int:
 
 def block_k(hd_inst: int) -> int:
     """k/v positions a tile of the bf16 kernel at width ``hd_inst``: 128,
-    or 64 at 192 (three 192-wide stages of 128 would not fit a block's
-    shared memory). It is also the k/v tensor maps' box rows."""
-    return 64 if hd_inst > 128 else 128
+    or ``WIDE_BLOCK_K`` at 192 (two 192-wide stages of 128 would not fit a
+    block's shared memory). It is also the k/v tensor maps' box rows."""
+    return WIDE_BLOCK_K if hd_inst > 128 else 128
+
+
+def wide_smem_bytes(bk: Optional[int] = None, stages: Optional[int] = None) -> int:
+    """Dynamic shared memory of the 192-wide kernel (``wide::kSmem``): 1 KB
+    to round the base up to the swizzle's 1,024-byte alignment, the 128-row
+    q tile, ``stages`` k and v tiles of ``bk`` rows (by default
+    ``WIDE_STAGES`` and ``WIDE_BLOCK_K``), and the barriers (q full, q
+    empty; k full, v full, k empty, v empty a stage), 8 bytes each."""
+    bk, stages = bk or WIDE_BLOCK_K, stages or WIDE_STAGES
+    row = MAX_HD * 2
+    return 1024 + BLOCK_Q * row + 2 * stages * bk * row + 8 * (2 + 4 * stages)
+
+
+def persistent_items(b: int, h: int, s: int, blocks: int):
+    """The 192-wide kernel's work, as its grid of ``min(items, blocks)``
+    blocks (one an SM) takes it: for each block, the (b, h, q tile) triples
+    it runs in order. Item j is q tile ``n_q - 1 - j // (b*h)`` of head
+    ``j % (b*h)`` (as (b, h)), so items go longest first; block k takes
+    items k, k + G, k + 2G, ... (``wide::item_at``)."""
+    n_q = -(-s // BLOCK_Q)
+    items = b * h * n_q
+    grid = min(items, blocks)
+    order = [((j % (b * h)) // h, (j % (b * h)) % h, n_q - 1 - j // (b * h)) for j in range(items)]
+    return [order[k::grid] for k in range(grid)]
 
 
 def bwd_rows(s: int, hd_inst: int) -> int:

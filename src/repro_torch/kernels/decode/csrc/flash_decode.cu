@@ -483,7 +483,6 @@ constexpr int kMaxRowTiles = 2;                // row tiles a block: g <= 32 rea
 constexpr int kBoxBytes = kTile * kRowBytes;   // 4 KB
 constexpr int kTileBytes = kBoxes * kBoxBytes;  // one k (or v) tile, 12 KB
 constexpr int kFrag = kHd / 2;                 // O accumulators a thread: 24 n8 tiles x 4
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 template <int RT>
@@ -506,11 +505,6 @@ static_assert(Shape<1>::kBlocks * (Shape<1>::kSmem + 1024) <= 233472 &&
                   Shape<2>::kBlocks * (Shape<2>::kSmem + 1024) <= 233472,
               "the planned blocks fit an SM's shared memory (1 KB of it reserved a block)");
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 // byte offset, in a tile of kBoxes boxes laid out by TMA with the 128-byte
 // swizzle, of row r's 16-byte chunk c (columns 8c .. 8c + 7)
 __device__ __forceinline__ uint32_t swizzled(int r, int c) {

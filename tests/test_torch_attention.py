@@ -128,9 +128,9 @@ def test_tma_layout_packs_size_one_dims_and_refuses_misaligned_strides():
 @pytest.mark.parametrize("hd", range(8, 193, 8))
 def test_instantiated_hd_is_the_next_of_64_and_128(hd):
     """The bf16 kernel's width: the least of 64, 128 and 192 that holds hd
-    (192 for nemotron-4's heads), and its k/v tile (64 positions at 192)."""
+    (192 for nemotron-4's heads), and its k/v tile (112 positions at 192)."""
     assert K.instantiated_hd(hd) == (64 if hd <= 64 else 128 if hd <= 128 else 192)
-    assert K.block_k(K.instantiated_hd(hd)) == (64 if hd > 128 else 128)
+    assert K.block_k(K.instantiated_hd(hd)) == (112 if hd > 128 else 128)
     with pytest.raises(ValueError, match="head dim"):
         K.instantiated_hd(hd + 4)
     if hd == 192:
@@ -140,8 +140,49 @@ def test_instantiated_hd_is_the_next_of_64_and_128(hd):
 
 def test_tma_layout_takes_the_k_tiles_rows():
     t = torch.zeros((1, 100, 2, 192), dtype=torch.bfloat16)
-    assert K.tma_layout(t, K.block_k(192))[2] == (64, 1, 64, 1)
+    assert K.tma_layout(t, K.block_k(192))[2] == (64, 1, 112, 1)
     assert K.tma_layout(t)[2] == (64, 1, K.BLOCK_Q, 1)
+
+
+def test_the_192_wide_plan_fits_a_blocks_shared_memory():
+    """The 192-wide kernel's tiles: its k/v tile is whole k16 steps of P V
+    and one wgmma N and TMA box of Q K^T (a multiple of 16, at most 256),
+    and the q tile, both rings and the barriers, after the 1 KB that aligns
+    the base, fit the 232,448 bytes a block may take; one more stage, or
+    128-position tiles, would not."""
+    bk = K.block_k(192)
+    assert bk % 16 == 0 and 8 <= bk <= 256
+    smem = K.wide_smem_bytes()
+    q_tile, kv_tile = K.BLOCK_Q * 192 * 2, bk * 192 * 2
+    assert smem == 1024 + q_tile + 2 * K.WIDE_STAGES * kv_tile + 8 * (2 + 4 * K.WIDE_STAGES)
+    assert smem <= 232_448
+    assert K.wide_smem_bytes(stages=K.WIDE_STAGES + 1) > 232_448
+    assert K.wide_smem_bytes(bk=128) > 232_448
+    # every 1,024-byte swizzle span starts on its own: the tiles are whole spans
+    assert q_tile % 1024 == 0 and kv_tile % 1024 == 0
+
+
+@pytest.mark.parametrize("b,h,s,blocks", [(8, 96, 2048, 132), (1, 96, 4096, 132), (2, 3, 1, 132),
+                                           (1, 2, 300, 132), (3, 5, 1000, 7)])
+def test_persistent_items_visit_every_q_tile_once_longest_first(b, h, s, blocks):
+    """The 192-wide kernel's persistent grid: min(items, blocks) blocks
+    take every (b, h, q tile) exactly once; in the items' order (block k's
+    i-th item is item k + i G) the q tiles go longest first, and each
+    block's own items do too."""
+    per_block = K.persistent_items(b, h, s, blocks)
+    n_q = -(-s // K.BLOCK_Q)
+    items = b * h * n_q
+    assert len(per_block) == min(items, blocks)
+    taken = [item for block in per_block for item in block]
+    assert sorted(taken) == sorted((bb, hh, qt) for bb in range(b) for hh in range(h) for qt in range(n_q))
+    grid = len(per_block)
+    in_order = [per_block[j % grid][j // grid] for j in range(items)]
+    assert [qt for _, _, qt in in_order] == sorted((qt for _, _, qt in in_order), reverse=True)
+    for block in per_block:
+        assert [qt for _, _, qt in block] == sorted((qt for _, _, qt in block), reverse=True)
+    # the blocks' shares of the work (keys their q tiles read) differ by at most the longest item's
+    work = [sum(min((qt + 1) * K.BLOCK_Q, s) for _, _, qt in block) for block in per_block]
+    assert max(work) - min(work) <= n_q * K.BLOCK_Q
 
 
 @pytest.mark.parametrize("case", range(4), ids=[v[0] for v in _views()])

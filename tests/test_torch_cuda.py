@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.attention import kernel as AK
 from repro_torch.kernels.igd_fused import kernel as K, ops, ref as R
 
 # the reference's kernel tolerance (tests/test_kernels.py)
@@ -629,10 +630,10 @@ def test_cuda_attention_wrappers_refuse_what_the_kernels_do_not_take():
         DK.flash_decode(qd.float(), k, k, 8)
 
 
-# the bf16 tensor-core attention kernel over its cases: hd (64- and
-# 128-wide instances, zero-filled columns), ragged S around the 128-row
+# the bf16 tensor-core attention kernel over its cases: hd (64-, 128- and
+# 192-wide instances, zero-filled columns), ragged S around the 128-row
 # tile, and q heads per kv head
-TC_HDS = [32, 64, 72, 128]
+TC_HDS = [32, 64, 72, 128, 136, 192]
 TC_LENGTHS = [1, 63, 64, 65, 300, 1000, 2048]
 TC_GROUPS = [1, 3, 4]
 
@@ -652,7 +653,7 @@ def test_cuda_bf16_attention_matches_plain_version(hd, s, g):
 
 
 @needs_card
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 192])
 def test_cuda_bf16_attention_reads_strided_views(hd):
     """q, k and v as slices of one fused [B, S, H + 2 Kv, hd] buffer, as a
     head-major [B, H, S, hd] tensor seen as [B, S, H, hd], and as
@@ -673,6 +674,28 @@ def test_cuda_bf16_attention_reads_strided_views(hd):
     q = _normal((b, s, h, hd), torch.bfloat16, 6)
     want = AR.mha_ref(q, kc[:, :s].contiguous(), vc[:, :s].contiguous())
     torch.testing.assert_close(AK.flash_attention(q, kc[:, :s], vc[:, :s]).float(), want.float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@needs_card
+@pytest.mark.parametrize("softcap,with_lse", [(0.0, False), (0.0, True), (30.0, False)])
+@pytest.mark.parametrize("b,s,h,kv,hd", [(2, 2048, 96, 8, 192), (2, 2048, 24, 8, 128)],
+                         ids=["nemotron-hd192", "llama-hd128"])
+def test_cuda_flash_attention_reruns_give_the_same_bits(b, s, h, kv, hd, softcap, with_lse):
+    """Two forward calls on the same inputs give the same bits (out, and
+    lse where asked), at nemotron-4's heads and llama3.2-3b's, and match the
+    plain version."""
+    from repro_torch.kernels.attention import ref as AR
+
+    q = 3.0 * _normal((b, s, h, hd), torch.bfloat16, 0)
+    k, v = _normal((b, s, kv, hd), torch.bfloat16, 1), _normal((b, s, kv, hd), torch.bfloat16, 2)
+    first = AK.flash_attention(q, k, v, softcap, with_lse=with_lse)
+    second = AK.flash_attention(q, k, v, softcap, with_lse=with_lse)
+    torch.cuda.synchronize()
+    for a, c in zip(*(r if with_lse else (r,) for r in (first, second))):
+        assert torch.equal(a, c)
+    out = first[0] if with_lse else first
+    torch.testing.assert_close(out[:1].float(), AR.mha_ref(q[:1], k[:1], v[:1], softcap).float(),
                                rtol=2e-2, atol=2e-2)
 
 
@@ -706,10 +729,15 @@ def test_cuda_flash_decode_lengths_and_groups(length, g, dtype):
 # soft cap (grok-1's 30, and 2, which bends every logit), q rows at a
 # cache offset (k/v longer than q; offsets on and off the 128-row tile),
 # and head widths past 128 (zamba2's 80, hd 136, nemotron-4's 192), both
-# dtypes, against the plain versions
+# dtypes, against the plain versions; at 192, S on the edges of the k/v
+# tile (one short, one tile, one past, and 2,049) at nemotron-4's 12 q
+# heads a kv head
+BK192 = AK.block_k(192)
 OFFSET_CASES = [(2, 200, 0, 4, 2, 128), (2, 200, 1, 6, 2, 128), (2, 200, 127, 6, 2, 64),
                 (1, 300, 128, 4, 1, 128), (1, 1024, 1000, 4, 2, 128), (2, 65, 300, 4, 4, 80),
-                (2, 333, 67, 6, 2, 192), (1, 130, 1000, 8, 1, 192), (2, 64, 0, 4, 2, 136)]
+                (2, 333, 67, 6, 2, 192), (1, 130, 1000, 8, 1, 192), (2, 64, 0, 4, 2, 136),
+                (1, BK192 - 1, 0, 12, 1, 192), (2, BK192, 128, 24, 2, 192), (1, BK192 + 1, 77, 12, 1, 192),
+                (1, 2049, 128, 12, 1, 192), (1, 2049, 45, 24, 2, 192)]
 
 
 @needs_card
