@@ -23,8 +23,11 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    boundary; then both wide instances (igd_fold past D = 4,096,
    igd_fold_minibatch past 12,032: the kernels take every D >= 1) against
    their plain versions at D 4,097 to 65,537 and on both sides of each
-   one's shared-memory tier, and as lane launches (B 1 and 8, shared and
-   stacked tables) equal to their one-lane launches bit for bit;
+   one's shared-memory tier (igd_fold's also against the tiled fold, its
+   own order, at N = 0 and N < 32, and off a 16-byte boundary bit for
+   bit), and as lane launches (B 1 and
+   8, shared and stacked tables) equal to their one-lane launches bit for
+   bit;
 3. run the engine end to end on a Forest-shaped table (581,012 x 54 f32,
    UCI Covertype's shape, label-clustered, generated on the card from
    --seed): logreg with no hints (the probe-priced plan must choose
@@ -118,8 +121,13 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    WIDE_ROWS x D (igd_fold at 4,097 and 12,033, igd_fold_minibatch at
    12,033) in turns with one epoch of the eager fold (torch_fold) it
    replaced on the same rows, beside its plain version, its bound and its
-   chain floor (the rows, or tiles, times its dependent step timed alone);
-   the wide igd_fold must be 10x under the eager fold;
+   chain floor (igd_fold: the rows times one chain step, kernel.chain_probe;
+   the minibatch: the tiles times its exchange alone); the wide igd_fold
+   must be 10x under the eager fold; then the middle instances
+   (igd_fold's per-row chain, 256 < D <= 4,096; igd_fold_minibatch's one
+   block, 256 < D <= 12,032), at MIDDLE_SHAPES in turns, beside their byte
+   bounds and their launches on phases 3-3f's main-path runs
+   (kernel.middle_launches, read where those phases read their counts);
 5. build the flash-attention (forward and gradient) and flash-decode CUDA
    kernels from src/repro_torch/kernels/{attention,decode}/csrc (all four
    sources are compiled at once, one nvcc each, when the script starts);
@@ -273,13 +281,14 @@ F64_PREFIX = 65_536  # rows the kernel is held to a float64 fold on
 MB_D = (1, 54, 256, 257, 12_032)
 MB_N = (0, 1, 255, 257, 16_385)
 # the wide instances (igd_fold past D = 4,096, igd_fold_minibatch past
-# 12,032): (N, D) at the issue's widths, few rows at the widest, and on both
-# sides of each wide instance's shared-memory tier (kernel.py's
-# FOLD_WIDE_SMEM_MAX_DIM, MINIBATCH_WIDE_SMEM_MAX_DIM); lane launches at B 1
-# and 8 over shared and stacked tables
+# 12,032): (N, D) at the wide tables' widths, few rows at the widest, and on
+# both sides of each wide instance's shared-memory tier (kernel.py's
+# FOLD_CLUSTER_SMEM_MAX_DIM, MINIBATCH_WIDE_SMEM_MAX_DIM); igd_fold also at
+# N = 0 and with fewer rows than a sub-tile; lane launches at B 1 and 8 over
+# shared and stacked tables
 WIDE_D = (4_097, 8_192, 12_033, 12_289, 65_537)
-WIDE_FOLD_SHAPES = ((300, 4_097), (1_000, 8_192), (257, 12_033), (100, 12_289), (40, 65_537), (64, 57_280),
-                    (64, 57_281))
+WIDE_FOLD_SHAPES = ((300, 4_097), (1_000, 8_192), (300, 8_193), (257, 12_033), (100, 12_289), (40, 65_537),
+                    (0, 4_097), (31, 12_033), (64, 196_608), (64, 196_609))
 WIDE_MB_SHAPES = ((300, 4_097), (513, 8_192), (300, 12_033), (513, 12_289), (2_049, 65_537), (0, 20_000),
                   (300, 452_608), (300, 452_609))
 WIDE_LANE_B = (1, 8)
@@ -314,6 +323,12 @@ TIMED_LANES = (1, 8, 32)
 # phase 3f and 4: rows of the wide tables (D 4,097 and 12,033, past the IGD
 # kernels' narrow instances)
 WIDE_ROWS = 8_192
+# phase 4: the middle instances (igd_fold's per-row chain, 256 < D <= 4,096;
+# igd_fold_minibatch's one block, 256 < D <= 12,032) at (kernel, loss, N, D),
+# timed in turns; their per-row plain fold on a prefix of MIDDLE_PLAIN_ROWS
+MIDDLE_SHAPES = (("igd_fold", "lr", 65_536, 1_000), ("igd_fold", "lr", 16_384, 4_096),
+                 ("igd_fold_minibatch", "lsq", 65_536, 1_000), ("igd_fold_minibatch", "lsq", 8_192, 12_032))
+MIDDLE_PLAIN_ROWS = 1_024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
@@ -461,10 +476,11 @@ def wide_timings(seed: int, dev, card: str, launches: dict, errs: dict) -> list:
     WIDE_ROWS x D (CUDA events, 3 launches a turn) in turns with one epoch
     of the eager fold it replaced there (torch_fold through Engine.run on
     the same rows: its gradient wall), beside its plain version's ms, its
-    bound and its chain floor (N rows, or N / 256 tiles, times the
-    instance's dependent step timed alone by kernel.wide_step_probe /
-    minibatch_wide_step_probe). ``launches``: the wide instances' launches
-    on phase 3f's path. Returns the rows of the ``kernels`` line."""
+    bound and its chain floor (igd_fold: N rows times one step of the
+    chain, kernel.chain_probe; igd_fold_minibatch: N / 256 tiles times
+    its exchange alone, kernel.minibatch_wide_step_probe). ``launches``:
+    the wide instances' launches on phase 3f's path. Returns the rows of
+    the ``kernels`` line."""
     from repro_torch import engine, timing
     from repro_torch.data import synthetic
     from repro_torch.engine import planner
@@ -492,9 +508,12 @@ def wide_timings(seed: int, dev, card: str, launches: dict, errs: dict) -> list:
             plain = getattr(R, f"{name}_ref")
             plain_ms = timing.seconds(lambda: plain(x, y, alpha, w0, loss=loss), dev) * 1e3
             if name == "igd_fold":
-                step_cycles, step_s = K.wide_step_probe(loss, d)
+                step_cycles, step_s = K.chain_probe(loss)
                 floor_ms = n * step_s * 1e3
-                floor_what = f"{n} rows x {step_cycles:.0f} cycles ({step_s * 1e6:.3f} us)"
+                cluster, panel, slots, smem = K.fold_design(d)
+                floor_what = (f"{n} rows x {step_cycles:.1f} cycles ({step_s * 1e9:.2f} ns, one chain step alone; "
+                              f"a cluster of {cluster} CTAs a lane, panels of {panel} columns, a ring of {slots} "
+                              f"slots, {smem} bytes of shared memory a CTA)")
                 flops = n * (4 * d + 8)
             else:
                 step_cycles, step_s = K.minibatch_wide_step_probe(loss)
@@ -535,11 +554,65 @@ def wide_timings(seed: int, dev, card: str, launches: dict, errs: dict) -> list:
     return rows
 
 
+def middle_timings(seed: int, dev, card: str, main_path: dict) -> dict:
+    """Phase 4's rows for the middle instances, the port's first designs
+    (igd_fold's per-row chain with w in registers, 256 <
+    D <= 4,096; igd_fold_minibatch's one-block kernel, 256 < D <= 12,032):
+    ms a launch at each MIDDLE_SHAPES entry (CUDA events, 3 launches a
+    turn, the shapes in turns, twice), µs a row, the byte bound and its
+    share. The per-row plain fold is timed on a MIDDLE_PLAIN_ROWS prefix,
+    the minibatch's plain version on the whole table. main_path: each
+    main-path phase's count of the middle instances' launches
+    ({phase: {kernel: n}}, read from kernel.middle_launches where the phase
+    reads kernel.launches), summed into each row's launches_main_path.
+    Returns {kernel: [rows]}."""
+    from repro_torch import engine, timing
+    from repro_torch.kernels.igd_fused import kernel as K, ref as R
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 41)
+    tables = []
+    for name, loss, n, d in MIDDLE_SHAPES:
+        x, y, _, _ = inputs(gen, n, d, dev)
+        alpha = engine.get("logreg").step_size(n)(torch.arange(n, dtype=torch.int32, device=dev))
+        tables.append((x, y, alpha, torch.zeros(d, device=dev)))
+    turns = [[] for _ in MIDDLE_SHAPES]
+    for _ in range(2):
+        for i, (name, loss, _, _) in enumerate(MIDDLE_SHAPES):
+            turns[i].append(event_ms(lambda: getattr(K, name)(*tables[i], loss=loss), 3))
+    rows = {}
+    for (name, loss, n, d), args_, times in zip(MIDDLE_SHAPES, tables, turns):
+        ms = sum(times) / len(times)
+        io_bytes = n * (d + 2) * 4 + 2 * d * 4
+        bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = (n * (4 * d + 8) if name == "igd_fold" else n * (4 * d + 8) + 2 * d * -(-n // K.TILE)) / FP32_FLOPS * 1e3
+        bound = max(bytes_ms, ops_ms)
+        prefix = MIDDLE_PLAIN_ROWS if name == "igd_fold" else n
+        plain = getattr(R, f"{name}_ref")
+        plain_ms = timing.seconds(lambda: plain(*(t[:prefix] for t in args_[:3]), args_[3], loss=loss), dev) * 1e3
+        instance = "per-row chain, w in registers" if name == "igd_fold" else "one block"
+        rows.setdefault(name, []).append({
+            "instance": instance, "loss": loss, "rows": n, "d": d, "ms": ms, "ms_turns": times,
+            "us_per_row": ms * 1e3 / n, "bound_ms": bound, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "share_of_bound": bound / ms, "plain_ms": plain_ms, "plain_rows": prefix,
+            "launches_main_path": sum(p[name] for p in main_path.values()),
+            "launches_by_phase": {phase: p[name] for phase, p in main_path.items()}})
+        log("timing", f"{name} middle instance ({instance}; {loss}, {n}x{d}): {ms:.4f} ms/launch (turns "
+            f"{', '.join(f'{t:.4f}' for t in times)}), {ms * 1e3 / n:.4f} us/row; bound {bound:.4f} ms (bytes "
+            f"{io_bytes} at 3.35 TB/s: {bytes_ms:.4f} ms; fp32 ops at 67 TFLOP/s: {ops_ms:.4f} ms), {bound / ms:.5f} "
+            f"of it; plain version {plain_ms:.1f} ms on {prefix} rows; launches on the main path "
+            f"{sum(p[name] for p in main_path.values())} (by phase: "
+            f"{', '.join(f'{phase} {p[name]}' for phase, p in main_path.items())}); {card}")
+    return rows
+
+
 def wide_parity(gen, dev) -> dict:
     """Phase 2's wide-instance checks (see WIDE_*): each wide instance
-    against its plain version for the three losses, and its lane launches
-    against their one-lane launches (bit for bit) and the plain lanes.
-    Returns the largest |err| of each kernel's wide instance."""
+    against its plain version for the three losses (igd_fold's against the
+    per-row fold and its own order, the tiled fold), igd_fold's with x, y
+    and alpha off a 16-byte boundary equal to the aligned launch bit for
+    bit, and the lane launches against their one-lane launches (bit for
+    bit) and the plain lanes. Returns the largest |err| of each kernel's
+    wide instance."""
     from repro_torch.kernels.igd_fused import kernel as K, ref as R
 
     errs = {"igd_fold": 0.0, "igd_fold_minibatch": 0.0}
@@ -551,8 +624,16 @@ def wide_parity(gen, dev) -> dict:
             for loss in LOSSES:
                 got = kernel(*args_, loss=loss)
                 errs[name] = max(errs[name], max_err(got, plain(*args_, loss=loss), f"{name} {loss} {n}x{d}"))
+                if name == "igd_fold":
+                    errs[name] = max(errs[name], max_err(got, R.igd_fold_tiled_ref(*args_, loss=loss),
+                                                         f"{name} {loss} {n}x{d} vs the tiled fold"))
                 if n == 0 and not torch.equal(got, args_[3]):
                     raise AssertionError(f"{name} {loss} 0x{d} did not return w0")
+            if name == "igd_fold" and n > 0 and d in (4_097, 12_033):  # off a 16-byte boundary: the same bits
+                shifted = [torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape).copy_(t) for t in args_[:3]]
+                for loss in LOSSES:
+                    if not torch.equal(kernel(*shifted, args_[3], loss=loss), kernel(*args_, loss=loss)):
+                        raise AssertionError(f"{name} {loss} {n}x{d}: unaligned rows give another w")
             del args_
         for d in WIDE_D:
             n = 40 if d > 60_000 else 300
@@ -850,9 +931,10 @@ def main() -> int:
             f"loss {l0:.6g} -> {rh.losses[-1]:.6g}, {rh.kernel_launches} kernel launches")
         phase3[task] = rh
     launches = dict(K.launches)
+    middle3 = dict(K.middle_launches)  # the middle instances' share, read as 3d-3f read theirs
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    log("e2e", f"main-path launches {launches}")
+    log("e2e", f"main-path launches {launches}, of them the middle instances' {middle3}")
 
     # small input: the card's kernel lanes against the CPU's eager fold,
     # on the same rows and the same permutations
@@ -975,6 +1057,10 @@ def main() -> int:
             f"({singles_ms / lane_ms[32]:.2f}x the B=32 launch); {card}")
 
     kernels += wide_timings(args.seed, dev, card, phase3f["wide_launches"], wide_errs)
+    middle = middle_timings(args.seed, dev, card, {"3": middle3, "3d": phase3d["middle"], "3e": phase3e["middle"],
+                                                   "3f": phase3f["middle"]})
+    for entry in kernels[:2]:
+        entry["middle"] = middle[entry["name"]]
 
     phase_done("4")
 
@@ -1440,6 +1526,7 @@ def tables_and_serving(seed: int, table: dict, dev) -> dict:
     tab = engine.ChunkedTable.from_arrays(host, TABLE_CHUNK)
     pinned = engine.ChunkedTable.from_arrays({k: v.pin_memory() for k, v in host.items()}, TABLE_CHUNK)
     table_launches = {"igd_fold": 0, "igd_fold_minibatch": 0}
+    middle = {"igd_fold": 0, "igd_fold_minibatch": 0}  # the middle instances' share of both paths
     eng = engine.Engine()
     for task, hints in (("logreg", {"ordering": "clustered", "scheme": "serial"}),
                         ("least_squares", {"ordering": "clustered", "scheme": "serial",
@@ -1452,6 +1539,7 @@ def tables_and_serving(seed: int, table: dict, dev) -> dict:
         res = eng.run(q)
         for name in table_launches:
             table_launches[name] += K.launches[name]
+            middle[name] += K.middle_launches[name]
         moved = eng.stats["bytes_to_device"] - moved0 - tab.data_bytes()  # less the objective's one copy
         if res.plan.source != "table" or res.kernel_launches != TABLE_EPOCHS * tab.num_chunks:
             raise AssertionError(f"{task}: plan {res.plan}, {res.kernel_launches} launches; a chunk stream "
@@ -1514,6 +1602,7 @@ def tables_and_serving(seed: int, table: dict, dev) -> dict:
         fused_launches = sum(K.launches.values())
         for name in serving_launches:
             serving_launches[name] += K.launches[name]
+            middle[name] += K.middle_launches[name]
         singles = [srv.engine.run(q) for q in queries]
         torch.cuda.synchronize()
         single_s = watch.lap()
@@ -1551,7 +1640,7 @@ def tables_and_serving(seed: int, table: dict, dev) -> dict:
         raise AssertionError(f"a kernel never launched: tables {table_launches}, serving {serving_launches}")
     shutil.rmtree(cache_dir, ignore_errors=True)
     log("tables", f"phase 3d took {phase.lap():.1f} s")
-    return {"tables": table_launches, "serving": serving_launches, "lane_err": worst}
+    return {"tables": table_launches, "serving": serving_launches, "middle": middle, "lane_err": worst}
 
 
 def sharded(seed: int, table: dict, dev) -> dict:
@@ -1579,6 +1668,7 @@ def sharded(seed: int, table: dict, dev) -> dict:
     n, d = FOREST_ROWS, FOREST_DIM
     comp = shard.compensated_step_size(catalog.get("logreg").step_size(n), 4)  # k = 4's schedule
     launches = {"igd_fold": 0, "igd_fold_minibatch": 0}
+    middle = {"igd_fold": 0, "igd_fold_minibatch": 0}  # the middle instances' share
     eng = engine.Engine()
 
     def plan_for(ordering, impl, k=0, h=1):
@@ -1593,6 +1683,7 @@ def sharded(seed: int, table: dict, dev) -> dict:
         if counted:
             for name in launches:
                 launches[name] += K.launches[name]
+                middle[name] += K.middle_launches[name]
         if not bool(torch.isfinite(res.model).all()) or res.model.shape != (d,):
             raise AssertionError(f"{plan.describe()}: the model is not a finite [{d}] vector")
         if plan.implementation != "torch_fold" and res.kernel_launches != res.epochs:
@@ -1718,6 +1809,7 @@ def sharded(seed: int, table: dict, dev) -> dict:
         fused_s = watch.lap()
         fused_launches = K.launches["igd_fold"]
         launches["igd_fold"] += fused_launches
+        middle["igd_fold"] += K.middle_launches["igd_fold"]
         singles = [eng.run(q) for q in queries]
         torch.cuda.synchronize()
         single_s = watch.lap()
@@ -1759,7 +1851,7 @@ def sharded(seed: int, table: dict, dev) -> dict:
             f"{label} {ms:.4f} ms" for label, ms in lane_ms[name].items())
             + f" (the whole {n} x {d} table an epoch; aligned = 4 x {rps - 1} rows)")
     log("sharded", f"phase 3e took {phase.lap():.1f} s; sharded launches {launches}")
-    return {"launches": launches, "lane_err": lane_err, "epoch_ms": epoch_ms, "merge_ms": merge_ms,
+    return {"launches": launches, "middle": middle, "lane_err": lane_err, "epoch_ms": epoch_ms, "merge_ms": merge_ms,
             "served": served, "lane_ms": lane_ms}
 
 
@@ -1802,12 +1894,14 @@ def observability(seed: int, table: dict, dev) -> dict:
     root = tempfile.mkdtemp(prefix="obs_smoke_", dir=build)
     launches = {"igd_fold": 0, "igd_fold_minibatch": 0}
     wide_launches = {"igd_fold": 0, "igd_fold_minibatch": 0}  # the wide instances' share
+    middle = {"igd_fold": 0, "igd_fold_minibatch": 0}  # the middle instances' share
 
     def counted(fn):
         K.reset_launches()
         out = fn()
         for name in launches:
             launches[name] += K.launches[name]
+            middle[name] += K.middle_launches[name]
         return out
 
     # -- EXPLAIN ANALYZE of phase 3's query --------------------------------
@@ -2021,7 +2115,7 @@ def observability(seed: int, table: dict, dev) -> dict:
     if not all(wide_launches.values()):
         raise AssertionError(f"a wide instance never launched on the wide tables' path: {wide_launches}")
     log("obs", f"phase 3f took {phase.lap():.1f} s; obs-path launches {launches}, of them wide {wide_launches}")
-    return {"launches": launches, "wide_launches": wide_launches, "epoch_s": epoch_s,
+    return {"launches": launches, "wide_launches": wide_launches, "middle": middle, "epoch_s": epoch_s,
             "span_cost_s": {"off": off_cost, "flight": ring_cost}}
 
 

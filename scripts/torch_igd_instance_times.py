@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the fused-IGD kernels' narrow instances against another commit's source, in turns, on one CUDA card.
+"""Time the fused-IGD kernels' instances against another commit's source, in turns, on one CUDA card.
 
     python3 scripts/torch_igd_instance_times.py --against PATH/TO/igd_fused.cu
 
@@ -7,15 +7,20 @@ Run from the repository root on a machine with a Hopper card. Builds the
 committed src/repro_torch/kernels/igd_fused/csrc/igd_fused.cu and the
 source at PATH (say, a parent commit's, from ``git show
 <commit>:src/repro_torch/kernels/igd_fused/csrc/igd_fused.cu``) into the
-git-ignored build/, then for each narrow instance (igd_fold's tiled Gram
+git-ignored build/, then for each instance (igd_fold's tiled Gram
 instance, its per-row chain with w in registers at one warp and at 16
-warps; igd_fold_minibatch's row-share cluster and its one-block kernel)
-at a shape it runs, times one launch (CUDA events, the mean of 3 launches
-a turn) in turns: against, committed, committed, against. Both sources'
-results must agree bit for bit (the same instance code), and the
-committed one is held to the plain version. The card's name and power
+warps, its wide instance at D 4,097 and 12,033; igd_fold_minibatch's
+row-share cluster, its one-block kernel and its wide cluster) at a shape
+it runs, times one launch (CUDA events, the mean of 3 launches a turn) in
+turns: against, committed, committed, against. Where both sources run the
+same instance code their results must agree bit for bit; the committed
+one is held to the plain version (for igd_fold's wide instance, whose
+design a source may change, both are held to the per-row and the tiled
+plain folds). The wide igd_fold rows also print the byte bound and the
+chain floor (N x kernel.chain_probe's step). The card's name and power
 limit are printed first; each line gives both sources' turns and the
-committed / against ratio of their means.
+committed / against ratio of their means. Takes about 2 minutes of
+command time.
 """
 
 from __future__ import annotations
@@ -41,29 +46,45 @@ CASES = (
     ("igd_fold", "lr", 581_012, 54, "tiled Gram, D <= 256"),
     ("igd_fold", "lr", 65_536, 1_000, "per-row chain, one warp"),
     ("igd_fold", "lr", 16_384, 4_096, "per-row chain, 16 warps"),
+    ("igd_fold", "lr", 8_192, 4_097, "wide"),
+    ("igd_fold", "lsq", 8_192, 12_033, "wide"),
     ("igd_fold_minibatch", "lsq", 581_012, 54, "row-share cluster, D <= 256"),
     ("igd_fold_minibatch", "lsq", 65_536, 1_000, "one block"),
     ("igd_fold_minibatch", "lsq", 8_192, 12_032, "one block, its last D"),
+    ("igd_fold_minibatch", "lsq", 8_192, 12_033, "wide cluster"),
 )
 TOL = dict(rtol=2e-4, atol=2e-5)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
 
 def declare_entries(lib) -> None:
-    """Types of the two one-fold entries alone, which both sources have."""
+    """Types of the two one-fold entries, which both sources have (igd_fold's
+    with the wide instance's scratch where the source has one)."""
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for name in ("igd_fold_launch", "igd_fold_minibatch_launch"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64, i64, ptr]
+    one = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64, i64, ptr]
+    scratch = hasattr(lib, "igd_fused_fold_scratch_floats")
+    lib.igd_fold_launch.argtypes = one[:-1] + [ptr, ptr] if scratch else one
+    lib.igd_fold_minibatch_launch.argtypes = one
+    for fn in (lib.igd_fold_launch, lib.igd_fold_minibatch_launch):
         fn.restype = i32
+    if scratch:
+        lib.igd_fused_fold_scratch_floats.argtypes = [i64, i32, i32, i64, i32]
+        lib.igd_fused_fold_scratch_floats.restype = i64
     lib.igd_fused_error_string.argtypes = [i32]
     lib.igd_fused_error_string.restype = ctypes.c_char_p
 
 
 def launch(lib: CudaLibrary, name: str, x, y, alpha, w0, loss: str):
     out = torch.empty_like(w0)
-    rc = getattr(lib.load(), f"{name}_launch")(x.data_ptr(), y.data_ptr(), alpha.data_ptr(), w0.data_ptr(),
-                                                out.data_ptr(), x.shape[0], x.shape[1], K.LOSS_IDS[loss], 1, 0, 0,
-                                                torch.cuda.current_stream().cuda_stream)
+    handle = lib.load()
+    extra = ()
+    if name == "igd_fold" and hasattr(handle, "igd_fused_fold_scratch_floats"):
+        floats = handle.igd_fused_fold_scratch_floats(x.shape[0], x.shape[1], 1, 0, 1)
+        scratch = torch.empty(floats, device=x.device) if floats else None
+        extra = (scratch.data_ptr() if floats else None,)
+    rc = getattr(handle, f"{name}_launch")(x.data_ptr(), y.data_ptr(), alpha.data_ptr(), w0.data_ptr(),
+                                           out.data_ptr(), x.shape[0], x.shape[1], K.LOSS_IDS[loss], 1, 0, 0,
+                                           *extra, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{lib.name} {name}: CUDA error {rc} ({lib.load().igd_fused_error_string(rc).decode()})")
     return out
@@ -98,6 +119,9 @@ def main() -> int:
     against = CudaLibrary("igd_against", args.against.resolve(), declare_entries)
     committed.build()
     against.build()
+    floor_cycles, floor_s = {}, {}
+    for loss in ("lr", "lsq"):
+        floor_cycles[loss], floor_s[loss] = K.chain_probe(loss)
     gen = torch.Generator(device="cuda").manual_seed(0)
     ratios = []
     for name, loss, n, d, instance in CASES:
@@ -106,23 +130,41 @@ def main() -> int:
         alpha = engine.get("logreg").step_size(n)(torch.arange(n, dtype=torch.int32, device="cuda"))
         w0 = torch.zeros(d, device="cuda")
         got = launch(committed, name, x, y, alpha, w0, loss)
-        if not torch.equal(got, launch(against, name, x, y, alpha, w0, loss)):
-            raise AssertionError(f"{name} {n}x{d}: the two sources disagree")
-        rows = min(n, 16_384) if name == "igd_fold" else n  # the per-row plain fold is host-bound
-        if rows == n:
-            torch.testing.assert_close(got, getattr(R, f"{name}_ref")(x, y, alpha, w0, loss=loss), **TOL)
+        other = launch(against, name, x, y, alpha, w0, loss)
+        redesigned = name == "igd_fold" and d > K.FOLD_REGISTER_MAX_DIM
+        if redesigned:  # another design in each source: both held to both plain folds
+            for which, w in (("committed", got), ("against", other)):
+                for plain in (R.igd_fold_ref, R.igd_fold_tiled_ref):
+                    torch.testing.assert_close(w, plain(x, y, alpha, w0, loss=loss), **TOL,
+                                               msg=lambda m, which=which: f"{which} {n}x{d}: {m}")
         else:
-            torch.testing.assert_close(launch(committed, name, x[:rows], y[:rows], alpha[:rows], w0, loss),
-                                       R.igd_fold_ref(x[:rows], y[:rows], alpha[:rows], w0, loss=loss), **TOL)
+            if not torch.equal(got, other):
+                raise AssertionError(f"{name} {n}x{d}: the two sources disagree")
+            rows = min(n, 16_384) if name == "igd_fold" else n  # the per-row plain fold is host-bound
+            if rows == n:
+                torch.testing.assert_close(got, getattr(R, f"{name}_ref")(x, y, alpha, w0, loss=loss), **TOL)
+            else:
+                torch.testing.assert_close(launch(committed, name, x[:rows], y[:rows], alpha[:rows], w0, loss),
+                                           R.igd_fold_ref(x[:rows], y[:rows], alpha[:rows], w0, loss=loss), **TOL)
         turns = {"against": [], "committed": []}
         for which in ("against", "committed", "committed", "against"):
             lib = committed if which == "committed" else against
             turns[which].append(turn_ms(lambda lib=lib: launch(lib, name, x, y, alpha, w0, loss)))
         mean = {k: sum(v) / len(v) for k, v in turns.items()}
         ratios.append(mean["committed"] / mean["against"])
+        if redesigned:
+            bound_ms = (n * (d + 2) + 2 * d) * 4 / HBM_BYTES_PER_S * 1e3
+            floor_ms = n * floor_s[loss] * 1e3
+            note = (f"both within rtol={TOL['rtol']}, atol={TOL['atol']} of the per-row and tiled plain folds, "
+                    f"{'the same' if torch.equal(got, other) else 'not the same'} w bit for bit; "
+                    f"against / committed {1 / ratios[-1]:.2f}x; byte bound {bound_ms:.4f} ms "
+                    f"({bound_ms / mean['committed']:.4f} of it); chain floor {floor_ms:.4f} ms ({n} x "
+                    f"{floor_cycles[loss]:.1f} cycles, kernel.chain_probe), {floor_ms / mean['committed']:.3f} of it")
+        else:
+            note = "the same w bit for bit"
         print(f"{name} {instance} ({loss}, {n}x{d}): committed {', '.join(f'{t:.4f}' for t in turns['committed'])} "
               f"ms, against {', '.join(f'{t:.4f}' for t in turns['against'])} ms; committed / against "
-              f"{ratios[-1]:.4f}; the same w bit for bit", flush=True)
+              f"{ratios[-1]:.4f}; {note}", flush=True)
         del x, y, alpha
     print(f"committed / against over the {len(CASES)} instances: {min(ratios):.4f} to {max(ratios):.4f}; {smi}")
     return 0

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Time variants of the port's igd_fold kernel beside the committed one, on one CUDA card.
 
-    python3 scripts/torch_igd_variants.py
+    python3 scripts/torch_igd_variants.py [--wide] [VARIANT ...]
 
 Run from the repository root on a machine with a Hopper card. Each variant
 is the committed CUDA source (src/repro_torch/kernels/igd_fused/csrc/
 igd_fused.cu) with a few textual changes, built into the git-ignored
-build/variants/ and launched through its own library. Times are device ms
+build/variants/ (all sources at once, one nvcc each) and launched through
+its own library. VARIANT names the variants to time (default: all of the
+mode's).
+
+Without --wide, the tiled Gram instance (D <= 256). Times are device ms
 per launch (CUDA events around single launches, three a turn) of one
 igd_fold epoch over the Forest-shaped table that chip_smoke.py uses
 (581,012 x 54 f32, lr, logreg's step sizes), taken in turns in the same
@@ -17,11 +21,24 @@ also to a float64 fold on a 65,536-row prefix; two variants are for
 timing only and give wrong results (no products, no shuffle). Each
 variant's chain is timed alone too (its grad_scale + FMA floor, cycles a
 step in one warp), and the committed kernel is also timed for svm and
-lsq. The card's name and power limit are printed first.
+lsq.
+
+With --wide, the wide instance (D > 4,096). Times are device ms a call
+(CUDA events around 3 calls a turn) of one igd_fold epoch over WIDE_ROWS
+rows at D 4,097 (lr) and 12,033 (lsq), the wide tables chip_smoke.py runs,
+taken in turns: committed, then each variant, the whole round twice.
+Variants that keep the arithmetic are first held to the tiled plain fold
+(rtol=2e-4, atol=2e-5); the timing-only ones leave a part of the work out
+and give wrong results. Each line gives a variant's turns and its ratio to
+the committed kernel's mean in the same rounds; `clocks` prints the
+cluster kernel's cycles a step in rank 0.
+
+The card's name and power limit are printed first.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import sys
@@ -103,13 +120,81 @@ VARIANTS = {
                    (PRODUCTS, NO_PRODUCTS)],
 }
 
+WIDE_ROWS = 8_192
+WIDE_SHAPES = ((4_097, "lr"), (12_033, "lsq"))
+
+PREPASS = "  if (n > 0) {  // pass 1: every segment's G and C, over the whole card"
+WIDE_CHAIN = "      if (s >= 0) {\n        chain<LOSS>(r, gram"
+PASSES = "          panel_pass(wc, us, qs, ou,"
+PREFETCH = "      prefetch_sub(t + kFcPrefetchAhead);"
+RING = "constexpr int kFcRingMin = 3, kFcRingMax = 8;"
+SPLIT = "constexpr int kPpSplit = 4;"
+# clock64 in rank 0 of the cluster kernel, cycles a step: warp 0's chain,
+# its C c and wait for q, its p, its barrier wait; the first consumer warp's panels,
+# its q reduction and send, its barrier wait. Written over the output's
+# first seven floats (timing only).
+CLOCKS = [
+    ("    float r = 0.0f;  // lane j holds row j's p of the coming sub-tile\n"
+     "    for (int s = -1; s < n_sub; ++s) {\n      const int t = s + 1;\n",
+     "    float r = 0.0f;  // lane j holds row j's p of the coming sub-tile\n"
+     "    long long kc = 0, kq = 0, kp = 0, kb = 0;\n"
+     "    for (int s = -1; s < n_sub; ++s) {\n      const int t = s + 1;\n      const long long c0 = clock64();\n"),
+    ("        __syncwarp();  // every lane's c_s is in shared memory\n      }\n",
+     "        __syncwarp();  // every lane's c_s is in shared memory\n      }\n"
+     "      const long long c1 = clock64();\n      long long c2 = c1;\n"),
+    ("        mbar_wait(recv_bar + (t & 1), static_cast<uint32_t>((t >> 1) & 1));\n        const float* qb",
+     "        mbar_wait(recv_bar + (t & 1), static_cast<uint32_t>((t >> 1) & 1));\n        c2 = clock64();\n"
+     "        const float* qb"),
+    ("        r = part_q[0] - cc;\n      }\n      asm volatile(\"bar.sync 2, %0;\\n\" ::\"n\"(kFcStepThreads) : \"memory\");\n    }\n",
+     "        r = part_q[0] - cc;\n      }\n      const long long c3 = clock64();\n"
+     "      asm volatile(\"bar.sync 2, %0;\\n\" ::\"n\"(kFcStepThreads) : \"memory\");\n"
+     "      const long long c4 = clock64();\n      kc += c1 - c0; kq += c2 - c1; kp += c3 - c2; kb += c4 - c3;\n    }\n"
+     "    if (lane == 0) { fc_dbg[0] = kc; fc_dbg[1] = kq; fc_dbg[2] = kp; fc_dbg[3] = kb; }\n"),
+    ("      panels(s, acc);\n",
+     "      const long long d0 = clock64();\n      panels(s, acc);\n      const long long d1 = clock64();\n"),
+    ("      cp_async_wait_all();\n      asm volatile(\"bar.sync 2, %0;\\n\" ::\"n\"(kFcStepThreads) : \"memory\");"
+     "  // c_s, G_t, C_t+1 visible\n    }\n",
+     "      const long long d2 = clock64();\n      cp_async_wait_all();\n"
+     "      asm volatile(\"bar.sync 2, %0;\\n\" ::\"n\"(kFcStepThreads) : \"memory\");\n"
+     "      const long long d3 = clock64();\n      kpan += d1 - d0; kred += d2 - d1; kbar += d3 - d2;\n    }\n"
+     "    if (ct == 0) { fc_dbg[4] = kpan; fc_dbg[5] = kred; fc_dbg[6] = kbar; }\n"),
+    ("    for (int s = -1; s < n_sub; ++s) {\n      const int t = s + 1;\n      if (t + 1 < n_sub) {",
+     "    long long kpan = 0, kred = 0, kbar = 0;\n"
+     "    for (int s = -1; s < n_sub; ++s) {\n      const int t = s + 1;\n      if (t + 1 < n_sub) {"),
+    ("  cluster.sync();  // no CTA leaves while its partials may still be in flight\n}",
+     "  cluster.sync();  // no CTA leaves while its partials may still be in flight\n"
+     "  if (rank == 0 && tid == 0) {\n    for (int i = 0; i < 7; ++i) wout[i] = static_cast<float>(fc_dbg[i]) / (n_sub + 1);\n  }\n}"),
+    ("  extern __shared__ __align__(16) unsigned char fc_smem[];\n  const int n_sub",
+     "  extern __shared__ __align__(16) unsigned char fc_smem[];\n  __shared__ long long fc_dbg[8];\n  const int n_sub"),
+]
+WIDE_TIMING_ONLY = ("no_prepass", "no_chain", "no_pass", "no_copies", "clocks")
+WIDE_VARIANTS = {
+    # timing only: the cluster kernel without the pre-pass (G and C unset)
+    "no_prepass": [(PREPASS, PREPASS.replace("n > 0", "n < 0"))],
+    # timing only: every chain left out (the panels, the exchange and the pre-pass alone)
+    "no_chain": [(WIDE_CHAIN, "      if (s < -1) {\n        chain<LOSS>(r, gram")],
+    # timing only: the consumers' arithmetic on the panels left out (the panels still stream through)
+    "no_pass": [(PASSES, "          if (jb < 0) panel_pass(wc, us, qs, ou,")],
+    # timing only: no bulk copies (the panels arrive empty at once; the rest runs as it does)
+    "no_copies": [("  const uint32_t total = __reduce_add_sync(kFull, bytes);",
+                   "  const uint32_t total = 0 * __reduce_add_sync(kFull, bytes);"),
+                  ("  if (bytes) bulk_copy(", "  if (bytes && lane < 0) bulk_copy(")],
+    "no_prefetch": [(PREFETCH, "")],
+    "clocks": CLOCKS,
+    "ring_max4": [(RING, "constexpr int kFcRingMin = 3, kFcRingMax = 4;")],
+    "prepass_split1": [(SPLIT, "constexpr int kPpSplit = 1;")],
+    "prepass_split2": [(SPLIT, "constexpr int kPpSplit = 2;")],
+    "prepass_split5": [(SPLIT, "constexpr int kPpSplit = 5;")],
+    "prepass_split8": [(SPLIT, "constexpr int kPpSplit = 8;")],
+}
+
 
 def variant(name: str, edits) -> CudaLibrary:
     text = K.SOURCE.read_text()
     for old, new in edits:
         if old not in text:
             raise SystemExit(f"variant {name}: the source no longer contains {old!r}")
-        text = text.replace(old, new)
+        text = text.replace(old, new, 1)  # the first: the Gram instance precedes the wide one
     path = ROOT / "build" / "variants" / f"igd_{name}.cu"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(text)
@@ -117,12 +202,15 @@ def variant(name: str, edits) -> CudaLibrary:
 
 
 def fold(lib: CudaLibrary, x, y, alpha, w0, loss: str):
+    handle = lib.load()
     out = torch.empty_like(w0)
-    rc = lib.load().igd_fold_launch(x.data_ptr(), y.data_ptr(), alpha.data_ptr(), w0.data_ptr(),
-                                    out.data_ptr(), x.shape[0], x.shape[1], K.LOSS_IDS[loss], 1, 0, 0,
-                                    torch.cuda.current_stream().cuda_stream)
+    floats = handle.igd_fused_fold_scratch_floats(x.shape[0], x.shape[1], 1, 0, 1)  # none at D <= 4,096
+    scratch = torch.empty(floats, device=x.device) if floats else None
+    rc = handle.igd_fold_launch(x.data_ptr(), y.data_ptr(), alpha.data_ptr(), w0.data_ptr(), out.data_ptr(),
+                                x.shape[0], x.shape[1], K.LOSS_IDS[loss], 1, 0, 0,
+                                scratch.data_ptr() if floats else None, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{lib.name}: CUDA error {rc}")
+        raise RuntimeError(f"{lib.name}: CUDA error {rc} ({handle.igd_fused_error_string(rc).decode()})")
     return out
 
 
@@ -149,7 +237,23 @@ def chain_cycles(lib: CudaLibrary, loss: str = "lr", steps: int = 1 << 16) -> fl
         K._load = saved
 
 
+def turn_ms(fn, calls: int = 3) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--wide", action="store_true", help="the wide instance's variants (D 4,097 and 12,033)")
+    ap.add_argument("variants", nargs="*", help="variants to time (default: all of the mode's)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_igd_variants: no CUDA device", file=sys.stderr)
         return 2
@@ -157,11 +261,25 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, f"| torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
     clock_hz = float(smi.split(",")[2].split()[0]) * 1e6
+    variants = WIDE_VARIANTS if args.wide else VARIANTS
+    unknown = sorted(set(args.variants) - set(variants))
+    if unknown:
+        ap.error(f"unknown variants {unknown}; valid: {sorted(variants)}")
     libs = {"committed": K.LIBRARY}
-    libs.update({name: variant(name, edits) for name, edits in VARIANTS.items()})
+    libs.update({name: variant(f"wide_{name}" if args.wide else name, variants[name])
+                 for name in args.variants or variants})
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.build(), libs.values()))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.wide:
+        wide_rounds(libs)
+    else:
+        gram_rounds(libs, clock_hz)
+    print(smi)
+    return 0
 
+
+def gram_rounds(libs: dict, clock_hz: float) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     table = synthetic.dense_classification(gen, N, D)
     x, y = table["x"], table["y"]
@@ -208,7 +326,40 @@ def main() -> int:
         print(f"igd_fold {name}: {mean:.3f} ms/launch at {N}x{D} lr ({', '.join(f'{t:.3f}' for t in own)}), "
               f"{mean * 1e-3 * clock_hz / N:.1f} cycles/row; committed in turns "
               f"{', '.join(f'{t:.3f}' for t in first + second)}", flush=True)
-    return 0
+
+
+def wide_rounds(libs: dict) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for d, loss in WIDE_SHAPES:
+        n = WIDE_ROWS
+        x = torch.randn((n, d), generator=gen, device="cuda") / d ** 0.5
+        y = torch.sign(torch.randn((n,), generator=gen, device="cuda"))
+        alpha = engine.get("logreg").step_size(n)(torch.arange(n, dtype=torch.int32, device="cuda"))
+        w0 = torch.zeros(d, device="cuda")
+        want = R.igd_fold_tiled_ref(x, y, alpha, w0, loss=loss)
+        for name, lib in libs.items():
+            if name not in WIDE_TIMING_ONLY:
+                torch.testing.assert_close(fold(lib, x, y, alpha, w0, loss), want, **TOL)
+        turns = {name: [] for name in libs}
+        for _ in range(2):
+            for name, lib in libs.items():
+                turns[name].append(turn_ms(lambda lib=lib: fold(lib, x, y, alpha, w0, loss)))
+        base = sum(turns["committed"]) / 2
+        for name, times in turns.items():
+            mean = sum(times) / len(times)
+            print(f"{WIDE_ROWS}x{d} {loss} {name}: {', '.join(f'{t:.4f}' for t in times)} ms; {mean / base:.3f}x "
+                  f"the committed kernel ({base:.4f} ms){' [timing only]' if name in WIDE_TIMING_ONLY else ''}",
+                  flush=True)
+        if "clocks" in libs:
+            got = fold(libs["clocks"], x, y, alpha, w0, loss)[:7].tolist()
+            print(f"{WIDE_ROWS}x{d} {loss} clocks a step in rank 0 (cycles): warp 0 chain {got[0]:.0f}, C c and the "
+                  f"wait for q {got[1]:.0f}, p {got[2]:.0f}, barrier {got[3]:.0f}; first consumer warp panels "
+                  f"{got[4]:.0f}, q reduce and send {got[5]:.0f}, barrier {got[6]:.0f}", flush=True)
+        if "no_prepass" in turns:
+            rest = sum(turns["no_prepass"]) / 2
+            print(f"{WIDE_ROWS}x{d} {loss}: the pre-pass takes about {base - rest:.4f} ms of {base:.4f} "
+                  f"(committed less no_prepass)", flush=True)
+        del x, y, alpha
 
 
 if __name__ == "__main__":

@@ -55,29 +55,75 @@
 //   one block barrier per row (two alternating slots, so one barrier
 //   suffices).
 //
-//   D > 4096: the wide per-row chain (igd_fold_wide_kernel). One CTA of
-//   1,024 threads a lane; thread t owns columns t, t + 1024, ... of w for
-//   the whole fold, so only the dot's partials cross threads. w lives in
-//   opt-in dynamic shared memory up to kFoldWideSmemMaxDim (57,280 floats,
-//   224 KB) and in the lane's output row in global memory (L2-resident)
-//   above it. Row i is one pass over the thread's columns (w -= c_{i-1}
-//   x_{i-1}, then the dot with x_i), the butterfly, the 32 warps' partials
-//   through two alternating shared slots (one block barrier a row), and
-//   c_i; rows kWidePrefetchRows ahead are prefetched into L2. What bounds
-//   it: the row's dependent step (the pass, the barrier, the 32-partial
-//   sum, grad_scale), which kernel.wide_step_probe times alone; the bytes
-//   (134 MB at 8,192 x 4,097) take 0.04 ms.
-//
+//   D > 4096: the Gram look-ahead over a cluster (igd_fold_cluster_kernel),
+//   in three launches of one call. A per-row design here (a 1,024-thread
+//   block a row) paid a block-wide reduction on every row's chain (1,739
+//   cycles a row at D 4,097 for the step alone). The tiled algebra above
+//   takes every D-long sum off the chain; what kept it at D <= 256 is that
+//   one block cannot form G, C, q and the update over a wide row fast
+//   enough. So:
+//   Pass 1 (igd_fold_gram_prepass_kernel, then igd_fold_gram_sum_kernel),
+//   over the whole card: G_v and C_v = X_v X_{v-1}^T of every sub-tile v,
+//   32 x 32 each in float32 on the CUDA cores (no TF32), kPpSplit blocks a
+//   sub-tile and segment each summing a quarter of D, then the quarters
+//   summed in order, into scratch the wrapper allocates (320 floats a row:
+//   10 MB at 8,192 rows); lanes that share a table share its pass. 2 N 32
+//   D FMAs: 0.06 ms at 8,192 x 4,097 and 0.19 ms at 12,033 at 67 TFLOP/s.
+//   The split into quarters buys 2-3% over one block a sub-tile; summing
+//   the quarters by a launch of their own costs less than the two ways
+//   tried without one (H100 SXM, 8,192 x 4,097 / 12,033, the whole call):
+//   the four blocks as a cluster adding through distributed shared memory
+//   took 1.05x / 1.08x, and pass 2 adding them as it copies G and C in (a
+//   32 KB stage, so a ring a slot shallower) 1.04x / 1.14x.
+//   A 16-CTA cluster of ~227 KB a CTA takes most of a GPC, so the wrapper
+//   checks at load that one fits the card (igd_fused_fold_clusters_fit).
+//   Pass 2 (igd_fold_cluster_kernel): a cluster of kFcCluster = 16 CTAs a
+//   lane (non-portable), CTA q owning w's column slice [q * slice, q *
+//   slice + slice), slice = ceil(D / 16), in shared memory up to
+//   kFcSmemMaxSlice floats (48 KB: D <= kFoldClusterSmemMaxDim = 196,608)
+//   and in the lane's output row above. Warp 0 of every CTA runs the same
+//   scalar recurrence (chain(), the Gram instance's) from the same p and
+//   G, so every CTA computes the same c bit for bit and c never crosses
+//   CTAs. Nine consumer warps apply c_{s-1} to the slice and form their
+//   partials of q_{s+1} = X_{s+1} w_s in one pass, and push the CTA's 32
+//   partial margins into every CTA (st.async into distributed shared
+//   memory, completing on the receiver's mbarrier); warp 0 sums the 16 in
+//   a fixed tree and starts the next chain from p_{s+1} = q_{s+1} -
+//   C_{s+1} c_s. One barrier a sub-tile, one push of 32 floats a CTA a
+//   sub-tile, no barrier a row.
+//   Rows come into shared memory as panels (32 rows x a column chunk of
+//   the slice) through a ring that one producer warp keeps full with bulk
+//   copies (cp.async.bulk, a row a lane, each span widened to 16-byte
+//   boundaries: at odd D rows start anywhere, and a 2-D TMA map needs a
+//   row stride of 16-byte multiples). A bulk copy costs ~40 ns however
+//   small (measured: 192 copies of 0.5-1 KB a step took 7-8 us), so the
+//   panels are as wide as a ring of at least kFcRingMin slots allows
+//   (fold_panels: the whole 257-column slice at D 4,097, a ring of 6; two
+//   chunks of 377 at 12,033, a ring of 4). Whole sub-tiles cannot stay
+//   resident: one 16-CTA slice of a sub-tile is 96 KB at D 12,033, and a
+//   sub-tile is used twice two steps apart (X_{s+1} for q, X_{s-1} for the
+//   update), so the update's panels are copied again, from L2. Per
+//   sub-tile a CTA moves 2 x 32 x slice x 4 bytes (66 KB at D 4,097, 193
+//   KB at 12,033) through the ring and reads them once from it.
+//   What bounds it (clock64 in rank 0, the `clocks` variant of
+//   scripts/torch_igd_variants.py --wide): at D 4,097 the chain's 32
+//   steps, ~3,200 cycles a sub-tile beside the consumers' ~3,000; at 12,033
+//   the consumers' pass over the panels (~7,500 cycles a sub-tile), with
+//   the pre-pass a quarter of the time at both. The chain floor (N x one
+//   step, kernel.chain_probe) is
+//   0.35 ms at 8,192 rows; the bytes (134 MB at 8,192 x 4,097) 0.04 ms.
+//   ref.igd_fold_tiled_ref is this algebra and order in plain PyTorch.
+
 //   All loop over exactly N rows and take D as it is: no padding of the
 //   inputs (a padded D would change the dot's length and order). One fold
-//   is one block, so one fold leaves 131 of 132 SMs idle.
+//   is one block (a cluster past D 4,096), so one fold leaves most SMs idle.
 //
 // Lanes — the counterpart of jax.vmap over the Pallas call (the reference
 //   fuses a serving batch by vmapping kernel.py:74 and :119). Every C
 //   entry takes `lanes` independent folds and launches them at once: a
-//   grid of `lanes` blocks (igd_fold, the one-block minibatch instance)
-//   or of `lanes` clusters (gridDim = (kMbCluster, lanes), clusterDim =
-//   (kMbCluster, 1, 1)). Block (or cluster) b reads its rows at
+//   grid of `lanes` blocks (igd_fold to D 4,096, the one-block minibatch
+//   instance) or of `lanes` clusters (gridDim = (CTAs, lanes), clusterDim
+//   = (CTAs, 1, 1)). Block (or cluster) b reads its rows at
 //   x + s * xy_lane_rows * D, y + s * xy_lane_rows with s = b /
 //   lanes_per_xy, its alphas at alpha + b * alpha_lane_stride and w0 +
 //   b * D, writes wout + b * D, and runs exactly the arithmetic of a
@@ -90,9 +136,10 @@
 //   is copied B times (the *_segments_launch entries take it; the others
 //   pass 1). No sum crosses lanes. Launch limits: the Gram instance's
 //   ~200 KB of shared memory leaves one block an SM, so 132 lanes run in
-//   one wave, and so does the wide fold's 1,024-thread block; the
-//   minibatch clusters take 8 SMs a lane, so 16 lanes fill the card and
-//   more run in further waves; lanes <= 65535 (gridDim.y).
+//   one wave; the minibatch clusters take 8 SMs a lane and the wide
+//   fold's 8 or 16, so 16 or 8 lanes fill the card and more run in
+//   further waves; lanes <= 65535 (gridDim.y). The wide fold's pre-pass
+//   runs once a segment: lanes over one shared table share it.
 //
 // igd_fold_minibatch — replaces the Pallas TPU kernel
 //   src/repro/kernels/igd_fused/kernel.py: igd_fold_minibatch
@@ -158,11 +205,10 @@
 // partials, the w update), clock64 in rank 0 around a loop of tiles.
 //
 // igd_chain_probe_kernel is no port of a TPU kernel: it times the tiled
-// instance's dependent chain alone (clock64 around grad_scale_fast + FMA
-// in one warp), which chip_smoke.py reports as igd_fold's floor. The wide
-// instances' probes (igd_fold_wide_step_probe_launch,
-// igd_minibatch_wide_step_probe_launch) time their dependent steps alone
-// in the same way, for the wide instances' floors.
+// instances' dependent chain alone (clock64 around grad_scale_fast + FMA
+// in one warp), which chip_smoke.py reports as igd_fold's floor at every
+// D. igd_minibatch_wide_step_probe_launch times the wide minibatch
+// instance's dependent step alone in the same way, for its floor.
 //
 // No kernel allocates; all launch on the caller's stream. Each C
 // entry returns cudaGetLastError() (or cudaErrorInvalidValue for
@@ -211,19 +257,57 @@ constexpr int kMbBarBytes = 128;                 // the mbarriers, 16-byte padde
 static_assert(kTile % kMbCluster == 0 && kMbRows % 4 == 0, "shares of 16-byte multiples");
 static_assert(kMbMaxDim <= kMbThreads, "one column a thread");
 static_assert((kMbMaxStages + 2) * 8 <= kMbBarBytes, "the mbarriers fit their header");
-// the wide instances (igd_fold past kFoldMaxDim, igd_fold_minibatch past
-// kMinibatchMaxDim): 1,024 threads a CTA, w in opt-in shared memory while
-// it fits, else in the output row in global memory (L2-resident)
+// igd_fold_minibatch's wide instance (past kMinibatchMaxDim): 1,024
+// threads a CTA, w's slice in opt-in shared memory while it fits, else in
+// the output row in global memory (L2-resident)
 constexpr int kWideWarps = 32;
 constexpr int kWideThreads = kWideWarps * kWarp;
 constexpr int kWideSmemFloats = 57344;  // 224 KB of the 227 KB a block may opt into
-constexpr int kFoldWideSmemMaxDim = kWideSmemFloats - 2 * kWideWarps;  // w [D] | partials [2][32]
-constexpr int kWidePrefetchRows = 4;    // igd_fold: rows fetched into L2 ahead of use
 constexpr int kMbWideRowsPerWarp = kTile / kWideWarps;
 constexpr int kMbWideSmemMaxSlice = kWideSmemFloats - 3 * kTile;  // partials [2][256] | c [256] | w slice
 constexpr int kMbWideSmemMaxDim = kMbCluster * kMbWideSmemMaxSlice;
-constexpr int kWideProbeMaxDim = kWideSmemFloats / 2 - kWideWarps;  // the step probe: w and a row resident
 static_assert(kTile % kWideWarps == 0, "whole rows a warp");
+// igd_fold's wide instance (past kFoldMaxDim): the Gram pre-pass, then a
+// cluster a lane (see the head of this file)
+constexpr int kGramFloats = 2 * kSub * kSub;  // a sub-tile's G | C in the pre-pass's scratch
+constexpr int kPpThreads = 4 * kWarp;         // the pre-pass: a 16 x 32 block of G | C a warp
+constexpr int kPpChunk = 64;                  // columns a pre-pass stage
+constexpr int kPpLd = kPpChunk + 4;           // an odd multiple of 16 bytes: no bank conflicts
+// The cluster kernel's warps: warp 0 runs the chain with its scheduler
+// (warps 0, 4, 8: warp w issues on scheduler w % 4) to itself but for the
+// producer (warp 4, which mostly waits) and an idle warp 8; the other nine
+// are the consumers, a column a thread.
+constexpr int kFcWarps = 12;
+constexpr int kFcProducerWarp = 4;
+constexpr int kFcConsumerWarps = kFcWarps - kFcWarps / 4;
+constexpr int kFcConsumers = kFcConsumerWarps * kWarp;
+constexpr int kFcThreads = kFcWarps * kWarp;
+constexpr int kFcStepThreads = kWarp + kFcConsumers;  // the step barrier's: warp 0 and the consumers
+// A panel column takes four consumer lanes (l, l^1, l^2, l^3), lane g of
+// them rows g, g + 4, ..., g + 28, so a warp works 8 columns at a time and
+// the loops over rows stay short: fully unrolled over 32 rows, the pass
+// was ~6 KB of straight-line code a variant, run once a step out of the
+// instruction cache (measured: ~3,900 cycles for one column a thread).
+// With the panel's row stride at 8 mod 32 floats the four lanes' rows
+// fall 8 banks apart, so a warp's load of 4 rows x 8 columns is one
+// wavefront (rows 8 apart at a stride of 0 mod 32 were 4-way conflicts).
+constexpr int kFcRowGroup = 8;
+constexpr int kFcGroups = kSub / kFcRowGroup;
+constexpr int kFcColumnsAtOnce = kFcConsumers / kFcGroups;
+constexpr int kFcRingMin = 3, kFcRingMax = 8;  // panel slots: the ring's depth, set by the panel's size
+constexpr int kFcBarBytes = 256;              // the mbarriers: q's [2], full [ring], empty [ring]
+static_assert((2 + 2 * kFcRingMax) * 8 <= kFcBarBytes, "the mbarriers fit their header");
+constexpr int kFcCluster = 16;                // CTAs a lane (a non-portable cluster size)
+constexpr int kFcSmemMaxSlice = 12288;        // w's slice in shared memory up to 48 KB a CTA
+constexpr int kFoldClusterSmemMaxDim = kFcCluster * kFcSmemMaxSlice;
+// a CTA's shared memory but the ring and w: received q, G, C (+ a row's
+// slack), y, alpha, c, the consumers' partials
+constexpr int kFcFixedFloats = 2 * kFcCluster * kSub + 4 * kSub * kSub + 2 * kSub + 8 * kSub +
+                               2 * kSub + kFcConsumerWarps * kSub;
+constexpr int kSmemOptIn = 232448;            // the 227 KB a block may opt into
+constexpr int kPpSplit = 4;                   // pre-pass blocks a sub-tile, each a quarter of D
+constexpr int kFcPrefetchAhead = 2;           // sub-tiles fetched into L2 ahead of their q
+static_assert(2 * 2 * kSub * kPpLd * sizeof(float) <= 48 * 1024, "the pre-pass's two stages are static");
 
 // d loss / d (w.x), given wx = w.x (the kernel forms the margin itself).
 template <int LOSS>
@@ -1068,41 +1152,247 @@ __device__ __forceinline__ void prefetch_l2(const float* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
-// The sum of the 32 warps' partials in slot, in one order that every
-// thread repeats, so every thread holds the same value bit for bit.
-__device__ __forceinline__ float wide_block_sum(const float* slot) {
-  const float4* s4 = reinterpret_cast<const float4*>(slot);
-  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-#pragma unroll
-  for (int q = 0; q < kWideWarps / 4; ++q) {
-    const float4 v = s4[q];
-    a0 += v.x;
-    a1 += v.y;
-    a2 += v.z;
-    a3 += v.w;
-  }
-  return (a0 + a1) + (a2 + a3);
+// The 16-byte boundary below a row's first element, in floats: the row
+// starts `shift` floats into its span, shift = address / 4 mod 4 (rows of
+// odd D start anywhere), which moves by d mod 4 from row to row.
+__device__ __forceinline__ int panel_shift(const float* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
 }
 
-// igd_fold's wide instance (D > kFoldMaxDim): one CTA of 1,024 threads a
-// lane; thread t owns columns t, t + 1024, ... of w for the whole fold,
-// so no thread reads another's w and only the dot's partials are shared.
-// Row i is one pass over the thread's columns, w_j -= c_{i-1} x_{i-1,j}
-// then dot += w_j x_{i,j} (4-byte loads, a warp's 32 consecutive floats
-// at a time), a warp butterfly, the 32 warps' partials through one of
-// two alternating shared slots (one block barrier a row), and c_i, which
-// every thread computes from the same sum. Rows kWidePrefetchRows ahead
-// are prefetched into L2 (x does not depend on w). W_SHARED: w in shared
-// memory (D <= kFoldWideSmemMaxDim), else in the lane's output row.
+// igd_fold's wide instance, pass 1: for sub-tile v = blockIdx.x of
+// segment blockIdx.y (rows segment * seg_rows + [32 v, 32 v + 32)), the
+// 64 x 32 block [G_v; C_v] = [X_v; X_{v-1}] X_v^T over part blockIdx.z of
+// the columns (kPpSplit parts of whole chunks) into
+// grams[segment][v][part] (G [32][32] | C [32][32], C[k][j] =
+// x_{v-1,k}.x_{v,j}); rows past N and the rows of X_{-1} are zero. Each
+// chunk of kPpChunk columns comes in as 16-byte loads of each row's span
+// widened to 16-byte boundaries (a thread 9 of them, held in registers
+// while the previous chunk is summed) and goes into shared memory shifted
+// back to its columns; warp q forms rows [16 q, 16 q + 16) of the block,
+// each lane a 4 x 4 register block as product_block does, the sums
+// running over the columns in order. (Its first design took 4-byte
+// cp.async copies: four times the requests, 0.2 ms at 8,192 x 4,097.)
+__global__ void __launch_bounds__(kPpThreads)
+    igd_fold_gram_prepass_kernel(const float* __restrict__ x, float* __restrict__ grams, long long n,
+                                 int d, long long seg_rows) {
+  constexpr int kSpan = kPpChunk / 4 + 1;                                  // float4s a row's span
+  constexpr int kSlots = (2 * kSub * kSpan + kPpThreads - 1) / kPpThreads;  // float4s a thread
+  __shared__ __align__(16) float stage[2][2 * kSub * kPpLd];
+  const int v = blockIdx.x, tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int n_sub = static_cast<int>((n + kSub - 1) / kSub);
+  // part blockIdx.z: whole chunks [first, last) of the columns
+  const int all = (d + kPpChunk - 1) / kPpChunk, per = (all + kPpSplit - 1) / kPpSplit;
+  const int first = blockIdx.z * per, last = first + per < all ? first + per : all;
+  x += static_cast<long long>(blockIdx.y) * seg_rows * d;
+  grams += ((static_cast<long long>(blockIdx.y) * n_sub + v) * kPpSplit + blockIdx.z) * kGramFloats;
+  const long long left = n - static_cast<long long>(v) * kSub;
+  const int rows_v = left < kSub ? static_cast<int>(left) : kSub;
+  // rows 0-31: X_v's; rows 32-63: X_{v-1}'s, which lie just before them
+  auto real = [&](int r) { return r < kSub ? r < rows_v : v > 0; };
+  auto row_at = [&](int r, int c0) {
+    return x + (static_cast<long long>(v) * kSub + (r < kSub ? r : r - 2 * kSub)) * d + c0;
+  };
+  float4 held[kSlots];
+  auto fetch = [&](int chunk) {
+    const int c0 = chunk * kPpChunk, len = d - c0 < kPpChunk ? d - c0 : kPpChunk;
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      const int sl = tid + i * kPpThreads, r = sl / kSpan, q = sl % kSpan;
+      held[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (sl < 2 * kSub * kSpan && real(r)) {
+        const float* p = row_at(r, c0);
+        const int e = panel_shift(p);
+        if (4 * q < e + len) held[i] = __ldg(reinterpret_cast<const float4*>(p - e) + q);
+      }
+    }
+  };
+  auto stash = [&](int chunk, float* st) {
+    const int c0 = chunk * kPpChunk, len = d - c0 < kPpChunk ? d - c0 : kPpChunk;
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      const int sl = tid + i * kPpThreads, r = sl / kSpan, q = sl % kSpan;
+      if (sl < 2 * kSub * kSpan) {
+        const int e = real(r) ? panel_shift(row_at(r, c0)) : 0;
+        const float got[4] = {held[i].x, held[i].y, held[i].z, held[i].w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int col = 4 * q + u - e;
+          if (col >= 0 && col < kPpChunk) st[r * kPpLd + col] = col < len ? got[u] : 0.0f;
+        }
+      }
+    }
+  };
+  const int a = lane & 7, b = lane >> 3;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+  if (first < last) fetch(first);
+  for (int chunk = first; chunk < last; ++chunk) {
+    // stage chunk & 1 was last read two chunks ago, before the barrier below
+    // of the previous chunk, which every warp has passed
+    stash(chunk, stage[chunk & 1]);
+    __syncthreads();
+    if (chunk + 1 < last) fetch(chunk + 1);  // in flight while this chunk is summed
+    const float* xb = stage[chunk & 1];
+    const float* xa = xb + 16 * warp * kPpLd;
+#pragma unroll 2
+    for (int c = 0; c < kPpChunk; c += 4) {
+      float4 ak[4], bj[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ak[i] = *reinterpret_cast<const float4*>(xa + (b + 4 * i) * kPpLd + c);
+        bj[i] = *reinterpret_cast<const float4*>(xb + (a + 8 * i) * kPpLd + c);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(ak[i].x, bj[j].x, acc[i][j]);
+          acc[i][j] = fmaf(ak[i].y, bj[j].y, acc[i][j]);
+          acc[i][j] = fmaf(ak[i].z, bj[j].z, acc[i][j]);
+          acc[i][j] = fmaf(ak[i].w, bj[j].w, acc[i][j]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) grams[(16 * warp + b + 4 * i) * kSub + a + 8 * j] = acc[i][j];
+  }
+}
+
+// One round of a transposing warp sum: of the 2 O values a lane holds,
+// lanes with lane bit X keep [O, 2 O), the others [0, O), each adding its
+// partner's (lane ^ X). Templates, so that every index is a constant and
+// v stays in registers.
+template <int O, int X, int N>
+__device__ __forceinline__ void transpose_round(float (&v)[N], int lane) {
+  const bool upper = (lane & X) != 0;
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const float keep = upper ? v[i + O] : v[i];
+    const float send = upper ? v[i] : v[i + O];
+    v[i] = keep + __shfl_xor_sync(kFull, send, X);
+  }
+}
+
+// One warp, a row a lane: bulk copies of rows [32 v, 32 v + 32) of x (those
+// below n), columns [col0, col0 + len) of each, into `slot` (rows at a
+// stride of ldp floats, each span widened to 16-byte boundaries); lane 0
+// arms `full` with the panel's bytes.
+__device__ __forceinline__ void issue_panel(float* slot, uint64_t* full, const float* x, long long n,
+                                            long long d, int v, int col0, int len, int ldp, int lane) {
+  const long long row = static_cast<long long>(v) * kSub + lane;
+  uint32_t bytes = 0;
+  const float* src = x;
+  if (row < n) {
+    const float* p = x + row * d + col0;
+    const int e = panel_shift(p);
+    src = p - e;
+    bytes = static_cast<uint32_t>((e + len + 3) / 4 * 16);
+  }
+  const uint32_t total = __reduce_add_sync(kFull, bytes);
+  if (lane == 0) mbar_expect_tx(full, total);
+  if (bytes) bulk_copy(slot + lane * ldp, src, bytes, full);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// One consumer lane's share of columns j and j + kFcColumnsAtOnce of a
+// panel (the two in flight together): rows g, g + 4, ..., g + 28 of each,
+// at offsets ou / oq in the X_{s-1} / X_t panels (us, qs). UPDATE: the
+// four lanes of a column sum c_k u_kj over the first mu rows (each its 8
+// rows in order, then the four sums in a butterfly, which leaves the same
+// bits in all four) and w_j -= that sum, so w is rounded once a sub-tile;
+// Q: acc[i] += q_{g+4i,j} w_j over the first mq rows, with the updated w,
+// column j first. Every lane of the warp calls it (the shuffles).
+__device__ __forceinline__ void panel_pass(float* w, const float* us, const float* qs,
+                                           const int (&ou)[kFcRowGroup], const int (&oq)[kFcRowGroup],
+                                           const float (&c)[kFcRowGroup], int g, int mu, int mq,
+                                           int j, int len, bool upd, bool q,
+                                           float (&acc)[kFcRowGroup]) {
+  const int j2 = j + kFcColumnsAtOnce;
+  const bool la = j < len, lb = j2 < len;
+  float wa = la ? w[j] : 0.0f, wb = lb ? w[j2] : 0.0f;
+  if (upd) {
+    float ua = 0.0f, ub = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kFcRowGroup; ++i) {
+      const bool in = g + kFcGroups * i < mu;
+      ua = fmaf(c[i], la && in ? us[ou[i] + j] : 0.0f, ua);
+      ub = fmaf(c[i], lb && in ? us[ou[i] + j2] : 0.0f, ub);
+    }
+    ua += __shfl_xor_sync(kFull, ua, 1);
+    ub += __shfl_xor_sync(kFull, ub, 1);
+    ua += __shfl_xor_sync(kFull, ua, 2);
+    ub += __shfl_xor_sync(kFull, ub, 2);
+    wa -= ua;
+    wb -= ub;
+    if (g == 0) {  // the column's writer
+      if (la) w[j] = wa;
+      if (lb) w[j2] = wb;
+    }
+  }
+  if (q) {
+#pragma unroll
+    for (int i = 0; i < kFcRowGroup; ++i) {
+      const bool in = g + kFcGroups * i < mq;
+      acc[i] = fmaf(la && in ? qs[oq[i] + j] : 0.0f, wa, acc[i]);
+      acc[i] = fmaf(lb && in ? qs[oq[i] + j2] : 0.0f, wb, acc[i]);
+    }
+  }
+}
+
+// igd_fold's wide instance, pass 2: a cluster of kFcCluster CTAs a lane
+// (lane blockIdx.y), CTA q owning w's column slice [q * slice, q * slice +
+// slice) for the whole fold, in shared memory (W_SHARED) or in the lane's
+// output row. Warp 0 runs the chains, warp 4 streams rows in, the nine
+// consumers (the warps not on warp 0's scheduler) work the slice. Step s
+// (s = -1 only prepares sub-tile 0; t = s + 1):
+//   warp 0 runs the chain of sub-tile s from r = p_s, G_s, y and alpha in
+//   shared memory (chain(), as the Gram instance's), writing c_s; it forms
+//   C_t c_s (C_t copied in a step ahead), then waits on its mbarrier for
+//   every CTA's partial q_t, sums the 16 in a fixed tree and sets r = p_t
+//   = q_t - C_t c_s. Every CTA runs the same chain from the same p and G,
+//   so every CTA holds the same c bit for bit.
+//   the consumers copy G_t, C_{t+1}, y_t and alpha_t into shared memory
+//   (cp.async) and fetch sub-tile t + kFcPrefetchAhead into L2 (a share of
+//   its span a CTA); then, panel by panel (32 rows x `panel` columns of
+//   the slice), they apply c_{s-1} to w with X_{s-1}'s panel (w_s) and form
+//   their partials of q_t = X_t w_s with X_t's (panel_pass: four lanes a
+//   column, two columns at a time); the warps' partials meet in shared
+//   memory (one consumer barrier), the first consumer warp sums them in
+//   warp order and pushes the CTA's 32 values into its slot of every CTA's
+//   receive buffer (st.async into distributed shared memory, completing on
+//   the receiver's mbarrier).
+//   warp 4 runs ahead through the same sequence of panels (X_{s-1}'s and
+//   X_t's of each column chunk, step after step), a ring of ring_slots
+//   slots of bulk copies (a row a lane, completing on the slot's full
+//   mbarrier; the consumer warps release it on its empty one). x is read
+//   twice a sub-tile, the second time (the update's) two steps after the
+//   first, from L2; rows stay in shared memory only while a panel is in use.
+// One barrier of warp 0 and the consumers a step. The receive buffers
+// alternate by t's parity: a CTA sends q_t only after its warp 0 has read
+// q_{t-1} (the barrier ending step s - 1 follows that read), which needed
+// every CTA's q_{t-1}, each sent after its own warp 0 had read q_{t-2},
+// the slot's last use.
 template <int LOSS, bool W_SHARED>
-__global__ void __launch_bounds__(kWideThreads)
-    igd_fold_wide_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                         const float* __restrict__ alpha, const float* __restrict__ w0,
-                         float* __restrict__ wout, long long n, int d, long long xy_lane_rows,
-                         long long alpha_lane_stride, int lanes_per_xy) {
-  extern __shared__ __align__(16) float smem[];
-  {  // lane blockIdx.x: the only change from a one-lane launch
-    const long long b = blockIdx.x;
+__global__ void __launch_bounds__(kFcThreads)
+    igd_fold_cluster_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                            const float* __restrict__ alpha, const float* __restrict__ w0,
+                            float* __restrict__ wout, const float* __restrict__ grams, long long n,
+                            int d, int slice, int panel, int ldp, int ring_slots,
+                            long long xy_lane_rows, long long alpha_lane_stride, int lanes_per_xy) {
+  extern __shared__ __align__(16) unsigned char fc_smem[];
+  const int n_sub = static_cast<int>((n + kSub - 1) / kSub);
+  {  // lane blockIdx.y, one cluster a lane: the only change from a one-lane launch
+    const long long b = blockIdx.y;
     // the x/y segment lane b reads (32-bit division: b < 65536 and no 64-bit divide call)
     const long long s = static_cast<unsigned>(b) / static_cast<unsigned>(lanes_per_xy);
     x += s * xy_lane_rows * d;
@@ -1110,89 +1400,240 @@ __global__ void __launch_bounds__(kWideThreads)
     alpha += b * alpha_lane_stride;
     w0 += b * d;
     wout += b * d;
+    grams += (xy_lane_rows > 0 ? s : 0) * n_sub * kGramFloats;  // the segment's pre-pass
   }
-  float* red = smem;  // [2][kWideWarps]
-  float* w = W_SHARED ? smem + 2 * kWideWarps : wout;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
-  for (int j = tid; j < d; j += kWideThreads) w[j] = w0[j];
-  auto prefetch_row = [&](long long r) {  // one address a 128-byte line, and the row's last
-    const float* row = x + r * d;
-    for (int j = tid * kWarp; j < d; j += kWideThreads * kWarp) prefetch_l2(row + j);
-    if (tid == 0) prefetch_l2(row + d - 1);
+  const bool consumer = warp % 4 != 0;
+  const int cw = warp - 1 - warp / 4, ct = cw * kWarp + lane;  // a consumer's warp and thread
+  uint64_t* recv_bar = reinterpret_cast<uint64_t*>(fc_smem);  // [2]
+  uint64_t* full = recv_bar + 2;                               // [ring_slots]
+  uint64_t* empty = full + ring_slots;                         // [ring_slots]
+  float* recv = reinterpret_cast<float*>(fc_smem + kFcBarBytes);  // [2][kFcCluster][32]
+  float* gram = recv + 2 * kFcCluster * kSub;              // [2][32][32], then a row's slack
+  float* cbuf = gram + 2 * kSub * kSub + 2 * kSub;             // C: [2][32][32]
+  float* ysb = cbuf + 2 * kSub * kSub;                         // [2][64]
+  float* asb = ysb + 4 * kSub;                                 // [2][64]
+  float* cs = asb + 4 * kSub;                                  // [2][32]
+  float* part = cs + 2 * kSub;                                 // [kFcConsumerWarps][32]
+  float* ring = part + kFcConsumerWarps * kSub;                // [ring_slots][32][ldp]
+  const int j0 = rank * slice;
+  const int cols = d - j0 < slice ? d - j0 : slice;  // > 0: d > kFcCluster (kFcCluster - 1)
+  float* w = W_SHARED ? ring + ring_slots * kSub * ldp : wout + j0;
+  const int chunks = (cols + panel - 1) / panel;  // column chunks: panel columns, the last fewer
+  const int dm = d & 3;
+  const uint32_t q_bytes = static_cast<uint32_t>(kFcCluster * kSub * sizeof(float));
+  auto rows_of = [&](int v) {
+    const long long left = n - static_cast<long long>(v) * kSub;
+    return left < kSub ? static_cast<int>(left) : kSub;
   };
-  for (long long r = 0; r < kWidePrefetchRows && r < n; ++r) prefetch_row(r);
+  auto prefetch_sub = [&](int v) {  // this CTA's share of sub-tile v's span into L2
+    if (v >= n_sub) return;
+    const long long bytes = static_cast<long long>(rows_of(v)) * d * sizeof(float);
+    const long long share = (bytes / kFcCluster + 127) / 128 * 128;
+    const char* base = reinterpret_cast<const char*>(x + static_cast<long long>(v) * kSub * d);
+    const long long end = (rank + 1) * share < bytes ? (rank + 1) * share : bytes;
+    for (long long off = rank * share + 128LL * ct; off < end; off += 128LL * kFcConsumers) {
+      prefetch_l2(reinterpret_cast<const float*>(base + off));
+    }
+  };
 
-  float c = 0.0f;
-  for (long long i = 0; i < n; ++i) {
-    const float* xr = x + i * d;
-    if (i + kWidePrefetchRows < n) prefetch_row(i + kWidePrefetchRows);
-    const float yi = y[i], ai = alpha[i];
-    float dot = 0.0f;
-    if (i == 0) {
-#pragma unroll 4
-      for (int j = tid; j < d; j += kWideThreads) dot = fmaf(w[j], xr[j], dot);
-    } else {
-      const float* xp = xr - d;
-#pragma unroll 4
-      for (int j = tid; j < d; j += kWideThreads) {
-        const float wj = fmaf(-c, xp[j], w[j]);
-        w[j] = wj;
-        dot = fmaf(wj, xr[j], dot);
+  if (tid == 0) {
+    mbar_init(recv_bar, 1);
+    mbar_init(recv_bar + 1, 1);
+    for (int i = 0; i < ring_slots; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kFcConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < 2 && t < n_sub; ++t) mbar_expect_tx(recv_bar + t, q_bytes);
+  }
+  if (consumer) {  // (a cluster barrier follows, so any thread may set any column)
+    for (int j = ct; j < cols; j += kFcConsumers) w[j] = w0[j0 + j];
+    for (int v = 0; v < kFcPrefetchAhead; ++v) prefetch_sub(v);
+  }
+  cluster.sync();  // barriers set and armed, every CTA of the cluster running
+
+  if (warp == kFcProducerWarp) {  // every panel of the fold, in the consumers' order
+    int seq = 0;
+    for (int s = -1; s <= n_sub; ++s) {
+      for (int c = 0; c < chunks; ++c) {
+        const int col0 = j0 + c * panel, len = cols - c * panel < panel ? cols - c * panel : panel;
+        for (int v = s - 1; v <= s + 1; v += 2) {  // X_{s-1}'s panel (the update), then X_{s+1}'s (q)
+          if (v == s - 1 ? s < 1 : v >= n_sub) continue;
+          const int slot = seq % ring_slots;
+          if (seq >= ring_slots) mbar_wait(empty + slot, static_cast<uint32_t>((seq / ring_slots - 1) & 1));
+          issue_panel(ring + slot * kSub * ldp, full + slot, x, n, d, v, col0, len, ldp, lane);
+          ++seq;
+        }
       }
     }
-    dot = warp_sum(dot);
-    float* slot = red + (i & 1) * kWideWarps;
-    if (lane == 0) slot[warp] = dot;
-    __syncthreads();
-    c = grad_scale<LOSS>(wide_block_sum(slot), yi) * ai;
-  }
-  if (n > 0) {  // the last row's step
-    const float* xl = x + (n - 1) * d;
-    for (int j = tid; j < d; j += kWideThreads) w[j] = fmaf(-c, xl[j], w[j]);
-  }
-  if (W_SHARED) {
-    for (int j = tid; j < d; j += kWideThreads) wout[j] = w[j];
-  }
-}
-
-// Cycles of `steps` rows of igd_fold_wide_kernel's step with w and one row
-// resident in shared memory (no row traffic): the update and dot over each
-// thread's columns, the butterfly, the block barrier, the 32-partial sum
-// and grad_scale. out[0] = rank 0's cycles, out[1] = the final c's bits.
-template <int LOSS>
-__global__ void __launch_bounds__(kWideThreads)
-    igd_fold_wide_step_probe_kernel(int d, int steps, long long* out) {
-  extern __shared__ __align__(16) float smem[];
-  float* red = smem;
-  float* w = red + 2 * kWideWarps;
-  float* xr = w + d;
-  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
-  for (int j = tid; j < d; j += kWideThreads) {
-    w[j] = 0.0f;
-    xr[j] = 0.01f * static_cast<float>(j % 13 - 6);
-  }
-  __syncthreads();
-  float c = 0.0f;
-  const long long t0 = clock64();
-  for (int i = 0; i < steps; ++i) {
-    float dot = 0.0f;
-#pragma unroll 4
-    for (int j = tid; j < d; j += kWideThreads) {
-      const float wj = fmaf(-c, xr[j], w[j]);
-      w[j] = wj;
-      dot = fmaf(wj, xr[j], dot);
+  } else if (consumer) {
+    int seq = 0;
+    // step s's panels: X_{s-1}'s (UPDATE, if s >= 1) and X_{s+1}'s (Q, if s + 1 < n_sub)
+    const int g = lane % kFcGroups;  // this lane's rows of every column: g, g + 4, ..., g + 28
+    const int jw = cw * (kWarp / kFcGroups) + lane / kFcGroups;  // and its first column of a panel
+    auto panels = [&](int s, float (&acc)[kFcRowGroup]) {
+      const bool upd = s >= 1, q = s + 1 < n_sub;
+      float c[kFcRowGroup];
+#pragma unroll
+      for (int i = 0; i < kFcRowGroup; ++i) c[i] = upd ? cs[((s - 1) & 1) * kSub + g + kFcGroups * i] : 0.0f;
+      const int mu = upd ? rows_of(s - 1) : 0, mq = q ? rows_of(s + 1) : 0;
+      for (int ch = 0; ch < chunks; ++ch) {
+        const int col0 = j0 + ch * panel, len = cols - ch * panel < panel ? cols - ch * panel : panel;
+        const float* us = ring;
+        const float* qs = ring;
+        int su = 0, sq = 0;
+        if (upd) {
+          su = seq % ring_slots;
+          mbar_wait(full + su, static_cast<uint32_t>((seq / ring_slots) & 1));
+          us = ring + su * kSub * ldp;
+          ++seq;
+        }
+        if (q) {
+          sq = seq % ring_slots;
+          mbar_wait(full + sq, static_cast<uint32_t>((seq / ring_slots) & 1));
+          qs = ring + sq * kSub * ldp;
+          ++seq;
+        }
+        const int eu = upd ? panel_shift(x + static_cast<long long>(s - 1) * kSub * d + col0) : 0;
+        const int eq = q ? panel_shift(x + static_cast<long long>(s + 1) * kSub * d + col0) : 0;
+        // this lane's rows in the two panels (rows 4 apart share their shift)
+        int ou[kFcRowGroup], oq[kFcRowGroup];
+#pragma unroll
+        for (int i = 0; i < kFcRowGroup; ++i) {
+          ou[i] = (g + kFcGroups * i) * ldp + ((eu + g * dm) & 3);
+          oq[i] = (g + kFcGroups * i) * ldp + ((eq + g * dm) & 3);
+        }
+        float* wc = w + ch * panel;
+        for (int jb = jw - lane / kFcGroups; jb < len; jb += 2 * kFcColumnsAtOnce) {  // warp-uniform
+          panel_pass(wc, us, qs, ou, oq, c, g, mu, mq, jb + lane / kFcGroups, len, upd, q, acc);
+        }
+        __syncwarp();
+        if (lane == 0) {  // this warp is done with the chunk's slots
+          if (upd) mbar_arrive(empty + su);
+          if (q) mbar_arrive(empty + sq);
+        }
+      }
+    };
+    for (int s = -1; s < n_sub; ++s) {
+      const int t = s + 1;
+      if (t + 1 < n_sub) {  // C_{t+1}, which warp 0 reads at the end of the next step
+        const float* g = grams + static_cast<long long>(t + 1) * kGramFloats + kSub * kSub;
+        float* gd = cbuf + ((t + 1) & 1) * kSub * kSub;
+        for (int i = ct; i < kSub * kSub / 4; i += kFcConsumers) cp_async16(gd + 4 * i, g + 4 * i);
+      }
+      if (t < n_sub) {  // G_t, y_t and alpha_t for the next step's chain
+        const float* g = grams + static_cast<long long>(t) * kGramFloats;
+        float* gd = gram + (t & 1) * kSub * kSub;
+        for (int i = ct; i < kSub * kSub / 4; i += kFcConsumers) cp_async16(gd + 4 * i, g + 4 * i);
+        if (ct < kSub) {
+          const long long row = static_cast<long long>(t) * kSub + ct;
+          if (ct < rows_of(t)) {
+            cp_async4(ysb + (t & 1) * 2 * kSub + ct, y + row);
+            cp_async4(asb + (t & 1) * 2 * kSub + ct, alpha + row);
+          } else {
+            ysb[(t & 1) * 2 * kSub + ct] = 0.0f;
+            asb[(t & 1) * 2 * kSub + ct] = 0.0f;
+          }
+        }
+      }
+      cp_async_commit();
+      prefetch_sub(t + kFcPrefetchAhead);
+      float acc[kFcRowGroup];
+#pragma unroll
+      for (int i = 0; i < kFcRowGroup; ++i) acc[i] = 0.0f;
+      panels(s, acc);
+      if (t < n_sub) {  // the CTA's q_t: the warps' partials in warp order, to every CTA
+        // over the warp's 8 columns (lane bits 2-4): lane l ends with row
+        // g + 4 (l / 4) = l
+        transpose_round<4, 16>(acc, lane);
+        transpose_round<2, 8>(acc, lane);
+        transpose_round<1, 4>(acc, lane);
+        part[cw * kSub + lane] = acc[0];
+        asm volatile("bar.sync 1, %0;\n" ::"n"(kFcConsumers) : "memory");  // the consumers alone
+        if (cw == 0) {
+          float q = 0.0f;
+#pragma unroll
+          for (int i = 0; i < kFcConsumerWarps; ++i) q += part[i * kSub + lane];
+          const float q1 = __shfl_down_sync(kFull, q, 1);
+          const float q2 = __shfl_down_sync(kFull, q, 2);
+          const float q3 = __shfl_down_sync(kFull, q, 3);
+          if (lane % 4 == 0) {
+            const uint32_t dst = smem_u32(recv + ((t & 1) * kFcCluster + rank) * kSub + lane);
+            const uint32_t bar = smem_u32(recv_bar + (t & 1));
+            for (int c = 0; c < kFcCluster; ++c) {
+              uint32_t rdst, rbar;
+              asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rdst) : "r"(dst), "r"(c));
+              asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rbar) : "r"(bar), "r"(c));
+              asm volatile(
+                  "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, "
+                  "%4}, [%5];\n" ::"r"(rdst),
+                  "r"(__float_as_uint(q)), "r"(__float_as_uint(q1)), "r"(__float_as_uint(q2)),
+                  "r"(__float_as_uint(q3)), "r"(rbar)
+                  : "memory");
+            }
+          }
+        }
+      }
+      cp_async_wait_all();
+      asm volatile("bar.sync 2, %0;\n" ::"n"(kFcStepThreads) : "memory");  // c_s, G_t, C_t+1 visible
     }
-    dot = warp_sum(dot);
-    float* slot = red + (i & 1) * kWideWarps;
-    if (lane == 0) slot[warp] = dot;
-    __syncthreads();
-    c = grad_scale<LOSS>(wide_block_sum(slot), (i & 1) ? 1.0f : -1.0f) * 0.01f;
+    if (n_sub > 0) {  // the last sub-tile's step
+      float unused[kFcRowGroup];
+      panels(n_sub, unused);
+    }
+    if (W_SHARED && g == 0) {  // each column by the lane that updated it: no barrier needed
+      for (int ch = 0; ch < chunks; ++ch) {
+        const int len = cols - ch * panel < panel ? cols - ch * panel : panel;
+        for (int j = jw; j < len; j += kFcColumnsAtOnce) wout[j0 + ch * panel + j] = w[ch * panel + j];
+      }
+    }
+  } else if (warp == 0) {  // the chains
+    float r = 0.0f;  // lane j holds row j's p of the coming sub-tile
+    for (int s = -1; s < n_sub; ++s) {
+      const int t = s + 1;
+      if (s >= 0) {
+        chain<LOSS>(r, gram + (s & 1) * kSub * kSub, ysb + (s & 1) * 2 * kSub,
+                    asb + (s & 1) * 2 * kSub, cs + (s & 1) * kSub, rows_of(s), lane);
+        __syncwarp();  // every lane's c_s is in shared memory
+      }
+      if (t < n_sub) {
+        float cc = 0.0f;  // (C_t c_s)_lane, formed while the partials of q_t are on their way
+        if (s >= 0) {
+          const float* cp = cs + (s & 1) * kSub;
+          const float* cb = cbuf + (t & 1) * kSub * kSub + lane;
+          float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+#pragma unroll
+          for (int k = 0; k < kSub; k += 4) {
+            a0 = fmaf(cb[k * kSub], cp[k], a0);
+            a1 = fmaf(cb[(k + 1) * kSub], cp[k + 1], a1);
+            a2 = fmaf(cb[(k + 2) * kSub], cp[k + 2], a2);
+            a3 = fmaf(cb[(k + 3) * kSub], cp[k + 3], a3);
+          }
+          cc = (a0 + a1) + (a2 + a3);
+        }
+        mbar_wait(recv_bar + (t & 1), static_cast<uint32_t>((t >> 1) & 1));
+        const float* qb = recv + (t & 1) * kFcCluster * kSub + lane;
+        float part_q[kFcCluster];  // the CTAs' partials, summed as a fixed tree
+#pragma unroll
+        for (int c = 0; c < kFcCluster; ++c) part_q[c] = qb[c * kSub];
+        static_assert(kFcCluster == 16, "the tree's four rounds");
+#pragma unroll
+        for (int c = 0; c < 8; ++c) part_q[c] += part_q[c + 8];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part_q[c] += part_q[c + 4];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) part_q[c] += part_q[c + 2];
+        part_q[0] += part_q[1];
+        if (lane == 0 && t + 2 < n_sub) mbar_expect_tx(recv_bar + (t & 1), q_bytes);
+        r = part_q[0] - cc;
+      }
+      asm volatile("bar.sync 2, %0;\n" ::"n"(kFcStepThreads) : "memory");
+    }
   }
-  const long long t1 = clock64();
-  if (tid == 0) {
-    out[0] = t1 - t0;
-    out[1] = __float_as_int(c);
-  }
+  cluster.sync();  // no CTA leaves while its partials may still be in flight
 }
 
 // igd_fold_minibatch's wide instance (D > kMinibatchMaxDim): a cluster of
@@ -1405,24 +1846,43 @@ size_t mb_wide_smem_bytes(int d) {
   return static_cast<size_t>(3 * kTile + (d <= kMbWideSmemMaxDim ? slice : 0)) * sizeof(float);
 }
 
-template <typename Kernel, typename... Args>
-cudaError_t launch_cluster(Kernel kernel, int lanes, size_t smem, cudaStream_t stream,
-                           Args... args) {
+// A launch of `grid` blocks of `threads` threads in clusters of `cluster`
+// along x, `smem` bytes of dynamic shared memory a block: the kernel's
+// attributes set, and the configuration in cfg (its attribute in attr),
+// for a launch or an occupancy query.
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kernel, dim3 grid, int cluster, int threads, size_t smem,
+                           cudaStream_t stream, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kMbCluster, lanes, 1);
-  cfg.blockDim = dim3(kWideThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kMbCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  *cfg = {};
+  cfg->gridDim = grid;
+  cfg->blockDim = dim3(threads, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// `lanes` clusters of `cluster` CTAs (gridDim = (cluster, lanes)).
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, int cluster, int threads, int lanes, size_t smem,
+                           cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      cluster_config(kernel, dim3(cluster, lanes, 1), cluster, threads, smem, stream, &cfg, &attr);
+  if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -1435,11 +1895,13 @@ cudaError_t launch_mb_wide(const float* x, const float* y, const float* alpha, c
   const int slice = (d + kMbCluster - 1) / kMbCluster;
   const size_t smem = mb_wide_smem_bytes(d);
   if (d <= kMbWideSmemMaxDim) {
-    return launch_cluster(igd_minibatch_wide_kernel<LOSS, true>, lanes, smem, stream, x, y, alpha,
-                          w0, wout, n, d, slice, xy_lane_rows, alpha_lane_stride, lanes_per_xy);
+    return launch_cluster(igd_minibatch_wide_kernel<LOSS, true>, kMbCluster, kWideThreads, lanes,
+                          smem, stream, x, y, alpha, w0, wout, n, d, slice, xy_lane_rows,
+                          alpha_lane_stride, lanes_per_xy);
   }
-  return launch_cluster(igd_minibatch_wide_kernel<LOSS, false>, lanes, smem, stream, x, y, alpha,
-                        w0, wout, n, d, slice, xy_lane_rows, alpha_lane_stride, lanes_per_xy);
+  return launch_cluster(igd_minibatch_wide_kernel<LOSS, false>, kMbCluster, kWideThreads, lanes,
+                        smem, stream, x, y, alpha, w0, wout, n, d, slice, xy_lane_rows,
+                        alpha_lane_stride, lanes_per_xy);
 }
 
 template <int LOSS>
@@ -1506,30 +1968,126 @@ cudaError_t launch_gram(const float* x, const float* y, const float* alpha, cons
   return cudaGetLastError();
 }
 
+// The tables a lane launch reads: one shared table (xy_lane_rows 0), or
+// a segment for each lanes_per_xy lanes.
+int fold_segments(int lanes, long long xy_lane_rows, int lanes_per_xy) {
+  return xy_lane_rows > 0 ? lanes / lanes_per_xy : 1;
+}
+
+// The wide fold's scratch: the pre-pass's kPpSplit partial G | C blocks
+// of every segment's sub-tiles, then their sums (64 floats a row a part);
+// none at D <= kFoldMaxDim.
+long long fold_scratch_floats(long long n, int d, int lanes, long long xy_lane_rows,
+                              int lanes_per_xy) {
+  if (d <= kFoldMaxDim) return 0;
+  return static_cast<long long>(fold_segments(lanes, xy_lane_rows, lanes_per_xy)) *
+         ((n + kSub - 1) / kSub) * kGramFloats * (kPpSplit + 1);
+}
+
+// The cluster kernel's panel geometry at D: the fewest column chunks a
+// slice (so the fewest, largest bulk copies) whose panels leave a ring of
+// at least kFcRingMin slots in the shared memory that w's slice and the
+// rest leave free; the ring then takes as many slots as fit, up to
+// kFcRingMax. {panel columns, row stride in floats, slots, bytes a CTA}.
+struct FoldPanels {
+  int panel, ldp, slots;
+  size_t smem;
+};
+
+FoldPanels fold_panels(int slice) {
+  const size_t fixed = kFcBarBytes + (kFcFixedFloats + (slice <= kFcSmemMaxSlice ? slice : 0)) *
+                                         sizeof(float);
+  for (int chunks = 1;; ++chunks) {
+    const int panel = (slice + chunks - 1) / chunks;
+    int ldp = (panel + 3 + 3) / 4 * 4;  // a span widened by up to 3 floats, to whole float4s
+    ldp += (8 - ldp % 32 + 32) % 32;    // at 8 mod 32: the consumers' loads miss each other's banks
+    const size_t slot = static_cast<size_t>(kSub) * ldp * sizeof(float);
+    const long long fit = (static_cast<long long>(kSmemOptIn) - static_cast<long long>(fixed)) /
+                          static_cast<long long>(slot);
+    if (fit >= kFcRingMin) {
+      const int slots = fit < kFcRingMax ? static_cast<int>(fit) : kFcRingMax;
+      return {panel, ldp, slots, fixed + slots * slot};
+    }
+  }
+}
+
+// The pre-pass's parts summed in part order into the scratch's G | C
+// blocks: floats [total) of sums from [total / kGramFloats][kPpSplit][kGramFloats].
+__global__ void igd_fold_gram_sum_kernel(const float* __restrict__ parts, float* __restrict__ sums,
+                                         long long total) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const float* p = parts + (i / kGramFloats) * kPpSplit * kGramFloats + i % kGramFloats;
+  float acc = p[0];
+#pragma unroll
+  for (int k = 1; k < kPpSplit; ++k) acc += p[k * kGramFloats];
+  sums[i] = acc;
+}
+
 template <int LOSS>
 cudaError_t launch_fold_wide(const float* x, const float* y, const float* alpha,
                              const float* w0, float* wout, long long n, int d, int lanes,
                              long long xy_lane_rows, long long alpha_lane_stride,
-                             int lanes_per_xy, cudaStream_t stream) {
-  const bool shared = d <= kFoldWideSmemMaxDim;
-  const size_t smem = (2 * kWideWarps + (shared ? d : 0)) * sizeof(float);
-  auto kernel = shared ? igd_fold_wide_kernel<LOSS, true> : igd_fold_wide_kernel<LOSS, false>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<lanes, kWideThreads, smem, stream>>>(x, y, alpha, w0, wout, n, d, xy_lane_rows,
-                                                alpha_lane_stride, lanes_per_xy);
-  return cudaGetLastError();
+                             int lanes_per_xy, float* scratch, cudaStream_t stream) {
+  const int segments = fold_segments(lanes, xy_lane_rows, lanes_per_xy);
+  const long long n_sub = (n + kSub - 1) / kSub;
+  const long long sums_at = segments * n_sub * kGramFloats * kPpSplit;  // where the sums start
+  if (n > 0) {  // pass 1: every segment's G and C, over the whole card, then their sum
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    igd_fold_gram_prepass_kernel<<<dim3(static_cast<unsigned>(n_sub), segments, kPpSplit),
+                                   kPpThreads, 0, stream>>>(x, scratch, n, d, xy_lane_rows);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const long long total = segments * n_sub * kGramFloats;
+    igd_fold_gram_sum_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+        scratch, scratch + sums_at, total);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int slice = (d + kFcCluster - 1) / kFcCluster;
+  const FoldPanels pn = fold_panels(slice);
+  const float* grams = scratch == nullptr ? nullptr : scratch + sums_at;
+  if (slice <= kFcSmemMaxSlice) {
+    return launch_cluster(igd_fold_cluster_kernel<LOSS, true>, kFcCluster, kFcThreads, lanes,
+                          pn.smem, stream, x, y, alpha, w0, wout, grams, n, d, slice, pn.panel,
+                          pn.ldp, pn.slots, xy_lane_rows, alpha_lane_stride, lanes_per_xy);
+  }
+  return launch_cluster(igd_fold_cluster_kernel<LOSS, false>, kFcCluster, kFcThreads, lanes,
+                        pn.smem, stream, x, y, alpha, w0, wout, grams, n, d, slice, pn.panel,
+                        pn.ldp, pn.slots, xy_lane_rows, alpha_lane_stride, lanes_per_xy);
+}
+
+// Clusters of igd_fold's wide instance (the W_SHARED kernel, `smem` bytes
+// a CTA) that the card can hold at once, the least over the losses
+// (cudaOccupancyMaxActiveClusters); -1 on an error.
+template <bool W_SHARED>
+int fold_clusters_fit(size_t smem) {
+  int least = -1;
+  auto fit = [&](auto kernel) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    int n = 0;
+    if (cluster_config(kernel, dim3(kFcCluster, 1, 1), kFcCluster, kFcThreads, smem, nullptr, &cfg,
+                       &attr) != cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess)
+      return false;
+    least = least < 0 || n < least ? n : least;
+    return true;
+  };
+  if (!fit(igd_fold_cluster_kernel<kLossLr, W_SHARED>) || !fit(igd_fold_cluster_kernel<kLossSvm, W_SHARED>) ||
+      !fit(igd_fold_cluster_kernel<kLossLsq, W_SHARED>))
+    return -1;
+  return least;
 }
 
 template <int LOSS>
 cudaError_t launch_fold_any(const float* x, const float* y, const float* alpha,
                             const float* w0, float* wout, long long n, int d, int lanes,
                             long long xy_lane_rows, long long alpha_lane_stride,
-                            int lanes_per_xy, cudaStream_t stream) {
+                            int lanes_per_xy, float* scratch, cudaStream_t stream) {
   if (d > kFoldMaxDim) {
     return launch_fold_wide<LOSS>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
-                                  alpha_lane_stride, lanes_per_xy, stream);
+                                  alpha_lane_stride, lanes_per_xy, scratch, stream);
   }
   if (d <= kGramMaxDim) {
     return launch_gram<LOSS>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
@@ -1563,19 +2121,8 @@ cudaError_t launch_chain_probe(int steps, long long* out, cudaStream_t stream) {
 }
 
 template <int LOSS>
-cudaError_t launch_wide_step_probe(int d, int steps, long long* out, cudaStream_t stream) {
-  const size_t smem = (2 * kWideWarps + 2 * static_cast<size_t>(d)) * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(igd_fold_wide_step_probe_kernel<LOSS>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  igd_fold_wide_step_probe_kernel<LOSS><<<1, kWideThreads, smem, stream>>>(d, steps, out);
-  return cudaGetLastError();
-}
-
-template <int LOSS>
 cudaError_t launch_mb_wide_step_probe(int steps, long long* out, cudaStream_t stream) {
-  return launch_cluster(igd_minibatch_wide_step_probe_kernel<LOSS>, 1,
+  return launch_cluster(igd_minibatch_wide_step_probe_kernel<LOSS>, kMbCluster, kWideThreads, 1,
                         static_cast<size_t>(3 * kTile) * sizeof(float), stream, steps, out);
 }
 
@@ -1592,20 +2139,20 @@ bool bad_lanes(int lanes, long long xy_lane_rows, long long alpha_lane_stride, i
 // entries without lanes_per_xy pass 1).
 int fold_entry(const float* x, const float* y, const float* alpha, const float* w0,
                float* wout, long long n, int d, int loss, int lanes, long long xy_lane_rows,
-               int lanes_per_xy, long long alpha_lane_stride, void* stream) {
+               int lanes_per_xy, long long alpha_lane_stride, float* scratch, void* stream) {
   if (n < 0 || d < 1) return cudaErrorInvalidValue;
   if (bad_lanes(lanes, xy_lane_rows, alpha_lane_stride, lanes_per_xy)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (loss) {
     case kLossLr:
       return launch_fold_any<kLossLr>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
-                                      alpha_lane_stride, lanes_per_xy, s);
+                                      alpha_lane_stride, lanes_per_xy, scratch, s);
     case kLossSvm:
       return launch_fold_any<kLossSvm>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
-                                       alpha_lane_stride, lanes_per_xy, s);
+                                       alpha_lane_stride, lanes_per_xy, scratch, s);
     case kLossLsq:
       return launch_fold_any<kLossLsq>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
-                                       alpha_lane_stride, lanes_per_xy, s);
+                                       alpha_lane_stride, lanes_per_xy, scratch, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1644,13 +2191,11 @@ extern "C" {
 // memory up to the fourth.
 int igd_fused_fold_register_max_dim() { return kFoldMaxDim; }
 
-int igd_fused_fold_wide_smem_max_dim() { return kFoldWideSmemMaxDim; }
+int igd_fused_fold_cluster_smem_max_dim() { return kFoldClusterSmemMaxDim; }
 
 int igd_fused_minibatch_block_max_dim() { return kMinibatchMaxDim; }
 
 int igd_fused_minibatch_wide_smem_max_dim() { return kMbWideSmemMaxDim; }
-
-int igd_fused_wide_probe_max_dim() { return kWideProbeMaxDim; }
 
 int igd_fused_gram_max_dim() { return kGramMaxDim; }
 
@@ -1663,20 +2208,49 @@ const char* igd_fused_error_string(int code) {
 int igd_fused_max_lanes() { return kMaxLanes; }
 
 // `lanes` folds in one launch (see "Lanes" at the head of this file).
+// scratch: igd_fused_fold_scratch_floats(n, d, lanes, xy_lane_rows,
+// lanes_per_xy) floats (none at D <= kFoldMaxDim; lanes_per_xy 1 here).
 int igd_fold_launch(const float* x, const float* y, const float* alpha, const float* w0,
                     float* wout, long long n, int d, int loss, int lanes,
-                    long long xy_lane_rows, long long alpha_lane_stride, void* stream) {
+                    long long xy_lane_rows, long long alpha_lane_stride, float* scratch,
+                    void* stream) {
   return fold_entry(x, y, alpha, w0, wout, n, d, loss, lanes, xy_lane_rows, 1,
-                    alpha_lane_stride, stream);
+                    alpha_lane_stride, scratch, stream);
 }
 
 // The same, with lanes_per_xy consecutive lanes reading one x/y segment.
 int igd_fold_segments_launch(const float* x, const float* y, const float* alpha,
                              const float* w0, float* wout, long long n, int d, int loss,
                              int lanes, long long xy_lane_rows, int lanes_per_xy,
-                             long long alpha_lane_stride, void* stream) {
+                             long long alpha_lane_stride, float* scratch, void* stream) {
   return fold_entry(x, y, alpha, w0, wout, n, d, loss, lanes, xy_lane_rows, lanes_per_xy,
-                    alpha_lane_stride, stream);
+                    alpha_lane_stride, scratch, stream);
+}
+
+long long igd_fused_fold_scratch_floats(long long n, int d, int lanes, long long xy_lane_rows,
+                                        int lanes_per_xy) {
+  return fold_scratch_floats(n, d, lanes, xy_lane_rows, lanes_per_xy);
+}
+
+// out = {CTAs a lane, panel columns, ring slots, shared memory bytes a
+// CTA} of igd_fold's wide instance at D (D > kFoldMaxDim).
+int igd_fused_fold_design(int d, long long* out) {
+  if (d <= kFoldMaxDim) return cudaErrorInvalidValue;
+  const FoldPanels pn = fold_panels((d + kFcCluster - 1) / kFcCluster);
+  out[0] = kFcCluster;
+  out[1] = pn.panel;
+  out[2] = pn.slots;
+  out[3] = static_cast<long long>(pn.smem);
+  return 0;
+}
+
+// Clusters of igd_fold's wide instance at D (D > kFoldMaxDim) that the
+// card holds at once; 0 if none fits, -1 on an error.
+int igd_fused_fold_clusters_fit(int d) {
+  if (d <= kFoldMaxDim) return -1;
+  const int slice = (d + kFcCluster - 1) / kFcCluster;
+  const size_t smem = fold_panels(slice).smem;
+  return slice <= kFcSmemMaxSlice ? fold_clusters_fit<true>(smem) : fold_clusters_fit<false>(smem);
 }
 
 int igd_chain_probe_launch(int loss, int steps, long long* out, void* stream) {
@@ -1721,23 +2295,6 @@ long long igd_fused_minibatch_smem_bytes(int d) {
   if (d > kMinibatchMaxDim) return static_cast<long long>(mb_wide_smem_bytes(d));
   if (d < 1 || d > kMbMaxDim) return 0;
   return static_cast<long long>(mb_smem_bytes(d, mb_stages(d)));
-}
-
-// out[0] = SM cycles of `steps` rows of igd_fold's wide instance with w
-// and the row resident in shared memory (1 <= d <= kWideProbeMaxDim).
-int igd_fold_wide_step_probe_launch(int loss, int d, int steps, long long* out, void* stream) {
-  if (steps < 1 || d < 1 || d > kWideProbeMaxDim) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (loss) {
-    case kLossLr:
-      return launch_wide_step_probe<kLossLr>(d, steps, out, s);
-    case kLossSvm:
-      return launch_wide_step_probe<kLossSvm>(d, steps, out, s);
-    case kLossLsq:
-      return launch_wide_step_probe<kLossLsq>(d, steps, out, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 // out[0] = SM cycles of `steps` tiles of igd_fold_minibatch's wide

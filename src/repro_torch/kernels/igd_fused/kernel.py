@@ -23,13 +23,20 @@ launch's bit for bit.
 Both kernels take every D >= 1; the library picks an instance by D
 (the constants below are the boundaries, checked against the library's
 own when it loads). ``igd_fold``: the tiled Gram look-ahead up to 256,
-the per-row chain with w in registers up to 4,096, the wide per-row chain
-(1,024 threads a lane, w in shared memory up to 57,280, in global memory
-above) past it. ``igd_fold_minibatch``: a cluster of 8 CTAs splitting
-each tile's rows up to 256, the one-block kernel up to 12,032, and past it
-a cluster of 8 CTAs splitting w's columns (each CTA's slice in shared
-memory up to D = 452,608, in global memory above). ``wide_launches``
-counts the wide instances' share of ``launches``.
+the per-row chain with w in registers up to 4,096, and past it the Gram
+look-ahead over a cluster of 16 CTAs a lane (each CTA a column slice of
+w, in shared memory up to D 196,608 and in global memory above), after a
+pre-pass over the whole card that forms every 32-row sub-tile's Gram
+blocks into scratch the wrapper allocates (``torch.empty``, 320 floats a
+row, one pre-pass a table segment). That instance is three launches of the
+library in one wrapper call (the pre-pass, the sum of its parts, the
+cluster kernel), and ``launches`` counts the call once. ``igd_fold_minibatch``: a cluster of 8
+CTAs splitting each tile's rows up to 256, the one-block kernel up to
+12,032, and past it a cluster of 8 CTAs splitting w's columns (each
+CTA's slice in shared memory up to D = 452,608, in global memory above).
+``middle_launches`` and ``wide_launches`` count the middle instances'
+(igd_fold's per-row chain, the one-block minibatch kernel) and the wide
+instances' shares of ``launches``.
 """
 
 from __future__ import annotations
@@ -47,13 +54,13 @@ TILE = 256  # examples per minibatch step (the reference's VMEM block)
 # boundaries, which pick the instance a launch runs (see the source's head).
 FOLD_GRAM_MAX_DIM = 256  # igd_fold's tiled Gram instance; the per-row chain above it
 FOLD_REGISTER_MAX_DIM = 4096  # the per-row chain with w in registers; the wide instance above it
-_WIDE_SMEM_FLOATS = 57344  # the wide instances' opt-in shared memory a CTA (224 KB)
-FOLD_WIDE_SMEM_MAX_DIM = _WIDE_SMEM_FLOATS - 64  # the wide instance's w in shared memory; in global memory above it
+_WIDE_SMEM_FLOATS = 57344  # the wide minibatch instance's opt-in shared memory a CTA (224 KB)
+FOLD_CLUSTER = 16  # CTAs a lane of igd_fold's wide instance
+FOLD_CLUSTER_SMEM_MAX_DIM = FOLD_CLUSTER * 12288  # its w slices in shared memory; in global memory above
 MINIBATCH_CLUSTER = 8  # CTAs of igd_fold_minibatch's cluster instances
 MINIBATCH_CLUSTER_MAX_DIM = 256  # the row-share cluster instance; the one-block kernel above it
 MINIBATCH_BLOCK_MAX_DIM = 12288 - TILE  # the one-block instance (w and the tile's scales in 48 KB); the wide above
 MINIBATCH_WIDE_SMEM_MAX_DIM = MINIBATCH_CLUSTER * (_WIDE_SMEM_FLOATS - 3 * TILE)  # its w slices in shared memory
-WIDE_PROBE_MAX_DIM = _WIDE_SMEM_FLOATS // 2 - 32  # wide_step_probe: w and one row resident in shared memory
 MAX_LANES = 65535  # lanes a launch (the cluster instances' gridDim.y)
 
 LOSS_IDS = {"lr": 0, "svm": 1, "lsq": 2}
@@ -63,15 +70,19 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "igd_fused.cu"
 # Launch counts, one per wrapper: bumped where the kernel is launched and
 # nowhere else, so a run can show that its path went through the kernel.
 launches: Dict[str, int] = {"igd_fold": 0, "igd_fold_minibatch": 0}
-# The wide instances' share of those launches (D past the narrow
-# instances), bumped at the same place.
+# The middle and the wide instances' shares of those launches, bumped
+# at the same place: D in (the narrow instance's last D, _WIDE_ABOVE]
+# and D past _WIDE_ABOVE.
+middle_launches: Dict[str, int] = {"igd_fold": 0, "igd_fold_minibatch": 0}
 wide_launches: Dict[str, int] = {"igd_fold": 0, "igd_fold_minibatch": 0}
+_MIDDLE_ABOVE = {"igd_fold": FOLD_GRAM_MAX_DIM, "igd_fold_minibatch": MINIBATCH_CLUSTER_MAX_DIM}
 _WIDE_ABOVE = {"igd_fold": FOLD_REGISTER_MAX_DIM, "igd_fold_minibatch": MINIBATCH_BLOCK_MAX_DIM}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+        middle_launches[k] = 0
         wide_launches[k] = 0
 
 
@@ -80,39 +91,53 @@ def _declare(lib: ctypes.CDLL, cluster: int = MINIBATCH_CLUSTER) -> None:
     module's (``cluster``: the minibatch cluster size the source was built
     with, which a variant of the source may change)."""
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for name in ("igd_fold_launch", "igd_fold_minibatch_launch"):
+    # x, y, alpha, w0, wout, n, d, loss, lanes, x/y lane rows, alpha lane stride, stream
+    one = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64, i64, ptr]
+    # the same with lanes a x/y segment after the x/y lane rows
+    segments = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64, i32, i64, ptr]
+    # igd_fold's entries take the wide instance's scratch before the stream
+    for name, types in (("igd_fold_launch", one[:-1] + [ptr, ptr]), ("igd_fold_minibatch_launch", one),
+                        ("igd_fold_segments_launch", segments[:-1] + [ptr, ptr]),
+                        ("igd_fold_minibatch_segments_launch", segments)):
         fn = getattr(lib, name)
-        # x, y, alpha, w0, wout, n, d, loss, lanes, x/y lane rows, alpha lane stride, stream
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64, i64, ptr]
+        fn.argtypes = types
         fn.restype = i32
-    for name in ("igd_fold_segments_launch", "igd_fold_minibatch_segments_launch"):
-        fn = getattr(lib, name)
-        # the same with lanes a x/y segment after the x/y lane rows
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64, i32, i64, ptr]
-        fn.restype = i32
+    lib.igd_fused_fold_scratch_floats.argtypes = [i64, i32, i32, i64, i32]
+    lib.igd_fused_fold_scratch_floats.restype = i64
+    lib.igd_fused_fold_design.argtypes = [i32, ptr]
+    lib.igd_fused_fold_design.restype = i32
+    lib.igd_fused_fold_clusters_fit.argtypes = [i32]
+    lib.igd_fused_fold_clusters_fit.restype = i32
     lib.igd_fused_error_string.argtypes = [i32]
     lib.igd_fused_error_string.restype = ctypes.c_char_p
     lib.igd_chain_probe_launch.argtypes = [i32, i32, ptr, ptr]
     lib.igd_chain_probe_launch.restype = i32
     lib.igd_minibatch_step_probe_launch.argtypes = [i32, i32, i32, ptr, ptr]
     lib.igd_minibatch_step_probe_launch.restype = i32
-    lib.igd_fold_wide_step_probe_launch.argtypes = [i32, i32, i32, ptr, ptr]
-    lib.igd_fold_wide_step_probe_launch.restype = i32
     lib.igd_minibatch_wide_step_probe_launch.argtypes = [i32, i32, ptr, ptr]
     lib.igd_minibatch_wide_step_probe_launch.restype = i32
     lib.igd_fused_minibatch_smem_bytes.argtypes = [i32]
     lib.igd_fused_minibatch_smem_bytes.restype = i64
-    names = ("igd_fused_gram_max_dim", "igd_fused_fold_register_max_dim", "igd_fused_fold_wide_smem_max_dim",
-             "igd_fused_minibatch_block_max_dim", "igd_fused_minibatch_wide_smem_max_dim",
-             "igd_fused_wide_probe_max_dim", "igd_fused_tile", "igd_fused_minibatch_cluster",
-             "igd_fused_minibatch_cluster_max_dim", "igd_fused_max_lanes")
+    names = ("igd_fused_gram_max_dim", "igd_fused_fold_register_max_dim", "igd_fused_fold_cluster_smem_max_dim",
+             "igd_fused_minibatch_block_max_dim", "igd_fused_minibatch_wide_smem_max_dim", "igd_fused_tile",
+             "igd_fused_minibatch_cluster", "igd_fused_minibatch_cluster_max_dim", "igd_fused_max_lanes")
     for name in names:
         getattr(lib, name).restype = i32
-    limits = tuple(getattr(lib, name)() for name in names)
-    if limits != (FOLD_GRAM_MAX_DIM, FOLD_REGISTER_MAX_DIM, FOLD_WIDE_SMEM_MAX_DIM, MINIBATCH_BLOCK_MAX_DIM,
-                  cluster * (_WIDE_SMEM_FLOATS - 3 * TILE), WIDE_PROBE_MAX_DIM, TILE, cluster,
-                  MINIBATCH_CLUSTER_MAX_DIM, MAX_LANES):
+    design = (ctypes.c_longlong * 4)()
+    limits = tuple(getattr(lib, name)() for name in names) + (
+        lib.igd_fused_fold_design(FOLD_REGISTER_MAX_DIM + 1, design), design[0])
+    if limits != (FOLD_GRAM_MAX_DIM, FOLD_REGISTER_MAX_DIM, FOLD_CLUSTER_SMEM_MAX_DIM, MINIBATCH_BLOCK_MAX_DIM,
+                  cluster * (_WIDE_SMEM_FLOATS - 3 * TILE), TILE, cluster, MINIBATCH_CLUSTER_MAX_DIM, MAX_LANES,
+                  0, FOLD_CLUSTER):
         raise RuntimeError(f"igd_fused library limits {limits} disagree with kernel.py")
+    # the wide fold's non-portable cluster (FOLD_CLUSTER CTAs of up to 227 KB
+    # each) must fit the card: w's slices in shared memory and in global memory
+    for d in (FOLD_REGISTER_MAX_DIM + 1, FOLD_CLUSTER_SMEM_MAX_DIM + 1):
+        fit = lib.igd_fused_fold_clusters_fit(d)
+        if fit < 1:
+            raise RuntimeError(f"igd_fold's wide instance at D={d} (a cluster of {FOLD_CLUSTER} CTAs, "
+                               f"{_fold_design(lib, d)[3]} bytes of shared memory a CTA) does not fit this card: "
+                               f"cudaOccupancyMaxActiveClusters gives {fit}")
 
 
 LIBRARY = CudaLibrary("igd_fused", SOURCE, _declare)
@@ -197,12 +222,18 @@ def _launch(name: str, x, y, alpha, w0, loss: str, layout):
     out = torch.empty_like(w0)
     n, d = x.shape[-2:]
     lanes, xy_lane_rows, alpha_lane_stride = layout
+    per_xy = lanes_per_xy(x, w0)
+    extra = ()
+    if name == "igd_fold":  # the wide instance's pre-pass scratch
+        floats = lib.igd_fused_fold_scratch_floats(n, d, lanes, xy_lane_rows, per_xy)
+        scratch = torch.empty(floats, dtype=torch.float32, device=x.device) if floats else None
+        extra = (scratch.data_ptr() if floats else None,)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, f"{name}_segments_launch")(
             x.data_ptr(), y.data_ptr(), alpha.data_ptr(), w0.data_ptr(),
             out.data_ptr(), n, d, LOSS_IDS[loss], lanes, xy_lane_rows,
-            lanes_per_xy(x, w0), alpha_lane_stride, stream,
+            per_xy, alpha_lane_stride, *extra, stream,
         )
     if rc != 0:
         msg = lib.igd_fused_error_string(rc).decode()
@@ -210,6 +241,8 @@ def _launch(name: str, x, y, alpha, w0, loss: str, layout):
     launches[name] += 1
     if d > _WIDE_ABOVE[name]:
         wide_launches[name] += 1
+    elif d > _MIDDLE_ABOVE[name]:
+        middle_launches[name] += 1
     return out
 
 
@@ -217,11 +250,13 @@ def igd_fold(x, y, alpha, w0, *, loss: str = "lr"):
     """Sequential IGD over all N rows of x [N, D] (any D >= 1) with
     per-row step sizes alpha [N], from w0 [D] -> final w [D]; or B such
     folds in one launch (see the module's note). Float32, CUDA,
-    contiguous. The library picks the instance by D, a block a lane: the
-    tiled Gram look-ahead up to FOLD_GRAM_MAX_DIM, the per-row chain with
-    w in registers up to FOLD_REGISTER_MAX_DIM, the wide per-row chain of
-    1,024 threads above it (w in shared memory up to
-    FOLD_WIDE_SMEM_MAX_DIM, in global memory past it)."""
+    contiguous. The library picks the instance by D: a block a lane for
+    the tiled Gram look-ahead up to FOLD_GRAM_MAX_DIM and the per-row
+    chain with w in registers up to FOLD_REGISTER_MAX_DIM; above it the
+    Gram pre-pass, then the look-ahead on a cluster of FOLD_CLUSTER CTAs a
+    lane (w's slices in shared memory up to FOLD_CLUSTER_SMEM_MAX_DIM, in
+    global memory past it), one count in ``launches``.
+    ref.igd_fold_tiled_ref is the wide instance's order."""
     layout = _check(x, y, alpha, w0, loss)
     return _launch("igd_fold", x, y, alpha, w0, loss, layout)
 
@@ -285,21 +320,6 @@ def minibatch_step_probe(loss: str = "lsq", d: int = 54, *, steps: int = 1 << 14
                   "igd_minibatch_step_probe")
 
 
-def wide_step_probe(loss: str = "lr", d: int = 4_097, *, steps: int = 1 << 12, device=None):
-    """(SM cycles, seconds) per row of igd_fold's wide instance with w
-    and the row resident in shared memory: the update and dot over each
-    thread's columns, the warp butterfly, the block barrier, the sum of
-    the 32 warps' partials and grad_scale, with no row traffic. N times it
-    is the wide instance's chain floor. A measurement probe, not a kernel
-    of the path: it counts no launch."""
-    if loss not in LOSS_IDS:
-        raise ValueError(f"unknown loss {loss!r}; valid: {sorted(LOSS_IDS)}")
-    if not 1 <= d <= WIDE_PROBE_MAX_DIM:
-        raise ValueError(f"D={d} outside the probe's reach (1..{WIDE_PROBE_MAX_DIM})")
-    return _probe("igd_fold_wide_step_probe_launch", (LOSS_IDS[loss], d), steps, device,
-                  "igd_fold_wide_step_probe")
-
-
 def minibatch_wide_step_probe(loss: str = "lsq", *, steps: int = 1 << 12, device=None):
     """(SM cycles, seconds) per tile of igd_fold_minibatch's wide
     instance's exchange alone: the partial margins' write, the cluster
@@ -313,9 +333,23 @@ def minibatch_wide_step_probe(loss: str = "lsq", *, steps: int = 1 << 12, device
                   "igd_minibatch_wide_step_probe")
 
 
+def _fold_design(lib: ctypes.CDLL, d: int):
+    out = (ctypes.c_longlong * 4)()
+    if lib.igd_fused_fold_design(d, out) != 0:
+        raise ValueError(f"D={d}: igd_fold's wide instance takes D > {FOLD_REGISTER_MAX_DIM}")
+    return tuple(out)
+
+
+def fold_design(d: int):
+    """(CTAs a lane, panel columns, ring slots, shared memory bytes a CTA)
+    of igd_fold's wide instance at D > FOLD_REGISTER_MAX_DIM, from the
+    library: each CTA's slice streams through a ring of 32-row panels."""
+    return _fold_design(_load(), d)
+
+
 def chain_probe(loss: str = "lr", *, steps: int = 1 << 16, device=None):
     """(SM cycles, seconds) per step of igd_fold's dependent chain (the
-    tiled instance's: grad_scale_fast, the multiply by alpha, one FMA),
+    tiled instances' at every D: grad_scale_fast, the multiply by alpha, one FMA),
     timed alone in one warp: clock64 inside the kernel, CUDA events around
     it (after a warm-up launch). A measurement probe, not a kernel of the
     path: it counts no launch."""

@@ -215,9 +215,10 @@ def test_cuda_wide_query_plans_a_kernel_and_matches_the_cpu_run(task, d):
 # the wide instances: (N, D) past igd_fold's register instance (4,096) and
 # igd_fold_minibatch's one-block instance (12,032), on both sides of each
 # wide instance's shared-memory tier (w, or its cluster slices, in shared
-# memory up to the tier and in global memory past it), few rows at the widest
-WIDE_FOLD = [(300, 4_097), (1_000, 8_192), (257, 12_033), (100, 12_289), (40, 65_537),
-             (64, K.FOLD_WIDE_SMEM_MAX_DIM), (64, K.FOLD_WIDE_SMEM_MAX_DIM + 1)]
+# memory up to the tier and in global memory past it), few rows at the widest;
+# igd_fold also at N = 0 and with one ragged sub-tile (N < 32)
+WIDE_FOLD = [(300, 4_097), (1_000, 8_192), (300, 8_193), (257, 12_033), (100, 12_289), (40, 65_537),
+             (0, 4_097), (31, 12_033), (64, K.FOLD_CLUSTER_SMEM_MAX_DIM), (64, K.FOLD_CLUSTER_SMEM_MAX_DIM + 1)]
 WIDE_MB = [(300, 4_097), (513, 8_192), (300, 12_033), (513, 12_289), (2_049, 65_537), (0, 20_000), (1, 13_000),
            (300, K.MINIBATCH_WIDE_SMEM_MAX_DIM), (300, K.MINIBATCH_WIDE_SMEM_MAX_DIM + 1)]
 WIDE_CASES = [("igd_fold", n, d) for n, d in WIDE_FOLD] + [("igd_fold_minibatch", n, d) for n, d in WIDE_MB]
@@ -234,8 +235,31 @@ def test_cuda_wide_instances_match_plain_versions(name, n, d, loss):
     torch.cuda.synchronize()
     assert K.launches[name] == before + 1
     torch.testing.assert_close(got, getattr(R, f"{name}_ref")(*args, loss=loss), **TOL)
+    if name == "igd_fold":  # and its own order, the tiled fold
+        torch.testing.assert_close(got, R.igd_fold_tiled_ref(*args, loss=loss), **TOL)
     if n == 0:
         assert torch.equal(got, args[3])
+
+
+@needs_card
+@pytest.mark.parametrize("d", [4_097, 12_033])
+def test_cuda_wide_fold_takes_zero_rows_and_unaligned_rows(d):
+    """igd_fold's wide instance: N = 0 returns w0 bit for bit, and x, y,
+    alpha starting off a 16-byte boundary (or a table sliced at an odd
+    row) give the same w bit for bit as the aligned copy."""
+    x, y, alpha, w0 = _card_inputs(300, d)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
+        buf.copy_(t)
+        return buf
+
+    for loss in ("lr", "svm", "lsq"):
+        assert torch.equal(K.igd_fold(x[:0], y[:0], alpha[:0], w0, loss=loss), w0)
+        want = K.igd_fold(x, y, alpha, w0, loss=loss)
+        assert torch.equal(K.igd_fold(shifted(x), shifted(y), shifted(alpha), w0, loss=loss), want)
+        odd = x[1:].clone(), y[1:].clone(), alpha[1:].clone()  # fresh, aligned copies
+        assert torch.equal(K.igd_fold(x[1:], y[1:], alpha[1:], w0, loss=loss), K.igd_fold(*odd, w0, loss=loss))
 
 
 @needs_card
@@ -261,14 +285,42 @@ def test_cuda_wide_lanes_equal_their_single_lanes(name, d, b, shared):
 
 @needs_card
 def test_cuda_wide_probes_time_the_wide_steps():
-    cycles, seconds = K.wide_step_probe("lr", 4_097, steps=64)
+    """The wide fold's floor is N chain steps (kernel.chain_probe); the
+    wide minibatch's its exchange alone. The fold's design fits the card:
+    FOLD_CLUSTER CTAs, a ring of 3 to 8 panel slots within 227 KB."""
+    cycles, seconds = K.chain_probe("lr", steps=64)
     assert cycles > 0 and seconds > 0
     cycles, seconds = K.minibatch_wide_step_probe("lsq", steps=64)
     assert cycles > 0 and seconds > 0
     cluster, smem = K.minibatch_design(12_033)
     assert cluster == MB_K and 0 < smem <= 232_448
-    with pytest.raises(ValueError, match="probe"):
-        K.wide_step_probe("lr", K.WIDE_PROBE_MAX_DIM + 1)
+    for d in (4_097, 12_033, 65_537, K.FOLD_CLUSTER_SMEM_MAX_DIM + 1):
+        cluster, panel, slots, smem = K.fold_design(d)
+        assert cluster == K.FOLD_CLUSTER and 1 <= panel <= -(-d // cluster) and 3 <= slots <= 8 and smem <= 232_448
+    with pytest.raises(ValueError, match="D=4096"):
+        K.fold_design(4_096)
+
+
+@needs_card
+@pytest.mark.parametrize("name,d,instance", [("igd_fold", 54, None), ("igd_fold", 300, "middle"),
+                                             ("igd_fold", 4_096, "middle"), ("igd_fold", 4_097, "wide"),
+                                             ("igd_fold_minibatch", 256, None), ("igd_fold_minibatch", 257, "middle"),
+                                             ("igd_fold_minibatch", 12_032, "middle"),
+                                             ("igd_fold_minibatch", 12_033, "wide")])
+def test_cuda_launch_counts_split_by_instance(name, d, instance):
+    """A launch adds one to ``launches`` and to the count of the instance
+    it ran: ``middle_launches`` past the narrow instance, ``wide_launches``
+    past the middle one; ``reset_launches`` zeroes all three. The wide
+    fold's 16-CTA cluster fits the card on both sides of its tier."""
+    K.reset_launches()
+    getattr(K, name)(*_card_inputs(40, d), loss="lr")
+    torch.cuda.synchronize()
+    assert K.launches[name] == 1
+    assert K.middle_launches[name] == (instance == "middle") and K.wide_launches[name] == (instance == "wide")
+    K.reset_launches()
+    assert not any(K.launches.values()) and not any(K.middle_launches.values()) and not any(K.wide_launches.values())
+    for wide_d in (K.FOLD_REGISTER_MAX_DIM + 1, K.FOLD_CLUSTER_SMEM_MAX_DIM + 1):
+        assert K._load().igd_fused_fold_clusters_fit(wide_d) >= 1
 
 
 # lane launches: (lanes, N, D) across the sub-tile, the tile and the
@@ -369,7 +421,7 @@ def test_cuda_chunk_stream_moves_host_chunks_and_matches_the_resident_run(impl):
 
 @needs_card
 @pytest.mark.parametrize("name", ["igd_fold", "igd_fold_minibatch"])
-@pytest.mark.parametrize("s,per,n,d", [(4, 3, 2_049, 54), (2, 8, 257, 54), (3, 2, 300, 300)])
+@pytest.mark.parametrize("s,per,n,d", [(4, 3, 2_049, 54), (2, 8, 257, 54), (3, 2, 300, 300), (2, 3, 300, 4_097)])
 def test_cuda_segment_lanes_match_one_lane_launches(name, s, per, n, d):
     """S segments under S * per lanes (the fused sharded batch's layout:
     lane l reads segment l // per): one launch, every lane its one-lane

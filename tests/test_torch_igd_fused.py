@@ -212,7 +212,7 @@ def test_launch_counter_reset():
 
 
 def test_library_name_tracks_the_source():
-    assert K.FOLD_GRAM_MAX_DIM == 256 < K.FOLD_REGISTER_MAX_DIM < K.FOLD_WIDE_SMEM_MAX_DIM
+    assert K.FOLD_GRAM_MAX_DIM == 256 < K.FOLD_REGISTER_MAX_DIM < K.FOLD_CLUSTER_SMEM_MAX_DIM
     assert K.MINIBATCH_CLUSTER_MAX_DIM == 256 < K.MINIBATCH_BLOCK_MAX_DIM < K.MINIBATCH_WIDE_SMEM_MAX_DIM
     assert K.TILE % K.MINIBATCH_CLUSTER == 0
     path = K.library_path()

@@ -3,10 +3,17 @@ instances (igd_fold's register instance ends at D = 4,096,
 igd_fold_minibatch's one-block instance at 12,032; the wide instances take
 every D above), on the CPU: the port's ``ops`` (its plain versions on CPU
 tensors) against the reference's ops with ``use_kernel=False`` (its jnp
-oracles, which pad D to 128 and N to the tile, as its kernels do) on the
-same seeded numpy inputs, and at D = 4,097 against the reference's Pallas
-kernels in interpret mode. The wide CUDA instances themselves run on the
-card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phases 2 and 3f)."""
+oracles; the minibatch's pads D to 128 and N to the tile, as its kernel
+does) on the same seeded numpy inputs, and at D = 4,097 against the
+reference's Pallas kernels in interpret mode. igd_fold's wide instance
+runs the tiled Gram algebra, so its own plain version
+(``ref.igd_fold_tiled_ref``) is held to the same references, past each of
+its boundaries (its shared-memory tier), with
+a ragged last sub-tile and with fewer rows than one sub-tile. The wide
+CUDA instances themselves run on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py`` phases 2 and 3f). About 40 s on one core."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,15 +21,16 @@ import pytest
 import torch
 
 from repro.kernels.igd_fused import ops as ref_ops
-from repro_torch.kernels.igd_fused import kernel as K, ops
+from repro_torch.kernels.igd_fused import kernel as K, ops, ref as R
 
 torch.set_num_threads(1)
 
 TOL = dict(rtol=2e-4, atol=2e-5)  # the reference's kernel tolerance (tests/test_kernels.py)
 LOSSES = ("lr", "svm", "lsq")
-# past each narrow instance, and past the wide fold's shared-memory tier
+# past each narrow instance (the wide fold's w slices in shared memory)
 WIDE_D = (4_097, 12_033, 65_537)
-ROWS = 300  # a ragged last tile (300 = 256 + 44)
+FOLD_TIER_D = K.FOLD_CLUSTER_SMEM_MAX_DIM + 1  # the wide fold's w in global memory
+ROWS = 300  # a ragged last tile (300 = 256 + 44) and sub-tile (300 = 9 x 32 + 12)
 
 
 def _inputs(n, d, seed=11):
@@ -34,11 +42,17 @@ def _inputs(n, d, seed=11):
     return x, y, alpha, w0
 
 
+@functools.lru_cache(maxsize=2)
+def _shared_inputs(n, d):
+    return _inputs(n, d)
+
+
 def test_the_wide_widths_cross_every_instance_boundary():
     assert WIDE_D[0] == K.FOLD_REGISTER_MAX_DIM + 1 and WIDE_D[1] == K.MINIBATCH_BLOCK_MAX_DIM + 1
-    assert WIDE_D[2] > K.FOLD_WIDE_SMEM_MAX_DIM
+    assert WIDE_D[2] <= K.FOLD_CLUSTER_SMEM_MAX_DIM
+    assert FOLD_TIER_D > K.FOLD_CLUSTER_SMEM_MAX_DIM
     for name in ("cuda_fused", "cuda_minibatch"):
-        assert all(K.supports(name, d) is None for d in WIDE_D)
+        assert all(K.supports(name, d) is None for d in WIDE_D + (FOLD_TIER_D,))
 
 
 @pytest.mark.parametrize("loss", LOSSES)
@@ -73,3 +87,24 @@ def test_wide_lanes_match_their_single_folds(name):
     got = fn(x, y, a_b, w_b, loss="lsq")
     for i in range(3):
         assert torch.equal(got[i], fn(x, y, a_b[i], w_b[i], loss="lsq"))
+
+
+@pytest.mark.parametrize("loss", LOSSES)
+@pytest.mark.parametrize("d", WIDE_D + (FOLD_TIER_D,))
+@pytest.mark.parametrize("n", [ROWS, 31])
+def test_wide_fold_plain_version_matches_the_references_ops(n, d, loss):
+    """igd_fold's wide instance's plain version (the tiled fold) against
+    the reference's per-row jnp oracle."""
+    a = _shared_inputs(n, d)
+    want = np.asarray(ref_ops.igd_fold(*(jnp.asarray(v) for v in a), loss=loss, use_kernel=False))
+    got = R.igd_fold_tiled_ref(*(torch.from_numpy(v) for v in a), loss=loss)
+    assert got.shape == (d,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("loss", LOSSES)
+def test_wide_fold_plain_version_matches_the_pallas_kernel_in_interpret_mode(loss):
+    a = _inputs(ROWS, K.FOLD_REGISTER_MAX_DIM + 1, seed=12)
+    want = np.asarray(ref_ops.igd_fold(*(jnp.asarray(v) for v in a), loss=loss, use_kernel=True, interpret=True))
+    got = R.igd_fold_tiled_ref(*(torch.from_numpy(v) for v in a), loss=loss)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
