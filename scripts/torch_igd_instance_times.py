@@ -10,14 +10,17 @@ source at PATH (say, a parent commit's, from ``git show
 git-ignored build/, then for each instance (igd_fold's tiled Gram
 instance, its per-row chain with w in registers at one warp and at 16
 warps, its wide instance at D 4,097 and 12,033; igd_fold_minibatch's
-row-share cluster, its one-block kernel and its wide cluster) at a shape
-it runs, times one launch (CUDA events, the mean of 3 launches a turn) in
-turns: against, committed, committed, against. Where both sources run the
-same instance code their results must agree bit for bit; the committed
-one is held to the plain version (for igd_fold's wide instance, whose
-design a source may change, both are held to the per-row and the tiled
-plain folds). The wide igd_fold rows also print the byte bound and the
-chain floor (N x kernel.chain_probe's step). The card's name and power
+row-share cluster, and its column-slice cluster at 65,536 x 1,000 (a
+tile's slice resident), 8,192 x 12,032 and 8,192 x 12,033 (streamed
+twice)) at a shape it runs, times one launch (CUDA events, the mean of 3
+launches a turn) in turns: against, committed, committed, against. Where
+both sources run the same instance code their results must agree bit for
+bit, and the committed one is held to the plain version; the newest
+design, igd_fold_minibatch past D 256 (REDESIGNED), may differ from the
+other source's, so there both are held to the plain version. The wide
+igd_fold rows also print the byte bound and the chain floor (N x
+kernel.chain_probe's step), the column-slice rows the byte bound and the
+exchange floor (the tiles x kernel.minibatch_wide_step_probe's step). The card's name and power
 limit are printed first; each line gives both sources' turns and the
 committed / against ratio of their means. Takes about 2 minutes of
 command time.
@@ -49,10 +52,12 @@ CASES = (
     ("igd_fold", "lr", 8_192, 4_097, "wide"),
     ("igd_fold", "lsq", 8_192, 12_033, "wide"),
     ("igd_fold_minibatch", "lsq", 581_012, 54, "row-share cluster, D <= 256"),
-    ("igd_fold_minibatch", "lsq", 65_536, 1_000, "one block"),
-    ("igd_fold_minibatch", "lsq", 8_192, 12_032, "one block, its last D"),
-    ("igd_fold_minibatch", "lsq", 8_192, 12_033, "wide cluster"),
+    ("igd_fold_minibatch", "lsq", 65_536, 1_000, "column-slice cluster, resident"),
+    ("igd_fold_minibatch", "lsq", 8_192, 12_032, "column-slice cluster"),
+    ("igd_fold_minibatch", "lsq", 8_192, 12_033, "column-slice cluster, odd D"),
 )
+# the instances whose design this source changed: (kernel, D) -> True
+REDESIGNED = {"igd_fold_minibatch": lambda d: d > K.MINIBATCH_CLUSTER_MAX_DIM}
 TOL = dict(rtol=2e-4, atol=2e-5)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
@@ -122,6 +127,7 @@ def main() -> int:
     floor_cycles, floor_s = {}, {}
     for loss in ("lr", "lsq"):
         floor_cycles[loss], floor_s[loss] = K.chain_probe(loss)
+    step_cycles, step_s = K.minibatch_wide_step_probe("lsq")
     gen = torch.Generator(device="cuda").manual_seed(0)
     ratios = []
     for name, loss, n, d, instance in CASES:
@@ -131,12 +137,11 @@ def main() -> int:
         w0 = torch.zeros(d, device="cuda")
         got = launch(committed, name, x, y, alpha, w0, loss)
         other = launch(against, name, x, y, alpha, w0, loss)
-        redesigned = name == "igd_fold" and d > K.FOLD_REGISTER_MAX_DIM
-        if redesigned:  # another design in each source: both held to both plain folds
+        redesigned = REDESIGNED.get(name, lambda _: False)(d)
+        if redesigned:  # another design in each source: both held to the plain version
             for which, w in (("committed", got), ("against", other)):
-                for plain in (R.igd_fold_ref, R.igd_fold_tiled_ref):
-                    torch.testing.assert_close(w, plain(x, y, alpha, w0, loss=loss), **TOL,
-                                               msg=lambda m, which=which: f"{which} {n}x{d}: {m}")
+                torch.testing.assert_close(w, R.igd_fold_minibatch_ref(x, y, alpha, w0, loss=loss), **TOL,
+                                           msg=lambda m, which=which: f"{which} {n}x{d}: {m}")
         else:
             if not torch.equal(got, other):
                 raise AssertionError(f"{name} {n}x{d}: the two sources disagree")
@@ -152,16 +157,21 @@ def main() -> int:
             turns[which].append(turn_ms(lambda lib=lib: launch(lib, name, x, y, alpha, w0, loss)))
         mean = {k: sum(v) / len(v) for k, v in turns.items()}
         ratios.append(mean["committed"] / mean["against"])
+        bound_ms = (n * (d + 2) + 2 * d) * 4 / HBM_BYTES_PER_S * 1e3
+        note = "the same w bit for bit"
         if redesigned:
-            bound_ms = (n * (d + 2) + 2 * d) * 4 / HBM_BYTES_PER_S * 1e3
-            floor_ms = n * floor_s[loss] * 1e3
-            note = (f"both within rtol={TOL['rtol']}, atol={TOL['atol']} of the per-row and tiled plain folds, "
+            tiles = -(-n // K.TILE)
+            note = (f"both within rtol={TOL['rtol']}, atol={TOL['atol']} of the plain version, "
                     f"{'the same' if torch.equal(got, other) else 'not the same'} w bit for bit; "
                     f"against / committed {1 / ratios[-1]:.2f}x; byte bound {bound_ms:.4f} ms "
-                    f"({bound_ms / mean['committed']:.4f} of it); chain floor {floor_ms:.4f} ms ({n} x "
-                    f"{floor_cycles[loss]:.1f} cycles, kernel.chain_probe), {floor_ms / mean['committed']:.3f} of it")
-        else:
-            note = "the same w bit for bit"
+                    f"({bound_ms / mean['committed']:.4f} of it); exchange floor {tiles * step_s * 1e3:.4f} ms "
+                    f"({tiles} tiles x {step_cycles:.0f} cycles, kernel.minibatch_wide_step_probe), "
+                    f"{tiles * step_s * 1e3 / mean['committed']:.3f} of it; design {K.minibatch_slice_design(d)}")
+        elif name == "igd_fold" and d > K.FOLD_REGISTER_MAX_DIM:
+            floor_ms = n * floor_s[loss] * 1e3
+            note += (f"; byte bound {bound_ms:.4f} ms ({bound_ms / mean['committed']:.4f} of it); chain floor "
+                     f"{floor_ms:.4f} ms ({n} x {floor_cycles[loss]:.1f} cycles, kernel.chain_probe), "
+                     f"{floor_ms / mean['committed']:.3f} of it")
         print(f"{name} {instance} ({loss}, {n}x{d}): committed {', '.join(f'{t:.4f}' for t in turns['committed'])} "
               f"ms, against {', '.join(f'{t:.4f}' for t in turns['against'])} ms; committed / against "
               f"{ratios[-1]:.4f}; {note}", flush=True)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the port's igd_fold_minibatch kernel beside the committed one, on one CUDA card.
 
-    python3 scripts/torch_minibatch_variants.py [--only NAME ...]
+    python3 scripts/torch_minibatch_variants.py [--only NAME ...] [--slice]
 
 Run from the repository root on a machine with a Hopper card. Each variant
 is the committed CUDA source (src/repro_torch/kernels/igd_fused/csrc/
@@ -23,6 +23,28 @@ build/variants/ and launched through its own library:
   (rows r mod 4, then (a0 + a1) + (a2 + a3)) instead of one row-order chain.
 - --against PATH: another igd_fused.cu (say, a parent commit's), built and
   timed in the same turns (held to the plain fold only).
+
+With --slice the variants are the column-slice cluster's (D > 256, 16
+CTAs a lane), timed at SLICE_SHAPES (8,192 x 12,033: panels streamed
+twice; 65,536 x 1,000: a tile's slice resident), lsq, in turns committed,
+variant, committed, beside the byte bound and each variant's GB/s of the
+table; the variants that compute w are held to ref.igd_fold_minibatch_ref
+first:
+
+- slice_clocks: clock64 in rank 0 at the tile's phase boundaries (the
+  wait for the tile's copies, pass 1, the exchange, pass 2), cycles a
+  tile (timing only);
+- slice_copy_only: the copies alone (a streamed tile's margins panels
+  through the producer's ring of bulk copies, a resident tile by the
+  consumers' cp.async) with no arithmetic and no exchange (the consumer
+  barriers stay): the copy path's ceiling at 16 SMs (timing only, wrong
+  w);
+- slice_exchange_only: the copies and the exchange of partials, no
+  arithmetic (timing only);
+- slice_no_exchange: the copies and both passes, no exchange (each CTA
+  takes whatever its receive buffer holds; timing only);
+- slice_panel512: panels of at most 512 columns (two column chunks a
+  slice at D 12,033, so twice the bulk copies) in place of 1,024.
 
 Times are device ms per launch (CUDA events around single launches, three
 a turn) of one igd_fold_minibatch epoch over the Forest-shaped table that
@@ -111,6 +133,60 @@ VARIANTS["partial4"] = (K.MINIBATCH_CLUSTER, PARTIAL4, True)
 VARIANTS.update({f"cluster_k{k}": (k, with_cluster(k), True) for k in KS if k != K.MINIBATCH_CLUSTER})
 
 
+# the column-slice cluster's variants (--slice): name -> (edits, computes w)
+SLICE_SHAPES = ((8_192, 12_033), (65_536, 1_000))
+S_MARGINS = [f"            slice_margins<{k}>(xs, w + ch * panel, margins + p * prows, rp, len, ldp, e0, dm, ch > 0, "
+             "cw, lane);" for k in (4, 2, 1)]
+S_PUSH = "      push_margins(margins, recv, recv_bar, half, rank, ct);"
+S_TAKE = """      take_margins<LOSS>(recv, recv_bar, cs, half, static_cast<uint32_t>((t >> 1) & 1), rows, yv, av, ct,
+                         t + 2 < n_tiles);"""
+S_UPDATE = "            slice_update<false>(kept, nullptr, cs, r0, r1, ldp, e0, dm, d, j, false, u0, u1);"
+S_UPDATE_L2 = "            slice_update<true>(nullptr, x + row0 * d + j0 + ch * panel, cs, r0, r1, ldp, e0, dm, d, j,"
+
+
+def s_off(line: str):
+    indent = line[:len(line) - len(line.lstrip())]
+    return (line, indent + "if (t < 0) " + line.strip())
+
+
+S_NO_ARITHMETIC = [s_off(m) for m in S_MARGINS] + [s_off(S_UPDATE), s_off(S_UPDATE_L2)]
+S_NO_EXCHANGE = [s_off(S_PUSH), s_off(S_TAKE)]
+# clock64 in rank 0's consumer thread 0 at the tile's phase boundaries, summed over the tiles and left in
+# w[0..3] (timing only): the wait for the tile's copies, pass 1, the exchange, pass 2
+S_CLOCKS = [
+    ("    if (resident) fetch_tile(0);\n",
+     "    if (resident) fetch_tile(0);\n    long long clk[4] = {0, 0, 0, 0}, clk_t = clock64();\n"),
+    ("        consumers_sync();\n      }\n      // pass 1:",
+     "        consumers_sync();\n      }\n      clk[0] += clock64() - clk_t; clk_t = clock64();\n      // pass 1:"),
+    ("      consumers_sync();  // margins complete\n",
+     "      consumers_sync();  // margins complete\n      clk[1] += clock64() - clk_t; clk_t = clock64();\n"),
+    ("      consumers_sync();  // c complete\n",
+     "      consumers_sync();  // c complete\n      clk[2] += clock64() - clk_t; clk_t = clock64();\n"),
+    ("      consumers_sync();  // w complete for the next tile's margins\n",
+     "      consumers_sync();  // w complete for the next tile's margins\n      clk[3] += clock64() - clk_t; "
+     "clk_t = clock64();\n"),
+    ("""        for (int j = ct; j < len; j += kMsConsumers) wout[j0 + ch * panel + j] = w[ch * panel + j];
+      }
+    }
+""", """        for (int j = ct; j < len; j += kMsConsumers) wout[j0 + ch * panel + j] = w[ch * panel + j];
+      }
+    }
+    consumers_sync();
+    if (rank == 0 && ct == 0) {
+      for (int k = 0; k < 4; ++k) wout[k] = static_cast<float>(clk[k]);
+    }
+"""),
+]
+SLICE_VARIANTS = {
+    "slice_clocks": (S_CLOCKS, False),
+    "slice_copy_only": (S_NO_ARITHMETIC + S_NO_EXCHANGE, False),
+    "slice_exchange_only": (S_NO_ARITHMETIC, False),
+    "slice_no_exchange": (S_NO_EXCHANGE, False),
+    "slice_panel512": ([("constexpr int kMsMaxPanel = 2 * kMsConsumers;", "constexpr int kMsMaxPanel = kMsConsumers;")],
+                       True),
+}
+
+
 def variant(name: str, k: int, edits) -> CudaLibrary:
     text = K.SOURCE.read_text()
     for old, new in edits:
@@ -167,10 +243,56 @@ def step_cycles(lib: CudaLibrary, loss: str = "lsq") -> tuple:
         K._load = saved
 
 
+def slice_main(only) -> int:
+    """The column-slice cluster's variants at SLICE_SHAPES (see --slice)."""
+    chosen = {name: v for name, v in SLICE_VARIANTS.items() if not only or name in only}
+    libs = {"committed": (K.LIBRARY, True)}
+    libs.update({name: (variant(name, K.MINIBATCH_CLUSTER, edits), computes)
+                 for name, (edits, computes) in chosen.items()})
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda v: v[0].build(), libs.values()))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for n, d in SLICE_SHAPES:
+        x = torch.randn((n, d), generator=gen, device="cuda") / d ** 0.5
+        y = torch.sign(torch.randn((n,), generator=gen, device="cuda"))
+        alpha = engine.get("least_squares").step_size(n)(torch.arange(n, dtype=torch.int32, device="cuda"))
+        w0 = torch.zeros(d, device="cuda")
+        nbytes = n * (d + 2) * 4
+        want = R.igd_fold_minibatch_ref(x, y, alpha, w0, loss="lsq")
+        for name, (lib, computes) in libs.items():
+            if computes:
+                torch.testing.assert_close(minibatch(lib, x, y, alpha, w0, "lsq"), want, **TOL,
+                                           msg=lambda m, name=name: f"{name} {n}x{d}: {m}")
+        committed = lambda: minibatch(libs["committed"][0], x, y, alpha, w0, "lsq")  # noqa: E731
+        own = launch_ms(committed)
+        mean = sum(own) / len(own)
+        print(f"column-slice committed at {n}x{d} lsq: {mean:.4f} ms/launch ({', '.join(f'{t:.4f}' for t in own)}), "
+              f"{nbytes / mean / 1e6:.1f} GB/s of the table; byte bound {nbytes / 3.35e9:.4f} ms; design "
+              f"{K.minibatch_slice_design(d)}", flush=True)
+        for name, (lib, computes) in libs.items():
+            if name == "committed":
+                continue
+            run = lambda lib=lib: minibatch(lib, x, y, alpha, w0, "lsq")  # noqa: E731
+            if name == "slice_clocks":
+                tiles = -(-n // K.TILE)
+                cycles = [float(v) / tiles for v in run()[:4].cpu()]
+                print(f"column-slice clocks at {n}x{d} (rank 0, cycles a tile): copies' wait {cycles[0]:.0f}, "
+                      f"pass 1 {cycles[1]:.0f}, exchange {cycles[2]:.0f}, pass 2 {cycles[3]:.0f}", flush=True)
+                continue
+            first, own, second = launch_ms(committed), launch_ms(run), launch_ms(committed)
+            mean = sum(own) / len(own)
+            print(f"column-slice {name} at {n}x{d} lsq: {mean:.4f} ms/launch ({', '.join(f'{t:.4f}' for t in own)}), "
+                  f"{nbytes / mean / 1e6:.1f} GB/s of the table{'' if computes else ' (timing only)'}; committed in "
+                  f"turns {', '.join(f'{t:.4f}' for t in first + second)}", flush=True)
+        del x, y, alpha
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", nargs="*", help="variants to run (default: all)")
     ap.add_argument("--against", type=Path, help="another igd_fused.cu to time in the same turns")
+    ap.add_argument("--slice", action="store_true", help="the column-slice cluster's variants (D > 256)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_minibatch_variants: no CUDA device", file=sys.stderr)
@@ -179,6 +301,8 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, f"| torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.slice:
+        return slice_main(args.only)
     chosen = {name: v for name, v in VARIANTS.items() if not args.only or name in args.only}
     libs = {"committed": (K.MINIBATCH_CLUSTER, K.LIBRARY, True)}
     libs.update({name: (k, variant(name, k, edits), computes) for name, (k, edits, computes) in chosen.items()})

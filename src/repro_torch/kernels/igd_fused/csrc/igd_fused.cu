@@ -121,8 +121,7 @@
 // Lanes — the counterpart of jax.vmap over the Pallas call (the reference
 //   fuses a serving batch by vmapping kernel.py:74 and :119). Every C
 //   entry takes `lanes` independent folds and launches them at once: a
-//   grid of `lanes` blocks (igd_fold to D 4,096, the one-block minibatch
-//   instance) or of `lanes` clusters (gridDim = (CTAs, lanes), clusterDim
+//   grid of `lanes` blocks (igd_fold to D 4,096) or of `lanes` clusters (gridDim = (CTAs, lanes), clusterDim
 //   = (CTAs, 1, 1)). Block (or cluster) b reads its rows at
 //   x + s * xy_lane_rows * D, y + s * xy_lane_rows with s = b /
 //   lanes_per_xy, its alphas at alpha + b * alpha_lane_stride and w0 +
@@ -136,9 +135,9 @@
 //   is copied B times (the *_segments_launch entries take it; the others
 //   pass 1). No sum crosses lanes. Launch limits: the Gram instance's
 //   ~200 KB of shared memory leaves one block an SM, so 132 lanes run in
-//   one wave; the minibatch clusters take 8 SMs a lane and the wide
-//   fold's 8 or 16, so 16 or 8 lanes fill the card and more run in
-//   further waves; lanes <= 65535 (gridDim.y). The wide fold's pre-pass
+//   one wave; the minibatch clusters take 8 SMs a lane (16 past D 256)
+//   and the wide fold's 16, so 16 or 8 lanes fill the card and more run
+//   in further waves; lanes <= 65535 (gridDim.y). The wide fold's pre-pass
 //   runs once a segment: lanes over one shared table share it.
 //
 // igd_fold_minibatch — replaces the Pallas TPU kernel
@@ -151,7 +150,7 @@
 //   which the SMs it runs on can pull them, whichever is longer. One SM
 //   pulling rows with per-thread loads reaches ~8 GB/s: 16 ms for the
 //   130 MB Forest table, where the bytes alone take 0.039 ms.
-//   igd_fold_minibatch_launch picks one of three instances by D; together
+//   igd_fold_minibatch_launch picks one of two instances by D; together
 //   they take every D >= 1.
 //
 //   D <= 256: a thread-block cluster of kMbCluster CTAs on as many SMs
@@ -179,22 +178,61 @@
 //   16-byte boundary, and for the ragged last tile's short shares, the
 //   CTA's threads copy the share with plain loads when its turn comes.
 //
-//   256 < D <= 12032: one block of 256 threads, w in shared memory.
-//   Phase 1: one thread per row walks its row. Phase 2: one thread per
-//   column sums c_r * x_rj over the tile's rows.
-//
-//   D > 12032: a cluster of kMbCluster CTAs of 1,024 threads a lane
-//   (igd_minibatch_wide_kernel), CTA q owning the column slice [q * slice,
-//   (q + 1) * slice) of w, slice = ceil(D / 8), in shared memory up to D =
-//   kMbWideSmemMaxDim (452,608) and in the lane's output row above it. Per
-//   tile: each CTA forms the 256 rows' partial margins over its slice (a
-//   warp 8 rows, w read once for the 8); one cluster barrier; every CTA
-//   reads the kMbCluster partials of each row from the cluster's shared
-//   memory and sums them in rank order (so every CTA computes the same c);
-//   each thread then updates its own columns. What bounds it: the table's
-//   bytes over what 8 SMs pull (the tile is read twice, the second time
-//   mostly from L2), beside one cluster barrier and the partials' exchange
-//   a tile (kernel.minibatch_wide_step_probe times those alone).
+//   D > 256: the column-slice cluster (igd_minibatch_slice_kernel), a
+//   cluster of kMsCluster = 16 CTAs a lane (non-portable), CTA q owning
+//   w's column slice [q * slice, q * slice + slice), slice = ceil(D / 16),
+//   in shared memory up to kMsSmemMaxSlice floats (48 KB: D <=
+//   kMinibatchSliceSmemMaxDim = 196,608) and in the lane's output row above.
+//   What bounds it on this card: a tile's rows are needed twice, for the
+//   margins and, once c is known, for the update, and every byte comes
+//   into the 16 SMs of one cluster (at 8,192 x 12,033 a tile is 12.3 MB,
+//   771 KB a CTA a pass); so bytes per SM at 16 SMs bound the wide tables
+//   (0.1177 ms of HBM at 8,192 x 12,033 spread over 16 of 132 SMs), and at
+//   narrow D the exchange a tile (every CTA needs every row's margin over
+//   all 16 slices before any column can be updated). What the design does
+//   about each:
+//   - the bytes: where a tile's slice fits twice beside the rest
+//     (RESIDENT: D <= kMinibatchResidentMaxDim = 1,424) it is copied once,
+//     one tile ahead, by the consumers' 16-byte cp.async (a warp a row, a
+//     lane 16 bytes of its span; a bulk copy a row took 1.16x as long at D
+//     1,000: ~30 ns a copy however small), and stays from the margins to
+//     the update, so the table crosses HBM once. Past it, a producer warp
+//     streams the margins pass's rows into a ring of shared-memory slots,
+//     a bulk copy (cp.async.bulk) a row a lane, completing on the slot's
+//     mbarrier: at odd D rows start anywhere and a 2-D TMA map needs a row
+//     stride of 16-byte multiples, so each span is widened to 16-byte
+//     boundaries and read shifted (x, y and alpha may start off 16 bytes:
+//     the same w). Panels are as wide as kMsMaxPanel columns (a panel of
+//     half the width, twice the copies, took 1.4-1.6x as long). The update
+//     reads the tile again from global memory, where the margins pass left
+//     it in L2, sixteen rows' loads in flight a thread (copying it through
+//     the ring again took as long, and a single warp's 16-byte cp.async in
+//     place of the bulk copies 5x longer). Measured at 8,192 x 12,033
+//     (clock64 in rank 0, scripts/torch_minibatch_variants.py --slice):
+//     ~39,000 cycles a tile for the margins pass, at the ring's copy rate
+//     (its copies alone take ~34,000), and ~28,500 for the update's loads
+//     from L2, each ~50 GB/s an SM; 1.15-1.22 ms a launch.
+//   - the exchange: the partial margins are pushed, not pulled. After the
+//     margins pass (a warp 1, 2 or 4 rows at a time, lanes across the
+//     slice, the rows' butterflies interleaved) one consumer barrier; 64
+//     threads send the CTA's 256 partials to every CTA's receive buffer
+//     with 16-byte st.async stores that complete on the receiver's own
+//     mbarrier (the D <= 256 instance's scheme; the buffers alternate by
+//     tile parity); 256 threads wait on their own CTA's mbarrier, sum the
+//     16 partials of a row in rank order, so every CTA forms the same c bit
+//     for bit, and take y and alpha loaded at the tile's start. No
+//     cluster barrier and no remote load a tile: ~1,440 cycles a tile
+//     (kernel.minibatch_wide_step_probe times the skeleton alone).
+//   - the update: a thread owns a column (two past kMsConsumers columns
+//     a chunk) and sums c_r x_rj over the tile's rows in row order, then
+//     w_j -= sum / 256; where a chunk is at most half the consumers wide
+//     (the resident tier), the rows split into blocks, a thread a (block,
+//     column), the blocks' sums added in block order: every consumer
+//     thread works, and w is rounded once a tile and never crosses CTAs.
+//   The CTA count and the geometry depend on D alone (never on the number
+//   of lanes), so a lane's w is its one-lane launch's bit for bit; the
+//   wrapper checks at load that the 16-CTA cluster fits the card
+//   (igd_fused_minibatch_clusters_fit).
 //
 //   All: the ragged last tile sums only its real rows and still divides
 //   by 256, which is the reference's padded semantics.
@@ -207,8 +245,8 @@
 // igd_chain_probe_kernel is no port of a TPU kernel: it times the tiled
 // instances' dependent chain alone (clock64 around grad_scale_fast + FMA
 // in one warp), which chip_smoke.py reports as igd_fold's floor at every
-// D. igd_minibatch_wide_step_probe_launch times the wide minibatch
-// instance's dependent step alone in the same way, for its floor.
+// D. igd_minibatch_wide_step_probe_launch times the column-slice
+// instance's exchange a tile alone in the same way, for its floor.
 //
 // No kernel allocates; all launch on the caller's stream. Each C
 // entry returns cudaGetLastError() (or cudaErrorInvalidValue for
@@ -232,7 +270,6 @@ constexpr int kWideVpl = 8;              // several warps: 8 floats a thread
 constexpr int kFoldMaxDim = 16 * kWarp * kWideVpl;  // 16 warps: D <= 4096
 constexpr int kStageFloatBudget = 6000;  // per stage; two stages + partials < 48 KB
 constexpr int kTile = 256;               // minibatch rows per step
-constexpr int kMinibatchMaxDim = 12288 - kTile;  // w + c in 48 KB
 constexpr int kGramMaxDim = 256;         // tiled Gram instance: one column a thread
 constexpr int kSub = 32;                 // T: rows a sub-tile, one a lane of the chain warp
 constexpr int kGramWarps = 8;            // warp 0 runs the chain, warps 1-7 help
@@ -257,16 +294,6 @@ constexpr int kMbBarBytes = 128;                 // the mbarriers, 16-byte padde
 static_assert(kTile % kMbCluster == 0 && kMbRows % 4 == 0, "shares of 16-byte multiples");
 static_assert(kMbMaxDim <= kMbThreads, "one column a thread");
 static_assert((kMbMaxStages + 2) * 8 <= kMbBarBytes, "the mbarriers fit their header");
-// igd_fold_minibatch's wide instance (past kMinibatchMaxDim): 1,024
-// threads a CTA, w's slice in opt-in shared memory while it fits, else in
-// the output row in global memory (L2-resident)
-constexpr int kWideWarps = 32;
-constexpr int kWideThreads = kWideWarps * kWarp;
-constexpr int kWideSmemFloats = 57344;  // 224 KB of the 227 KB a block may opt into
-constexpr int kMbWideRowsPerWarp = kTile / kWideWarps;
-constexpr int kMbWideSmemMaxSlice = kWideSmemFloats - 3 * kTile;  // partials [2][256] | c [256] | w slice
-constexpr int kMbWideSmemMaxDim = kMbCluster * kMbWideSmemMaxSlice;
-static_assert(kTile % kWideWarps == 0, "whole rows a warp");
 // igd_fold's wide instance (past kFoldMaxDim): the Gram pre-pass, then a
 // cluster a lane (see the head of this file)
 constexpr int kGramFloats = 2 * kSub * kSub;  // a sub-tile's G | C in the pre-pass's scratch
@@ -308,6 +335,46 @@ constexpr int kSmemOptIn = 232448;            // the 227 KB a block may opt into
 constexpr int kPpSplit = 4;                   // pre-pass blocks a sub-tile, each a quarter of D
 constexpr int kFcPrefetchAhead = 2;           // sub-tiles fetched into L2 ahead of their q
 static_assert(2 * 2 * kSub * kPpLd * sizeof(float) <= 48 * 1024, "the pre-pass's two stages are static");
+// igd_fold_minibatch past kMbMaxDim: the column-slice cluster (see the
+// head of this file)
+constexpr int kMsCluster = 16;                // CTAs a lane (a non-portable cluster size)
+constexpr int kMsConsumerWarps = 16;          // and one producer warp after them
+constexpr int kMsConsumers = kMsConsumerWarps * kWarp;
+constexpr int kMsThreads = kMsConsumers + kWarp;
+constexpr int kMsMaxPanel = 2 * kMsConsumers;  // columns a panel: two a consumer thread in the update
+constexpr int kMsMinRows = kMsConsumerWarps;  // rows a streamed panel: one a consumer warp at least
+constexpr int kMsRingMin = 4, kMsRingMax = 8;  // panel slots, set by the panel's size
+constexpr int kMsBarBytes = 256;              // the mbarriers: the partials' [2], full [ring], empty [ring]
+static_assert((2 + 2 * kMsRingMax) * 8 <= kMsBarBytes, "the mbarriers fit their header");
+constexpr int kMsSmemMaxSlice = 12288;        // w's slice in shared memory up to 48 KB a CTA
+constexpr int kMinibatchSliceSmemMaxDim = kMsCluster * kMsSmemMaxSlice;
+// received partials [2][16][256], margins [256], c [256], the update's row-group sums [512]
+constexpr int kMsFixedFloats = 2 * kMsCluster * kTile + 2 * kTile + kMsConsumers;
+static_assert(kTile % kMsConsumerWarps == 0 && kTile <= kMsConsumers, "a row a consumer thread in the exchange");
+
+// The column-slice instance's resident tier (see slice_panels)
+// a span of `cols` floats widened by up to 3, in whole float4s
+__host__ __device__ constexpr int span_ld(int cols) { return (cols + 3 + 3) / 4 * 4; }
+
+constexpr size_t slice_fixed_bytes(int slice) {
+  return kMsBarBytes + (kMsFixedFloats + static_cast<size_t>(slice <= kMsSmemMaxSlice ? slice : 0)) * sizeof(float);
+}
+
+constexpr size_t slice_slot_bytes(int rows, int ldp) { return static_cast<size_t>(rows) * ldp * sizeof(float); }
+
+constexpr bool slice_resident(int slice) {
+  return slice <= kMsMaxPanel && slice_fixed_bytes(slice) + 2 * slice_slot_bytes(kTile, span_ld(slice)) <= kSmemOptIn;
+}
+
+// The last D whose slice stays resident from the margins to the update.
+constexpr int slice_resident_max_dim() {
+  int d = kMbMaxDim;
+  while (slice_resident((d + kMsCluster) / kMsCluster)) ++d;  // D + 1's slice
+  return d;
+}
+constexpr int kMinibatchResidentMaxDim = slice_resident_max_dim();
+constexpr int kMsResidentMaxSlice = (kMinibatchResidentMaxDim + kMsCluster - 1) / kMsCluster;
+static_assert(span_ld(kMsResidentMaxSlice) <= 4 * kWarp, "a resident row's span in one warp's 16-byte chunks");
 
 // d loss / d (w.x), given wx = w.x (the kernel forms the margin itself).
 template <int LOSS>
@@ -791,64 +858,6 @@ __global__ void igd_chain_probe_kernel(float r, float yv, float av, float gv, in
     out[0] = t1 - t0;
     out[1] = __float_as_int(r);
   }
-}
-
-template <int LOSS>
-__global__ void __launch_bounds__(kTile)
-    igd_minibatch_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                         const float* __restrict__ alpha, const float* __restrict__ w0,
-                         float* __restrict__ wout, long long n, int d,
-                         long long xy_lane_rows, long long alpha_lane_stride,
-                         int lanes_per_xy) {
-  extern __shared__ __align__(16) float smem[];
-  {  // lane blockIdx.x: the only change from a one-lane launch
-    const long long b = blockIdx.x;
-    // the x/y segment lane b reads (32-bit division: b < 65536 and no 64-bit divide call)
-    const long long s = static_cast<unsigned>(b) / static_cast<unsigned>(lanes_per_xy);
-    x += s * xy_lane_rows * d;
-    y += s * xy_lane_rows;
-    alpha += b * alpha_lane_stride;
-    w0 += b * d;
-    wout += b * d;
-  }
-  float* ws = smem;      // [d]
-  float* cs = smem + d;  // [kTile]
-  const int tid = threadIdx.x;
-
-  for (int j = tid; j < d; j += kTile) ws[j] = w0[j];
-  __syncthreads();
-
-  const long long n_tiles = (n + kTile - 1) / kTile;
-  for (long long t = 0; t < n_tiles; ++t) {
-    const long long row0 = t * kTile;
-    const long long left = n - row0;
-    const int rows = static_cast<int>(left < kTile ? left : kTile);
-
-    // phase 1: c_r = grad_scale(w.x_r) * alpha_r, one thread per row
-    float c = 0.0f;
-    if (tid < rows) {
-      const float* xr = x + (row0 + tid) * d;
-      float dot = 0.0f;
-#pragma unroll 8
-      for (int j = 0; j < d; ++j) dot = fmaf(ws[j], xr[j], dot);
-      c = grad_scale<LOSS>(dot, y[row0 + tid]) * alpha[row0 + tid];
-    }
-    cs[tid] = c;
-    __syncthreads();
-
-    // phase 2: w_j -= (sum_r c_r x_rj) / TILE — rows past N add nothing,
-    // the divisor stays TILE
-    for (int j = tid; j < d; j += kTile) {
-      const float* xc = x + row0 * d + j;
-      float s = 0.0f;
-#pragma unroll 8
-      for (int r = 0; r < rows; ++r) s = fmaf(cs[r], xc[static_cast<long long>(r) * d], s);
-      ws[j] = ws[j] - s / static_cast<float>(kTile);
-    }
-    __syncthreads();
-  }
-
-  for (int j = tid; j < d; j += kTile) wout[j] = ws[j];
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -1636,28 +1645,214 @@ __global__ void __launch_bounds__(kFcThreads)
   cluster.sync();  // no CTA leaves while its partials may still be in flight
 }
 
-// igd_fold_minibatch's wide instance (D > kMinibatchMaxDim): a cluster of
-// kMbCluster CTAs of 1,024 threads a lane, CTA q owning the column slice
-// [q * slice, (q + 1) * slice) of w for the whole fold (slice = ceil(D /
-// kMbCluster)). Per 256-row tile: each CTA forms the tile's 256 partial
-// margins over its slice (a warp 8 rows, lanes across the slice, w read
-// once for the 8), into one of two alternating shared buffers; a cluster
-// barrier; every CTA reads the kMbCluster partials of each row from the
-// cluster's shared memory (distributed shared memory) and sums them in
-// rank order, so every CTA computes the same c_r; a block barrier; each
-// thread applies w_j -= (sum_r c_r x_rj) / 256 to its own columns (rows
-// in order). One cluster barrier a tile: a CTA writes a partial buffer
-// again only two tiles on, past the next barrier, which every reader of
-// it has reached. W_SHARED: the slice in shared memory (D <=
-// kMbWideSmemMaxDim), else in the lane's output row.
+// One warp, a row a lane: bulk copies of `rows` rows of x, `len` columns of
+// each from src (row 0's first column; rows d floats apart), into `slot`
+// (rows at a stride of ldp floats, each span widened to 16-byte
+// boundaries: the row lands panel_shift floats into its span); lane 0 arms
+// `full` with the panel's bytes.
+__device__ __forceinline__ void issue_slice_rows(float* slot, uint64_t* full, const float* src, int rows, int len,
+                                                 int d, int ldp, int lane) {
+  uint32_t bytes = 0;
+  for (int r = lane; r < rows; r += kWarp) {
+    bytes += static_cast<uint32_t>((panel_shift(src + static_cast<long long>(r) * d) + len + 3) / 4 * 16);
+  }
+  const uint32_t total = __reduce_add_sync(kFull, bytes);
+  if (lane == 0) mbar_expect_tx(full, total);
+  for (int r = lane; r < rows; r += kWarp) {
+    const float* p = src + static_cast<long long>(r) * d;
+    const int e = panel_shift(p);
+    bulk_copy(slot + r * ldp, p - e, static_cast<uint32_t>((e + len + 3) / 4 * 16), full);
+  }
+}
+
+// A barrier of the column-slice kernel's consumer warps alone (id 1).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kMsConsumers) : "memory");
+}
+
+// Pass 1 of the column-slice kernel over one panel: consumer warp cw takes
+// its rows r = cw, cw + 16, ... (GROUP at once, w read once for them),
+// lanes across the panel's len columns (row r at r * ldp plus its shift,
+// which moves by d mod 4 from row to row), each row's sum in 4 / GROUP
+// interleaved partials, then summed across the lanes (the GROUP rows'
+// butterflies interleaved), and sets mg[r] to the warp's sum (or adds it,
+// for a later column chunk of the same rows).
+template <int GROUP>
+__device__ __forceinline__ void slice_margins(const float* xs, const float* wc, float* mg, int rows, int len, int ldp,
+                                              int e0, int dm, bool add, int cw, int lane) {
+  constexpr int kParts = 4 / GROUP;
+  for (int r = cw; r < rows; r += kMsConsumerWarps * GROUP) {
+    const float* xr[GROUP];
+    float acc[GROUP][kParts];
+#pragma unroll
+    for (int i = 0; i < GROUP; ++i) {
+      const int rr = r + kMsConsumerWarps * i < rows ? r + kMsConsumerWarps * i : r;  // past the rows: r again
+      xr[i] = xs + rr * ldp + ((e0 + rr * dm) & 3);
+#pragma unroll
+      for (int k = 0; k < kParts; ++k) acc[i][k] = 0.0f;
+    }
+    int j = lane;
+    for (; j + (kParts - 1) * kWarp < len; j += kParts * kWarp) {
+#pragma unroll
+      for (int k = 0; k < kParts; ++k) {
+        const float wj = wc[j + k * kWarp];
+#pragma unroll
+        for (int i = 0; i < GROUP; ++i) acc[i][k] = fmaf(xr[i][j + k * kWarp], wj, acc[i][k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kParts; ++k) {
+      if (j + k * kWarp < len) {
+        const float wj = wc[j + k * kWarp];
+#pragma unroll
+        for (int i = 0; i < GROUP; ++i) acc[i][k] = fmaf(xr[i][j + k * kWarp], wj, acc[i][k]);
+      }
+    }
+    float sum[GROUP];
+#pragma unroll
+    for (int i = 0; i < GROUP; ++i) {
+      sum[i] = acc[i][0];
+#pragma unroll
+      for (int k = 1; k < kParts; ++k) sum[i] += acc[i][k];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int i = 0; i < GROUP; ++i) sum[i] += __shfl_xor_sync(kFull, sum[i], o);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < GROUP; ++i) {
+        const int rr = r + kMsConsumerWarps * i;
+        if (rr < rows) mg[rr] = add ? mg[rr] + sum[i] : sum[i];
+      }
+    }
+  }
+}
+
+// Pass 2 of the column-slice kernel: the sum over rows [r0, r1) in order
+// of c_r x_rj for column j of a chunk (and, with `two`, for column j +
+// kMsConsumers into u1), its rows either in a resident slot (FROM_L2
+// false: row r at r * ldp plus its shift, which moves by d mod 4 from row
+// to row) or in global memory, where pass 1 left them in L2 (xg: row 0's
+// first column of the chunk, rows d floats apart). Sixteen rows' loads
+// are issued before their FMAs.
+template <bool FROM_L2>
+__device__ __forceinline__ void slice_update(const float* xs, const float* xg, const float* cs, int r0, int r1,
+                                             int ldp, int e0, int dm, long long d, int j, bool two, float& u0,
+                                             float& u1) {
+  auto at = [&](int r) {
+    if constexpr (FROM_L2) {
+      return xg + r * d + j;
+    } else {
+      return xs + r * ldp + ((e0 + r * dm) & 3) + j;
+    }
+  };
+  auto load = [&](const float* p) {
+    if constexpr (FROM_L2) {
+      return __ldcg(p);
+    } else {
+      return *p;
+    }
+  };
+  int r = r0;
+  for (; r + 16 <= r1; r += 16) {
+    float a[16], b[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      a[k] = load(at(r + k));
+      b[k] = two ? load(at(r + k) + kMsConsumers) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      u0 = fmaf(cs[r + k], a[k], u0);
+      if (two) u1 = fmaf(cs[r + k], b[k], u1);
+    }
+  }
+  for (; r < r1; ++r) {
+    u0 = fmaf(cs[r], load(at(r)), u0);
+    if (two) u1 = fmaf(cs[r], load(at(r) + kMsConsumers), u1);
+  }
+}
+
+// Consumer threads 0-63: this CTA's 256 partial margins into its slot
+// [rank] of every CTA's receive buffer for the tile's parity, four rows a
+// 16-byte st.async, each completing on the receiver's own mbarrier.
+__device__ __forceinline__ void push_margins(const float* margins, float* recv, uint64_t* recv_bar, int half,
+                                             int rank, int ct) {
+  if (ct >= kTile / 4) return;
+  const float4 v = reinterpret_cast<const float4*>(margins)[ct];
+  const uint32_t dst = smem_u32(recv + (half * kMsCluster + rank) * kTile + 4 * ct);
+  const uint32_t bar = smem_u32(recv_bar + half);
+#pragma unroll
+  for (int q = 0; q < kMsCluster; ++q) {
+    uint32_t rdst, rbar;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rdst) : "r"(dst), "r"(q));
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rbar) : "r"(bar), "r"(q));
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(rdst),
+        "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)),
+        "r"(rbar)
+        : "memory");
+  }
+}
+
+// Consumer thread r < 256: waits for every CTA's partials of the tile,
+// sums row r's in rank order and sets c_r = grad_scale(m_r, y_r) * alpha_r
+// (0 past the tile's rows); thread 0 then arms the buffer for tile t + 2.
+template <int LOSS>
+__device__ __forceinline__ void take_margins(const float* recv, uint64_t* recv_bar, float* cs, int half,
+                                             uint32_t phase, int rows, float yv, float av, int ct, bool rearm) {
+  if (ct >= kTile) return;
+  mbar_wait(recv_bar + half, phase);
+  const float* p = recv + half * kMsCluster * kTile + ct;
+  float m = p[0];
+#pragma unroll
+  for (int q = 1; q < kMsCluster; ++q) m += p[q * kTile];
+  cs[ct] = ct < rows ? grad_scale<LOSS>(m, yv) * av : 0.0f;
+  if (ct == 0 && rearm) mbar_expect_tx(recv_bar + half, static_cast<uint32_t>(kMsCluster * kTile * sizeof(float)));
+}
+
+// igd_fold_minibatch past kMbMaxDim: the column-slice cluster. A cluster
+// of kMsCluster CTAs a lane (lane blockIdx.y), CTA q owning w's column
+// slice [q * slice, q * slice + cols) for the whole fold, in shared memory
+// (W_SHARED) or in the lane's output row. Per tile:
+//   the rows: RESIDENT (prows == 256: the tile's slice fits twice): the
+//   consumers copy tile t + 1's slice into the other of two slots with
+//   16-byte cp.async while they work tile t, and both passes read the
+//   slot. Streamed: warp kMsConsumerWarps (the producer) keeps a ring of
+//   `slots` panels (prows rows x `panel` columns of the slice; row panels
+//   outer, column chunks inner) full with bulk copies, a row a lane, each
+//   span widened to 16-byte boundaries, completing on the slot's full
+//   mbarrier; each consumer warp releases a slot on its empty one.
+//   pass 1 (margins): warp cw takes a panel's rows cw, cw + 16, ...
+//   (slice_margins), lanes across the columns with the tile-start w, its
+//   warp sums into margins[r], column chunk after chunk in order;
+//   the exchange: one consumer barrier; threads 0-63 push the CTA's 256
+//   partial margins, four rows a 16-byte st.async, into slot [rank] of
+//   every CTA's receive buffer for the tile's parity, completing on the
+//   receiver's own mbarrier; thread r < 256 waits on its own CTA's, sums
+//   row r's kMsCluster partials in rank order (every CTA the same bits)
+//   and sets c_r = grad_scale(m_r, y_r) * alpha_r (y_r and alpha_r loaded
+//   at the tile's start); one consumer barrier;
+//   pass 2 (update, slice_update): column chunks in order, a thread a
+//   column (two past kMsConsumers columns) summing c_r x_rj over the
+//   tile's rows in order, or, where a chunk is at most half the consumers
+//   wide, over one of `groups` contiguous blocks of rows, the blocks'
+//   sums then added in block order; w_j -= sum / 256; a streamed tile's
+//   rows are read from global memory, where pass 1 left them in L2. One
+//   consumer barrier ends the tile.
+// The receive buffers alternate by tile parity: a CTA sends tile t + 2's
+// partials only after its update of t + 1, which needed every CTA's
+// margins of t + 1, each sent after that CTA had read its buffer of t.
 template <int LOSS, bool W_SHARED>
-__global__ void __launch_bounds__(kWideThreads)
-    igd_minibatch_wide_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                              const float* __restrict__ alpha, const float* __restrict__ w0,
-                              float* __restrict__ wout, long long n, int d, int slice,
-                              long long xy_lane_rows, long long alpha_lane_stride,
-                              int lanes_per_xy) {
-  extern __shared__ __align__(16) float smem[];
+__global__ void __launch_bounds__(kMsThreads, 1)
+    igd_minibatch_slice_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                               const float* __restrict__ alpha, const float* __restrict__ w0,
+                               float* __restrict__ wout, long long n, int d, int slice, int panel,
+                               int ldp, int prows, int slots, long long xy_lane_rows,
+                               long long alpha_lane_stride, int lanes_per_xy) {
+  extern __shared__ __align__(16) unsigned char ms_smem[];
   {  // lane blockIdx.y, one cluster a lane: the only change from a one-lane launch
     const long long b = blockIdx.y;
     // the x/y segment lane b reads (32-bit division: b < 65536 and no 64-bit divide call)
@@ -1671,106 +1866,210 @@ __global__ void __launch_bounds__(kWideThreads)
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
-  float* part = smem;            // [2][kTile]
-  float* cs = smem + 2 * kTile;  // [kTile]
+  uint64_t* recv_bar = reinterpret_cast<uint64_t*>(ms_smem);  // [2]
+  uint64_t* full = recv_bar + 2;                               // [slots]
+  uint64_t* empty = full + slots;                              // [slots]
+  float* recv = reinterpret_cast<float*>(ms_smem + kMsBarBytes);  // [2][kMsCluster][256]
+  float* margins = recv + 2 * kMsCluster * kTile;                 // [256]
+  float* cs = margins + kTile;                                    // [256]
+  float* sums = cs + kTile;                                       // [kMsConsumers]
+  float* ring = sums + kMsConsumers;                              // [slots][prows][ldp]
   const int j0 = rank * slice;
-  const int cols = d - j0 < slice ? (d - j0 > 0 ? d - j0 : 0) : slice;
-  float* w = W_SHARED ? smem + 3 * kTile : wout + j0;
-  const float* xs = x + j0;  // this CTA's columns
-  for (int k = tid; k < cols; k += kWideThreads) w[k] = w0[j0 + k];
-  __syncthreads();
-
+  const int cols = d - j0 < slice ? d - j0 : slice;  // > 0: d > kMbMaxDim
+  float* w = W_SHARED ? ring + slots * prows * ldp : wout + j0;
+  const int chunks = (cols + panel - 1) / panel;
+  const bool resident = prows == kTile;  // (one chunk: the host's geometry)
+  const int dm = d & 3;
   const long long n_tiles = (n + kTile - 1) / kTile;
-  for (long long t = 0; t < n_tiles; ++t) {
-    const long long row0 = t * kTile;
-    const int rows = static_cast<int>(n - row0 < kTile ? n - row0 : kTile);
-    const float* xt = xs + row0 * d;
-    float* pt = part + (t & 1) * kTile;
-    float acc[kMbWideRowsPerWarp];
-#pragma unroll
-    for (int i = 0; i < kMbWideRowsPerWarp; ++i) acc[i] = 0.0f;
-    if (rows == kTile) {
-      for (int k = lane; k < cols; k += kWarp) {
-        const float wk = w[k];
-#pragma unroll
-        for (int i = 0; i < kMbWideRowsPerWarp; ++i) {
-          acc[i] = fmaf(wk, xt[static_cast<long long>(warp + kWideWarps * i) * d + k], acc[i]);
+  const uint32_t recv_bytes = static_cast<uint32_t>(kMsCluster * kTile * sizeof(float));
+  auto tile_rows = [&](long long t) {
+    const long long left = n - t * kTile;
+    return left < kTile ? static_cast<int>(left) : kTile;
+  };
+
+  if (tid == 0) {
+    mbar_init(recv_bar, 1);
+    mbar_init(recv_bar + 1, 1);
+    for (int i = 0; i < slots; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kMsConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < 2 && t < n_tiles; ++t) mbar_expect_tx(recv_bar + t, recv_bytes);
+  }
+  if (warp < kMsConsumerWarps) {  // (a cluster barrier follows, so any thread may set any column)
+    for (int j = tid; j < cols; j += kMsConsumers) w[j] = w0[j0 + j];
+  }
+  cluster.sync();  // barriers set and armed, every CTA of the cluster running
+
+  if (warp == kMsConsumerWarps && !resident) {  // the producer: pass 1's panels, in order
+    int seq = 0;
+    auto issue = [&](long long row0, int p, int ch, int rows) {
+      const int slot = seq % slots;
+      if (seq >= slots) mbar_wait(empty + slot, static_cast<uint32_t>((seq / slots - 1) & 1));
+      const int rp = rows - p * prows < prows ? rows - p * prows : prows;
+      const int len = cols - ch * panel < panel ? cols - ch * panel : panel;
+      issue_slice_rows(ring + slot * prows * ldp, full + slot, x + (row0 + p * prows) * d + j0 + ch * panel,
+                       rp, len, d, ldp, lane);
+      ++seq;
+    };
+    for (long long t = 0; t < n_tiles; ++t) {
+      const int rows = tile_rows(t), np = (rows + prows - 1) / prows;
+      for (int p = 0; p < np; ++p) {
+        for (int ch = 0; ch < chunks; ++ch) issue(t * kTile, p, ch, rows);
+      }
+    }
+  } else if (warp < kMsConsumerWarps) {
+    const int cw = warp, ct = tid;
+    int seq = 0;
+    auto next_slot = [&]() {  // wait for the sequence's next panel
+      const int slot = seq % slots;
+      mbar_wait(full + slot, static_cast<uint32_t>((seq / slots) & 1));
+      ++seq;
+      return ring + slot * prows * ldp;
+    };
+    auto release = [&](const float* xs) {  // this warp is done with the slot
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + (xs - ring) / (prows * ldp));
+    };
+    // tile t's slice into slot t & 1 by 16-byte cp.async, one group: a
+    // warp a row at a time (rows cw, cw + 16, ...), a lane a 16-byte chunk
+    // of the row's span (at most 24 of them: slice <= 89)
+    auto fetch_tile = [&](long long t) {
+      if (t < n_tiles) {
+        const int rows = tile_rows(t);
+        for (int r = cw; r < rows; r += kMsConsumerWarps) {
+          const float* p = x + (t * kTile + r) * d + j0;
+          const int e = panel_shift(p);
+          if (4 * lane < e + cols) cp_async16(ring + ((t & 1) * kTile + r) * ldp + 4 * lane, p - e + 4 * lane);
         }
       }
-    } else {
-      for (int k = lane; k < cols; k += kWarp) {
-        const float wk = w[k];
-#pragma unroll
-        for (int i = 0; i < kMbWideRowsPerWarp; ++i) {
-          const int r = warp + kWideWarps * i;
-          if (r < rows) acc[i] = fmaf(wk, xt[static_cast<long long>(r) * d + k], acc[i]);
+      cp_async_commit();
+    };
+    if (resident) fetch_tile(0);
+    for (long long t = 0; t < n_tiles; ++t) {
+      const long long row0 = t * kTile;
+      const int rows = tile_rows(t), np = (rows + prows - 1) / prows;
+      const int half = static_cast<int>(t & 1);
+      float yv = 0.0f, av = 0.0f;  // row ct's, for c after the exchange
+      if (ct < rows) {
+        yv = y[row0 + ct];
+        av = alpha[row0 + ct];
+      }
+      if (resident) {  // tile t landed (each thread's copies), then every thread's; tile t + 1 on its way
+        fetch_tile(t + 1);
+        cp_async_wait_one();
+        consumers_sync();
+      }
+      // pass 1: this CTA's partial margins of the tile's rows
+      const float* kept = nullptr;  // RESIDENT: the tile's slot, kept for pass 2
+      for (int p = 0; p < np; ++p) {
+        const int rp = rows - p * prows < prows ? rows - p * prows : prows;
+        for (int ch = 0; ch < chunks; ++ch) {
+          const float* xs = resident ? ring + (t & 1) * kTile * ldp : next_slot();
+          const int len = cols - ch * panel < panel ? cols - ch * panel : panel;
+          const int e0 = panel_shift(x + (row0 + p * prows) * d + j0 + ch * panel);
+          if (prows >= kMsConsumerWarps * 4) {
+            slice_margins<4>(xs, w + ch * panel, margins + p * prows, rp, len, ldp, e0, dm, ch > 0, cw, lane);
+          } else if (prows >= kMsConsumerWarps * 2) {
+            slice_margins<2>(xs, w + ch * panel, margins + p * prows, rp, len, ldp, e0, dm, ch > 0, cw, lane);
+          } else {
+            slice_margins<1>(xs, w + ch * panel, margins + p * prows, rp, len, ldp, e0, dm, ch > 0, cw, lane);
+          }
+          if (resident) {
+            kept = xs;
+          } else {
+            release(xs);
+          }
         }
       }
+      consumers_sync();  // margins complete
+      push_margins(margins, recv, recv_bar, half, rank, ct);
+      take_margins<LOSS>(recv, recv_bar, cs, half, static_cast<uint32_t>((t >> 1) & 1), rows, yv, av, ct,
+                         t + 2 < n_tiles);
+      consumers_sync();  // c complete
+      // pass 2: w -= (c X_t) / 256, column by column over the tile's rows in
+      // order; where a chunk is at most half the consumers wide, its rows in
+      // `groups` contiguous blocks, a thread a (block, column), the blocks'
+      // sums then added in block order
+      for (int ch = 0; ch < chunks; ++ch) {
+        const int len = cols - ch * panel < panel ? cols - ch * panel : panel;
+        const int cpg = (len + kWarp - 1) / kWarp * kWarp;
+        const int groups = 2 * cpg <= kMsConsumers ? kMsConsumers / cpg : 1;
+        const int g = ct / cpg, j = groups > 1 ? ct - g * cpg : ct, rb = (rows + groups - 1) / groups;
+        const int r0 = g * rb, r1 = rows < r0 + rb ? rows : r0 + rb;
+        const int e0 = panel_shift(x + row0 * d + j0 + ch * panel);
+        float u0 = 0.0f, u1 = 0.0f;
+        if (g < groups && j < len) {
+          if (resident) {
+            slice_update<false>(kept, nullptr, cs, r0, r1, ldp, e0, dm, d, j, false, u0, u1);
+          } else {
+            slice_update<true>(nullptr, x + row0 * d + j0 + ch * panel, cs, r0, r1, ldp, e0, dm, d, j,
+                               groups == 1 && j + kMsConsumers < len, u0, u1);
+          }
+        }
+        float* wc = w + ch * panel;
+        if (groups > 1) {
+          if (g < groups) sums[ct] = u0;
+          consumers_sync();
+          if (ct < len) {
+            for (int k = 1; k < groups; ++k) u0 += sums[k * cpg + ct];
+          }
+        }
+        if (ct < len) wc[ct] = wc[ct] - u0 / static_cast<float>(kTile);
+        if (groups == 1 && ct + kMsConsumers < len) {
+          wc[ct + kMsConsumers] = wc[ct + kMsConsumers] - u1 / static_cast<float>(kTile);
+        }
+      }
+      consumers_sync();  // w complete for the next tile's margins
     }
-#pragma unroll
-    for (int i = 0; i < kMbWideRowsPerWarp; ++i) acc[i] = warp_sum(acc[i]);
-    if (lane == 0) {
-#pragma unroll
-      for (int i = 0; i < kMbWideRowsPerWarp; ++i) pt[warp + kWideWarps * i] = acc[i];
+    if (W_SHARED) {  // each column by the thread that updated it
+      for (int ch = 0; ch < chunks; ++ch) {
+        const int len = cols - ch * panel < panel ? cols - ch * panel : panel;
+        for (int j = ct; j < len; j += kMsConsumers) wout[j0 + ch * panel + j] = w[ch * panel + j];
+      }
     }
-    cluster.sync();  // every CTA's partials of this tile are complete and visible
-    if (tid < rows) {
-      float m = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kMbCluster; ++q) m += cluster.map_shared_rank(pt, q)[tid];
-      cs[tid] = grad_scale<LOSS>(m, y[row0 + tid]) * alpha[row0 + tid];
-    }
-    __syncthreads();
-    for (int k = tid; k < cols; k += kWideThreads) {
-      const float* xc = xt + k;
-      float s = 0.0f;
-#pragma unroll 8
-      for (int r = 0; r < rows; ++r) s = fmaf(cs[r], xc[static_cast<long long>(r) * d], s);
-      w[k] = w[k] - s / static_cast<float>(kTile);
-    }
-    __syncthreads();  // the next tile's margins read columns other threads wrote
   }
-  cluster.sync();  // no CTA leaves while another may still read its partials
-  if (W_SHARED) {
-    for (int k = tid; k < cols; k += kWideThreads) wout[j0 + k] = w[k];
-  }
+  cluster.sync();  // no CTA leaves while its partials may still be in flight
 }
 
-// Cycles of `steps` tiles of igd_minibatch_wide_kernel's dependent skeleton
-// with no row traffic: the partials' write, the cluster barrier, the
-// kMbCluster remote reads and grad_scale of 256 rows, the block barrier.
-// out[0] = rank 0's cycles, out[1] = a c's bits.
+// Cycles of `steps` tiles of igd_minibatch_slice_kernel's dependent
+// skeleton with no row traffic: the consumer barrier, the push of 256
+// partial margins to every CTA, the wait, the 16-way sums and c, the
+// consumer barrier. out[0] = rank 0's cycles, out[1] = a c's bits.
 template <int LOSS>
-__global__ void __launch_bounds__(kWideThreads)
-    igd_minibatch_wide_step_probe_kernel(int steps, long long* out) {
-  extern __shared__ __align__(16) float smem[];
+__global__ void __launch_bounds__(kMsThreads, 1) igd_minibatch_slice_step_probe_kernel(int steps, long long* out) {
+  extern __shared__ __align__(16) unsigned char ms_smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
-  float* part = smem;
-  float* cs = smem + 2 * kTile;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  uint64_t* recv_bar = reinterpret_cast<uint64_t*>(ms_smem);
+  float* recv = reinterpret_cast<float*>(ms_smem + kMsBarBytes);
+  float* margins = recv + 2 * kMsCluster * kTile;
+  float* cs = margins + kTile;
+  const uint32_t recv_bytes = static_cast<uint32_t>(kMsCluster * kTile * sizeof(float));
+  if (tid == 0) {
+    mbar_init(recv_bar, 1);
+    mbar_init(recv_bar + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < 2 && t < steps; ++t) mbar_expect_tx(recv_bar + t, recv_bytes);
+  }
   if (tid < kTile) cs[tid] = 0.0f;
   cluster.sync();
   const long long t0 = clock64();
-  for (int t = 0; t < steps; ++t) {
-    float* pt = part + (t & 1) * kTile;
-    if (lane == 0) {
-#pragma unroll
-      for (int i = 0; i < kMbWideRowsPerWarp; ++i) {
-        pt[warp + kWideWarps * i] = cs[(warp + kWideWarps * i + t) % kTile] + 0.01f;
-      }
+  if (tid < kMsConsumers) {
+    for (int t = 0; t < steps; ++t) {
+      if (tid < kTile) margins[tid] = cs[(tid + t) % kTile] + 0.01f;
+      consumers_sync();
+      push_margins(margins, recv, recv_bar, t & 1, rank, tid);
+      take_margins<LOSS>(recv, recv_bar, cs, t & 1, static_cast<uint32_t>((t >> 1) & 1), kTile,
+                         (tid & 1) ? 1.0f : -1.0f, 0.01f, tid, t + 2 < steps);
+      consumers_sync();
     }
-    cluster.sync();
-    if (tid < kTile) {
-      float m = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kMbCluster; ++q) m += cluster.map_shared_rank(pt, q)[tid];
-      cs[tid] = grad_scale<LOSS>(m, (tid & 1) ? 1.0f : -1.0f) * 0.01f;
-    }
-    __syncthreads();
   }
   const long long t1 = clock64();
   cluster.sync();
-  if (cluster.block_rank() == 0 && tid == 0) {
+  if (rank == 0 && tid == 0) {
     out[0] = t1 - t0;
     out[1] = __float_as_int(cs[0]);
   }
@@ -1839,13 +2138,6 @@ cudaError_t launch_mb_cluster_any(const float* x, const float* y, const float* a
 #undef REPRO_MB_CASE
 }
 
-// The wide minibatch instance's dynamic shared memory: partials, c, and
-// the CTA's slice of w while it fits.
-size_t mb_wide_smem_bytes(int d) {
-  const int slice = (d + kMbCluster - 1) / kMbCluster;
-  return static_cast<size_t>(3 * kTile + (d <= kMbWideSmemMaxDim ? slice : 0)) * sizeof(float);
-}
-
 // A launch of `grid` blocks of `threads` threads in clusters of `cluster`
 // along x, `smem` bytes of dynamic shared memory a block: the kernel's
 // attributes set, and the configuration in cfg (its attribute in attr),
@@ -1888,19 +2180,49 @@ cudaError_t launch_cluster(Kernel kernel, int cluster, int threads, int lanes, s
   return cudaGetLastError();
 }
 
+// The column-slice instance's geometry at D (slice = ceil(D / kMsCluster)
+// columns a CTA): RESIDENT where a tile's slice (256 rows) fits twice
+// beside the rest, as one panel a slot; else panels of the fewest column
+// chunks of at most kMsMaxPanel columns (so the fewest, largest bulk
+// copies) and of the most rows (128 down to kMsMinRows) that leave a ring
+// of kMsRingMin slots (kMsMinRows where none does: 3 slots at D 12,033);
+// the ring then takes as many slots as fit, up to kMsRingMax (resident:
+// two slots, this tile and the next). {panel columns, row stride in floats,
+// rows a panel, slots, bytes a CTA}.
+struct SlicePanels {
+  int panel, ldp, prows, slots;
+  size_t smem;
+};
+
+SlicePanels slice_panels(int slice) {
+  const size_t fixed = slice_fixed_bytes(slice);
+  const size_t room = kSmemOptIn - fixed;
+  int panel = slice, prows = kTile;
+  if (!slice_resident(slice)) {
+    const int chunks = (slice + kMsMaxPanel - 1) / kMsMaxPanel;
+    panel = (slice + chunks - 1) / chunks;
+    prows = kTile / 2;
+    while (prows > kMsMinRows && room / slice_slot_bytes(prows, span_ld(panel)) < kMsRingMin) prows /= 2;
+  }
+  const int ldp = span_ld(panel);
+  const size_t fit = room / slice_slot_bytes(prows, ldp);
+  const int slots = prows == kTile ? 2 : fit < kMsRingMax ? static_cast<int>(fit) : kMsRingMax;
+  return {panel, ldp, prows, slots, fixed + slots * slice_slot_bytes(prows, ldp)};
+}
+
 template <int LOSS>
-cudaError_t launch_mb_wide(const float* x, const float* y, const float* alpha, const float* w0,
-                           float* wout, long long n, int d, int lanes, long long xy_lane_rows,
-                           long long alpha_lane_stride, int lanes_per_xy, cudaStream_t stream) {
-  const int slice = (d + kMbCluster - 1) / kMbCluster;
-  const size_t smem = mb_wide_smem_bytes(d);
-  if (d <= kMbWideSmemMaxDim) {
-    return launch_cluster(igd_minibatch_wide_kernel<LOSS, true>, kMbCluster, kWideThreads, lanes,
-                          smem, stream, x, y, alpha, w0, wout, n, d, slice, xy_lane_rows,
+cudaError_t launch_mb_slice(const float* x, const float* y, const float* alpha, const float* w0, float* wout,
+                            long long n, int d, int lanes, long long xy_lane_rows, long long alpha_lane_stride,
+                            int lanes_per_xy, cudaStream_t stream) {
+  const int slice = (d + kMsCluster - 1) / kMsCluster;
+  const SlicePanels pn = slice_panels(slice);
+  if (slice <= kMsSmemMaxSlice) {
+    return launch_cluster(igd_minibatch_slice_kernel<LOSS, true>, kMsCluster, kMsThreads, lanes, pn.smem, stream,
+                          x, y, alpha, w0, wout, n, d, slice, pn.panel, pn.ldp, pn.prows, pn.slots, xy_lane_rows,
                           alpha_lane_stride, lanes_per_xy);
   }
-  return launch_cluster(igd_minibatch_wide_kernel<LOSS, false>, kMbCluster, kWideThreads, lanes,
-                        smem, stream, x, y, alpha, w0, wout, n, d, slice, xy_lane_rows,
+  return launch_cluster(igd_minibatch_slice_kernel<LOSS, false>, kMsCluster, kMsThreads, lanes, pn.smem, stream, x,
+                        y, alpha, w0, wout, n, d, slice, pn.panel, pn.ldp, pn.prows, pn.slots, xy_lane_rows,
                         alpha_lane_stride, lanes_per_xy);
 }
 
@@ -1908,20 +2230,12 @@ template <int LOSS>
 cudaError_t launch_minibatch(const float* x, const float* y, const float* alpha, const float* w0,
                              float* wout, long long n, int d, int lanes, long long xy_lane_rows,
                              long long alpha_lane_stride, int lanes_per_xy, cudaStream_t stream) {
-  if (d > kMinibatchMaxDim) {
-    return launch_mb_wide<LOSS>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
-                                alpha_lane_stride, lanes_per_xy, stream);
+  if (d > kMbMaxDim) {
+    return launch_mb_slice<LOSS>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows, alpha_lane_stride,
+                                 lanes_per_xy, stream);
   }
-  if (d <= kMbMaxDim) {
-    return launch_mb_cluster_any<LOSS, false>(x, y, alpha, w0, wout, n, d, nullptr, lanes,
-                                              xy_lane_rows, alpha_lane_stride, lanes_per_xy,
-                                              stream);
-  }
-  const size_t smem = static_cast<size_t>(d + kTile) * sizeof(float);
-  igd_minibatch_kernel<LOSS><<<lanes, kTile, smem, stream>>>(x, y, alpha, w0, wout, n, d,
-                                                             xy_lane_rows, alpha_lane_stride,
-                                                             lanes_per_xy);
-  return cudaGetLastError();
+  return launch_mb_cluster_any<LOSS, false>(x, y, alpha, w0, wout, n, d, nullptr, lanes, xy_lane_rows,
+                                            alpha_lane_stride, lanes_per_xy, stream);
 }
 
 template <int LOSS>
@@ -2121,9 +2435,32 @@ cudaError_t launch_chain_probe(int steps, long long* out, cudaStream_t stream) {
 }
 
 template <int LOSS>
-cudaError_t launch_mb_wide_step_probe(int steps, long long* out, cudaStream_t stream) {
-  return launch_cluster(igd_minibatch_wide_step_probe_kernel<LOSS>, kMbCluster, kWideThreads, 1,
-                        static_cast<size_t>(3 * kTile) * sizeof(float), stream, steps, out);
+cudaError_t launch_mb_slice_step_probe(int steps, long long* out, cudaStream_t stream) {
+  return launch_cluster(igd_minibatch_slice_step_probe_kernel<LOSS>, kMsCluster, kMsThreads, 1,
+                        kMsBarBytes + kMsFixedFloats * sizeof(float), stream, steps, out);
+}
+
+// Clusters of igd_fold_minibatch's column-slice instance at D (D >
+// kMbMaxDim) that the card can hold at once, the least over the losses
+// (cudaOccupancyMaxActiveClusters); -1 on an error.
+template <bool W_SHARED>
+int slice_clusters_fit(size_t smem) {
+  int least = -1;
+  auto fit = [&](auto kernel) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    int n = 0;
+    if (cluster_config(kernel, dim3(kMsCluster, 1, 1), kMsCluster, kMsThreads, smem, nullptr, &cfg, &attr) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess)
+      return false;
+    least = least < 0 || n < least ? n : least;
+    return true;
+  };
+  if (!fit(igd_minibatch_slice_kernel<kLossLr, W_SHARED>) || !fit(igd_minibatch_slice_kernel<kLossSvm, W_SHARED>) ||
+      !fit(igd_minibatch_slice_kernel<kLossLsq, W_SHARED>))
+    return -1;
+  return least;
 }
 
 // The lane arguments of every entry: 1 <= lanes <= kMaxLanes, strides >= 0,
@@ -2186,16 +2523,16 @@ extern "C" {
 
 // The instance boundaries (the kernels take every D >= 1): igd_fold's
 // register instance up to the first, its wide instance above, with w in
-// shared memory up to the second; igd_fold_minibatch's one-block instance
-// up to the third, its wide cluster above, with w's slices in shared
-// memory up to the fourth.
+// shared memory up to the second; igd_fold_minibatch's column-slice
+// cluster (past kMbMaxDim) keeps a tile's slice resident up to the third
+// and w's slices in shared memory up to the fourth.
 int igd_fused_fold_register_max_dim() { return kFoldMaxDim; }
 
 int igd_fused_fold_cluster_smem_max_dim() { return kFoldClusterSmemMaxDim; }
 
-int igd_fused_minibatch_block_max_dim() { return kMinibatchMaxDim; }
+int igd_fused_minibatch_resident_max_dim() { return kMinibatchResidentMaxDim; }
 
-int igd_fused_minibatch_wide_smem_max_dim() { return kMbWideSmemMaxDim; }
+int igd_fused_minibatch_slice_smem_max_dim() { return kMinibatchSliceSmemMaxDim; }
 
 int igd_fused_gram_max_dim() { return kGramMaxDim; }
 
@@ -2289,26 +2626,52 @@ int igd_fused_minibatch_cluster() { return kMbCluster; }
 
 int igd_fused_minibatch_cluster_max_dim() { return kMbMaxDim; }
 
-// Dynamic shared memory a CTA of a cluster instance takes at D (0 where
-// the one-block instance runs: 256 < D <= kMinibatchMaxDim).
+// Dynamic shared memory a CTA of igd_fold_minibatch's instance takes at D.
 long long igd_fused_minibatch_smem_bytes(int d) {
-  if (d > kMinibatchMaxDim) return static_cast<long long>(mb_wide_smem_bytes(d));
-  if (d < 1 || d > kMbMaxDim) return 0;
+  if (d < 1) return 0;
+  if (d > kMbMaxDim) return static_cast<long long>(slice_panels((d + kMsCluster - 1) / kMsCluster).smem);
   return static_cast<long long>(mb_smem_bytes(d, mb_stages(d)));
 }
 
-// out[0] = SM cycles of `steps` tiles of igd_fold_minibatch's wide
-// instance's exchange (partials, cluster barrier, remote reads, c) alone.
+// CTAs a lane of igd_fold_minibatch's column-slice instance (D > kMbMaxDim).
+int igd_fused_minibatch_slice_cluster() { return kMsCluster; }
+
+// out = {CTAs a lane, panel columns, rows a panel, ring slots, shared
+// memory bytes a CTA} of igd_fold_minibatch's column-slice instance at D
+// (D > kMbMaxDim); rows a panel 256 where the tile's slice stays resident.
+int igd_fused_minibatch_slice_design(int d, long long* out) {
+  if (d <= kMbMaxDim) return cudaErrorInvalidValue;
+  const SlicePanels pn = slice_panels((d + kMsCluster - 1) / kMsCluster);
+  out[0] = kMsCluster;
+  out[1] = pn.panel;
+  out[2] = pn.prows;
+  out[3] = pn.slots;
+  out[4] = static_cast<long long>(pn.smem);
+  return 0;
+}
+
+// Clusters of the column-slice instance at D (D > kMbMaxDim) that the card
+// holds at once; 0 if none fits, -1 on an error.
+int igd_fused_minibatch_clusters_fit(int d) {
+  if (d <= kMbMaxDim) return -1;
+  const int slice = (d + kMsCluster - 1) / kMsCluster;
+  const size_t smem = slice_panels(slice).smem;
+  return slice <= kMsSmemMaxSlice ? slice_clusters_fit<true>(smem) : slice_clusters_fit<false>(smem);
+}
+
+// out[0] = SM cycles of `steps` tiles of the column-slice instance's
+// dependent skeleton alone (the push of the partial margins, the wait, the
+// 16-way sums and c, two consumer barriers), rank 0's clock64.
 int igd_minibatch_wide_step_probe_launch(int loss, int steps, long long* out, void* stream) {
   if (steps < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (loss) {
     case kLossLr:
-      return launch_mb_wide_step_probe<kLossLr>(steps, out, s);
+      return launch_mb_slice_step_probe<kLossLr>(steps, out, s);
     case kLossSvm:
-      return launch_mb_wide_step_probe<kLossSvm>(steps, out, s);
+      return launch_mb_slice_step_probe<kLossSvm>(steps, out, s);
     case kLossLsq:
-      return launch_mb_wide_step_probe<kLossLsq>(steps, out, s);
+      return launch_mb_slice_step_probe<kLossLsq>(steps, out, s);
     default:
       return cudaErrorInvalidValue;
   }

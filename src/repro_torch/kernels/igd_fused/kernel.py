@@ -31,12 +31,14 @@ blocks into scratch the wrapper allocates (``torch.empty``, 320 floats a
 row, one pre-pass a table segment). That instance is three launches of the
 library in one wrapper call (the pre-pass, the sum of its parts, the
 cluster kernel), and ``launches`` counts the call once. ``igd_fold_minibatch``: a cluster of 8
-CTAs splitting each tile's rows up to 256, the one-block kernel up to
-12,032, and past it a cluster of 8 CTAs splitting w's columns (each
-CTA's slice in shared memory up to D = 452,608, in global memory above).
-``middle_launches`` and ``wide_launches`` count the middle instances'
-(igd_fold's per-row chain, the one-block minibatch kernel) and the wide
-instances' shares of ``launches``.
+CTAs splitting each tile's rows up to 256, and past it the column-slice
+cluster, 16 CTAs a lane splitting w's columns (a tile's slice resident in
+shared memory from the margins to the update up to D 1,424; past it the
+margins' rows streamed in by bulk copies and the update's read again
+from L2; each CTA's slice of w in shared memory up to D 196,608, in
+global memory above). ``middle_launches`` counts igd_fold's per-row chain
+(256 < D <= 4,096), ``wide_launches`` the instances past it and past the
+minibatch's D 256, each a share of ``launches``.
 """
 
 from __future__ import annotations
@@ -54,13 +56,13 @@ TILE = 256  # examples per minibatch step (the reference's VMEM block)
 # boundaries, which pick the instance a launch runs (see the source's head).
 FOLD_GRAM_MAX_DIM = 256  # igd_fold's tiled Gram instance; the per-row chain above it
 FOLD_REGISTER_MAX_DIM = 4096  # the per-row chain with w in registers; the wide instance above it
-_WIDE_SMEM_FLOATS = 57344  # the wide minibatch instance's opt-in shared memory a CTA (224 KB)
 FOLD_CLUSTER = 16  # CTAs a lane of igd_fold's wide instance
 FOLD_CLUSTER_SMEM_MAX_DIM = FOLD_CLUSTER * 12288  # its w slices in shared memory; in global memory above
-MINIBATCH_CLUSTER = 8  # CTAs of igd_fold_minibatch's cluster instances
-MINIBATCH_CLUSTER_MAX_DIM = 256  # the row-share cluster instance; the one-block kernel above it
-MINIBATCH_BLOCK_MAX_DIM = 12288 - TILE  # the one-block instance (w and the tile's scales in 48 KB); the wide above
-MINIBATCH_WIDE_SMEM_MAX_DIM = MINIBATCH_CLUSTER * (_WIDE_SMEM_FLOATS - 3 * TILE)  # its w slices in shared memory
+MINIBATCH_CLUSTER = 8  # CTAs a lane of igd_fold_minibatch's row-share cluster
+MINIBATCH_CLUSTER_MAX_DIM = 256  # the row-share cluster instance; the column-slice cluster above it
+MINIBATCH_SLICE_CLUSTER = 16  # CTAs a lane of the column-slice cluster
+MINIBATCH_RESIDENT_MAX_DIM = 1424  # its tile's slice resident from the margins to the update; streamed twice above
+MINIBATCH_SLICE_SMEM_MAX_DIM = MINIBATCH_SLICE_CLUSTER * 12288  # its w slices in shared memory; in global memory above
 MAX_LANES = 65535  # lanes a launch (the cluster instances' gridDim.y)
 
 LOSS_IDS = {"lr": 0, "svm": 1, "lsq": 2}
@@ -71,12 +73,12 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "igd_fused.cu"
 # nowhere else, so a run can show that its path went through the kernel.
 launches: Dict[str, int] = {"igd_fold": 0, "igd_fold_minibatch": 0}
 # The middle and the wide instances' shares of those launches, bumped
-# at the same place: D in (the narrow instance's last D, _WIDE_ABOVE]
-# and D past _WIDE_ABOVE.
+# at the same place: igd_fold's per-row chain (FOLD_GRAM_MAX_DIM < D <=
+# FOLD_REGISTER_MAX_DIM; igd_fold_minibatch has no middle instance) and D
+# past _WIDE_ABOVE.
 middle_launches: Dict[str, int] = {"igd_fold": 0, "igd_fold_minibatch": 0}
 wide_launches: Dict[str, int] = {"igd_fold": 0, "igd_fold_minibatch": 0}
-_MIDDLE_ABOVE = {"igd_fold": FOLD_GRAM_MAX_DIM, "igd_fold_minibatch": MINIBATCH_CLUSTER_MAX_DIM}
-_WIDE_ABOVE = {"igd_fold": FOLD_REGISTER_MAX_DIM, "igd_fold_minibatch": MINIBATCH_BLOCK_MAX_DIM}
+_WIDE_ABOVE = {"igd_fold": FOLD_REGISTER_MAX_DIM, "igd_fold_minibatch": MINIBATCH_CLUSTER_MAX_DIM}
 
 
 def reset_launches() -> None:
@@ -118,26 +120,36 @@ def _declare(lib: ctypes.CDLL, cluster: int = MINIBATCH_CLUSTER) -> None:
     lib.igd_minibatch_wide_step_probe_launch.restype = i32
     lib.igd_fused_minibatch_smem_bytes.argtypes = [i32]
     lib.igd_fused_minibatch_smem_bytes.restype = i64
+    lib.igd_fused_minibatch_slice_design.argtypes = [i32, ptr]
+    lib.igd_fused_minibatch_slice_design.restype = i32
+    lib.igd_fused_minibatch_clusters_fit.argtypes = [i32]
+    lib.igd_fused_minibatch_clusters_fit.restype = i32
     names = ("igd_fused_gram_max_dim", "igd_fused_fold_register_max_dim", "igd_fused_fold_cluster_smem_max_dim",
-             "igd_fused_minibatch_block_max_dim", "igd_fused_minibatch_wide_smem_max_dim", "igd_fused_tile",
-             "igd_fused_minibatch_cluster", "igd_fused_minibatch_cluster_max_dim", "igd_fused_max_lanes")
+             "igd_fused_minibatch_resident_max_dim", "igd_fused_minibatch_slice_smem_max_dim", "igd_fused_tile",
+             "igd_fused_minibatch_cluster", "igd_fused_minibatch_cluster_max_dim", "igd_fused_minibatch_slice_cluster",
+             "igd_fused_max_lanes")
     for name in names:
         getattr(lib, name).restype = i32
     design = (ctypes.c_longlong * 4)()
     limits = tuple(getattr(lib, name)() for name in names) + (
         lib.igd_fused_fold_design(FOLD_REGISTER_MAX_DIM + 1, design), design[0])
-    if limits != (FOLD_GRAM_MAX_DIM, FOLD_REGISTER_MAX_DIM, FOLD_CLUSTER_SMEM_MAX_DIM, MINIBATCH_BLOCK_MAX_DIM,
-                  cluster * (_WIDE_SMEM_FLOATS - 3 * TILE), TILE, cluster, MINIBATCH_CLUSTER_MAX_DIM, MAX_LANES,
-                  0, FOLD_CLUSTER):
+    if limits != (FOLD_GRAM_MAX_DIM, FOLD_REGISTER_MAX_DIM, FOLD_CLUSTER_SMEM_MAX_DIM, MINIBATCH_RESIDENT_MAX_DIM,
+                  MINIBATCH_SLICE_SMEM_MAX_DIM, TILE, cluster, MINIBATCH_CLUSTER_MAX_DIM, MINIBATCH_SLICE_CLUSTER,
+                  MAX_LANES, 0, FOLD_CLUSTER):
         raise RuntimeError(f"igd_fused library limits {limits} disagree with kernel.py")
-    # the wide fold's non-portable cluster (FOLD_CLUSTER CTAs of up to 227 KB
-    # each) must fit the card: w's slices in shared memory and in global memory
-    for d in (FOLD_REGISTER_MAX_DIM + 1, FOLD_CLUSTER_SMEM_MAX_DIM + 1):
-        fit = lib.igd_fused_fold_clusters_fit(d)
-        if fit < 1:
-            raise RuntimeError(f"igd_fold's wide instance at D={d} (a cluster of {FOLD_CLUSTER} CTAs, "
-                               f"{_fold_design(lib, d)[3]} bytes of shared memory a CTA) does not fit this card: "
-                               f"cudaOccupancyMaxActiveClusters gives {fit}")
+    # the non-portable 16-CTA clusters (up to 227 KB a CTA) must fit the card:
+    # the wide fold's and the minibatch's column-slice instance, at each tier
+    for what, fit_of, design_of, widths in (
+            ("igd_fold's wide instance", lib.igd_fused_fold_clusters_fit, _fold_design,
+             (FOLD_REGISTER_MAX_DIM + 1, FOLD_CLUSTER_SMEM_MAX_DIM + 1)),
+            ("igd_fold_minibatch's column-slice instance", lib.igd_fused_minibatch_clusters_fit, _slice_design,
+             (MINIBATCH_CLUSTER_MAX_DIM + 1, MINIBATCH_RESIDENT_MAX_DIM + 1, MINIBATCH_SLICE_SMEM_MAX_DIM + 1))):
+        for d in widths:
+            fit = fit_of(d)
+            if fit < 1:
+                raise RuntimeError(f"{what} at D={d} (a cluster of 16 CTAs, {design_of(lib, d)[-1]} bytes of "
+                                   f"shared memory a CTA) does not fit this card: cudaOccupancyMaxActiveClusters "
+                                   f"gives {fit}")
 
 
 LIBRARY = CudaLibrary("igd_fused", SOURCE, _declare)
@@ -241,7 +253,7 @@ def _launch(name: str, x, y, alpha, w0, loss: str, layout):
     launches[name] += 1
     if d > _WIDE_ABOVE[name]:
         wide_launches[name] += 1
-    elif d > _MIDDLE_ABOVE[name]:
+    elif name == "igd_fold" and d > FOLD_GRAM_MAX_DIM:
         middle_launches[name] += 1
     return out
 
@@ -267,22 +279,40 @@ def igd_fold_minibatch(x, y, alpha, w0, *, loss: str = "lr"):
     Any D >= 1. The library picks the instance by D: a cluster of
     MINIBATCH_CLUSTER CTAs a lane, each a row share of a tile, up to
     MINIBATCH_CLUSTER_MAX_DIM (ref.igd_fold_minibatch_split_ref is its
-    order of sums), the one-block kernel up to MINIBATCH_BLOCK_MAX_DIM,
-    and above it a cluster of MINIBATCH_CLUSTER CTAs a lane, each a
-    column slice of w (in shared memory up to
-    MINIBATCH_WIDE_SMEM_MAX_DIM, in global memory past it)."""
+    order of sums), and above it the column-slice cluster of
+    MINIBATCH_SLICE_CLUSTER CTAs a lane, each a column slice of w (in
+    shared memory up to MINIBATCH_SLICE_SMEM_MAX_DIM, in global memory
+    past it): a tile's slice resident in shared memory from the margins to
+    the update up to MINIBATCH_RESIDENT_MAX_DIM; past it the margins' rows
+    streamed in by bulk copies and the update's read again from L2 (see
+    :func:`minibatch_slice_design`)."""
     layout = _check(x, y, alpha, w0, loss)
     return _launch("igd_fold_minibatch", x, y, alpha, w0, loss, layout)
 
 
 def minibatch_design(d: int):
     """(CTAs a cluster, dynamic shared memory bytes a CTA) of
-    igd_fold_minibatch's instance at D; (1, 0) for the one-block
-    kernel (MINIBATCH_CLUSTER_MAX_DIM < D <= MINIBATCH_BLOCK_MAX_DIM;
-    its 48 KB are static)."""
+    igd_fold_minibatch's instance at D: the row-share cluster's up to
+    MINIBATCH_CLUSTER_MAX_DIM, the column-slice cluster's above."""
     lib = _load()
-    smem = lib.igd_fused_minibatch_smem_bytes(d)
-    return (lib.igd_fused_minibatch_cluster(), smem) if smem else (1, 0)
+    cluster = lib.igd_fused_minibatch_cluster() if d <= MINIBATCH_CLUSTER_MAX_DIM else MINIBATCH_SLICE_CLUSTER
+    return cluster, lib.igd_fused_minibatch_smem_bytes(d)
+
+
+def _slice_design(lib: ctypes.CDLL, d: int):
+    out = (ctypes.c_longlong * 5)()
+    if lib.igd_fused_minibatch_slice_design(d, out) != 0:
+        raise ValueError(f"D={d}: igd_fold_minibatch's column-slice instance takes D > {MINIBATCH_CLUSTER_MAX_DIM}")
+    return tuple(out)
+
+
+def minibatch_slice_design(d: int):
+    """(CTAs a lane, panel columns, rows a panel, ring slots, shared memory
+    bytes a CTA) of igd_fold_minibatch's column-slice instance at D >
+    MINIBATCH_CLUSTER_MAX_DIM, from the library: each CTA's slice streams
+    through a ring of panels; 256 rows a panel where the tile's slice
+    stays resident (D <= MINIBATCH_RESIDENT_MAX_DIM)."""
+    return _slice_design(_load(), d)
 
 
 def _probe(launch, args, steps: int, device, what: str):
@@ -321,12 +351,13 @@ def minibatch_step_probe(loss: str = "lsq", d: int = 54, *, steps: int = 1 << 14
 
 
 def minibatch_wide_step_probe(loss: str = "lsq", *, steps: int = 1 << 12, device=None):
-    """(SM cycles, seconds) per tile of igd_fold_minibatch's wide
-    instance's exchange alone: the partial margins' write, the cluster
-    barrier, the remote reads of every CTA's partials and grad_scale of
-    the tile's 256 rows, the block barrier; no row traffic. N_tiles times
-    it is the wide instance's tile-chain floor. A measurement probe, not a
-    kernel of the path: it counts no launch."""
+    """(SM cycles, seconds) per tile of igd_fold_minibatch's column-slice
+    instance's exchange alone: a consumer barrier, the push of the 256
+    partial margins to every CTA (st.async), the wait on the CTA's own
+    mbarrier, the 16-way sums in rank order and grad_scale of the tile's
+    rows, a consumer barrier; no row traffic. N_tiles times it is the
+    instance's exchange floor. A measurement probe, not a kernel of the
+    path: it counts no launch."""
     if loss not in LOSS_IDS:
         raise ValueError(f"unknown loss {loss!r}; valid: {sorted(LOSS_IDS)}")
     return _probe("igd_minibatch_wide_step_probe_launch", (LOSS_IDS[loss],), steps, device,

@@ -84,12 +84,13 @@ def test_cuda_igd_fold_takes_zero_rows_and_unaligned_rows():
     torch.testing.assert_close(K.igd_fold(shifted, y, alpha, w0), K.igd_fold(x, y, alpha, w0), rtol=0, atol=0)
 
 
-# igd_fold_minibatch: N around the 256-row tile and the cluster's span of
-# tiles, D on both sides of the cluster instance's bound (256) up to the
-# one-block kernel's last D (the wide instance above it: WIDE_CASES)
+# igd_fold_minibatch: N around the 256-row tile and the row-share
+# cluster's span of tiles, D on both sides of its bound (256): 257 and
+# 12,032 (the one-block kernel's last D before the column-slice cluster
+# took every D past 256; its other widths: WIDE_CASES)
 MB_K = K.MINIBATCH_CLUSTER
 MB_N = (0, 1, 255, 257, 256 * MB_K - 1, 256 * MB_K + 1, 16_385)
-MB_D = (1, 54, 256, 257, K.MINIBATCH_BLOCK_MAX_DIM)
+MB_D = (1, 54, 256, K.MINIBATCH_CLUSTER_MAX_DIM + 1, 12_032)
 
 
 def _card_inputs(n, d, seed=5):
@@ -108,8 +109,9 @@ def _card_inputs(n, d, seed=5):
 @pytest.mark.parametrize("n", MB_N)
 def test_cuda_igd_fold_minibatch_matches_plain_and_split_folds(n, d, loss):
     """Both igd_fold_minibatch instances against the plain fold and the
-    plain version of the cluster's order (shares of 256 / MB_K rows, then
-    across shares in rank order); N = 0 returns w0 exactly."""
+    plain version of the row-share cluster's order (shares of 256 / MB_K
+    rows, then across shares in rank order; another order of the same sums
+    past D 256); N = 0 returns w0 exactly."""
     torch.backends.cuda.matmul.allow_tf32 = False
     args = _card_inputs(n, d)
     before = K.launches["igd_fold_minibatch"]
@@ -123,11 +125,12 @@ def test_cuda_igd_fold_minibatch_matches_plain_and_split_folds(n, d, loss):
 
 
 @needs_card
-@pytest.mark.parametrize("d", [54, 256, 300])
+@pytest.mark.parametrize("d", [54, 256, 300, 1_000, 12_033])
 def test_cuda_igd_fold_minibatch_takes_unaligned_rows(d):
-    """x, y and alpha starting off a 16-byte boundary (the cluster instance
-    then copies with plain loads, not bulk copies) give the same w bit for
-    bit, and so does a table sliced at an odd row."""
+    """x, y and alpha starting off a 16-byte boundary give the same w bit
+    for bit (the row-share cluster then copies with plain loads, not bulk
+    copies; the column-slice cluster widens each row's span to 16 bytes
+    and reads it shifted), and so does a table sliced at an odd row."""
     x, y, alpha, w0 = _card_inputs(3_001, d)
 
     def shifted(t):
@@ -150,7 +153,8 @@ def test_cuda_minibatch_step_probe_times_the_cluster_step():
     assert cycles > 0 and seconds > 0
     cluster, smem = K.minibatch_design(54)
     assert cluster == MB_K and 0 < smem <= 232_448
-    assert K.minibatch_design(257) == (1, 0)
+    cluster, smem = K.minibatch_design(257)
+    assert cluster == K.MINIBATCH_SLICE_CLUSTER and 0 < smem <= 232_448
 
 
 @needs_card
@@ -181,8 +185,9 @@ def test_cuda_engine_plans_the_kernel_lane():
 @needs_card
 @pytest.mark.parametrize("task,d", [("logreg", 4_097), ("least_squares", 12_033)])
 def test_cuda_wide_query_plans_a_kernel_and_matches_the_cpu_run(task, d):
-    """Past igd_fold's register instance (4,096) and igd_fold_minibatch's
-    one-block instance (12,032): the card plans as the CPU does (probe (e)
+    """Past igd_fold's register instance (4,096), and for
+    igd_fold_minibatch past its resident tier (1,424): the card
+    plans as the CPU does (probe (e)
     prices both kernels, the kernel lane wins on the card), launches the
     wide instance, and equals the CPU run with the same draws; the
     cuda_minibatch hint runs the wide minibatch instance likewise."""
@@ -213,14 +218,18 @@ def test_cuda_wide_query_plans_a_kernel_and_matches_the_cpu_run(task, d):
 
 
 # the wide instances: (N, D) past igd_fold's register instance (4,096) and
-# igd_fold_minibatch's one-block instance (12,032), on both sides of each
-# wide instance's shared-memory tier (w, or its cluster slices, in shared
-# memory up to the tier and in global memory past it), few rows at the widest;
-# igd_fold also at N = 0 and with one ragged sub-tile (N < 32)
+# igd_fold_minibatch's row-share cluster (256), on both sides of each wide
+# instance's shared-memory tier (its cluster slices of w in shared memory up
+# to the tier and in global memory past it) and of the minibatch's resident
+# tier (a tile's slice kept from the margins to the update), few rows at the
+# widest; at N = 0, with a ragged last tile (igd_fold: sub-tile, N < 32) and
+# across tiles
 WIDE_FOLD = [(300, 4_097), (1_000, 8_192), (300, 8_193), (257, 12_033), (100, 12_289), (40, 65_537),
              (0, 4_097), (31, 12_033), (64, K.FOLD_CLUSTER_SMEM_MAX_DIM), (64, K.FOLD_CLUSTER_SMEM_MAX_DIM + 1)]
-WIDE_MB = [(300, 4_097), (513, 8_192), (300, 12_033), (513, 12_289), (2_049, 65_537), (0, 20_000), (1, 13_000),
-           (300, K.MINIBATCH_WIDE_SMEM_MAX_DIM), (300, K.MINIBATCH_WIDE_SMEM_MAX_DIM + 1)]
+WIDE_MB = [(300, 257), (513, 300), (1_000, 1_000), (300, K.MINIBATCH_RESIDENT_MAX_DIM),
+           (300, K.MINIBATCH_RESIDENT_MAX_DIM + 1), (300, 4_097), (513, 8_192), (513, 12_032), (300, 12_033),
+           (513, 12_289), (2_049, 65_537), (0, 20_000), (1, 13_000), (300, K.MINIBATCH_SLICE_SMEM_MAX_DIM),
+           (300, K.MINIBATCH_SLICE_SMEM_MAX_DIM + 1)]
 WIDE_CASES = [("igd_fold", n, d) for n, d in WIDE_FOLD] + [("igd_fold_minibatch", n, d) for n, d in WIDE_MB]
 
 
@@ -265,8 +274,10 @@ def test_cuda_wide_fold_takes_zero_rows_and_unaligned_rows(d):
 @needs_card
 @pytest.mark.parametrize("shared", [True, False], ids=["shared", "stacked"])
 @pytest.mark.parametrize("b", [1, 8])
-@pytest.mark.parametrize("d", [4_097, 12_033, 65_537])
-@pytest.mark.parametrize("name", ["igd_fold", "igd_fold_minibatch"])
+@pytest.mark.parametrize("name,d", [("igd_fold", 4_097), ("igd_fold", 12_033), ("igd_fold", 65_537),
+                                    ("igd_fold_minibatch", 300), ("igd_fold_minibatch", 1_000),
+                                    ("igd_fold_minibatch", 4_097), ("igd_fold_minibatch", 12_033),
+                                    ("igd_fold_minibatch", 65_537)])
 def test_cuda_wide_lanes_equal_their_single_lanes(name, d, b, shared):
     """B lanes of a wide instance in one launch: every lane equals its
     one-lane launch bit for bit, and the plain version within the kernel
@@ -286,14 +297,23 @@ def test_cuda_wide_lanes_equal_their_single_lanes(name, d, b, shared):
 @needs_card
 def test_cuda_wide_probes_time_the_wide_steps():
     """The wide fold's floor is N chain steps (kernel.chain_probe); the
-    wide minibatch's its exchange alone. The fold's design fits the card:
-    FOLD_CLUSTER CTAs, a ring of 3 to 8 panel slots within 227 KB."""
+    column-slice minibatch's its exchange alone. Both designs fit the card:
+    FOLD_CLUSTER CTAs, a ring of 3 to 8 panel slots within 227 KB; the
+    minibatch's 16 CTAs, whole tiles (256 rows a panel, two slots or more)
+    up to its resident tier and panels of fewer rows past it."""
     cycles, seconds = K.chain_probe("lr", steps=64)
     assert cycles > 0 and seconds > 0
     cycles, seconds = K.minibatch_wide_step_probe("lsq", steps=64)
     assert cycles > 0 and seconds > 0
     cluster, smem = K.minibatch_design(12_033)
-    assert cluster == MB_K and 0 < smem <= 232_448
+    assert cluster == K.MINIBATCH_SLICE_CLUSTER and 0 < smem <= 232_448
+    for d in (257, 1_000, K.MINIBATCH_RESIDENT_MAX_DIM, K.MINIBATCH_RESIDENT_MAX_DIM + 1, 12_033, 65_537,
+              K.MINIBATCH_SLICE_SMEM_MAX_DIM + 1):
+        cluster, panel, rows, slots, smem = K.minibatch_slice_design(d)
+        assert cluster == K.MINIBATCH_SLICE_CLUSTER and 1 <= panel <= -(-d // cluster) and 2 <= slots <= 8
+        assert (rows == K.TILE) == (d <= K.MINIBATCH_RESIDENT_MAX_DIM) and smem <= 232_448
+    with pytest.raises(ValueError, match="D=256"):
+        K.minibatch_slice_design(256)
     for d in (4_097, 12_033, 65_537, K.FOLD_CLUSTER_SMEM_MAX_DIM + 1):
         cluster, panel, slots, smem = K.fold_design(d)
         assert cluster == K.FOLD_CLUSTER and 1 <= panel <= -(-d // cluster) and 3 <= slots <= 8 and smem <= 232_448
@@ -304,14 +324,15 @@ def test_cuda_wide_probes_time_the_wide_steps():
 @needs_card
 @pytest.mark.parametrize("name,d,instance", [("igd_fold", 54, None), ("igd_fold", 300, "middle"),
                                              ("igd_fold", 4_096, "middle"), ("igd_fold", 4_097, "wide"),
-                                             ("igd_fold_minibatch", 256, None), ("igd_fold_minibatch", 257, "middle"),
-                                             ("igd_fold_minibatch", 12_032, "middle"),
+                                             ("igd_fold_minibatch", 256, None), ("igd_fold_minibatch", 257, "wide"),
+                                             ("igd_fold_minibatch", 12_032, "wide"),
                                              ("igd_fold_minibatch", 12_033, "wide")])
 def test_cuda_launch_counts_split_by_instance(name, d, instance):
     """A launch adds one to ``launches`` and to the count of the instance
-    it ran: ``middle_launches`` past the narrow instance, ``wide_launches``
-    past the middle one; ``reset_launches`` zeroes all three. The wide
-    fold's 16-CTA cluster fits the card on both sides of its tier."""
+    it ran: ``middle_launches`` for igd_fold's per-row chain,
+    ``wide_launches`` past it and past the minibatch's row-share cluster
+    (the column-slice cluster); ``reset_launches`` zeroes all three. Both
+    16-CTA clusters fit the card on both sides of their tiers."""
     K.reset_launches()
     getattr(K, name)(*_card_inputs(40, d), loss="lr")
     torch.cuda.synchronize()
@@ -321,10 +342,13 @@ def test_cuda_launch_counts_split_by_instance(name, d, instance):
     assert not any(K.launches.values()) and not any(K.middle_launches.values()) and not any(K.wide_launches.values())
     for wide_d in (K.FOLD_REGISTER_MAX_DIM + 1, K.FOLD_CLUSTER_SMEM_MAX_DIM + 1):
         assert K._load().igd_fused_fold_clusters_fit(wide_d) >= 1
+    for wide_d in (K.MINIBATCH_CLUSTER_MAX_DIM + 1, K.MINIBATCH_RESIDENT_MAX_DIM + 1,
+                   K.MINIBATCH_SLICE_SMEM_MAX_DIM + 1):
+        assert K._load().igd_fused_minibatch_clusters_fit(wide_d) >= 1
 
 
 # lane launches: (lanes, N, D) across the sub-tile, the tile and the
-# instance boundaries (D 300: the per-row fold and the one-block minibatch)
+# instance boundaries (D 300: the per-row fold and the column-slice minibatch)
 LANE_CASES = [(1, 33, 54), (3, 257, 54), (3, 1000, 200), (4, 31, 300), (3, 2049, 300), (32, 513, 54)]
 
 

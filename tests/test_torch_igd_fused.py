@@ -213,8 +213,8 @@ def test_launch_counter_reset():
 
 def test_library_name_tracks_the_source():
     assert K.FOLD_GRAM_MAX_DIM == 256 < K.FOLD_REGISTER_MAX_DIM < K.FOLD_CLUSTER_SMEM_MAX_DIM
-    assert K.MINIBATCH_CLUSTER_MAX_DIM == 256 < K.MINIBATCH_BLOCK_MAX_DIM < K.MINIBATCH_WIDE_SMEM_MAX_DIM
-    assert K.TILE % K.MINIBATCH_CLUSTER == 0
+    assert K.MINIBATCH_CLUSTER_MAX_DIM == 256 < K.MINIBATCH_RESIDENT_MAX_DIM < K.MINIBATCH_SLICE_SMEM_MAX_DIM
+    assert K.TILE % K.MINIBATCH_CLUSTER == 0 and K.MINIBATCH_SLICE_CLUSTER == K.FOLD_CLUSTER == 16
     path = K.library_path()
     assert path.parent == K.BUILD_DIR and path.name.startswith("libigd_fused-")
     assert "compute_90a" in " ".join(K.NVCC_FLAGS) and "--use_fast_math" not in K.NVCC_FLAGS

@@ -1,17 +1,20 @@
 """The fused-IGD functions at widths past the CUDA kernels' narrow
 instances (igd_fold's register instance ends at D = 4,096,
-igd_fold_minibatch's one-block instance at 12,032; the wide instances take
-every D above), on the CPU: the port's ``ops`` (its plain versions on CPU
-tensors) against the reference's ops with ``use_kernel=False`` (its jnp
-oracles; the minibatch's pads D to 128 and N to the tile, as its kernel
-does) on the same seeded numpy inputs, and at D = 4,097 against the
-reference's Pallas kernels in interpret mode. igd_fold's wide instance
-runs the tiled Gram algebra, so its own plain version
+igd_fold_minibatch's row-share cluster at 256; the wide instances take
+every D above: the minibatch's column-slice cluster keeps a tile's slice
+resident up to D = 1,424 and reads it again past it), on the CPU: the
+port's ``ops`` (its plain versions on CPU tensors) against the
+reference's ops with ``use_kernel=False`` (its jnp oracles; the
+minibatch's pads D to 128 and N to the tile, as its kernel does) on the
+same seeded numpy inputs, and at D = 4,097 against the reference's Pallas
+kernels in interpret mode; the minibatch also at D 257 and 1,000, the
+column-slice cluster's resident widths, against both. igd_fold's wide
+instance runs the tiled Gram algebra, so its own plain version
 (``ref.igd_fold_tiled_ref``) is held to the same references, past each of
-its boundaries (its shared-memory tier), with
-a ragged last sub-tile and with fewer rows than one sub-tile. The wide
-CUDA instances themselves run on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py`` phases 2 and 3f). About 40 s on one core."""
+its boundaries (its shared-memory tier), with a ragged last sub-tile and
+with fewer rows than one sub-tile. The wide CUDA instances themselves run
+on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phases 2 and
+3f). About 40 s on one core."""
 
 import functools
 
@@ -30,6 +33,8 @@ LOSSES = ("lr", "svm", "lsq")
 # past each narrow instance (the wide fold's w slices in shared memory)
 WIDE_D = (4_097, 12_033, 65_537)
 FOLD_TIER_D = K.FOLD_CLUSTER_SMEM_MAX_DIM + 1  # the wide fold's w in global memory
+# the minibatch's column-slice cluster with a tile's slice resident: its first D and the middle's old one
+MB_SLICE_D = (K.MINIBATCH_CLUSTER_MAX_DIM + 1, 1_000)
 ROWS = 300  # a ragged last tile (300 = 256 + 44) and sub-tile (300 = 9 x 32 + 12)
 
 
@@ -48,11 +53,13 @@ def _shared_inputs(n, d):
 
 
 def test_the_wide_widths_cross_every_instance_boundary():
-    assert WIDE_D[0] == K.FOLD_REGISTER_MAX_DIM + 1 and WIDE_D[1] == K.MINIBATCH_BLOCK_MAX_DIM + 1
-    assert WIDE_D[2] <= K.FOLD_CLUSTER_SMEM_MAX_DIM
+    assert WIDE_D[0] == K.FOLD_REGISTER_MAX_DIM + 1
+    assert MB_SLICE_D[0] == K.MINIBATCH_CLUSTER_MAX_DIM + 1 and MB_SLICE_D[1] <= K.MINIBATCH_RESIDENT_MAX_DIM
+    assert K.MINIBATCH_RESIDENT_MAX_DIM < WIDE_D[1] and WIDE_D[2] <= min(K.FOLD_CLUSTER_SMEM_MAX_DIM,
+                                                                       K.MINIBATCH_SLICE_SMEM_MAX_DIM)
     assert FOLD_TIER_D > K.FOLD_CLUSTER_SMEM_MAX_DIM
     for name in ("cuda_fused", "cuda_minibatch"):
-        assert all(K.supports(name, d) is None for d in WIDE_D + (FOLD_TIER_D,))
+        assert all(K.supports(name, d) is None for d in WIDE_D + MB_SLICE_D + (FOLD_TIER_D,))
 
 
 @pytest.mark.parametrize("loss", LOSSES)
@@ -76,11 +83,26 @@ def test_wide_fold_matches_the_pallas_kernel_in_interpret_mode(name, loss):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("loss", LOSSES)
+@pytest.mark.parametrize("d", MB_SLICE_D)
+def test_minibatch_slice_widths_match_the_references_ops_and_pallas_kernel(d, loss):
+    """igd_fold_minibatch past D 256 against the reference's jnp oracle and
+    its Pallas kernel in interpret mode (both pad D to 128 and N to the
+    tile; the port takes the shape as it is)."""
+    a = _inputs(ROWS, d, seed=14)
+    got = ops.igd_fold_minibatch(*(torch.from_numpy(v) for v in a), loss=loss)
+    assert got.shape == (d,) and got.dtype == torch.float32
+    for use_kernel in (False, True):
+        want = np.asarray(ref_ops.igd_fold_minibatch(*(jnp.asarray(v) for v in a), loss=loss, use_kernel=use_kernel,
+                                                     interpret=True))
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
 @pytest.mark.parametrize("name", ["igd_fold", "igd_fold_minibatch"])
 def test_wide_lanes_match_their_single_folds(name):
     """B = 3 lanes over a shared table at D = 12,033: each lane the plain
     fold of its own steps and start."""
-    x, y, alpha, w0 = (torch.from_numpy(v) for v in _inputs(64, K.MINIBATCH_BLOCK_MAX_DIM + 1, seed=13))
+    x, y, alpha, w0 = (torch.from_numpy(v) for v in _inputs(64, WIDE_D[1], seed=13))
     a_b = torch.stack([alpha, 0.5 * alpha, 2.0 * alpha])
     w_b = torch.stack([w0, -w0, torch.zeros_like(w0)])
     fn = getattr(ops, name)

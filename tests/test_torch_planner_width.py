@@ -3,7 +3,7 @@ the CPU.
 
 ``igd_fold`` and ``igd_fold_minibatch`` have wide instances past their
 narrow ones (``kernels/igd_fused/kernel.py``: the register fold ends at
-D = 4,096, the one-block minibatch kernel at 12,032), so
+D = 4,096, the minibatch's row-share cluster at 256), so
 ``igd_fused.supports`` answers None for any D >= 1. The planner and probe
 (e) ask it, and it builds nothing, so a wide dense GLM plans on the CPU
 exactly as on the card: probe (e) prices both kernels, the kernel lane is
@@ -58,7 +58,7 @@ def test_supports_reads_the_kernels_limits(impl, d, why):
     else:
         assert why in got and f"D={d}" in got
     # the narrow instances' ends are instance boundaries now, not limits
-    assert (K.FOLD_REGISTER_MAX_DIM, K.MINIBATCH_BLOCK_MAX_DIM) == (4_096, 12_032)
+    assert (K.FOLD_REGISTER_MAX_DIM, K.MINIBATCH_CLUSTER_MAX_DIM, K.MINIBATCH_RESIDENT_MAX_DIM) == (4_096, 256, 1_424)
     assert igd_fused.supports(impl, 10 ** 6) is None
     with pytest.raises(ValueError, match="unknown implementation"):
         igd_fused.supports("pallas_fused", 54)
