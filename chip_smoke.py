@@ -9,7 +9,8 @@ the kernels build for sm_90a). Phases, each printed as it ends:
 1. build the fused-IGD CUDA kernels from src/repro_torch/kernels/igd_fused/csrc
    (and print igd_fold_minibatch's cluster size and shared memory a CTA,
    and ptxas's registers, spill bytes and stack of the column-slice
-   cluster's instances);
+   cluster's instances and of igd_fold's cluster kernel's, <loss, CTAs,
+   w in shared memory, resident>);
 2. hold each kernel against its plain PyTorch version on the card, for the
    three losses (rtol=2e-4, atol=2e-5, the reference's kernel tolerance;
    TF32 off for matmuls and cuDNN); igd_fold also at the shapes that cut
@@ -29,7 +30,14 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    N = 0 (w0 exactly), ragged N and N across tiles (igd_fold's also against
    the tiled fold, its own order, and at N < 32), off a 16-byte boundary
    bit for bit, and as lane launches (B 1 and 8, shared and stacked
-   tables) equal to their one-lane launches bit for bit;
+   tables) equal to their one-lane launches bit for bit; then igd_fold's
+   middle instance (256 < D <= 4,096: the Gram look-ahead on a cluster of
+   kernel.fold_middle_ctas(D) CTAs) at N in MIDDLE_N x its first and last
+   D, 300, 1,000, 1,025, both sides of every cluster-size boundary and of
+   2,048 (past which 16 CTAs' slices pass the cap), against the per-row
+   and the tiled folds on the CPU, N = 0 (w0 exactly), off a 16-byte
+   boundary bit for bit, and as lane launches (B 1 and 8, shared and
+   stacked) equal to their one-lane launches bit for bit;
 3. run the engine end to end on a Forest-shaped table (581,012 x 54 f32,
    UCI Covertype's shape, label-clustered, generated on the card from
    --seed): logreg with no hints (the probe-priced plan must choose
@@ -56,8 +64,8 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    lane) against their plain versions on the CPU and every lane against
    its own one-lane launch bit for bit (B 1, 3, 32; shared and stacked
    tables; D 54 and 200 on the Gram and row-share cluster instances, 300
-   on the per-row and column-slice ones; N across the sub-tile and tile
-   edges); the
+   on igd_fold's middle instance and the column-slice cluster; N across
+   the sub-tile and tile edges); the
    Forest-shaped table as a ChunkedTable of 65,536-row host chunks,
    logreg (clustered serial by hint; the planner streams it,
    source="table", and picks the lane body by probe)
@@ -107,14 +115,15 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    and parsed (fused lanes, accepted and the logreg latency histogram
    held to the tickets); a forced breach (p99 > 0) whose incident files
    must validate and hold an engine.kernel span; then the wide tables,
-   logreg at D = 4,097 and least_squares at D = 12,033 (WIDE_ROWS rows):
-   unhinted, probe (e) prices both kernels and the plan is cuda_fused (the
-   wide igd_fold), and least_squares by the cuda_minibatch hint (the wide
-   igd_fold_minibatch); each runs 2 epochs, one launch of the wide
-   instance an epoch (counted), held to the CPU's run with
+   logreg at D = 1,000 and 4,097 and least_squares at D = 12,033
+   (WIDE_ROWS rows): unhinted, probe (e) prices both kernels and the plan
+   is cuda_fused (igd_fold's middle instance at 1,000, its wide one past
+   4,096), and least_squares by the cuda_minibatch hint (the wide
+   igd_fold_minibatch); each runs 2 epochs, one launch of the middle or
+   wide instance an epoch (counted), held to the CPU's run with
    draws.HostDraws (rtol=2e-4, atol=2e-5); the `kernels` line's
-   `launches_obs` counts the phase's runs and drains, and the wide rows'
-   `launches` the wide-table runs;
+   `launches_obs` counts the phase's runs and drains, the wide rows'
+   `launches` the wide-table runs and the middle row's the D 1,000 run;
 4. time each kernel at the main path's shape with CUDA events, beside its
    plain version and its bound; igd_fold also beside its chain floor (N
    times one grad_scale + FMA step timed alone in one warp),
@@ -130,10 +139,12 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    must be 10x under the eager fold; igd_fold_minibatch's column-slice
    cluster also at SLICE_SHAPES (8,192 x 12,032 and 65,536 x 1,000, where
    the one-block kernel it replaced ran) in turns, beside its byte bound and
-   its exchange floor; then igd_fold's middle instance (its per-row chain,
-   256 < D <= 4,096), at MIDDLE_SHAPES in turns, beside its byte bound and
-   its launches on phases 3-3f's main-path runs (kernel.middle_launches,
-   read where those phases read their counts);
+   its exchange floor; then igd_fold's middle instance (256 < D <= 4,096),
+   at MIDDLE_SHAPES in turns, beside its byte bound, its chain floor (N
+   times one chain step, kernel.chain_probe) and its launches on phases
+   3-3f's main-path runs (kernel.middle_launches, read where those phases
+   read their counts), and as lane launches of B = 1, 8 and 32 over a
+   shared WIDE_ROWS x 1,000 table beside 32 one-lane launches;
 5. build the flash-attention (forward and gradient) and flash-decode CUDA
    kernels from src/repro_torch/kernels/{attention,decode}/csrc (all four
    sources are compiled at once, one nvcc each, when the script starts);
@@ -307,6 +318,10 @@ WIDE_FOLD_SHAPES = ((300, 4_097), (1_000, 8_192), (300, 8_193), (257, 12_033), (
 WIDE_MB_SHAPES = ((300, 257), (513, 300), (1_000, 1_000), (300, 1_424), (300, 1_425), (255, 4_097),
                   (513, 12_032), (300, 12_033), (2_049, 65_537), (0, 20_000), (300, 196_608), (300, 196_609))
 WIDE_LANE_B = (1, 8)
+# igd_fold's middle instance: rows, the D of its lane and unaligned checks
+# (its D grid, middle_widths(), comes from the kernel module at run time)
+MIDDLE_N = (0, 1, 31, 33, 4_097)
+MIDDLE_LANE_D = (300, 1_000, 4_096)
 KERNEL_RTOL, KERNEL_ATOL = 2e-4, 2e-5
 # phase 3b: rows of the Forest-shaped table the eager schemes run on (cut
 # so the phase stays within ~30 s on the card: the eager fold costs
@@ -341,11 +356,13 @@ TIMED_LANES = (1, 8, 32)
 # phase 3f and 4: rows of the wide tables (D 4,097 and 12,033, past the IGD
 # kernels' narrow instances)
 WIDE_ROWS = 8_192
-# phase 4: igd_fold's middle instance (its per-row chain, 256 < D <= 4,096)
-# at (kernel, loss, N, D), timed in turns, its per-row plain fold on a
-# prefix of MIDDLE_PLAIN_ROWS; and igd_fold_minibatch's column-slice cluster
-# also at the widths where the one-block kernel it replaced ran (N, D, lsq)
+# phase 4: igd_fold's middle instance (256 < D <= 4,096) at (kernel, loss,
+# N, D), timed in turns, its per-row plain fold on a prefix of
+# MIDDLE_PLAIN_ROWS, and as lane launches at D MIDDLE_TIMED_LANE_D; and
+# igd_fold_minibatch's column-slice cluster also at the widths where the
+# one-block kernel it replaced ran (N, D, lsq)
 MIDDLE_SHAPES = (("igd_fold", "lr", 65_536, 1_000), ("igd_fold", "lr", 16_384, 4_096))
+MIDDLE_TIMED_LANE_D = 1_000
 SLICE_SHAPES = ((8_192, 12_032), (65_536, 1_000))
 MIDDLE_PLAIN_ROWS = 1_024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -613,16 +630,20 @@ def wide_timings(seed: int, dev, card: str, launches: dict, errs: dict) -> list:
     return rows
 
 
-def middle_timings(seed: int, dev, card: str, main_path: dict) -> dict:
-    """Phase 4's rows for igd_fold's middle instance, the port's first
-    design (its per-row chain with w in registers, 256 < D <= 4,096): ms a
+def middle_timings(seed: int, dev, card: str, main_path: dict, err: float) -> dict:
+    """Phase 4's row for igd_fold's middle instance (256 < D <= 4,096, the
+    Gram look-ahead on a cluster of kernel.fold_middle_ctas(D) CTAs): ms a
     launch at each MIDDLE_SHAPES entry (CUDA events, 3 launches a turn, the
-    shapes in turns, twice), µs a row, the byte bound and its share. The
-    per-row plain fold is timed on a MIDDLE_PLAIN_ROWS prefix. main_path:
-    each main-path phase's count of the middle instance's launches
-    ({phase: {kernel: n}}, read from kernel.middle_launches where the phase
-    reads kernel.launches), summed into each row's launches_main_path.
-    Returns {kernel: [rows]}."""
+    shapes in turns, twice), µs a row, the byte bound and its share, the
+    chain floor (N x one chain step, kernel.chain_probe) and its share; the
+    per-row plain fold timed on a MIDDLE_PLAIN_ROWS prefix; then lane
+    launches of B = 1, 8, 32 over a shared WIDE_ROWS x MIDDLE_TIMED_LANE_D
+    table beside 32 one-lane launches. main_path: each main-path phase's
+    count of the middle instance's launches ({phase: {kernel: n}}, read
+    from kernel.middle_launches where the phase reads kernel.launches).
+    err: the largest |err| of phase 2's middle checks. Returns the
+    ``kernels`` line's igd_fold[middle] row (its numbers the first shape's,
+    by_shape every shape's)."""
     from repro_torch import engine, timing
     from repro_torch.kernels.igd_fused import kernel as K, ref as R
 
@@ -636,30 +657,62 @@ def middle_timings(seed: int, dev, card: str, main_path: dict) -> dict:
     for _ in range(2):
         for i, (name, loss, _, _) in enumerate(MIDDLE_SHAPES):
             turns[i].append(event_ms(lambda: getattr(K, name)(*tables[i], loss=loss), 3))
-    rows = {}
+    launched = sum(p["igd_fold"] for p in main_path.values())
+    by_phase = ", ".join(f"{phase} {p['igd_fold']}" for phase, p in main_path.items())
+    rows = []
     for (name, loss, n, d), args_, times in zip(MIDDLE_SHAPES, tables, turns):
         ms = sum(times) / len(times)
         io_bytes = n * (d + 2) * 4 + 2 * d * 4
         bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = n * (4 * d + 8) / FP32_FLOPS * 1e3
         bound = max(bytes_ms, ops_ms)
+        step_cycles, step_s = K.chain_probe(loss)
+        floor_ms = n * step_s * 1e3
         prefix = MIDDLE_PLAIN_ROWS
         plain = getattr(R, f"{name}_ref")
         plain_ms = timing.seconds(lambda: plain(*(t[:prefix] for t in args_[:3]), args_[3], loss=loss), dev) * 1e3
-        instance = "per-row chain, w in registers"
-        rows.setdefault(name, []).append({
-            "instance": instance, "loss": loss, "rows": n, "d": d, "ms": ms, "ms_turns": times,
-            "us_per_row": ms * 1e3 / n, "bound_ms": bound, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "share_of_bound": bound / ms, "plain_ms": plain_ms, "plain_rows": prefix,
-            "launches_main_path": sum(p[name] for p in main_path.values()),
-            "launches_by_phase": {phase: p[name] for phase, p in main_path.items()}})
-        log("timing", f"{name} middle instance ({instance}; {loss}, {n}x{d}): {ms:.4f} ms/launch (turns "
-            f"{', '.join(f'{t:.4f}' for t in times)}), {ms * 1e3 / n:.4f} us/row; bound {bound:.4f} ms (bytes "
+        design = K.fold_middle_design(d)
+        rows.append({
+            "loss": loss, "rows": n, "d": d, "ms": ms, "ms_turns": times, "us_per_row": ms * 1e3 / n,
+            "bound_ms": bound, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "share_of_bound": bound / ms, "chain_floor_ms": floor_ms, "share_of_chain_floor": floor_ms / ms,
+            "chain_step_cycles": step_cycles, "plain_ms": plain_ms, "plain_rows": prefix,
+            "design": dict(zip(("ctas", "columns_a_cta", "resident_sub_tiles", "smem_bytes"), design))})
+        log("timing", f"{name} middle instance ({loss}, {n}x{d}; a cluster of {design[0]} CTAs, {design[1]} columns "
+            f"a CTA, {design[2]} resident sub-tiles, {design[3]} bytes of shared memory a CTA): {ms:.4f} ms/launch "
+            f"(turns {', '.join(f'{t:.4f}' for t in times)}), {ms * 1e3 / n:.4f} us/row; bound {bound:.4f} ms (bytes "
             f"{io_bytes} at 3.35 TB/s: {bytes_ms:.4f} ms; fp32 ops at 67 TFLOP/s: {ops_ms:.4f} ms), {bound / ms:.5f} "
-            f"of it; plain version {plain_ms:.1f} ms on {prefix} rows; launches on the main path "
-            f"{sum(p[name] for p in main_path.values())} (by phase: "
-            f"{', '.join(f'{phase} {p[name]}' for phase, p in main_path.items())}); {card}")
-    return rows
+            f"of it; chain floor {floor_ms:.4f} ms = {n} rows x {step_cycles:.1f} cycles ({step_s * 1e9:.2f} ns, one "
+            f"chain step alone, kernel.chain_probe), {floor_ms / ms:.3f} of the kernel's time; plain version "
+            f"{plain_ms:.1f} ms on {prefix} rows; launches on the main path {launched} (by phase: {by_phase}); {card}")
+    del tables
+    # lanes: B folds of one shared table in one launch (a cluster a lane), beside 32 one-lane launches
+    n, d = WIDE_ROWS, MIDDLE_TIMED_LANE_D
+    x, y, _, _ = inputs(gen, n, d, dev)
+    alpha = engine.get("logreg").step_size(n)(torch.arange(n, dtype=torch.int32, device=dev))
+    w0 = torch.zeros(d, device=dev)
+    lane_ms, lane_bound = {}, {}
+    for b in TIMED_LANES:
+        a_b, w_b = alpha.expand(b, n).contiguous(), w0.expand(b, d).contiguous()
+        lane_ms[b] = event_ms(lambda: K.igd_fold(x, y, a_b, w_b, loss="lr"), 3)
+        lane_bytes = n * (d + 1) * 4 + b * (n + 2 * d) * 4  # the table once, each lane's alphas and w
+        lane_bound[b] = max(lane_bytes / HBM_BYTES_PER_S, b * n * (4 * d + 8) / FP32_FLOPS) * 1e3
+    singles_ms = event_ms(lambda: [K.igd_fold(x, y, alpha, w0, loss="lr") for _ in range(32)], 1)
+    log("timing", f"igd_fold middle instance (lr, {n}x{d}, shared table; {K.fold_middle_ctas(d)} CTAs a lane) lane "
+        "launches: " + ", ".join(f"B={b} {lane_ms[b]:.4f} ms ({lane_ms[b] / lane_ms[1]:.3f}x B=1; bound "
+                                 f"{lane_bound[b]:.4f} ms)" for b in TIMED_LANES)
+        + f"; 32 one-lane launches {singles_ms:.3f} ms ({singles_ms / lane_ms[32]:.2f}x the B=32 launch); {card}")
+    del x, y
+    first = rows[0]
+    return {
+        "name": "igd_fold[middle]", "route": "cuda", "source": "src/repro_torch/kernels/igd_fused/csrc/igd_fused.cu",
+        "replaces": "src/repro/kernels/igd_fused/kernel.py:74", "launches": launched, "max_abs_err": err,
+        "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"], "library_ms": None, "rows": first["rows"], "d": first["d"],
+        "chain_floor_ms": first["chain_floor_ms"], "launches_by_phase": {ph: p["igd_fold"] for ph, p in
+                                                                         main_path.items()},
+        "by_shape": rows, "lane_ms": lane_ms, "lane_bound_ms": lane_bound, "one_lane_launches_x32_ms": singles_ms,
+        "lane_shape": [n, d]}
 
 
 def wide_parity(gen, dev) -> dict:
@@ -714,6 +767,71 @@ def wide_parity(gen, dev) -> dict:
                                                              f"{name} {loss} D={d} B={b} lanes"))
                     del x, y
     return errs
+
+
+def middle_widths(K) -> tuple:
+    """igd_fold's middle instance's D grid: its first and last D, 300, 1,000
+    and 1,025, and both sides of every cluster-size boundary and of the
+    16-CTA slices' cap."""
+    last = K.fold_middle_widths()[1:-1]  # the last D of each cluster size but the widest
+    full = K.FOLD_CLUSTER * K.FOLD_MIDDLE_MAX_SLICE
+    return tuple(sorted({K.FOLD_GRAM_MAX_DIM + 1, 300, 1_000, 1_025, full, full + 1, K.FOLD_REGISTER_MAX_DIM}
+                        | set(last) | {d + 1 for d in last}))
+
+
+def middle_parity(gen, dev) -> dict:
+    """Phase 2's checks of igd_fold's middle instance: at N in MIDDLE_N x D
+    in middle_widths(), lr, svm, lsq, against the per-row fold and its own
+    order, the tiled fold (both on the CPU); N = 0 returns w0 bit for bit;
+    x, y and alpha off a 16-byte boundary give the aligned launch's bits
+    (N 33 at every D, N 4,097 at MIDDLE_LANE_D); lane launches (B in WIDE_LANE_B, shared and stacked
+    tables, at MIDDLE_LANE_D) equal their one-lane launches bit for bit and
+    the plain lanes within the kernel tolerance. Returns the largest |err|
+    against each plain fold and the D grid."""
+    from repro_torch.kernels.igd_fused import kernel as K, ref as R
+
+    errs = {"per-row": 0.0, "tiled": 0.0}
+    grid = middle_widths(K)
+    for d in grid:
+        for n in MIDDLE_N:
+            args_ = inputs(gen, n, d, dev)
+            on_cpu = [t.cpu() for t in args_]
+            for loss in LOSSES:
+                got = K.igd_fold(*args_, loss=loss).cpu()
+                for name, plain in (("per-row", R.igd_fold_ref), ("tiled", R.igd_fold_tiled_ref)):
+                    errs[name] = max(errs[name], max_err(got, plain(*on_cpu, loss=loss),
+                                                         f"igd_fold middle {loss} {n}x{d} vs the {name} fold"))
+                if n == 0 and not torch.equal(got, on_cpu[3]):
+                    raise AssertionError(f"igd_fold middle {loss} 0x{d} did not return w0")
+            if n == 33 or (n == MIDDLE_N[-1] and d in MIDDLE_LANE_D):  # off a 16-byte boundary: the same bits
+                shifted = [torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape).copy_(t) for t in args_[:3]]
+                for loss in LOSSES:
+                    if not torch.equal(K.igd_fold(*shifted, args_[3], loss=loss), K.igd_fold(*args_, loss=loss)):
+                        raise AssertionError(f"igd_fold middle {loss} {n}x{d}: unaligned rows give another w")
+            del args_
+    for d in MIDDLE_LANE_D:
+        n = 600
+        for b in WIDE_LANE_B:
+            for shared in (True, False):
+                x, y, _, _ = inputs(gen, n if shared else b * n, d, dev)
+                if not shared:
+                    x, y = x.view(b, n, d), y.view(b, n)
+                alpha = (0.1 / (1.0 + torch.arange(n, device=dev) / n)) * (1.0 + torch.rand(
+                    (b, 1), generator=gen, device=dev))
+                w0 = 0.01 * torch.randn((b, d), generator=gen, device=dev)
+                for loss in LOSSES:
+                    got = K.igd_fold(x, y, alpha, w0, loss=loss)
+                    for i in range(b):
+                        xi, yi = (x, y) if shared else (x[i], y[i])
+                        if not torch.equal(got[i], K.igd_fold(xi, yi, alpha[i].contiguous(), w0[i].contiguous(),
+                                                              loss=loss)):
+                            raise AssertionError(f"igd_fold middle {loss} D={d} B={b} lane {i} differs from its "
+                                                 f"one-lane launch")
+                    errs["per-row"] = max(errs["per-row"], max_err(
+                        got, R.lanes_ref(R.igd_fold_ref, x, y, alpha, w0, loss=loss), f"igd_fold middle {loss} D={d} "
+                        f"B={b} lanes"))
+                del x, y
+    return {"errs": errs, "grid": grid}
 
 
 def ptxas_report(name: str, text: str) -> str:
@@ -848,7 +966,8 @@ def main() -> int:
     K._load()
     cluster, mb_smem = K.minibatch_design(FOREST_DIM)
     log("build", f"igd_fused.cu -> {K.library_path().name} in {watch.lap():.2f} s "
-        f"({ptxas_report('igd_fused.cu', ptxas)}; {ptxas_instances(ptxas, 'igd_minibatch_slice_kernel')}); "
+        f"({ptxas_report('igd_fused.cu', ptxas)}; {ptxas_instances(ptxas, 'igd_minibatch_slice_kernel')}; "
+        f"{ptxas_instances(ptxas, 'igd_fold_cluster_kernel')}); "
         f"igd_fold_minibatch at D={FOREST_DIM}: a cluster of {cluster} CTAs, {mb_smem} bytes of dynamic shared "
         f"memory a CTA")
 
@@ -936,6 +1055,15 @@ def main() -> int:
         f"w0; x, y, alpha off a 16-byte boundary gave the same w bit for bit (D {UNALIGNED_D}); lane launches at D in "
         f"{WIDE_D} / {WIDE_MB_LANE_D}, B in {WIDE_LANE_B}, shared and stacked tables: every lane equal to its "
         f"one-lane launch bit for bit, within rtol={KERNEL_RTOL}, atol={KERNEL_ATOL} of the plain lanes")
+    # igd_fold's middle instance against both plain folds, as lanes and off 16 bytes
+    middle2 = middle_parity(gen, dev)
+    errs["igd_fold"] = max(errs["igd_fold"], *middle2["errs"].values())
+    log("parity", f"igd_fold middle instance at N in {MIDDLE_N} x D in {middle2['grid']} (cluster sizes "
+        f"{sorted({K.fold_middle_ctas(d) for d in middle2['grid']})}), lr, svm, lsq: max |err| "
+        f"{middle2['errs']['per-row']:.3g} against the per-row fold, {middle2['errs']['tiled']:.3g} against the "
+        f"tiled fold; N = 0 returned w0; x, y, alpha off a 16-byte boundary gave the same w bit for bit (N 33, "
+        f"and {MIDDLE_N[-1]} at D {MIDDLE_LANE_D}); lane launches at D {MIDDLE_LANE_D}, B in {WIDE_LANE_B}, shared "
+        f"and stacked: every lane equal to its one-lane launch bit for bit")
     # a longer prefix against float64: the per-row float32 fold drifts from it
     # with N (it rounds w every row), so the kernel is held to float64 here
     xf, yf, af = (t[:F64_PREFIX] for t in (x, y, alpha))
@@ -1122,9 +1250,9 @@ def main() -> int:
             f"({singles_ms / lane_ms[32]:.2f}x the B=32 launch); {card}")
 
     kernels += wide_timings(args.seed, dev, card, phase3f["wide_launches"], wide_errs)
-    middle = middle_timings(args.seed, dev, card, {"3": middle3, "3d": phase3d["middle"], "3e": phase3e["middle"],
-                                                   "3f": phase3f["middle"]})
-    kernels[0]["middle"] = middle["igd_fold"]
+    kernels.append(middle_timings(args.seed, dev, card, {"3": middle3, "3d": phase3d["middle"],
+                                                         "3e": phase3e["middle"], "3f": phase3f["middle"]},
+                                  max(middle2["errs"].values())))
 
     phase_done("4")
 
@@ -2145,12 +2273,13 @@ def observability(seed: int, table: dict, dev) -> dict:
     obs_server.stop()
     flight.disable()
 
-    # -- the wide tables: D past the narrow instances plans a kernel, whose
-    # wide instance launches, and matches the CPU run -----------------------
+    # -- the middle and wide tables: D past the narrow instances plans a
+    # kernel, whose middle or wide instance launches, and matches the CPU run
     gen = torch.Generator(device=dev).manual_seed(seed + 31)
     card_eng = engine.Engine(draws=draws.HostDraws())
     host_eng = engine.Engine(device="cpu", draws=draws.HostDraws())
-    for task, dd, hint in (("logreg", 4_097, None), ("least_squares", 12_033, None),
+    middle_run = {"igd_fold": 0, "igd_fold_minibatch": 0}  # the D 1,000 query's middle launches
+    for task, dd, hint in (("logreg", 1_000, None), ("logreg", 4_097, None), ("least_squares", 12_033, None),
                            ("least_squares", 12_033, "cuda_minibatch")):
         wide = synthetic.dense_classification(gen, WIDE_ROWS, dd)
         qw = engine.AnalyticsQuery(task=task, data=wide, task_args={"dim": dd}, epochs=2, tolerance=0.0, seed=seed,
@@ -2162,20 +2291,21 @@ def observability(seed: int, table: dict, dev) -> dict:
             raise AssertionError(f"D={dd}: planned {rep.chosen.implementation}, probe (e) priced "
                                  f"{sorted(rep.calibration.impl_per_row)}")
         name = {"cuda_fused": "igd_fold", "cuda_minibatch": "igd_fold_minibatch"}[want_impl]
+        instance = "middle" if name == "igd_fold" and dd <= K.FOLD_REGISTER_MAX_DIM else "wide"
         watch.lap()
         got = counted(lambda: card_eng.run(qw))  # zeroes the counters first
         run_s = watch.lap()
-        wide_launched = K.wide_launches[name]
+        wide_launched = (K.middle_launches if instance == "middle" else K.wide_launches)[name]
         if got.kernel_launches != got.epochs or wide_launched != got.epochs:
-            raise AssertionError(f"D={dd}: {got.kernel_launches} launches, {wide_launched} of the wide instance, "
-                                 f"in {got.epochs} epochs")
-        wide_launches[name] += wide_launched
+            raise AssertionError(f"D={dd}: {got.kernel_launches} launches, {wide_launched} of the {instance} "
+                                 f"instance, in {got.epochs} epochs")
+        (middle_run if instance == "middle" else wide_launches)[name] += wide_launched
         want = host_eng.run(dataclasses.replace(qw, data={k: v.cpu() for k, v in wide.items()}), plan=rep.chosen)
         err = max_err(got.model, want.model.to(dev), f"{task} D={dd} on the card vs the CPU")
         rates = ", ".join(f"{k} {v * 1e6:.3f} us/row" for k, v in sorted(rep.calibration.impl_per_row.items()))
         log("obs", f"{task} {WIDE_ROWS}x{dd}{' (hint ' + hint + ')' if hint else ''}: planned "
             f"{rep.chosen.describe()} (probe (e): {rates}; the eager fold {rep.calibration.fold_per_row * 1e6:.3f} "
-            f"us/row); 2 epochs on the card in {run_s:.3f} s, {wide_launched} launches of {name}'s wide instance, "
+            f"us/row); 2 epochs on the card in {run_s:.3f} s, {wide_launched} launches of {name}'s {instance} instance, "
             f"loss {got.losses[-1]:.6g}; max |dw| vs the CPU run {err:.3g} (rtol={KERNEL_RTOL}, "
             f"atol={KERNEL_ATOL}); {card}")
         del wide
@@ -2184,7 +2314,10 @@ def observability(seed: int, table: dict, dev) -> dict:
         raise AssertionError(f"a kernel never launched on the obs path: {launches}")
     if not all(wide_launches.values()):
         raise AssertionError(f"a wide instance never launched on the wide tables' path: {wide_launches}")
-    log("obs", f"phase 3f took {phase.lap():.1f} s; obs-path launches {launches}, of them wide {wide_launches}")
+    if not middle_run["igd_fold"]:
+        raise AssertionError(f"igd_fold's middle instance never launched on the D 1,000 query's path: {middle_run}")
+    log("obs", f"phase 3f took {phase.lap():.1f} s; obs-path launches {launches}, of them wide {wide_launches}, "
+        f"middle {middle}")
     return {"launches": launches, "wide_launches": wide_launches, "middle": middle, "epoch_s": epoch_s,
             "span_cost_s": {"off": off_cost, "flight": ring_cost}}
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the port's igd_fold kernel beside the committed one, on one CUDA card.
 
-    python3 scripts/torch_igd_variants.py [--wide] [VARIANT ...]
+    python3 scripts/torch_igd_variants.py [--wide | --middle] [VARIANT ...]
 
 Run from the repository root on a machine with a Hopper card. Each variant
 is the committed CUDA source (src/repro_torch/kernels/igd_fused/csrc/
@@ -33,12 +33,20 @@ and give wrong results. Each line gives a variant's turns and its ratio to
 the committed kernel's mean in the same rounds; `clocks` prints the
 cluster kernel's cycles a step in rank 0.
 
+With --middle, the middle instance (256 < D <= 4,096) in the same way, at
+MIDDLE_SHAPES: chip_smoke.py's 65,536 x 1,000 and 16,384 x 4,096, and
+16,384 rows at D 300, 600, 2,000 and 3,000, where other slice caps pick
+other cluster sizes. `ring16` is the wide instance moved down to D 257 as it
+is (16 CTAs, panels streamed twice through a ring of bulk copies, the
+pre-pass in four parts): the baseline the middle design is held to.
+
 The card's name and power limit are printed first.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import os
 import subprocess
 import sys
@@ -78,14 +86,6 @@ PROBE_STEP = "    const float c = grad_scale_fast<LOSS>(r, yv) * av;"
 LR_FAST = "  if (LOSS == kLossLr) return -y * __fdividef(1.0f, 1.0f + __expf(y * wx));"
 # (old, new) edits of csrc/igd_fused.cu
 VARIANTS = {
-    # the per-row chain of the D > 256 instance (one warp, w in registers, a shuffle butterfly per row) at D <= 256
-    "per_row_chain": [
-        ("  if (d <= kGramMaxDim) {\n    return launch_gram", "  if (d < 1) {\n    return launch_gram"),
-        ("    vpl = d <= kWarp * 16 ? 16 : 32;", "    vpl = 1;\n    while (vpl * kWarp < d) vpl *= 2;"),
-        ("  REPRO_FOLD_CASE(16, 1)\n",
-         "  REPRO_FOLD_CASE(1, 1)\n  REPRO_FOLD_CASE(2, 1)\n  REPRO_FOLD_CASE(4, 1)\n"
-         "  REPRO_FOLD_CASE(8, 1)\n  REPRO_FOLD_CASE(16, 1)\n"),
-    ],
     # the chain's lr scale in IEEE expf and division (grad_scale), probe included
     "ieee_math": [(CHAIN_STEP, CHAIN_STEP.replace("grad_scale_fast", "grad_scale")),
                   (PROBE_STEP, PROBE_STEP.replace("grad_scale_fast", "grad_scale"))],
@@ -124,15 +124,16 @@ WIDE_ROWS = 8_192
 WIDE_SHAPES = ((4_097, "lr"), (12_033, "lsq"))
 
 PREPASS = "  if (n > 0) {  // pass 1: every segment's G and C, over the whole card"
-WIDE_CHAIN = "      if (s >= 0) {\n        chain<LOSS>(r, gram"
+WIDE_CHAIN = "        chain<LOSS>(r, gram + (s & 1) * kSub * kSub, ysb"
 PASSES = "          panel_pass(wc, us, qs, ou,"
-PREFETCH = "      prefetch_sub(t + kFcPrefetchAhead);"
+PREFETCH = "      if (!RESIDENT) prefetch_sub(t + kFcPrefetchAhead);"
 RING = "constexpr int kFcRingMin = 3, kFcRingMax = 8;"
 SPLIT = "constexpr int kPpSplit = 4;"
 # clock64 in rank 0 of the cluster kernel, cycles a step: warp 0's chain,
 # its C c and wait for q, its p, its barrier wait; the first consumer warp's panels,
-# its q reduction and send, its barrier wait. Written over the output's
-# first seven floats (timing only).
+# its q reduction and send, its barrier wait, and its work before the panels
+# (G, C, y and alpha's copies issued, the L2 prefetch). Written over the
+# output's first eight floats (timing only).
 CLOCKS = [
     ("    float r = 0.0f;  // lane j holds row j's p of the coming sub-tile\n"
      "    for (int s = -1; s < n_sub; ++s) {\n      const int t = s + 1;\n",
@@ -156,14 +157,15 @@ CLOCKS = [
      "  // c_s, G_t, C_t+1 visible\n    }\n",
      "      const long long d2 = clock64();\n      cp_async_wait_all();\n"
      "      asm volatile(\"bar.sync 2, %0;\\n\" ::\"n\"(kFcStepThreads) : \"memory\");\n"
-     "      const long long d3 = clock64();\n      kpan += d1 - d0; kred += d2 - d1; kbar += d3 - d2;\n    }\n"
-     "    if (ct == 0) { fc_dbg[4] = kpan; fc_dbg[5] = kred; fc_dbg[6] = kbar; }\n"),
+     "      const long long d3 = clock64();\n      kpan += d1 - d0; kred += d2 - d1; kbar += d3 - d2; kpre += d0 - ds;\n"
+     "    }\n    if (ct == 0) { fc_dbg[4] = kpan; fc_dbg[5] = kred; fc_dbg[6] = kbar; fc_dbg[7] = kpre; }\n"),
     ("    for (int s = -1; s < n_sub; ++s) {\n      const int t = s + 1;\n      if (t + 1 < n_sub) {",
-     "    long long kpan = 0, kred = 0, kbar = 0;\n"
-     "    for (int s = -1; s < n_sub; ++s) {\n      const int t = s + 1;\n      if (t + 1 < n_sub) {"),
+     "    long long kpan = 0, kred = 0, kbar = 0, kpre = 0;\n"
+     "    for (int s = -1; s < n_sub; ++s) {\n      const int t = s + 1;\n      const long long ds = clock64();\n"
+     "      if (t + 1 < n_sub) {"),
     ("  cluster.sync();  // no CTA leaves while its partials may still be in flight\n}",
      "  cluster.sync();  // no CTA leaves while its partials may still be in flight\n"
-     "  if (rank == 0 && tid == 0) {\n    for (int i = 0; i < 7; ++i) wout[i] = static_cast<float>(fc_dbg[i]) / (n_sub + 1);\n  }\n}"),
+     "  if (rank == 0 && tid == 0) {\n    for (int i = 0; i < 8; ++i) wout[i] = static_cast<float>(fc_dbg[i]) / (n_sub + 1);\n  }\n}"),
     ("  extern __shared__ __align__(16) unsigned char fc_smem[];\n  const int n_sub",
      "  extern __shared__ __align__(16) unsigned char fc_smem[];\n  __shared__ long long fc_dbg[8];\n  const int n_sub"),
 ]
@@ -172,7 +174,7 @@ WIDE_VARIANTS = {
     # timing only: the cluster kernel without the pre-pass (G and C unset)
     "no_prepass": [(PREPASS, PREPASS.replace("n > 0", "n < 0"))],
     # timing only: every chain left out (the panels, the exchange and the pre-pass alone)
-    "no_chain": [(WIDE_CHAIN, "      if (s < -1) {\n        chain<LOSS>(r, gram")],
+    "no_chain": [(WIDE_CHAIN, "        if (s < -1) chain<LOSS>(r, gram + (s & 1) * kSub * kSub, ysb")],
     # timing only: the consumers' arithmetic on the panels left out (the panels still stream through)
     "no_pass": [(PASSES, "          if (jb < 0) panel_pass(wc, us, qs, ou,")],
     # timing only: no bulk copies (the panels arrive empty at once; the rest runs as it does)
@@ -188,8 +190,50 @@ WIDE_VARIANTS = {
     "prepass_split8": [(SPLIT, "constexpr int kPpSplit = 8;")],
 }
 
+MIDDLE_ROWS = 16_384
+# (N, D, loss): chip_smoke.py's MIDDLE_SHAPES, then D where another slice cap picks another cluster size
+MIDDLE_SHAPES = ((65_536, 1_000, "lr"), (16_384, 4_096, "lr"), (MIDDLE_ROWS, 300, "lr"), (MIDDLE_ROWS, 600, "lr"),
+                 (MIDDLE_ROWS, 2_000, "lr"), (MIDDLE_ROWS, 3_000, "lr"))
+MIDDLE_CTAS = ("  int ctas = 1;\n  while (ctas < kFcCluster && (d + ctas - 1) / ctas > kFmMaxSlice) ctas *= 2;\n"
+               "  return ctas;")
+MAX_SLICE = "constexpr int kFmMaxSlice = 128;"
+SLOTS = "constexpr int kFmSlots = 5;"
+MIDDLE_TIMING_ONLY = ("no_prepass", "no_chain", "no_pass", "no_copies", "clocks")
+MIDDLE_VARIANTS = {
+    # the baseline: the wide instance as it is (16 CTAs, the ring, the pre-pass in four parts) from D 257
+    "ring16": [("int prepass_split(int d) { return d > kFoldMaxDim ?",
+                "int prepass_split(int d) { return d > kGramMaxDim ?"),
+               ("  if (d > kFoldMaxDim) {\n    const FoldPanels pn = fold_panels(",
+                "  if (d > kGramMaxDim) {\n    const FoldPanels pn = fold_panels(")],
+    # the alternative: the look-ahead in one CTA a lane (G and C from the pre-pass, as the one-block Gram
+    # instance's design carried past D 256), the rows streamed twice through a ring of panels
+    "one_cta_ring": [("  const FoldPanels pn = middle_panels(d);\n  switch (pn.ctas) {",
+                      "  if (d > 0) {\n    const FoldPanels pn = fold_panels(d, 1);\n"
+                      "    REPRO_FOLD_CLUSTER(1, true, false);\n  }\n  const FoldPanels pn = middle_panels(d);\n"
+                      "  switch (pn.ctas) {")],
+    # the resident design on 16 CTAs at every D
+    "ctas16": [(MIDDLE_CTAS, "  return 16;")],
+    # other caps on a CTA's columns (so other cluster sizes)
+    "max_slice_64": [(MAX_SLICE, "constexpr int kFmMaxSlice = 64;")],
+    "max_slice_192": [(MAX_SLICE, "constexpr int kFmMaxSlice = 192;")],
+    "max_slice_256": [(MAX_SLICE, "constexpr int kFmMaxSlice = 256;")],
+    "max_slice_384": [(MAX_SLICE, "constexpr int kFmMaxSlice = 384;")],
+    # four resident slots (each sub-tile copied one step ahead of its q, not two)
+    "slots4": [(SLOTS, "constexpr int kFmSlots = 4;")],
+    # the wide instance's L2 prefetch of the sub-tile two steps ahead, on in the middle instance too
+    "l2_prefetch": [(PREFETCH, "      prefetch_sub(t + kFcPrefetchAhead);"),
+                    ("    for (int v = 0; !RESIDENT && v < kFcPrefetchAhead; ++v) prefetch_sub(v);",
+                     "    for (int v = 0; v < kFcPrefetchAhead; ++v) prefetch_sub(v);")],
+    "no_prepass": WIDE_VARIANTS["no_prepass"],
+    "no_chain": WIDE_VARIANTS["no_chain"],
+    "no_pass": WIDE_VARIANTS["no_pass"],
+    # timing only: no copies of the rows (the slots hold whatever they held)
+    "no_copies": WIDE_VARIANTS["no_copies"],
+    "clocks": CLOCKS,
+}
 
-def variant(name: str, edits) -> CudaLibrary:
+
+def variant(name: str, edits, declare=K._declare) -> CudaLibrary:
     text = K.SOURCE.read_text()
     for old, new in edits:
         if old not in text:
@@ -198,7 +242,19 @@ def variant(name: str, edits) -> CudaLibrary:
     path = ROOT / "build" / "variants" / f"igd_{name}.cu"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(text)
-    return CudaLibrary(f"igd_{name}", path, K._declare)
+    return CudaLibrary(f"igd_{name}", path, declare)
+
+
+def declare_fold(lib) -> None:
+    """Types of the entries a cluster-fold round calls (a variant may pick
+    cluster sizes that kernel.py's own check of the library refuses)."""
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.igd_fold_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64, i64, ptr, ptr]
+    lib.igd_fold_launch.restype = i32
+    lib.igd_fused_fold_scratch_floats.argtypes = [i64, i32, i32, i64, i32]
+    lib.igd_fused_fold_scratch_floats.restype = i64
+    lib.igd_fused_error_string.argtypes = [i32]
+    lib.igd_fused_error_string.restype = ctypes.c_char_p
 
 
 def fold(lib: CudaLibrary, x, y, alpha, w0, loss: str):
@@ -251,7 +307,9 @@ def turn_ms(fn, calls: int = 3) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--wide", action="store_true", help="the wide instance's variants (D 4,097 and 12,033)")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--wide", action="store_true", help="the wide instance's variants (D 4,097 and 12,033)")
+    mode.add_argument("--middle", action="store_true", help="the middle instance's variants (256 < D <= 4,096)")
     ap.add_argument("variants", nargs="*", help="variants to time (default: all of the mode's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -261,18 +319,21 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, f"| torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
     clock_hz = float(smi.split(",")[2].split()[0]) * 1e6
-    variants = WIDE_VARIANTS if args.wide else VARIANTS
+    variants = WIDE_VARIANTS if args.wide else MIDDLE_VARIANTS if args.middle else VARIANTS
     unknown = sorted(set(args.variants) - set(variants))
     if unknown:
         ap.error(f"unknown variants {unknown}; valid: {sorted(variants)}")
+    prefix = "wide_" if args.wide else "middle_" if args.middle else ""
+    declare = declare_fold if args.wide or args.middle else K._declare
     libs = {"committed": K.LIBRARY}
-    libs.update({name: variant(f"wide_{name}" if args.wide else name, variants[name])
-                 for name in args.variants or variants})
+    libs.update({name: variant(prefix + name, variants[name], declare) for name in args.variants or variants})
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.build(), libs.values()))
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.wide:
-        wide_rounds(libs)
+        wide_rounds(libs, tuple((WIDE_ROWS, d, loss) for d, loss in WIDE_SHAPES), WIDE_TIMING_ONLY)
+    elif args.middle:
+        wide_rounds(libs, MIDDLE_SHAPES, MIDDLE_TIMING_ONLY)
     else:
         gram_rounds(libs, clock_hz)
     print(smi)
@@ -328,17 +389,17 @@ def gram_rounds(libs: dict, clock_hz: float) -> None:
               f"{', '.join(f'{t:.3f}' for t in first + second)}", flush=True)
 
 
-def wide_rounds(libs: dict) -> None:
+def wide_rounds(libs: dict, shapes, timing_only) -> None:
+    """The cluster folds' rounds at (N, D, loss) in ``shapes``."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for d, loss in WIDE_SHAPES:
-        n = WIDE_ROWS
+    for n, d, loss in shapes:
         x = torch.randn((n, d), generator=gen, device="cuda") / d ** 0.5
         y = torch.sign(torch.randn((n,), generator=gen, device="cuda"))
         alpha = engine.get("logreg").step_size(n)(torch.arange(n, dtype=torch.int32, device="cuda"))
         w0 = torch.zeros(d, device="cuda")
         want = R.igd_fold_tiled_ref(x, y, alpha, w0, loss=loss)
         for name, lib in libs.items():
-            if name not in WIDE_TIMING_ONLY:
+            if name not in timing_only:
                 torch.testing.assert_close(fold(lib, x, y, alpha, w0, loss), want, **TOL)
         turns = {name: [] for name in libs}
         for _ in range(2):
@@ -347,17 +408,18 @@ def wide_rounds(libs: dict) -> None:
         base = sum(turns["committed"]) / 2
         for name, times in turns.items():
             mean = sum(times) / len(times)
-            print(f"{WIDE_ROWS}x{d} {loss} {name}: {', '.join(f'{t:.4f}' for t in times)} ms; {mean / base:.3f}x "
-                  f"the committed kernel ({base:.4f} ms){' [timing only]' if name in WIDE_TIMING_ONLY else ''}",
+            print(f"{n}x{d} {loss} {name}: {', '.join(f'{t:.4f}' for t in times)} ms; {mean / base:.3f}x "
+                  f"the committed kernel ({base:.4f} ms){' [timing only]' if name in timing_only else ''}",
                   flush=True)
         if "clocks" in libs:
-            got = fold(libs["clocks"], x, y, alpha, w0, loss)[:7].tolist()
-            print(f"{WIDE_ROWS}x{d} {loss} clocks a step in rank 0 (cycles): warp 0 chain {got[0]:.0f}, C c and the "
-                  f"wait for q {got[1]:.0f}, p {got[2]:.0f}, barrier {got[3]:.0f}; first consumer warp panels "
-                  f"{got[4]:.0f}, q reduce and send {got[5]:.0f}, barrier {got[6]:.0f}", flush=True)
+            got = fold(libs["clocks"], x, y, alpha, w0, loss)[:8].tolist()
+            print(f"{n}x{d} {loss} clocks a step in rank 0 (cycles): warp 0 chain {got[0]:.0f}, C c and the "
+                  f"wait for q {got[1]:.0f}, p {got[2]:.0f}, barrier {got[3]:.0f}; first consumer warp before the "
+                  f"panels {got[7]:.0f}, panels {got[4]:.0f}, q reduce and send {got[5]:.0f}, barrier {got[6]:.0f}",
+                  flush=True)
         if "no_prepass" in turns:
             rest = sum(turns["no_prepass"]) / 2
-            print(f"{WIDE_ROWS}x{d} {loss}: the pre-pass takes about {base - rest:.4f} ms of {base:.4f} "
+            print(f"{n}x{d} {loss}: the pre-pass takes about {base - rest:.4f} ms of {base:.4f} "
                   f"(committed less no_prepass)", flush=True)
         del x, y, alpha
 

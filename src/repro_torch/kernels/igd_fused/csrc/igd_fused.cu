@@ -44,42 +44,43 @@
 //   fold rounds w at every row; ref.igd_fold_tiled_ref is its plain
 //   version, and the tests hold it to the per-row fold and a float64 one.
 //
-//   256 < D <= 4096: the per-row chain with w in registers. One warp owns
-//   the fold and keeps w in registers (VPL = ceil(D/32) floats per lane),
-//   so the chain touches no memory but the row it reads. The dot ends in a
-//   __shfl_xor_sync butterfly, which leaves the bit-identical sum in every
-//   lane, so every lane computes c itself and no barrier sits on the
-//   chain. Rows, y and alpha stream into shared memory ahead of use with
-//   cp.async double buffering. Past one warp's reach (D > 1024) the block
-//   has 8 or 16 warps and the warps' partial dots meet in shared memory,
-//   one block barrier per row (two alternating slots, so one barrier
-//   suffices).
-//
-//   D > 4096: the Gram look-ahead over a cluster (igd_fold_cluster_kernel),
-//   in three launches of one call. A per-row design here (a 1,024-thread
-//   block a row) paid a block-wide reduction on every row's chain (1,739
-//   cycles a row at D 4,097 for the step alone). The tiled algebra above
-//   takes every D-long sum off the chain; what kept it at D <= 256 is that
-//   one block cannot form G, C, q and the update over a wide row fast
-//   enough. So:
+//   D > 256: the Gram look-ahead over a cluster (igd_fold_cluster_kernel),
+//   in two launches of one call (three past D 4,096). A per-row design here
+//   pays a D-long dot on every row's chain: a warp's shuffle butterfly and,
+//   past one warp, a block barrier a row (the per-row chain that ran D 257
+//   to 4,096 before this design: 800-900 cycles a row at D 1,000,
+//   1,750-2,000 at 4,096, against the chain step's ~83; 1,739 at D 4,097
+//   for a 1,024-thread block's step alone). The tiled algebra above takes every D-long sum off the chain;
+//   what kept it at D <= 256 is that one block cannot form G, C, q and the
+//   update over a wide row fast enough. So:
 //   Pass 1 (igd_fold_gram_prepass_kernel, then igd_fold_gram_sum_kernel),
 //   over the whole card: G_v and C_v = X_v X_{v-1}^T of every sub-tile v,
-//   32 x 32 each in float32 on the CUDA cores (no TF32), kPpSplit blocks a
-//   sub-tile and segment each summing a quarter of D, then the quarters
-//   summed in order, into scratch the wrapper allocates (320 floats a row:
-//   10 MB at 8,192 rows); lanes that share a table share its pass. 2 N 32
-//   D FMAs: 0.06 ms at 8,192 x 4,097 and 0.19 ms at 12,033 at 67 TFLOP/s.
-//   The split into quarters buys 2-3% over one block a sub-tile; summing
+//   32 x 32 each in float32 on the CUDA cores (no TF32), into scratch the
+//   wrapper allocates; lanes that share a table share its pass. 2 N 32 D
+//   FMAs: 0.06 ms at 8,192 x 4,097 and 0.19 ms at 12,033 at 67 TFLOP/s.
+//   Past D 4,096, kPpSplit blocks a sub-tile and segment each sum a quarter
+//   of D, then the quarters are summed in order (320 floats a row: 10 MB at
+//   8,192 rows); at D <= 4,096 one block a sub-tile sums all of D and
+//   writes G and C once (64 floats a row, a quarter of a row of the table
+//   at D 257, and no sum launch; two or four parts measured no faster).
+//   Past D 4,096 the split into quarters buys 2-3% over one block a sub-tile; summing
 //   the quarters by a launch of their own costs less than the two ways
 //   tried without one (H100 SXM, 8,192 x 4,097 / 12,033, the whole call):
 //   the four blocks as a cluster adding through distributed shared memory
 //   took 1.05x / 1.08x, and pass 2 adding them as it copies G and C in (a
 //   32 KB stage, so a ring a slot shallower) 1.04x / 1.14x.
 //   A 16-CTA cluster of ~227 KB a CTA takes most of a GPC, so the wrapper
-//   checks at load that one fits the card (igd_fused_fold_clusters_fit).
-//   Pass 2 (igd_fold_cluster_kernel): a cluster of kFcCluster = 16 CTAs a
-//   lane (non-portable), CTA q owning w's column slice [q * slice, q *
-//   slice + slice), slice = ceil(D / 16), in shared memory up to
+//   checks at load that one fits the card (igd_fused_fold_clusters_fit, and
+//   igd_fused_fold_middle_clusters_fit at every cluster size the middle
+//   instance takes).
+//   Pass 2 (igd_fold_cluster_kernel): a cluster of CTAS CTAs a lane, CTA q
+//   owning w's column slice [q * slice, q * slice + slice), slice =
+//   ceil(D / CTAS): past D 4,096 CTAS = kFcCluster = 16 (non-portable);
+//   at 256 < D <= 4,096 the fewest of 1, 2, 4, 8, 16 whose slices are at
+//   most kFmMaxSlice columns, or 16 (middle_ctas: 4 up to D 512, 8 up to
+//   1,024, 16 above; D alone picks it, never the number of lanes, so a
+//   lane's w is its one-lane launch's bit for bit).
+//   w's slice lies in shared memory up to
 //   kFcSmemMaxSlice floats (48 KB: D <= kFoldClusterSmemMaxDim = 196,608)
 //   and in the lane's output row above. Warp 0 of every CTA runs the same
 //   scalar recurrence (chain(), the Gram instance's) from the same p and
@@ -87,11 +88,34 @@
 //   CTAs. Nine consumer warps apply c_{s-1} to the slice and form their
 //   partials of q_{s+1} = X_{s+1} w_s in one pass, and push the CTA's 32
 //   partial margins into every CTA (st.async into distributed shared
-//   memory, completing on the receiver's mbarrier); warp 0 sums the 16 in
-//   a fixed tree and starts the next chain from p_{s+1} = q_{s+1} -
+//   memory, completing on the receiver's mbarrier); warp 0 sums the CTAS in
+//   a fixed tree of log2(CTAS) rounds and starts the next chain from p_{s+1} = q_{s+1} -
 //   C_{s+1} c_s. One barrier a sub-tile, one push of 32 floats a CTA a
 //   sub-tile, no barrier a row.
-//   Rows come into shared memory as panels (32 rows x a column chunk of
+//   The middle instance keeps its rows resident (RESIDENT): a CTA's slice
+//   of a 32-row sub-tile is at most 32 x 256 floats (32 KB), so every
+//   sub-tile's slice stays in one shared-memory slot from its copy to its
+//   update (5 slots: X_{s-1}, X_s, X_{s+1} and two on their way), and the
+//   table crosses HBM once. The producer warp copies each sub-tile in
+//   once, a row a lane by bulk copies as below, as soon as its slot is
+//   free. (Copied by the consumers' own 16-byte cp.async instead, the
+//   steps took 1.3-1.4x as long: issuing the copies sat on the consumers'
+//   path, which is the step's longer one.) What bounds it (clock64 in rank
+//   0, the `clocks` variant of scripts/torch_igd_variants.py --middle, H100
+//   SXM): a step is the longer of warp 0's path (the chain's 32 steps,
+//   ~3,150 cycles, then C c and p) and the consumers' (the copies of G, C,
+//   y and alpha issued, ~790; the pass, ~2,150 at 125 columns a CTA and
+//   ~3,050 at 256; the reduction and the push, ~500). Up to 128 columns a
+//   CTA the two are even, near the chain (D 1,000 on 8 CTAs: ~3,650
+//   cycles a sub-tile); past D 2,048 the 16 CTAs' wider slices put the
+//   consumers on the step (~4,400 at D 4,096), and the pre-pass takes a
+//   quarter of the call (0.38 of 1.6 ms at 16,384 x 4,096). Wider slices
+//   on fewer CTAs cost 1.12x at D 1,000 (4 CTAs) and more CTAs gain
+//   nothing once the chain is the longer path; the wide instance moved
+//   down as it is (16 CTAs, each sub-tile copied twice) took 1.08-1.32x,
+//   and the look-ahead in one CTA a lane (streamed) 1.4x at D 300 to 10x
+//   at 4,096.
+//   Past D 4,096 rows come into shared memory as panels (32 rows x a column chunk of
 //   the slice) through a ring that one producer warp keeps full with bulk
 //   copies (cp.async.bulk, a row a lane, each span widened to 16-byte
 //   boundaries: at odd D rows start anywhere, and a 2-D TMA map needs a
@@ -116,12 +140,12 @@
 
 //   All loop over exactly N rows and take D as it is: no padding of the
 //   inputs (a padded D would change the dot's length and order). One fold
-//   is one block (a cluster past D 4,096), so one fold leaves most SMs idle.
+//   is one block (a cluster past D 256), so one fold leaves most SMs idle.
 //
 // Lanes — the counterpart of jax.vmap over the Pallas call (the reference
 //   fuses a serving batch by vmapping kernel.py:74 and :119). Every C
 //   entry takes `lanes` independent folds and launches them at once: a
-//   grid of `lanes` blocks (igd_fold to D 4,096) or of `lanes` clusters (gridDim = (CTAs, lanes), clusterDim
+//   grid of `lanes` blocks (igd_fold to D 256) or of `lanes` clusters (gridDim = (CTAs, lanes), clusterDim
 //   = (CTAs, 1, 1)). Block (or cluster) b reads its rows at
 //   x + s * xy_lane_rows * D, y + s * xy_lane_rows with s = b /
 //   lanes_per_xy, its alphas at alpha + b * alpha_lane_stride and w0 +
@@ -137,8 +161,9 @@
 //   ~200 KB of shared memory leaves one block an SM, so 132 lanes run in
 //   one wave; the minibatch clusters take 8 SMs a lane (16 past D 256)
 //   and the wide fold's 16, so 16 or 8 lanes fill the card and more run
-//   in further waves; lanes <= 65535 (gridDim.y). The wide fold's pre-pass
-//   runs once a segment: lanes over one shared table share it.
+//   in further waves (the middle fold's CTAS: 1 to 16); lanes <= 65535
+//   (gridDim.y). The cluster folds' pre-pass runs once a segment: lanes
+//   over one shared table share it.
 //
 // igd_fold_minibatch — replaces the Pallas TPU kernel
 //   src/repro/kernels/igd_fused/kernel.py: igd_fold_minibatch
@@ -265,10 +290,7 @@ constexpr int kLossSvm = 1;
 constexpr int kLossLsq = 2;
 
 constexpr int kWarp = 32;
-constexpr int kFoldMaxVpl = 32;          // one warp: D <= 32 * 32 = 1024
-constexpr int kWideVpl = 8;              // several warps: 8 floats a thread
-constexpr int kFoldMaxDim = 16 * kWarp * kWideVpl;  // 16 warps: D <= 4096
-constexpr int kStageFloatBudget = 6000;  // per stage; two stages + partials < 48 KB
+constexpr int kFoldMaxDim = 4096;        // igd_fold's middle instance; the wide one above it
 constexpr int kTile = 256;               // minibatch rows per step
 constexpr int kGramMaxDim = 256;         // tiled Gram instance: one column a thread
 constexpr int kSub = 32;                 // T: rows a sub-tile, one a lane of the chain warp
@@ -294,8 +316,8 @@ constexpr int kMbBarBytes = 128;                 // the mbarriers, 16-byte padde
 static_assert(kTile % kMbCluster == 0 && kMbRows % 4 == 0, "shares of 16-byte multiples");
 static_assert(kMbMaxDim <= kMbThreads, "one column a thread");
 static_assert((kMbMaxStages + 2) * 8 <= kMbBarBytes, "the mbarriers fit their header");
-// igd_fold's wide instance (past kFoldMaxDim): the Gram pre-pass, then a
-// cluster a lane (see the head of this file)
+// igd_fold's middle and wide instances (past kGramMaxDim): the Gram
+// pre-pass, then a cluster a lane (see the head of this file)
 constexpr int kGramFloats = 2 * kSub * kSub;  // a sub-tile's G | C in the pre-pass's scratch
 constexpr int kPpThreads = 4 * kWarp;         // the pre-pass: a 16 x 32 block of G | C a warp
 constexpr int kPpChunk = 64;                  // columns a pre-pass stage
@@ -324,15 +346,30 @@ constexpr int kFcColumnsAtOnce = kFcConsumers / kFcGroups;
 constexpr int kFcRingMin = 3, kFcRingMax = 8;  // panel slots: the ring's depth, set by the panel's size
 constexpr int kFcBarBytes = 256;              // the mbarriers: q's [2], full [ring], empty [ring]
 static_assert((2 + 2 * kFcRingMax) * 8 <= kFcBarBytes, "the mbarriers fit their header");
-constexpr int kFcCluster = 16;                // CTAs a lane (a non-portable cluster size)
+constexpr int kFcCluster = 16;                // CTAs a lane of the wide instance (a non-portable size)
 constexpr int kFcSmemMaxSlice = 12288;        // w's slice in shared memory up to 48 KB a CTA
 constexpr int kFoldClusterSmemMaxDim = kFcCluster * kFcSmemMaxSlice;
-// a CTA's shared memory but the ring and w: received q, G, C (+ a row's
-// slack), y, alpha, c, the consumers' partials
-constexpr int kFcFixedFloats = 2 * kFcCluster * kSub + 4 * kSub * kSub + 2 * kSub + 8 * kSub +
-                               2 * kSub + kFcConsumerWarps * kSub;
+// a CTA's shared memory but the ring and w, in a cluster of `ctas`:
+// received q, G, C (+ a row's slack), y, alpha, c, the consumers' partials
+constexpr int fc_fixed_floats(int ctas) {
+  return 2 * ctas * kSub + 4 * kSub * kSub + 2 * kSub + 8 * kSub + 2 * kSub + kFcConsumerWarps * kSub;
+}
 constexpr int kSmemOptIn = 232448;            // the 227 KB a block may opt into
-constexpr int kPpSplit = 4;                   // pre-pass blocks a sub-tile, each a quarter of D
+constexpr int kPpSplit = 4;                   // the wide pre-pass's blocks a sub-tile, each a quarter of D
+// The middle instance (kGramMaxDim < D <= kFoldMaxDim): the cluster kernel
+// with each sub-tile's slice resident in shared memory from its q to its
+// update, on the fewest CTAs (a power of two, at most kFcCluster) whose
+// slices are at most kFmMaxSlice columns; its pre-pass takes one block a
+// sub-tile (no sum launch, 64 floats of scratch a row).
+constexpr int kFmMaxSlice = 128;
+constexpr int kFmSlots = 5;  // resident sub-tiles: s - 1, s, s + 1 and two on their way
+
+// CTAs a lane of the middle instance at D: set by D alone, never by lanes.
+constexpr int middle_ctas(int d) {
+  int ctas = 1;
+  while (ctas < kFcCluster && (d + ctas - 1) / ctas > kFmMaxSlice) ctas *= 2;
+  return ctas;
+}
 constexpr int kFcPrefetchAhead = 2;           // sub-tiles fetched into L2 ahead of their q
 static_assert(2 * 2 * kSub * kPpLd * sizeof(float) <= 48 * 1024, "the pre-pass's two stages are static");
 // igd_fold_minibatch past kMbMaxDim: the column-slice cluster (see the
@@ -397,12 +434,6 @@ __device__ __forceinline__ float grad_scale_fast(float wx, float y) {
   return grad_scale<LOSS>(wx, y);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
@@ -435,32 +466,6 @@ __device__ __forceinline__ void vector_sync() {
   asm volatile("bar.sync 2, %0;\n" ::"n"(kVectorThreads) : "memory");
 }
 
-// The block's threads copy rows [row0, row0 + rows) of x, y and alpha into a
-// shared-memory stage laid out as x[tile_rows * d] | y[tile_rows] |
-// alpha[tile_rows]. With vec set, x and the stage are 16-byte aligned
-// and tile_rows * d is a multiple of 4, so every tile's x chunk starts on
-// a 16-byte boundary.
-__device__ __forceinline__ void load_stage(float* stage, const float* x,
-                                           const float* y, const float* alpha,
-                                           long long row0, int rows, int d,
-                                           int tile_rows, bool vec, int tid, int nt) {
-  const float* src = x + row0 * d;
-  const long long count = static_cast<long long>(rows) * d;
-  long long done = 0;
-  if (vec) {
-    const long long nvec = count / 4;
-    for (long long i = tid; i < nvec; i += nt) cp_async16(stage + 4 * i, src + 4 * i);
-    done = nvec * 4;
-  }
-  for (long long i = done + tid; i < count; i += nt) cp_async4(stage + i, src + i);
-  float* ys = stage + static_cast<long long>(tile_rows) * d;
-  float* as = ys + tile_rows;
-  for (int i = tid; i < rows; i += nt) {
-    cp_async4(ys + i, y + row0 + i);
-    cp_async4(as + i, alpha + row0 + i);
-  }
-}
-
 __device__ __forceinline__ void cp_async8(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
@@ -490,104 +495,6 @@ __device__ __forceinline__ void load_rows(float* stage, const float* x, const fl
   for (int i = vw * kWarp + lane; i < rows; i += kVectorWarps * kWarp) {
     cp_async4(ys + i, y + row0 + i);
     cp_async4(ys + tile_rows + i, alpha + row0 + i);
-  }
-}
-
-template <int WARPS>
-__device__ __forceinline__ void block_sync() {
-  if (WARPS == 1) {
-    __syncwarp();
-  } else {
-    __syncthreads();
-  }
-}
-
-// Smem: two stages of stage_floats, then (several warps only) two slots
-// of WARPS partial dots.
-template <int LOSS, int VPL, int WARPS>
-__global__ void __launch_bounds__(kWarp * WARPS)
-    igd_fold_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                    const float* __restrict__ alpha, const float* __restrict__ w0,
-                    float* __restrict__ wout, long long n, int d, int tile_rows,
-                    int stage_floats, int vec, long long xy_lane_rows,
-                    long long alpha_lane_stride, int lanes_per_xy) {
-  constexpr int kThreads = kWarp * WARPS;
-  extern __shared__ __align__(16) float smem[];
-  {  // lane blockIdx.x: the only change from a one-lane launch
-    const long long b = blockIdx.x;
-    // the x/y segment lane b reads (32-bit division: b < 65536 and no 64-bit divide call)
-    const long long s = static_cast<unsigned>(b) / static_cast<unsigned>(lanes_per_xy);
-    x += s * xy_lane_rows * d;
-    y += s * xy_lane_rows;
-    alpha += b * alpha_lane_stride;
-    w0 += b * d;
-    wout += b * d;
-  }
-  float* partial = smem + 2 * stage_floats;  // [2][WARPS]
-  const int tid = threadIdx.x;
-  const int lane = tid % kWarp;
-
-  float w[VPL];
-#pragma unroll
-  for (int k = 0; k < VPL; ++k) {
-    const int j = tid + kThreads * k;
-    w[k] = j < d ? w0[j] : 0.0f;
-  }
-
-  const long long n_tiles = (n + tile_rows - 1) / tile_rows;
-  if (n_tiles > 0) {
-    load_stage(smem, x, y, alpha, 0, static_cast<int>(n < tile_rows ? n : tile_rows), d,
-               tile_rows, vec != 0, tid, kThreads);
-  }
-  cp_async_commit();
-
-  for (long long t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      const long long next0 = (t + 1) * tile_rows;
-      const long long left = n - next0;
-      load_stage(smem + ((t + 1) & 1) * stage_floats, x, y, alpha, next0,
-                 static_cast<int>(left < tile_rows ? left : tile_rows), d, tile_rows,
-                 vec != 0, tid, kThreads);
-    }
-    cp_async_commit();  // possibly empty: keeps "wait for all but one" exact
-    cp_async_wait_one();
-    block_sync<WARPS>();
-
-    const float* xs = smem + (t & 1) * stage_floats;
-    const float* ys = xs + static_cast<long long>(tile_rows) * d;
-    const float* as = ys + tile_rows;
-    const long long left = n - t * tile_rows;
-    const int rows = static_cast<int>(left < tile_rows ? left : tile_rows);
-    for (int r = 0; r < rows; ++r) {
-      const float* xr = xs + r * d;
-      float xv[VPL];
-      float dot = 0.0f;
-#pragma unroll
-      for (int k = 0; k < VPL; ++k) {
-        const int j = tid + kThreads * k;
-        xv[k] = j < d ? xr[j] : 0.0f;
-        dot = fmaf(w[k], xv[k], dot);
-      }
-      dot = warp_sum(dot);
-      if (WARPS > 1) {
-        float* slot = partial + (r & 1) * WARPS;
-        if (lane == 0) slot[tid / kWarp] = dot;
-        __syncthreads();
-        dot = 0.0f;
-#pragma unroll
-        for (int i = 0; i < WARPS; ++i) dot += slot[i];  // same order in every thread
-      }
-      const float c = grad_scale<LOSS>(dot, ys[r]) * as[r];
-#pragma unroll
-      for (int k = 0; k < VPL; ++k) w[k] -= c * xv[k];
-    }
-    block_sync<WARPS>();  // every thread is done with this stage before it is refilled
-  }
-
-#pragma unroll
-  for (int k = 0; k < VPL; ++k) {
-    const int j = tid + kThreads * k;
-    if (j < d) wout[j] = w[k];
   }
 }
 
@@ -1168,10 +1075,10 @@ __device__ __forceinline__ int panel_shift(const float* p) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
 }
 
-// igd_fold's wide instance, pass 1: for sub-tile v = blockIdx.x of
-// segment blockIdx.y (rows segment * seg_rows + [32 v, 32 v + 32)), the
+// igd_fold's middle and wide instances, pass 1: for sub-tile v = blockIdx.x
+// of segment blockIdx.y (rows segment * seg_rows + [32 v, 32 v + 32)), the
 // 64 x 32 block [G_v; C_v] = [X_v; X_{v-1}] X_v^T over part blockIdx.z of
-// the columns (kPpSplit parts of whole chunks) into
+// the columns (gridDim.z parts of whole chunks) into
 // grams[segment][v][part] (G [32][32] | C [32][32], C[k][j] =
 // x_{v-1,k}.x_{v,j}); rows past N and the rows of X_{-1} are zero. Each
 // chunk of kPpChunk columns comes in as 16-byte loads of each row's span
@@ -1190,10 +1097,11 @@ __global__ void __launch_bounds__(kPpThreads)
   const int v = blockIdx.x, tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
   const int n_sub = static_cast<int>((n + kSub - 1) / kSub);
   // part blockIdx.z: whole chunks [first, last) of the columns
-  const int all = (d + kPpChunk - 1) / kPpChunk, per = (all + kPpSplit - 1) / kPpSplit;
+  const int parts = static_cast<int>(gridDim.z);
+  const int all = (d + kPpChunk - 1) / kPpChunk, per = (all + parts - 1) / parts;
   const int first = blockIdx.z * per, last = first + per < all ? first + per : all;
   x += static_cast<long long>(blockIdx.y) * seg_rows * d;
-  grams += ((static_cast<long long>(blockIdx.y) * n_sub + v) * kPpSplit + blockIdx.z) * kGramFloats;
+  grams += ((static_cast<long long>(blockIdx.y) * n_sub + v) * parts + blockIdx.z) * kGramFloats;
   const long long left = n - static_cast<long long>(v) * kSub;
   const int rows_v = left < kSub ? static_cast<int>(left) : kSub;
   // rows 0-31: X_v's; rows 32-63: X_{v-1}'s, which lie just before them
@@ -1358,21 +1266,21 @@ __device__ __forceinline__ void panel_pass(float* w, const float* us, const floa
   }
 }
 
-// igd_fold's wide instance, pass 2: a cluster of kFcCluster CTAs a lane
-// (lane blockIdx.y), CTA q owning w's column slice [q * slice, q * slice +
-// slice) for the whole fold, in shared memory (W_SHARED) or in the lane's
-// output row. Warp 0 runs the chains, warp 4 streams rows in, the nine
-// consumers (the warps not on warp 0's scheduler) work the slice. Step s
-// (s = -1 only prepares sub-tile 0; t = s + 1):
+// igd_fold's middle and wide instances, pass 2: a cluster of CTAS CTAs a
+// lane (lane blockIdx.y), CTA q owning w's column slice [q * slice, q *
+// slice + slice) for the whole fold, in shared memory (W_SHARED) or in the
+// lane's output row. Warp 0 runs the chains, warp 4 streams rows in (not
+// RESIDENT), the nine consumers (the warps not on warp 0's scheduler) work
+// the slice. Step s (s = -1 only prepares sub-tile 0; t = s + 1):
 //   warp 0 runs the chain of sub-tile s from r = p_s, G_s, y and alpha in
 //   shared memory (chain(), as the Gram instance's), writing c_s; it forms
 //   C_t c_s (C_t copied in a step ahead), then waits on its mbarrier for
-//   every CTA's partial q_t, sums the 16 in a fixed tree and sets r = p_t
+//   every CTA's partial q_t, sums the CTAS in a fixed tree and sets r = p_t
 //   = q_t - C_t c_s. Every CTA runs the same chain from the same p and G,
 //   so every CTA holds the same c bit for bit.
 //   the consumers copy G_t, C_{t+1}, y_t and alpha_t into shared memory
-//   (cp.async) and fetch sub-tile t + kFcPrefetchAhead into L2 (a share of
-//   its span a CTA); then, panel by panel (32 rows x `panel` columns of
+//   (cp.async) and fetch a sub-tile ahead into L2 (a share of its span a
+//   CTA); then, panel by panel (32 rows x `panel` columns of
 //   the slice), they apply c_{s-1} to w with X_{s-1}'s panel (w_s) and form
 //   their partials of q_t = X_t w_s with X_t's (panel_pass: four lanes a
 //   column, two columns at a time); the warps' partials meet in shared
@@ -1386,12 +1294,19 @@ __device__ __forceinline__ void panel_pass(float* w, const float* us, const floa
 //   mbarrier; the consumer warps release it on its empty one). x is read
 //   twice a sub-tile, the second time (the update's) two steps after the
 //   first, from L2; rows stay in shared memory only while a panel is in use.
+//   RESIDENT (one panel: the whole slice): sub-tile v's slice stays in slot
+//   v % ring_slots from its copy to its update, so x crosses HBM once, and
+//   no L2 prefetch runs. Warp 4 copies the sub-tiles in order (bulk copies,
+//   a row a lane, completing on the slot's full mbarrier), each into its
+//   slot once every consumer warp has released the sub-tile before it there
+//   (its empty mbarrier, after that one's update); the consumers wait on
+//   full before a sub-tile's q.
 // One barrier of warp 0 and the consumers a step. The receive buffers
 // alternate by t's parity: a CTA sends q_t only after its warp 0 has read
 // q_{t-1} (the barrier ending step s - 1 follows that read), which needed
 // every CTA's q_{t-1}, each sent after its own warp 0 had read q_{t-2},
 // the slot's last use.
-template <int LOSS, bool W_SHARED>
+template <int LOSS, int CTAS, bool W_SHARED, bool RESIDENT>
 __global__ void __launch_bounds__(kFcThreads)
     igd_fold_cluster_kernel(const float* __restrict__ x, const float* __restrict__ y,
                             const float* __restrict__ alpha, const float* __restrict__ w0,
@@ -1419,20 +1334,20 @@ __global__ void __launch_bounds__(kFcThreads)
   uint64_t* recv_bar = reinterpret_cast<uint64_t*>(fc_smem);  // [2]
   uint64_t* full = recv_bar + 2;                               // [ring_slots]
   uint64_t* empty = full + ring_slots;                         // [ring_slots]
-  float* recv = reinterpret_cast<float*>(fc_smem + kFcBarBytes);  // [2][kFcCluster][32]
-  float* gram = recv + 2 * kFcCluster * kSub;              // [2][32][32], then a row's slack
+  float* recv = reinterpret_cast<float*>(fc_smem + kFcBarBytes);  // [2][CTAS][32]
+  float* gram = recv + 2 * CTAS * kSub;                        // [2][32][32], then a row's slack
   float* cbuf = gram + 2 * kSub * kSub + 2 * kSub;             // C: [2][32][32]
   float* ysb = cbuf + 2 * kSub * kSub;                         // [2][64]
   float* asb = ysb + 4 * kSub;                                 // [2][64]
   float* cs = asb + 4 * kSub;                                  // [2][32]
   float* part = cs + 2 * kSub;                                 // [kFcConsumerWarps][32]
-  float* ring = part + kFcConsumerWarps * kSub;                // [ring_slots][32][ldp]
+  float* ring = part + kFcConsumerWarps * kSub;                // [ring_slots][32][ldp]: panels or sub-tiles
   const int j0 = rank * slice;
-  const int cols = d - j0 < slice ? d - j0 : slice;  // > 0: d > kFcCluster (kFcCluster - 1)
+  const int cols = d - j0 < slice ? d - j0 : slice;  // > 0: d > (CTAS - 1)^2
   float* w = W_SHARED ? ring + ring_slots * kSub * ldp : wout + j0;
   const int chunks = (cols + panel - 1) / panel;  // column chunks: panel columns, the last fewer
   const int dm = d & 3;
-  const uint32_t q_bytes = static_cast<uint32_t>(kFcCluster * kSub * sizeof(float));
+  const uint32_t q_bytes = static_cast<uint32_t>(CTAS * kSub * sizeof(float));
   auto rows_of = [&](int v) {
     const long long left = n - static_cast<long long>(v) * kSub;
     return left < kSub ? static_cast<int>(left) : kSub;
@@ -1440,7 +1355,7 @@ __global__ void __launch_bounds__(kFcThreads)
   auto prefetch_sub = [&](int v) {  // this CTA's share of sub-tile v's span into L2
     if (v >= n_sub) return;
     const long long bytes = static_cast<long long>(rows_of(v)) * d * sizeof(float);
-    const long long share = (bytes / kFcCluster + 127) / 128 * 128;
+    const long long share = (bytes / CTAS + 127) / 128 * 128;
     const char* base = reinterpret_cast<const char*>(x + static_cast<long long>(v) * kSub * d);
     const long long end = (rank + 1) * share < bytes ? (rank + 1) * share : bytes;
     for (long long off = rank * share + 128LL * ct; off < end; off += 128LL * kFcConsumers) {
@@ -1460,11 +1375,17 @@ __global__ void __launch_bounds__(kFcThreads)
   }
   if (consumer) {  // (a cluster barrier follows, so any thread may set any column)
     for (int j = ct; j < cols; j += kFcConsumers) w[j] = w0[j0 + j];
-    for (int v = 0; v < kFcPrefetchAhead; ++v) prefetch_sub(v);
+    for (int v = 0; !RESIDENT && v < kFcPrefetchAhead; ++v) prefetch_sub(v);
   }
   cluster.sync();  // barriers set and armed, every CTA of the cluster running
 
-  if (warp == kFcProducerWarp) {  // every panel of the fold, in the consumers' order
+  if (warp == kFcProducerWarp && RESIDENT) {  // every sub-tile's slice, into its slot once it is free
+    for (int v = 0; v < n_sub; ++v) {
+      const int slot = v % ring_slots;
+      if (v >= ring_slots) mbar_wait(empty + slot, static_cast<uint32_t>((v / ring_slots - 1) & 1));
+      issue_panel(ring + slot * kSub * ldp, full + slot, x, n, d, v, j0, cols, ldp, lane);
+    }
+  } else if (warp == kFcProducerWarp) {  // every panel of the fold, in the consumers' order (streamed)
     int seq = 0;
     for (int s = -1; s <= n_sub; ++s) {
       for (int c = 0; c < chunks; ++c) {
@@ -1494,13 +1415,19 @@ __global__ void __launch_bounds__(kFcThreads)
         const float* us = ring;
         const float* qs = ring;
         int su = 0, sq = 0;
-        if (upd) {
+        if (RESIDENT) {  // sub-tile v in slot v % ring_slots, landed before its q (step v - 1)
+          if (upd) us = ring + ((s - 1) % ring_slots) * kSub * ldp;
+          if (q) {
+            qs = ring + ((s + 1) % ring_slots) * kSub * ldp;
+            mbar_wait(full + (s + 1) % ring_slots, static_cast<uint32_t>(((s + 1) / ring_slots) & 1));
+          }
+        } else if (upd) {
           su = seq % ring_slots;
           mbar_wait(full + su, static_cast<uint32_t>((seq / ring_slots) & 1));
           us = ring + su * kSub * ldp;
           ++seq;
         }
-        if (q) {
+        if (!RESIDENT && q) {
           sq = seq % ring_slots;
           mbar_wait(full + sq, static_cast<uint32_t>((seq / ring_slots) & 1));
           qs = ring + sq * kSub * ldp;
@@ -1520,7 +1447,9 @@ __global__ void __launch_bounds__(kFcThreads)
           panel_pass(wc, us, qs, ou, oq, c, g, mu, mq, jb + lane / kFcGroups, len, upd, q, acc);
         }
         __syncwarp();
-        if (lane == 0) {  // this warp is done with the chunk's slots
+        if (RESIDENT && lane == 0 && upd) {  // this warp is done with sub-tile s - 1
+          mbar_arrive(empty + (s - 1) % ring_slots);
+        } else if (!RESIDENT && lane == 0) {  // this warp is done with the chunk's slots
           if (upd) mbar_arrive(empty + su);
           if (q) mbar_arrive(empty + sq);
         }
@@ -1549,7 +1478,7 @@ __global__ void __launch_bounds__(kFcThreads)
         }
       }
       cp_async_commit();
-      prefetch_sub(t + kFcPrefetchAhead);
+      if (!RESIDENT) prefetch_sub(t + kFcPrefetchAhead);
       float acc[kFcRowGroup];
 #pragma unroll
       for (int i = 0; i < kFcRowGroup; ++i) acc[i] = 0.0f;
@@ -1570,9 +1499,9 @@ __global__ void __launch_bounds__(kFcThreads)
           const float q2 = __shfl_down_sync(kFull, q, 2);
           const float q3 = __shfl_down_sync(kFull, q, 3);
           if (lane % 4 == 0) {
-            const uint32_t dst = smem_u32(recv + ((t & 1) * kFcCluster + rank) * kSub + lane);
+            const uint32_t dst = smem_u32(recv + ((t & 1) * CTAS + rank) * kSub + lane);
             const uint32_t bar = smem_u32(recv_bar + (t & 1));
-            for (int c = 0; c < kFcCluster; ++c) {
+            for (int c = 0; c < CTAS; ++c) {
               uint32_t rdst, rbar;
               asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rdst) : "r"(dst), "r"(c));
               asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rbar) : "r"(bar), "r"(c));
@@ -1624,18 +1553,24 @@ __global__ void __launch_bounds__(kFcThreads)
           cc = (a0 + a1) + (a2 + a3);
         }
         mbar_wait(recv_bar + (t & 1), static_cast<uint32_t>((t >> 1) & 1));
-        const float* qb = recv + (t & 1) * kFcCluster * kSub + lane;
-        float part_q[kFcCluster];  // the CTAs' partials, summed as a fixed tree
+        const float* qb = recv + (t & 1) * CTAS * kSub + lane;
+        float part_q[CTAS];  // the CTAs' partials, summed as a fixed tree of log2(CTAS) rounds
 #pragma unroll
-        for (int c = 0; c < kFcCluster; ++c) part_q[c] = qb[c * kSub];
-        static_assert(kFcCluster == 16, "the tree's four rounds");
+        for (int c = 0; c < CTAS; ++c) part_q[c] = qb[c * kSub];
+        static_assert(CTAS >= 1 && CTAS <= 16 && (CTAS & (CTAS - 1)) == 0, "a power of two, at most 16");
+        if constexpr (CTAS >= 16) {  // each round written out, so part_q stays in registers
 #pragma unroll
-        for (int c = 0; c < 8; ++c) part_q[c] += part_q[c + 8];
+          for (int c = 0; c < 8; ++c) part_q[c] += part_q[c + 8];
+        }
+        if constexpr (CTAS >= 8) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) part_q[c] += part_q[c + 4];
+          for (int c = 0; c < 4; ++c) part_q[c] += part_q[c + 4];
+        }
+        if constexpr (CTAS >= 4) {
 #pragma unroll
-        for (int c = 0; c < 2; ++c) part_q[c] += part_q[c + 2];
-        part_q[0] += part_q[1];
+          for (int c = 0; c < 2; ++c) part_q[c] += part_q[c + 2];
+        }
+        if constexpr (CTAS >= 2) part_q[0] += part_q[1];
         if (lane == 0 && t + 2 < n_sub) mbar_expect_tx(recv_bar + (t & 1), q_bytes);
         r = part_q[0] - cc;
       }
@@ -2239,27 +2174,6 @@ cudaError_t launch_minibatch(const float* x, const float* y, const float* alpha,
 }
 
 template <int LOSS>
-cudaError_t launch_fold(int vpl, int warps, const float* x, const float* y,
-                        const float* alpha, const float* w0, float* wout, long long n,
-                        int d, int tile_rows, int stage_floats, int vec, size_t smem,
-                        int lanes, long long xy_lane_rows, long long alpha_lane_stride,
-                        int lanes_per_xy, cudaStream_t stream) {
-#define REPRO_FOLD_CASE(V, W)                                                    \
-  if (vpl == V && warps == W) {                                                  \
-    igd_fold_kernel<LOSS, V, W><<<lanes, kWarp * W, smem, stream>>>(             \
-        x, y, alpha, w0, wout, n, d, tile_rows, stage_floats, vec, xy_lane_rows, \
-        alpha_lane_stride, lanes_per_xy);                                        \
-    return cudaGetLastError();                                                   \
-  }
-  REPRO_FOLD_CASE(16, 1)
-  REPRO_FOLD_CASE(32, 1)
-  REPRO_FOLD_CASE(kWideVpl, 8)
-  REPRO_FOLD_CASE(kWideVpl, 16)
-#undef REPRO_FOLD_CASE
-  return cudaErrorInvalidValue;
-}
-
-template <int LOSS>
 cudaError_t launch_gram(const float* x, const float* y, const float* alpha, const float* w0,
                         float* wout, long long n, int d, int lanes, long long xy_lane_rows,
                         long long alpha_lane_stride, int lanes_per_xy, cudaStream_t stream) {
@@ -2288,44 +2202,75 @@ int fold_segments(int lanes, long long xy_lane_rows, int lanes_per_xy) {
   return xy_lane_rows > 0 ? lanes / lanes_per_xy : 1;
 }
 
-// The wide fold's scratch: the pre-pass's kPpSplit partial G | C blocks
-// of every segment's sub-tiles, then their sums (64 floats a row a part);
-// none at D <= kFoldMaxDim.
+// Pre-pass blocks a sub-tile at D: kPpSplit for the wide instance, one (no
+// sum launch) for the middle one.
+int prepass_split(int d) { return d > kFoldMaxDim ? kPpSplit : 1; }
+
+// The cluster instances' scratch: the pre-pass's partial G | C blocks of
+// every segment's sub-tiles (64 floats a row a part), then, with more than
+// one part, their sums; none at D <= kGramMaxDim.
 long long fold_scratch_floats(long long n, int d, int lanes, long long xy_lane_rows,
                               int lanes_per_xy) {
-  if (d <= kFoldMaxDim) return 0;
+  if (d <= kGramMaxDim) return 0;
+  const int split = prepass_split(d);
   return static_cast<long long>(fold_segments(lanes, xy_lane_rows, lanes_per_xy)) *
-         ((n + kSub - 1) / kSub) * kGramFloats * (kPpSplit + 1);
+         ((n + kSub - 1) / kSub) * kGramFloats * (split > 1 ? split + 1 : 1);
 }
 
-// The cluster kernel's panel geometry at D: the fewest column chunks a
-// slice (so the fewest, largest bulk copies) whose panels leave a ring of
-// at least kFcRingMin slots in the shared memory that w's slice and the
-// rest leave free; the ring then takes as many slots as fit, up to
-// kFcRingMax. {panel columns, row stride in floats, slots, bytes a CTA}.
+// A cluster instance's geometry: {CTAs a lane, panel columns, row stride in
+// floats, slots (panels of the ring, or resident sub-tiles), bytes a CTA}.
 struct FoldPanels {
-  int panel, ldp, slots;
+  int ctas, panel, ldp, slots;
   size_t smem;
 };
 
-FoldPanels fold_panels(int slice) {
-  const size_t fixed = kFcBarBytes + (kFcFixedFloats + (slice <= kFcSmemMaxSlice ? slice : 0)) *
+// A panel's row stride: a span of `panel` floats widened by up to 3, to
+// whole float4s, then to 8 mod 32, where the consumers' loads miss each
+// other's banks.
+constexpr int panel_ld(int panel) {
+  const int ldp = (panel + 3 + 3) / 4 * 4;
+  return ldp + (8 - ldp % 32 + 32) % 32;
+}
+
+// The streamed geometry of a slice on a cluster of `ctas` CTAs (the wide
+// instance's, kFcCluster): the fewest column chunks a slice (so the
+// fewest, largest bulk copies) whose panels leave a ring of at least
+// kFcRingMin slots in the shared memory that w's slice and the rest leave
+// free; the ring then takes as many slots as fit, up to kFcRingMax.
+FoldPanels fold_panels(int slice, int ctas) {
+  const size_t fixed = kFcBarBytes + (fc_fixed_floats(ctas) + (slice <= kFcSmemMaxSlice ? slice : 0)) *
                                          sizeof(float);
   for (int chunks = 1;; ++chunks) {
     const int panel = (slice + chunks - 1) / chunks;
-    int ldp = (panel + 3 + 3) / 4 * 4;  // a span widened by up to 3 floats, to whole float4s
-    ldp += (8 - ldp % 32 + 32) % 32;    // at 8 mod 32: the consumers' loads miss each other's banks
+    const int ldp = panel_ld(panel);
     const size_t slot = static_cast<size_t>(kSub) * ldp * sizeof(float);
     const long long fit = (static_cast<long long>(kSmemOptIn) - static_cast<long long>(fixed)) /
                           static_cast<long long>(slot);
     if (fit >= kFcRingMin) {
       const int slots = fit < kFcRingMax ? static_cast<int>(fit) : kFcRingMax;
-      return {panel, ldp, slots, fixed + slots * slot};
+      return {ctas, panel, ldp, slots, fixed + slots * slot};
     }
   }
 }
 
-// The pre-pass's parts summed in part order into the scratch's G | C
+// The middle instance's geometry at D: middle_ctas(D) CTAs, each slice one
+// panel, kFmSlots resident sub-tiles.
+constexpr FoldPanels middle_panels(int d) {
+  const int ctas = middle_ctas(d), slice = (d + ctas - 1) / ctas, ldp = panel_ld(slice);
+  const size_t fixed = kFcBarBytes + (fc_fixed_floats(ctas) + static_cast<size_t>(slice)) * sizeof(float);
+  return {ctas, slice, ldp, kFmSlots, fixed + kFmSlots * static_cast<size_t>(kSub) * ldp * sizeof(float)};
+}
+
+constexpr bool middle_fits() {
+  for (int d = kGramMaxDim + 1; d <= kFoldMaxDim; ++d) {
+    if (middle_panels(d).smem > kSmemOptIn) return false;
+  }
+  return true;
+}
+static_assert(middle_fits(), "kFmSlots resident sub-tiles fit at every middle D");
+static_assert((2 + 2 * kFmSlots) * 8 <= kFcBarBytes, "the middle's mbarriers fit their header");
+
+// The wide pre-pass's parts summed in part order into the scratch's G | C
 // blocks: floats [total) of sums from [total / kGramFloats][kPpSplit][kGramFloats].
 __global__ void igd_fold_gram_sum_kernel(const float* __restrict__ parts, float* __restrict__ sums,
                                          long long total) {
@@ -2338,58 +2283,87 @@ __global__ void igd_fold_gram_sum_kernel(const float* __restrict__ parts, float*
   sums[i] = acc;
 }
 
+template <int LOSS, int CTAS, bool W_SHARED, bool RESIDENT>
+cudaError_t launch_fold_cluster(const FoldPanels& pn, const float* x, const float* y, const float* alpha,
+                                const float* w0, float* wout, const float* grams, long long n, int d, int lanes,
+                                long long xy_lane_rows, long long alpha_lane_stride, int lanes_per_xy,
+                                cudaStream_t stream) {
+  return launch_cluster(igd_fold_cluster_kernel<LOSS, CTAS, W_SHARED, RESIDENT>, CTAS, kFcThreads, lanes, pn.smem,
+                        stream, x, y, alpha, w0, wout, grams, n, d, (d + CTAS - 1) / CTAS, pn.panel, pn.ldp, pn.slots,
+                        xy_lane_rows, alpha_lane_stride, lanes_per_xy);
+}
+
+// igd_fold past kGramMaxDim: the pre-pass (and, for the wide instance, the
+// sum of its parts), then the cluster kernel, middle or wide by D.
 template <int LOSS>
-cudaError_t launch_fold_wide(const float* x, const float* y, const float* alpha,
-                             const float* w0, float* wout, long long n, int d, int lanes,
-                             long long xy_lane_rows, long long alpha_lane_stride,
-                             int lanes_per_xy, float* scratch, cudaStream_t stream) {
+cudaError_t launch_fold_clustered(const float* x, const float* y, const float* alpha,
+                                  const float* w0, float* wout, long long n, int d, int lanes,
+                                  long long xy_lane_rows, long long alpha_lane_stride,
+                                  int lanes_per_xy, float* scratch, cudaStream_t stream) {
   const int segments = fold_segments(lanes, xy_lane_rows, lanes_per_xy);
   const long long n_sub = (n + kSub - 1) / kSub;
-  const long long sums_at = segments * n_sub * kGramFloats * kPpSplit;  // where the sums start
-  if (n > 0) {  // pass 1: every segment's G and C, over the whole card, then their sum
+  const int split = prepass_split(d);
+  const long long sums_at = split > 1 ? segments * n_sub * kGramFloats * split : 0;  // where the sums start
+  if (n > 0) {  // pass 1: every segment's G and C, over the whole card
     if (scratch == nullptr) return cudaErrorInvalidValue;
-    igd_fold_gram_prepass_kernel<<<dim3(static_cast<unsigned>(n_sub), segments, kPpSplit),
+    igd_fold_gram_prepass_kernel<<<dim3(static_cast<unsigned>(n_sub), segments, split),
                                    kPpThreads, 0, stream>>>(x, scratch, n, d, xy_lane_rows);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    const long long total = segments * n_sub * kGramFloats;
-    igd_fold_gram_sum_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
-        scratch, scratch + sums_at, total);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    if (split > 1) {
+      const long long total = segments * n_sub * kGramFloats;
+      igd_fold_gram_sum_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+          scratch, scratch + sums_at, total);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
   }
-  const int slice = (d + kFcCluster - 1) / kFcCluster;
-  const FoldPanels pn = fold_panels(slice);
   const float* grams = scratch == nullptr ? nullptr : scratch + sums_at;
-  if (slice <= kFcSmemMaxSlice) {
-    return launch_cluster(igd_fold_cluster_kernel<LOSS, true>, kFcCluster, kFcThreads, lanes,
-                          pn.smem, stream, x, y, alpha, w0, wout, grams, n, d, slice, pn.panel,
-                          pn.ldp, pn.slots, xy_lane_rows, alpha_lane_stride, lanes_per_xy);
+#define REPRO_FOLD_CLUSTER(C, S, R)                                                                      \
+  return launch_fold_cluster<LOSS, C, S, R>(pn, x, y, alpha, w0, wout, grams, n, d, lanes, xy_lane_rows, \
+                                            alpha_lane_stride, lanes_per_xy, stream)
+  if (d > kFoldMaxDim) {
+    const FoldPanels pn = fold_panels((d + kFcCluster - 1) / kFcCluster, kFcCluster);
+    if ((d + kFcCluster - 1) / kFcCluster <= kFcSmemMaxSlice) REPRO_FOLD_CLUSTER(kFcCluster, true, false);
+    REPRO_FOLD_CLUSTER(kFcCluster, false, false);
   }
-  return launch_cluster(igd_fold_cluster_kernel<LOSS, false>, kFcCluster, kFcThreads, lanes,
-                        pn.smem, stream, x, y, alpha, w0, wout, grams, n, d, slice, pn.panel,
-                        pn.ldp, pn.slots, xy_lane_rows, alpha_lane_stride, lanes_per_xy);
+  const FoldPanels pn = middle_panels(d);
+  switch (pn.ctas) {
+    case 1:
+      REPRO_FOLD_CLUSTER(1, true, true);
+    case 2:
+      REPRO_FOLD_CLUSTER(2, true, true);
+    case 4:
+      REPRO_FOLD_CLUSTER(4, true, true);
+    case 8:
+      REPRO_FOLD_CLUSTER(8, true, true);
+    case 16:
+      REPRO_FOLD_CLUSTER(16, true, true);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef REPRO_FOLD_CLUSTER
 }
 
-// Clusters of igd_fold's wide instance (the W_SHARED kernel, `smem` bytes
-// a CTA) that the card can hold at once, the least over the losses
+// Clusters of a cluster instance of igd_fold (`smem` bytes a CTA) that the
+// card can hold at once, the least over the losses
 // (cudaOccupancyMaxActiveClusters); -1 on an error.
-template <bool W_SHARED>
+template <int CTAS, bool W_SHARED, bool RESIDENT>
 int fold_clusters_fit(size_t smem) {
   int least = -1;
   auto fit = [&](auto kernel) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
     int n = 0;
-    if (cluster_config(kernel, dim3(kFcCluster, 1, 1), kFcCluster, kFcThreads, smem, nullptr, &cfg,
-                       &attr) != cudaSuccess ||
+    if (cluster_config(kernel, dim3(CTAS, 1, 1), CTAS, kFcThreads, smem, nullptr, &cfg, &attr) != cudaSuccess ||
         cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess)
       return false;
     least = least < 0 || n < least ? n : least;
     return true;
   };
-  if (!fit(igd_fold_cluster_kernel<kLossLr, W_SHARED>) || !fit(igd_fold_cluster_kernel<kLossSvm, W_SHARED>) ||
-      !fit(igd_fold_cluster_kernel<kLossLsq, W_SHARED>))
+  if (!fit(igd_fold_cluster_kernel<kLossLr, CTAS, W_SHARED, RESIDENT>) ||
+      !fit(igd_fold_cluster_kernel<kLossSvm, CTAS, W_SHARED, RESIDENT>) ||
+      !fit(igd_fold_cluster_kernel<kLossLsq, CTAS, W_SHARED, RESIDENT>))
     return -1;
   return least;
 }
@@ -2399,33 +2373,12 @@ cudaError_t launch_fold_any(const float* x, const float* y, const float* alpha,
                             const float* w0, float* wout, long long n, int d, int lanes,
                             long long xy_lane_rows, long long alpha_lane_stride,
                             int lanes_per_xy, float* scratch, cudaStream_t stream) {
-  if (d > kFoldMaxDim) {
-    return launch_fold_wide<LOSS>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
-                                  alpha_lane_stride, lanes_per_xy, scratch, stream);
-  }
   if (d <= kGramMaxDim) {
     return launch_gram<LOSS>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows,
                              alpha_lane_stride, lanes_per_xy, stream);
   }
-  int vpl = kWarp, warps = 1;
-  if (d <= kWarp * kFoldMaxVpl) {
-    vpl = d <= kWarp * 16 ? 16 : 32;
-  } else {
-    vpl = kWideVpl;
-    warps = d <= 8 * kWarp * kWideVpl ? 8 : 16;
-  }
-  int tile_rows = kStageFloatBudget / (d + 2);
-  if (tile_rows > 256) tile_rows = 256;
-  if (tile_rows >= 4) tile_rows -= tile_rows % 4;
-  if (tile_rows < 1) tile_rows = 1;
-  const int vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-                  ((static_cast<long long>(tile_rows) * d) % 4 == 0) &&
-                  ((xy_lane_rows * d) % 4 == 0);
-  const int stage_floats = (tile_rows * (d + 2) + 3) / 4 * 4;
-  const size_t smem = (2 * static_cast<size_t>(stage_floats) + 2 * warps) * sizeof(float);
-  return launch_fold<LOSS>(vpl, warps, x, y, alpha, w0, wout, n, d, tile_rows, stage_floats,
-                           vec, smem, lanes, xy_lane_rows, alpha_lane_stride, lanes_per_xy,
-                           stream);
+  return launch_fold_clustered<LOSS>(x, y, alpha, w0, wout, n, d, lanes, xy_lane_rows, alpha_lane_stride,
+                                     lanes_per_xy, scratch, stream);
 }
 
 template <int LOSS>
@@ -2522,7 +2475,8 @@ int minibatch_entry(const float* x, const float* y, const float* alpha, const fl
 extern "C" {
 
 // The instance boundaries (the kernels take every D >= 1): igd_fold's
-// register instance up to the first, its wide instance above, with w in
+// middle instance up to the first (its Gram instance up to
+// igd_fused_gram_max_dim), its wide instance above, with w in
 // shared memory up to the second; igd_fold_minibatch's column-slice
 // cluster (past kMbMaxDim) keeps a tile's slice resident up to the third
 // and w's slices in shared memory up to the fourth.
@@ -2546,7 +2500,7 @@ int igd_fused_max_lanes() { return kMaxLanes; }
 
 // `lanes` folds in one launch (see "Lanes" at the head of this file).
 // scratch: igd_fused_fold_scratch_floats(n, d, lanes, xy_lane_rows,
-// lanes_per_xy) floats (none at D <= kFoldMaxDim; lanes_per_xy 1 here).
+// lanes_per_xy) floats (none at D <= kGramMaxDim; lanes_per_xy 1 here).
 int igd_fold_launch(const float* x, const float* y, const float* alpha, const float* w0,
                     float* wout, long long n, int d, int loss, int lanes,
                     long long xy_lane_rows, long long alpha_lane_stride, float* scratch,
@@ -2573,8 +2527,8 @@ long long igd_fused_fold_scratch_floats(long long n, int d, int lanes, long long
 // CTA} of igd_fold's wide instance at D (D > kFoldMaxDim).
 int igd_fused_fold_design(int d, long long* out) {
   if (d <= kFoldMaxDim) return cudaErrorInvalidValue;
-  const FoldPanels pn = fold_panels((d + kFcCluster - 1) / kFcCluster);
-  out[0] = kFcCluster;
+  const FoldPanels pn = fold_panels((d + kFcCluster - 1) / kFcCluster, kFcCluster);
+  out[0] = pn.ctas;
   out[1] = pn.panel;
   out[2] = pn.slots;
   out[3] = static_cast<long long>(pn.smem);
@@ -2586,8 +2540,46 @@ int igd_fused_fold_design(int d, long long* out) {
 int igd_fused_fold_clusters_fit(int d) {
   if (d <= kFoldMaxDim) return -1;
   const int slice = (d + kFcCluster - 1) / kFcCluster;
-  const size_t smem = fold_panels(slice).smem;
-  return slice <= kFcSmemMaxSlice ? fold_clusters_fit<true>(smem) : fold_clusters_fit<false>(smem);
+  const size_t smem = fold_panels(slice, kFcCluster).smem;
+  return slice <= kFcSmemMaxSlice ? fold_clusters_fit<kFcCluster, true, false>(smem)
+                                  : fold_clusters_fit<kFcCluster, false, false>(smem);
+}
+
+// The most columns a CTA of igd_fold's middle instance owns.
+int igd_fused_fold_middle_max_slice() { return kFmMaxSlice; }
+
+// out = {CTAs a lane, columns a CTA (its one panel), resident sub-tiles,
+// shared memory bytes a CTA} of igd_fold's middle instance at D
+// (kGramMaxDim < D <= kFoldMaxDim).
+int igd_fused_fold_middle_design(int d, long long* out) {
+  if (d <= kGramMaxDim || d > kFoldMaxDim) return cudaErrorInvalidValue;
+  const FoldPanels pn = middle_panels(d);
+  out[0] = pn.ctas;
+  out[1] = pn.panel;
+  out[2] = pn.slots;
+  out[3] = static_cast<long long>(pn.smem);
+  return 0;
+}
+
+// Clusters of igd_fold's middle instance at D that the card holds at once;
+// 0 if none fits, -1 on an error or a D outside the instance.
+int igd_fused_fold_middle_clusters_fit(int d) {
+  if (d <= kGramMaxDim || d > kFoldMaxDim) return -1;
+  const FoldPanels pn = middle_panels(d);
+  switch (pn.ctas) {
+    case 1:
+      return fold_clusters_fit<1, true, true>(pn.smem);
+    case 2:
+      return fold_clusters_fit<2, true, true>(pn.smem);
+    case 4:
+      return fold_clusters_fit<4, true, true>(pn.smem);
+    case 8:
+      return fold_clusters_fit<8, true, true>(pn.smem);
+    case 16:
+      return fold_clusters_fit<16, true, true>(pn.smem);
+    default:
+      return -1;
+  }
 }
 
 int igd_chain_probe_launch(int loss, int steps, long long* out, void* stream) {

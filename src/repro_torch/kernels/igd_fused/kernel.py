@@ -22,23 +22,29 @@ launch's bit for bit.
 
 Both kernels take every D >= 1; the library picks an instance by D
 (the constants below are the boundaries, checked against the library's
-own when it loads). ``igd_fold``: the tiled Gram look-ahead up to 256,
-the per-row chain with w in registers up to 4,096, and past it the Gram
-look-ahead over a cluster of 16 CTAs a lane (each CTA a column slice of
-w, in shared memory up to D 196,608 and in global memory above), after a
-pre-pass over the whole card that forms every 32-row sub-tile's Gram
-blocks into scratch the wrapper allocates (``torch.empty``, 320 floats a
-row, one pre-pass a table segment). That instance is three launches of the
-library in one wrapper call (the pre-pass, the sum of its parts, the
-cluster kernel), and ``launches`` counts the call once. ``igd_fold_minibatch``: a cluster of 8
+own when it loads). ``igd_fold``: the tiled Gram look-ahead in one block
+a lane up to 256, and past it the same look-ahead over a cluster a lane,
+each CTA a column slice of w, after a pre-pass over the whole card that
+forms every 32-row sub-tile's Gram blocks into scratch the wrapper
+allocates (``torch.empty``, one pre-pass a table segment). Up to 4,096
+(the middle instance) the cluster has 4 to 16 CTAs, the fewest whose
+slices are at most FOLD_MIDDLE_MAX_SLICE columns (:func:`fold_middle_ctas`:
+D alone sets it), each sub-tile's slice stays resident in shared memory
+from its q to its update, and the pre-pass takes 64 floats of scratch a
+row; past it (the wide instance) 16 CTAs stream each sub-tile in twice,
+w's slices in shared memory up to D 196,608 and in global memory above,
+and the pre-pass takes 320 floats a row. A cluster instance is two
+launches of the library in one wrapper call (the pre-pass, the cluster
+kernel; the wide one three, with the sum of the pre-pass's parts), and
+``launches`` counts the call once. ``igd_fold_minibatch``: a cluster of 8
 CTAs splitting each tile's rows up to 256, and past it the column-slice
 cluster, 16 CTAs a lane splitting w's columns (a tile's slice resident in
 shared memory from the margins to the update up to D 1,424; past it the
 margins' rows streamed in by bulk copies and the update's read again
 from L2; each CTA's slice of w in shared memory up to D 196,608, in
-global memory above). ``middle_launches`` counts igd_fold's per-row chain
-(256 < D <= 4,096), ``wide_launches`` the instances past it and past the
-minibatch's D 256, each a share of ``launches``.
+global memory above). ``middle_launches`` counts igd_fold's middle
+instance (256 < D <= 4,096), ``wide_launches`` the instances past it and
+past the minibatch's D 256, each a share of ``launches``.
 """
 
 from __future__ import annotations
@@ -54,9 +60,10 @@ from repro_torch.kernels._build import BUILD_DIR, NVCC_FLAGS, CudaLibrary  # noq
 TILE = 256  # examples per minibatch step (the reference's VMEM block)
 # Both kernels take every D >= 1; these are the library's instance
 # boundaries, which pick the instance a launch runs (see the source's head).
-FOLD_GRAM_MAX_DIM = 256  # igd_fold's tiled Gram instance; the per-row chain above it
-FOLD_REGISTER_MAX_DIM = 4096  # the per-row chain with w in registers; the wide instance above it
-FOLD_CLUSTER = 16  # CTAs a lane of igd_fold's wide instance
+FOLD_GRAM_MAX_DIM = 256  # igd_fold's one-block Gram instance; its middle instance above it
+FOLD_REGISTER_MAX_DIM = 4096  # igd_fold's middle instance (resident sub-tiles); the wide instance above it
+FOLD_MIDDLE_MAX_SLICE = 128  # columns a CTA of the middle instance owns at most, but at 16 CTAs (fold_middle_ctas)
+FOLD_CLUSTER = 16  # CTAs a lane of igd_fold's wide instance, and the most of its middle one
 FOLD_CLUSTER_SMEM_MAX_DIM = FOLD_CLUSTER * 12288  # its w slices in shared memory; in global memory above
 MINIBATCH_CLUSTER = 8  # CTAs a lane of igd_fold_minibatch's row-share cluster
 MINIBATCH_CLUSTER_MAX_DIM = 256  # the row-share cluster instance; the column-slice cluster above it
@@ -73,7 +80,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "igd_fused.cu"
 # nowhere else, so a run can show that its path went through the kernel.
 launches: Dict[str, int] = {"igd_fold": 0, "igd_fold_minibatch": 0}
 # The middle and the wide instances' shares of those launches, bumped
-# at the same place: igd_fold's per-row chain (FOLD_GRAM_MAX_DIM < D <=
+# at the same place: igd_fold's middle instance (FOLD_GRAM_MAX_DIM < D <=
 # FOLD_REGISTER_MAX_DIM; igd_fold_minibatch has no middle instance) and D
 # past _WIDE_ABOVE.
 middle_launches: Dict[str, int] = {"igd_fold": 0, "igd_fold_minibatch": 0}
@@ -110,6 +117,10 @@ def _declare(lib: ctypes.CDLL, cluster: int = MINIBATCH_CLUSTER) -> None:
     lib.igd_fused_fold_design.restype = i32
     lib.igd_fused_fold_clusters_fit.argtypes = [i32]
     lib.igd_fused_fold_clusters_fit.restype = i32
+    lib.igd_fused_fold_middle_design.argtypes = [i32, ptr]
+    lib.igd_fused_fold_middle_design.restype = i32
+    lib.igd_fused_fold_middle_clusters_fit.argtypes = [i32]
+    lib.igd_fused_fold_middle_clusters_fit.restype = i32
     lib.igd_fused_error_string.argtypes = [i32]
     lib.igd_fused_error_string.restype = ctypes.c_char_p
     lib.igd_chain_probe_launch.argtypes = [i32, i32, ptr, ptr]
@@ -127,7 +138,7 @@ def _declare(lib: ctypes.CDLL, cluster: int = MINIBATCH_CLUSTER) -> None:
     names = ("igd_fused_gram_max_dim", "igd_fused_fold_register_max_dim", "igd_fused_fold_cluster_smem_max_dim",
              "igd_fused_minibatch_resident_max_dim", "igd_fused_minibatch_slice_smem_max_dim", "igd_fused_tile",
              "igd_fused_minibatch_cluster", "igd_fused_minibatch_cluster_max_dim", "igd_fused_minibatch_slice_cluster",
-             "igd_fused_max_lanes")
+             "igd_fused_max_lanes", "igd_fused_fold_middle_max_slice")
     for name in names:
         getattr(lib, name).restype = i32
     design = (ctypes.c_longlong * 4)()
@@ -135,11 +146,17 @@ def _declare(lib: ctypes.CDLL, cluster: int = MINIBATCH_CLUSTER) -> None:
         lib.igd_fused_fold_design(FOLD_REGISTER_MAX_DIM + 1, design), design[0])
     if limits != (FOLD_GRAM_MAX_DIM, FOLD_REGISTER_MAX_DIM, FOLD_CLUSTER_SMEM_MAX_DIM, MINIBATCH_RESIDENT_MAX_DIM,
                   MINIBATCH_SLICE_SMEM_MAX_DIM, TILE, cluster, MINIBATCH_CLUSTER_MAX_DIM, MINIBATCH_SLICE_CLUSTER,
-                  MAX_LANES, 0, FOLD_CLUSTER):
+                  MAX_LANES, FOLD_MIDDLE_MAX_SLICE, 0, FOLD_CLUSTER):
         raise RuntimeError(f"igd_fused library limits {limits} disagree with kernel.py")
+    middle = {d: _fold_middle_design(lib, d) for d in fold_middle_widths()}
+    if any(got[0] != fold_middle_ctas(d) for d, got in middle.items()):
+        raise RuntimeError(f"igd_fold's middle instance picks other cluster sizes than kernel.py: "
+                           f"{ {d: got[0] for d, got in middle.items()} }")
     # the non-portable 16-CTA clusters (up to 227 KB a CTA) must fit the card:
     # the wide fold's and the minibatch's column-slice instance, at each tier
     for what, fit_of, design_of, widths in (
+            ("igd_fold's middle instance", lib.igd_fused_fold_middle_clusters_fit, _fold_middle_design,
+             fold_middle_widths()),
             ("igd_fold's wide instance", lib.igd_fused_fold_clusters_fit, _fold_design,
              (FOLD_REGISTER_MAX_DIM + 1, FOLD_CLUSTER_SMEM_MAX_DIM + 1)),
             ("igd_fold_minibatch's column-slice instance", lib.igd_fused_minibatch_clusters_fit, _slice_design,
@@ -147,7 +164,8 @@ def _declare(lib: ctypes.CDLL, cluster: int = MINIBATCH_CLUSTER) -> None:
         for d in widths:
             fit = fit_of(d)
             if fit < 1:
-                raise RuntimeError(f"{what} at D={d} (a cluster of 16 CTAs, {design_of(lib, d)[-1]} bytes of "
+                design = design_of(lib, d)
+                raise RuntimeError(f"{what} at D={d} (a cluster of {design[0]} CTAs, {design[-1]} bytes of "
                                    f"shared memory a CTA) does not fit this card: cudaOccupancyMaxActiveClusters "
                                    f"gives {fit}")
 
@@ -263,12 +281,13 @@ def igd_fold(x, y, alpha, w0, *, loss: str = "lr"):
     per-row step sizes alpha [N], from w0 [D] -> final w [D]; or B such
     folds in one launch (see the module's note). Float32, CUDA,
     contiguous. The library picks the instance by D: a block a lane for
-    the tiled Gram look-ahead up to FOLD_GRAM_MAX_DIM and the per-row
-    chain with w in registers up to FOLD_REGISTER_MAX_DIM; above it the
-    Gram pre-pass, then the look-ahead on a cluster of FOLD_CLUSTER CTAs a
-    lane (w's slices in shared memory up to FOLD_CLUSTER_SMEM_MAX_DIM, in
-    global memory past it), one count in ``launches``.
-    ref.igd_fold_tiled_ref is the wide instance's order."""
+    the tiled Gram look-ahead up to FOLD_GRAM_MAX_DIM; above it the Gram
+    pre-pass, then the look-ahead on a cluster a lane: fold_middle_ctas(D)
+    CTAs with every sub-tile's slice resident up to FOLD_REGISTER_MAX_DIM
+    (:func:`fold_middle_design`), FOLD_CLUSTER CTAs past it (w's slices in
+    shared memory up to FOLD_CLUSTER_SMEM_MAX_DIM, in global memory past
+    it; :func:`fold_design`), one count in ``launches``.
+    ref.igd_fold_tiled_ref is every instance's order."""
     layout = _check(x, y, alpha, w0, loss)
     return _launch("igd_fold", x, y, alpha, w0, loss, layout)
 
@@ -376,6 +395,46 @@ def fold_design(d: int):
     of igd_fold's wide instance at D > FOLD_REGISTER_MAX_DIM, from the
     library: each CTA's slice streams through a ring of 32-row panels."""
     return _fold_design(_load(), d)
+
+
+def fold_middle_ctas(d: int) -> int:
+    """CTAs a lane of igd_fold's middle instance at FOLD_GRAM_MAX_DIM < D
+    <= FOLD_REGISTER_MAX_DIM: the fewest of 1, 2, 4, 8, 16 whose column
+    slices (ceil(D / CTAs)) are at most FOLD_MIDDLE_MAX_SLICE, or 16. D
+    alone sets it, so a lane's w is its one-lane launch's bit for bit.
+    Plain Python, the library's choice (checked when it loads)."""
+    if not FOLD_GRAM_MAX_DIM < d <= FOLD_REGISTER_MAX_DIM:
+        raise ValueError(f"D={d}: igd_fold's middle instance takes {FOLD_GRAM_MAX_DIM} < D <= "
+                         f"{FOLD_REGISTER_MAX_DIM}")
+    ctas = 1
+    while ctas < FOLD_CLUSTER and -(-d // ctas) > FOLD_MIDDLE_MAX_SLICE:
+        ctas *= 2
+    return ctas
+
+
+def fold_middle_widths():
+    """The middle instance's first D and the last D of each cluster size it
+    takes (the widest slice, so the most shared memory, of each)."""
+    last = {}
+    for d in range(FOLD_GRAM_MAX_DIM + 1, FOLD_REGISTER_MAX_DIM + 1):
+        last[fold_middle_ctas(d)] = d
+    return (FOLD_GRAM_MAX_DIM + 1,) + tuple(last.values())
+
+
+def _fold_middle_design(lib: ctypes.CDLL, d: int):
+    out = (ctypes.c_longlong * 4)()
+    if lib.igd_fused_fold_middle_design(d, out) != 0:
+        raise ValueError(f"D={d}: igd_fold's middle instance takes {FOLD_GRAM_MAX_DIM} < D <= "
+                         f"{FOLD_REGISTER_MAX_DIM}")
+    return tuple(out)
+
+
+def fold_middle_design(d: int):
+    """(CTAs a lane, columns a CTA, resident sub-tiles, shared memory bytes
+    a CTA) of igd_fold's middle instance at FOLD_GRAM_MAX_DIM < D <=
+    FOLD_REGISTER_MAX_DIM, from the library: each CTA keeps its slice of
+    every sub-tile in one of the resident slots from its q to its update."""
+    return _fold_middle_design(_load(), d)
 
 
 def chain_probe(loss: str = "lr", *, steps: int = 1 << 16, device=None):

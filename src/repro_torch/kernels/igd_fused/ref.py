@@ -30,10 +30,11 @@ def igd_fold_ref(x, y, alpha, w0, *, loss: str = "lr"):
 
 
 def igd_fold_tiled_ref(x, y, alpha, w0, *, loss: str = "lr", tile: int = 32):
-    """The same sequential fold, in the algebra and order of the CUDA
-    kernel's tiled instances: the Gram instance (D <= 256) and the
-    cluster instance (D > 4,096; its dots over D are summed by column
-    slices, then across them in rank order, where this takes one matmul).
+    """The same sequential fold, in the algebra and order of every
+    instance of the CUDA kernel igd_fold: the one-block Gram instance
+    (D <= 256) and the cluster instances, middle (256 < D <= 4,096) and
+    wide (D > 4,096), whose dots over D are summed by column slices, then
+    across the cluster's CTAs in a fixed tree, where this takes one matmul.
     Inside a tile of T rows that
     starts from w_t, w_i = w_t - sum_{k<i} c_k x_k, so row i's w.x is
     p_i - sum_{k<i} c_k G_ki with p = X_T w_t and G = X_T X_T^T. Per tile:

@@ -21,11 +21,12 @@ from repro_torch.kernels.igd_fused import kernel as K, ops, ref as R
 
 # the reference's kernel tolerance (tests/test_kernels.py)
 TOL = dict(rtol=2e-4, atol=2e-5)
-# ragged (N % 256, D % 128), one warp up to D = 1024, then 8 and 16 warps
+# ragged (N % 256, D % 128), D in both narrow instances and in igd_fold's
+# middle one (D 2,000 and 4,096)
 SHAPES = [(300, 7), (513, 16), (97, 1), (4096, 54), (300, 2000), (100, 4096)]
 
 # igd_fold: N around the tiled instance's 32-row sub-tile, D on both sides
-# of its boundary with the per-row instance (256)
+# of its boundary with the middle instance (256)
 FOLD_N = (1, 31, 33, 16_385)
 FOLD_D = (54, 128, 256, 257)
 
@@ -250,10 +251,60 @@ def test_cuda_wide_instances_match_plain_versions(name, n, d, loss):
         assert torch.equal(got, args[3])
 
 
+# igd_fold's middle instance: its first and last D, 300, 1,000 and 1,025,
+# and both sides of every cluster-size boundary (kernel.fold_middle_ctas);
+# N = 0, one row, around the 32-row sub-tile and across many sub-tiles
+MIDDLE_LAST_OF_SIZE = K.fold_middle_widths()[1:-1]
+MIDDLE_FULL_16 = K.FOLD_CLUSTER * K.FOLD_MIDDLE_MAX_SLICE  # the 16-CTA slices wider than the cap past it
+MIDDLE_D = tuple(sorted({K.FOLD_GRAM_MAX_DIM + 1, 300, 1_000, 1_025, MIDDLE_FULL_16, MIDDLE_FULL_16 + 1,
+                         K.FOLD_REGISTER_MAX_DIM} | set(MIDDLE_LAST_OF_SIZE) | {d + 1 for d in MIDDLE_LAST_OF_SIZE}))
+MIDDLE_N = (0, 1, 31, 33, 4_097)
+
+
 @needs_card
-@pytest.mark.parametrize("d", [4_097, 12_033])
+@pytest.mark.parametrize("loss", ["lr", "svm", "lsq"])
+@pytest.mark.parametrize("d", MIDDLE_D)
+@pytest.mark.parametrize("n", MIDDLE_N)
+def test_cuda_middle_fold_matches_per_row_and_tiled_folds(n, d, loss):
+    """The middle instance (a cluster of fold_middle_ctas(D) CTAs, every
+    sub-tile's slice resident) against the per-row fold and its own order,
+    the tiled fold (both on the CPU); N = 0 returns w0 bit for bit."""
+    args = _inputs(n, d)
+    K.reset_launches()
+    got = K.igd_fold(*args, loss=loss).cpu()
+    assert K.launches["igd_fold"] == 1 and K.middle_launches["igd_fold"] == 1
+    on_cpu = [t.cpu() for t in args]
+    torch.testing.assert_close(got, R.igd_fold_ref(*on_cpu, loss=loss), **TOL)
+    torch.testing.assert_close(got, R.igd_fold_tiled_ref(*on_cpu, loss=loss), **TOL)
+    if n == 0:
+        assert torch.equal(got, on_cpu[3])
+
+
+@needs_card
+def test_cuda_middle_design_fits_the_card():
+    """The library picks the cluster size kernel.py does, whole slices of
+    at most FOLD_MIDDLE_MAX_SLICE columns (but at 16 CTAs), 4 or 5
+    resident sub-tiles within 227 KB, and every cluster size fits the
+    card; fold_middle_design refuses D outside the instance, fold_design
+    D at or below 4,096."""
+    lib = K._load()
+    for d in MIDDLE_D:
+        ctas, panel, slots, smem = K.fold_middle_design(d)
+        assert ctas == K.fold_middle_ctas(d) and panel == -(-d // ctas)
+        assert panel <= K.FOLD_MIDDLE_MAX_SLICE or ctas == K.FOLD_CLUSTER
+        assert 4 <= slots <= 5 and smem <= 232_448
+        assert lib.igd_fused_fold_middle_clusters_fit(d) >= 1
+    for d in (K.FOLD_GRAM_MAX_DIM, K.FOLD_REGISTER_MAX_DIM + 1):
+        with pytest.raises(ValueError, match=f"D={d}"):
+            K.fold_middle_design(d)
+    with pytest.raises(ValueError, match="D=4096"):
+        K.fold_design(K.FOLD_REGISTER_MAX_DIM)
+
+
+@needs_card
+@pytest.mark.parametrize("d", [300, 1_000, 4_096, 4_097, 12_033])
 def test_cuda_wide_fold_takes_zero_rows_and_unaligned_rows(d):
-    """igd_fold's wide instance: N = 0 returns w0 bit for bit, and x, y,
+    """igd_fold's middle and wide instances: N = 0 returns w0 bit for bit, and x, y,
     alpha starting off a 16-byte boundary (or a table sliced at an odd
     row) give the same w bit for bit as the aligned copy."""
     x, y, alpha, w0 = _card_inputs(300, d)
@@ -274,14 +325,15 @@ def test_cuda_wide_fold_takes_zero_rows_and_unaligned_rows(d):
 @needs_card
 @pytest.mark.parametrize("shared", [True, False], ids=["shared", "stacked"])
 @pytest.mark.parametrize("b", [1, 8])
-@pytest.mark.parametrize("name,d", [("igd_fold", 4_097), ("igd_fold", 12_033), ("igd_fold", 65_537),
+@pytest.mark.parametrize("name,d", [("igd_fold", 300), ("igd_fold", 1_000), ("igd_fold", 1_537), ("igd_fold", 4_096),
+                                    ("igd_fold", 4_097), ("igd_fold", 12_033), ("igd_fold", 65_537),
                                     ("igd_fold_minibatch", 300), ("igd_fold_minibatch", 1_000),
                                     ("igd_fold_minibatch", 4_097), ("igd_fold_minibatch", 12_033),
                                     ("igd_fold_minibatch", 65_537)])
 def test_cuda_wide_lanes_equal_their_single_lanes(name, d, b, shared):
-    """B lanes of a wide instance in one launch: every lane equals its
-    one-lane launch bit for bit, and the plain version within the kernel
-    tolerance."""
+    """B lanes of a cluster instance (igd_fold's middle one too) in one
+    launch: every lane equals its one-lane launch bit for bit, and the
+    plain version within the kernel tolerance."""
     torch.backends.cuda.matmul.allow_tf32 = False
     n = 40 if d > 60_000 else 600
     x, y, alpha, w0 = _lane_inputs(b, n, d, shared)
@@ -329,7 +381,7 @@ def test_cuda_wide_probes_time_the_wide_steps():
                                              ("igd_fold_minibatch", 12_033, "wide")])
 def test_cuda_launch_counts_split_by_instance(name, d, instance):
     """A launch adds one to ``launches`` and to the count of the instance
-    it ran: ``middle_launches`` for igd_fold's per-row chain,
+    it ran: ``middle_launches`` for igd_fold's middle instance,
     ``wide_launches`` past it and past the minibatch's row-share cluster
     (the column-slice cluster); ``reset_launches`` zeroes all three. Both
     16-CTA clusters fit the card on both sides of their tiers."""
@@ -342,13 +394,15 @@ def test_cuda_launch_counts_split_by_instance(name, d, instance):
     assert not any(K.launches.values()) and not any(K.middle_launches.values()) and not any(K.wide_launches.values())
     for wide_d in (K.FOLD_REGISTER_MAX_DIM + 1, K.FOLD_CLUSTER_SMEM_MAX_DIM + 1):
         assert K._load().igd_fused_fold_clusters_fit(wide_d) >= 1
+    for middle_d in K.fold_middle_widths():
+        assert K._load().igd_fused_fold_middle_clusters_fit(middle_d) >= 1
     for wide_d in (K.MINIBATCH_CLUSTER_MAX_DIM + 1, K.MINIBATCH_RESIDENT_MAX_DIM + 1,
                    K.MINIBATCH_SLICE_SMEM_MAX_DIM + 1):
         assert K._load().igd_fused_minibatch_clusters_fit(wide_d) >= 1
 
 
 # lane launches: (lanes, N, D) across the sub-tile, the tile and the
-# instance boundaries (D 300: the per-row fold and the column-slice minibatch)
+# instance boundaries (D 300: igd_fold's middle instance and the column-slice minibatch)
 LANE_CASES = [(1, 33, 54), (3, 257, 54), (3, 1000, 200), (4, 31, 300), (3, 2049, 300), (32, 513, 54)]
 
 

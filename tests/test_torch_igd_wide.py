@@ -1,5 +1,5 @@
 """The fused-IGD functions at widths past the CUDA kernels' narrow
-instances (igd_fold's register instance ends at D = 4,096,
+instances (igd_fold's middle instance ends at D = 4,096,
 igd_fold_minibatch's row-share cluster at 256; the wide instances take
 every D above: the minibatch's column-slice cluster keeps a tile's slice
 resident up to D = 1,424 and reads it again past it), on the CPU: the
