@@ -228,9 +228,32 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    (B 1, S 4,096, 24/8 heads, hd 128, bf16), where the gradient kernels
    and lse are also held to mha_backward_ref / mha_lse_ref, beside the
    plain version, the bound and SDPA's backward, with each of the call's
-   three launches' device time under the profiler; the gradient at hd 192
-   (nemotron-4's heads, B 1, S 4,096, 96/8) beside its bound and SDPA's
-   backward in turns, and the lse forward beside SDPA's forward in turns.
+   three launches' device time under the profiler, and the lse forward
+   beside SDPA's forward in turns.
+10e. every other architecture trains through make_train_step (lines
+   tagged [train], [reference] and [timing]): first the gradient at
+   grok-1's capped heads, qwen3-moe's hd-64 heads and nemotron-4's hd 192
+   (B 1, S 4,096) beside its bound and, uncapped, SDPA's backward in
+   turns, each launch's device time under the profiler; then each at
+   full width and train_4k's 4,096 positions a sequence (vlm/audio: their
+   prefix embeddings counted in them; xlstm-350m 2,048, FAMILY_TRAIN_S),
+   10c's settings, FAMILY_TRAIN's cuts (depth, then the momentum buffer,
+   then the batch, each only as far as one card forces; their reasons at
+   FAMILY_TRAIN), random weights and token_stream data from --seed: 3
+   IGD steps (xlstm-350m 2), each step's launches exact
+   (flash_attention: attention applications x microbatches x 2, forward
+   and remat recompute; flash_attention_bwd x 3; none for the xLSTM; no
+   flash_decode or IGD launch), every loss finite, step ms (CUDA events),
+   positions/s, model FLOP/s against 989 TFLOP/s (train_flops_a_position;
+   MoE at its active experts) and peak GB beside the dry run's prediction
+   (scripts/torch_family_train_cells.py, traced in a subprocess from the
+   script's start); the MoE families' last step under the profiler, with
+   the one-hot dispatch's and combine's share of its device time; then
+   each family's step on the card
+   against the CPU's from the same params (FAMILY_TRAIN_CPU's cuts, zamba2 at
+   12 layers, nemotron-4's vocabulary cut on both sides; float32, TF32
+   off, B 1-2 x 256, grad_accum B, remat on the card only, every param
+   and momentum leaf within 1e-4 of its largest element);
 11. the LM across a mesh (lines tagged [mesh]): 11a the length-sharded
    decode (dist.collectives.sharded_flash_decode) at llama3.2-3b's heads,
    B 8, a 32,768-position bf16 cache as 4 and 16 slices of one cache, at
@@ -243,8 +266,11 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    at 10b's shape, 3 steps against the unsharded ones (1e-4 of each leaf's
    largest element; says whether bitwise), and fit(mesh=...) 2 steps with
    a checkpoint, elastic_restore onto no mesh and a fit resuming 2 more,
-   against 4 uninterrupted steps on the mesh (10d's tolerances). The
-   process group is destroyed at the end of the phase.
+   against 4 uninterrupted steps on the mesh (10d's tolerances); between
+   them xlstm-350m's sharded step (full width, 8 layers, 10b's shape,
+   MESH_XLSTM_STEPS steps) against its unsharded step, 1e-4 of each
+   leaf's largest element. The process group is destroyed at the end of
+   the phase.
 12. the dry run (lines tagged [dryrun]; launch/dryrun.py over a fake process
    group, fake tensors, the plain attention: it launches no kernel, which
    the launch counters, zeroed just before the phase and read just after,
@@ -442,9 +468,70 @@ TRAIN_IGD_STEP = (0.002, 200.0)
 # 10d: resume at full width, 2 layers: 4 steps against 2 + a checkpoint + 2
 RESUME_STEPS, RESUME_B, RESUME_S, RESUME_ACCUM = 4, 2, 1024, 2
 RESUME_RTOL, RESUME_ATOL = 1e-6, 1e-7  # the reference's (tests/test_fault_tolerance.py)
-# the extra timings of phase 10: the hd 192 gradient (the 192-wide wgmma
-# instance) at nemotron-4's heads, and the lse forward beside SDPA's forward
-BWD192_SHAPE = (1, 4096, 96, 8, 192)  # (B, S, H, Kv, hd), bf16
+# 10e: every other architecture through make_train_step at full width,
+# train_4k's 4,096 positions a sequence (vlm/audio: the prefix counted in
+# them), 10c's settings (TRAIN_IGD_STEP, a microbatch of one sequence,
+# remat "full", float32 params, bf16 activations). The cuts, in the
+# order depth, then the momentum buffer, then the batch, each only as far
+# as one card's 80 GB forces (the dry run's bytes at a (1, 1) fake
+# mesh, arguments + temp, predict each, though the card's peak ran above
+# them for half the families): starcoder2-7b 24 of 32 layers (its 7.4 G
+# params, gradient and momentum take 88.8 GB at full depth; 24 layers
+# predict 74.7 GB); qwen3-moe 1 of 94 layers (2.45 G params a layer:
+# 29.4 GB of params, gradient and momentum); grok-1 1 of 64 layers and no
+# momentum (6.5 G params: 78.4 GB of params, gradient and momentum);
+# nemotron-4 1 of 96 layers with bfloat16 params and no momentum, as 7b
+# serves it (12.9 G params, 9.4 G of them its embedding and head; 103 GB
+# of float32 params and gradient), and one sequence a step (at two, the
+# second microbatch's head ran out of memory beside the first's gradient:
+# 3.91 GiB more asked with 9.83 GiB reserved but unallocated). The batch:
+# two sequences a step (grad_accum 2), xlstm-350m one, to keep the
+# phase's host time near 200 s (train_4k's batch is 256; 10c's 8): its
+# sLSTM runs 3 x S cell steps a sequence one launch after another,
+# forward, recompute and backward. Steps: FAMILY_TRAIN_STEPS, xlstm-350m's
+# 2; even so its first step took 50-66 s at S 4,096 (its second 32-45 s)
+# and the script ran 888-1,110 s of its 1,200, so its sequence is cut to
+# FAMILY_TRAIN_S (the sLSTM's host time is linear in S).
+# name: (depth and dtype cuts, momentum, sequences a step)
+FAMILY_TRAIN = {"minitron-4b": ({}, 0.9, 2), "starcoder2-7b": (dict(n_layers=24), 0.9, 2),
+                "internvl2-2b": ({}, 0.9, 2), "musicgen-medium": ({}, 0.9, 2), "zamba2-2.7b": ({}, 0.9, 2),
+                "xlstm-350m": ({}, 0.9, 1), "qwen3-moe-235b-a22b": (dict(n_layers=1), 0.9, 2),
+                "grok-1-314b": (dict(n_layers=1), 0.0, 2),
+                "nemotron-4-340b": (dict(n_layers=1, param_dtype="bfloat16"), 0.0, 1)}
+FAMILY_TRAIN_STEPS = {"xlstm-350m": 2}  # 3 for the others
+FAMILY_TRAIN_S = {"xlstm-350m": 2048}  # TRAIN_S for the others
+# the families whose dry run the script does not trace, and how long 10e
+# waits for the subprocess that traces the others from the start (their
+# cells took 149 s on a CPU): xlstm-350m's sLSTM, 3 x 4,096 cell steps
+# a sequence through DTensor's dispatch, takes the trace longer than the
+# script's time limit (run scripts/torch_family_train_cells.py xlstm-350m)
+FAMILY_TRAIN_UNPREDICTED = ("xlstm-350m",)
+DRYRUN_FAMILIES_LIMIT_S = 120
+# 10e's card-vs-CPU step: (cuts, B) at full width, float32, B sequences of
+# TRAIN_CPU_S tokens (after the vlm/audio prefix), grad_accum B, the run's
+# optimizer, 10b's tolerance; the card with remat, the CPU without (there
+# the recompute gives the same bits and only costs host time). The fewest
+# layers that hold each kind of block (FAMILY_CPU's), zamba2-2.7b's 12 so
+# that its shared block's gradient sums two applications; B 2 (the
+# microbatch split) for the families with a prefix, B 1 for the others:
+# the CPU's float32 steps are the phase's longest part (the MoE experts'
+# capacity slots, the 151,936-256,000-row heads: 45-60 s for grok-1 on the
+# card's host); nemotron-4's embedding and head at vocab 4,096 on both
+# sides (its float32 table and head with their gradients, 75 GB, do not
+# fit the host beside the block, whose leaves are held at full width)
+FAMILY_TRAIN_CPU = {"qwen3-moe-235b-a22b": (dict(n_layers=1, moe_block=256), 1),
+                    "grok-1-314b": (dict(n_layers=1, moe_block=256), 1),
+                    "nemotron-4-340b": (dict(n_layers=1, vocab=4096), 1), "zamba2-2.7b": (dict(n_layers=12), 1),
+                    "xlstm-350m": (dict(n_layers=8), 1), "internvl2-2b": (dict(n_layers=2), 2),
+                    "musicgen-medium": (dict(n_layers=2), 2), "minitron-4b": (dict(n_layers=2), 1),
+                    "starcoder2-7b": (dict(n_layers=2), 1)}
+# the gradient's other instances on the families' paths, timed at B 1, S
+# 4,096 beside their bounds: grok-1's capped heads (no library call
+# computes capped attention), qwen3-moe's hd 64 and nemotron-4's hd 192
+# (the 192-wide wgmma instance; SDPA's backward in turns for both).
+# (B, S, H, Kv, hd, softcap)
+BWD_FAMILY_SHAPES = {"softcap": (1, 4096, 48, 8, 128, 30.0), "hd64": (1, 4096, 64, 4, 64, 0.0),
+                     "hd192": (1, 4096, 96, 8, 192, 0.0)}
 # phase 11, the LM across a mesh. 11a: the length-sharded decode at
 # llama3.2-3b's heads over decode_32k's 32,768 cached positions, its batch
 # of 128 cut to 8 (128 would take 17 GB a layer), as n slices of one cache
@@ -458,6 +545,10 @@ MESH_F32_CASE = (16, 20000)
 # fit on the mesh 2 + 2 steps around a checkpoint, resumed with no mesh,
 # against 4 uninterrupted steps on the mesh (10d's shape and tolerances)
 MESH_TRAIN_TOL, MESH_TRAIN_STEPS, MESH_FIT_STEPS = 1e-4, 3, 4
+# 11b's xLSTM step on that mesh: xlstm-350m at full width, FAMILY_CPU's 8
+# layers, 10b's shape, against its unsharded step (each sLSTM cell step a
+# few DTensor dispatches on the host: 2 steps)
+MESH_XLSTM_STEPS = 2
 # phase 12, the dry run (launch/dryrun.py) on a fake process group. 12a: one
 # production cell, run as a user runs it (python -m repro_torch.launch.dryrun)
 # in a subprocess with a time limit. 12b: 10c's cell at a (1, 1) fake mesh
@@ -952,7 +1043,9 @@ def main() -> int:
 
     start, phase_watch = timing.now(), timing.Stopwatch()
     cell12b = dryrun_12b_start()  # traces on the host while the kernels build and phase 2 checks them
-    atexit.register(lambda: cell12b.poll() is None and cell12b.kill())  # a failed run leaves no trace behind
+    cells10e = dryrun_families_start()  # 10e's predictions, beside it
+    # a failed run leaves no trace behind
+    atexit.register(lambda: [p.kill() for p in (cell12b, cells10e) if p.poll() is None])
 
     def phase_done(name: str) -> None:
         log("time", f"phase {name} took {phase_watch.lap():.1f} s; {timing.now() - start:.1f} s since the start")
@@ -1276,6 +1369,8 @@ def main() -> int:
     held = {}
     kernels += training(args.seed, dev, {entry["name"]: entry for entry in kernels}, held)
     phase_done("10")
+    family_training(args.seed, dev, {entry["name"]: entry for entry in kernels}, cells10e)
+    phase_done("10e")
     mesh_phase(args.seed, dev, {entry["name"]: entry for entry in kernels})
     phase_done("11")
     dryrun_phase(held, cell12b)
@@ -2344,18 +2439,19 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_busy(fn, by_name=None):
+def device_busy(fn, by_name=None, keep=None):
     """(host wall s, device busy s, top device events) of one call of
     ``fn`` under torch.profiler. Busy is the union of the device events'
     intervals (no double counting); None if the trace has no device time.
-    ``by_name``, a dict, receives each device event name's total us."""
+    ``by_name``, a dict, receives each device event name's total us;
+    ``keep``, a list, the profile (taken with record_shapes)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import timing
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=keep is not None) as prof:
         watch = timing.Stopwatch()
         fn()
         torch.cuda.synchronize()
@@ -2372,6 +2468,8 @@ def device_busy(fn, by_name=None):
         busy += max(0.0, end - max(start, last))
         last = max(last, end)
     top = sorted(((round(t * 1e-3, 3), k) for k, t in top_names.items()), reverse=True)[:5]
+    if keep is not None:
+        keep.append(prof)
     return wall, (busy * 1e-6 if busy > 0 else None), top
 
 
@@ -3109,9 +3207,7 @@ def training(seed: int, dev, entries: dict, held: dict) -> list:
     h, kv, hd, n_layers = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_layers
     data = synthetic.token_stream(gen, TRAIN_BATCH * TRAIN_IGD_STEPS, TRAIN_S, cfg.vocab)["tokens"]
     tokens_a_step = TRAIN_BATCH * TRAIN_S
-    mm_params = n_layers * (cfg.d_model * (h + 2 * kv) * hd + h * hd * cfg.d_model + 3 * cfg.d_model * cfg.d_ff) \
-        + cfg.d_model * cfg.vocab
-    flops_a_token = 6 * mm_params + 6 * n_layers * h * hd * (TRAIN_S + 1)  # causal attention, forward + backward
+    flops_a_token, mm_params = train_flops_a_position(cfg, TRAIN_S)  # causal attention, forward + backward
     per_step = {"flash_attention": n_layers * TRAIN_ACCUM * 2, "flash_attention_bwd": n_layers * TRAIN_ACCUM * 3}
     split = {}
 
@@ -3280,7 +3376,7 @@ def training(seed: int, dev, entries: dict, held: dict) -> list:
         f"{off_a:.4f}, {on_a:.4f}, {on_b:.4f}, {off_b:.4f} ms; lse on / off {(on_a + on_b) / (off_a + off_b):.4f}")
     del q, k, v, o, lse, do, qs, ks, vs, sdpa_out, dos
     torch.cuda.empty_cache()
-    extra = training_extra_timings(normal, dev, card)
+    extra = lse_timings(normal, card)
     entries["flash_attention"].update(
         launches_training=launches["flash_attention"], training_ms_lse_off=(off_a + off_b) / 2,
         training_ms_lse_on=(on_a + on_b) / 2, max_abs_err_lse=errs["lse"], training_ms_lse=extra["lse_ms"],
@@ -3295,67 +3391,18 @@ def training(seed: int, dev, entries: dict, held: dict) -> list:
         "max_rel_err": max(errs["bwd_rel"].values()), "launches_per_step": per_step["flash_attention_bwd"],
         "launch_ms": {kind: ms for kind, (ms, _) in launch_ms.items()},
         "train_step_ms": step_ms, "train_tokens_s": tokens_s, "train_mfu": mfu, "train_peak_gb": igd_peak,
-        **{k: v for k, v in extra.items() if k.startswith("hd192")},
     }]
 
 
-def training_extra_timings(normal, dev, card: str) -> dict:
-    """Two more timings of phase 10: the hd 192 gradient (the 192-wide wgmma
-    instance: dkdv_split_kernel and dq_kernel at 192, which the main path
-    does not launch) at nemotron-4's heads, with its bound and SDPA's
-    backward in turns and each of its three launches' device time under the
-    profiler; and SDPA's forward
-    (is_causal, enable_gqa) in turns with the lse forward at the training
-    shape. Returns the numbers for the kernels line."""
+def lse_timings(normal, card: str) -> dict:
+    """SDPA's forward (is_causal, enable_gqa) in turns with the lse forward
+    (the training forward) at the training shape. Returns the numbers for
+    the kernels line."""
     import torch.nn.functional as F
 
-    from repro_torch import timing
-    from repro_torch.kernels.attention import kernel as AK, ref as AR
+    from repro_torch.kernels.attention import kernel as AK
 
-    bf = torch.bfloat16
-    b, s, h, kv, hd = BWD192_SHAPE
-    q, do = normal((b, s, h, hd), bf), normal((b, s, h, hd), bf)
-    k, v = normal((b, s, kv, hd), bf), normal((b, s, kv, hd), bf)
-    o, lse = AK.flash_attention(q, k, v, with_lse=True)
-    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
-    dos = do.transpose(1, 2)
-    kernel = lambda: AK.flash_attention_backward(q, k, v, o, lse, do)  # noqa: E731
-    library = lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), dos, retain_graph=True)  # noqa: E731
-    turns = [event_ms(kernel, 3), event_ms(library, 3), event_ms(library, 3), event_ms(kernel, 3)]
-    del sdpa_out, qs, ks, vs
-    torch.cuda.empty_cache()
-    launch_ms = kernel_ms_by_kind(kernel, BWD_PROFILED, BWD_KINDS)
-    torch.cuda.empty_cache()
-    plain = []
-    plain_ms = timing.seconds(lambda: plain.append(AR.mha_backward_ref(q, k, v, o, lse, do)), dev) * 1e3
-    rel = 0.0
-    for name, got, want in zip(("dq", "dk", "dv"), kernel(), plain[0]):
-        scale = max(1.0, float(want.float().abs().max()))
-        rel = max(rel, max_err(got, want, f"flash_attention_bwd {name} at hd 192", BWD_TOL[bf][0],
-                               BWD_TOL[bf][1] * scale) / scale)
-    del plain
-    torch.cuda.empty_cache()
-    flops = 2.5 * 4 * h * hd * (s * (s + 1) // 2)
-    nbytes = (4 * s * h * hd + 4 * s * kv * hd) * 2 + h * s * 4
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-    out = {"hd192_ms": (turns[0] + turns[3]) / 2, "hd192_library_ms": (turns[1] + turns[2]) / 2,
-           "hd192_bound_ms": max(bytes_ms, ops_ms), "hd192_bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "hd192_plain_ms": plain_ms, "hd192_max_rel_err": rel,
-           "hd192_launch_ms": {kind: ms for kind, (ms, _) in launch_ms.items()}}
-    log("timing", f"flash_attention_bwd at hd 192 (B {b}, S {s}, {h}/{kv} heads, bf16; the 192-wide wgmma instance, "
-        f"0 launches on the main path): in turns kernel {turns[0]:.4f}, SDPA backward {turns[1]:.4f}, "
-        f"{turns[2]:.4f}, kernel {turns[3]:.4f} ms a call (CUDA events over 3 calls); bound "
-        f"{out['hd192_bound_ms']:.4f} ms ({out['hd192_bound_by']}: {flops:.4g} FLOP at 989 TFLOP/s {ops_ms:.4f} ms, "
-        f"{nbytes} bytes at 3.35 TB/s {bytes_ms:.4f} ms), {out['hd192_bound_ms'] / out['hd192_ms']:.3f} of it; "
-        f"kernel/library {out['hd192_ms'] / out['hd192_library_ms']:.2f}; plain (mha_backward_ref) {plain_ms:.2f} "
-        f"ms, the kernel against it max |err| relative to the largest entry {rel:.3g} (tol 2e-2); device ms a launch "
-        f"(profiler, {BWD_PROFILED} calls) "
-        + ", ".join(f"{k} " + ("not measured" if v is None else f"{v:.4f} ({n} traced)")
-                    for k, (v, n) in launch_ms.items())
-        + f"; {card}")
-    del q, k, v, o, lse, do, dos
-    torch.cuda.empty_cache()
+    bf, out = torch.bfloat16, {}
     h, kv, hd = 24, 8, 128
     q = normal((1, TRAIN_S, h, hd), bf)
     k, v = normal((1, TRAIN_S, kv, hd), bf), normal((1, TRAIN_S, kv, hd), bf)
@@ -3373,6 +3420,380 @@ def training_extra_timings(normal, dev, card: str) -> dict:
     return out
 
 
+def attention_apps(cfg) -> int:
+    """Attention applications in one forward: a transformer's layers, the
+    hybrid's shared block once a segment, none in the xLSTM."""
+    return {"hybrid": cfg.n_layers // max(cfg.attn_every, 1), "ssm": 0}.get(cfg.family, cfg.n_layers)
+
+
+def train_flops_a_position(cfg, s: int) -> tuple:
+    """(model FLOPs a position of a training step at sequence length s,
+    the matmul params a position reads): 6 x the params of every weight of
+    two or more dims but the embedding table (a position reads one row of
+    it), MoE experts at top_k / n_experts, the hybrid's shared block once an
+    application; plus 6 x h x hd x (s + 1) an attention application (the
+    causal half, forward and backward), the mLSTM's quadratic form counted
+    as one at h x hd = its inner width. Mamba2's SSD and the sLSTM's
+    recurrence over time are not counted. For llama3.2-3b this is 10c's
+    count."""
+    from repro_torch.models import lm
+
+    apps = attention_apps(cfg)
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return sum(walk(v, path + (k,)) for k, v in tree.items())
+        if isinstance(tree, list):
+            return sum(walk(v, path) for v in tree)
+        if tree.dim() < 2 or (path[-1] == "embed" and not cfg.tie_embeddings):
+            return 0
+        n = tree.numel()
+        if "moe" in path and path[-1] != "router":
+            n = n * cfg.top_k // cfg.n_experts
+        if path[0] in ("shared_attn", "shared_mlp"):
+            n *= apps
+        return n
+
+    mm = walk(lm.init_lm(cfg, torch.Generator(), "meta"), ())
+    if cfg.family == "ssm":
+        quad = (cfg.n_layers // cfg.slstm_every) * (cfg.slstm_every - 1) * 2 * cfg.d_model
+    else:
+        quad = apps * cfg.n_heads * cfg.hd
+    return 6 * mm + 6 * quad * (s + 1), mm
+
+
+def dispatch_ms(prof, cfg) -> float:
+    """Device ms of the MoE's one-hot dispatch and combine in a profile
+    taken with record_shapes: the self device time of every op (forward,
+    recompute and backward) with an input of E x C in a dim, or whose last
+    two dims are (E, C) or (top_k, C) (the [G, Bt, E, C] and [G, Bt, k, C]
+    one-hots, the einsums' reshaped operands); C the capacity a group."""
+    from repro_torch.models import moe
+
+    e, c, k = cfg.n_experts, moe._capacity(cfg), cfg.top_k
+
+    def hit(shapes):
+        for shape in shapes or ():
+            if isinstance(shape, (list, tuple)) and len(shape) >= 2 and all(isinstance(n, int) for n in shape):
+                if e * c in shape or (shape[-1] == c and shape[-2] in (e, k)):
+                    return True
+        return False
+
+    us = 0.0
+    for evt in prof.key_averages(group_by_input_shape=True):
+        if hit(evt.input_shapes):
+            t = getattr(evt, "self_device_time_total", None)
+            us += t if t is not None else getattr(evt, "self_cuda_time_total", 0.0)
+    return us * 1e-3
+
+
+def dryrun_families_start():
+    """10e's predictions (scripts/torch_family_train_cells.py): each
+    family's cell (FAMILY_TRAIN's cuts, one sequence of 4,096 positions,
+    the run's optimizer) at a (1, 1) fake mesh, traced in a subprocess on
+    the host from the script's start."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    names = [name for name in FAMILY_TRAIN if name not in FAMILY_TRAIN_UNPREDICTED]
+    return subprocess.Popen([sys.executable, os.path.join(root, "scripts", "torch_family_train_cells.py"), *names],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def dryrun_families_wait(proc) -> dict:
+    """The predictions' records by family, waiting at most
+    DRYRUN_FAMILIES_LIMIT_S."""
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_FAMILIES_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"10e: the families' dry run still traces {DRYRUN_FAMILIES_LIMIT_S} s into phase 10e")
+    recs = {}
+    for line in stdout.splitlines():
+        if line.startswith("RECORD "):
+            rec = json.loads(line[len("RECORD "):])
+            recs[rec["arch"]] = rec
+    want = set(FAMILY_TRAIN) - set(FAMILY_TRAIN_UNPREDICTED)
+    if proc.returncode != 0 or set(recs) != want or any(r["status"] != "OK" for r in recs.values()):
+        raise AssertionError(f"10e's dry run exited {proc.returncode} with {sorted(recs)}: {stderr[-3000:]}")
+    if any(any(r["kernel_launches"].values()) for r in recs.values()):
+        raise AssertionError("10e's dry run launched kernels")
+    return recs
+
+
+def family_training(seed: int, dev, entries: dict, cells) -> None:
+    """Phase 10e: every architecture but llama3.2-3b (10c) through
+    make_train_step at full width and train_4k's sequence (FAMILY_TRAIN's
+    cuts; xlstm-350m's sequence FAMILY_TRAIN_S), each step's launches
+    counted exactly, every loss finite, step
+    ms, positions/s, model FLOP/s against 989 TFLOP/s and peak GB beside the
+    dry run's prediction (``cells``: the subprocess of
+    ``dryrun_families_start``); the MoE families' last step under the
+    profiler, the one-hot dispatch's share of its device time; then each
+    family's step on the card against the CPU's (FAMILY_TRAIN_CPU's cuts,
+    float32, TF32 off, 10b's tolerance); first the gradient at the
+    families' other instances (BWD_FAMILY_SHAPES) timed beside its bound.
+    Adds to the flash_attention and flash_attention_bwd entries of the
+    kernels line."""
+    from repro_torch import timing
+    from repro_torch.configs import get_arch
+    from repro_torch.core import igd
+    from repro_torch.core.tree import leaves
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.attention import kernel as AK
+    from repro_torch.kernels.decode import kernel as DK
+    from repro_torch.kernels.igd_fused import kernel as K
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import IGD
+
+    phase = timing.Stopwatch()
+    card = smi("name,power.limit")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+    # the gradient's other instances first, while the profiler's per-kernel
+    # sums still hold every launch (late in the process, after the MoE
+    # steps' traces, it kept none)
+    timings = family_bwd_timings(seed, dev, card)
+    predicted = dryrun_families_wait(cells)
+    log("train", f"10e the families' dry run (a (1, 1) fake mesh, one sequence, FAMILY_TRAIN's cuts): "
+        + "; ".join(f"{name} arguments {r['argument_bytes'] / 1e9:.3f} GB + temp {r['temp_bytes'] / 1e9:.3f} GB = "
+                    f"{(r['argument_bytes'] + r['temp_bytes']) / 1e9:.3f} GB ({r['wall_s']} s)"
+                    for name, r in predicted.items())
+        + f"; waited {phase.lap():.1f} s for it")
+    rows, launches = {}, {}
+    for name, (cut, momentum, batch) in FAMILY_TRAIN.items():
+        cfg = get_arch(name).scaled(**cut)
+        steps, seq = FAMILY_TRAIN_STEPS.get(name, 3), FAMILY_TRAIN_S.get(name, TRAIN_S)
+        apps = attention_apps(cfg)
+        per_step = {"flash_attention": apps * batch * 2, "flash_attention_bwd": apps * batch * 3}
+        n_tok = seq - cfg.n_prefix
+        watch = timing.Stopwatch()
+        data = synthetic.token_stream(gen, batch * steps, n_tok, cfg.vocab)["tokens"]
+        prefix = (0.02 * torch.randn((batch * steps, cfg.n_prefix, cfg.d_model), generator=gen, device=dev)
+                  ).bfloat16() if cfg.n_prefix else None
+        profile_last = cfg.n_experts > 0
+        losses, norms, ms, split = [], [], [], {}
+        torch.cuda.reset_peak_memory_stats()
+        params = lm.init_lm(cfg, gen, dev)
+        opt = IGD(igd.diminishing(*TRAIN_IGD_STEP), momentum=momentum)
+        state = opt.init(params)
+        step_fn = train.make_train_step(cfg, opt, grad_accum=batch)
+        torch.cuda.synchronize()
+        init_s = watch.lap()
+        for mod in (AK, DK, K):
+            mod.reset_launches()
+        for t in range(steps):
+            mb = {"tokens": data[t * batch:(t + 1) * batch]}
+            if prefix is not None:
+                mb["prefix_embeds"] = prefix[t * batch:(t + 1) * batch]
+            out = {}
+            if profile_last and t == steps - 1:
+                by_name, keep = {}, []
+                wall, busy, top = device_busy(lambda: out.update(m=step_fn(params, state, mb, t)[2]), by_name, keep)
+                split.update(wall=wall, busy=busy, top=top, dispatch_ms=dispatch_ms(keep[0], cfg),
+                             attention_ms=sum(us for n, us in by_name.items()
+                                              if re.search(r"flash_attention_|dkdv_|dq_kernel|rowdot_kernel", n)) * 1e-3)
+                del keep
+                ms.append(wall * 1e3)
+            else:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out["m"] = step_fn(params, state, mb, t)[2]
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            losses.append(float(out["m"]["loss"]))
+            norms.append(float(out["m"]["grad_norm"]))
+            got = {k: AK.launches[k] for k in per_step}
+            if (got != {k: (t + 1) * n for k, n in per_step.items()} or DK.launches["flash_decode"]
+                    or any(K.launches.values())):
+                raise AssertionError(f"10e {name} step {t}: launches {got}, not {per_step} a step "
+                                     f"(flash_decode {DK.launches}, IGD {K.launches})")
+        launches[name] = {k: AK.launches[k] for k in per_step}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"10e {name}: a loss is not finite: {losses}")
+        steady = [v for i, v in enumerate(ms) if i > 0 and not (profile_last and i == steps - 1)] or ms[:1]
+        step_ms = sum(steady) / len(steady)
+        positions = batch * seq
+        flops, mm = train_flops_a_position(cfg, seq)
+        pos_s = positions / (step_ms * 1e-3)
+        mfu = flops * pos_s / BF16_FLOPS
+        depth = f"{cfg.n_layers} of {get_arch(name).n_layers} layers" if "n_layers" in cut else \
+            f"{cfg.n_layers} layers (full depth)"
+        rows[name] = dict(step_ms=step_ms, positions_s=pos_s, mfu=mfu, peak_gb=peak, losses=losses, seq=seq,
+                          predicted_gb=(predicted[name]["argument_bytes"] + predicted[name]["temp_bytes"]) / 1e9
+                          if name in predicted else None, depth=depth, batch=batch, momentum=momentum,
+                          steps_ms=ms, **{k: v for k, v in split.items() if k in ("dispatch_ms", "busy", "wall")})
+        extra = ""
+        if split:
+            busy = split["busy"]
+            extra = (f"; last step under the profiler: device busy {busy * 1e3:.1f} ms of {split['wall'] * 1e3:.1f}"
+                     if busy else "; last step under the profiler: no device time in the trace")
+            if busy:
+                extra += (f", the one-hot dispatch and combine {split['dispatch_ms']:.1f} ms "
+                          f"({split['dispatch_ms'] / (busy * 1e3):.3f} of busy; forward, recompute and backward), "
+                          f"attention kernels {split['attention_ms']:.1f} ms; top {split['top']}")
+        log("train", f"10e {name} [{cfg.family}, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd "
+            f"{cfg.hd}, {depth}, params {cfg.param_dtype}, IGD momentum {momentum}]: {batch} x {seq} positions a "
+            f"step" + (f" ({cfg.n_prefix} prefix + {n_tok} tokens each)" if cfg.n_prefix else "")
+            + (f" (S cut from {TRAIN_S}: FAMILY_TRAIN_S)" if seq != TRAIN_S else "")
+            + f", grad_accum {batch}, remat {cfg.remat_policy}; init {init_s:.2f} s; losses "
+            + ", ".join(f"{v:.5f}" for v in losses) + "; gradient norms " + ", ".join(f"{v:.4g}" for v in norms)
+            + "; step ms (CUDA events" + (", the last under the profiler" if profile_last else "") + ") "
+            + ", ".join(f"{v:.1f}" for v in ms) + f"; {step_ms:.1f} ms a step, {pos_s:.0f} positions/s, model "
+            f"FLOP/s {flops * pos_s / 1e12:.1f} T ({flops:.4g} FLOP a position: 6 x {mm} matmul params + attention) "
+            f"= {mfu:.4f} of 989 TFLOP/s; peak {peak:.2f} GB allocated against the dry run's "
+            f"{_pred_gb(predicted, name)}; launches {launches[name]} ({per_step} a step){extra}; {card}")
+        del params, state, step_fn, data, prefix
+        torch.cuda.empty_cache()
+    log("train", f"10e's training runs took {phase.lap():.1f} s")
+
+    # -- each family's step on the card against the CPU's ---------------------
+    worst = {}
+    for name, (cut, b) in FAMILY_TRAIN_CPU.items():
+        watch = timing.Stopwatch()
+        momentum = FAMILY_TRAIN[name][1]
+        cfg = get_arch(name).scaled(dtype="float32", **cut)
+        p_gpu = lm.init_lm(cfg, gen, dev)
+        p_cpu = _tree_to(p_gpu, "cpu")
+        tokens = torch.randint(0, cfg.vocab, (b, TRAIN_CPU_S), generator=gen, device=dev)
+        prefix = 0.02 * torch.randn((b, cfg.n_prefix, cfg.d_model), generator=gen, device=dev) if cfg.n_prefix \
+            else None
+        runs = {}
+        for where, p in (("card", p_gpu), ("cpu", p_cpu)):
+            device = dev if where == "card" else torch.device("cpu")
+            mb = {"tokens": tokens.to(device)}
+            if prefix is not None:
+                mb["prefix_embeds"] = prefix.to(device)
+            opt = IGD(igd.diminishing(*TRAIN_IGD_STEP), momentum=momentum)
+            AK.reset_launches()
+            clock = timing.Stopwatch()
+            step_cfg = cfg if where == "card" else cfg.scaled(remat=False)  # the same arithmetic, once
+            p, state, metrics = train.make_train_step(step_cfg, opt, grad_accum=b)(p, opt.init(p), mb, 0)
+            timing.sync(device)
+            runs[where] = (leaves(p) + leaves(state), float(metrics["loss"]), clock.lap(), dict(AK.launches))
+            del p, state, metrics
+        apps = attention_apps(cfg)
+        want = {"flash_attention": apps * b * 2, "flash_attention_bwd": apps * b * 3}
+        if runs["card"][3] != want or any(runs["cpu"][3].values()):
+            raise AssertionError(f"10e {name} card vs CPU: launches {runs['card'][3]} on the card, not {want}; "
+                                 f"{runs['cpu'][3]} on the CPU")
+        losses = (runs["card"][1], runs["cpu"][1])
+        if not all(math.isfinite(v) for v in losses) or abs(losses[0] - losses[1]) > TRAIN_CPU_TOL * abs(losses[1]):
+            raise AssertionError(f"10e {name}: loss {losses[0]} on the card, {losses[1]} on the CPU")
+        e = 0.0
+        with torch.no_grad():
+            for got, ref in zip(runs["card"][0], runs["cpu"][0]):  # on the card, a leaf at a time
+                ref = ref.to(dev)
+                err = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+                e = max(e, err)
+                if not err <= TRAIN_CPU_TOL:  # a NaN fails too
+                    raise AssertionError(f"10e {name}: a leaf {tuple(ref.shape)} on the card is {err:.3g} of its "
+                                         f"largest element from the CPU's (tol {TRAIN_CPU_TOL:g})")
+        worst[name] = e
+        log("reference", f"10e {name} [{cfg.family}] at full width, {cfg.n_layers} layers, float32, TF32 off, B {b} x "
+            f"{TRAIN_CPU_S} tokens" + (f" after a {cfg.n_prefix}-position prefix" if cfg.n_prefix else "")
+            + (f", moe_block {cfg.moe_block}" if cfg.n_experts else "")
+            + (f", vocab {cfg.vocab} (the CPU's cut; the blocks' leaves at full width)" if "vocab" in cut else "")
+            + f", one grad_accum={b} IGD step (momentum {momentum}; remat {cfg.remat_policy} on the card, none on the "
+            f"CPU): loss card {losses[0]:.7f}, CPU "
+            f"{losses[1]:.7f}; max |card - CPU| / max |CPU| over {len(runs['cpu'][0])} param and momentum leaves "
+            f"{e:.3g} (tol {TRAIN_CPU_TOL:g}); card launches {runs['card'][3]}; step {runs['card'][2]:.2f} s on the "
+            f"card, {runs['cpu'][2]:.2f} s on the CPU; {watch.lap():.1f} s")
+        del p_gpu, p_cpu, runs
+        torch.cuda.empty_cache()
+    log("train", f"10e's card-vs-CPU steps took {phase.lap():.1f} s")
+
+    by_instance = {}
+    for name, n in launches.items():
+        cfg = get_arch(name)
+        if not attention_apps(cfg):
+            continue
+        tag = f"hd{AK.instantiated_hd(cfg.hd)}" + ("_softcap" if cfg.logit_softcap else "")
+        by_instance[tag] = by_instance.get(tag, 0) + n["flash_attention_bwd"]
+    entries["flash_attention"]["launches_families_train"] = {n: v["flash_attention"] for n, v in launches.items()}
+    entries["flash_attention_bwd"].update(
+        launches_families_train={n: v["flash_attention_bwd"] for n, v in launches.items()},
+        launches_families_train_by_instance=by_instance, families_train=rows, families_train_cpu_err=worst,
+        **timings)
+    log("train", f"10e's flash_attention_bwd launches by instance {by_instance}")
+
+
+def _pred_gb(predicted: dict, name: str) -> str:
+    r = predicted.get(name)
+    if r is None:
+        return "not run (FAMILY_TRAIN_UNPREDICTED)"
+    return f"{(r['argument_bytes'] + r['temp_bytes']) / 1e9:.2f} GB (arguments {r['argument_bytes'] / 1e9:.2f} + temp " \
+           f"{r['temp_bytes'] / 1e9:.2f})"
+
+
+def family_bwd_timings(seed: int, dev, card: str) -> dict:
+    """The gradient at the families' other instances (BWD_FAMILY_SHAPES),
+    bf16: ms a call in turns (with SDPA's backward where uncapped), each
+    launch's device ms under the profiler, the bound, the plain version's
+    ms and the kernel against it. Returns the kernels line's numbers."""
+    import torch.nn.functional as F
+
+    from repro_torch import timing
+    from repro_torch.kernels.attention import kernel as AK, ref as AR
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 14)
+    bf = torch.bfloat16
+    out = {}
+    for tag, (b, s, h, kv, hd, cap) in BWD_FAMILY_SHAPES.items():
+        q, do = (torch.randn((b, s, h, hd), generator=gen, device=dev).to(bf) for _ in range(2))
+        k, v = (torch.randn((b, s, kv, hd), generator=gen, device=dev).to(bf) for _ in range(2))
+        q = 3.0 * q if cap else q  # logits past the cap
+        o, lse = AK.flash_attention(q, k, v, cap, with_lse=True)
+        kernel = lambda: AK.flash_attention_backward(q, k, v, o, lse, do, cap)  # noqa: E731
+        if cap:  # no library call computes capped attention
+            turns = [event_ms(kernel, 3), event_ms(kernel, 3)]
+            library_ms = None
+        else:
+            qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+            dos = do.transpose(1, 2)
+            library = lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), dos, retain_graph=True)  # noqa: E731
+            turns = [event_ms(kernel, 3), event_ms(library, 3), event_ms(library, 3), event_ms(kernel, 3)]
+            library_ms = (turns[1] + turns[2]) / 2
+            del sdpa_out, qs, ks, vs, dos
+            torch.cuda.empty_cache()
+        ms = (turns[0] + turns[-1]) / 2
+        launch_ms = kernel_ms_by_kind(kernel, BWD_PROFILED, BWD_KINDS)
+        plain = []
+        plain_ms = timing.seconds(lambda: plain.append(AR.mha_backward_ref(q, k, v, o, lse, do, cap)), dev) * 1e3
+        rel = 0.0
+        for name, got, want in zip(("dq", "dk", "dv"), kernel(), plain[0]):
+            scale = max(1.0, float(want.float().abs().max()))
+            rel = max(rel, max_err(got, want, f"flash_attention_bwd {name} [{tag}]", BWD_TOL[bf][0],
+                                   BWD_TOL[bf][1] * scale) / scale)
+        del plain
+        torch.cuda.empty_cache()
+        flops = 2.5 * 4 * h * hd * (s * (s + 1) // 2)
+        nbytes = (4 * s * h * hd + 4 * s * kv * hd) * 2 + h * s * 4
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        bound = max(bytes_ms, ops_ms)
+        out.update({f"{tag}_ms": ms, f"{tag}_library_ms": library_ms, f"{tag}_bound_ms": bound,
+                    f"{tag}_bound_by": "bytes" if bytes_ms >= ops_ms else "operations", f"{tag}_plain_ms": plain_ms,
+                    f"{tag}_max_rel_err": rel, f"{tag}_launch_ms": {kd: m for kd, (m, _) in launch_ms.items()}})
+        log("timing", f"flash_attention_bwd [{tag}] (B {b}, S {s}, {h}/{kv} heads, hd {hd}, softcap {cap:g}, bf16): "
+            + (f"in turns kernel {turns[0]:.4f}, SDPA backward {turns[1]:.4f}, {turns[2]:.4f}, kernel {turns[3]:.4f} "
+               f"ms a call (CUDA events over 3 calls); kernel/library {ms / library_ms:.2f}"
+               if library_ms else f"{turns[0]:.4f}, {turns[1]:.4f} ms a call (CUDA events over 3 calls; no library "
+                                  "call computes capped attention)")
+            + f"; {flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.3f} of the bound {bound:.4f} ms "
+            f"({out[f'{tag}_bound_by']}: {flops:.4g} FLOP at 989 TFLOP/s {ops_ms:.4f} ms, {nbytes} bytes at 3.35 TB/s "
+            f"{bytes_ms:.4f} ms); plain (mha_backward_ref) {plain_ms:.2f} ms, the kernel against it max |err| "
+            f"relative to the largest entry {rel:.3g} (tol 2e-2); device ms a launch (profiler, {BWD_PROFILED} calls) "
+            + ", ".join(f"{kd} " + ("not measured" if m is None else f"{m:.4f} ({n} traced)")
+                        for kd, (m, n) in launch_ms.items())
+            + f"; {card}")
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+    return out
+
+
 def mesh_phase(seed: int, dev, entries: dict) -> None:
     """Phase 11, the LM across a device mesh, on the one card.
 
@@ -3387,7 +3808,8 @@ def mesh_phase(seed: int, dev, entries: dict) -> None:
     unsharded launch and SDPA over ``cache[:, :length]`` in turns.
 
     11b: ``make_train_step(param_shardings=...)`` on that mesh at 10b's
-    shape against the unsharded step; ``fit(mesh=...)`` 2 steps with a
+    shape against the unsharded step, for llama3.2-3b and xlstm-350m
+    (``sharded_against_plain``); ``fit(mesh=...)`` 2 steps with a
     checkpoint, ``elastic_restore`` onto no mesh, and a fit without a mesh
     resuming 2 more, against 4 uninterrupted steps on the mesh. The process
     group is destroyed at the end of the phase, failed or not. Adds the
@@ -3400,12 +3822,12 @@ def mesh_phase(seed: int, dev, entries: dict) -> None:
     from repro_torch import timing
     from repro_torch.configs import get_arch
     from repro_torch.core import igd
-    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.core.tree import leaves
     from repro_torch.data import synthetic
     from repro_torch.dist import collectives, sharding as shd
     from repro_torch.kernels.attention import kernel as AK
     from repro_torch.kernels.decode import kernel as DK, ref as DR
-    from repro_torch.launch import mesh as mesh_mod, train
+    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch.elastic import elastic_restore
     from repro_torch.launch.train_loop import fit
     from repro_torch.models import lm
@@ -3492,61 +3914,29 @@ def mesh_phase(seed: int, dev, entries: dict) -> None:
             f"launches, max |err| vs the unsharded kernel {errs['kernel']:.3g}; {mesh}")
 
         # -- 11b. a sharded train step ------------------------------------------
-        small = cfg.scaled(n_layers=TRAIN_CPU_LAYERS, dtype="float32")
-        params = lm.init_lm(small, gen, dev)
-        tokens = torch.randint(0, small.vocab, (TRAIN_CPU_B, TRAIN_CPU_S), generator=gen, device=dev)
         opt = IGD(igd.diminishing(*TRAIN_IGD_STEP), momentum=0.9)
-        plain_p = tree_map(lambda x: x.clone(), params)
-        plain_o = opt.init(plain_p)
-        plain_step = train.make_train_step(small, opt, grad_accum=2)
         shd.set_activation_ctx(mesh)
-        pshard = shd.shardings(shd.param_specs(params, small, mesh), mesh)
-        sp = shd.distribute(params, pshard)
-        so = tuple(shd.distribute(t, pshard) for t in opt.init(params))
-        batch = shd.distribute({"tokens": tokens}, shd.shardings(shd.batch_specs(small, "train", mesh, TRAIN_CPU_B),
-                                                                  mesh))
-        sharded_step = train.make_train_step(small, opt, grad_accum=2, param_shardings=pshard)
-        for mod in (AK, DK):
-            mod.reset_launches()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        sharded_ms, plain_ms = [], []
-        for step in range(MESH_TRAIN_STEPS):  # the first step also fills DTensor's sharding caches
-            start.record()
-            sp, so, sm = sharded_step(sp, so, batch, step)
-            end.record()
-            end.synchronize()
-            sharded_ms.append(start.elapsed_time(end))
-        step_launches = {k: AK.launches[k] for k in ("flash_attention", "flash_attention_bwd")}
-        if not all(step_launches.values()):
+        small = cfg.scaled(n_layers=TRAIN_CPU_LAYERS, dtype="float32")
+        llama = sharded_against_plain(small, opt, mesh, gen, dev, MESH_TRAIN_STEPS)
+        step_launches, sharded_ms, plain_ms = llama["launches"], llama["sharded_ms"], llama["plain_ms"]
+        if not (step_launches["flash_attention"] and step_launches["flash_attention_bwd"]) \
+                or step_launches["flash_decode"]:
             raise AssertionError(f"11b: the sharded steps launched {step_launches}")
-        for step in range(MESH_TRAIN_STEPS):
-            start.record()
-            plain_p, plain_o, pm = plain_step(plain_p, plain_o, {"tokens": tokens}, step)
-            end.record()
-            end.synchronize()
-            plain_ms.append(start.elapsed_time(end))
-        worst, bitwise = 0.0, True
-        for got_t, want in zip(leaves(shd.full(sp)) + leaves(shd.full(so)), leaves(plain_p) + leaves(plain_o)):
-            got_t, want = got_t.detach(), want.detach()
-            bitwise = bitwise and torch.equal(got_t, want)
-            err = float((got_t - want).abs().max()) / max(float(want.abs().max()), 1e-30)
-            worst = max(worst, err)
-            if err > MESH_TRAIN_TOL:
-                raise AssertionError(f"11b: a leaf {tuple(want.shape)} of the sharded step is {err:.3g} of its "
-                                     f"largest element from the unsharded step's (tol {MESH_TRAIN_TOL:g})")
-        loss_gap = abs(float(sm["loss"]) - float(pm["loss"]))
-        if loss_gap > MESH_TRAIN_TOL * abs(float(pm["loss"])):
-            raise AssertionError(f"11b: loss {float(sm['loss'])} sharded, {float(pm['loss'])} unsharded")
-        log("mesh", f"11b make_train_step(param_shardings=...) on make_host_mesh(1, 1), llama3.2-3b full width, "
-            f"{TRAIN_CPU_LAYERS} layers, float32, B {TRAIN_CPU_B} x S {TRAIN_CPU_S}, grad_accum 2, IGD momentum: last loss "
-            f"{float(sm['loss']):.7f} against {float(pm['loss']):.7f} unsharded; max |sharded - unsharded| / max "
-            f"|unsharded| over params and momentum {worst:.3g} (tol {MESH_TRAIN_TOL:g}), "
-            f"{'bitwise equal' if bitwise else 'not bitwise equal'} after {MESH_TRAIN_STEPS} steps; launches "
-            f"{step_launches}; step ms (CUDA events) sharded (DTensor) "
-            + ", ".join(f"{v:.1f}" for v in sharded_ms) + ", unsharded " + ", ".join(f"{v:.1f}" for v in plain_ms)
-            + f"; {card}")
-        del params, plain_p, plain_o, sp, so, batch
-        torch.cuda.empty_cache()
+        # the xLSTM's (its blocks run on each rank's local tensors: sharding.batch_head_local)
+        xcfg = get_arch("xlstm-350m").scaled(dtype="float32", **FAMILY_CPU["xlstm-350m"][0])
+        xlstm = sharded_against_plain(xcfg, opt, mesh, gen, dev, MESH_XLSTM_STEPS)
+        if any(xlstm["launches"].values()):
+            raise AssertionError(f"11b: the xLSTM's steps launched {xlstm['launches']}")
+        for name, c, r, n in (("llama3.2-3b", small, llama, MESH_TRAIN_STEPS),
+                              ("xlstm-350m", xcfg, xlstm, MESH_XLSTM_STEPS)):
+            log("mesh", f"11b make_train_step(param_shardings=...) on make_host_mesh(1, 1), {name} full width, "
+                f"{c.n_layers} layers, float32, B {TRAIN_CPU_B} x S {TRAIN_CPU_S}, grad_accum 2, IGD momentum: last "
+                f"loss {r['loss'][0]:.7f} against {r['loss'][1]:.7f} unsharded; max |sharded - unsharded| / max "
+                f"|unsharded| over params and momentum {r['worst']:.3g} (tol {MESH_TRAIN_TOL:g}), "
+                f"{'bitwise equal' if r['bitwise'] else 'not bitwise equal'} after {n} steps; launches "
+                f"{r['launches']}; step ms (CUDA events) sharded (DTensor) "
+                + ", ".join(f"{v:.1f}" for v in r["sharded_ms"]) + ", unsharded "
+                + ", ".join(f"{v:.1f}" for v in r["plain_ms"]) + f"; {card}")
 
         # fit on the mesh around a checkpoint, resumed with no mesh
         small = cfg.scaled(n_layers=TRAIN_CPU_LAYERS)
@@ -3597,6 +3987,65 @@ def mesh_phase(seed: int, dev, entries: dict) -> None:
                                       mesh_step_ms=sharded_ms, mesh_plain_step_ms=plain_ms)
     entries["flash_attention_bwd"]["launches_mesh"] = step_launches["flash_attention_bwd"] + \
         fit_launches["flash_attention_bwd"]
+
+
+def sharded_against_plain(cfg, opt, mesh, gen, dev, steps: int) -> dict:
+    """11b's check: ``steps`` steps of make_train_step(param_shardings=...)
+    on ``mesh`` (the activation context already set) and of the unsharded
+    step from the same params (B TRAIN_CPU_B x TRAIN_CPU_S, grad_accum 2),
+    every param and ``opt``'s state within MESH_TRAIN_TOL of its largest
+    element and the losses too. Returns the attention launches of the
+    sharded steps, their and the unsharded steps' ms (CUDA events; the
+    first sharded step also fills DTensor's sharding caches), the worst
+    leaf, whether bitwise and the last losses (sharded, unsharded)."""
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels.attention import kernel as AK
+    from repro_torch.kernels.decode import kernel as DK
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    params = lm.init_lm(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_CPU_B, TRAIN_CPU_S), generator=gen, device=dev)
+    plain_p = tree_map(lambda x: x.clone(), params)
+    plain_o = opt.init(plain_p)
+    pshard = shd.shardings(shd.param_specs(params, cfg, mesh), mesh)
+    sp = shd.distribute(params, pshard)
+    so = tuple(shd.distribute(t, pshard) for t in opt.init(params))
+    batch = shd.distribute({"tokens": tokens}, shd.shardings(shd.batch_specs(cfg, "train", mesh, TRAIN_CPU_B), mesh))
+    runs = {"sharded": (train.make_train_step(cfg, opt, grad_accum=2, param_shardings=pshard), sp, so, batch),
+            "plain": (train.make_train_step(cfg, opt, grad_accum=2), plain_p, plain_o, {"tokens": tokens})}
+    out = {}
+    for kind, (step_fn, p, o, b) in runs.items():
+        for mod in (AK, DK):
+            mod.reset_launches()
+        ms = []
+        for step in range(steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            p, o, m = step_fn(p, o, b, step)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        out[kind] = (p, o, float(m["loss"]), ms, {**{k: AK.launches[k] for k in ("flash_attention",
+                                                                                  "flash_attention_bwd")},
+                                                  "flash_decode": DK.launches["flash_decode"]})
+    worst, bitwise = 0.0, True
+    (sp, so, sloss, sms, launches), (pp, po, ploss, pms, _) = out["sharded"], out["plain"]
+    for got, want in zip(leaves(shd.full(sp)) + leaves(shd.full(so)), leaves(pp) + leaves(po)):
+        got, want = got.detach(), want.detach()
+        bitwise = bitwise and torch.equal(got, want)
+        err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        worst = max(worst, err)
+        if not err <= MESH_TRAIN_TOL:
+            raise AssertionError(f"11b {cfg.name}: a leaf {tuple(want.shape)} of the sharded step is {err:.3g} of its "
+                                 f"largest element from the unsharded step's (tol {MESH_TRAIN_TOL:g})")
+    if not abs(sloss - ploss) <= MESH_TRAIN_TOL * abs(ploss):
+        raise AssertionError(f"11b {cfg.name}: loss {sloss} sharded, {ploss} unsharded")
+    del out, runs, sp, so, pp, po, params, plain_p, plain_o, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "sharded_ms": sms, "plain_ms": pms, "worst": worst, "bitwise": bitwise,
+            "loss": (sloss, ploss)}
 
 
 def dryrun_phase(held: dict, cell12b) -> None:

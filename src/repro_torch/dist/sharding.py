@@ -559,6 +559,55 @@ def embed_lookup(table, tokens):
     return mapped(table, tokens)
 
 
+def batch_head_local(fn, args, dims, out_dims):
+    """``fn(*args)`` on each rank's local tensors, for ``args[0]`` a
+    DTensor. ``dims``: each argument's (batch dim, head dim), either None
+    where it has none (an argument that is None passes through);
+    ``out_dims`` the same for each of ``fn``'s outputs. Per mesh dim the
+    batch stays split where the first argument's is, the heads where its
+    heads are and their count divides the axis, and everything else is
+    replicated; the other arguments are redistributed to match (a
+    replicated parameter's head dim is sliced). For computations that are
+    independent per (batch row, head), such as the mLSTM's parallel form
+    and Mamba2's chunked SSD: some torch releases' DTensor refuses their
+    einsums on a tensor split over both batch and heads (2.11 will not
+    flatten two split dims) or has no rule for an op of their backward
+    (``aten.flip``, in cumsum's). Returns ``fn``'s outputs as DTensors;
+    differentiable, so ``fn``'s backward runs per rank too."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    x = args[0]
+    mesh = x.device_mesh
+    bdim, hdim = dims[0]
+    modes = []
+    for j, size in enumerate(mesh.shape):
+        p = x.placements[j]
+        if isinstance(p, Shard) and p.dim == bdim:
+            modes.append("batch")
+        elif isinstance(p, Shard) and p.dim == hdim and x.shape[hdim] % size == 0:
+            modes.append("heads")
+        else:
+            modes.append(None)
+
+    def placed(batch_dim, head_dim, grad=False):
+        """An argument's placements (``grad``: its gradient's: a sum over the
+        shards of a split it does not have)."""
+        return [Shard(batch_dim) if m == "batch" and batch_dim is not None else
+                Shard(head_dim) if m == "heads" and head_dim is not None else
+                Partial() if grad and m else Replicate() for m in modes]
+
+    args = tuple(DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                 if isinstance(a, torch.Tensor) and not is_dtensor(a) else a for a in args)
+    in_placements = tuple(None if a is None else placed(*d) for a, d in zip(args, dims))
+    in_grad = tuple(None if a is None else placed(*d, grad=True) for a, d in zip(args, dims))
+    outs = [placed(*d) for d in out_dims]
+    # a list is one output's placements (a tuple would be one per output)
+    mapped = local_map(fn, out_placements=outs[0] if len(outs) == 1 else tuple(outs), in_placements=in_placements,
+                       in_grad_placements=in_grad, device_mesh=mesh, redistribute_inputs=True)
+    return mapped(*args)
+
+
 # ---------------------------------------------------------------------------
 # attention on local heads
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding
 from repro_torch.models import layers
 
 CHUNK = 256
@@ -66,7 +67,13 @@ def _causal_conv(x, w, b, state=None):
 def ssd_chunked(x, dt, a, b, c, d_skip, init_state=None):
     """Chunk-parallel SSD. x: [B, L, H, P]; dt: [B, L, H] (post-softplus,
     float32); a: [H] (negative, float32); b, c: [B, L, N]; init_state:
-    [B, H, P, N] or None. Returns (y [B, L, H, P], final_state [B, H, P, N])."""
+    [B, H, P, N] or None. Returns (y [B, L, H, P], final_state [B, H, P, N]).
+    On DTensors, per rank over its batch rows and heads
+    (``sharding.batch_head_local``; b and c, shared by the heads, whole)."""
+    if sharding.is_dtensor(x):
+        return sharding.batch_head_local(ssd_chunked, (x, dt, a, b, c, d_skip, init_state),
+                                         ((0, 2), (0, 2), (None, 0), (0, None), (0, None), (None, 0), (0, 1)),
+                                         ((0, 2), (0, 1)))
     bs, l, h, p = x.shape
     n = b.shape[-1]
     q = min(CHUNK, l)

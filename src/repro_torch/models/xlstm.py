@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding
 from repro_torch.models import layers
 
 
@@ -48,13 +49,23 @@ def init_mlstm(gen: torch.Generator, cfg, *, device) -> dict:
     }
 
 
+def _log_sigmoid(x):
+    """log(sigmoid(x)) in float32 as ``-softplus(-x)``, which is how JAX
+    defines ``jax.nn.log_sigmoid``. ``F.logsigmoid``'s backward has no
+    DTensor sharding rule; softplus's has."""
+    return -F.softplus(-x.float())
+
+
 def mlstm_parallel(q, k, v, i_pre, f_pre):
     """Stabilised quadratic mLSTM. q, k, v: [B,S,H,hd]; i_pre, f_pre:
     [B,S,H] pre-activations. D[t,s] = sum_{u=s+1..t} logsig(f_u) + i_s for
     s <= t; h_t = (S v)_t / max(|sum_s S_ts|, exp(-m_t)), S = (q k^T /
-    sqrt(hd)) exp(D - m)."""
+    sqrt(hd)) exp(D - m). On DTensors, per rank over its batch rows and
+    heads (``sharding.batch_head_local``)."""
+    if sharding.is_dtensor(q):
+        return sharding.batch_head_local(mlstm_parallel, (q, k, v, i_pre, f_pre), ((0, 2),) * 5, ((0, 2),))
     _, s, _, hd = q.shape
-    logf = F.logsigmoid(f_pre.float())  # [B,S,H]
+    logf = _log_sigmoid(f_pre)  # [B,S,H]
     cf = torch.cumsum(logf, dim=1)
     dmat = cf[:, :, None, :] - cf[:, None, :, :]  # [B,t,s,H]
     dmat = dmat + i_pre.float()[:, None, :, :]
@@ -73,7 +84,7 @@ def mlstm_parallel(q, k, v, i_pre, f_pre):
 def mlstm_step(q, k, v, i_pre, f_pre, state):
     """Recurrent mLSTM update. q, k, v: [B,H,hd]; i_pre, f_pre: [B,H];
     state {"c": [B,H,hd,hd], "n": [B,H,hd], "m": [B,H]} in float32."""
-    logf = F.logsigmoid(f_pre.float())
+    logf = _log_sigmoid(f_pre)
     i32 = i_pre.float()
     m_new = torch.maximum(logf + state["m"], i32)
     fdec = torch.exp(logf + state["m"] - m_new)
@@ -169,18 +180,34 @@ def _slstm_cell(params, x_t, state, cfg):
     return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
 
 
+def _slstm_scan(xproj, r_h, b, c, n, h, m, cfg):
+    """The sLSTM over time. xproj: [B,S,4D] (the input projection); the
+    state c, n, h, m: [B,D] float32. Returns (hs [B,S,D], c, n, h, m). On
+    DTensors, per rank over its batch rows, every head on each rank
+    (``sharding.batch_head_local``): the loop's ops then dispatch as plain
+    tensors, and some torch releases' DTensor refuses the cell's reshapes
+    of a head-split state (2.11)."""
+    if sharding.is_dtensor(xproj):
+        return sharding.batch_head_local(lambda *a: _slstm_scan(*a, cfg), (xproj, r_h, b, c, n, h, m),
+                                         ((0, None), (None, None), (None, None)) + ((0, None),) * 4,
+                                         ((0, None),) * 5)
+    params, state = {"r_h": r_h, "b": b}, {"c": c, "n": n, "h": h, "m": m}
+    hs = []
+    for t in range(xproj.shape[1]):
+        state = _slstm_cell(params, xproj[:, t], state, cfg)
+        hs.append(state["h"])
+    return (torch.stack(hs, dim=1), *(state[k] for k in ("c", "n", "h", "m")))
+
+
 def slstm_block(params: dict, x, cfg, *, cache: Optional[dict] = None):
     """x: [B,S,D]; sequential over S (one step for decode)."""
     bs, s, d = x.shape
     dt = x.dtype
     xproj = x @ params["w_x"].to(dt)  # [B,S,4D]
     state = cache if cache is not None else init_slstm_cache_dims(bs, d, device=x.device)
-    hs = []
-    for t in range(s):
-        state = _slstm_cell(params, xproj[:, t], state, cfg)
-        hs.append(state["h"])
-    hs = torch.stack(hs, dim=1).to(dt)
-    new_cache = state if cache is not None else None
+    hs, *final = _slstm_scan(xproj, params["r_h"], params["b"], *(state[k] for k in ("c", "n", "h", "m")), cfg)
+    hs = hs.to(dt)
+    new_cache = dict(zip(("c", "n", "h", "m"), final)) if cache is not None else None
     hs = layers.rms_norm(hs, params["norm"], cfg.norm_eps)
     return hs @ params["w_out"].to(dt), new_cache
 

@@ -9,7 +9,12 @@ trees (dicts and lists of tensors, ``core.tree``). Unlike the reference,
 float32 params or AdamW's moments is 12.85 GB a tree. The arithmetic
 keeps the reference's order of operations, in float32 for float32 params:
 IGD ``p - alpha * b``; AdamW ``m / bc1``, ``v / bc2``,
-``p - lr * (mh / (sqrt(vh) + eps) + wd * p)``."""
+``p - lr * (mh / (sqrt(vh) + eps) + wd * p)``.
+
+IGD's arithmetic is elementwise, so a plain contiguous leaf of more than
+``SLICE`` elements is updated slice by slice of its flat view (the same
+bits): whole, a 4.7 G-element bf16 table would take four float32
+temporaries of 18.9 GB each (nemotron-4's embedding and head)."""
 
 from __future__ import annotations
 
@@ -19,6 +24,23 @@ import torch
 
 from repro_torch.core import igd as igd_lib
 from repro_torch.core.tree import tree_map
+
+SLICE = 1 << 27  # elements an IGD update takes at once from a large leaf
+
+
+def flat_slices(first, *rest):
+    """Matching parts of ``first`` and ``rest``: the whole tensors once, or
+    slices of their flat views of at most ``SLICE`` elements when ``first``
+    is a plain tensor of more than ``SLICE`` elements and all are
+    contiguous (a DTensor goes whole)."""
+    ts = (first, *rest)
+    n = first.numel()
+    if n <= SLICE or type(first) is not torch.Tensor or not all(t.is_contiguous() for t in ts):
+        yield ts
+        return
+    flat = [t.view(-1) for t in ts]
+    for i in range(0, n, SLICE):
+        yield tuple(t[i:i + SLICE] for t in flat)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +62,12 @@ class IGD:
             grads = tree_map(lambda g, p: g + self.weight_decay * p, grads, params)
         if self.momentum:
             (buf,) = state
-            tree_map(lambda b, g: b.copy_(self.momentum * b + g), buf, grads)
+
+            def accumulate(b, g):
+                for b_, g_ in flat_slices(b, g):
+                    b_.copy_(self.momentum * b_ + g_)
+
+            tree_map(accumulate, buf, grads)
             step_from = buf
         else:
             step_from = grads
@@ -48,7 +75,8 @@ class IGD:
         alpha = self.step_size(step)  # a float32 scalar tensor, as the reference's
 
         def apply(p, d):
-            p.copy_(p.float() - alpha * d.float())
+            for p_, d_ in flat_slices(p, d):
+                p_.copy_(p_.float() - alpha * d_.float())
 
         tree_map(apply, params, step_from)
         return params, state

@@ -1113,6 +1113,32 @@ def test_cuda_flash_attention_function_gradients_match_autograd_through_the_plai
 
 
 @needs_card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,hd,softcap", [(48, 8, 128, 30.0), (96, 8, 192, 0.0), (64, 4, 64, 0.0)],
+                         ids=["grok-1", "nemotron-4", "qwen3-moe"])
+def test_cuda_flash_attention_function_gradients_at_the_families_head_layouts(h, kv, hd, softcap, dtype):
+    """The gradient through FlashAttention at the head layouts the
+    families train with (grok-1's capped 48/8 at hd 128, nemotron-4's 96/8
+    at hd 192, qwen3-moe's 64/4 at hd 64), ragged S, against autograd
+    through mha_ref."""
+    from repro_torch.kernels.attention import kernel as AK, ops as A, ref as AR
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = ((1, 300, h, hd), (1, 300, kv, hd), (1, 300, kv, hd))
+    leaves = [(3.0 if i == 0 else 1.0) * _normal(shape, dtype, i) for i, shape in enumerate(shapes)]
+    leaves = [t.requires_grad_() for t in leaves]
+    plain = [t.detach().clone().requires_grad_() for t in leaves]
+    weight = _normal((1, 300, h, hd), torch.float32, 9)
+    before = dict(AK.launches)
+    (A.mha(*leaves, softcap).float() * weight).sum().backward()
+    (AR.mha_ref(*plain, softcap).float() * weight).sum().backward()
+    assert AK.launches["flash_attention"] == before["flash_attention"] + 1
+    assert AK.launches["flash_attention_bwd"] == before["flash_attention_bwd"] + AK.BWD_LAUNCHES
+    for name, got, want in zip("qkv", leaves, plain):
+        _bwd_close(got.grad, want.grad, dtype, f"d{name}")
+
+
+@needs_card
 def test_cuda_serving_mha_passes_no_lse_and_saves_nothing(monkeypatch):
     from repro_torch.kernels.attention import kernel as AK, ops as A
 
@@ -1178,6 +1204,48 @@ def test_cuda_train_step_matches_the_cpu_run():
     np.testing.assert_allclose(runs["cuda"][2], runs["cpu"][2], rtol=1e-4, atol=1e-4)
     from repro_torch.core.tree import leaves
 
+    for got, want in zip(leaves(runs["cuda"][:2]), leaves(runs["cpu"][:2])):
+        torch.testing.assert_close(got.detach().cpu(), want.detach(), rtol=1e-4, atol=1e-4)
+
+
+@needs_card
+@pytest.mark.parametrize("name", ["minitron-4b", "starcoder2-7b", "internvl2-2b", "musicgen-medium", "zamba2-2.7b",
+                                  "xlstm-350m", "qwen3-moe-235b-a22b", "grok-1-314b", "nemotron-4-340b"])
+def test_cuda_train_step_of_each_family_matches_the_cpu_run(name):
+    """One grad_accum=2 IGD-momentum step of each family's smoke config
+    widened to d 256 (its head width and soft cap kept; zamba2 at 4
+    layers, two applications of its shared block), float32, remat: the
+    card's kernels against the CPU's plain path (rtol = atol = 1e-4), the
+    launches one forward, one recompute and one gradient call an attention
+    application a microbatch."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import igd
+    from repro_torch.core.tree import leaves
+    from repro_torch.kernels.attention import kernel as AK
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import IGD
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = get_arch(name)
+    cfg = base.smoke().scaled(d_model=256, head_dim=base.hd if base.family != "ssm" else 0,
+                              n_layers=4 if base.family == "hybrid" else 2)
+    gen = torch.Generator().manual_seed(0)
+    params = lm.init_lm(cfg, gen, device="cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 64), generator=gen)}
+    if cfg.n_prefix:
+        batch["prefix_embeds"] = 0.1 * torch.randn((4, cfg.n_prefix, cfg.d_model), generator=gen)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        opt = IGD(igd.diminishing(0.05, 10.0), momentum=0.9)
+        p = _to(params, dev)
+        before = dict(AK.launches)
+        p, state, metrics = train.make_train_step(cfg, opt, grad_accum=2)(p, opt.init(p), _to(batch, dev), 0)
+        runs[dev] = (p, state, float(metrics["loss"]), {k: AK.launches[k] - before[k] for k in before})
+    apps = 0 if cfg.family == "ssm" else (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers)
+    assert runs["cuda"][3] == {"flash_attention": 2 * 2 * apps, "flash_attention_bwd": 2 * 3 * apps}
+    assert runs["cpu"][3] == {"flash_attention": 0, "flash_attention_bwd": 0}
+    np.testing.assert_allclose(runs["cuda"][2], runs["cpu"][2], rtol=1e-4, atol=1e-4)
     for got, want in zip(leaves(runs["cuda"][:2]), leaves(runs["cpu"][:2])):
         torch.testing.assert_close(got.detach().cpu(), want.detach(), rtol=1e-4, atol=1e-4)
 
