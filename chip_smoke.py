@@ -204,10 +204,11 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    and the three gradient kernels (flash_attention_bwd.cu: D, dk/dv, dq;
    bf16 at widths 64, 128 and 192 on wgmma fed by TMA with a producer
    warpgroup; at 192 a dk/dv block splits the products between its two
-   consumers) against ref.mha_lse_ref /
-   ref.mha_backward_ref over hd 64/80/128/136/192
+   consumers; at 64 and 128 a wide group's dk/dv runs as clusters of
+   kernel.dkdv_splits CTAs summing through distributed shared memory)
+   against ref.mha_lse_ref / ref.mha_backward_ref over hd 64/80/128/136/192
    (80 and 136 padded into the 128- and 192-wide bf16 instances) x
-   q heads a kv head 1/3/6/12 x S 37/1,000/2,048 x soft cap off/30, both
+   q heads a kv head 1/3/6/12/16 x S 37/1,000/2,048 x soft cap off/30, both
    dtypes, TF32 off; FlashAttention's gradient against autograd through
    ref.mha_ref; flash_decode and both IGD kernels refusing an input that
    requires grad; 10b llama3.2-3b at full width, 2 layers, float32, one
@@ -234,7 +235,8 @@ the kernels build for sm_90a). Phases, each printed as it ends:
    tagged [train], [reference] and [timing]): first the gradient at
    grok-1's capped heads, qwen3-moe's hd-64 heads and nemotron-4's hd 192
    (B 1, S 4,096) beside its bound and, uncapped, SDPA's backward in
-   turns, each launch's device time under the profiler; then each at
+   turns, each launch's device time under the profiler, the dk/dv
+   launch's cluster size (qwen3-moe's 2); then each at
    full width and train_4k's 4,096 positions a sequence (vlm/audio: their
    prefix embeddings counted in them; xlstm-350m 2,048, FAMILY_TRAIN_S),
    10c's settings, FAMILY_TRAIN's cuts (depth, then the momentum buffer,
@@ -449,7 +451,7 @@ CPU_PROMPT, CPU_STEPS = 64, 2
 # dtypes; a gradient sums up to g * S terms, so the absolute part of each
 # tolerance is scaled by the plain result's largest entry (at least 1). hd
 # 80 (zamba2's) and 136 run padded in the 128- and 192-wide bf16 instances
-BWD_HD, BWD_G, BWD_S, BWD_CAPS = (64, 80, 128, 136, 192), (1, 3, 6, 12), (37, 1000, 2048), (0.0, 30.0)
+BWD_HD, BWD_G, BWD_S, BWD_CAPS = (64, 80, 128, 136, 192), (1, 3, 6, 12, 16), (37, 1000, 2048), (0.0, 30.0)
 BWD_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
 LSE_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (1e-3, 1e-3)}
 # 10b: llama3.2-3b at full width, 2 layers, float32, one grad_accum=2 IGD
@@ -3559,7 +3561,7 @@ def family_training(seed: int, dev, entries: dict, cells) -> None:
                     f"{(r['argument_bytes'] + r['temp_bytes']) / 1e9:.3f} GB ({r['wall_s']} s)"
                     for name, r in predicted.items())
         + f"; waited {phase.lap():.1f} s for it")
-    rows, launches = {}, {}
+    rows, launches, by_splits = {}, {}, {}
     for name, (cut, momentum, batch) in FAMILY_TRAIN.items():
         cfg = get_arch(name).scaled(**cut)
         steps, seq = FAMILY_TRAIN_STEPS.get(name, 3), FAMILY_TRAIN_S.get(name, TRAIN_S)
@@ -3609,6 +3611,10 @@ def family_training(seed: int, dev, entries: dict, cells) -> None:
                 raise AssertionError(f"10e {name} step {t}: launches {got}, not {per_step} a step "
                                      f"(flash_decode {DK.launches}, IGD {K.launches})")
         launches[name] = {k: AK.launches[k] for k in per_step}
+        by_splits[name] = dict(AK.dkdv_launches_by_splits)
+        if name == "qwen3-moe-235b-a22b" and (not by_splits[name] or min(by_splits[name]) < 2):
+            raise AssertionError(f"10e {name}: dk/dv launches by cluster size {by_splits[name]}; its 16-head groups "
+                                 "take clusters of more than one CTA")
         peak = torch.cuda.max_memory_allocated() / 1e9
         if not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"10e {name}: a loss is not finite: {losses}")
@@ -3643,7 +3649,8 @@ def family_training(seed: int, dev, entries: dict, cells) -> None:
             + ", ".join(f"{v:.1f}" for v in ms) + f"; {step_ms:.1f} ms a step, {pos_s:.0f} positions/s, model "
             f"FLOP/s {flops * pos_s / 1e12:.1f} T ({flops:.4g} FLOP a position: 6 x {mm} matmul params + attention) "
             f"= {mfu:.4f} of 989 TFLOP/s; peak {peak:.2f} GB allocated against the dry run's "
-            f"{_pred_gb(predicted, name)}; launches {launches[name]} ({per_step} a step){extra}; {card}")
+            f"{_pred_gb(predicted, name)}; launches {launches[name]} ({per_step} a step; dk/dv by cluster size "
+            f"{by_splits[name]}){extra}; {card}")
         del params, state, step_fn, data, prefix
         torch.cuda.empty_cache()
     log("train", f"10e's training runs took {phase.lap():.1f} s")
@@ -3714,7 +3721,8 @@ def family_training(seed: int, dev, entries: dict, cells) -> None:
     entries["flash_attention"]["launches_families_train"] = {n: v["flash_attention"] for n, v in launches.items()}
     entries["flash_attention_bwd"].update(
         launches_families_train={n: v["flash_attention_bwd"] for n, v in launches.items()},
-        launches_families_train_by_instance=by_instance, families_train=rows, families_train_cpu_err=worst,
+        launches_families_train_by_instance=by_instance, launches_families_train_dkdv_by_splits=by_splits,
+        families_train=rows, families_train_cpu_err=worst,
         **timings)
     log("train", f"10e's flash_attention_bwd launches by instance {by_instance}")
 
@@ -3747,6 +3755,9 @@ def family_bwd_timings(seed: int, dev, card: str) -> dict:
         q = 3.0 * q if cap else q  # logits past the cap
         o, lse = AK.flash_attention(q, k, v, cap, with_lse=True)
         kernel = lambda: AK.flash_attention_backward(q, k, v, o, lse, do, cap)  # noqa: E731
+        AK.reset_launches()
+        kernel()
+        (splits, _), = AK.dkdv_launches_by_splits.items()  # the dk/dv launch's cluster size
         if cap:  # no library call computes capped attention
             turns = [event_ms(kernel, 3), event_ms(kernel, 3)]
             library_ms = None
@@ -3774,10 +3785,11 @@ def family_bwd_timings(seed: int, dev, card: str) -> dict:
         nbytes = (4 * s * h * hd + 4 * s * kv * hd) * 2 + h * s * 4
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
         bound = max(bytes_ms, ops_ms)
-        out.update({f"{tag}_ms": ms, f"{tag}_library_ms": library_ms, f"{tag}_bound_ms": bound,
+        out.update({f"{tag}_ms": ms, f"{tag}_library_ms": library_ms, f"{tag}_bound_ms": bound, f"{tag}_splits": splits,
                     f"{tag}_bound_by": "bytes" if bytes_ms >= ops_ms else "operations", f"{tag}_plain_ms": plain_ms,
                     f"{tag}_max_rel_err": rel, f"{tag}_launch_ms": {kd: m for kd, (m, _) in launch_ms.items()}})
-        log("timing", f"flash_attention_bwd [{tag}] (B {b}, S {s}, {h}/{kv} heads, hd {hd}, softcap {cap:g}, bf16): "
+        log("timing", f"flash_attention_bwd [{tag}] (B {b}, S {s}, {h}/{kv} heads, hd {hd}, softcap {cap:g}, bf16; "
+            f"dk/dv in clusters of {splits} CTA{'s' if splits > 1 else ''}): "
             + (f"in turns kernel {turns[0]:.4f}, SDPA backward {turns[1]:.4f}, {turns[2]:.4f}, kernel {turns[3]:.4f} "
                f"ms a call (CUDA events over 3 calls); kernel/library {ms / library_ms:.2f}"
                if library_ms else f"{turns[0]:.4f}, {turns[1]:.4f} ms a call (CUDA events over 3 calls; no library "

@@ -1,28 +1,38 @@
 #!/usr/bin/env python3
-"""Device ms of the attention gradient kernels at llama3.2-3b's or nemotron-4's heads, for one checkout.
+"""Device ms of the attention gradient kernels at a family's heads, for one checkout.
 
-    python3 scripts/torch_attention_bwd_times.py [--root DIR] [--hd 128|192] [--turns N] [--ptxas]
+    python3 scripts/torch_attention_bwd_times.py [--root DIR] [--hd 64|128|192] [--heads H/Kv]
+        [--softcap C] [--splits N] [--turns N] [--calls N] [--ptxas]
 
 Loads repro_torch from DIR/src (default: this checkout), so the kernels
 build from DIR's sources into DIR/build, and times
 ``kernel.flash_attention_backward`` in bf16 at B 1, S 4,096 and, with
 ``--hd 128`` (the default), llama3.2-3b's 24/8 heads (the shape each of
-the training step's 224 gradient calls has) or, with ``--hd 192``,
-nemotron-4's 96/8 heads, with CUDA events over 5 calls, in N turns with
-scaled_dot_product_attention's
-backward (``is_causal``, ``enable_gqa``) on the same inputs; then each of
-the call's three launches (D, dk/dv, dq) under ``torch.profiler``, device
-time per launch. With ``--ptxas`` it rebuilds the gradient library with
-``-Xptxas -v`` and adds each kernel's registers and spill bytes. Prints one
-JSON line, with the card's name and power limit. To compare two
-checkouts' kernels on one card, run it for each in turns in one call
-(A B B A): for example with another commit's tree unpacked under build/
-by `git archive`.
+the training step's 224 gradient calls has), with ``--hd 192``
+nemotron-4's 96/8 heads, with ``--hd 64`` qwen3-moe's 64/4; ``--heads``
+takes other heads at that width (grok-1's 48/8, musicgen-medium's 24/24,
+starcoder2-7b's 36/4) and ``--softcap`` caps the logits (grok-1's 30; q
+is then scaled by 3, past the cap). With CUDA events over ``--calls``
+calls (5 by default), in N turns with scaled_dot_product_attention's
+backward (``is_causal``, ``enable_gqa``) on the same inputs (none with a
+cap: no PyTorch call computes capped attention); then each of the call's
+three launches (D, dk/dv, dq) under ``torch.profiler``, device time per
+launch. ``--splits``
+forces the dk/dv launch's cluster size (a checkout with
+``kernel.dkdv_splits``; by default its pick, printed as ``splits``). The
+inputs come from one seed, so ``digest`` (sha256 of dq, dk and dv's
+bytes) tells whether two checkouts give the same bits. With ``--ptxas`` it
+rebuilds the gradient library with ``-Xptxas -v`` and adds each kernel's
+registers and spill bytes. Prints one JSON line, with the card's name and
+power limit. To compare two checkouts' kernels on one card, run it for
+each in turns in one call (A B B A): for example with another commit's
+tree unpacked under build/ by `git archive`.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import re
 import subprocess
@@ -33,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 B, S = 1, 4096
-HEADS = {128: (24, 8), 192: (96, 8)}  # hd -> (H, Kv): llama3.2-3b's, nemotron-4's
+HEADS = {64: (64, 4), 128: (24, 8), 192: (96, 8)}  # hd -> (H, Kv): qwen3-moe's, llama3.2-3b's, nemotron-4's
 CALLS, PROFILED = 5, 10
 # a substring of each launch's kernel names in every checkout (dkdv_kernel,
 # dkdv_split_kernel)
@@ -95,7 +105,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--hd", type=int, choices=sorted(HEADS), default=128)
+    ap.add_argument("--heads", help="H/Kv, e.g. 48/8 (default: the width's family, HEADS)")
+    ap.add_argument("--softcap", type=float, default=0.0)
+    ap.add_argument("--splits", type=int, help="the dk/dv cluster size (default: kernel.dkdv_splits's pick)")
     ap.add_argument("--turns", type=int, default=3)
+    ap.add_argument("--calls", type=int, default=CALLS, help="calls a timed window")
     ap.add_argument("--ptxas", action="store_true", help="rebuild with -Xptxas -v and report registers and spills")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -107,9 +121,21 @@ def main() -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    (H, KV), HD = HEADS[args.hd], args.hd
+    (H, KV), HD, cap = HEADS[args.hd], args.hd, args.softcap
+    if args.heads:
+        H, KV = (int(x) for x in args.heads.split("/"))
+    pick = getattr(AK, "dkdv_splits", None)
+    if args.splits is not None and pick is None:
+        ap.error(f"{root} has no dk/dv cluster split (kernel.dkdv_splits)")
+    splits = args.splits
+    if splits is not None:
+        AK.dkdv_splits = lambda *shape: splits  # the wrapper asks it at every call
+    elif pick is not None:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = pick(B, S, KV, H // KV, sms) if HD in AK.DKDV_SPLIT_WIDTHS else 1
     out = {"root": str(root), "card": card, "source": str(Path(AK.BWD_SOURCE).resolve()),
-           "shape": {"B": B, "S": S, "H": H, "Kv": KV, "hd": HD, "dtype": "bfloat16"}}
+           "shape": {"B": B, "S": S, "H": H, "Kv": KV, "hd": HD, "softcap": cap, "dtype": "bfloat16"},
+           "splits": splits}
     if args.ptxas:
         out["ptxas"] = ptxas_lines(AK.BWD_LIBRARY.build(ptxas_verbose=True))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -119,19 +145,26 @@ def main() -> int:
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
     q, k, v, do = normal(B, S, H, HD), normal(B, S, KV, HD), normal(B, S, KV, HD), normal(B, S, H, HD)
-    o, lse = AK.flash_attention(q, k, v, with_lse=True)
-    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
-    dos = do.transpose(1, 2)
-    kernel = lambda: AK.flash_attention_backward(q, k, v, o, lse, do)  # noqa: E731
-    library = lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), dos, retain_graph=True)  # noqa: E731
-    turns = [(event_ms(kernel, CALLS), event_ms(library, CALLS)) for _ in range(args.turns)]
+    if cap:
+        q = 3.0 * q  # logits past the cap
+    o, lse = AK.flash_attention(q, k, v, cap, with_lse=True)
+    kernel = lambda: AK.flash_attention_backward(q, k, v, o, lse, do, cap)  # noqa: E731
+    if cap:  # no PyTorch call computes capped attention
+        turns = [(event_ms(kernel, args.calls), None) for _ in range(args.turns)]
+    else:
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+        dos = do.transpose(1, 2)
+        library = lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), dos, retain_graph=True)  # noqa: E731
+        turns = [(event_ms(kernel, args.calls), event_ms(library, args.calls)) for _ in range(args.turns)]
     first, second = kernel(), kernel()
     torch.cuda.synchronize()
+    digest = hashlib.sha256(b"".join(t.view(torch.int16).cpu().numpy().tobytes() for t in first)).hexdigest()
     out.update(
         bwd_ms=sum(t[0] for t in turns) / len(turns), turns_ms=[t[0] for t in turns],
-        sdpa_bwd_ms=sum(t[1] for t in turns) / len(turns), sdpa_turns_ms=[t[1] for t in turns],
-        launches=launch_ms(kernel, PROFILED), profiled_calls=PROFILED,
+        sdpa_bwd_ms=None if cap else sum(t[1] for t in turns) / len(turns),
+        sdpa_turns_ms=None if cap else [t[1] for t in turns],
+        launches=launch_ms(kernel, PROFILED), profiled_calls=PROFILED, digest=digest[:16],
         rerun_bitwise_equal=all(torch.equal(a, b) for a, b in zip(first, second)))
     print(json.dumps(out), flush=True)
     return 0

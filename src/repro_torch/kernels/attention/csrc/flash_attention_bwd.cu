@@ -33,7 +33,9 @@
 //   +inf past S, so a padded row's P is exactly 0), which the dk/dv
 //   kernel's bulk copies read whole.
 // - dk/dv: one block per (key block, b, kv head), summing the group's q
-//   heads and the q tiles from the diagonal on.
+//   heads and the q tiles from the diagonal on; in bf16 at HD 64 and 128
+//   a cluster of CTAs per (key block, b, kv head) where the grid would
+//   leave the card unbalanced (below).
 // - dq: one block per (q block, b, q head), over the key tiles up to the
 //   diagonal.
 // The dq kernel recomputes S and dP, which the dk/dv kernel also forms: the
@@ -67,6 +69,27 @@
 //   dS^T Q (wgmma m64nHDk16, A from registers, dO and Q MN-major through the
 //   descriptor's transpose bit: each q and dO tile is read K-major and
 //   MN-major from the one swizzled copy).
+//   The cluster split. A block's steps are its group's g q heads times
+//   the q tiles from its diagonal on, so the first key block runs g n_q
+//   steps and the grid B Kv ceil(S/128) blocks. Where that grid is small
+//   beside the SM count and g large (qwen3-moe's 64/4 heads at S 4,096:
+//   128 blocks, block 0 1,024 steps of 64 q rows against 512 an SM
+//   balanced), the first blocks alone hold the launch to twice its
+//   balanced length. kernel.py's dkdv_splits picks the smallest c
+//   dividing g (at most 8, the portable cluster) whose longest CTA, g/c
+//   n_q steps, is within 1.1x of the balanced share (else the largest
+//   divisor up to 8), and 1 wherever the grid is balanced already. With c > 1 the
+//   grid is (B Kv c, key blocks) in clusters of c CTAs along x; rank r
+//   streams and sums q heads r g/c .. (r + 1) g/c - 1 with the same
+//   resident k/v, ring and ping-pong. After its last step each consumer
+//   writes its float dK and dV partials over the ring and the k/v tiles
+//   (72 KB at HD 64, 136 KB at 128: rows padded by 32 bytes against bank
+//   conflicts), then a cluster barrier; rank r sums keys r 128/c ..
+//   (r + 1) 128/c - 1 over ranks 0, 1, ..., c - 1, in that order, through
+//   distributed shared memory (mapa, ld.shared::cluster), scales dK and
+//   writes bf16; a last cluster barrier keeps every CTA alive until its
+//   peers have read it. The order is fixed, so every run gives the same
+//   bits; c = 1 is the plain launch, with the unsplit code.
 //   dq: the forward's shape. q and dO (128 rows) resident, k and v
 //   streaming as 64-key tiles through the ring; each consumer keeps its 64
 //   q and dO rows in registers as A fragments, so S = Q K^T and dP = dO V^T
@@ -432,6 +455,7 @@ constexpr int kHandSlots = 2;       // the 192-wide dk/dv kernel's P^T handover 
 constexpr int kThreads = 384;       // producer warpgroup + two consumer warpgroups
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 65,536
+constexpr int kMaxSplits = 8;       // CTAs of a dk/dv cluster: the portable cluster size
 
 // two floats of shared memory at a 32-bit shared address, as a volatile
 // load: the loads keep their order, so the compiler cannot gather a step's
@@ -463,7 +487,40 @@ struct Tiles {
       1024 + 2 * kTile + kStages * (2 * kTile + 2 * kVec) + kHandSlots * kHand + 8 * kBars;
   static_assert((HD > 128 ? kSplitSmem : kDkdvSmem) <= 232448 && kDqSmem <= 232448,
                 "each instance must fit a block's shared memory");
+  // a dk/dv cluster's partial sums: float dK and dV of the block's 128 keys,
+  // rows padded by 8 floats (32 bytes) so that the accumulators' float2
+  // stores fall in distinct banks; written over the k/v tiles and the ring
+  // once the CTA's steps are done, short of the barriers
+  static constexpr int kPartLd = HD + 8;
+  static constexpr int kPartBytes = 2 * kBlock * kPartLd * 4;
+  static_assert(kPartBytes <= 2 * kBlockTile + kStages * (2 * kTile + 2 * kVec),
+                "the partials must fit below the dk/dv kernel's barriers");
 };
+
+// the cluster's barrier, every thread of every CTA (release, then acquire:
+// shared-memory writes before it are seen by the peers' reads after it)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// four floats at a shared address of CTA `rank` of the cluster (`addr` the
+// same offset in this CTA's shared memory)
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
 
 // rows [row0, row0 + 128) of one head: HD/64 column chunks of two 64-row boxes
 template <int HD>
@@ -557,16 +614,24 @@ __device__ __forceinline__ void cap_pass(float& s, float& dp, float d, float sca
   s = scale_log2 * t;
 }
 
-// grid (B*Kv, key blocks): block y is the key block (the first has the most
-// q rows). Steps run over (q head j of the group, 64-row q tile qt from the
-// diagonal on); consumer warpgroup w owns keys k0 + 64w .. + 63.
-template <int HD, bool CAP>
+// grid (B*Kv*splits, key blocks): block y is the key block (the first has
+// the most q rows). Steps run over (q head j of the CTA's share of the group,
+// 64-row q tile qt from the diagonal on); consumer warpgroup w owns keys
+// k0 + 64w .. + 63. Without SPLIT (splits 1) a block takes the whole group
+// and writes dk and dv. With SPLIT, the `splits` CTAs of a cluster (x
+// consecutive) share one (b, kv head, key block): rank r takes q heads
+// r g/splits .. (r + 1) g/splits - 1, leaves its float partials in its
+// shared memory, and after the cluster's barrier sums keys r 128/splits ..
+// (r + 1) 128/splits - 1 over ranks 0, 1, ..., splits - 1 in that order
+// (distributed shared memory; no atomics, the same bits every run) and
+// writes them.
+template <int HD, bool CAP, bool SPLIT>
 __global__ void __launch_bounds__(kThreads, 1)
     dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
                 const float* __restrict__ lse2, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                 __nv_bfloat16* __restrict__ dv, int S, int S_pad, int H, int Kv, int hd, float scale,
-                float scale_log2, float cap_arg) {
+                float scale_log2, float cap_arg, int n_splits) {
   using T = Tiles<HD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sk = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -580,7 +645,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto do_full = [&](int st) { return bars + 8u * (1 + kStages + st); };
   auto empty = [&](int st) { return bars + 8u * (1 + 2 * kStages + st); };
 
-  const int b = blockIdx.x / Kv, kvh = blockIdx.x - b * Kv, g = H / Kv;
+  const int splits = SPLIT ? n_splits : 1;
+  const int item = blockIdx.x / splits, rank = blockIdx.x - item * splits;  // rank: the CTA's in its cluster
+  const int b = item / Kv, kvh = item - b * Kv, gs = H / Kv / splits;      // gs: the CTA's q heads
   const int k0 = blockIdx.y * kBlock;
   const int n_q = (S + kBox - 1) / kBox;
   const int qt0 = k0 / kBox;  // the first q tile: the diagonal
@@ -604,7 +671,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_expect_tx(kv_full, 2 * T::kBlockTile);
       load_block<HD>(sk, &kmap, kv_full, kvh, k0, b);
       load_block<HD>(sv, &vmap, kv_full, kvh, k0, b);
-      stream_q_do<HD>(&qmap, &domap, lse2, delta, sq, sdo, svec, bars, b, kvh, g, H, S_pad, qt0, n_q);
+      // the CTA's share of the group: q heads kvh g + rank gs .. + gs - 1, as
+      // "group" kvh splits + rank of gs heads
+      stream_q_do<HD>(&qmap, &domap, lse2, delta, sq, sdo, svec, bars, b, kvh * splits + rank, gs, H, S_pad, qt0,
+                      n_q);
+    }
+    if constexpr (SPLIT) {  // the consumers' two cluster barriers (below), in step
+      cluster_sync();
+      cluster_sync();
     }
   } else {
     // ---- consumers: 64 keys each -----------------------------------------
@@ -727,7 +801,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     };
 
     int step = 0;
-    for (int j = 0; j < g; ++j) {
+    for (int j = 0; j < gs; ++j) {
       for (int qt = qt0; qt < n_q; ++qt, ++step) {
         const int st = step % kStages, phase = (step / kStages) & 1, q0 = qt * kBox;
         if (q0 < kw0) {  // every q row precedes every key: nothing to add, but the ring and the turns move on
@@ -744,21 +818,70 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
 
-    // keys below S, the true hd columns; dk takes the scale here
+    if constexpr (!SPLIT) {
+      // keys below S, the true hd columns; dk takes the scale here
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = kw0 + key_r + 8 * r;
-      if (key >= S) continue;
-      const long long at = ((static_cast<long long>(b) * S + key) * Kv + kvh) * hd;
+      for (int r = 0; r < 2; ++r) {
+        const int key = kw0 + key_r + 8 * r;
+        if (key >= S) continue;
+        const long long at = ((static_cast<long long>(b) * S + key) * Kv + kvh) * hd;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        const int col = 8 * j + 2 * (lane % 4);
-        if (col < hd) {
-          *reinterpret_cast<uint32_t*>(dk + at + col) =
-              pack_bf16(adk[4 * j + 2 * r] * scale, adk[4 * j + 2 * r + 1] * scale);
-          *reinterpret_cast<uint32_t*>(dv + at + col) = pack_bf16(adv[4 * j + 2 * r], adv[4 * j + 2 * r + 1]);
+        for (int j = 0; j < HD / 8; ++j) {
+          const int col = 8 * j + 2 * (lane % 4);
+          if (col < hd) {
+            *reinterpret_cast<uint32_t*>(dk + at + col) =
+                pack_bf16(adk[4 * j + 2 * r] * scale, adk[4 * j + 2 * r + 1] * scale);
+            *reinterpret_cast<uint32_t*>(dv + at + col) = pack_bf16(adv[4 * j + 2 * r], adv[4 * j + 2 * r + 1]);
+          }
         }
       }
+    } else {
+      // the partials, [dK; dV] x 128 keys x HD floats (row stride kPartLd),
+      // over the k/v tiles and the ring once both consumers are past their
+      // last products (every TMA write has landed: they waited on each)
+      bar_sync(3);
+      float* const part = reinterpret_cast<float*>(smem_raw + (sk - smem_u32(smem_raw)));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = w * kBox + key_r + 8 * r;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          const int col = 8 * j + 2 * (lane % 4);
+          *reinterpret_cast<float2*>(part + row * T::kPartLd + col) =
+              make_float2(adk[4 * j + 2 * r], adk[4 * j + 2 * r + 1]);
+          *reinterpret_cast<float2*>(part + (kBlock + row) * T::kPartLd + col) =
+              make_float2(adv[4 * j + 2 * r], adv[4 * j + 2 * r + 1]);
+        }
+      }
+      cluster_sync();  // every thread of every CTA, the producers too: the partials are written
+      // this rank's keys, summed over the ranks in rank order, 4 columns a
+      // thread an item; keys below S, the true hd columns; dk takes the scale
+      const int me = cluster_rank();  // rank, read again rather than kept live through the steps
+      const int row0 = me * kBlock / splits, rows = (me + 1) * kBlock / splits - row0;
+      constexpr int kVecs = HD / 4;
+      const int items = 2 * rows * kVecs;
+      for (int it = tid + 128 * w; it < items; it += 256) {
+        const int dvs = it >= rows * kVecs;  // 0: dK, 1: dV
+        const int rem = it - dvs * rows * kVecs;
+        const int row = row0 + rem / kVecs, col = (rem % kVecs) * 4;
+        const uint32_t at_smem = sk + ((dvs * kBlock + row) * T::kPartLd + col) * 4;
+        float4 sum = ld_cluster_f4(at_smem, 0);
+        for (int p = 1; p < splits; ++p) {
+          const float4 x = ld_cluster_f4(at_smem, p);
+          sum.x += x.x;
+          sum.y += x.y;
+          sum.z += x.z;
+          sum.w += x.w;
+        }
+        const int key = k0 + row;
+        if (key < S && col < hd) {
+          const float mul = dvs ? 1.0f : scale;
+          __nv_bfloat16* const out = (dvs ? dv : dk) + ((static_cast<long long>(b) * S + key) * Kv + kvh) * hd + col;
+          *reinterpret_cast<uint2*>(out) =
+              make_uint2(pack_bf16(sum.x * mul, sum.y * mul), pack_bf16(sum.z * mul, sum.w * mul));
+        }
+      }
+      cluster_sync();  // no CTA leaves while a peer still reads its shared memory
     }
   }
 }
@@ -1140,7 +1263,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int HD, bool CAP>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse2, const float* delta,
            void* dq, void* dk, void* dv, int B, int S, int S_pad, int H, int Kv, int hd, float scale, float softcap,
-           const long long* layouts, cudaStream_t stream) {
+           int splits, const long long* layouts, cudaStream_t stream) {
   using T = Tiles<HD>;
   using bf16 = __nv_bfloat16;
   CUtensorMap maps[4];
@@ -1157,12 +1280,32 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
     dkdv_split_kernel<HD, CAP><<<dim3(B * Kv, (S + kBox - 1) / kBox), kThreads, T::kSplitSmem, stream>>>(
         maps[0], maps[1], maps[2], maps[3], lse2, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, S_pad,
         H, Kv, hd, scale, scale_log2, cap_arg);
-  } else {  // a block a 128-key block, 64 keys a consumer
-    err = cudaFuncSetAttribute(dkdv_kernel<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kDkdvSmem);
+  } else if (splits == 1) {  // a block a 128-key block, 64 keys a consumer
+    err = cudaFuncSetAttribute(dkdv_kernel<HD, CAP, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               T::kDkdvSmem);
     if (err != cudaSuccess) return err;
-    dkdv_kernel<HD, CAP><<<dim3(B * Kv, (S + kBlock - 1) / kBlock), kThreads, T::kDkdvSmem, stream>>>(
+    dkdv_kernel<HD, CAP, false><<<dim3(B * Kv, (S + kBlock - 1) / kBlock), kThreads, T::kDkdvSmem, stream>>>(
         maps[0], maps[1], maps[2], maps[3], lse2, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, S_pad,
-        H, Kv, hd, scale, scale_log2, cap_arg);
+        H, Kv, hd, scale, scale_log2, cap_arg, 1);
+  } else {  // the same, each key block's group split over a cluster of `splits` CTAs
+    auto kernel = dkdv_kernel<HD, CAP, true>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kDkdvSmem);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(B * Kv * splits, (S + kBlock - 1) / kBlock, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = T::kDkdvSmem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = splits;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], maps[2], maps[3], lse2, delta, static_cast<bf16*>(dk),
+                             static_cast<bf16*>(dv), S, S_pad, H, Kv, hd, scale, scale_log2, cap_arg, splits);
+    if (err != cudaSuccess) return err;
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1177,12 +1320,12 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 template <int HD>
 int launch_hd(const void* q, const void* k, const void* v, const void* dout, const float* lse2, const float* delta,
               void* dq, void* dk, void* dv, int B, int S, int S_pad, int H, int Kv, int hd, float scale, float softcap,
-              const long long* layouts, cudaStream_t stream) {
+              int splits, const long long* layouts, cudaStream_t stream) {
   if (softcap > 0.0f)
-    return launch<HD, true>(q, k, v, dout, lse2, delta, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, layouts,
-                            stream);
-  return launch<HD, false>(q, k, v, dout, lse2, delta, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, layouts,
-                           stream);
+    return launch<HD, true>(q, k, v, dout, lse2, delta, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, splits,
+                            layouts, stream);
+  return launch<HD, false>(q, k, v, dout, lse2, delta, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, splits,
+                           layouts, stream);
 }
 
 }  // namespace wg
@@ -1218,6 +1361,9 @@ int flash_attention_bwd_max_hd() { return kMaxHd; }
 // their D and lse2 rows are padded to a multiple of it
 int flash_attention_bwd_box_rows() { return wg::kBox; }
 
+// the most CTAs a dk/dv cluster takes (kernel.py's DKDV_MAX_SPLITS)
+int flash_attention_bwd_max_splits() { return wg::kMaxSplits; }
+
 const char* flash_attention_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -1227,16 +1373,19 @@ const char* flash_attention_bwd_error_string(int code) {
 // [B, S, H, hd]; k, v, dk, dv: [B, S, Kv, hd]; all contiguous, one dtype
 // (0 float32, 1 bfloat16); lse [B, H, S] float32 from the forward.
 // hd_inst: the bf16 instance's width (64, 128 or 192; unused for float32).
-// bf16 takes S_pad = S rounded up to box_rows, `lse2` ([B, H, S_pad]
+// splits: the CTAs of a dk/dv cluster, each a share of the group's q heads
+// (1 to max_splits, dividing H / Kv; more than 1 only at hd_inst 64 and
+// 128). bf16 takes S_pad = S rounded up to box_rows, `lse2` ([B, H, S_pad]
 // float32 scratch for lse in log2 units) and `tma`: q's, k's, v's and
 // dout's tensor-map layouts, 11 values each (dims, byte strides, box;
 // box_rows rows). float32 takes S_pad = S and ignores lse2 and tma.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                                const void* lse, void* delta, void* lse2, void* dq, void* dk, void* dv, int dtype, int B,
                                int S, int S_pad, int H, int Kv, int hd, float scale, float softcap, int hd_inst,
-                               const long long* tma, void* stream) {
+                               int splits, const long long* tma, void* stream) {
   if (B < 1 || S < 0 || S_pad < S || Kv < 1 || H < Kv || H % Kv != 0 || hd < 8 || hd > kMaxHd || hd % 8 != 0 ||
-      !(softcap >= 0.0f) || static_cast<long long>(B) * H > 65535)
+      !(softcap >= 0.0f) || static_cast<long long>(B) * H > 65535 || splits < 1 || splits > wg::kMaxSplits ||
+      (H / Kv) % splits != 0 || (splits > 1 && (dtype != 1 || (hd_inst != 64 && hd_inst != 128))))
     return cudaErrorInvalidValue;
   if (S == 0) return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1262,10 +1411,12 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (hd_inst == 64)
-    return wg::launch_hd<64>(q, k, v, dout, l2, d, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, tma, st);
+    return wg::launch_hd<64>(q, k, v, dout, l2, d, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, splits, tma,
+                             st);
   if (hd_inst == 128)
-    return wg::launch_hd<128>(q, k, v, dout, l2, d, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, tma, st);
-  return wg::launch_hd<192>(q, k, v, dout, l2, d, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, tma, st);
+    return wg::launch_hd<128>(q, k, v, dout, l2, d, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, splits, tma,
+                              st);
+  return wg::launch_hd<192>(q, k, v, dout, l2, d, dq, dk, dv, B, S, S_pad, H, Kv, hd, scale, softcap, 1, tma, st);
 }
 
 }  // extern "C"

@@ -24,8 +24,11 @@ gradient) and its backward the three gradient kernels
 ``launches["flash_attention_bwd"]`` counts each). In bfloat16, at each of
 the widths 64, 128 and 192, the gradient kernels run on wgmma fed by TMA
 (tensor maps from ``tma_layout`` with ``BWD_BOX_ROWS`` rows, D and lse
-padded to ``bwd_rows``). Nothing on the card falls back to the plain
-version.
+padded to ``bwd_rows``). At widths 64 and 128 the dk/dv launch splits
+each key block's q-head group over a cluster of ``dkdv_splits`` CTAs where
+the plain grid would leave the card unbalanced (``dkdv_launches_by_splits``
+counts its launches by that cluster size). Nothing on the card falls back
+to the plain version.
 """
 
 from __future__ import annotations
@@ -48,14 +51,21 @@ BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 BWD_LAUNCHES = 3  # kernels a backward call launches: D, dk/dv, dq
 BWD_BOX_ROWS = 64  # the bf16 gradient's tensor-map box rows: every q, k, v and dO tile
 BWD_WGMMA_WIDTHS = (64, 128, 192)  # the bf16 gradient's wgmma instances: every bf16 width
+BWD_KEY_BLOCK = 128  # keys of a dk/dv block at widths 64 and 128
+DKDV_SPLIT_WIDTHS = (64, 128)  # the instances whose dk/dv launch takes a cluster split
+DKDV_MAX_SPLITS = 8  # CTAs of a dk/dv cluster at most: the portable cluster size
+DKDV_BALANCE = 1.1  # the longest CTA's steps against the balanced share that dkdv_splits accepts
 
 # bumped where the kernels are launched and nowhere else
 launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
+# the gradient's dk/dv launches by the CTAs of their cluster (1: no split)
+dkdv_launches_by_splits: Dict[int, int] = {}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    dkdv_launches_by_splits.clear()
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -83,14 +93,16 @@ LIBRARY = CudaLibrary("flash_attention", SOURCE, _declare)
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_bwd_launch.argtypes = [ptr] * 11 + [i32] * 7 + [f32] * 2 + [i32, ptr, ptr]
+    lib.flash_attention_bwd_launch.argtypes = [ptr] * 11 + [i32] * 7 + [f32] * 2 + [i32, i32, ptr, ptr]
     lib.flash_attention_bwd_launch.restype = i32
     lib.flash_attention_bwd_error_string.argtypes = [i32]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     lib.flash_attention_bwd_max_hd.restype = i32
     lib.flash_attention_bwd_box_rows.restype = i32
-    limits = (lib.flash_attention_bwd_max_hd(), lib.flash_attention_bwd_box_rows())
-    if limits != (MAX_HD, BWD_BOX_ROWS):
+    lib.flash_attention_bwd_max_splits.restype = i32
+    limits = (lib.flash_attention_bwd_max_hd(), lib.flash_attention_bwd_box_rows(),
+              lib.flash_attention_bwd_max_splits())
+    if limits != (MAX_HD, BWD_BOX_ROWS, DKDV_MAX_SPLITS):
         raise RuntimeError(f"flash_attention_bwd library limits {limits} disagree with kernel.py")
 
 
@@ -164,6 +176,30 @@ def bwd_rows(s: int, hd_inst: int) -> int:
     if hd_inst not in BWD_WGMMA_WIDTHS:
         return s
     return -(-s // BWD_BOX_ROWS) * BWD_BOX_ROWS
+
+
+def dkdv_steps(s: int) -> list:
+    """Steps of a dk/dv block at widths 64 and 128 for one q head, by key
+    block: 64-row q tiles from its diagonal on (key block y starts at q
+    tile 2y)."""
+    n_q = -(-s // BWD_BOX_ROWS)
+    return [n_q - 2 * y for y in range(-(-s // BWD_KEY_BLOCK))]
+
+
+def dkdv_splits(b: int, s: int, kv: int, g: int, sms: int) -> int:
+    """CTAs of a dk/dv cluster (c) at B ``b``, S ``s``, ``kv`` kv heads of
+    ``g`` q heads each, on a card of ``sms`` SMs: the smallest divisor c
+    of g, at most ``DKDV_MAX_SPLITS``, whose longest CTA (g/c heads of the
+    first key block's steps) is within ``DKDV_BALANCE`` of the balanced
+    share (all steps over the SMs); 1 wherever the one-block grid is
+    balanced already. If no divisor meets it (few blocks, short S), the
+    largest one; 1 at S 0 (nothing is launched)."""
+    steps = dkdv_steps(s)
+    if not steps:
+        return 1
+    share = b * kv * g * sum(steps) / sms
+    divisors = [c for c in range(1, min(g, DKDV_MAX_SPLITS) + 1) if g % c == 0]
+    return next((c for c in divisors if g // c * steps[0] <= DKDV_BALANCE * share), divisors[-1])
 
 
 def tma_layout(t: torch.Tensor, rows: int = BLOCK_Q):
@@ -256,10 +292,12 @@ def flash_attention_backward(q, k, v, o, lse, do, softcap: float = 0.0):
     inputs' dtype from q, o, do [B, S, H, hd], k, v [B, S, Kv, hd] (k/v as
     long as q: an offset prefill is never trained) and the forward's
     ``lse`` [B, H, S] float32. Three launches: D = rowsum(do * o), then
-    dk and dv (one block a key block, summing the group's q heads), then dq;
-    no atomics, so the result is the same bits on every run. Operands are
-    made contiguous (a no-op for the forward's own tensors); bfloat16 reads
-    q, k, v and do through tensor maps."""
+    dk and dv (one block a key block, summing the group's q heads; in
+    bfloat16 at widths 64 and 128, a cluster of ``dkdv_splits`` CTAs a key
+    block, for the shape and the card's SM count, sharing the group), then
+    dq; no atomics, so the result is the same bits on every run. Operands
+    are made contiguous (a no-op for the forward's own tensors); bfloat16
+    reads q, k, v and do through tensor maps."""
     named = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
     _check_operands(named)
     b, s, h, hd = q.shape
@@ -280,6 +318,9 @@ def flash_attention_backward(q, k, v, o, lse, do, softcap: float = 0.0):
         check_rows(name, t)
     hd_inst = instantiated_hd(hd) if q.dtype == torch.bfloat16 else 0
     wgmma = hd_inst in BWD_WGMMA_WIDTHS
+    splits = 1
+    if hd_inst in DKDV_SPLIT_WIDTHS:
+        splits = dkdv_splits(b, s, kv, h // kv, torch.cuda.get_device_properties(q.device).multi_processor_count)
     s_pad = bwd_rows(s, hd_inst)
     tma = _tma_args(*((t, BWD_BOX_ROWS) for t in (q, k, v, do))) if wgmma else None
     lib = BWD_LIBRARY.load()
@@ -291,12 +332,14 @@ def flash_attention_backward(q, k, v, o, lse, do, softcap: float = 0.0):
         rc = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
             scratch[0].data_ptr(), scratch[1].data_ptr() if wgmma else None, dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), DTYPE_IDS[q.dtype], b, s, s_pad, h, kv, hd, 1.0 / hd ** 0.5, softcap, hd_inst, tma, stream,
+            dv.data_ptr(), DTYPE_IDS[q.dtype], b, s, s_pad, h, kv, hd, 1.0 / hd ** 0.5, softcap, hd_inst, splits, tma,
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {rc} "
                            f"({lib.flash_attention_bwd_error_string(rc).decode()})")
     launches["flash_attention_bwd"] += BWD_LAUNCHES
+    dkdv_launches_by_splits[splits] = dkdv_launches_by_splits.get(splits, 0) + 1
     return dq, dk, dv
 
 

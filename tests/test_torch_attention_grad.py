@@ -5,7 +5,8 @@ against ``jax.vjp`` of the JAX package's attention (``attention_ref``;
 with a soft cap, ``models.layers._attn_core``, which applies it), and
 ``ref.mha_lse_ref`` against ``jax.nn.logsumexp`` of the same logits.
 GQA g in {1, 3}, hd in {16, 64, 192}, S in {1, 37, 128}, soft cap off and
-30. Tolerance: the kernels' rtol=2e-4, atol=2e-5."""
+30; and qwen3-moe's wide group, g 16, at hd 16 and 64. Tolerance: the
+kernels' rtol=2e-4, atol=2e-5."""
 
 import functools
 
@@ -24,6 +25,7 @@ torch.set_num_threads(1)
 TOL = dict(rtol=2e-4, atol=2e-5)
 B, KV = 2, 2
 CASES = [(g, hd, s, cap) for g in (1, 3) for hd in (16, 64, 192) for s in (1, 37, 128) for cap in (0.0, 30.0)]
+CASES += [(16, hd, s, cap) for hd in (16, 64) for s in (1, 37, 128) for cap in (0.0, 30.0)]
 
 
 def _inputs(g, hd, s, seed):

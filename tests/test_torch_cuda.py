@@ -1005,7 +1005,7 @@ def _to(tree, device):
 
 # the gradient kernels (flash_attention_bwd.cu) and the forward's lse, over
 # the grid chip_smoke.py's phase 10a runs: hd 64/80/128/136/192 (80 and 136
-# padded into the 128- and 192-wide bf16 instances) x g 1/3/6/12 x
+# padded into the 128- and 192-wide bf16 instances) x g 1/3/6/12/16 x
 # softcap off/30 x ragged S, both dtypes. A gradient sums up to g * S
 # terms, so each tolerance's absolute part is scaled by the largest entry
 # of the plain version's result (at least 1): float32 the kernels'
@@ -1025,7 +1025,7 @@ def _bwd_close(got, want, dtype, what):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 @pytest.mark.parametrize("s", [37, 1000, 2048])
-@pytest.mark.parametrize("g", [1, 3, 6, 12])
+@pytest.mark.parametrize("g", [1, 3, 6, 12, 16])
 @pytest.mark.parametrize("hd", [64, 80, 128, 136, 192])
 def test_cuda_flash_attention_lse_and_backward_match_plain_versions(hd, g, s, softcap, dtype):
     from repro_torch.kernels.attention import kernel as AK, ref as AR
@@ -1074,7 +1074,8 @@ def test_cuda_flash_attention_backward_matches_plain_version_at_llamas_training_
     (2, 1000, 6, 2, 128, 30.0),  # ragged S, g = 3, capped (wgmma)
     (2, 1000, 6, 2, 64, 30.0),   # the 64-wide wgmma instance
     (1, 1000, 3, 1, 192, 30.0),  # the 192-wide wgmma instance (split dk/dv)
-], ids=["training", "ragged-g3-cap", "hd64", "hd192"])
+    (1, 4096, 64, 4, 64, 0.0),   # qwen3-moe's heads: the dk/dv cluster split (2 CTAs)
+], ids=["training", "ragged-g3-cap", "hd64", "hd192", "qwen3-moe"])
 def test_cuda_flash_attention_backward_reruns_give_the_same_bits(b, s, h, kv, hd, softcap):
     """No atomics and no order that depends on scheduling: two calls on the
     same inputs return identical dq, dk and dv (the resume check relies on
@@ -1091,6 +1092,88 @@ def test_cuda_flash_attention_backward_reruns_give_the_same_bits(b, s, h, kv, hd
     for name, a, c in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, c), f"{name} differs between two calls on the same inputs"
         assert bool(torch.isfinite(a.float()).all())
+
+
+@needs_card
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("s", [1000, 4096])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("g", [8, 16])
+def test_cuda_flash_attention_backward_at_wide_groups_matches_plain_version(g, hd, s, cap):
+    """Wide GQA groups (qwen3-moe's 16 q heads a kv head, and 8), 4 kv
+    heads, where dkdv_splits splits each key block's group over a cluster
+    (2 CTAs at S 4,096, 8 at 1,000), against mha_backward_ref; the dk/dv
+    launch took the cluster size dkdv_splits picks."""
+    from repro_torch.kernels.attention import kernel as AK, ref as AR
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype, (b, kv) = torch.bfloat16, (1, 4)
+    h = g * kv
+    q, k, v, do = (_normal(shape, dtype, i) for i, shape in
+                   enumerate(((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd))))
+    q = 3.0 * q  # logits past the cap
+    o, lse = AK.flash_attention(q, k, v, cap, with_lse=True)
+    before = dict(AK.dkdv_launches_by_splits)
+    grads = AK.flash_attention_backward(q, k, v, o, lse, do, cap)
+    torch.cuda.synchronize()
+    c = AK.dkdv_splits(b, s, kv, g, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert c > 1 and AK.dkdv_launches_by_splits[c] == before.get(c, 0) + 1
+    for name, got, w in zip(("dq", "dk", "dv"), grads, AR.mha_backward_ref(q, k, v, o, lse, do, cap)):
+        assert got.dtype == dtype and got.shape == w.shape
+        _bwd_close(got, w, dtype, f"{name} (B, S, H, Kv, hd, softcap) {(b, s, h, kv, hd, cap)}, {c} CTAs")
+
+
+@needs_card
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("g,splits", [(12, 1), (12, 2), (12, 3), (12, 4), (12, 6), (16, 8)])
+def test_cuda_dkdv_every_cluster_size_matches_plain_version(g, splits, hd, cap, monkeypatch):
+    """The dk/dv launch forced to each cluster size a group can take
+    (every divisor of g up to 8, odd sizes too), ragged S, two kv heads,
+    against mha_backward_ref; dq does not depend on it."""
+    from repro_torch.kernels.attention import kernel as AK, ref as AR
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype, (b, s, kv) = torch.bfloat16, (2, 1000, 2)
+    h = g * kv
+    q, k, v, do = (_normal(shape, dtype, i) for i, shape in
+                   enumerate(((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd))))
+    q = 3.0 * q
+    o, lse = AK.flash_attention(q, k, v, cap, with_lse=True)
+    monkeypatch.setattr(AK, "dkdv_splits", lambda *shape: 1)
+    whole = AK.flash_attention_backward(q, k, v, o, lse, do, cap)
+    monkeypatch.setattr(AK, "dkdv_splits", lambda *shape: splits)
+    AK.reset_launches()
+    grads = AK.flash_attention_backward(q, k, v, o, lse, do, cap)
+    torch.cuda.synchronize()
+    assert AK.dkdv_launches_by_splits == {splits: 1}
+    assert torch.equal(grads[0], whole[0])
+    for name, got, w in zip(("dq", "dk", "dv"), grads, AR.mha_backward_ref(q, k, v, o, lse, do, cap)):
+        _bwd_close(got, w, dtype, f"{name} (B, S, H, Kv, hd, softcap) {(b, s, h, kv, hd, cap)}, {splits} CTAs")
+
+
+@needs_card
+def test_cuda_dkdv_cluster_split_runs_at_qwen3_moes_training_shape_and_not_at_the_balanced_ones(monkeypatch):
+    """At qwen3-moe's training shape (B 1, S 4,096, 64/4 heads, hd 64) the
+    dk/dv launch runs as clusters of more than one CTA; at llama3.2-3b's,
+    musicgen-medium's and grok-1's (capped) it runs the one-block grid; and
+    the library refuses a cluster size that does not divide the group."""
+    from repro_torch.kernels.attention import kernel as AK
+
+    dtype = torch.bfloat16
+    for (h, kv, hd, cap), want_split in (((64, 4, 64, 0.0), True), ((24, 8, 128, 0.0), False),
+                                         ((24, 24, 64, 0.0), False), ((48, 8, 128, 30.0), False)):
+        q, k, v, do = (_normal(shape, dtype, i) for i, shape in
+                       enumerate(((1, 4096, h, hd), (1, 4096, kv, hd), (1, 4096, kv, hd), (1, 4096, h, hd))))
+        o, lse = AK.flash_attention(q, k, v, cap, with_lse=True)
+        AK.reset_launches()
+        AK.flash_attention_backward(q, k, v, o, lse, do, cap)
+        torch.cuda.synchronize()
+        (c, n), = AK.dkdv_launches_by_splits.items()
+        assert n == 1 and (c > 1) == want_split, (h, kv, hd, cap, AK.dkdv_launches_by_splits)
+    monkeypatch.setattr(AK, "dkdv_splits", lambda *shape: 5)  # grok-1's group is 6
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        AK.flash_attention_backward(q, k, v, o, lse, do, 30.0)
 
 
 @needs_card
